@@ -1,0 +1,41 @@
+"""Carry the reference's inputs, given as numpy arrays, into the port.
+
+The reference (`repro`) and the port share no array type.  A test or a user
+who holds the reference's inputs as numpy arrays — ``(u0s, ps)``, a save
+grid, a tableau's coefficients — turns them into the port's tensors and
+objects here, on a chosen device and dtype, with no loss: numpy float64
+arrays convert exactly, and a narrower dtype rounds once, as the reference
+does when it casts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.problem import EnsembleProblem
+from repro_torch.core.tableaus import Tableau
+
+
+def to_tensor(x, *, device="cpu", dtype=torch.float64) -> torch.Tensor:
+    """A numpy array (or anything numpy takes) as a contiguous tensor."""
+    return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                           device=device)
+
+
+def ensemble_problem(prob, u0s, ps, *, device="cpu",
+                     dtype=torch.float64) -> EnsembleProblem:
+    """An `EnsembleProblem` over `prob` with the given trajectory-major
+    (N, n) initial states and (N, m) parameters, on `device` in `dtype`."""
+    u0s_t = to_tensor(u0s, device=device, dtype=dtype)
+    ps_t = to_tensor(ps, device=device, dtype=dtype)
+    return EnsembleProblem(prob, int(u0s_t.shape[0]), u0s=u0s_t, ps=ps_t)
+
+
+def tableau_from_arrays(name: str, a, b, btilde, c, *, order: int,
+                        embedded_order: int, fsal: bool,
+                        interp_bpoly=None) -> Tableau:
+    """A port `Tableau` from a reference tableau's coefficient arrays
+    (kept as float64 numpy data, as both packages store them)."""
+    as64 = lambda v: np.array(v, dtype=np.float64)
+    return Tableau(name, as64(a), as64(b), as64(btilde), as64(c), int(order),
+                   int(embedded_order), bool(fsal), interp_bpoly)

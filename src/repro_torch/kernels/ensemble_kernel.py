@@ -1,0 +1,111 @@
+"""Launch-and-assemble layer of the fused ensemble kernel — the PyTorch
+counterpart of `repro.kernels.ensemble_kernel` for the erk family.
+
+The reference's TPU factory tiles lanes into VMEM blocks; on the H100 each
+trajectory is one CUDA thread, so there is no tile to choose here.  What
+stays is the layout contract — trajectory-major (N, n) in, lane-major
+(n, N) through the kernel, an `EnsembleResult` out — and the saveat-
+segmented multi-launch driver with its ``save_chunks=`` API.  The
+segment count keeps the reference's rule (`save_chunk_count`), so the port
+splits a save grid exactly where the reference does and returns the same
+numbers.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+# the reference's §5.2 budget: half of a 16 MB TPU VMEM, in 128-lane tiles;
+# kept only so that `save_chunk_count` segments as the reference does
+DEFAULT_SEGMENT_BUDGET = 8 * 1024 * 1024
+LANE_WIDTH = 128
+
+
+def erk_work_words(n_state: int, n_param: int, stages: int) -> int:
+    """Per-trajectory working words of the erk loop (state, stages, params,
+    control)."""
+    return (stages + 4) * n_state + n_param + 16
+
+
+def save_chunk_count(n_state: int, n_param: int, n_save: int, *,
+                     itemsize: int = 4, work_words: Optional[int] = None) -> int:
+    """How many saveat segments the staged driver runs (1 = no staging):
+    the reference's count, so both packages segment alike."""
+    if work_words is None:
+        work_words = 12 * n_state + n_param + 16
+    per_lane_words = DEFAULT_SEGMENT_BUDGET // (LANE_WIDTH * itemsize)
+    max_saves = (per_lane_words - work_words) // (2 * n_state)
+    if max_saves >= n_save:
+        return 1
+    return int(-(-n_save // max(1, max_saves)))
+
+
+def erk_body(f, tab, *, t0: float, tf: float, dt0: float, rtol: float,
+             atol: float, adaptive: bool, max_iters: int) -> Callable:
+    """The kernel's parameters bound into one launch:
+    ``body(u0 (n, N), p (m, N), saveat (S,)) -> (us, u_final, t_final,
+    stats)`` in the lane-major layout."""
+    from repro_torch.kernels.tsit5.kernel import erk_ensemble
+
+    def body(u0, p, saveat):
+        return erk_ensemble(f, tab, u0, p, saveat, t0=t0, tf=tf, dt0=dt0,
+                            rtol=rtol, atol=atol, adaptive=adaptive,
+                            max_iters=max_iters)
+
+    return body
+
+
+def run_ensemble_kernel(body: Callable, u0s, ps, *, saveat):
+    """Launch `body` over the ensemble and assemble an EnsembleResult.
+
+    u0s (N, n), ps (N, m) trajectory-major; saveat (S,) the save grid."""
+    from repro_torch.core.ensemble import EnsembleResult
+
+    N = u0s.shape[0]
+    us, uf, t_fin, stats = body(u0s.T.contiguous(), ps.T.contiguous(),
+                                saveat.contiguous())
+    return EnsembleResult(
+        ts=saveat, us=us.permute(2, 0, 1), u_final=uf.T, t_final=t_fin,
+        naccept=stats[0], nreject=stats[1], nf=stats[3].sum(),
+        status=stats[2].max(), njac=stats[4].sum(), nfact=stats[5].sum())
+
+
+def run_ensemble_kernel_staged(body_factory: Callable, u0s, ps, *, saveat,
+                               save_chunks: int):
+    """Segmented launch: the save grid (ascending, all > t0) is split into
+    `save_chunks` segments, one launch each; `u_final` and the step counters
+    thread between them.  `body_factory(t_start, seg_ts, last)` returns
+    ``(body, seg_saveat)`` for a segment that restarts integration at the
+    previous segment's endpoint.
+
+    Fixed-dt runs whose segment boundaries land on the step grid are
+    bitwise-identical to one launch; adaptive runs restart the controller at
+    each boundary, so they agree to solver accuracy, not bitwise."""
+    ts_np = saveat.cpu().numpy()
+    S = int(ts_np.shape[0])
+    save_chunks = int(max(1, min(save_chunks, S)))
+    segs = [idx for idx in np.array_split(np.arange(S), save_chunks)
+            if idx.size]
+
+    u_cur = u0s
+    parts, acc = [], None
+    for k, idx in enumerate(segs):
+        t_start = float(ts_np[idx[0] - 1]) if k else None  # None: problem t0
+        body, seg_saveat = body_factory(t_start, ts_np[idx],
+                                        k == len(segs) - 1)
+        res = run_ensemble_kernel(body, u_cur, ps, saveat=seg_saveat)
+        u_cur = res.u_final
+        parts.append(res.us)
+        if acc is None:
+            acc = res
+        else:
+            acc = acc._replace(
+                u_final=res.u_final, t_final=res.t_final,
+                naccept=acc.naccept + res.naccept,
+                nreject=acc.nreject + res.nreject,
+                nf=acc.nf + res.nf, njac=acc.njac + res.njac,
+                nfact=acc.nfact + res.nfact,
+                status=torch.maximum(acc.status, res.status))
+    return acc._replace(ts=saveat, us=torch.cat(parts, dim=1))

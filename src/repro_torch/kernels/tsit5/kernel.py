@@ -1,0 +1,129 @@
+"""ctypes binding of the fused explicit-RK ensemble kernel
+(`csrc/erk_ensemble.cu`), which replaces the TPU kernel
+`repro.kernels.ensemble_kernel.run_ensemble_kernel` + `erk_body`.
+
+`erk_ensemble` is the wrapper: for CUDA tensors it checks its inputs,
+allocates the outputs and launches the kernel on the current stream (or
+raises); for CPU tensors, and only for them, it runs the plain PyTorch
+version of the same function, the lanes-mode solver
+`repro_torch.core.solvers.solve_adaptive(lanes=True)`.
+
+The kernel cannot call a Python RHS.  An RHS reaches it through the
+hand-written device functor it is registered with by `device_rhs`; turning
+an arbitrary ``f(u, p, t)`` into device code automatically (the paper's
+"automated translation") is a later ROADMAP item.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.solvers import AdaptiveOptions, solve_adaptive
+from repro_torch.core.tableaus import Tableau
+
+SOURCE = "erk_ensemble.cu"
+# device functor id and (n, m) for each registered RHS — as in the .cu
+RHS_FUNCTORS = {"lorenz": (0, 3, 3), "sho": (1, 2, 1)}
+TABLEAU_IDS = {"tsit5": 0, "dopri5": 1}
+DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
+
+# launches of the CUDA kernel since the counter was last set to 0
+launches = 0
+
+
+def device_rhs(name: str):
+    """Register a Python RHS with its hand-written device functor."""
+    if name not in RHS_FUNCTORS:
+        raise ValueError(f"no device functor {name!r} in {SOURCE}; have "
+                         f"{sorted(RHS_FUNCTORS)}")
+
+    def mark(f):
+        f.device_rhs = name
+        return f
+
+    return mark
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    from repro_torch.kernels.build import load
+    fn = load(SOURCE).erk_ensemble_launch
+    vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fn.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64, f64,
+                   f64, i32, ctypes.c_longlong, vp, vp, vp, vp, vp]
+    fn.restype = i32
+    return fn
+
+
+def _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol, adaptive,
+           max_iters):
+    opts = AdaptiveOptions(rtol=rtol, atol=atol, max_iters=max_iters,
+                           adaptive=adaptive)
+    res = solve_adaptive(f, tab, u0, p, t0, tf, dt0, saveat=saveat, opts=opts,
+                         lanes=True)
+    zero = torch.zeros_like(res.naccept)
+    stats = torch.stack([res.naccept, res.nreject, res.status, res.nf,
+                         zero, zero])
+    return res.us, res.u_final, res.t_final, stats
+
+
+def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
+                 dt0: float, rtol: float, atol: float, adaptive: bool,
+                 max_iters: int):
+    """Integrate every lane of u0 (n, N) with parameters p (m, N) from t0
+    to tf.  Returns us (S, n, N), u_final (n, N), t_final (N,) and stats
+    (6, N) int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
+    if u0.device.type == "cpu":
+        return _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol,
+                      adaptive, max_iters)
+    if u0.device.type != "cuda":
+        raise ValueError(f"erk_ensemble runs on CPU or CUDA tensors, not "
+                         f"{u0.device.type}")
+    name = getattr(f, "device_rhs", None)
+    if name is None:
+        raise NotImplementedError(
+            f"RHS {getattr(f, '__name__', f)!r} has no device form: register "
+            f"a functor in {SOURCE} with @device_rhs (automatic translation "
+            "of a Python RHS is a later ROADMAP item)")
+    if tab.name not in TABLEAU_IDS:
+        raise NotImplementedError(
+            f"tableau {tab.name!r} is not compiled into the CUDA kernel; it "
+            f"has {sorted(TABLEAU_IDS)}")
+    rhs_id, n, m = RHS_FUNCTORS[name]
+    dtype = u0.dtype
+    if dtype not in DTYPE_IDS:
+        raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
+    N = u0.shape[-1]
+    for what, x, shape in (("u0", u0, (n, N)), ("p", p, (m, N)),
+                           ("saveat", saveat, (saveat.shape[0],))):
+        if x.device != u0.device or x.dtype != dtype:
+            raise ValueError(f"{what} must be a {dtype} tensor on {u0.device}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous with shape {shape} "
+                             f"for {name}, got {tuple(x.shape)}")
+    S = saveat.shape[0]
+    if S < 1 or N < 1 or N >= 2 ** 31:
+        raise ValueError(f"need 1 <= N < 2^31 lanes and S >= 1 saves, got "
+                         f"N={N}, S={S}")
+    if S > 1 and not bool((saveat[1:] >= saveat[:-1]).all()):
+        raise ValueError("the CUDA kernel needs an ascending saveat grid")
+
+    us = torch.empty((S, n, N), dtype=dtype, device=u0.device)
+    u_final = torch.empty((n, N), dtype=dtype, device=u0.device)
+    t_final = torch.empty((N,), dtype=dtype, device=u0.device)
+    stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
+    stream = torch.cuda.current_stream(u0.device).cuda_stream
+    with torch.cuda.device(u0.device):
+        rc = _bind()(DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id,
+                     u0.data_ptr(), p.data_ptr(), saveat.data_ptr(), S, N,
+                     float(t0), float(tf), float(dt0), float(rtol),
+                     float(atol), int(bool(adaptive)), int(max_iters),
+                     us.data_ptr(), u_final.data_ptr(), t_final.data_ptr(),
+                     stats.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"erk_ensemble launch failed: CUDA error {rc}")
+    global launches
+    launches += 1
+    return us, u_final, t_final, stats
