@@ -1,8 +1,9 @@
 """Carry the reference's inputs, given as numpy arrays, into the port.
 
 The reference (`repro`) and the port share no array type.  A test or a user
-who holds the reference's inputs as numpy arrays — ``(u0s, ps)``, a save
-grid, a tableau's coefficients — turns them into the port's tensors and
+who holds the reference's inputs as numpy arrays — ``(u0s, ps)`` of an ODE
+or SDE problem, a save grid, a tableau's coefficients, an SDE noise table —
+turns them into the port's tensors and
 objects here, on a chosen device and dtype, with no loss: numpy float64
 arrays convert exactly, and a narrower dtype rounds once, as the reference
 does when it casts.
@@ -29,6 +30,16 @@ def ensemble_problem(prob, u0s, ps, *, device="cpu",
     u0s_t = to_tensor(u0s, device=device, dtype=dtype)
     ps_t = to_tensor(ps, device=device, dtype=dtype)
     return EnsembleProblem(prob, int(u0s_t.shape[0]), u0s=u0s_t, ps=ps_t)
+
+
+def noise_table(z, *, device="cpu", dtype=torch.float64) -> torch.Tensor:
+    """A pre-drawn SDE noise table, numpy (n_steps, m, N) of N(0,1) draws
+    as the reference's ``noise_table=`` takes it, as a contiguous tensor."""
+    t = to_tensor(z, device=device, dtype=dtype)
+    if t.dim() != 3:
+        raise ValueError(f"a noise table is (n_steps, m, N), got shape "
+                         f"{tuple(t.shape)}")
+    return t
 
 
 def tableau_from_arrays(name: str, a, b, btilde, c, *, order: int,

@@ -1,5 +1,5 @@
 """Ensemble execution strategies (paper §5) on a single device — the erk
-family of `repro.core.ensemble`, in PyTorch.
+and fixed-dt sde families of `repro.core.ensemble`, in PyTorch.
 
 `solve_ensemble_local` is the front door.  Strategies (``ensemble=``):
 
@@ -24,6 +24,12 @@ family of `repro.core.ensemble`, in PyTorch.
                                   per trajectory.  On CPU tensors it runs
                                   its plain twin.
 
+The sde family (fixed dt, the paper's counter-RNG kernels, §5.2.2) runs
+"vmap" (`torch.func.vmap` of the per-trajectory loop), "array" and
+"kernel"/"torch" (the lanes loop over the whole ensemble) and
+"kernel"/"cuda" (`repro_torch.kernels.em`).  Every strategy draws the same
+(seed; step, row, GLOBAL lane) Threefry stream, so their paths agree.
+
 Entry points run on the card: ``device=None`` means ``"cuda"``, and a
 machine without CUDA raises unless the caller passes ``device="cpu"``.
 """
@@ -36,7 +42,7 @@ import torch
 
 from .controller import PIController, initial_dt
 from .methods import MethodSpec, get_method
-from .problem import EnsembleProblem, ODEProblem
+from .problem import EnsembleProblem, ODEProblem, SDEProblem
 from .solvers import (AdaptiveOptions, interp_step, rk_step, solve_adaptive,
                       solve_fixed)
 
@@ -278,6 +284,126 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
 
 
 # ----------------------------------------------------------------------------
+# family dispatch: sde (fixed-dt counter-RNG steppers, paper §5.2.2)
+# ----------------------------------------------------------------------------
+
+def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
+               backend, t0, tf, dt0, saveat, n_steps, save_every, key, seed,
+               noise_table, adaptive, lane_offset) -> EnsembleResult:
+    from repro_torch.kernels.em.ops import (seed_from_key,
+                                            solve_sde_ensemble_kernel)
+    from repro_torch.kernels.em.ref import ref_solve
+    from repro_torch.kernels.rng import check_u32
+    from .sde import SDE_STEPPERS, sde_nf_per_step, sde_save_grid
+
+    if prob.noise not in spec.noise:
+        raise ValueError(
+            f"method {spec.name!r} supports noise {spec.noise}, "
+            f"problem has {prob.noise!r}")
+    if adaptive:
+        raise NotImplementedError(
+            "adaptive SDE stepping is not ported yet: ROADMAP queue 1 item 6 "
+            "(core/sde.py sde_solve_adaptive, the virtual Brownian tree)")
+    if saveat is not None:
+        raise NotImplementedError(
+            "fixed-dt SDE snapshots land on the save_every grid (pass "
+            "n_steps/save_every); saveat-grid output needs adaptive=True, "
+            "which is ROADMAP queue 1 item 6")
+    if seed is None:
+        seed = seed_from_key(key) if key is not None else 0
+    seed = check_u32("seed", seed)
+    lane_offset = check_u32("lane_offset", lane_offset)
+    if n_steps is None:
+        n_steps = int(round((tf - t0) / dt0))
+    if n_steps % save_every != 0:
+        raise ValueError(f"save_every={save_every} must divide "
+                         f"n_steps={n_steps}")
+    N, n = u0s.shape
+    m = prob.noise_dim()
+    dtype, dev = u0s.dtype, u0s.device
+    table = None
+    if noise_table is not None:
+        table = torch.as_tensor(noise_table, device=dev).to(dtype).contiguous()
+        if tuple(table.shape) != (n_steps, m, N):
+            raise ValueError(f"noise_table must be (n_steps, m, N) = "
+                             f"{(n_steps, m, N)}, got {tuple(table.shape)}")
+    nfps = sde_nf_per_step(spec.name)
+    ts = sde_save_grid(t0, dt0, n_steps, save_every, dtype, device=dev)
+    common = dict(t0=t0, dt=dt0, n_steps=n_steps, save_every=save_every,
+                  seed=seed, lane_offset=lane_offset)
+
+    if ensemble == "kernel" and backend == "cuda":
+        return solve_sde_ensemble_kernel(prob, u0s, ps, method=spec.name,
+                                         noise_table=table, **common)
+    if ensemble == "kernel" and backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
+                         "'cuda')")
+    if ensemble in ("array", "kernel"):
+        # the lanes loop over the WHOLE ensemble, replaying the kernel's
+        # exact counter stream; for fixed dt the §5.1 array semantics and
+        # per-lane stepping agree
+        us, uf = ref_solve(prob, u0s, ps, method=spec.name,
+                           noise_table=table, **common)
+        return _assemble_sde_result(ts, us.permute(2, 0, 1), uf.T, N,
+                                    n_steps, nfps, t0, dt0, dtype)
+    if ensemble == "vmap":
+        us, uf = _sde_vmap(prob, SDE_STEPPERS[spec.name], u0s, ps,
+                           table=table, **common)
+        return _assemble_sde_result(ts, us, uf, N, n_steps, nfps, t0, dt0,
+                                    dtype)
+    raise NotImplementedError(
+        f"sde methods do not support ensemble={ensemble!r} "
+        "(use 'vmap', 'array' or 'kernel')")
+
+
+def _sde_vmap(prob: SDEProblem, stepper, u0s, ps, *, t0, dt, n_steps,
+              save_every, seed, lane_offset, table):
+    """`torch.func.vmap` of the per-trajectory fixed-count loop (the
+    reference's vmap strategy): each trajectory draws its own column of the
+    counter stream, or of the table.  Returns us (N, S, n), u_final (N, n)."""
+    from repro_torch.kernels.rng import M32, counter_normals_threefry
+    from .sde import sde_step_and_save
+
+    m = prob.noise_dim()
+    S = n_steps // save_every
+    rows = torch.arange(m, dtype=torch.int64, device=u0s.device)
+
+    def one(u0, p, lane, table_col):
+        # zeros_like keeps the snapshot buffer batched under vmap, so the
+        # in-place snapshot writes are allowed
+        us = torch.zeros_like(u0)[None].repeat(S, 1)
+        u = u0
+        for k in range(n_steps):
+            if table_col is not None:
+                z = table_col[k]
+            else:
+                z = counter_normals_threefry(seed, k, lane.expand(m), rows,
+                                             u.dtype)
+            u, us = sde_step_and_save(stepper, prob.f, prob.g, prob.noise, u,
+                                      us, p, t0, dt, k, z, save_every)
+        return us, u
+
+    lanes = (torch.arange(u0s.shape[0], dtype=torch.int64,
+                          device=u0s.device) + lane_offset) & M32
+    if table is not None:
+        return torch.func.vmap(one)(u0s, ps, lanes, table.permute(2, 0, 1))
+    return torch.func.vmap(lambda u0, p, lane: one(u0, p, lane, None))(
+        u0s, ps, lanes)
+
+
+def _assemble_sde_result(ts, us, uf, N, n_steps, nf_per_step, t0, dt,
+                         dtype) -> EnsembleResult:
+    dev = us.device
+    return EnsembleResult(
+        ts=ts, us=us, u_final=uf,
+        t_final=torch.full((N,), t0 + n_steps * dt, dtype=dtype, device=dev),
+        naccept=torch.full((N,), n_steps, dtype=torch.int32, device=dev),
+        nreject=torch.zeros((N,), dtype=torch.int32, device=dev),
+        nf=torch.tensor(n_steps * nf_per_step * N, device=dev),
+        status=torch.tensor(0, dtype=torch.int32, device=dev))
+
+
+# ----------------------------------------------------------------------------
 # front door
 # ----------------------------------------------------------------------------
 
@@ -286,19 +412,23 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                          t0=None, tf=None, dt0=1e-2, saveat=None,
                          rtol=1e-6, atol=1e-6, adaptive=None,
                          n_steps=None, save_every=1, lane_tile=None,
-                         max_iters=100_000, event=None, sensitivity=None,
+                         max_iters=100_000, event=None, key=None, seed=None,
+                         noise_table=None, lane_offset=0, sensitivity=None,
                          device=None) -> EnsembleResult:
-    """Single-device ensemble solve of an explicit-RK method through any
-    strategy and backend.
+    """Single-device ensemble solve of an explicit-RK or fixed-dt SDE
+    method through any strategy and backend.
 
     Args:
-      eprob: `EnsembleProblem` with the per-trajectory (u0s, ps) variations.
-      alg: a registry name (``"tsit5"``, ``"dopri5"``, ...), a `MethodSpec`
-        or a bare `Tableau`.
-      ensemble: ``"vmap"``, ``"array"``, ``"array_eager"`` or ``"kernel"``.
+      eprob: `EnsembleProblem` wrapping an `ODEProblem` or `SDEProblem`,
+        with the per-trajectory (u0s, ps) variations.
+      alg: a registry name (``"tsit5"``, ``"dopri5"``, ``"em"``,
+        ``"platen_w2"``, ...), a `MethodSpec` or a bare `Tableau`.
+      ensemble: ``"vmap"``, ``"array"``, ``"array_eager"`` (erk only) or
+        ``"kernel"``.
       backend: ``"torch"`` (the lanes twin) or ``"cuda"`` (the hand-written
-        kernel; tsit5 and dopri5 on an RHS registered with `device_rhs`) —
-        kernel strategy only.
+        kernels: tsit5 and dopri5 on an RHS registered with `device_rhs`;
+        em, heun_strat, platen_w2 and milstein on a drift/diffusion pair
+        registered with `device_sde`) — kernel strategy only.
       t0, tf, dt0: time span (defaults from ``prob.tspan``) and initial
         step.  ``dt0=None`` derives it from Hairer's two-evaluation
         heuristic per trajectory, takes the ensemble minimum, and counts the
@@ -310,6 +440,13 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
       lane_tile: trajectories per tile of the ``"torch"`` kernel backend
         (None: one tile); the CUDA kernel runs one thread per trajectory.
       max_iters: adaptive-loop iteration cap (status 1 when exhausted).
+      key, seed: the SDE noise stream's seed (a 32-bit int); ``seed=None``
+        takes the last word of a reference PRNG ``key`` given as an array,
+        else 0.  Every strategy replays the same Threefry stream.
+      noise_table: (n_steps, m, N) pre-drawn N(0,1) increments to use in
+        place of the stream (pathwise tests against the reference).
+      lane_offset: GLOBAL index of the first trajectory, so SDE shards
+        draw disjoint streams.
       event, sensitivity: later slices of the port; they raise
         `NotImplementedError` naming the ROADMAP item.
       device: where the solve runs.  None means ``"cuda"``.
@@ -341,6 +478,26 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
     ps = ps.to(device=dev, dtype=u0s.dtype).contiguous()
     t0 = prob.tspan[0] if t0 is None else t0
     tf = prob.tspan[1] if tf is None else tf
+
+    if spec.family == "sde":
+        if dt0 is None:
+            raise ValueError(
+                "dt0=None (automatic initial step) is erk only; SDE "
+                "stepping needs an explicit dt0")
+        if not isinstance(prob, SDEProblem):
+            raise TypeError(
+                f"method {spec.name!r} is an SDE stepper but the problem is "
+                f"{type(prob).__name__}")
+        return _solve_sde(spec, prob, u0s, ps, ensemble=ensemble,
+                          backend=backend, t0=t0, tf=tf, dt0=dt0,
+                          saveat=saveat, n_steps=n_steps,
+                          save_every=save_every, key=key, seed=seed,
+                          noise_table=noise_table, adaptive=adaptive,
+                          lane_offset=lane_offset)
+    if isinstance(prob, SDEProblem):
+        raise TypeError(
+            f"problem {prob.name!r} is stochastic; pick an sde method "
+            f"(e.g. alg='em'), not {spec.name!r}")
 
     auto_dt_nf = 0
     if dt0 is None:

@@ -46,6 +46,43 @@ class ODEProblem:
 
 
 @dataclasses.dataclass(frozen=True)
+class SDEProblem:
+    """dX = f(X,p,t) dt + g(X,p,t) dW.
+
+    noise:
+      "diagonal":     g returns (n,)   — one Wiener process per state.
+      "general":      g returns (n, m) — m Wiener processes, dense coupling.
+    data: as on ODEProblem; not ported yet (the front door raises).
+
+    The CUDA kernel runs the pair (f, g) through the device functor both are
+    registered with (`repro_torch.kernels.em.kernel.device_sde`).
+    """
+
+    f: Callable[[Tensor, Tensor, Tensor], Tensor]
+    g: Callable[[Tensor, Tensor, Tensor], Tensor]
+    u0: Tensor
+    p: Tensor
+    tspan: Tuple[float, float]
+    noise: str = "diagonal"
+    n_noise: Optional[int] = None  # m; defaults to n for diagonal
+    name: str = "sde"
+    data: Optional[Any] = None
+
+    @property
+    def n_states(self) -> int:
+        return int(self.u0.shape[0])
+
+    @property
+    def n_params(self) -> int:
+        return int(self.p.shape[0])
+
+    def noise_dim(self) -> int:
+        if self.n_noise is not None:
+            return self.n_noise
+        return self.n_states
+
+
+@dataclasses.dataclass(frozen=True)
 class EnsembleProblem:
     """N independent copies of `prob`, varying (u0, p) per trajectory.
 

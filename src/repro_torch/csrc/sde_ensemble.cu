@@ -1,0 +1,474 @@
+// Fixed-dt SDE ensemble kernel with in-kernel counter-based noise (the
+// paper's GPUEM / GPUSIEA, §5.2.2 and §6.8), written by hand for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel `run_ensemble_kernel` + `sde_body` of
+// src/repro/kernels/ensemble_kernel.py (pallas_call at :282, body at :533),
+// with the noise of src/repro/kernels/rng.py (`threefry2x32` at :24,
+// `counter_normals_threefry` at :136): every trajectory takes `n_steps`
+// steps of one stepper (em, heun_strat, platen_w2, milstein), draws its
+// N(0,1) increments from Threefry-2x32-20 keyed by (seed, 0x243F6A88) with
+// counters (step * 0x9E3779B9 + row, lane_offset + lane), or reads them
+// from a (n_steps, m, N) table, and writes a snapshot every `save_every`
+// steps, then u_final, t_final and the 6-row stats block.
+//
+// Design: one trajectory per thread, the whole integration in one launch.
+// u, p, the normals and the stepper's temporaries stay in registers; the
+// only device-memory traffic is u0 and p in, the snapshots and final values
+// out (lane-major (S, n, N), so neighbouring threads store neighbouring
+// words), and the table when one is given.  The stepper and the problem are
+// template parameters, so each (stepper, problem) pair compiles to straight
+// code.  General noise applies g·dW inside the problem's functor, so a
+// 4 x 8 noise matrix is never held whole in registers.
+//
+// What bounds it on an H100: integer operations.  One normal costs one
+// Threefry-2x32-20 call (about 74 32-bit adds, funnel shifts and xors) plus
+// a log, a sqrt and a cos, against a few floating-point operations of the
+// stepper per state; the bytes moved per trajectory are a few dozen.  The
+// design keeps the generator in registers and draws nothing it does not
+// use; it takes one normal per Threefry call, as the reference does, so the
+// stream stays the reference's (using both Box-Muller outputs is later
+// work).
+//
+// Semantics follow the reference loop body (src/repro/core/sde.py
+// `sde_step_and_save` and the steppers above it) expression by expression:
+// dt and t0 are rounded to T, t = t0 + k*dt is computed from k on every step
+// (never accumulated, never contracted to an fma), dW = z * sqrt(dt), and
+// the normals are computed in float whatever T is, then cast, as JAX
+// computes them in float32.  No --use_fast_math: the approximate
+// intrinsics would move every normal.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace repro_sde {
+
+constexpr int kBlock = 128;
+constexpr uint32_t kStreamKey = 0x243F6A88u;
+constexpr uint32_t kStepStride = 0x9E3779B9u;
+constexpr uint32_t kParity = 0x1BD11BDAu;
+// 2*pi rounded to float, the constant the reference multiplies by
+constexpr float kTwoPiF32 = 6.28318548202514648f;
+constexpr float kTwoM32 = 2.3283064365386963e-10f;  // 2^-32
+
+// ---------------------------------------------------------------------------
+// Threefry-2x32, 20 rounds, on native uint32 (rotations as funnel shifts)
+// ---------------------------------------------------------------------------
+
+template <int R0, int R1, int R2, int R3>
+__device__ __forceinline__ void mix4(uint32_t& x0, uint32_t& x1) {
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R0); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R1); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R2); x1 ^= x0;
+  x0 += x1; x1 = __funnelshift_l(x1, x1, R3); x1 ^= x0;
+}
+
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t c0, uint32_t c1,
+                                             uint32_t& o0, uint32_t& o1) {
+  const uint32_t ks0 = k0, ks1 = k1, ks2 = k0 ^ k1 ^ kParity;
+  uint32_t x0 = c0 + ks0, x1 = c1 + ks1;
+  mix4<13, 15, 26, 6>(x0, x1);  x0 += ks1; x1 += ks2 + 1u;
+  mix4<17, 29, 16, 24>(x0, x1); x0 += ks2; x1 += ks0 + 2u;
+  mix4<13, 15, 26, 6>(x0, x1);  x0 += ks0; x1 += ks1 + 3u;
+  mix4<17, 29, 16, 24>(x0, x1); x0 += ks1; x1 += ks2 + 4u;
+  mix4<13, 15, 26, 6>(x0, x1);  x0 += ks2; x1 += ks0 + 5u;
+  o0 = x0;
+  o1 = x1;
+}
+
+// Box-Muller in float on two words: (bits + 0.5) * 2^-32 in (0, 1], then
+// sqrt(-2 log u1) * cos(2 pi u2).  The _rn intrinsics keep every product and
+// sum rounded on its own, as the reference computes them.
+__device__ __forceinline__ float to_unit(uint32_t bits) {
+  return __fmul_rn(__fadd_rn(__uint2float_rn(bits), 0.5f), kTwoM32);
+}
+
+__device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
+  const float u1 = to_unit(a), u2 = to_unit(b);
+  return __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))),
+                   cosf(__fmul_rn(kTwoPiF32, u2)));
+}
+
+__device__ __forceinline__ float counter_normal(uint32_t seed, uint32_t step,
+                                                uint32_t row, uint32_t lane) {
+  uint32_t a, b;
+  threefry2x32(seed, kStreamKey, step * kStepStride + row, lane, a, b);
+  return box_muller(a, b);
+}
+
+// Separately rounded add and multiply (no fma contraction), for t.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// NaN-propagating max, as jnp.maximum.
+template <typename T>
+__device__ __forceinline__ T nmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// ---------------------------------------------------------------------------
+// Problems (src/repro_torch/configs/de_problems.py), in the Python
+// functions' operation order.  n states, k parameters, m Wiener processes.
+// Diagonal problems give `diffusion` (the stepper multiplies by dW);
+// general problems give `noise`, which returns g(u)·dW directly.
+// ---------------------------------------------------------------------------
+
+// A.2.1 geometric Brownian motion: f = r u, g = v u (diagonal).
+struct Gbm {
+  static constexpr int n = 3, k = 2, m = 3;
+  static constexpr bool diagonal = true;
+  template <typename T>
+  __device__ __forceinline__ static void drift(const T* u, const T* p, T t,
+                                               T* du) {
+#pragma unroll
+    for (int c = 0; c < n; ++c) du[c] = p[0] * u[c];
+  }
+  template <typename T>
+  __device__ __forceinline__ static void diffusion(const T* u, const T* p,
+                                                   T t, T* g) {
+#pragma unroll
+    for (int c = 0; c < n; ++c) g[c] = p[1] * u[c];
+  }
+  // Milstein's (dg/du)·g, by hand: the JVP of v u along g = v u.
+  template <typename T>
+  __device__ __forceinline__ static void gdg(const T* u, const T* p, T t,
+                                             T* out) {
+#pragma unroll
+    for (int c = 0; c < n; ++c) out[c] = p[1] * (p[1] * u[c]);
+  }
+};
+
+// A.2.2 sigma-factor stress-response network: 4 states, 8 Wiener processes
+// (general noise, chemical-Langevin birth/death terms), 6 parameters
+// (S, D, tau, v0, n, eta).  pow keeps its NaN for a negative base and a
+// non-integer exponent, as jnp's ** does.
+struct Crn {
+  static constexpr int n = 4, k = 6, m = 8;
+  static constexpr bool diagonal = false;
+  template <typename T>
+  __device__ __forceinline__ static T hill(const T* u, const T* p) {
+    const T sn = pow(p[0] * u[0], p[4]);
+    return sn / (sn + pow(p[1] * u[3], p[4]) + T(1));
+  }
+  template <typename T>
+  __device__ __forceinline__ static void drift(const T* u, const T* p, T t,
+                                               T* du) {
+    const T tau = p[2];
+    du[0] = p[3] + hill(u, p) - u[0];
+    du[1] = (u[0] - u[1]) / tau;
+    du[2] = (u[1] - u[2]) / tau;
+    du[3] = (u[2] - u[3]) / tau;
+  }
+  template <typename T>
+  __device__ __forceinline__ static T pos(T x) {
+    return sqrt(nmax(x, T(0)));
+  }
+  // g(u)·dW: each row of the 4 x 8 matrix has two non-zero entries.
+  template <typename T>
+  __device__ __forceinline__ static void noise(const T* u, const T* p, T t,
+                                               const T* dW, T* out) {
+    const T tau = p[2], eta = p[5];
+    const T hl = hill(u, p);
+    out[0] = (eta * pos(p[3] + hl)) * dW[0] + (-eta * pos(u[0])) * dW[1];
+    out[1] = (eta * pos(u[0] / tau)) * dW[2] + (-eta * pos(u[1] / tau)) * dW[3];
+    out[2] = (eta * pos(u[1] / tau)) * dW[4] + (-eta * pos(u[2] / tau)) * dW[5];
+    out[3] = (eta * pos(u[2] / tau)) * dW[6] + (-eta * pos(u[3] / tau)) * dW[7];
+  }
+};
+
+// g(u)·dW for either noise structure.
+template <class P, typename T>
+__device__ __forceinline__ void apply_noise(const T* u, const T* p, T t,
+                                            const T* dW, T* out) {
+  if constexpr (P::diagonal) {
+    T g[P::n];
+    P::diffusion(u, p, t, g);
+#pragma unroll
+    for (int c = 0; c < P::n; ++c) out[c] = g[c] * dW[c];
+  } else {
+    P::noise(u, p, t, dW, out);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Steppers (src/repro_torch/core/sde.py), one step u -> out.
+// ---------------------------------------------------------------------------
+
+struct Em {
+  static constexpr int nf = 1;
+  template <class P, typename T>
+  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
+                                              T dt, T sdt, const T* dW,
+                                              T* out) {
+    T a[P::n], gw[P::n];
+    P::drift(u, p, t, a);
+    apply_noise<P>(u, p, t, dW, gw);
+#pragma unroll
+    for (int c = 0; c < P::n; ++c) out[c] = u[c] + a[c] * dt + gw[c];
+  }
+};
+
+struct HeunStrat {
+  static constexpr int nf = 2;
+  template <class P, typename T>
+  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
+                                              T dt, T sdt, const T* dW,
+                                              T* out) {
+    T a[P::n], gw[P::n], du1[P::n], ub[P::n];
+    P::drift(u, p, t, a);
+    apply_noise<P>(u, p, t, dW, gw);
+#pragma unroll
+    for (int c = 0; c < P::n; ++c) {
+      du1[c] = a[c] * dt + gw[c];
+      ub[c] = u[c] + du1[c];
+    }
+    const T t1 = add_rn(t, dt);
+    P::drift(ub, p, t1, a);
+    apply_noise<P>(ub, p, t1, dW, gw);
+#pragma unroll
+    for (int c = 0; c < P::n; ++c)
+      out[c] = u[c] + T(0.5) * (du1[c] + (a[c] * dt + gw[c]));
+  }
+};
+
+struct PlatenW2 {
+  static constexpr int nf = 2;
+  template <class P, typename T>
+  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
+                                              T dt, T sdt, const T* dW,
+                                              T* out) {
+    static_assert(P::diagonal, "platen_w2 supports diagonal noise only");
+    T a0[P::n], b0[P::n], ubar[P::n], up[P::n], um[P::n];
+    P::drift(u, p, t, a0);
+    P::diffusion(u, p, t, b0);
+#pragma unroll
+    for (int c = 0; c < P::n; ++c) {
+      const T drift = u[c] + a0[c] * dt;
+      ubar[c] = drift + b0[c] * dW[c];
+      up[c] = drift + b0[c] * sdt;
+      um[c] = drift - b0[c] * sdt;
+    }
+    const T t1 = add_rn(t, dt);
+    T a1[P::n], bp[P::n], bm[P::n];
+    P::drift(ubar, p, t1, a1);
+    P::diffusion(up, p, t1, bp);
+    P::diffusion(um, p, t1, bm);
+#pragma unroll
+    for (int c = 0; c < P::n; ++c)
+      out[c] = u[c] + T(0.5) * dt * (a1[c] + a0[c]) +
+               T(0.25) * dW[c] * (bp[c] + bm[c] + T(2) * b0[c]) +
+               T(0.25) * (dW[c] * dW[c] - dt) / sdt * (bp[c] - bm[c]);
+  }
+};
+
+struct Milstein {
+  static constexpr int nf = 1;
+  template <class P, typename T>
+  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
+                                              T dt, T sdt, const T* dW,
+                                              T* out) {
+    static_assert(P::diagonal, "milstein supports diagonal noise only");
+    T a0[P::n], b0[P::n], db[P::n];
+    P::drift(u, p, t, a0);
+    P::diffusion(u, p, t, b0);
+    P::gdg(u, p, t, db);
+#pragma unroll
+    for (int c = 0; c < P::n; ++c)
+      out[c] = u[c] + a0[c] * dt + b0[c] * dW[c] +
+               T(0.5) * db[c] * (dW[c] * dW[c] - dt);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+template <typename T, class P, class St, bool kTable>
+__global__ void __launch_bounds__(kBlock)
+    sde_ensemble_kernel(const T* __restrict__ u0, const T* __restrict__ p,
+                        const T* __restrict__ table, int N, int n_steps,
+                        int save_every, double t0d, double dtd, double t_end,
+                        uint32_t seed, uint32_t lane_offset,
+                        T* __restrict__ us, T* __restrict__ u_final,
+                        T* __restrict__ t_final, int* __restrict__ stats) {
+  constexpr int n = P::n, m = P::m;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= N) return;
+  const size_t NN = static_cast<size_t>(N);
+
+  T u[n], pp[P::k];
+#pragma unroll
+  for (int c = 0; c < n; ++c) u[c] = u0[c * NN + lane];
+#pragma unroll
+  for (int j = 0; j < P::k; ++j) pp[j] = p[j * NN + lane];
+
+  const T t0 = T(t0d), dt = T(dtd);
+  const T sdt = sqrt(dt);
+  const uint32_t gl = lane_offset + static_cast<uint32_t>(lane);
+  int since = 0;
+  size_t slot = 0;
+
+  for (int k = 0; k < n_steps; ++k) {
+    T dW[m];
+    if constexpr (kTable) {
+      const T* zk = table + static_cast<size_t>(k) * m * NN + lane;
+#pragma unroll
+      for (int j = 0; j < m; ++j) dW[j] = zk[j * NN] * sdt;
+    } else {
+#pragma unroll
+      for (int j = 0; j < m; ++j)
+        dW[j] = T(counter_normal(seed, static_cast<uint32_t>(k),
+                                 static_cast<uint32_t>(j), gl)) * sdt;
+    }
+    const T t = add_rn(t0, mul_rn(T(k), dt));
+    T un[n];
+    St::template step<P>(u, pp, t, dt, sdt, dW, un);
+#pragma unroll
+    for (int c = 0; c < n; ++c) u[c] = un[c];
+    if (++since == save_every) {
+      since = 0;
+#pragma unroll
+      for (int c = 0; c < n; ++c) us[(slot * n + c) * NN + lane] = u[c];
+      ++slot;
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < n; ++c) u_final[c * NN + lane] = u[c];
+  t_final[lane] = T(t_end);
+  stats[0 * NN + lane] = n_steps;
+  stats[1 * NN + lane] = 0;
+  stats[2 * NN + lane] = 0;
+  stats[3 * NN + lane] = n_steps * St::nf;
+  stats[4 * NN + lane] = 0;
+  stats[5 * NN + lane] = 0;
+}
+
+// The counter normals alone, one thread per (step, row, lane) element of a
+// block, with the raw words: words[0][i], words[1][i], z[i].
+__global__ void __launch_bounds__(kBlock)
+    sde_normals_kernel(uint32_t seed, long long step0, int rows, int lanes,
+                       long long total, uint32_t lane_offset,
+                       uint32_t* __restrict__ words, float* __restrict__ z) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= total) return;
+  const int lane = static_cast<int>(i % lanes);
+  const int row = static_cast<int>((i / lanes) % rows);
+  const long long step = step0 + i / (static_cast<long long>(lanes) * rows);
+  uint32_t a, b;
+  threefry2x32(seed, kStreamKey,
+               static_cast<uint32_t>(step) * kStepStride +
+                   static_cast<uint32_t>(row),
+               lane_offset + static_cast<uint32_t>(lane), a, b);
+  words[i] = a;
+  words[total + i] = b;
+  z[i] = box_muller(a, b);
+}
+
+struct LaunchArgs {
+  const void* u0;
+  const void* p;
+  const void* table;
+  int N, n_steps, save_every;
+  double t0, dt, t_end;
+  uint32_t seed, lane_offset;
+  void* us;
+  void* u_final;
+  void* t_final;
+  void* stats;
+  cudaStream_t stream;
+};
+
+template <typename T, class P, class St, bool kTable>
+int launch(const LaunchArgs& a) {
+  const int grid = (a.N + kBlock - 1) / kBlock;
+  sde_ensemble_kernel<T, P, St, kTable><<<grid, kBlock, 0, a.stream>>>(
+      static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
+      static_cast<const T*>(a.table), a.N, a.n_steps, a.save_every, a.t0,
+      a.dt, a.t_end, a.seed, a.lane_offset, static_cast<T*>(a.us),
+      static_cast<T*>(a.u_final), static_cast<T*>(a.t_final),
+      static_cast<int*>(a.stats));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, class P, class St>
+int by_table(int use_table, const LaunchArgs& a) {
+  return use_table ? launch<T, P, St, true>(a) : launch<T, P, St, false>(a);
+}
+
+// stepper_id: 0 em, 1 heun_strat, 2 platen_w2, 3 milstein; platen_w2 and
+// milstein exist for the diagonal problems only.
+template <typename T, class P>
+int by_stepper(int stepper_id, int use_table, const LaunchArgs& a) {
+  switch (stepper_id) {
+    case 0: return by_table<T, P, Em>(use_table, a);
+    case 1: return by_table<T, P, HeunStrat>(use_table, a);
+  }
+  if constexpr (P::diagonal) {
+    switch (stepper_id) {
+      case 2: return by_table<T, P, PlatenW2>(use_table, a);
+      case 3: return by_table<T, P, Milstein>(use_table, a);
+    }
+  }
+  return -1;
+}
+
+template <typename T>
+int by_problem(int prob_id, int stepper_id, int use_table,
+               const LaunchArgs& a) {
+  switch (prob_id) {
+    case 0: return by_stepper<T, Gbm>(stepper_id, use_table, a);
+    case 1: return by_stepper<T, Crn>(stepper_id, use_table, a);
+  }
+  return -1;
+}
+
+}  // namespace repro_sde
+
+// C interface, bound with ctypes by src/repro_torch/kernels/em/kernel.py.
+// dtype_id: 0 float32, 1 float64.  prob_id: 0 gbm, 1 crn.  stepper_id: see
+// by_stepper.  `table` is (n_steps, m, N) of T when use_table is 1, else
+// unused.  Returns cudaGetLastError() after the launch, or -1 for an
+// unknown id or combination.  Launches on `stream` and does not synchronise.
+extern "C" int sde_ensemble_launch(int dtype_id, int prob_id, int stepper_id,
+                                   int use_table, const void* u0,
+                                   const void* p, const void* table, int N,
+                                   int n_steps, int save_every, double t0,
+                                   double dt, double t_end, unsigned int seed,
+                                   unsigned int lane_offset, void* us,
+                                   void* u_final, void* t_final, void* stats,
+                                   void* stream) {
+  const repro_sde::LaunchArgs a{u0,   p,       table,       N,       n_steps,
+                                save_every, t0, dt,         t_end,   seed,
+                                lane_offset, us, u_final,   t_final, stats,
+                                static_cast<cudaStream_t>(stream)};
+  switch (dtype_id) {
+    case 0: return repro_sde::by_problem<float>(prob_id, stepper_id, use_table, a);
+    case 1: return repro_sde::by_problem<double>(prob_id, stepper_id, use_table, a);
+  }
+  return -1;
+}
+
+// The counter normals of (step0 + s, row, lane_offset + lane) for s < steps,
+// row < rows, lane < lanes, laid out (steps, rows, lanes); words is
+// (2, steps, rows, lanes) uint32, z float.  The caller keeps
+// steps * rows * lanes below 2^31.
+extern "C" int sde_normals_launch(unsigned int seed, long long step0,
+                                  int steps, int rows, int lanes,
+                                  unsigned int lane_offset, void* words,
+                                  void* z, void* stream) {
+  const long long total = static_cast<long long>(steps) * rows * lanes;
+  if (total <= 0) return -1;
+  const long long grid = (total + repro_sde::kBlock - 1) / repro_sde::kBlock;
+  repro_sde::sde_normals_kernel<<<static_cast<unsigned int>(grid),
+                                  repro_sde::kBlock, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      seed, step0, rows, lanes, total, lane_offset,
+      static_cast<uint32_t*>(words), static_cast<float*>(z));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,233 @@
+"""ctypes binding of the fixed-dt SDE ensemble kernel (`csrc/sde_ensemble.cu`),
+which replaces the TPU kernel `repro.kernels.ensemble_kernel.run_ensemble_kernel`
++ `sde_body` with its in-kernel Threefry noise (`repro.kernels.rng`).
+
+`sde_ensemble` is the wrapper: for CUDA tensors it checks its inputs,
+allocates the outputs and launches the kernel on the current stream (or
+raises); for CPU tensors, and only for them, it runs the plain PyTorch
+version of the same function, the lanes loop `repro_torch.kernels.em.ref`.
+`sde_normals` does the same for the kernel's counter normals alone.
+
+The kernel cannot call Python drift and diffusion functions.  A pair
+(f, g) reaches it through the hand-written device functor both are
+registered with by `device_sde`; Milstein's derivative term needs the
+functor's hand-written ``gdg`` member, (∂g/∂u)·g, since a kernel cannot
+take a JVP.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.sde import sde_nf_per_step
+from repro_torch.kernels.em.ref import solve_lanes
+from repro_torch.kernels.rng import (M32, check_u32, counter_normals_threefry,
+                                     counter_words)
+
+SOURCE = "sde_ensemble.cu"
+
+
+class SDEFunctor(NamedTuple):
+    """A device functor of the .cu: id, states, parameters, noise kind,
+    Wiener processes, and whether it has the ``gdg`` member."""
+    id: int
+    n: int
+    k: int
+    noise: str
+    m: int
+    gdg: bool
+
+
+# as in the .cu (`by_problem`)
+SDE_FUNCTORS = {"gbm": SDEFunctor(0, 3, 2, "diagonal", 3, True),
+                "crn": SDEFunctor(1, 4, 6, "general", 8, False)}
+STEPPER_IDS = {"em": 0, "heun_strat": 1, "platen_w2": 2, "milstein": 3}
+DIAGONAL_ONLY = ("platen_w2", "milstein")
+DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
+
+# launches of the SDE kernel, and of the normals kernel, since each counter
+# was last set to 0
+launches = 0
+normals_launches = 0
+
+
+def device_sde(name: str):
+    """Register a Python drift or diffusion with its hand-written device
+    functor; a problem's f and g must both carry the same name."""
+    if name not in SDE_FUNCTORS:
+        raise ValueError(f"no device functor {name!r} in {SOURCE}; have "
+                         f"{sorted(SDE_FUNCTORS)}")
+
+    def mark(fn):
+        fn.device_sde = name
+        return fn
+
+    return mark
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    from repro_torch.kernels.build import load
+    lib = load(SOURCE)
+    vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                         ctypes.c_uint)
+    run = lib.sde_ensemble_launch
+    run.argtypes = [i32, i32, i32, i32, vp, vp, vp, i32, i32, i32, f64, f64,
+                    f64, u32, u32, vp, vp, vp, vp, vp]
+    run.restype = i32
+    normals = lib.sde_normals_launch
+    normals.argtypes = [u32, ctypes.c_longlong, i32, i32, i32, u32, vp, vp,
+                        vp]
+    normals.restype = i32
+    return run, normals
+
+
+def _plain(f, g, method, noise, m_noise, u0, p, *, t0, dt, n_steps,
+           save_every, seed, lane_offset, table):
+    us, uf = solve_lanes(f, g, noise, m_noise, method, u0, p, t0=t0, dt=dt,
+                         n_steps=n_steps, save_every=save_every, seed=seed,
+                         noise_table=table, lane_offset=lane_offset)
+    N = u0.shape[1]
+    full = lambda v: torch.full((N,), v, dtype=torch.int32, device=u0.device)
+    t_final = torch.full((N,), t0 + n_steps * dt, dtype=u0.dtype,
+                         device=u0.device)
+    stats = torch.stack([full(n_steps), full(0), full(0),
+                         full(n_steps * sde_nf_per_step(method)), full(0),
+                         full(0)])
+    return us, uf, t_final, stats
+
+
+def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
+                 t0: float, dt: float, n_steps: int, save_every: int,
+                 seed: int, lane_offset: int = 0, table=None):
+    """Integrate every lane of u0 (n, N) with parameters p (k, N) over
+    `n_steps` fixed steps of `dt` from t0, by `method` (em, heun_strat,
+    platen_w2, milstein), with N(0,1) noise from the Threefry stream
+    (seed; step, row, lane_offset + lane) or from `table` (n_steps, m, N).
+    Returns us (S, n, N) with S = n_steps / save_every, u_final (n, N),
+    t_final (N,) and stats (6, N) int32 with rows (naccept, nreject,
+    status, nf, njac, nfact)."""
+    seed = check_u32("seed", seed)
+    lane_offset = check_u32("lane_offset", lane_offset)
+    if save_every < 1 or n_steps < 0 or n_steps % save_every != 0 \
+            or n_steps * sde_nf_per_step(method) >= 2 ** 31:
+        raise ValueError(f"need 0 <= n_steps with n_steps * nf_per_step "
+                         f"< 2^31 (the int32 nf count) and save_every >= 1 "
+                         f"dividing it, got n_steps={n_steps}, "
+                         f"save_every={save_every}")
+    if u0.device.type == "cpu":
+        return _plain(f, g, method, noise, m_noise, u0, p, t0=t0, dt=dt,
+                      n_steps=n_steps, save_every=save_every, seed=seed,
+                      lane_offset=lane_offset, table=table)
+    if u0.device.type != "cuda":
+        raise ValueError(f"sde_ensemble runs on CPU or CUDA tensors, not "
+                         f"{u0.device.type}")
+    names = {getattr(f, "device_sde", None), getattr(g, "device_sde", None)}
+    if len(names) != 1 or None in names:
+        raise NotImplementedError(
+            f"drift/diffusion pair ({getattr(f, '__name__', f)!r}, "
+            f"{getattr(g, '__name__', g)!r}) has no device form: register "
+            f"both with the same @device_sde functor of {SOURCE} (automatic "
+            "translation of a Python RHS is a later ROADMAP item)")
+    name = names.pop()
+    fun = SDE_FUNCTORS[name]
+    if method not in STEPPER_IDS:
+        raise NotImplementedError(
+            f"stepper {method!r} is not compiled into the CUDA kernel; it "
+            f"has {sorted(STEPPER_IDS)}")
+    if noise != fun.noise or m_noise != fun.m:
+        raise ValueError(f"functor {name!r} has {fun.noise} noise with "
+                         f"{fun.m} Wiener processes, not {noise} with "
+                         f"{m_noise}")
+    if method == "milstein" and not fun.gdg:
+        raise NotImplementedError(
+            f"milstein on the CUDA kernel needs the functor's hand-written "
+            f"gdg member, (dg/du)·g; {name!r} has none in {SOURCE}")
+    if method in DIAGONAL_ONLY and fun.noise != "diagonal":
+        raise ValueError(f"{method} supports diagonal noise only")
+    dtype = u0.dtype
+    if dtype not in DTYPE_IDS:
+        raise TypeError(f"the CUDA kernel takes float32 or float64, not "
+                        f"{dtype}")
+    N = u0.shape[-1]
+    if N < 1 or N >= 2 ** 31:
+        raise ValueError(f"need 1 <= N < 2^31 lanes, got N={N}")
+    checks = [("u0", u0, (fun.n, N)), ("p", p, (fun.k, N))]
+    if table is not None:
+        checks.append(("table", table, (n_steps, fun.m, N)))
+    for what, x, shape in checks:
+        if x.device != u0.device or x.dtype != dtype:
+            raise ValueError(f"{what} must be a {dtype} tensor on {u0.device}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous with shape {shape} "
+                             f"for {name}, got {tuple(x.shape)}")
+
+    S = n_steps // save_every
+    us = torch.empty((S, fun.n, N), dtype=dtype, device=u0.device)
+    u_final = torch.empty((fun.n, N), dtype=dtype, device=u0.device)
+    t_final = torch.empty((N,), dtype=dtype, device=u0.device)
+    stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
+    stream = torch.cuda.current_stream(u0.device).cuda_stream
+    with torch.cuda.device(u0.device):
+        rc = _bind()[0](
+            DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
+            int(table is not None), u0.data_ptr(), p.data_ptr(),
+            table.data_ptr() if table is not None else None, N, n_steps,
+            save_every, float(t0), float(dt), float(t0 + n_steps * dt), seed,
+            lane_offset, us.data_ptr(), u_final.data_ptr(),
+            t_final.data_ptr(), stats.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sde_ensemble launch failed: CUDA error {rc}")
+    global launches
+    launches += 1
+    return us, u_final, t_final, stats
+
+
+def _plain_normals(seed, step0, steps, rows, lanes, lane_offset, device):
+    i64 = dict(dtype=torch.int64, device=device)
+    step = torch.arange(step0, step0 + steps, **i64)[:, None, None]
+    row = torch.arange(rows, **i64)[None, :, None]
+    lane = ((torch.arange(lanes, **i64) + lane_offset) & M32)[None, None]
+    shape = (steps, rows, lanes)
+    words = torch.stack([w.expand(shape)
+                         for w in counter_words(seed, step, lane, row)])
+    return words, counter_normals_threefry(seed, step, lane, row).expand(shape)
+
+
+def sde_normals(seed: int, step0: int, steps: int, rows: int, lanes: int, *,
+                lane_offset: int = 0, device="cuda"):
+    """The counter normals of the kernel's stream for a block of
+    (step0 + s, row, lane_offset + lane), s < steps, row < rows,
+    lane < lanes.  Returns the Threefry words (2, steps, rows, lanes) as
+    int64 and the float32 normals (steps, rows, lanes).  On a CUDA device
+    the kernel draws them; on the CPU the plain version
+    (`repro_torch.kernels.rng`) does."""
+    seed = check_u32("seed", seed)
+    lane_offset = check_u32("lane_offset", lane_offset)
+    total = steps * rows * lanes
+    if min(steps, rows, lanes) < 1 or total >= 2 ** 31 or step0 < 0 \
+            or step0 + steps > 2 ** 31:
+        raise ValueError(f"need a non-empty block of < 2^31 elements with "
+                         f"steps below 2^31, got ({step0}+{steps}, {rows}, "
+                         f"{lanes})")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _plain_normals(seed, step0, steps, rows, lanes, lane_offset,
+                              device)
+    if device.type != "cuda":
+        raise ValueError(f"sde_normals runs on CPU or CUDA, not {device.type}")
+    words = torch.empty((2, steps, rows, lanes), dtype=torch.int32,
+                        device=device)
+    z = torch.empty((steps, rows, lanes), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = _bind()[1](seed, int(step0), steps, rows, lanes, lane_offset,
+                        words.data_ptr(), z.data_ptr(),
+                        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sde_normals launch failed: CUDA error {rc}")
+    global normals_launches
+    normals_launches += 1
+    return words.to(torch.int64) & M32, z

@@ -1,0 +1,48 @@
+"""Plain PyTorch oracle for the SDE kernel: a lanes-mode loop over the whole
+ensemble using the SAME stepper definitions and the SAME counter RNG
+(`repro_torch.kernels.rng`), so comparison with the kernel is pathwise, not
+just statistical — the port of `repro.kernels.em.ref`.  Events and
+rematerialisation are still to port (ROADMAP queue 1 items 7 and 9)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.sde import SDE_STEPPERS, sde_step_and_save
+from repro_torch.kernels.rng import M32, counter_normals_threefry
+
+
+def solve_lanes(f, g, noise: str, m_noise: int, method: str, u0, p, *, t0,
+                dt, n_steps: int, save_every: int = 1, seed: int = 0,
+                noise_table=None, lane_offset: int = 0):
+    """u0 (n, N), p (k, N) lane-major; noise_table (n_steps, m, N) or None
+    for the Threefry stream over GLOBAL lane indices (local index +
+    lane_offset, mod 2^32).  Returns us (S, n, N) and u_final (n, N)."""
+    stepper = SDE_STEPPERS[method]
+    n, N = u0.shape
+    dtype, dev = u0.dtype, u0.device
+    S = n_steps // save_every
+    gl = (torch.arange(N, dtype=torch.int64, device=dev) + lane_offset) & M32
+    lane = gl[None].expand(m_noise, N)
+    rows = torch.arange(m_noise, dtype=torch.int64,
+                        device=dev)[:, None].expand(m_noise, N)
+    us = torch.zeros((S, n, N), dtype=dtype, device=dev)
+    u = u0
+    for k in range(n_steps):
+        if noise_table is not None:
+            z = noise_table[k].to(dtype)
+        else:
+            z = counter_normals_threefry(seed, k, lane, rows, dtype)
+        u, us = sde_step_and_save(stepper, f, g, noise, u, us, p, t0, dt, k,
+                                  z, save_every)
+    return us, u
+
+
+def ref_solve(prob, u0s, ps, *, t0, dt, n_steps, method="em", save_every=1,
+              seed=0, noise_table=None, lane_offset=0):
+    """u0s (N, n), ps (N, m) trajectory-major.  Replays the kernel's exact
+    noise stream or a supplied (n_steps, m, N) table.
+    Returns (us (S, n, N), uf (n, N))."""
+    return solve_lanes(prob.f, prob.g, prob.noise, prob.noise_dim(), method,
+                       u0s.T, ps.T, t0=t0, dt=dt, n_steps=n_steps,
+                       save_every=save_every, seed=seed,
+                       noise_table=noise_table, lane_offset=lane_offset)

@@ -49,10 +49,10 @@ def solve_ensemble_cuda(prob, u0s, ps, tab: Tableau, t0, tf, dt0, saveat,
             seg_t0 = t0 if t_start is None else t_start
             seg_tf = tf if last else float(seg_ts[-1])
             sv = torch.as_tensor(seg_ts, dtype=u0s.dtype, device=u0s.device)
-            return mk_body(seg_t0, seg_tf), sv
+            return mk_body(seg_t0, seg_tf), [("broadcast", sv)]
 
-        return run_ensemble_kernel_staged(body_factory, u0s, ps,
-                                          saveat=saveat,
+        return run_ensemble_kernel_staged(body_factory, u0s, ps, ts=saveat,
                                           save_chunks=save_chunks)
 
-    return run_ensemble_kernel(mk_body(t0, tf), u0s, ps, saveat=saveat)
+    return run_ensemble_kernel(mk_body(t0, tf), u0s, ps, ts=saveat,
+                               extras=[("broadcast", saveat)])

@@ -1,4 +1,5 @@
-"""The CUDA kernel itself, on the card: marked `cuda`, skipped without it.
+"""The CUDA kernels themselves, on the card: marked `cuda`, skipped
+without it.
 
 This file imports only torch and the port, so it runs where JAX is absent:
 
@@ -8,10 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import de_problems as tdp
 from repro_torch.configs.de_problems import lorenz_problem
 from repro_torch.convert import ensemble_problem
 from repro_torch.core.ensemble import solve_ensemble_local as tsolve
+from repro_torch.core.problem import EnsembleProblem, SDEProblem
 from repro_torch.core.tableaus import get_tableau
+from repro_torch.kernels.em import kernel as sde_kernel
 from repro_torch.kernels.tsit5 import kernel as erk_kernel
 
 
@@ -69,3 +73,91 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         erk_kernel.erk_ensemble(f, tab, u0.T.contiguous().T, p, sv, **kw)
     with pytest.raises(ValueError, match="float64"):
         erk_kernel.erk_ensemble(f, tab, u0, p.float(), sv, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-dt SDE kernel (csrc/sde_ensemble.cu)
+# ---------------------------------------------------------------------------
+
+def sde_inputs(name, N, seed=2):
+    if name == "crn":
+        u0s, ps = tdp.crn_sweep_arrays(N, seed)
+        return tdp.crn_problem(tspan=(0.0, 10.0), dtype=torch.float64), \
+            u0s, ps
+    rng = np.random.default_rng(seed)
+    return (tdp.gbm_problem(dtype=torch.float64),
+            0.1 + 0.01 * rng.random((N, 3)),
+            np.array([1.5, 0.2]) + 0.01 * rng.random((N, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [False, True])
+@pytest.mark.parametrize("name,alg", [
+    ("gbm", "em"), ("gbm", "heun_strat"), ("gbm", "platen_w2"),
+    ("gbm", "milstein"), ("crn", "em"), ("crn", "heun_strat")])
+def test_cuda_sde_kernel_matches_plain_version(cuda, name, alg, table):
+    """f64, the kernel against its plain version (the lanes loop) on the
+    same card and inputs.  With a table both do the same arithmetic up to
+    fma contraction: 1e-12.  With the counter RNG both draw the normals
+    with the card's float32 log and cos, so the bar is the same."""
+    prob, u0s, ps = sde_inputs(name, 300)
+    ep = ensemble_problem(prob, u0s, ps, device=cuda)
+    m, n_steps = prob.noise_dim(), 40
+    Z = (torch.randn(n_steps, m, 300, dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(0)).to(cuda)
+         if table else None)
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, dt0=0.05,
+              n_steps=n_steps, save_every=10, seed=5, noise_table=Z,
+              device=cuda)
+    before = sde_kernel.launches
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", **kw)
+    assert sde_kernel.launches == before + 1
+    fin = torch.isfinite(rt.us)
+    assert torch.equal(torch.isfinite(rk.us), fin)
+    torch.testing.assert_close(rk.us[fin], rt.us[fin], rtol=1e-12,
+                               atol=1e-14)
+    assert torch.equal(rk.naccept, rt.naccept)
+    assert torch.equal(rk.t_final, rt.t_final) and int(rk.nf) == int(rt.nf)
+
+
+@pytest.mark.cuda
+def test_cuda_sde_normals_match_plain_version(cuda):
+    """The kernel's Threefry words bitwise; its normals within a few
+    float32 ulps of the plain stream on the same card."""
+    args = (123, 2 ** 31 - 8, 8, 8, 4096)
+    before = sde_kernel.normals_launches
+    wk, zk = sde_kernel.sde_normals(*args, lane_offset=2 ** 32 - 100,
+                                    device=cuda)
+    wp, zp = sde_kernel.sde_normals(*args, lane_offset=2 ** 32 - 100,
+                                    device="cpu")
+    assert sde_kernel.normals_launches == before + 1
+    assert torch.equal(wk.cpu(), wp)
+    torch.testing.assert_close(zk.cpu(), zp, rtol=0, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_sde_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    """Raises, and never runs the plain version, on CUDA tensors."""
+    before = sde_kernel.launches
+    plain = SDEProblem(lambda u, p, t: p[0] * u, lambda u, p, t: p[1] * u,
+                       torch.full((3,), 0.1, dtype=torch.float64),
+                       torch.tensor([1.5, 0.2], dtype=torch.float64),
+                       (0.0, 1.0))
+    with pytest.raises(NotImplementedError, match="device form"):
+        tsolve(EnsembleProblem(plain, 8), alg="em", backend="cuda",
+               t0=0.0, dt0=0.1, n_steps=4, device=cuda)
+    u0 = torch.ones(4, 8, dtype=torch.float64, device=cuda)
+    p = torch.ones(6, 8, dtype=torch.float64, device=cuda)
+    kw = dict(noise="general", m_noise=8, t0=0.0, dt=0.1, n_steps=4,
+              save_every=1, seed=0)
+    with pytest.raises(NotImplementedError, match="gdg"):
+        sde_kernel.sde_ensemble(tdp.crn_drift, tdp.crn_diffusion,
+                                "milstein", u0, p, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        sde_kernel.sde_ensemble(tdp.crn_drift, tdp.crn_diffusion, "em",
+                                u0.T.contiguous().T, p, **kw)
+    with pytest.raises(ValueError, match="float64"):
+        sde_kernel.sde_ensemble(tdp.crn_drift, tdp.crn_diffusion, "em", u0,
+                                p.float(), **kw)
+    assert sde_kernel.launches == before

@@ -199,8 +199,14 @@ def test_method_registry_erk_and_later_slices():
         spec, ref = get_method(name), jget(name)
         assert (spec.name, spec.family, spec.order, spec.adaptive) == \
             (ref.name, ref.family, ref.order, ref.adaptive)
-    assert {s.name for s in list_methods()} == set(jtab.TABLEAUS)
-    for name in ("rosenbrock23", "rodas5p", "em", "milstein"):
+    for name in ("em", "gpuem", "euler_maruyama", "siea", "gpusiea",
+                 "heun_strat", "milstein"):
+        spec, ref = get_method(name), jget(name)
+        assert (spec.name, spec.family, spec.order, spec.noise) == \
+            (ref.name, ref.family, ref.order, ref.noise)
+    assert {s.name for s in list_methods()} == set(jtab.TABLEAUS) | {
+        "em", "platen_w2", "heun_strat", "milstein"}
+    for name in ("rosenbrock23", "rodas5p"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_method(name)
     tsit5 = get_method("tsit5")
@@ -223,7 +229,8 @@ def test_front_door_defaults_to_cuda_and_raises_without_it(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(event=object()),
                                 dict(sensitivity="adjoint"),
                                 dict(ensemble="auto"),
-                                dict(alg="rodas4"), dict(alg="em")])
+                                dict(alg="rodas4"),
+                                dict(alg="rosenbrock23")])
 def test_front_door_later_slices_raise(kw):
     from repro_torch.configs.de_problems import lorenz_ensemble
     from repro_torch.core.ensemble import solve_ensemble_local

@@ -14,6 +14,9 @@ PORT_MODULES = [
     "repro_torch.configs.de_problems", "repro_torch.kernels.build",
     "repro_torch.kernels.ensemble_kernel", "repro_torch.kernels.tsit5.kernel",
     "repro_torch.kernels.tsit5.ops", "repro_torch.kernels.tsit5.ref",
+    "repro_torch.core.sde", "repro_torch.kernels.rng",
+    "repro_torch.kernels.em.kernel", "repro_torch.kernels.em.ops",
+    "repro_torch.kernels.em.ref",
 ]
 
 
