@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (the explicit-RK
-ensemble kernel and the fixed-dt SDE kernel, all nvcc processes started
-together), holds each against its plain PyTorch twin on the card, drives
-the port's paths through the front door
-(`solve_ensemble_local(ensemble="kernel", backend="cuda")`): the paper's
-million-trajectory Lorenz ensemble, and the million-trajectory geometric
-Brownian motion (Fig. 9) and chemical-reaction-network sweep (Figs. 10/11)
-SDE ensembles, and times each beside the twin and the `vmap` and `array`
-strategies.  Every phase raises on failure, so the script exits non-zero;
-it also exits non-zero, printing no result, where CUDA is absent or the
-port's sources are not beside it.  The last line is one JSON object naming
+ensemble kernel, the fixed-dt SDE kernel, the batched LU kernel and the
+fused Rosenbrock stiff kernel, all nvcc processes started together), holds
+each against its plain PyTorch twin on the card, drives the port's paths
+through the front door (`solve_ensemble_local(ensemble="kernel",
+backend="cuda")`): the paper's million-trajectory Lorenz ensemble, the
+million-trajectory geometric Brownian motion (Fig. 9) and
+chemical-reaction-network sweep (Figs. 10/11) SDE ensembles, and the
+million-trajectory ROBER stiff ensembles (rodas5p, and rodas4 with lazy W),
+plus the `array` strategy with the batched LU kernel as its linear solver,
+and times each beside the twin and, except for the rodas4 stiff forms, the
+`vmap` and `array` strategies.  Every phase raises on failure, so the
+script exits non-zero; it also exits non-zero, printing no result, where
+CUDA is absent or the port's sources are not beside it.  The last line is one JSON object naming
 the device; the line before it lists every kernel with its launches on its
 path, its error against the plain version, its time and its bound.
 """
@@ -31,9 +34,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and the
-# non-tensor-core FP32 rate.
+# non-tensor-core FP32 and FP64 rates.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
+# The FP64 peak counts a fused multiply-add as two operations.  An add or
+# multiply rounded on its own (the `_rn` intrinsics of the stiff and LU
+# kernels) is one instruction at the same issue rate, so such operations
+# run at half the peak at most.
+PEAK_FP64_UNFUSED_OPS = PEAK_FP64_FLOPS / 2
 # Integer issue limits of one H100 SXM (132 SMs, 1.98 GHz maximum boost
 # clock), from the CUDA C++ Programming Guide's throughput table for compute
 # capability 9.0: 32-bit funnel shifts and bitwise operations run on the ALU
@@ -94,6 +103,21 @@ NORMAL_FLOPS = 13
 SDE_STEP_FLOPS = {("gbm", "em"): 21, ("gbm", "platen_w2"): 94,
                   ("crn", "em"): 84}
 
+# The stiff phases.  ROBER's bar is the reference's (tests/test_stiff.py):
+# rtol 1e-6, atol 1e-14 per element, and y1 + y2 + y3 = 1 within 1e-7.  The
+# f64 kernel against its twin: where a lane's step counts equal the twin's,
+# its states within STIFF_SAME_COUNTS_TOL of the lane's largest value.
+ROBER_RTOL, ROBER_ATOL, ROBER_SUM_TOL = 1e-6, 1e-14, 1e-7
+STIFF_SAME_COUNTS_TOL = 1e-10
+ROBER_SAVEAT = (1e-2, 1.0, 1e2, 1e4)
+ROBER_SETTINGS = dict(t0=0.0, tf=1e4, dt0=1e-6, rtol=1e-6, atol=1e-8)
+# LU kernel against its plain version on non-singular systems (both round
+# every product and difference on their own, so they should agree exactly)
+LU_TOL = 1e-12
+# Float operations of the device right-hand sides and Jacobians as
+# csrc/rosenbrock_ensemble.cu writes them (each add, multiply, divide one).
+STIFF_RHS_OPS = {"rober": (13, 9)}
+
 
 def gpu_line() -> str:
     out = subprocess.run(
@@ -140,26 +164,38 @@ def lorenz_inputs(N: int, dtype, device, seed: int = SEED):
                             dtype=dtype)
 
 
-def ptxas_summary(log: str):
+# mangled-name fragment -> tag, per source, for the ptxas report
+PTXAS_TAGS = {
+    "erk_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
+                        ("Tsit5", "tsit5"), ("Dopri5", "dopri5"),
+                        ("Lorenz", "lorenz"), ("Sho", "sho")),
+    "sde_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
+                        ("Gbm", "gbm"), ("Crn", "crn"), ("2EmE", "em"),
+                        ("HeunStrat", "heun_strat"),
+                        ("PlatenW2", "platen_w2"), ("Milstein", "milstein"),
+                        ("Lb0E", "rng"), ("Lb1E", "table"),
+                        ("sde_normals", "normals")),
+    "lu_solve.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
+                    *((f"Li{k}E", f"n={k}") for k in range(1, 9)),
+                    ("Lb0E", "nopivot"), ("Lb1E", "pivot")),
+    "rosenbrock_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
+                               ("Ros23w", "rosenbrock23"),
+                               ("Rodas4", "rodas4"), ("Rodas5p", "rodas5p"),
+                               ("Rober", "rober"), ("Orego", "orego"),
+                               ("Vdp", "vdp"), ("Lb0E", "eager"),
+                               ("Lb1E", "lazyW")),
+}
+
+
+def ptxas_summary(log: str, source: str):
     """One 'instantiation: registers, spills' entry per kernel in nvcc's
     -Xptxas=-v report."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1] if "'" in ln else ln
-            name = ",".join(
-                [tag for key, tag in (("kernelIf", "f32"), ("kernelId", "f64"),
-                                      ("Tsit5", "tsit5"),
-                                      ("Dopri5", "dopri5"),
-                                      ("Lorenz", "lorenz"), ("Sho", "sho"),
-                                      ("Gbm", "gbm"), ("Crn", "crn"),
-                                      ("2EmE", "em"),
-                                      ("HeunStrat", "heun_strat"),
-                                      ("PlatenW2", "platen_w2"),
-                                      ("Milstein", "milstein"),
-                                      ("Lb0E", "rng"), ("Lb1E", "table"),
-                                      ("sde_normals", "normals"))
-                 if key in mangled]) or mangled[:40]
+            name = ",".join([tag for key, tag in PTXAS_TAGS[source]
+                             if key in mangled]) or mangled[:40]
             spill = ""
         elif "spill stores" in ln and name:
             spill = ln.strip()
@@ -198,12 +234,14 @@ def sass_mix(lib: Path, *keys: str) -> dict:
 def phase_build() -> float:
     from repro_torch.kernels.build import build, library_path
     from repro_torch.kernels.em.kernel import SOURCE as SDE_SOURCE
+    from repro_torch.kernels.lu.kernel import SOURCE as LU_SOURCE
+    from repro_torch.kernels.rosenbrock.kernel import SOURCE as RB_SOURCE
     from repro_torch.kernels.tsit5.kernel import SOURCE
     t = time.perf_counter()
-    logs = build([SOURCE, SDE_SOURCE])
+    logs = build([SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE])
     secs = time.perf_counter() - t
     for src, log in logs.items():
-        print(f"build {src}: " + "; ".join(ptxas_summary(log)))
+        print(f"build {src}: " + "; ".join(ptxas_summary(log, src)))
     print(f"build: {secs:.1f} s ({'compiled' if logs else 'cached'})")
     # the integer instruction mix behind the SDE kernel's bound: one normal
     # per thread in the normals kernel; 3 normals per step in f32 em/gbm
@@ -699,6 +737,457 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the stiff family: the fused Rosenbrock kernel (K3) and the batched LU
+# kernel (K6)
+# ---------------------------------------------------------------------------
+
+def lane_rel(a, b):
+    """Per-lane max |a - b| over the lane's values, relative to the lane's
+    largest |b|; a and b are (N, ...) trajectory-major."""
+    d = (a.double() - b.double()).abs().reshape(a.shape[0], -1).max(dim=1)
+    scale = b.double().abs().reshape(b.shape[0], -1).max(dim=1).values
+    return d.values / scale.clamp_min(1e-300)
+
+
+def within_rober_bar(a, b):
+    """Lanes of a within rtol 1e-6, atol 1e-14 of b, every element."""
+    ok = ((a.double() - b.double()).abs()
+          <= ROBER_ATOL + ROBER_RTOL * b.double().abs())
+    return ok.reshape(a.shape[0], -1).all(dim=1)
+
+
+def rober_inputs(N: int, device):
+    from repro_torch.configs.de_problems import rober_ensemble
+    from repro_torch.core.problem import EnsembleProblem
+    host = rober_ensemble(N, tspan=(0.0, 1e4))
+    u0s, ps = (x.to(device).contiguous() for x in host.materialize())
+    return EnsembleProblem(host.prob, N, u0s=u0s, ps=ps)
+
+
+def stiff_metrics(rk, rt):
+    """Kernel result against twin result through the front door: the share
+    of lanes with equal step counts, the worst per-lane error on them and
+    on all lanes, and the lanes within the ROBER bar."""
+    import torch
+    same = (rk.naccept == rt.naccept) & (rk.nreject == rt.nreject)
+    rel = torch.maximum(lane_rel(rk.us, rt.us),
+                        lane_rel(rk.u_final, rt.u_final))
+    worst_same = float(rel[same].max()) if bool(same.any()) else 0.0
+    bar = within_rober_bar(rk.us, rt.us) & within_rober_bar(rk.u_final,
+                                                            rt.u_final)
+    return float(same.double().mean()), worst_same, float(rel.max()), bar
+
+
+def stiff_compare(name, rk, rt, *, rober: bool):
+    """`stiff_metrics` with the gates: status 0, equal-count lanes within
+    STIFF_SAME_COUNTS_TOL, every lane within the ROBER bar, and for ROBER
+    the conserved sum."""
+    if int(rk.status) != 0 or int(rt.status) != 0:
+        raise AssertionError(f"{name}: status {int(rk.status)} (kernel), "
+                             f"{int(rt.status)} (twin)")
+    share, worst_same, worst, bar = stiff_metrics(rk, rt)
+    if worst_same > STIFF_SAME_COUNTS_TOL or not bool(bar.all()):
+        raise AssertionError(
+            f"{name}: lanes with equal counts differ by {worst_same:.3e} > "
+            f"{STIFF_SAME_COUNTS_TOL}, or {int((~bar).sum())} lanes beyond "
+            f"the ROBER bar")
+    if rober:
+        total = (rk.u_final.sum(dim=1) - 1.0).abs().max()
+        if float(total) > ROBER_SUM_TOL:
+            raise AssertionError(f"{name}: y1 + y2 + y3 off 1 by "
+                                 f"{float(total):.3e}")
+    return share, worst_same, worst
+
+
+def stiff_parity_cases(device, N: int):
+    """(name, ensemble, front-door arguments, is ROBER) of the f64 stiff
+    parity phase: ROBER with every method, eager and lazy W; OREGO with
+    rodas5p; Van der Pol with rodas4."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    from repro_torch.core.problem import EnsembleProblem
+
+    rng = np.random.default_rng(SEED)
+    rober = rober_inputs(N, device)
+    orego = dp.orego_problem(tspan=(0.0, 5.0))
+    orego_ep = ensemble_problem(
+        orego, np.asarray([1.0, 2.0, 3.0]) * rng.uniform(0.9, 1.1, (N, 3)),
+        np.tile(orego.p.numpy(), (N, 1)), device=device)
+    vdp = dp.vdp_ensemble(N)
+    vdp_ep = EnsembleProblem(vdp.prob, N, u0s=vdp.materialize()[0].to(device),
+                             ps=vdp.ps.to(device))
+    f64 = torch.float64
+    rober_kw = dict(ROBER_SETTINGS, saveat=torch.tensor(ROBER_SAVEAT,
+                                                        dtype=f64))
+    cases = [(f"rober {alg} {'lazyW' if wr else 'eager'}", rober,
+              dict(rober_kw, alg=alg, w_reuse=wr), True)
+             for alg in ("rodas5p", "rodas4", "rosenbrock23")
+             for wr in (False, True)]
+    cases += [("orego rodas5p", orego_ep,
+               dict(alg="rodas5p", t0=0.0, tf=5.0, dt0=1e-4, rtol=1e-7,
+                    atol=1e-8, saveat=torch.linspace(0.0, 5.0, 6,
+                                                     dtype=f64)), False),
+              ("vdp rodas4", vdp_ep,
+               dict(alg="rodas4", t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-6,
+                    atol=1e-6, saveat=torch.linspace(0.0, 1.0, 5,
+                                                     dtype=f64)), False)]
+    return cases
+
+
+def phase_stiff_parity(device, N: int = PARITY_N):
+    """f64, the fused Rosenbrock kernel against its twin (the same front
+    door on `backend="torch"` with the lanes LU) on the same card."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+
+    out, cases = {}, stiff_parity_cases(device, N)
+    for name, ep, kw, is_rober in cases:
+        before = rb_kernel.launches
+        rk = solve_ensemble_local(ep, ensemble="kernel", backend="cuda",
+                                  device=device, **kw)
+        rt = solve_ensemble_local(ep, ensemble="kernel", backend="torch",
+                                  linsolve="lanes", device=device, **kw)
+        sync(device)
+        if device.type == "cuda" and rb_kernel.launches != before + 1:
+            raise AssertionError(f"stiff parity {name}: the kernel was not "
+                                 "launched")
+        share, worst_same, worst = stiff_compare(name, rk, rt,
+                                                 rober=is_rober)
+        attempts = int((rk.naccept.long() + rk.nreject.long()).sum())
+        if not kw.get("w_reuse") and not (int(rk.njac) == int(rk.nfact)
+                                          == attempts):
+            raise AssertionError(f"stiff parity {name}: eager njac "
+                                 f"{int(rk.njac)}, nfact {int(rk.nfact)} != "
+                                 f"attempts {attempts}")
+        out[name] = dict(same_counts=share, worst_same=worst_same,
+                         worst=worst)
+        print(f"stiff parity {name}: N={N} f64 status 0, lanes with equal "
+              f"counts {share:.4f}, worst per-lane rel err on them "
+              f"{worst_same:.3e} (bar {STIFF_SAME_COUNTS_TOL}), on all "
+              f"{worst:.3e} (every lane within rtol {ROBER_RTOL}, atol "
+              f"{ROBER_ATOL}); attempts {attempts}, njac {int(rk.njac)}, "
+              f"nfact {int(rk.nfact)} (twin {int(rt.njac)}, "
+              f"{int(rt.nfact)})")
+
+    # float32: Van der Pol on the kernel, against the f64 twin
+    vdp_ep = next(ep for name, ep, _, _ in cases if name == "vdp rodas4")
+    f64 = torch.float64
+    vdp32 = EnsembleProblem(dp.vdp_problem(dtype=torch.float32), N,
+                            u0s=vdp_ep.u0s.float(), ps=vdp_ep.ps.float())
+    kw = dict(alg="rodas4", t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-4, atol=1e-6)
+    r32 = solve_ensemble_local(vdp32, ensemble="kernel", backend="cuda",
+                               saveat=torch.linspace(0.0, 1.0, 5),
+                               device=device, **kw)
+    r64 = solve_ensemble_local(vdp_ep, ensemble="kernel", backend="torch",
+                               linsolve="lanes", device=device,
+                               saveat=torch.linspace(0.0, 1.0, 5, dtype=f64),
+                               **kw)
+    if int(r32.status) != 0 or not bool(torch.isfinite(r32.us).all()):
+        raise AssertionError(f"vdp rodas4 f32: status {int(r32.status)} or "
+                             "non-finite values")
+    d32 = float(((r32.us.double() - r64.us).abs()
+                 / (1.0 + r64.us.abs())).max())
+    print(f"stiff parity vdp rodas4 f32 kernel: status 0, against the f64 "
+          f"twin {d32:.3e} (rtol 1e-4)")
+    out["vdp rodas4 f32 vs f64 twin"] = d32
+    return out
+
+
+def lu_batch(n: int, N: int, seed: int = SEED):
+    """N random n x n f64 systems from a seed: one in 64 with a zero
+    diagonal (it needs row swaps), eight exactly singular (a zero column,
+    so a pivot is exactly zero) and eight zero matrices."""
+    rng = np.random.default_rng(seed + n)
+    W = rng.standard_normal((N, n, n))
+    W[::64, np.arange(n), np.arange(n)] = 0.0
+    sing = rng.choice(N, 16, replace=False)
+    W[sing[:8], :, n // 2] = 0.0
+    W[sing[8:]] = 0.0
+    return W, rng.standard_normal((N, n))
+
+
+def lu_ops(n: int) -> int:
+    """Float operations of one system in csrc/lu_lanes.cuh as written: per
+    step k a reciprocal, the multipliers and the row updates; the forward
+    and back substitutions and the diagonal divides."""
+    ops = 0
+    for k in range(n):
+        r = n - k - 1
+        ops += 1 + r + 2 * r * r
+    return ops + 2 * n * (n - 1) + n
+
+
+def phase_lu(device, N: int = FULL_N, reps: int = 5):
+    """The batched LU kernel against its plain version on 2^20 systems of
+    n = 3 and n = 8, with singular ones, and its reroute; times the kernel,
+    the plain version and the library's batched solves."""
+    import torch
+    from repro_torch.kernels.lu import kernel as lu_kernel
+    from repro_torch.kernels.lu import ops as lu_ops_mod
+    from repro_torch.kernels.lu.ref import ref_solve
+
+    rows = []
+    for n in (3, 8):
+        Wn, bn = lu_batch(n, N)
+        W = torch.from_numpy(Wn).to(device)
+        b = torch.from_numpy(bn).to(device)
+        Wl, bl = W.permute(1, 2, 0).contiguous(), b.T.contiguous()
+        before = lu_kernel.launches
+        x, pm = lu_kernel.lu_solve(Wl, bl)
+        xp, pmp = lu_kernel.lu_solve_lanes(Wl, bl, with_pivmin=True)
+        sync(device)
+        if device.type == "cuda" and lu_kernel.launches != before + 1:
+            raise AssertionError(f"lu n={n}: the kernel was not launched")
+        ok, okp = pm > 0, pmp > 0
+        if not torch.equal(ok, okp):
+            raise AssertionError(f"lu n={n}: pivmin > 0 differs on "
+                                 f"{int((ok != okp).sum())} systems")
+        err = float(((x - xp).abs().max(dim=0).values
+                     / xp.abs().max(dim=0).values)[ok].max())
+        max_abs = float((x - xp)[:, ok].abs().max())
+        bitwise = bool(torch.equal(x[:, ok], xp[:, ok])
+                       and torch.equal(pm[ok], pmp[ok]))
+        if err > LU_TOL:
+            raise AssertionError(f"lu n={n}: x differs from the plain "
+                                 f"version by {err:.3e} > {LU_TOL}")
+        lu_ops_mod.rerouted = 0
+        xb = lu_ops_mod.batched_solve(W, b)
+        sing = ~ok
+        want = ref_solve(W[sing], b[sing])
+        if not (torch.equal(xb[sing].isnan(), want.isnan())
+                and torch.equal(xb[sing].nan_to_num(), want.nan_to_num())
+                and torch.equal(xb[ok], x.T[ok])):
+            raise AssertionError(f"lu n={n}: the rerouted systems are not "
+                                 "the reference solve's output")
+        rerouted = lu_ops_mod.rerouted
+
+        ms = cuda_ms(lambda: lu_kernel.lu_solve(Wl, bl), reps)
+        plain_ms = cuda_ms(lambda: lu_kernel.lu_solve_lanes(
+            Wl, bl, with_pivmin=True), reps)
+        solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(W, b), reps)
+        lufs_ms = cuda_ms(lambda: ref_solve(W, b), reps)
+        nbytes = 8 * (n * n * N + 2 * n * N + N)
+        ops = lu_ops(n) * N
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FP64_FLOPS * 1e3
+        print(f"lu n={n}: N={N} f64, pivmin > 0 flags equal "
+              f"({int(sing.sum())} singular, {rerouted} rerouted to the "
+              f"reference solve, equal to it), non-singular x against the "
+              f"plain version {err:.3e} (bar {LU_TOL}), bitwise {bitwise}")
+        print(f"lu n={n}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"library torch.linalg.solve_ex {solve_ms:.3f} ms, "
+              f"lu_factor_ex + lu_solve {lufs_ms:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({nbytes:.3e} bytes "
+              f"{t_bytes:.4f} ms, {ops:.3e} f64 ops {t_ops:.4f} ms)")
+        rows.append({
+            "name": f"lu_solve[f64,n={n}]", "n": n, "route": "cuda",
+            "source": "src/repro_torch/csrc/lu_solve.cu",
+            "replaces": "src/repro/kernels/lu/kernel.py:115",
+            "launches": None, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": solve_ms, "library": "torch.linalg.solve_ex",
+            "lu_factor_ex_lu_solve_ms": lufs_ms, "rerouted": rerouted})
+    return rows
+
+
+def phase_array_linsolve_cuda(device, N: int = 2 ** 16):
+    """The `array` strategy with the batched LU kernel as its W solve:
+    ROBER, rodas4, against the same strategy on the library's LU."""
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.kernels.lu import kernel as lu_kernel
+    from repro_torch.kernels.lu import ops as lu_ops_mod
+
+    ep = rober_inputs(N, device)
+    kw = dict(ROBER_SETTINGS, alg="rodas4", ensemble="array", device=device,
+              saveat=torch.tensor(ROBER_SAVEAT, dtype=torch.float64))
+    lu_kernel.launches = lu_ops_mod.rerouted = 0
+    t = time.perf_counter()
+    rc = solve_ensemble_local(ep, linsolve="cuda", **kw)
+    sync(device)
+    secs_cuda = time.perf_counter() - t
+    launches, rerouted = lu_kernel.launches, lu_ops_mod.rerouted
+    t = time.perf_counter()
+    rt = solve_ensemble_local(ep, linsolve="torch", **kw)
+    sync(device)
+    secs_torch = time.perf_counter() - t
+    iters = int((rc.naccept + rc.nreject).max())
+    stages = 6
+    if device.type == "cuda" and launches != stages * iters:
+        raise AssertionError(f"array linsolve=cuda: {launches} LU launches, "
+                             f"not one per stage solve ({stages} x {iters})")
+    if int(rc.status) != 0 or int(rt.status) != 0:
+        raise AssertionError("array linsolve=cuda: status not 0")
+    bar = within_rober_bar(rc.us, rt.us) & within_rober_bar(rc.u_final,
+                                                            rt.u_final)
+    if not bool(bar.all()):
+        raise AssertionError(f"array linsolve=cuda: {int((~bar).sum())} "
+                             "lanes beyond the ROBER bar of linsolve=torch")
+    same = float(((rc.naccept == rt.naccept)
+                  & (rc.nreject == rt.nreject)).double().mean())
+    worst = float(torch.maximum(lane_rel(rc.us, rt.us),
+                                lane_rel(rc.u_final, rt.u_final)).max())
+    print(f"array rodas4 linsolve=cuda: N={N} f64 status 0, LU launches "
+          f"{launches} (one per stage solve: {stages} x {iters} loop "
+          f"iterations), {rerouted} systems rerouted; against "
+          f"linsolve=torch every lane within the ROBER bar, worst {worst:.3e}"
+          f", lanes with equal counts {same:.4f}; front door "
+          f"{secs_cuda:.3f} s (cuda) and {secs_torch:.3f} s (torch)")
+    return launches
+
+
+def rosenbrock_attempt_ops(rtab, n: int, rhs: int, jac: int):
+    """Float operations of the fused kernel as written (each add, multiply,
+    divide, sqrt and pow one): (per attempt without the Jacobian and the
+    factorization, per Jacobian, per W build and factorization, per save).
+    Pivot compares, the secant touch-up and the lazy-W bookkeeping are not
+    counted, so the bound stays a lower one."""
+    nz = lambda row: int(np.count_nonzero(row))
+    s = rtab.stages
+    resolve = 2 * n * (n - 1) + n
+    ops = rhs + 1                                  # F0, γ·dt
+    for i in range(s):
+        if i:
+            ops += 2 * nz(rtab.a[i, :i]) * n + 2 + rhs   # g_i, t + c_i dt
+        ops += n + 2 * nz(rtab.C[i, :i]) * n     # γdt F_i + Σ γC_ij U_j
+        ops += 4 * n if rtab.d[i] != 0.0 else 0  # γd_i dt dt f_t
+        ops += resolve
+    ops += 2 * (nz(rtab.b) + nz(rtab.btilde)) * n
+    ops += 5 * n + 2                               # scaled RMS norm
+    ops += 7                                       # two pow, the PI update
+    fact = 2 * n * n + 1 + lu_ops(n) - resolve
+    save = 11 + 7 * n                              # Hermite at one point
+    return ops, jac, fact, save
+
+
+def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
+    """The stiff path at full size, f64, through the front door: ROBER with
+    rodas5p, and with rodas4 on lazy W beside eager rodas4."""
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.tableaus import get_rosenbrock_tableau
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+
+    ep = rober_inputs(N, device)
+    sv = torch.tensor(ROBER_SAVEAT, dtype=torch.float64, device=device)
+    forms = [("rober-1M-rodas5p", "rodas5p", False),
+             ("rober-1M-rodas4-eager", "rodas4", False),
+             ("rober-1M-rodas4-lazyW", "rodas4", True)]
+    rows, njac = [], {}
+    for form, alg, wr in forms:
+        kw = dict(ROBER_SETTINGS, alg=alg, w_reuse=wr, saveat=sv,
+                  device=device)
+        rb_kernel.launches = 0
+        res = solve_ensemble_local(ep, ensemble="kernel", backend="cuda",
+                                   **kw)
+        sync(device)
+        launches = rb_kernel.launches
+        if device.type == "cuda" and launches < 1:
+            raise AssertionError(f"{form}: the path launched no kernel")
+        S = sv.shape[0]
+        if tuple(res.us.shape) != (N, S, 3) or int(res.status) != 0 or \
+                not bool(torch.isfinite(res.us).all()):
+            raise AssertionError(f"{form}: shape {tuple(res.us.shape)}, "
+                                 f"status {int(res.status)} or non-finite")
+        total = float((res.u_final.sum(dim=1) - 1.0).abs().max())
+        if total > ROBER_SUM_TOL:
+            raise AssertionError(f"{form}: y1 + y2 + y3 off 1 by {total:.3e}")
+        attempts = int((res.naccept.long() + res.nreject.long()).sum())
+        njac[form] = int(res.njac)
+
+        # ---- the kernel and its plain twin on the same inputs -----------
+        rtab = get_rosenbrock_tableau(alg)
+        u0s, ps = ep.materialize()
+        u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+        kargs = dict(jac=ep.prob.jac, t0=0.0, tf=1e4, dt0=1e-6, rtol=1e-6,
+                     atol=1e-8, max_iters=100_000, w_reuse=wr)
+        f = ep.prob.f
+
+        def kernel():
+            return rb_kernel.rosenbrock_ensemble(f, rtab, u0_l, p_l, sv,
+                                                 **kargs)
+
+        def plain():
+            return rb_kernel._plain(f, rtab, u0_l, p_l, sv, **kargs)
+
+        out_k = kernel()
+        t = time.perf_counter()
+        out_p = plain()
+        sync(device)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        lk, lp = lanes_first(out_k), lanes_first(out_p)
+        bar = within_rober_bar(lk, lp)
+        same = float((out_k[3][:2] == out_p[3][:2]).all(0).double().mean())
+        bitwise = int((lk == lp).reshape(N, -1).all(dim=1).sum())
+        max_abs = float((lk - lp).abs().max())
+        if not bool(bar.all()):
+            raise AssertionError(
+                f"{form}: {int((~bar).sum())} kernel lanes beyond the ROBER "
+                f"bar of the twin (lanes with equal counts {same:.6f}, "
+                f"{bitwise} lanes bitwise equal, max abs {max_abs:.3e})")
+        ms = cuda_ms(kernel, reps)
+        strategies = {"kernel_cuda": cuda_ms(lambda: solve_ensemble_local(
+            ep, ensemble="kernel", backend="cuda", **kw), reps)}
+        if form == "rober-1M-rodas5p":
+            # the paper's comparison with the plain strategies, run once
+            # each, on this form only: they take seconds a run
+            for sname, ens in (("kernel_torch", "kernel"), ("vmap", "vmap"),
+                               ("array", "array")):
+                strategies[sname] = cuda_ms(lambda: solve_ensemble_local(
+                    ep, ensemble=ens, backend="torch", **kw), 1, warmup=0)
+
+        # ---- bound: f64 operations / FP64 peak, bytes / HBM ---------------
+        per_attempt, per_jac, per_fact, per_save = rosenbrock_attempt_ops(
+            rtab, 3, *STIFF_RHS_OPS["rober"])
+        ops = (attempts * per_attempt + int(res.njac) * per_jac
+               + int(res.nfact) * per_fact + N * S * per_save)
+        nbytes = 8 * (6 * N + S + S * 3 * N + 3 * N + N) + 4 * 6 * N
+        t_ops = ops / PEAK_FP64_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        bound_unfused = max(ops / PEAK_FP64_UNFUSED_OPS * 1e3, t_bytes)
+        print(f"{form}: N={N} f64 status 0, launches {launches}, attempts "
+              f"{attempts} ({attempts / N:.1f} a lane), njac "
+              f"{int(res.njac)}, nfact {int(res.nfact)}, y-sum off 1 by "
+              f"{total:.2e}; kernel against the f64 twin: every lane within "
+              f"the ROBER bar, lanes with equal counts {same:.4f}, "
+              f"{bitwise} of {N} lanes bitwise equal, max abs {max_abs:.3e}")
+        print(f"{form}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms (one "
+              f"run), bound {bound:.4f} ms by "
+              f"{'f64 operations' if t_ops >= t_bytes else 'bytes'} "
+              f"({bound_unfused:.4f} ms at the unfused rate, 17e12/s) "
+              f"({ops:.3e} ops: {per_attempt} an attempt, {per_jac} a "
+              f"Jacobian, {per_fact} a factorization; {nbytes:.3e} bytes "
+              f"{t_bytes:.4f} ms); front door ms "
+              + json.dumps({k: round(v, 3) for k, v in strategies.items()}))
+        if form != "rober-1M-rodas4-eager":
+            rows.append({
+                "name": f"rosenbrock_ensemble[{alg},rober,f64,"
+                        f"{'lazyW' if wr else 'eager'}]",
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/rosenbrock_ensemble.cu",
+                "replaces": "src/repro/kernels/ensemble_kernel.py:491",
+                "launches": launches, "max_abs_err": max_abs, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_unfused_ms": bound_unfused,
+                "library_ms": None, "attempts": attempts,
+                "njac": int(res.njac), "nfact": int(res.nfact)})
+    lazy, eager = njac["rober-1M-rodas4-lazyW"], njac["rober-1M-rodas4-eager"]
+    if not eager >= 2 * lazy:
+        raise AssertionError(f"lazy W: njac {lazy} is not 2x below eager "
+                             f"{eager}")
+    print(f"rober-1M-rodas4: lazy-W njac {lazy} against eager {eager} "
+          f"({eager / lazy:.2f}x fewer, bar 2x)")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -729,6 +1218,16 @@ def main() -> int:
     for r in sde_rows:
         r["parity_f64_rel_err"] = sde_worst
     rows += sde_rows
+    stiff = phase_stiff_parity(device)
+    lu_rows = phase_lu(device)
+    lu_launches = phase_array_linsolve_cuda(device)
+    for r in lu_rows:
+        # the stiff path solves ROBER's 3 x 3 systems: no path launches n = 8
+        r["launches"] = lu_launches if r["n"] == 3 else 0
+    stiff_rows = phase_stiff_full_size(device)
+    for r in stiff_rows:
+        r["parity_f64"] = stiff
+    rows += stiff_rows + lu_rows
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -4,16 +4,20 @@ port carries so far, in PyTorch.
 RHS functions are component style (index u[0], ..., combine with
 torch.stack), so the same definition runs per trajectory, array-ensembled
 and lane-vectorized.  The fused CUDA kernels run the hand-written device
-functor each one is registered with (`device_rhs` for an ODE RHS,
-`device_sde` for an SDE's drift and diffusion).
+functor each one is registered with (`device_rhs` for an explicit-RK
+RHS, `device_stiff` for a stiff RHS and its Jacobian, `device_sde` for an
+SDE's drift and diffusion).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core.problem import EnsembleProblem, ODEProblem, SDEProblem
 from repro_torch.kernels.em.kernel import device_sde
+from repro_torch.kernels.rosenbrock.kernel import device_stiff
 from repro_torch.kernels.tsit5.kernel import device_rhs
 
 
@@ -44,6 +48,97 @@ def lorenz_ensemble(n_trajectories: int, dtype=torch.float32,
     ps = torch.stack([torch.full_like(rho, 10.0), rho,
                       torch.full_like(rho, 8.0 / 3.0)], dim=1)
     return EnsembleProblem(prob, n_trajectories, ps=ps)
+
+
+# Van der Pol — the standard stiff benchmark (paper §7's missing frontier)
+@device_stiff("vdp")
+def vdp_rhs(u, p, t):
+    mu = p[0]
+    return torch.stack([u[1], mu * ((1.0 - u[0] ** 2) * u[1]) - u[0]])
+
+
+def vdp_problem(mu=10.0, tspan=(0.0, 1.0), dtype=torch.float64) -> ODEProblem:
+    return ODEProblem(vdp_rhs, torch.tensor([2.0, 0.0], dtype=dtype),
+                      torch.tensor([mu], dtype=dtype), tspan, name="vdp")
+
+
+def vdp_ensemble(n_trajectories: int, mu_range=(5.0, 20.0),
+                 tspan=(0.0, 1.0), dtype=torch.float64) -> EnsembleProblem:
+    """Stiffness sweep: mu uniform over mu_range (larger mu = stiffer)."""
+    prob = vdp_problem(tspan=tspan, dtype=dtype)
+    mus = torch.linspace(mu_range[0], mu_range[1], n_trajectories,
+                         dtype=dtype)
+    return EnsembleProblem(prob, n_trajectories, ps=mus[:, None])
+
+
+# ROBER — Robertson's chemical kinetics, the classic stiff benchmark (paper
+# §5.1.3's GPURodas4/GPURodas5P target).  Its rate constants span nine
+# orders of magnitude, so it is meaningless in float32.  It ships an
+# analytic Jacobian for the ODEProblem.jac hook; without it the solvers take
+# jacfwd, with the same results.
+@device_stiff("rober")
+def rober_rhs(u, p, t):
+    k1, k2, k3 = p[0], p[1], p[2]
+    y1, y2, y3 = u[0], u[1], u[2]
+    return torch.stack([
+        -k1 * y1 + k3 * y2 * y3,
+        k1 * y1 - k2 * y2 * y2 - k3 * y2 * y3,
+        k2 * y2 * y2,
+    ])
+
+
+@device_stiff("rober")
+def rober_jac(u, p, t):
+    """Analytic ∂f/∂u in component style: (3, 3) per trajectory, (3, 3, B)
+    on a lane tile."""
+    k1, k2, k3 = p[0], p[1], p[2]
+    y1, y2, y3 = u[0], u[1], u[2]
+    z = torch.zeros_like(y1)
+    return torch.stack([
+        torch.stack([-k1 + z, k3 * y3, k3 * y2]),
+        torch.stack([k1 + z, -2.0 * k2 * y2 - k3 * y3, -k3 * y2]),
+        torch.stack([z, 2.0 * k2 * y2, z]),
+    ])
+
+
+def rober_problem(k1=0.04, k2=3e7, k3=1e4, tspan=(0.0, 1e5),
+                  dtype=torch.float64, analytic_jac=True) -> ODEProblem:
+    u0 = torch.tensor([1.0, 0.0, 0.0], dtype=dtype)
+    p = torch.tensor([k1, k2, k3], dtype=dtype)
+    return ODEProblem(rober_rhs, u0, p, tspan, name="rober",
+                      jac=rober_jac if analytic_jac else None)
+
+
+def rober_ensemble(n_trajectories: int, k1_range=(0.01, 0.1),
+                   tspan=(0.0, 1e5), dtype=torch.float64,
+                   analytic_jac=True) -> EnsembleProblem:
+    """Rate-constant sweep: k1 log-uniform over k1_range (k2, k3 fixed)."""
+    prob = rober_problem(tspan=tspan, dtype=dtype, analytic_jac=analytic_jac)
+    k1s = torch.linspace(math.log(k1_range[0]), math.log(k1_range[1]),
+                         n_trajectories, dtype=torch.float64).exp().to(dtype)
+    ps = torch.stack([k1s, torch.full_like(k1s, 3e7),
+                      torch.full_like(k1s, 1e4)], dim=1)
+    return EnsembleProblem(prob, n_trajectories, ps=ps)
+
+
+# OREGO — the Oregonator (Belousov-Zhabotinsky reaction), a stiff
+# limit-cycle oscillator (Hairer-Wanner's second standard stiff benchmark).
+@device_stiff("orego")
+def orego_rhs(u, p, t):
+    s, q, w = p[0], p[1], p[2]
+    y1, y2, y3 = u[0], u[1], u[2]
+    return torch.stack([
+        s * (y2 + y1 * (1.0 - q * y1 - y2)),
+        (y3 - (1.0 + y1) * y2) / s,
+        w * (y1 - y3),
+    ])
+
+
+def orego_problem(s=77.27, q=8.375e-6, w=0.161, tspan=(0.0, 360.0),
+                  dtype=torch.float64) -> ODEProblem:
+    u0 = torch.tensor([1.0, 2.0, 3.0], dtype=dtype)
+    p = torch.tensor([s, q, w], dtype=dtype)
+    return ODEProblem(orego_rhs, u0, p, tspan, name="orego")
 
 
 # A.2.1 Linear SDE (geometric Brownian motion) — asset-price model (Fig. 9)

@@ -6,8 +6,8 @@ from .problem import EnsembleProblem, ODEProblem, SDEProblem
 from .tableaus import (ROSENBROCK_TABLEAUS, TABLEAUS, RosenbrockTableau,
                        get_rosenbrock_tableau, get_tableau)
 from .controller import (STATUS_DTMIN_EXHAUSTED, STATUS_MAX_ITERS,
-                         STATUS_SUCCESS, PIController, hairer_norm,
-                         initial_dt, pi_propose)
+                         STATUS_SUCCESS, PIController, WReusePolicy,
+                         hairer_norm, initial_dt, pi_propose)
 from .methods import (MethodSpec, get_method, list_methods, register_method,
                       valid_dispatch)
 from .solvers import (AdaptiveOptions, SolveResult, interp_step, rk_step,
@@ -19,7 +19,7 @@ __all__ = [
     "EnsembleProblem", "ODEProblem", "SDEProblem",
     "TABLEAUS", "get_tableau", "ROSENBROCK_TABLEAUS", "RosenbrockTableau",
     "get_rosenbrock_tableau", "PIController", "hairer_norm", "pi_propose",
-    "initial_dt", "STATUS_SUCCESS", "STATUS_MAX_ITERS",
+    "initial_dt", "WReusePolicy", "STATUS_SUCCESS", "STATUS_MAX_ITERS",
     "STATUS_DTMIN_EXHAUSTED",
     "MethodSpec", "get_method", "list_methods", "register_method",
     "valid_dispatch",

@@ -51,8 +51,26 @@ def hairer_norm(err, u_old, u_new, atol, rtol, dim=None):
     """
     scale = atol + torch.maximum(u_old.abs(), u_new.abs()) * rtol
     r = err / scale
-    return torch.sqrt(torch.mean(r * r) if dim is None
-                      else torch.mean(r * r, dim=dim))
+    if dim is None:
+        total, count = torch.sum(r * r), r.numel()
+    else:
+        # the state axis summed left to right, as a kernel thread sums it
+        total = sum_left_to_right(r * r, dim)
+        count = r.shape[dim]
+    # the mean divides the sum by the count, as jnp.mean does: torch.mean,
+    # and a division by a Python number on CUDA, multiply by the rounded
+    # reciprocal instead
+    return torch.sqrt(total / torch.full_like(total, count))
+
+
+def sum_left_to_right(x, dim):
+    """Σ along `dim` in index order, ((x0 + x1) + x2) + ..., whatever
+    order the library's reduction would take."""
+    parts = x.unbind(dim)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
 
 
 def pi_propose(ctrl: PIController, dt, enorm, enorm_prev, accept):
@@ -73,6 +91,53 @@ def pi_propose(ctrl: PIController, dt, enorm, enorm_prev, accept):
     dt_next = torch.clamp(dt * fac, ctrl.dtmin, ctrl.dtmax)
     enorm_prev_next = torch.where(accept, e, enorm_prev)
     return dt_next, enorm_prev_next
+
+
+class WReusePolicy(NamedTuple):
+    """Freshness controller for lazy-W stiff stepping (sibling of
+    PIController), as `repro.core.controller.WReusePolicy`.
+
+    Per step attempt and per lane it decides two freshness levels:
+    re-evaluate J (``need_jac``) after a rejection taken with a reused J,
+    when an accepted error norm grew past ``enorm_limit`` or by more than
+    ``growth`` against the previous accepted one, or after ``max_age``
+    accepted steps on the same J; and re-factor W = I − γh·J from the
+    cached J (``need_fact``) whenever J refreshes or the step drifted from
+    the dt of the factorization by more than the γ-scaled threshold
+    γ·|dt − dt_fact| > dt_rtol·dt_fact.  Between refreshes an extrapolated
+    secant (Broyden) update, J ← J + secant·(Δf − J·Δu)·Δuᵀ/(Δuᵀ·Δu), keeps
+    the cached J close to the state (``secant = 0`` freezes it).
+    """
+
+    dt_rtol: float = 0.005    # γ-scaled dt-drift refactor threshold
+    growth: float = 4.0       # accepted-enorm growth ratio forcing a J refresh
+    enorm_limit: float = 0.9  # predictive refresh: accepted enorm above this
+    max_age: int = 20         # accepted steps per Jacobian, hard cap
+    secant: float = 2.0       # extrapolated-secant gain (0 = disable)
+
+
+def w_refresh(policy: WReusePolicy, gamma, dt, dt_fact, jac_stale):
+    """Pre-step freshness decision. Returns (need_jac, need_fact)."""
+    drift = gamma * (dt - dt_fact).abs() > policy.dt_rtol * dt_fact
+    return jac_stale, jac_stale | drift
+
+
+def w_mark_stale(policy: WReusePolicy, accept, enorm, enorm_prev, age, fresh):
+    """Post-step staleness signal for the NEXT attempt's `need_jac`:
+    `enorm_prev` is the previous accepted error norm (before this attempt's
+    update), `age` the accepted-step age of J after this attempt and
+    `fresh` whether J was re-evaluated for this attempt."""
+    rej_stale = ~accept & ~fresh
+    grew = accept & ((enorm > policy.growth * enorm_prev)
+                     | (enorm > policy.enorm_limit))
+    return rej_stale | grew | (age >= policy.max_age)
+
+
+def w_dt_blame(accept, fresh, dt, dt_proposed):
+    """Rejection triage with secant updates off: a step rejected on a
+    reused J retries at the same dt with a fresh J; fresh-J rejections keep
+    the PI controller's shrink."""
+    return torch.where(~accept & ~fresh, dt, dt_proposed)
 
 
 def initial_dt(f, u0, p, t0, tf, order, atol, rtol):

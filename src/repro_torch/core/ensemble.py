@@ -1,5 +1,5 @@
-"""Ensemble execution strategies (paper §5) on a single device — the erk
-and fixed-dt sde families of `repro.core.ensemble`, in PyTorch.
+"""Ensemble execution strategies (paper §5) on a single device — the erk,
+rosenbrock and fixed-dt sde families of `repro.core.ensemble`, in PyTorch.
 
 `solve_ensemble_local` is the front door.  Strategies (``ensemble=``):
 
@@ -23,6 +23,13 @@ and fixed-dt sde families of `repro.core.ensemble`, in PyTorch.
                                   (`repro_torch.kernels.tsit5`), one thread
                                   per trajectory.  On CPU tensors it runs
                                   its plain twin.
+
+The rosenbrock family (stiff, paper §5.1.3) runs the lanes engine
+`repro_torch.core.rosenbrock` with per-lane step control on every
+strategy: "vmap" over the whole batch with the library LU, "array" as one
+tile and "kernel"/"torch" in tiles, both with the chosen ``linsolve``, and
+"kernel"/"cuda" as the fused CUDA kernel (`repro_torch.kernels.rosenbrock`)
+with the lanes LU inline.
 
 The sde family (fixed dt, the paper's counter-RNG kernels, §5.2.2) runs
 "vmap" (`torch.func.vmap` of the per-trajectory loop), "array" and
@@ -94,12 +101,21 @@ def _tile_lanes(u0s, ps, lane_tile):
 def _untile(tiles, N, n):
     """Invert _tile_lanes on the lanes-mode SolveResults of the tiles."""
     lanes = lambda name: torch.cat([getattr(r, name) for r in tiles], dim=-1)
+
+    def total(name):
+        # per-lane work counters -> total over the real lanes; the erk
+        # engine leaves njac/nfact at 0
+        if not torch.is_tensor(getattr(tiles[0], name)):
+            return 0
+        return lanes(name)[:N].sum()
+
     return EnsembleResult(
         ts=tiles[0].ts, us=lanes("us")[..., :N].permute(2, 0, 1),
         u_final=lanes("u_final")[:, :N].T,
         t_final=lanes("t_final")[:N],
         naccept=lanes("naccept")[:N], nreject=lanes("nreject")[:N],
-        nf=lanes("nf")[:N].sum(), status=lanes("status").max())
+        nf=lanes("nf")[:N].sum(), status=lanes("status").max(),
+        njac=total("njac"), nfact=total("nfact"))
 
 
 # ----------------------------------------------------------------------------
@@ -284,6 +300,63 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
 
 
 # ----------------------------------------------------------------------------
+# family dispatch: rosenbrock (stiff, paper §5.1.3 + §7)
+# ----------------------------------------------------------------------------
+
+def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
+                      ensemble, backend, t0, tf, dt0, saveat, rtol, atol,
+                      lane_tile, max_iters, linsolve, w_reuse):
+    from .rosenbrock import LINSOLVES, solve_rosenbrock
+
+    rtab = spec.rtableau
+    if not spec.adaptive:
+        # btilde == 0: no embedded error estimate, and the stiff engine has
+        # no fixed-dt path
+        raise ValueError(
+            f"rosenbrock method {spec.name!r} has no embedded error weights "
+            "(btilde == 0); the stiff engine requires an adaptive pair")
+    if linsolve not in LINSOLVES:
+        raise ValueError(f"unknown linsolve {linsolve!r}; have {LINSOLVES}")
+    if w_reuse is None:
+        w_reuse = spec.w_reuse
+    jac = prob.jac
+    saveat = torch.as_tensor([tf] if saveat is None else saveat,
+                             dtype=u0s.dtype, device=u0s.device)
+    N, n = u0s.shape
+    kw = dict(rtol=rtol, atol=atol, saveat=saveat, max_iters=max_iters,
+              jac=jac, w_reuse=w_reuse)
+
+    if ensemble == "vmap":
+        # the reference vmaps its per-trajectory solver, whose refresh
+        # predicates are psum-reduced over the batch: the lanes engine over
+        # the whole batch with the library LU computes the same
+        res = solve_rosenbrock(prob.f, rtab, u0s.T, ps.T, t0, tf, dt0,
+                               linsolve="torch", **kw)
+        return _untile([res], N, n)
+    if ensemble == "kernel" and backend == "cuda":
+        from repro_torch.kernels.rosenbrock.ops import solve_rosenbrock_cuda
+        return solve_rosenbrock_cuda(prob, u0s, ps, rtab, t0=t0, tf=tf,
+                                     dt0=dt0, **kw)
+    if ensemble == "kernel" and backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
+                         "'cuda')")
+    if ensemble in ("array", "kernel"):
+        # "array": the whole ensemble as one lanes tile.  A lock-step
+        # scalar-dt Rosenbrock would need an (N·n)-sized Jacobian, so the
+        # array strategy keeps one state matrix with per-lane control, as
+        # the reference's does
+        u0p, psp, T, _ = _tile_lanes(
+            u0s, ps, None if ensemble == "array" else lane_tile)
+        tiles = [solve_rosenbrock(prob.f, rtab, u0p[i].T, psp[i].T, t0, tf,
+                                  dt0, linsolve=linsolve, **kw)
+                 for i in range(T)]
+        return _untile(tiles, N, n)
+    raise NotImplementedError(
+        f"rosenbrock methods do not support ensemble={ensemble!r} "
+        "(use 'vmap', 'array' or 'kernel')")
+
+
+# ----------------------------------------------------------------------------
 # family dispatch: sde (fixed-dt counter-RNG steppers, paper §5.2.2)
 # ----------------------------------------------------------------------------
 
@@ -413,22 +486,25 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                          rtol=1e-6, atol=1e-6, adaptive=None,
                          n_steps=None, save_every=1, lane_tile=None,
                          max_iters=100_000, event=None, key=None, seed=None,
-                         noise_table=None, lane_offset=0, sensitivity=None,
+                         noise_table=None, linsolve="torch", lane_offset=0,
+                         w_reuse=None, sensitivity=None,
                          device=None) -> EnsembleResult:
-    """Single-device ensemble solve of an explicit-RK or fixed-dt SDE
-    method through any strategy and backend.
+    """Single-device ensemble solve of an explicit-RK, Rosenbrock or
+    fixed-dt SDE method through any strategy and backend.
 
     Args:
       eprob: `EnsembleProblem` wrapping an `ODEProblem` or `SDEProblem`,
         with the per-trajectory (u0s, ps) variations.
-      alg: a registry name (``"tsit5"``, ``"dopri5"``, ``"em"``,
-        ``"platen_w2"``, ...), a `MethodSpec` or a bare `Tableau`.
+      alg: a registry name (``"tsit5"``, ``"dopri5"``, ``"rodas5p"``,
+        ``"rodas4"``, ``"rosenbrock23"``, ``"em"``, ``"platen_w2"``, ...),
+        a `MethodSpec`, or a bare `Tableau` or `RosenbrockTableau`.
       ensemble: ``"vmap"``, ``"array"``, ``"array_eager"`` (erk only) or
         ``"kernel"``.
       backend: ``"torch"`` (the lanes twin) or ``"cuda"`` (the hand-written
         kernels: tsit5 and dopri5 on an RHS registered with `device_rhs`;
         em, heun_strat, platen_w2 and milstein on a drift/diffusion pair
-        registered with `device_sde`) — kernel strategy only.
+        registered with `device_sde`; rosenbrock23, rodas4 and rodas5p on
+        an RHS registered with `device_stiff`) — kernel strategy only.
       t0, tf, dt0: time span (defaults from ``prob.tspan``) and initial
         step.  ``dt0=None`` derives it from Hairer's two-evaluation
         heuristic per trajectory, takes the ensemble minimum, and counts the
@@ -445,8 +521,16 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
         else 0.  Every strategy replays the same Threefry stream.
       noise_table: (n_steps, m, N) pre-drawn N(0,1) increments to use in
         place of the stream (pathwise tests against the reference).
+      linsolve: the stiff family's W solves — ``"torch"`` (the library's
+        batched LU), ``"lanes"`` (the lanes LU body inline) or ``"cuda"``
+        (one launch of the batched LU kernel per stage solve).  ``"vmap"``
+        always takes ``"torch"`` and ``"kernel"``/``"cuda"`` always inlines
+        the LU, as the reference's vmap and Pallas kernel do.
       lane_offset: GLOBAL index of the first trajectory, so SDE shards
         draw disjoint streams.
+      w_reuse: the stiff family's lazy-W path: None takes the method's
+        default (eager), True the default `WReusePolicy`, or a policy.  A
+        truthy value on a non-stiff method raises.
       event, sensitivity: later slices of the port; they raise
         `NotImplementedError` naming the ROADMAP item.
       device: where the solve runs.  None means ``"cuda"``.
@@ -479,11 +563,17 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
     t0 = prob.tspan[0] if t0 is None else t0
     tf = prob.tspan[1] if tf is None else tf
 
+    if w_reuse and spec.family != "rosenbrock":
+        # only a truthy request is an error: w_reuse=False/None stays a no-op
+        raise ValueError(
+            "w_reuse controls the Rosenbrock lazy-W path; "
+            f"{spec.name!r} ({spec.family}) has no W = I − γh·J to reuse")
+
     if spec.family == "sde":
         if dt0 is None:
             raise ValueError(
-                "dt0=None (automatic initial step) is erk only; SDE "
-                "stepping needs an explicit dt0")
+                "dt0=None (automatic initial step) is erk/rosenbrock only; "
+                "SDE stepping needs an explicit dt0")
         if not isinstance(prob, SDEProblem):
             raise TypeError(
                 f"method {spec.name!r} is an SDE stepper but the problem is "
@@ -506,11 +596,19 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
         dt0 = float(h.min())
         auto_dt_nf = 2 * u0s.shape[0]
 
-    res = _solve_erk(spec, prob, u0s, ps, ensemble=ensemble, backend=backend,
-                     t0=t0, tf=tf, dt0=dt0, saveat=saveat, rtol=rtol,
-                     atol=atol, adaptive=adaptive, n_steps=n_steps,
-                     save_every=save_every, lane_tile=lane_tile,
-                     max_iters=max_iters)
+    if spec.family == "rosenbrock":
+        res = _solve_rosenbrock(spec, prob, u0s, ps, ensemble=ensemble,
+                                backend=backend, t0=t0, tf=tf, dt0=dt0,
+                                saveat=saveat, rtol=rtol, atol=atol,
+                                lane_tile=lane_tile, max_iters=max_iters,
+                                linsolve=linsolve, w_reuse=w_reuse)
+    else:
+        res = _solve_erk(spec, prob, u0s, ps, ensemble=ensemble,
+                         backend=backend, t0=t0, tf=tf, dt0=dt0,
+                         saveat=saveat, rtol=rtol, atol=atol,
+                         adaptive=adaptive, n_steps=n_steps,
+                         save_every=save_every, lane_tile=lane_tile,
+                         max_iters=max_iters)
     if auto_dt_nf:
         res = res._replace(nf=res.nf + auto_dt_nf)
     return res

@@ -1,9 +1,8 @@
-"""Method registry — the erk and sde families of `repro.core.methods`.
+"""Method registry — `repro.core.methods` in PyTorch.
 
-A `MethodSpec` describes an algorithm: its family, the tableau or stepper
-that drives the shared engine, and its capabilities.  The port carries the
-explicit-RK family and the fixed-dt SDE steppers; a Rosenbrock name raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+A `MethodSpec` describes an algorithm: its family (explicit RK,
+Rosenbrock-stiff, or fixed-dt SDE stepper), the tableau or stepper that
+drives the shared engine, and its capabilities.
 """
 from __future__ import annotations
 
@@ -12,18 +11,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 from .tableaus import ROSENBROCK_TABLEAUS, TABLEAUS, RosenbrockTableau, Tableau
 
-FAMILIES = ("erk", "sde")
+FAMILIES = ("erk", "rosenbrock", "sde")
 STRATEGIES = ("vmap", "array", "array_eager", "kernel")
 # "torch" is the plain lanes twin (the reference's "xla"); "cuda" the
 # hand-written kernel (the reference's "pallas")
 BACKENDS = ("torch", "cuda")
-
-_NOT_PORTED = {
-    "rosenbrock": "ROADMAP queue 1 item 5 (core/rosenbrock.py with the "
-                  "kernels/lu twins)",
-}
-_ROSENBROCK_ALIASES = ("rb23", "ode23s", "gpurosenbrock23", "gpurodas4",
-                       "gpurodas5p", "rodas5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,11 +25,17 @@ class MethodSpec:
     name:      canonical registry key.
     family:    one of FAMILIES.
     tableau:   Butcher tableau (erk).
+    rtableau:  Rosenbrock W-method tableau (rosenbrock).
     stepper:   one-step function (sde).
     order:     order of the propagated solution (strong order for sde).
     adaptive:  the method can run with error control.  False for every sde
                stepper until the adaptive SDE engine is ported (ROADMAP
                queue 1 item 6); the reference marks them adaptive.
+    stiff:     the method is linearly implicit (rosenbrock).
+    w_reuse:   rosenbrock only — the method's default for the lazy-W path
+               (Jacobian and LU(W) reuse across steps under a
+               `repro_torch.core.controller.WReusePolicy`); False steps
+               eagerly.  A solve overrides it with ``w_reuse=``.
     noise:     noise structures the stepper supports (sde).
     aliases:   alternative lookup names (paper-facing spellings).
     """
@@ -46,8 +44,11 @@ class MethodSpec:
     family: str
     order: float
     tableau: Optional[Tableau] = None
+    rtableau: Optional[RosenbrockTableau] = None
     stepper: Optional[Callable] = None
     adaptive: bool = True
+    stiff: bool = False
+    w_reuse: bool = False
     noise: Tuple[str, ...] = ()
     aliases: Tuple[str, ...] = ()
 
@@ -56,6 +57,9 @@ class MethodSpec:
             raise ValueError(f"family {self.family!r} not one of {FAMILIES}")
         if self.family == "erk" and self.tableau is None:
             raise ValueError(f"erk method {self.name!r} needs a tableau")
+        if self.family == "rosenbrock" and self.rtableau is None:
+            raise ValueError(
+                f"rosenbrock method {self.name!r} needs an rtableau")
         if self.family == "sde" and self.stepper is None:
             raise ValueError(f"sde method {self.name!r} needs a stepper")
 
@@ -78,18 +82,22 @@ def _erk_spec(tab: Tableau, aliases=()) -> MethodSpec:
                       aliases=aliases)
 
 
+def _rosenbrock_spec(rtab: RosenbrockTableau, aliases=()) -> MethodSpec:
+    return MethodSpec(name=rtab.name, family="rosenbrock", order=rtab.order,
+                      rtableau=rtab, adaptive=bool((rtab.btilde != 0).any()),
+                      stiff=True, aliases=aliases)
+
+
 def get_method(alg: Any) -> MethodSpec:
-    """Resolve `alg` (name, Tableau, or MethodSpec) to a MethodSpec.  A bare
-    Tableau is wrapped as an ad-hoc erk spec."""
+    """Resolve `alg` (name, Tableau, RosenbrockTableau or MethodSpec) to a
+    MethodSpec.  A bare tableau is wrapped as an ad-hoc spec of its
+    family."""
     if isinstance(alg, MethodSpec):
         return alg
     if isinstance(alg, Tableau):
         return _erk_spec(alg)
-    if isinstance(alg, RosenbrockTableau) or alg in ROSENBROCK_TABLEAUS \
-            or alg in _ROSENBROCK_ALIASES:
-        raise NotImplementedError(
-            f"stiff method {getattr(alg, 'name', alg)!r} is not ported yet: "
-            + _NOT_PORTED["rosenbrock"])
+    if isinstance(alg, RosenbrockTableau):
+        return _rosenbrock_spec(alg)
     try:
         return _REGISTRY[alg]
     except (KeyError, TypeError):
@@ -98,7 +106,8 @@ def get_method(alg: Any) -> MethodSpec:
 
 
 def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
-                   adaptive: Optional[bool] = None) -> Tuple[bool, str]:
+                   adaptive: Optional[bool] = None,
+                   w_reuse: bool = False) -> Tuple[bool, str]:
     """Is (strategy, backend) a combination the front door would accept?
     Returns ``(ok, reason)`` — the rules `solve_ensemble_local` enforces
     with exceptions, as a predicate."""
@@ -108,8 +117,12 @@ def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
         return False, f"unknown backend {backend!r}"
     if backend == "cuda" and ensemble != "kernel":
         return False, "backend='cuda' is kernel-strategy only"
-    if spec.family == "sde" and ensemble == "array_eager":
-        return False, "sde methods run on 'vmap', 'array' and 'kernel'"
+    if spec.family != "erk" and ensemble == "array_eager":
+        return False, f"array_eager is erk-only ({spec.family} family)"
+    if w_reuse and spec.family != "rosenbrock":
+        return False, "w_reuse is rosenbrock-only (no W to reuse)"
+    if spec.family == "rosenbrock" and not spec.adaptive:
+        return False, "rosenbrock engine requires an embedded pair"
     if adaptive and not spec.adaptive:
         return False, f"method {spec.name!r} has no adaptive step control"
     return True, "ok"
@@ -125,6 +138,14 @@ def _register_builtins():
     paper_alias = {"tsit5": ("gputsit5",), "vern7": ("gpuvern7",)}
     for tab in TABLEAUS.values():
         register_method(_erk_spec(tab, paper_alias.get(tab.name, ())))
+
+    # Rosenbrock stiff family (paper §5.1.3 — GPURosenbrock23 / GPURodas4 /
+    # GPURodas5P)
+    rb_alias = {"rosenbrock23": ("rb23", "ode23s", "gpurosenbrock23"),
+                "rodas4": ("gpurodas4",),
+                "rodas5p": ("gpurodas5p", "rodas5")}
+    for rtab in ROSENBROCK_TABLEAUS.values():
+        register_method(_rosenbrock_spec(rtab, rb_alias.get(rtab.name, ())))
 
     # SDE steppers, fixed-dt (the paper's GPU kernel set)
     from .sde import em_step, heun_strat_step, milstein_step, platen_w2_step

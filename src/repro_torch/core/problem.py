@@ -25,6 +25,11 @@ class ODEProblem:
     f: component-style RHS, shape-polymorphic over trailing lane dims.
     u0: (n,) initial condition template.
     p:  (m,) parameter template.
+    jac: optional analytic Jacobian ∂f/∂u, component style like f: returns
+        (n, n) for u (n,) and (n, n, B) for a lane tile u (n, B).  None
+        means the stiff solvers take it by forward-mode AD
+        (`torch.func.jacfwd`).  The CUDA kernel takes the Jacobian of the
+        device functor the RHS is registered with.
     data: dataset tables consumed as a fourth RHS argument.  Not ported yet
         (ROADMAP queue 1, item 8): the front door raises when it is set.
     """
@@ -34,6 +39,7 @@ class ODEProblem:
     p: Tensor
     tspan: Tuple[float, float]
     name: str = "ode"
+    jac: Optional[Callable[[Tensor, Tensor, Tensor], Tensor]] = None
     data: Optional[Any] = None
 
     @property

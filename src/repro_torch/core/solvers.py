@@ -18,7 +18,7 @@ The reference's ``lax.while_loop`` is a Python loop here; its loop body
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -38,6 +38,8 @@ class SolveResult(NamedTuple):
     nreject: Tensor
     status: Tensor    # 0 success, 1 max_iters exhausted, 2 dtmin exhausted
     nf: Tensor        # RHS evaluations (per control element)
+    njac: Any = 0     # Jacobian evaluations (stiff family; 0 elsewhere)
+    nfact: Any = 0    # W = I − γh·J factorizations (stiff family)
 
 
 def _bc(v, u):

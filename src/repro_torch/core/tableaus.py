@@ -261,8 +261,8 @@ def get_tableau(name: str) -> Tableau:
 
 # ============================================================================
 # Rosenbrock (linearly-implicit W-method) tableaus, implementation form
-# (Hairer-Wanner IV.7 eq. 7.4).  Data only in this slice: the stiff engine is
-# ROADMAP queue 1, item 5.
+# (Hairer-Wanner IV.7 eq. 7.4), run by `repro_torch.core.rosenbrock` and
+# compiled into `csrc/rosenbrock_ensemble.cu`.
 # ============================================================================
 
 
@@ -278,11 +278,24 @@ class RosenbrockTableau(NamedTuple):
     d: np.ndarray        # (s,)  f_t weights (= row sums of the k-form Γ)
     order: int
     embedded_order: int
+    # optional stiffly-accurate dense output: (L, s) weights; row l gives
+    # kd_l = Σ_j interp_h[l, j] U_j and u(θ) = (1-θ)u0 + θ·u1
+    # + θ(1-θ)(kd_1 + θ kd_2 + ...).  None => Hermite cubic (needs f(u1)).
     interp_h: Optional[np.ndarray] = None
 
     @property
     def stages(self) -> int:
         return len(self.b)
+
+    @property
+    def fnew_from_last_stage(self) -> bool:
+        """True when the last stage argument IS the step solution (g_s = u1,
+        c_s = 1), so f(u1) for Hermite dense output is the stage's own f
+        evaluation — no extra RHS call (holds for ROS23W)."""
+        s = self.stages
+        return (self.b[s - 1] == 0.0 and float(self.c[s - 1]) == 1.0
+                and bool(np.allclose(self.a[s - 1, : s - 1],
+                                     self.b[: s - 1], atol=1e-14)))
 
 
 def _lower(s, rows):

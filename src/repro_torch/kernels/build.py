@@ -3,8 +3,9 @@
 Each source in `repro_torch/csrc/` compiles on its own into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds), at
 first use, into `build/repro_torch/` at the repository root.  The file name
-carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused.  Nothing here runs at import time.
+carries a hash of the source, of every header in `csrc/` and of the flags,
+so an edited source or shared header rebuilds and an unchanged one is
+reused.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ def nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources: Sequence[str]) -> Dict[str, str]:

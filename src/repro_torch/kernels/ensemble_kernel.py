@@ -1,6 +1,6 @@
 """Launch-and-assemble layer of the fused ensemble kernels — the PyTorch
-counterpart of `repro.kernels.ensemble_kernel` for the erk family and the
-fixed-dt sde family.
+counterpart of `repro.kernels.ensemble_kernel` for the erk, rosenbrock and
+fixed-dt sde families.
 
 The reference's TPU factory tiles lanes into VMEM blocks; on the H100 each
 trajectory is one CUDA thread, so there is no tile to choose here.  What
@@ -54,6 +54,23 @@ def erk_body(f, tab, *, t0: float, tf: float, dt0: float, rtol: float,
         return erk_ensemble(f, tab, u0, p, extras[0], t0=t0, tf=tf, dt0=dt0,
                             rtol=rtol, atol=atol, adaptive=adaptive,
                             max_iters=max_iters)
+
+    return body
+
+
+def rosenbrock_body(f, rtab, *, jac, t0: float, tf: float, dt0: float,
+                    rtol: float, atol: float, max_iters: int,
+                    w_reuse) -> Callable:
+    """s-stage Rosenbrock stiff integration (rosenbrock23, rodas4, rodas5p)
+    with the per-lane LU of W = I − γh·J inline, eager or lazy-W
+    (`w_reuse`); `jac` is the problem's analytic Jacobian hook.  extras[0]
+    is the saveat grid (S,)."""
+    from repro_torch.kernels.rosenbrock.kernel import rosenbrock_ensemble
+
+    def body(u0, p, extras):
+        return rosenbrock_ensemble(f, rtab, u0, p, extras[0], jac=jac, t0=t0,
+                                   tf=tf, dt0=dt0, rtol=rtol, atol=atol,
+                                   max_iters=max_iters, w_reuse=w_reuse)
 
     return body
 

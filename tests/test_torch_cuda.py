@@ -161,3 +161,111 @@ def test_cuda_sde_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         sde_kernel.sde_ensemble(tdp.crn_drift, tdp.crn_diffusion, "em", u0,
                                 p.float(), **kw)
     assert sde_kernel.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the stiff kernels: fused Rosenbrock (csrc/rosenbrock_ensemble.cu) and the
+# batched LU (csrc/lu_solve.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_reuse", [False, True], ids=["eager", "lazy-W"])
+@pytest.mark.parametrize("alg", ["rosenbrock23", "rodas4", "rodas5p"])
+def test_cuda_rosenbrock_kernel_matches_twin(cuda, alg, w_reuse):
+    """f64 ROBER, N = 256: the kernel against its twin (the lanes engine
+    with the lanes LU) on the same card.  Lanes whose step counts equal the
+    twin's agree within 1e-10 of the lane's largest value, every lane within
+    the reference's ROBER bar (rtol 1e-6, atol 1e-14)."""
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    ep = tdp.rober_ensemble(256, tspan=(0.0, 1e4))
+    ep = EnsembleProblem(ep.prob, 256, u0s=ep.materialize()[0].to(cuda),
+                         ps=ep.ps.to(cuda))
+    kw = dict(alg=alg, ensemble="kernel", dt0=1e-6, rtol=1e-6, atol=1e-8,
+              saveat=torch.tensor([1e-2, 1.0, 1e2, 1e4], dtype=torch.float64),
+              w_reuse=w_reuse, device=cuda)
+    before = rb_kernel.launches
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", linsolve="lanes", **kw)
+    assert rb_kernel.launches == before + 1
+    assert int(rk.status) == 0 and int(rt.status) == 0
+    same = (rk.naccept == rt.naccept) & (rk.nreject == rt.nreject)
+    for a, b in ((rk.us, rt.us), (rk.u_final, rt.u_final)):
+        d = (a - b).abs().reshape(256, -1)
+        scale = b.abs().reshape(256, -1).max(dim=1).values
+        assert bool((d.max(dim=1).values[same] <= 1e-10 * scale[same]).all())
+        assert bool((d <= 1e-14 + 1e-6 * b.abs().reshape(256, -1)).all())
+    if not w_reuse:
+        attempts = int((rk.naccept + rk.nreject).sum())
+        assert int(rk.njac) == int(rk.nfact) == attempts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_cuda_lu_kernel_matches_plain_version(cuda, n):
+    """The LU kernel rounds as its plain version does: x and pivmin equal
+    bit for bit on the card, a singular and a zero system included, and
+    `batched_solve` returns the reference solve's output on those two."""
+    from repro_torch.kernels.lu import kernel as lu_kernel
+    from repro_torch.kernels.lu import ops as lu_ops
+    from repro_torch.kernels.lu.ref import ref_solve
+    rng = np.random.default_rng(n)
+    W = rng.standard_normal((300, n, n))
+    W[::7, np.arange(n), np.arange(n)] = 0.0
+    W[5, :, 0] = 0.0      # a zero column: an exactly zero pivot
+    W[6] = 0.0
+    W = torch.from_numpy(W).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((300, n))).to(cuda)
+    Wl, bl = W.permute(1, 2, 0).contiguous(), b.T.contiguous()
+    for pivot in (True, False):
+        before = lu_kernel.launches
+        x, pm = lu_kernel.lu_solve(Wl, bl, pivot=pivot)
+        xp, pmp = lu_kernel.lu_solve_lanes(Wl, bl, pivot=pivot,
+                                           with_pivmin=True)
+        assert lu_kernel.launches == before + 1
+        assert torch.equal(x.nan_to_num(7.0, 8.0, 9.0),
+                           xp.nan_to_num(7.0, 8.0, 9.0))
+        assert torch.equal(pm.nan_to_num(7.0), pmp.nan_to_num(7.0))
+    before = lu_ops.rerouted
+    xb = lu_ops.batched_solve(W, b)
+    assert lu_ops.rerouted == before + 2
+    want = ref_solve(W[5:7], b[5:7])
+    assert torch.equal(xb[5:7].nan_to_num(7.0, 8.0, 9.0),
+                       want.nan_to_num(7.0, 8.0, 9.0))
+
+
+@pytest.mark.cuda
+def test_cuda_stiff_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    """Raises, and never runs the plain version, on CUDA tensors."""
+    from repro_torch.core.problem import ODEProblem
+    from repro_torch.core.tableaus import RODAS4
+    from repro_torch.kernels.lu import kernel as lu_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    before = rb_kernel.launches, lu_kernel.launches
+    prob = tdp.rober_problem()
+    plain = ODEProblem(lambda u, p, t: -u, prob.u0, prob.p, (0.0, 1.0))
+    kw = dict(alg="rodas4", backend="cuda", dt0=1e-6, device=cuda)
+    with pytest.raises(NotImplementedError, match="device form"):
+        tsolve(EnsembleProblem(plain, 8), **kw)
+    other_jac = ODEProblem(prob.f, prob.u0, prob.p, (0.0, 1.0),
+                           jac=lambda u, p, t: tdp.rober_jac(u, p, t))
+    with pytest.raises(NotImplementedError, match="Jacobian"):
+        tsolve(EnsembleProblem(other_jac, 8), **kw)
+    renamed = RODAS4._replace(C=RODAS4.C * 1.0)
+    with pytest.raises(NotImplementedError, match="not compiled"):
+        tsolve(EnsembleProblem(prob, 8), **dict(kw, alg=renamed))
+    u0 = torch.ones(3, 8, dtype=torch.float64, device=cuda)
+    sv = torch.linspace(0, 1, 3, dtype=torch.float64, device=cuda)
+    args = dict(jac=None, t0=0.0, tf=1.0, dt0=1e-6, rtol=1e-6, atol=1e-8,
+                max_iters=10)
+    with pytest.raises(ValueError, match="contiguous"):
+        rb_kernel.rosenbrock_ensemble(prob.f, RODAS4, u0.T.contiguous().T,
+                                      u0, sv, **args)
+    with pytest.raises(ValueError, match="float64"):
+        rb_kernel.rosenbrock_ensemble(prob.f, RODAS4, u0, u0.float(), sv,
+                                      **args)
+    W = torch.eye(9, dtype=torch.float64, device=cuda)[..., None]
+    with pytest.raises(ValueError, match="n = 1..8"):
+        lu_kernel.lu_solve(W.contiguous(), torch.ones(9, 1,
+                                                      dtype=torch.float64,
+                                                      device=cuda))
+    assert (rb_kernel.launches, lu_kernel.launches) == before

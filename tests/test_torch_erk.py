@@ -204,11 +204,15 @@ def test_method_registry_erk_and_later_slices():
         spec, ref = get_method(name), jget(name)
         assert (spec.name, spec.family, spec.order, spec.noise) == \
             (ref.name, ref.family, ref.order, ref.noise)
+    for name in ("rosenbrock23", "rb23", "ode23s", "gpurosenbrock23",
+                 "rodas4", "gpurodas4", "rodas5p", "gpurodas5p", "rodas5"):
+        spec, ref = get_method(name), jget(name)
+        assert (spec.name, spec.family, spec.order, spec.adaptive,
+                spec.stiff) == (ref.name, ref.family, ref.order,
+                                ref.adaptive, ref.stiff)
     assert {s.name for s in list_methods()} == set(jtab.TABLEAUS) | {
-        "em", "platen_w2", "heun_strat", "milstein"}
-    for name in ("rosenbrock23", "rodas5p"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_method(name)
+        "em", "platen_w2", "heun_strat", "milstein"} | set(
+            jtab.ROSENBROCK_TABLEAUS)
     tsit5 = get_method("tsit5")
     assert valid_dispatch(tsit5, "kernel", "cuda")[0]
     assert not valid_dispatch(tsit5, "vmap", "cuda")[0]
@@ -229,8 +233,9 @@ def test_front_door_defaults_to_cuda_and_raises_without_it(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(event=object()),
                                 dict(sensitivity="adjoint"),
                                 dict(ensemble="auto"),
-                                dict(alg="rodas4"),
-                                dict(alg="rosenbrock23")])
+                                dict(alg="rodas4", event=object()),
+                                dict(alg="rosenbrock23",
+                                     sensitivity="adjoint")])
 def test_front_door_later_slices_raise(kw):
     from repro_torch.configs.de_problems import lorenz_ensemble
     from repro_torch.core.ensemble import solve_ensemble_local

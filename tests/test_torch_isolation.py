@@ -16,7 +16,11 @@ PORT_MODULES = [
     "repro_torch.kernels.tsit5.ops", "repro_torch.kernels.tsit5.ref",
     "repro_torch.core.sde", "repro_torch.kernels.rng",
     "repro_torch.kernels.em.kernel", "repro_torch.kernels.em.ops",
-    "repro_torch.kernels.em.ref",
+    "repro_torch.kernels.em.ref", "repro_torch.core.rosenbrock",
+    "repro_torch.core.events", "repro_torch.kernels.lu.kernel",
+    "repro_torch.kernels.lu.ops", "repro_torch.kernels.lu.ref",
+    "repro_torch.kernels.rosenbrock.kernel",
+    "repro_torch.kernels.rosenbrock.ops",
 ]
 
 
