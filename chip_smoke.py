@@ -4,21 +4,25 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (the explicit-RK
-ensemble kernel, the fixed-dt SDE kernel, the batched LU kernel and the
-fused Rosenbrock stiff kernel, all nvcc processes started together), holds
-each against its plain PyTorch twin on the card, drives the port's paths
-through the front door (`solve_ensemble_local(ensemble="kernel",
-backend="cuda")`): the paper's million-trajectory Lorenz ensemble, the
-million-trajectory geometric Brownian motion (Fig. 9) and
-chemical-reaction-network sweep (Figs. 10/11) SDE ensembles, and the
-million-trajectory ROBER stiff ensembles (rodas5p, and rodas4 with lazy W),
-plus the `array` strategy with the batched LU kernel as its linear solver,
-and times each beside the twin and, except for the rodas4 stiff forms, the
-`vmap` and `array` strategies.  Every phase raises on failure, so the
-script exits non-zero; it also exits non-zero, printing no result, where
-CUDA is absent or the port's sources are not beside it.  The last line is one JSON object naming
-the device; the line before it lists every kernel with its launches on its
-path, its error against the plain version, its time and its bound.
+ensemble kernel, the fixed-dt SDE kernel, the adaptive SDE kernel on the
+virtual Brownian tree, the batched LU kernel and the fused Rosenbrock stiff
+kernel, all nvcc processes started together), holds each against its plain
+PyTorch twin on the card, drives the port's paths through the front door
+(`solve_ensemble_local(ensemble="kernel", backend="cuda")`): the paper's
+million-trajectory Lorenz ensemble, the million-trajectory geometric
+Brownian motion (Fig. 9) and chemical-reaction-network sweep (Figs. 10/11)
+SDE ensembles, the million-trajectory adaptive GBM ensembles (the em
+embedded pair and step doubling, against the closed form on the same
+path), and the million-trajectory ROBER stiff ensembles (rodas5p, and
+rodas4 with lazy W), plus the `array` strategy with the batched LU kernel
+as its linear solver, and times each kernel beside its twin, and the
+`vmap` and `array` strategies on the ODE and fixed-dt SDE forms, on
+rober-1M-rodas5p and on gbm-1M-em-adaptive.  Every phase raises on
+failure, so the script exits non-zero; it also exits non-zero, printing no
+result, where CUDA is absent or the port's sources are not beside it.  The
+last line is one JSON object naming the device; the line before it lists
+every kernel with its launches on its path, its error against the plain
+version, its time and its bound.
 """
 from __future__ import annotations
 
@@ -103,6 +107,42 @@ NORMAL_FLOPS = 13
 SDE_STEP_FLOPS = {("gbm", "em"): 21, ("gbm", "platen_w2"): 94,
                   ("crn", "em"): 84}
 
+# The adaptive SDE phases (the kernel on the virtual Brownian tree).  f64
+# parity: kernel and plain version round every operation on their own, so
+# per-lane counts and status must be identical on every lane and states
+# within ADAPTIVE_TOL.  f32 at full size: f32 rounding may move an accept
+# decision, so counts must be equal on ADAPTIVE_F32_SAME of the lanes,
+# u_final within ADAPTIVE_F32_TOL relative on those and ADAPTIVE_ANY_TOL on
+# every lane (nudging every bridge normal by 2 f32 ulps moved u_final by at
+# most 9.6e-8 on the lanes whose counts held and 2.3e-3 on any lane, on
+# 1024 f64 GBM lanes on the CPU).  The strong error against the closed
+# form: the kernel's median within ADAPTIVE_MEDIAN_TOL of the f64 plain
+# version's.
+ADAPTIVE_TOL = 1e-12
+ADAPTIVE_F32_SAME, ADAPTIVE_F32_TOL, ADAPTIVE_ANY_TOL = 0.999, 1e-5, 1e-2
+ADAPTIVE_MEDIAN_TOL = 0.05
+# The f64 plain version of the strong-error check runs on the first
+# STRONG_N lanes (i.i.d. paths: the median of 3 * 2^16 errors has a
+# standard error near 0.1% of itself), to keep the smoke's time down.
+STRONG_N = 2 ** 16
+ADAPTIVE_SETTINGS = {
+    "gbm": dict(t0=0.0, tf=1.0, dt0=0.05, rtol=1e-3, atol=1e-5,
+                saveat=(0.25, 0.5, 0.75, 1.0)),
+    "crn": dict(t0=0.0, tf=10.0, dt0=0.1, rtol=1e-3, atol=1e-5,
+                saveat=(2.5, 5.0, 7.5, 10.0))}
+# benchmarks/bench_adaptive_sde.py's settings at the paper's 10^6 scale
+ADAPTIVE_FULL = dict(t0=0.0, tf=1.0, dt0=0.02, rtol=1e-3, atol=1e-5,
+                     depth=14, seed=7, saveat=(0.25, 0.5, 0.75, 1.0))
+# Float operations as the adaptive kernel writes them (add, multiply,
+# divide, max, abs, sqrt, pow one each).  A bridge normal: Box-Muller's 12
+# (NORMAL_FLOPS without the z * sqrt(dt)) and the midpoint's 4.  An attempt
+# on GBM besides the normals: the estimator (em pair 54: drift 3, diffusion
+# 3, gdg 6, error and update 14 a state; doubling with em 57: three em
+# steps of 15, the error 6, the 6 increments), the Hairer norm 26, the
+# controller 10, the dt, t and cell arithmetic 8.
+BRIDGE_FLOPS_PER_NORMAL = NORMAL_FLOPS - 1 + 4
+ADAPTIVE_ATTEMPT_FLOPS = {"embedded": 54 + 44, "doubling": 57 + 44}
+
 # The stiff phases.  ROBER's bar is the reference's (tests/test_stiff.py):
 # rtol 1e-6, atol 1e-14 per element, and y1 + y2 + y3 = 1 within 1e-7.  The
 # f64 kernel against its twin: where a lane's step counts equal the twin's,
@@ -175,6 +215,13 @@ PTXAS_TAGS = {
                         ("PlatenW2", "platen_w2"), ("Milstein", "milstein"),
                         ("Lb0E", "rng"), ("Lb1E", "table"),
                         ("sde_normals", "normals")),
+    "sde_adaptive_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
+                                 ("Gbm", "gbm"), ("Crn", "crn"),
+                                 ("2EmELb0E", "em"), ("HeunStrat", "heun_strat"),
+                                 ("PlatenW2", "platen_w2"),
+                                 ("8MilsteinELb0E", "milstein"),
+                                 ("EmPair", "em pair"),
+                                 ("MilsteinPair", "milstein pair")),
     "lu_solve.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                     *((f"Li{k}E", f"n={k}") for k in range(1, 9)),
                     ("Lb0E", "nopivot"), ("Lb1E", "pivot")),
@@ -233,12 +280,13 @@ def sass_mix(lib: Path, *keys: str) -> dict:
 
 def phase_build() -> float:
     from repro_torch.kernels.build import build, library_path
+    from repro_torch.kernels.em.adaptive import SOURCE as K5_SOURCE
     from repro_torch.kernels.em.kernel import SOURCE as SDE_SOURCE
     from repro_torch.kernels.lu.kernel import SOURCE as LU_SOURCE
     from repro_torch.kernels.rosenbrock.kernel import SOURCE as RB_SOURCE
     from repro_torch.kernels.tsit5.kernel import SOURCE
     t = time.perf_counter()
-    logs = build([SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE])
+    logs = build([SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE, K5_SOURCE])
     secs = time.perf_counter() - t
     for src, log in logs.items():
         print(f"build {src}: " + "; ".join(ptxas_summary(log, src)))
@@ -738,6 +786,273 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
 
 
 # ---------------------------------------------------------------------------
+# the adaptive SDE family: the kernel on the virtual Brownian tree (K5)
+# ---------------------------------------------------------------------------
+
+def adaptive_args(alg: str, est: str, noise: str, m: int, *, t0, tf, dt0,
+                  rtol, atol, seed, depth=None, lane_offset=0):
+    """The adaptive wrapper's arguments, resolved by the front door's
+    rule (`resolve_adaptive_sde`)."""
+    from repro_torch.core.ensemble import resolve_adaptive_sde
+    from repro_torch.core.methods import get_method
+    return dict(resolve_adaptive_sde(get_method(alg), noise, error_est=est,
+                                     brownian_depth=depth, t0=t0, tf=tf,
+                                     dt0=dt0),
+                noise=noise, m_noise=m, t0=t0, tf=tf, dt0=dt0, rtol=rtol,
+                atol=atol, max_iters=100_000, seed=seed,
+                lane_offset=lane_offset)
+
+
+def adaptive_compare(ok, op):
+    """(stats identical, lanes whose outputs are bitwise equal, worst
+    relative state difference where both are finite, non-finite placement
+    equal) of a wrapper's (us, u_final, t_final, stats) against the plain
+    version's."""
+    import torch
+    stats_equal = bool(torch.equal(ok[3], op[3]))
+    bitwise = torch.ones(ok[1].shape[-1], dtype=torch.bool,
+                         device=ok[1].device)
+    worst, nan_equal = 0.0, True
+    for a, b in zip(ok[:3], op[:3]):
+        same = (a == b) | (a.isnan() & b.isnan())
+        bitwise &= same.reshape(-1, same.shape[-1]).all(dim=0)
+        fa, fb = a.isfinite(), b.isfinite()
+        nan_equal &= bool(torch.equal(fa, fb))
+        both = fa & fb
+        d = (a[both] - b[both]).abs() / b[both].abs().clamp_min(1e-300)
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return stats_equal, bitwise, worst, nan_equal
+
+
+def phase_sde_adaptive_parity(device, N: int = PARITY_N):
+    """f64, the adaptive kernel against its plain version on the same card:
+    the CPU front-door cases, GBM at t in [0, 1] and CRN on the Table-4
+    sweep at t in [0, 10]."""
+    import torch
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em.ref import solve_adaptive_lanes
+
+    cases = [("gbm", "em", "embedded"), ("gbm", "em", "doubling"),
+             ("gbm", "milstein", "embedded"), ("gbm", "milstein", "doubling"),
+             ("gbm", "heun_strat", "doubling"),
+             ("gbm", "platen_w2", "doubling"), ("crn", "em", "doubling")]
+    eps = {name: sde_inputs(name, N, torch.float64, device)
+           for name in ADAPTIVE_SETTINGS}
+    out = {}
+    for name, alg, est in cases:
+        ep = eps[name]
+        prob = ep.prob
+        st = dict(ADAPTIVE_SETTINGS[name])
+        saveat = torch.tensor(st.pop("saveat"), dtype=torch.float64,
+                              device=device)
+        off = 2 ** 32 - 20 if name == "crn" else 0
+        args = adaptive_args(alg, est, prob.noise, prob.noise_dim(),
+                             seed=SDE_SEED, lane_offset=off, **st)
+        u0s, ps = ep.materialize()
+        u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+        before = k5.launches
+        t = time.perf_counter()
+        ok = k5.sde_adaptive_ensemble(prob.f, prob.g, alg, u0_l, p_l, saveat,
+                                      **args)
+        op = solve_adaptive_lanes(prob.f, prob.g, alg, u0_l, p_l, saveat,
+                                  **args)
+        sync(device)
+        secs = time.perf_counter() - t
+        if device.type == "cuda" and k5.launches != before + 1:
+            raise AssertionError(f"adaptive parity {name}/{alg}/{est}: the "
+                                 "kernel was not launched")
+        stats_equal, bitwise, worst, nan_equal = adaptive_compare(ok, op)
+        if not (stats_equal and nan_equal) or worst > ADAPTIVE_TOL:
+            bad = int((ok[3] != op[3]).any(dim=0).sum())
+            raise AssertionError(
+                f"adaptive parity {name}/{alg}/{est}: stats differ on {bad} "
+                f"lanes, NaN placement equal {nan_equal}, worst rel state "
+                f"difference {worst:.3e} (bar {ADAPTIVE_TOL})")
+        stats = ok[3]
+        attempts = (stats[0] + stats[1]).double()
+        key = f"{name}/{alg}/{est}"
+        out[key] = dict(bitwise_share=float(bitwise.double().mean()),
+                        worst=worst,
+                        status2_share=float((stats[2] == 2).double().mean()))
+        print(f"adaptive parity {key}: N={N} f64 stats identical on every "
+              f"lane, bitwise lanes {out[key]['bitwise_share']:.4f}, worst "
+              f"rel {worst:.3e} (bar {ADAPTIVE_TOL}); attempts mean "
+              f"{float(attempts.mean()):.1f} max {int(attempts.max())}, "
+              f"status 2 share {out[key]['status2_share']:.4f}, depth "
+              f"{args['depth']}; {secs:.1f} s with the plain version")
+    return out
+
+
+def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
+    """The adaptive SDE path at full size, float32, through the front door:
+    GBM with the embedded pair and with step doubling."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.kernels import rng
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em.ref import solve_adaptive_lanes
+
+    f32, f64 = torch.float32, torch.float64
+    r, v = 1.5, 0.2
+    prob = dp.gbm_problem(r=r, v=v, dtype=f32)
+    gbm = EnsembleProblem(
+        prob, N, u0s=torch.full((N, 3), 0.1, dtype=f32, device=device),
+        ps=torch.tensor([r, v], dtype=f32,
+                        device=device).expand(N, 2).contiguous())
+    cfg = dict(ADAPTIVE_FULL)
+    depth, seed = cfg.pop("depth"), cfg.pop("seed")
+    saveat_t = cfg.pop("saveat")
+    S, n, m = len(saveat_t), 3, 3
+    u0s, ps = gbm.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    # the closed form on the same path: W(1) from the port's tree, in f64
+    lanes = torch.arange(N, dtype=torch.int64, device=device)
+    w1 = rng.brownian_bridge_point(
+        seed, torch.full((m, 1), 2 ** depth, dtype=torch.int64,
+                         device=device), lanes[None],
+        torch.arange(m, dtype=torch.int64, device=device)[:, None],
+        depth=depth, t_total=1.0, dtype=f64)
+    exact = 0.1 * torch.exp((r - 0.5 * v * v) * 1.0 + v * w1)   # (3, N)
+
+    def strong(uf_lanes):
+        """(median, 99th percentile, max) of |u_final - exact| / exact over
+        the first lanes."""
+        k = uf_lanes.shape[-1]
+        e = ((uf_lanes.double() - exact[:, :k]).abs() / exact[:, :k])
+        e = e.flatten()
+        return float(e.median()), float(e.quantile(0.99)), float(e.max())
+
+    rows = []
+    for form, est in (("gbm-1M-em-adaptive", "embedded"),
+                      ("gbm-1M-em-adaptive-doubling", "doubling")):
+        kw = dict(alg="em", adaptive=True, error_est=est, seed=seed,
+                  brownian_depth=depth, saveat=list(saveat_t), device=device,
+                  **cfg)
+        # ---- the path, with the launch count read around it --------------
+        k5.launches = 0
+        res = solve_ensemble_local(gbm, ensemble="kernel", backend="cuda",
+                                   **kw)
+        sync(device)
+        launches = k5.launches
+        if device.type == "cuda" and launches != 1:
+            raise AssertionError(f"{form}: {launches} kernel launches, not 1")
+        if tuple(res.us.shape) != (N, S, n) or int(res.status) != 0 or \
+                not bool(torch.isfinite(res.us).all()):
+            raise AssertionError(f"{form}: shape {tuple(res.us.shape)}, "
+                                 f"status {int(res.status)}, or non-finite")
+
+        # ---- the kernel and its plain version on the same inputs ---------
+        saveat = torch.tensor(saveat_t, dtype=f32, device=device)
+        args = adaptive_args("em", est, "diagonal", m, seed=seed,
+                             depth=depth, **cfg)
+        f, g = prob.f, prob.g
+
+        def kernel():
+            return k5.sde_adaptive_ensemble(f, g, "em", u0_l, p_l, saveat,
+                                            **args)
+
+        def plain(u0=u0_l, p=p_l, sv=saveat):
+            return solve_adaptive_lanes(f, g, "em", u0, p, sv, **args)
+
+        out_k = kernel()
+        t = time.perf_counter()
+        out_p = plain()
+        sync(device)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        same = (out_k[3][:2] == out_p[3][:2]).all(dim=0)
+        share = float(same.double().mean())
+        e_lane = ((out_k[1].double() - out_p[1].double()).abs()
+                  / out_p[1].double().abs()).max(dim=0).values
+        worst_same = float(e_lane[same].max())
+        worst_any = float(e_lane.max())
+        max_abs = max(float((out_k[i].double() - out_p[i].double()).abs()
+                            .max()) for i in (0, 1))
+        if share < ADAPTIVE_F32_SAME or worst_same > ADAPTIVE_F32_TOL or \
+                worst_any > ADAPTIVE_ANY_TOL:
+            raise AssertionError(
+                f"{form}: counts equal on {share:.5f} of the lanes (bar "
+                f"{ADAPTIVE_F32_SAME}), u_final rel {worst_same:.3e} on them "
+                f"(bar {ADAPTIVE_F32_TOL}), {worst_any:.3e} on all (bar "
+                f"{ADAPTIVE_ANY_TOL})")
+        # ---- strong error against the closed form: the kernel's median
+        # on the first STRONG_N lanes against the f64 plain version's there
+        k = min(STRONG_N, N)
+        out_64 = plain(u0_l[:, :k].double().contiguous(),
+                       p_l[:, :k].double().contiguous(), saveat.double())
+        sk, sk_sub, s64 = (strong(out_k[1]), strong(out_k[1][:, :k]),
+                           strong(out_64[1]))
+        if abs(sk_sub[0] / s64[0] - 1.0) > ADAPTIVE_MEDIAN_TOL:
+            raise AssertionError(f"{form}: strong-error median {sk_sub[0]:.4e}"
+                                 f" not within {ADAPTIVE_MEDIAN_TOL:.0%} of the"
+                                 f" f64 plain version's {s64[0]:.4e}")
+        del out_64
+
+        # ---- times ------------------------------------------------------
+        ms = cuda_ms(kernel, reps)
+        strategies = {"kernel_cuda": cuda_ms(lambda: solve_ensemble_local(
+            gbm, ensemble="kernel", backend="cuda", **kw), reps)}
+        if est == "embedded":
+            for sname in ("vmap", "array"):
+                strategies[sname] = cuda_ms(lambda: solve_ensemble_local(
+                    gbm, ensemble=sname, backend="torch", **kw), 1, warmup=0)
+
+        # ---- bound: the run's own attempts, K4's formula ------------------
+        stats = out_k[3]
+        attempts = int((stats[0].long() + stats[1].long()).sum())
+        descents = 1 if est == "embedded" else 2
+        normals = attempts * descents * m * (depth + 1)
+        item = 4
+        bytes_moved = (item * (n * N + 2 * N + S)
+                       + item * (S * n * N + n * N + N) + 4 * 6 * N)
+        flops = (normals * BRIDGE_FLOPS_PER_NORMAL
+                 + attempts * ADAPTIVE_ATTEMPT_FLOPS[est])
+        alu_ops = normals * THREEFRY_ALU_OPS
+        issued = normals * (THREEFRY_ALU_OPS + THREEFRY_ADD_OPS) + flops / 2
+        times = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+                 "fp32": flops / PEAK_FP32_FLOPS * 1e3,
+                 "int32_alu": alu_ops / (ALU_LANES_PER_SM
+                                         * SM_LANE_CLOCKS_PER_S) * 1e3,
+                 "issue": issued / (ISSUE_LANES_PER_SM
+                                    * SM_LANE_CLOCKS_PER_S) * 1e3}
+        pipe = max(times, key=times.get)
+        bound = times[pipe]
+        lane_att = (stats[0] + stats[1]).double()
+        print(f"sde {form}: N={N} f32 status 0, launches {launches}; kernel "
+              f"vs f32 plain: counts equal on {share:.5f} of the lanes (bar "
+              f"{ADAPTIVE_F32_SAME}), u_final rel {worst_same:.3e} on them "
+              f"(bar {ADAPTIVE_F32_TOL}), {worst_any:.3e} on all (bar "
+              f"{ADAPTIVE_ANY_TOL}), max abs {max_abs:.3e}")
+        print(f"sde {form}: strong error vs the closed form on the same path "
+              f"(median, p99, max): kernel f32 on all {N} lanes {sk[0]:.4e} "
+              f"{sk[1]:.4e} {sk[2]:.4e}; on the first {k}: kernel f32 "
+              f"{sk_sub[0]:.4e} {sk_sub[1]:.4e} {sk_sub[2]:.4e}, f64 plain "
+              f"{s64[0]:.4e} {s64[1]:.4e} {s64[2]:.4e} (medians within "
+              f"{ADAPTIVE_MEDIAN_TOL:.0%})")
+        print(f"sde {form}: attempts {attempts} (per lane mean "
+              f"{float(lane_att.mean()):.1f}, max {int(lane_att.max())}; "
+              f"naccept mean {float(stats[0].double().mean()):.1f}), normals "
+              f"{normals:.4e}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound:.4f} ms by {pipe} (" + ", ".join(
+                  f"{k} {v:.4f}" for k, v in times.items())
+              + "); front door ms " + json.dumps(
+                  {k: round(v, 3) for k, v in strategies.items()}))
+        rows.append({
+            "name": f"sde_adaptive_ensemble[em,gbm,f32,{est}]",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/sde_adaptive_ensemble.cu",
+            "replaces": "src/repro/kernels/ensemble_kernel.py:602",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if pipe == "bytes" else "operations",
+            "bound_pipe": pipe, "library_ms": None,
+            "counts_equal_share": share,
+            "strong_error_median": sk[0]})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the stiff family: the fused Rosenbrock kernel (K3) and the batched LU
 # kernel (K6)
 # ---------------------------------------------------------------------------
@@ -1218,6 +1533,11 @@ def main() -> int:
     for r in sde_rows:
         r["parity_f64_rel_err"] = sde_worst
     rows += sde_rows
+    adaptive = phase_sde_adaptive_parity(device)
+    adaptive_rows = phase_sde_adaptive_full_size(device)
+    for r in adaptive_rows:
+        r["parity_f64"] = adaptive
+    rows += adaptive_rows
     stiff = phase_stiff_parity(device)
     lu_rows = phase_lu(device)
     lu_launches = phase_array_linsolve_cuda(device)

@@ -1,7 +1,8 @@
 # The paper's primary contribution — massively parallel ensemble ODE solving
 # with two strategies (array lock-step vs the fused whole-integration
 # kernel), adaptive embedded RK with dense output — ported to PyTorch, erk
-# family first, then the fixed-dt SDE steppers.
+# family first, then the SDE steppers (fixed dt and adaptive) and the stiff
+# Rosenbrock methods.
 from .problem import EnsembleProblem, ODEProblem, SDEProblem
 from .tableaus import (ROSENBROCK_TABLEAUS, TABLEAUS, RosenbrockTableau,
                        get_rosenbrock_tableau, get_tableau)

@@ -1,5 +1,5 @@
 """Ensemble execution strategies (paper §5) on a single device — the erk,
-rosenbrock and fixed-dt sde families of `repro.core.ensemble`, in PyTorch.
+rosenbrock and sde families of `repro.core.ensemble`, in PyTorch.
 
 `solve_ensemble_local` is the front door.  Strategies (``ensemble=``):
 
@@ -36,6 +36,12 @@ The sde family (fixed dt, the paper's counter-RNG kernels, §5.2.2) runs
 "kernel"/"torch" (the lanes loop over the whole ensemble) and
 "kernel"/"cuda" (`repro_torch.kernels.em`).  Every strategy draws the same
 (seed; step, row, GLOBAL lane) Threefry stream, so their paths agree.
+With ``adaptive=True`` it runs `core.sde.sde_solve_adaptive` (embedded
+pair or step doubling on the virtual Brownian tree) in lanes mode on
+"vmap" and "array" (the whole batch) and "kernel"/"torch" (tiles), and
+the adaptive CUDA kernel (`repro_torch.kernels.em.adaptive`) on
+"kernel"/"cuda"; every strategy draws the same (seed; lane, row, dyadic
+index) tree, so their paths agree.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and a
 machine without CUDA raises unless the caller passes ``device="cpu"``.
@@ -361,8 +367,9 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
 # ----------------------------------------------------------------------------
 
 def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
-               backend, t0, tf, dt0, saveat, n_steps, save_every, key, seed,
-               noise_table, adaptive, lane_offset) -> EnsembleResult:
+               backend, t0, tf, dt0, saveat, n_steps, save_every, lane_tile,
+               key, seed, noise_table, adaptive, rtol, atol, max_iters,
+               lane_offset, brownian_depth, error_est) -> EnsembleResult:
     from repro_torch.kernels.em.ops import (seed_from_key,
                                             solve_sde_ensemble_kernel)
     from repro_torch.kernels.em.ref import ref_solve
@@ -373,19 +380,31 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
         raise ValueError(
             f"method {spec.name!r} supports noise {spec.noise}, "
             f"problem has {prob.noise!r}")
-    if adaptive:
-        raise NotImplementedError(
-            "adaptive SDE stepping is not ported yet: ROADMAP queue 1 item 6 "
-            "(core/sde.py sde_solve_adaptive, the virtual Brownian tree)")
-    if saveat is not None:
-        raise NotImplementedError(
-            "fixed-dt SDE snapshots land on the save_every grid (pass "
-            "n_steps/save_every); saveat-grid output needs adaptive=True, "
-            "which is ROADMAP queue 1 item 6")
+    if adaptive is None:
+        adaptive = False  # family default: the paper's kernels are fixed-dt
+    if adaptive and not spec.adaptive:
+        raise ValueError(
+            f"method {spec.name!r} has no adaptive step control; "
+            "pass adaptive=False or pick an adaptive-capable stepper")
+    if not adaptive and error_est is not None:
+        raise ValueError(
+            "error_est selects the adaptive SDE error estimator; it has no "
+            "meaning for fixed-dt stepping (pass adaptive=True)")
     if seed is None:
         seed = seed_from_key(key) if key is not None else 0
     seed = check_u32("seed", seed)
     lane_offset = check_u32("lane_offset", lane_offset)
+    if adaptive:
+        return _solve_sde_adaptive(
+            spec, prob, u0s, ps, ensemble=ensemble, backend=backend, t0=t0,
+            tf=tf, dt0=dt0, saveat=saveat, lane_tile=lane_tile, seed=seed,
+            noise_table=noise_table, rtol=rtol, atol=atol,
+            max_iters=max_iters, lane_offset=lane_offset,
+            brownian_depth=brownian_depth, error_est=error_est)
+    if saveat is not None:
+        raise NotImplementedError(
+            "fixed-dt SDE snapshots land on the save_every grid (pass "
+            "n_steps/save_every); use adaptive=True for saveat-grid output")
     if n_steps is None:
         n_steps = int(round((tf - t0) / dt0))
     if n_steps % save_every != 0:
@@ -424,6 +443,93 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
                            table=table, **common)
         return _assemble_sde_result(ts, us, uf, N, n_steps, nfps, t0, dt0,
                                     dtype)
+    raise NotImplementedError(
+        f"sde methods do not support ensemble={ensemble!r} "
+        "(use 'vmap', 'array' or 'kernel')")
+
+
+def resolve_adaptive_sde(spec: MethodSpec, noise: str, *, error_est=None,
+                         brownian_depth=None, t0, tf, dt0) -> dict:
+    """The adaptive SDE estimator, resolved as the reference's front door
+    resolves it: ``error_est`` (the registered embedded pair wherever it
+    applies, on diagonal noise, doubling everywhere else), the stepper's
+    ``order``, the controller's ``est_order``, ``nf_per_attempt`` and the
+    tree ``depth``.  Raises on a combination the front door refuses."""
+    from .sde import default_bridge_depth, sde_nf_per_step
+
+    if error_est is None:
+        error_est = ("embedded"
+                     if ("embedded" in spec.error_est
+                         and noise == "diagonal") else "doubling")
+    if error_est not in spec.error_est:
+        raise ValueError(
+            f"method {spec.name!r} supports error_est {spec.error_est}, "
+            f"got {error_est!r}")
+    if error_est == "embedded" and noise != "diagonal":
+        raise ValueError(
+            "embedded SDE pairs are diagonal-noise only (Levy-area-free "
+            "estimators); pass error_est='doubling' for general noise")
+    pair = spec.embedded if error_est == "embedded" else None
+    return dict(
+        error_est=error_est, order=spec.order,
+        est_order=(pair.est_order if pair is not None
+                   else max(1, int(round(spec.order)))),
+        nf_per_attempt=(pair.nf_per_attempt if pair is not None
+                        else 3 * sde_nf_per_step(spec.name)),
+        depth=(brownian_depth if brownian_depth is not None
+               else default_bridge_depth(t0, tf, dt0)))
+
+
+def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
+                        ensemble, backend, t0, tf, dt0, saveat, lane_tile,
+                        seed, noise_table, rtol, atol, max_iters,
+                        lane_offset, brownian_depth,
+                        error_est) -> EnsembleResult:
+    """The adaptive branch of `_solve_sde`: estimator, tree depth and saveat
+    resolved as the reference resolves them, then the lanes engine or the
+    adaptive kernel."""
+    from repro_torch.kernels.em.ops import solve_sde_adaptive_kernel
+    from repro_torch.kernels.rng import M32
+    from .sde import SDE_STEPPERS, sde_nf_per_step, sde_solve_adaptive
+
+    if noise_table is not None:
+        raise NotImplementedError(
+            "adaptive SDE draws from the virtual Brownian tree; "
+            "noise_table injection is fixed-dt only")
+    kw = dict(resolve_adaptive_sde(spec, prob.noise, error_est=error_est,
+                                   brownian_depth=brownian_depth, t0=t0,
+                                   tf=tf, dt0=dt0),
+              seed=seed, rtol=rtol, atol=atol, max_iters=max_iters)
+    saveat = torch.as_tensor([tf] if saveat is None else saveat,
+                             dtype=u0s.dtype, device=u0s.device)
+    N, n = u0s.shape
+
+    if ensemble == "kernel" and backend == "cuda":
+        return solve_sde_adaptive_kernel(
+            prob, u0s, ps, saveat, method=spec.name, t0=t0, tf=tf, dt0=dt0,
+            lane_offset=lane_offset, **kw)
+    if ensemble == "kernel" and backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
+                         "'cuda')")
+    if ensemble in ("vmap", "array", "kernel"):
+        # "vmap": torch.func.vmap cannot batch a data-dependent loop, so the
+        # lanes engine runs over the whole batch (what JAX's vmap of a while
+        # loop lowers to); "array": the whole ensemble as one lanes tile with
+        # per-lane control, as the reference's; "kernel"/"torch": tiles of
+        # `lane_tile`.  Per-lane results do not depend on the tiling.
+        u0p, psp, T, B = _tile_lanes(
+            u0s, ps, lane_tile if ensemble == "kernel" else None)
+        lanes = ((torch.arange(T * B, dtype=torch.int64, device=u0s.device)
+                  + lane_offset) & M32).reshape(T, B)
+        tiles = [sde_solve_adaptive(
+            prob.f, prob.g, SDE_STEPPERS[spec.name], prob.noise, u0p[i].T,
+            psp[i].T, t0, tf, dt0, lane_idx=lanes[i], lanes=True,
+            m_noise=prob.noise_dim(), saveat=saveat,
+            nf_per_step=sde_nf_per_step(spec.name),
+            embedded=(spec.embedded.fn if kw["error_est"] == "embedded"
+                      else None), **kw)
+            for i in range(T)]
+        return _untile(tiles, N, n)
     raise NotImplementedError(
         f"sde methods do not support ensemble={ensemble!r} "
         "(use 'vmap', 'array' or 'kernel')")
@@ -487,10 +593,11 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                          n_steps=None, save_every=1, lane_tile=None,
                          max_iters=100_000, event=None, key=None, seed=None,
                          noise_table=None, linsolve="torch", lane_offset=0,
+                         brownian_depth=None, error_est=None,
                          w_reuse=None, sensitivity=None,
                          device=None) -> EnsembleResult:
-    """Single-device ensemble solve of an explicit-RK, Rosenbrock or
-    fixed-dt SDE method through any strategy and backend.
+    """Single-device ensemble solve of an explicit-RK, Rosenbrock or SDE
+    method through any strategy and backend.
 
     Args:
       eprob: `EnsembleProblem` wrapping an `ODEProblem` or `SDEProblem`,
@@ -502,16 +609,19 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
         ``"kernel"``.
       backend: ``"torch"`` (the lanes twin) or ``"cuda"`` (the hand-written
         kernels: tsit5 and dopri5 on an RHS registered with `device_rhs`;
-        em, heun_strat, platen_w2 and milstein on a drift/diffusion pair
-        registered with `device_sde`; rosenbrock23, rodas4 and rodas5p on
-        an RHS registered with `device_stiff`) — kernel strategy only.
+        em, heun_strat, platen_w2 and milstein, fixed-dt or adaptive, on a
+        drift/diffusion pair registered with `device_sde`; rosenbrock23,
+        rodas4 and rodas5p on an RHS registered with `device_stiff`) —
+        kernel strategy only.
       t0, tf, dt0: time span (defaults from ``prob.tspan``) and initial
         step.  ``dt0=None`` derives it from Hairer's two-evaluation
         heuristic per trajectory, takes the ensemble minimum, and counts the
         2·N probe evaluations in ``nf``.
       saveat: snapshot time grid (S,), interpolated by dense output.
       rtol, atol: adaptive error-control tolerances.
-      adaptive: None picks the method's default; False forces fixed dt.
+      adaptive: None picks the method's default; False forces fixed dt;
+        True on an SDE stepper runs adaptive steps on the virtual Brownian
+        tree.
       n_steps, save_every: fixed-dt step count and snapshot stride.
       lane_tile: trajectories per tile of the ``"torch"`` kernel backend
         (None: one tile); the CUDA kernel runs one thread per trajectory.
@@ -528,6 +638,11 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
         the LU, as the reference's vmap and Pallas kernel do.
       lane_offset: GLOBAL index of the first trajectory, so SDE shards
         draw disjoint streams.
+      brownian_depth: dyadic depth of the adaptive-SDE Brownian tree
+        (None: `core.sde.default_bridge_depth`).
+      error_est: the adaptive-SDE error estimator — ``"embedded"`` (the
+        method's pair; the default where one ships and the noise is
+        diagonal) or ``"doubling"``.
       w_reuse: the stiff family's lazy-W path: None takes the method's
         default (eager), True the default `WReusePolicy`, or a policy.  A
         truthy value on a non-stiff method raises.
@@ -581,9 +696,15 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
         return _solve_sde(spec, prob, u0s, ps, ensemble=ensemble,
                           backend=backend, t0=t0, tf=tf, dt0=dt0,
                           saveat=saveat, n_steps=n_steps,
-                          save_every=save_every, key=key, seed=seed,
-                          noise_table=noise_table, adaptive=adaptive,
-                          lane_offset=lane_offset)
+                          save_every=save_every, lane_tile=lane_tile,
+                          key=key, seed=seed, noise_table=noise_table,
+                          adaptive=adaptive, rtol=rtol, atol=atol,
+                          max_iters=max_iters, lane_offset=lane_offset,
+                          brownian_depth=brownian_depth, error_est=error_est)
+    if error_est is not None:
+        raise ValueError(
+            "error_est selects the adaptive SDE error estimator; "
+            f"{spec.name!r} ({spec.family}) embeds via its tableau")
     if isinstance(prob, SDEProblem):
         raise TypeError(
             f"problem {prob.name!r} is stochastic; pick an sde method "

@@ -1,7 +1,7 @@
 """Method registry — `repro.core.methods` in PyTorch.
 
 A `MethodSpec` describes an algorithm: its family (explicit RK,
-Rosenbrock-stiff, or fixed-dt SDE stepper), the tableau or stepper that
+Rosenbrock-stiff, or SDE stepper), the tableau or stepper that
 drives the shared engine, and its capabilities.
 """
 from __future__ import annotations
@@ -28,15 +28,20 @@ class MethodSpec:
     rtableau:  Rosenbrock W-method tableau (rosenbrock).
     stepper:   one-step function (sde).
     order:     order of the propagated solution (strong order for sde).
-    adaptive:  the method can run with error control.  False for every sde
-               stepper until the adaptive SDE engine is ported (ROADMAP
-               queue 1 item 6); the reference marks them adaptive.
+    adaptive:  the method can run with error control (an sde stepper
+               opts in per solve with ``adaptive=True``: an embedded pair
+               or step doubling, `core.sde.sde_solve_adaptive`).
     stiff:     the method is linearly implicit (rosenbrock).
     w_reuse:   rosenbrock only — the method's default for the lazy-W path
                (Jacobian and LU(W) reuse across steps under a
                `repro_torch.core.controller.WReusePolicy`); False steps
                eagerly.  A solve overrides it with ``w_reuse=``.
     noise:     noise structures the stepper supports (sde).
+    embedded:  sde only — the stepper's embedded error pair
+               (`core.sde.EmbeddedPair`), or None.
+    error_est: sde only — the adaptive error estimators it supports,
+               derived when left empty: ("embedded", "doubling") with a
+               pair, else ("doubling",).
     aliases:   alternative lookup names (paper-facing spellings).
     """
 
@@ -50,6 +55,8 @@ class MethodSpec:
     stiff: bool = False
     w_reuse: bool = False
     noise: Tuple[str, ...] = ()
+    embedded: Optional[Any] = None
+    error_est: Tuple[str, ...] = ()
     aliases: Tuple[str, ...] = ()
 
     def __post_init__(self):
@@ -62,6 +69,21 @@ class MethodSpec:
                 f"rosenbrock method {self.name!r} needs an rtableau")
         if self.family == "sde" and self.stepper is None:
             raise ValueError(f"sde method {self.name!r} needs a stepper")
+        if self.embedded is not None and self.family != "sde":
+            raise ValueError(
+                f"method {self.name!r}: `embedded` pairs are an sde-family "
+                "capability (erk/rosenbrock embed via their tableaus)")
+        if self.family == "sde" and self.adaptive and not self.error_est:
+            # the capability tuple, derived from what shipped
+            object.__setattr__(
+                self, "error_est",
+                ("embedded", "doubling") if self.embedded is not None
+                else ("doubling",))
+        if "embedded" in self.error_est and self.embedded is None:
+            raise ValueError(
+                f"method {self.name!r} declares error_est='embedded' but "
+                "ships no embedded pair (see repro_torch.core.sde."
+                "SDE_EMBEDDED)")
 
 
 _REGISTRY: Dict[str, MethodSpec] = {}
@@ -107,7 +129,8 @@ def get_method(alg: Any) -> MethodSpec:
 
 def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
                    adaptive: Optional[bool] = None,
-                   w_reuse: bool = False) -> Tuple[bool, str]:
+                   w_reuse: bool = False,
+                   error_est: Optional[str] = None) -> Tuple[bool, str]:
     """Is (strategy, backend) a combination the front door would accept?
     Returns ``(ok, reason)`` — the rules `solve_ensemble_local` enforces
     with exceptions, as a predicate."""
@@ -125,6 +148,12 @@ def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
         return False, "rosenbrock engine requires an embedded pair"
     if adaptive and not spec.adaptive:
         return False, f"method {spec.name!r} has no adaptive step control"
+    if error_est is not None:
+        if spec.family != "sde":
+            return False, "error_est is an adaptive-SDE knob"
+        if error_est not in spec.error_est:
+            return False, (f"method {spec.name!r} supports error_est "
+                           f"{spec.error_est}, not {error_est!r}")
     return True, "ok"
 
 
@@ -147,12 +176,17 @@ def _register_builtins():
     for rtab in ROSENBROCK_TABLEAUS.values():
         register_method(_rosenbrock_spec(rtab, rb_alias.get(rtab.name, ())))
 
-    # SDE steppers, fixed-dt (the paper's GPU kernel set)
-    from .sde import em_step, heun_strat_step, milstein_step, platen_w2_step
-    sde = dict(family="sde", adaptive=False)
+    # SDE steppers: fixed dt by default (the paper's GPU kernel set);
+    # adaptive=True records that every stepper gains error control when a
+    # solve opts in: its embedded pair where one ships (em, milstein), step
+    # doubling everywhere (also the general-noise path)
+    from .sde import (SDE_EMBEDDED, em_step, heun_strat_step, milstein_step,
+                      platen_w2_step)
+    sde = dict(family="sde", adaptive=True)
     register_method(MethodSpec(
         name="em", order=0.5, stepper=em_step, noise=("diagonal", "general"),
-        aliases=("gpuem", "euler_maruyama"), **sde))
+        embedded=SDE_EMBEDDED["em"], aliases=("gpuem", "euler_maruyama"),
+        **sde))
     register_method(MethodSpec(
         name="platen_w2", order=2.0, stepper=platen_w2_step,
         noise=("diagonal",), aliases=("siea", "gpusiea"), **sde))
@@ -161,7 +195,7 @@ def _register_builtins():
         noise=("diagonal", "general"), **sde))
     register_method(MethodSpec(
         name="milstein", order=1.0, stepper=milstein_step,
-        noise=("diagonal",), **sde))
+        noise=("diagonal",), embedded=SDE_EMBEDDED["milstein"], **sde))
 
 
 _register_builtins()

@@ -1,5 +1,5 @@
-"""SDE steppers (paper §3.2, §5.2.2, §6.8): fixed-dt, kernel-shaped — the
-fixed-dt half of `repro.core.sde`, in PyTorch.
+"""SDE steppers (paper §3.2, §5.2.2, §6.8), fixed-dt and adaptive — the
+port of `repro.core.sde`, in PyTorch.
 
 Methods (the paper's GPU kernel set):
   em         — GPUEM: Euler-Maruyama, Ito; diagonal AND general (n×m) noise.
@@ -14,15 +14,24 @@ lanes; the same definition runs under `torch.func.vmap`, over the lanes of
 the whole ensemble, and as the plain version of the CUDA kernel
 (`repro_torch.kernels.em`).
 
-The adaptive driver, the embedded pairs, events and the resumable bodies
-are still to port (ROADMAP queue 1 items 6, 7 and 13).
+Adaptive stepping (`sde_solve_adaptive`) controls the local error with an
+embedded pair (`SDE_EMBEDDED`: em, milstein) or by step doubling (every
+stepper), and draws its increments from the virtual Brownian tree
+(`repro_torch.kernels.rng.brownian_bridge_point`), so a rejected step
+replays its path bitwise.  It runs in lanes mode, the plain version of the
+adaptive CUDA kernel (`repro_torch.kernels.em.adaptive`).  Events, the
+bounded reverse-mode loop and the resumable bodies are still to port
+(ROADMAP queue 1 items 7, 9 and 13).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+import math
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from .controller import (STATUS_DTMIN_EXHAUSTED, PIController, hairer_norm,
+                         pi_propose, sum_left_to_right)
 from .problem import EnsembleProblem, SDEProblem
 from .solvers import SolveResult
 
@@ -37,8 +46,10 @@ def apply_noise(g_val, dW, noise: str):
     """g(u)·dW with g_val (n,[B]) diagonal or (n,m,[B]) general; dW (m,[B])."""
     if noise == "diagonal":
         return g_val * dW
-    # general: contract the noise axis (axis 1 of g_val)
-    return torch.einsum("nm...,m...->n...", g_val, dW)
+    # general: contract the noise axis (axis 1 of g_val), each product and
+    # sum rounded on its own, left to right, as a kernel thread computes it
+    # (a library contraction may fuse or reorder them)
+    return sum_left_to_right(g_val * dW.unsqueeze(0), 1)
 
 
 def em_step(f, g, u, p, t, dt, dW, noise="diagonal"):
@@ -91,6 +102,76 @@ def milstein_step(f, g, u, p, t, dt, dW, noise="diagonal"):
     a0 = f(u, p, t)
     b0, db = torch.func.jvp(lambda uu: g(uu, p, t), (u,), (g(u, p, t),))
     return u + a0 * dt + b0 * dW + 0.5 * db * (dW * dW - dt)
+
+
+# ----------------------------------------------------------------------------
+# embedded error pairs (RSwM-style rejection sampling, no step doubling)
+# ----------------------------------------------------------------------------
+
+def em_embedded_step(f, g, u, p, t, dt, dW, noise="diagonal"):
+    """Euler–Maruyama propagation + embedded tamed-Milstein-difference error:
+
+        err = 1/2 ((∂b/∂x)·b) (dW² - dt)  +  (a - a/(1 + dt|a|)) dt
+
+    The pair propagates the plain EM solution.  Diagonal noise only (use
+    ``error_est="doubling"`` for general noise)."""
+    if noise != "diagonal":
+        raise ValueError("em embedded pair supports diagonal noise only; "
+                         "use error_est='doubling' for general noise")
+    a0 = f(u, p, t)
+    b0, db = torch.func.jvp(lambda uu: g(uu, p, t), (u,), (g(u, p, t),))
+    err = (0.5 * db * (dW * dW - dt)
+           + (a0 - a0 / (1.0 + dt * a0.abs())) * dt)
+    return u + a0 * dt + b0 * dW, err
+
+
+def milstein_embedded_step(f, g, u, p, t, dt, dW, noise="diagonal"):
+    """Milstein propagation + deterministic embedded companion error: the
+    drift-taming difference ``(a - a/(1 + dt|a|)) dt`` plus the rms of the
+    leading neglected Itô–Taylor term, ``|∂((∂b)·b)·b| · dt^1.5 / sqrt(6)``,
+    from a JVP nested in a JVP (`torch.func.jvp`).  nf_per_attempt stays 1:
+    the extra work is diffusion JVPs only."""
+    if noise != "diagonal":
+        raise ValueError("milstein currently supports diagonal noise")
+    a0 = f(u, p, t)
+
+    def db_of(uu):
+        bb = g(uu, p, t)
+        return torch.func.jvp(lambda w: g(w, p, t), (uu,), (bb,))[1]
+
+    b0 = g(u, p, t)
+    db, ddb = torch.func.jvp(db_of, (u,), (b0,))   # (∂b)·b, ∂((∂b)·b)·b
+    u_new = u + a0 * dt + b0 * dW + 0.5 * db * (dW * dW - dt)
+    dt15 = dt * _sqrt_dt(dt, u.dtype)
+    # sqrt(6) as a tensor on u's device: PyTorch's CUDA division by a CPU
+    # scalar multiplies by its rounded reciprocal instead
+    sqrt6 = torch.sqrt(torch.tensor(6.0, dtype=u.dtype, device=u.device))
+    err = ((a0 - a0 / (1.0 + dt * a0.abs())) * dt
+           + ddb.abs() * dt15 / sqrt6)
+    return u_new, err
+
+
+class EmbeddedPair(NamedTuple):
+    """An SDE embedded error pair as registered on a `MethodSpec`.
+
+    fn:             (f, g, u, p, t, dt, dW, noise) -> (u_prop, err)
+    est_order:      dt-order of the estimator (PI controller exponents)
+    nf_per_attempt: drift evaluations charged to `nf` per attempted step
+    """
+    fn: Callable
+    est_order: int
+    nf_per_attempt: int
+
+
+# name -> EmbeddedPair.  Steppers absent here support error_est="doubling"
+# only (the registry derives the capability tuple from this).
+SDE_EMBEDDED = {
+    "em": EmbeddedPair(em_embedded_step, est_order=1, nf_per_attempt=1),
+    # the estimator's leading term is O(dt^1.5); est_order=1 is the
+    # conservative integer controller exponent for it
+    "milstein": EmbeddedPair(milstein_embedded_step, est_order=1,
+                             nf_per_attempt=1),
+}
 
 
 SDE_STEPPERS = {
@@ -180,6 +261,211 @@ def sde_solve_fixed(prob: SDEProblem, u0, p, t0, dt, n_steps: int, key,
     return SolveResult(ts=ts, us=torch.stack(us), t_final=t, u_final=u,
                        naccept=i64(n_steps), nreject=i64(0), status=i64(0),
                        nf=i64(n_steps * (2 if method != "em" else 1)))
+
+
+# ----------------------------------------------------------------------------
+# adaptive driver: embedded-pair or step-doubling error + virtual Brownian
+# tree (RSwM-style rejection-safe noise)
+# ----------------------------------------------------------------------------
+
+def default_bridge_depth(t0, tf, dt0, min_depth: int = 6,
+                         max_depth: int = 22) -> int:
+    """Dyadic resolution of the virtual Brownian tree for adaptive stepping.
+
+    Depth D puts the finest grid at (tf-t0)/2**D; the controller can shrink
+    steps to 2 grid cells, so the default gives ~64x refinement headroom
+    below dt0 (steps at the floor force-accept — raise the depth for very
+    tight tolerances).  Pure Python: the depth is part of the launch,
+    identical on every strategy and backend."""
+    n0 = max(1.0, (float(tf) - float(t0)) / float(dt0))
+    return int(min(max_depth, max(min_depth, math.ceil(math.log2(n0)) + 6)))
+
+
+def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
+                       seed: int, lane_idx, m_noise: int, saveat=None,
+                       rtol=1e-2, atol=1e-4, max_iters: int = 100_000,
+                       event=None, lanes: bool = False,
+                       depth: Optional[int] = None, order: float = 0.5,
+                       nf_per_step: int = 1, error_est: str = "doubling",
+                       embedded: Optional[Callable] = None,
+                       est_order: Optional[int] = None,
+                       nf_per_attempt: Optional[int] = None,
+                       controller: Optional[PIController] = None,
+                       bounded_steps: Optional[int] = None,
+                       checkpoint_every: Optional[int] = None) -> SolveResult:
+    """Adaptive SDE integration with per-lane dt control.
+
+    * **Local error** per attempted step, by ``error_est``: ``"embedded"``
+      (the pair `embedded`, one stepper pass and one Brownian-tree descent
+      per attempt) or ``"doubling"`` (one step of dt against two of dt/2 on
+      the same path, the finer propagated, the difference scaled by the
+      Richardson factor 1/(2^order - 1); three stepper passes and two
+      descents, any stepper).
+    * **Rejection-safe noise**: W comes from the virtual Brownian tree, a
+      pure function of (seed; lane, row, dyadic index), so a rejected step
+      retried with a smaller dt sees the same path bitwise.  Steps are whole
+      cells of the depth-`depth` dyadic grid (an even count for doubling);
+      a step the controller wants below the floor force-accepts.
+    * **saveat** output by linear interpolation over accepted steps.
+
+    lanes=True integrates u0 (n, B) with per-lane control and lane_idx (B,)
+    the GLOBAL trajectory indices (the noise stream's key); lanes=False
+    integrates one trajectory u0 (n,) with a scalar lane_idx, as one lane.
+    The body follows the reference expression by expression: t = t0 +
+    idx·h_res from the integer index on every attempt, the carried W(idx),
+    the clip order of the cell count, `hopeless` lanes ending with
+    STATUS_DTMIN_EXHAUSTED, and nf charged per attempt.
+
+    ``event``, ``bounded_steps`` and ``checkpoint_every`` are later slices
+    of the port (ROADMAP queue 1 items 7 and 9); they raise.
+    """
+    from repro_torch.kernels import rng
+
+    if event is not None:
+        raise NotImplementedError(
+            "events are not ported yet: ROADMAP queue 1 item 7 "
+            "(core/events.py)")
+    if bounded_steps is not None or checkpoint_every is not None:
+        raise NotImplementedError(
+            "the bounded reverse-differentiable loop is not ported yet: "
+            "ROADMAP queue 1 item 9 (core/loops.py)")
+    if error_est not in ("embedded", "doubling"):
+        raise ValueError(f"unknown error_est {error_est!r} "
+                         "(use 'embedded' or 'doubling')")
+    use_pair = error_est == "embedded"
+    if use_pair and embedded is None:
+        raise ValueError("error_est='embedded' needs an embedded pair fn "
+                         "(see repro_torch.core.sde.SDE_EMBEDDED)")
+    if depth is None:
+        raise ValueError("sde_solve_adaptive needs a `depth` "
+                         "(see default_bridge_depth)")
+    if not lanes:
+        # one trajectory as one lane: the Hairer norm of n components is
+        # the same mean either way
+        lane = torch.as_tensor(lane_idx, dtype=torch.int64).reshape(1)
+        res = sde_solve_adaptive(
+            f, g, stepper, noise, u0[:, None], p[:, None], t0, tf, dt0,
+            seed=seed, lane_idx=lane, m_noise=m_noise, saveat=saveat,
+            rtol=rtol, atol=atol, max_iters=max_iters, lanes=True,
+            depth=depth, order=order, nf_per_step=nf_per_step,
+            error_est=error_est, embedded=embedded, est_order=est_order,
+            nf_per_attempt=nf_per_attempt, controller=controller)
+        return SolveResult(ts=res.ts, us=res.us[..., 0],
+                           t_final=res.t_final[0], u_final=res.u_final[:, 0],
+                           naccept=res.naccept[0], nreject=res.nreject[0],
+                           status=res.status[0], nf=res.nf[0])
+    if est_order is None:
+        est_order = max(1, int(round(order)))
+    if nf_per_attempt is None:
+        nf_per_attempt = 3 * nf_per_step
+    ctrl = controller or PIController.for_order(int(est_order))
+    dtype, dev = u0.dtype, u0.device
+    n, B = u0.shape
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
+    t0, tf = as_t(t0), as_t(tf)
+    n_total = 2 ** depth
+    h_res = (tf - t0) / n_total
+    t_total = tf - t0
+    lane_m = (torch.as_tensor(lane_idx, dtype=torch.int64, device=dev)
+              .reshape(1, B) & rng.M32).expand(m_noise, B)
+    rows = torch.arange(m_noise, dtype=torch.int64,
+                        device=dev)[:, None].expand(m_noise, B)
+
+    def w_at(idx_c):             # (..., B) grid indices -> (..., m, B)
+        return rng.brownian_bridge_point(
+            seed, idx_c.unsqueeze(-2), lane_m, rows, depth=depth,
+            t_total=t_total, dtype=dtype)
+
+    saveat = as_t([tf] if saveat is None else saveat).reshape(-1)
+    S = saveat.shape[0]
+    us = torch.where((saveat <= t0)[:, None, None], u0[None],
+                     torch.zeros((S, n, B), dtype=dtype, device=dev))
+    i32 = lambda: torch.zeros(B, dtype=torch.int32, device=dev)
+    w_l = torch.zeros((m_noise, B), dtype=dtype, device=dev)  # W(0) = 0
+    idx = torch.zeros(B, dtype=torch.int64, device=dev)
+    u = u0
+    dt = as_t(dt0).expand(B)
+    enorm_prev = torch.ones(B, dtype=dtype, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    t_out = t0.expand(B)
+    naccept, nreject, nf, status = i32(), i32(), i32(), i32()
+    min_cells = 1 if use_pair else 2
+    richardson = 1.0 / (2.0 ** order - 1.0)
+
+    iters = 0
+    while iters < max_iters and not bool(done.all()):
+        active = ~done
+        idx = torch.where(active, idx, 0)
+        t = t0 + idx.to(dtype) * h_res
+        # quantize the proposed dt to whole dyadic cells; doubling needs an
+        # even count so its half steps land on grid points
+        want = (torch.minimum(dt, t_total) / h_res).to(torch.int64)
+        # below the floor no finer path exists at this depth: force-accept
+        at_floor = want < min_cells
+        m = want if use_pair else (want >> 1) << 1
+        m = torch.minimum(torch.clamp(m, min=min_cells), n_total - idx)
+        dt_step = m.to(dtype) * h_res
+
+        # W(idx) is carried: it is last step's right end on accept and
+        # unchanged on reject (the tree is a pure function of idx).  The
+        # doubling estimator's midpoint descends the tree beside the right
+        # end, in one batch.
+        mh = m >> 1
+        if use_pair:
+            w_r = w_at(idx + m)
+        else:
+            w_r, w_m = w_at(torch.stack([idx + m, idx + mh]))
+        dWf = w_r - w_l
+        if use_pair:
+            u_2, err = embedded(f, g, u, p, t, dt_step, dWf, noise)
+        else:
+            dt_half = mh.to(dtype) * h_res
+            t_mid = t0 + (idx + mh).to(dtype) * h_res
+            dW1, dW2 = w_m - w_l, w_r - w_m
+            # one coarse step against two half steps on the same path; the
+            # finer propagates, its error rescaled by 1/(2^q - 1)
+            u_c = stepper(f, g, u, p, t, dt_step, dWf, noise)
+            u_h = stepper(f, g, u, p, t, dt_half, dW1, noise)
+            u_2 = stepper(f, g, u_h, p, t_mid, dt_half, dW2, noise)
+            err = (u_2 - u_c) * richardson
+        enorm = hairer_norm(err, u, u_2, atol, rtol, dim=0)
+        finite = torch.isfinite(u_2).all(dim=0)
+        accept = ((enorm <= 1.0) | at_floor) & finite & active
+        dt_next, enorm_prev = pi_propose(ctrl, dt_step, enorm, enorm_prev,
+                                         accept)
+        idx_new = torch.where(accept, idx + m, idx)
+        t_new = t0 + idx_new.to(dtype) * h_res
+        u_next = torch.where(accept[None], u_2, u)
+        t_out = torch.where(accept, t_new, t_out)
+
+        # linear dense save on the accepted step
+        eps = 1e-7 * torch.clamp(t_new.abs(), min=1.0)
+        crossed = ((saveat[:, None] > t[None]) & (saveat[:, None]
+                                                  <= (t_new + eps)[None])
+                   & accept[None])
+        theta = torch.clamp((saveat[:, None] - t[None]) / dt_step[None],
+                            0.0, 1.0)
+        vals = u[None] + theta[:, None, :] * (u_2 - u)[None]
+        us = torch.where(crossed[:, None, :], vals, us)
+
+        # rejecting at the resolution floor (only a non-finite state can)
+        # or with dt pinned at the controller floor: the retry is
+        # bit-identical, so the lane ends with a distinct status
+        hopeless = active & ~accept & (at_floor | ~(dt_step > ctrl.dtmin))
+        status = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, status)
+        done = done | (idx_new >= n_total) | hopeless
+        w_l = torch.where(accept[None], w_r, w_l)
+        naccept = naccept + accept.to(torch.int32)
+        nreject = nreject + (active & ~accept).to(torch.int32)
+        nf = nf + active.to(torch.int32) * nf_per_attempt
+        idx, u, dt = idx_new, u_next, dt_next
+        iters += 1
+
+    status = torch.where(status > 0, status,
+                         torch.where(done, 0, 1).to(torch.int32))
+    return SolveResult(ts=saveat, us=us, t_final=t_out, u_final=u,
+                       naccept=naccept, nreject=nreject, status=status,
+                       nf=nf)
 
 
 def solve_sde_ensemble(eprob: EnsembleProblem, key, dt, n_steps=None,

@@ -18,8 +18,10 @@
 // out (lane-major (S, n, N), so neighbouring threads store neighbouring
 // words), and the table when one is given.  The stepper and the problem are
 // template parameters, so each (stepper, problem) pair compiles to straight
-// code.  General noise applies g·dW inside the problem's functor, so a
-// 4 x 8 noise matrix is never held whole in registers.
+// code.  The generator (threefry.cuh) and the problems (sde_problems.cuh)
+// are shared with the adaptive kernel (sde_adaptive_ensemble.cu); general
+// noise applies g·dW inside the problem's functor, so a 4 x 8 noise matrix
+// is never held whole in registers.
 //
 // What bounds it on an H100: integer operations.  One normal costs one
 // Threefry-2x32-20 call (about 74 32-bit adds, funnel shifts and xors) plus
@@ -35,162 +37,40 @@
 // dt and t0 are rounded to T, t = t0 + k*dt is computed from k on every step
 // (never accumulated, never contracted to an fma), dW = z * sqrt(dt), and
 // the normals are computed in float whatever T is, then cast, as JAX
-// computes them in float32.  No --use_fast_math: the approximate
-// intrinsics would move every normal.
+// computes them in float32.  Products may contract into fused
+// multiply-adds, in the steppers and in the functors (`Contracting`;
+// tools/sde_parent_check.py holds the results bit for bit to earlier
+// builds).  No --use_fast_math: the approximate intrinsics would move
+// every normal.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "sde_problems.cuh"
+#include "threefry.cuh"
+
 namespace repro_sde {
 
 constexpr int kBlock = 128;
-constexpr uint32_t kStreamKey = 0x243F6A88u;
-constexpr uint32_t kStepStride = 0x9E3779B9u;
-constexpr uint32_t kParity = 0x1BD11BDAu;
-// 2*pi rounded to float, the constant the reference multiplies by
-constexpr float kTwoPiF32 = 6.28318548202514648f;
-constexpr float kTwoM32 = 2.3283064365386963e-10f;  // 2^-32
+// The functors' arithmetic (sde_problems.cuh): free to contract.
+using Arith = Contracting;
+using repro_rng::box_muller;
+using repro_rng::counter_normal;
+using repro_rng::threefry2x32;
 
-// ---------------------------------------------------------------------------
-// Threefry-2x32, 20 rounds, on native uint32 (rotations as funnel shifts)
-// ---------------------------------------------------------------------------
-
-template <int R0, int R1, int R2, int R3>
-__device__ __forceinline__ void mix4(uint32_t& x0, uint32_t& x1) {
-  x0 += x1; x1 = __funnelshift_l(x1, x1, R0); x1 ^= x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, R1); x1 ^= x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, R2); x1 ^= x0;
-  x0 += x1; x1 = __funnelshift_l(x1, x1, R3); x1 ^= x0;
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t c0, uint32_t c1,
-                                             uint32_t& o0, uint32_t& o1) {
-  const uint32_t ks0 = k0, ks1 = k1, ks2 = k0 ^ k1 ^ kParity;
-  uint32_t x0 = c0 + ks0, x1 = c1 + ks1;
-  mix4<13, 15, 26, 6>(x0, x1);  x0 += ks1; x1 += ks2 + 1u;
-  mix4<17, 29, 16, 24>(x0, x1); x0 += ks2; x1 += ks0 + 2u;
-  mix4<13, 15, 26, 6>(x0, x1);  x0 += ks0; x1 += ks1 + 3u;
-  mix4<17, 29, 16, 24>(x0, x1); x0 += ks1; x1 += ks2 + 4u;
-  mix4<13, 15, 26, 6>(x0, x1);  x0 += ks2; x1 += ks0 + 5u;
-  o0 = x0;
-  o1 = x1;
-}
-
-// Box-Muller in float on two words: (bits + 0.5) * 2^-32 in (0, 1], then
-// sqrt(-2 log u1) * cos(2 pi u2).  The _rn intrinsics keep every product and
-// sum rounded on its own, as the reference computes them.
-__device__ __forceinline__ float to_unit(uint32_t bits) {
-  return __fmul_rn(__fadd_rn(__uint2float_rn(bits), 0.5f), kTwoM32);
-}
-
-__device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
-  const float u1 = to_unit(a), u2 = to_unit(b);
-  return __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))),
-                   cosf(__fmul_rn(kTwoPiF32, u2)));
-}
-
-__device__ __forceinline__ float counter_normal(uint32_t seed, uint32_t step,
-                                                uint32_t row, uint32_t lane) {
-  uint32_t a, b;
-  threefry2x32(seed, kStreamKey, step * kStepStride + row, lane, a, b);
-  return box_muller(a, b);
-}
-
-// Separately rounded add and multiply (no fma contraction), for t.
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-
-// NaN-propagating max, as jnp.maximum.
-template <typename T>
-__device__ __forceinline__ T nmax(T a, T b) {
-  return (a > b || a != a) ? a : b;
-}
-
-// ---------------------------------------------------------------------------
-// Problems (src/repro_torch/configs/de_problems.py), in the Python
-// functions' operation order.  n states, k parameters, m Wiener processes.
-// Diagonal problems give `diffusion` (the stepper multiplies by dW);
-// general problems give `noise`, which returns g(u)·dW directly.
-// ---------------------------------------------------------------------------
-
-// A.2.1 geometric Brownian motion: f = r u, g = v u (diagonal).
-struct Gbm {
-  static constexpr int n = 3, k = 2, m = 3;
-  static constexpr bool diagonal = true;
-  template <typename T>
-  __device__ __forceinline__ static void drift(const T* u, const T* p, T t,
-                                               T* du) {
-#pragma unroll
-    for (int c = 0; c < n; ++c) du[c] = p[0] * u[c];
-  }
-  template <typename T>
-  __device__ __forceinline__ static void diffusion(const T* u, const T* p,
-                                                   T t, T* g) {
-#pragma unroll
-    for (int c = 0; c < n; ++c) g[c] = p[1] * u[c];
-  }
-  // Milstein's (dg/du)·g, by hand: the JVP of v u along g = v u.
-  template <typename T>
-  __device__ __forceinline__ static void gdg(const T* u, const T* p, T t,
-                                             T* out) {
-#pragma unroll
-    for (int c = 0; c < n; ++c) out[c] = p[1] * (p[1] * u[c]);
-  }
-};
-
-// A.2.2 sigma-factor stress-response network: 4 states, 8 Wiener processes
-// (general noise, chemical-Langevin birth/death terms), 6 parameters
-// (S, D, tau, v0, n, eta).  pow keeps its NaN for a negative base and a
-// non-integer exponent, as jnp's ** does.
-struct Crn {
-  static constexpr int n = 4, k = 6, m = 8;
-  static constexpr bool diagonal = false;
-  template <typename T>
-  __device__ __forceinline__ static T hill(const T* u, const T* p) {
-    const T sn = pow(p[0] * u[0], p[4]);
-    return sn / (sn + pow(p[1] * u[3], p[4]) + T(1));
-  }
-  template <typename T>
-  __device__ __forceinline__ static void drift(const T* u, const T* p, T t,
-                                               T* du) {
-    const T tau = p[2];
-    du[0] = p[3] + hill(u, p) - u[0];
-    du[1] = (u[0] - u[1]) / tau;
-    du[2] = (u[1] - u[2]) / tau;
-    du[3] = (u[2] - u[3]) / tau;
-  }
-  template <typename T>
-  __device__ __forceinline__ static T pos(T x) {
-    return sqrt(nmax(x, T(0)));
-  }
-  // g(u)·dW: each row of the 4 x 8 matrix has two non-zero entries.
-  template <typename T>
-  __device__ __forceinline__ static void noise(const T* u, const T* p, T t,
-                                               const T* dW, T* out) {
-    const T tau = p[2], eta = p[5];
-    const T hl = hill(u, p);
-    out[0] = (eta * pos(p[3] + hl)) * dW[0] + (-eta * pos(u[0])) * dW[1];
-    out[1] = (eta * pos(u[0] / tau)) * dW[2] + (-eta * pos(u[1] / tau)) * dW[3];
-    out[2] = (eta * pos(u[1] / tau)) * dW[4] + (-eta * pos(u[2] / tau)) * dW[5];
-    out[3] = (eta * pos(u[2] / tau)) * dW[6] + (-eta * pos(u[3] / tau)) * dW[7];
-  }
-};
-
-// g(u)·dW for either noise structure.
+// g(u)·dW for either noise structure, free to contract into the stepper's
+// sums.
 template <class P, typename T>
 __device__ __forceinline__ void apply_noise(const T* u, const T* p, T t,
                                             const T* dW, T* out) {
   if constexpr (P::diagonal) {
     T g[P::n];
-    P::diffusion(u, p, t, g);
+    P::template diffusion<Arith>(u, p, t, g);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) out[c] = g[c] * dW[c];
   } else {
-    P::noise(u, p, t, dW, out);
+    P::template noise<Arith>(u, p, t, dW, out);
   }
 }
 
@@ -205,7 +85,7 @@ struct Em {
                                               T dt, T sdt, const T* dW,
                                               T* out) {
     T a[P::n], gw[P::n];
-    P::drift(u, p, t, a);
+    P::template drift<Arith>(u, p, t, a);
     apply_noise<P>(u, p, t, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) out[c] = u[c] + a[c] * dt + gw[c];
@@ -219,15 +99,15 @@ struct HeunStrat {
                                               T dt, T sdt, const T* dW,
                                               T* out) {
     T a[P::n], gw[P::n], du1[P::n], ub[P::n];
-    P::drift(u, p, t, a);
+    P::template drift<Arith>(u, p, t, a);
     apply_noise<P>(u, p, t, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
       du1[c] = a[c] * dt + gw[c];
       ub[c] = u[c] + du1[c];
     }
-    const T t1 = add_rn(t, dt);
-    P::drift(ub, p, t1, a);
+    const T t1 = radd(t, dt);
+    P::template drift<Arith>(ub, p, t1, a);
     apply_noise<P>(ub, p, t1, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
@@ -243,8 +123,8 @@ struct PlatenW2 {
                                               T* out) {
     static_assert(P::diagonal, "platen_w2 supports diagonal noise only");
     T a0[P::n], b0[P::n], ubar[P::n], up[P::n], um[P::n];
-    P::drift(u, p, t, a0);
-    P::diffusion(u, p, t, b0);
+    P::template drift<Arith>(u, p, t, a0);
+    P::template diffusion<Arith>(u, p, t, b0);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
       const T drift = u[c] + a0[c] * dt;
@@ -252,11 +132,11 @@ struct PlatenW2 {
       up[c] = drift + b0[c] * sdt;
       um[c] = drift - b0[c] * sdt;
     }
-    const T t1 = add_rn(t, dt);
+    const T t1 = radd(t, dt);
     T a1[P::n], bp[P::n], bm[P::n];
-    P::drift(ubar, p, t1, a1);
-    P::diffusion(up, p, t1, bp);
-    P::diffusion(um, p, t1, bm);
+    P::template drift<Arith>(ubar, p, t1, a1);
+    P::template diffusion<Arith>(up, p, t1, bp);
+    P::template diffusion<Arith>(um, p, t1, bm);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = u[c] + T(0.5) * dt * (a1[c] + a0[c]) +
@@ -273,9 +153,9 @@ struct Milstein {
                                               T* out) {
     static_assert(P::diagonal, "milstein supports diagonal noise only");
     T a0[P::n], b0[P::n], db[P::n];
-    P::drift(u, p, t, a0);
-    P::diffusion(u, p, t, b0);
-    P::gdg(u, p, t, db);
+    P::template drift<Arith>(u, p, t, a0);
+    P::template diffusion<Arith>(u, p, t, b0);
+    P::template gdg<Arith>(u, p, t, db);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = u[c] + a0[c] * dt + b0[c] * dW[c] +
@@ -324,7 +204,7 @@ __global__ void __launch_bounds__(kBlock)
         dW[j] = T(counter_normal(seed, static_cast<uint32_t>(k),
                                  static_cast<uint32_t>(j), gl)) * sdt;
     }
-    const T t = add_rn(t0, mul_rn(T(k), dt));
+    const T t = radd(t0, rmul(T(k), dt));
     T un[n];
     St::template step<P>(u, pp, t, dt, sdt, dW, un);
 #pragma unroll
@@ -361,8 +241,8 @@ __global__ void __launch_bounds__(kBlock)
   const int row = static_cast<int>((i / lanes) % rows);
   const long long step = step0 + i / (static_cast<long long>(lanes) * rows);
   uint32_t a, b;
-  threefry2x32(seed, kStreamKey,
-               static_cast<uint32_t>(step) * kStepStride +
+  threefry2x32(seed, repro_rng::kStreamKey,
+               static_cast<uint32_t>(step) * repro_rng::kStepStride +
                    static_cast<uint32_t>(row),
                lane_offset + static_cast<uint32_t>(lane), a, b);
   words[i] = a;

@@ -1,0 +1,147 @@
+// Device drift/diffusion functors of the SDE kernels (sde_ensemble.cu and
+// sde_adaptive_ensemble.cu): the problems of
+// src/repro_torch/configs/de_problems.py, in the Python functions'
+// operation order.  n states, k parameters, m Wiener processes.  Diagonal
+// problems give `diffusion` (the stepper multiplies by dW); general
+// problems give `noise`, which returns g(u)·dW directly, so a 4 x 8 noise
+// matrix is never held whole in registers.
+//
+// Every member takes an arithmetic policy `A` as its first template
+// argument.  `Rounded` rounds every add, multiply and divide on its own
+// (the _rn intrinsics, which nvcc never contracts into a fused
+// multiply-add), so a functor computes what the plain PyTorch version
+// computes, bit for bit: the adaptive kernel's rule.  `Contracting` leaves
+// nvcc free to fuse a product into the sum it feeds: the fixed-dt kernel's
+// rule, whose results tools/sde_parent_check.py holds bit for bit to
+// earlier builds.  pow and sqrt keep nvcc's defaults (a correctly rounded
+// sqrt), as PyTorch builds its own.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace repro_sde {
+
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double radd(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float rdiv(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double rdiv(double a, double b) { return __ddiv_rn(a, b); }
+
+struct Rounded {
+  template <typename T>
+  __device__ __forceinline__ static T add(T a, T b) { return radd(a, b); }
+  template <typename T>
+  __device__ __forceinline__ static T sub(T a, T b) { return rsub(a, b); }
+  template <typename T>
+  __device__ __forceinline__ static T mul(T a, T b) { return rmul(a, b); }
+  template <typename T>
+  __device__ __forceinline__ static T div(T a, T b) { return rdiv(a, b); }
+};
+
+struct Contracting {
+  template <typename T>
+  __device__ __forceinline__ static T add(T a, T b) { return a + b; }
+  template <typename T>
+  __device__ __forceinline__ static T sub(T a, T b) { return a - b; }
+  template <typename T>
+  __device__ __forceinline__ static T mul(T a, T b) { return a * b; }
+  template <typename T>
+  __device__ __forceinline__ static T div(T a, T b) { return a / b; }
+};
+
+// NaN-propagating max and min, as torch.maximum / jnp.maximum.
+template <typename T>
+__device__ __forceinline__ T nmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+template <typename T>
+__device__ __forceinline__ T nmin(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+
+// A.2.1 geometric Brownian motion: f = r u, g = v u (diagonal).
+struct Gbm {
+  static constexpr int n = 3, k = 2, m = 3;
+  static constexpr bool diagonal = true;
+  static constexpr bool has_gdg = true, has_ddb = true;
+  template <class A, typename T>
+  __device__ __forceinline__ static void drift(const T* u, const T* p, T t,
+                                               T* du) {
+#pragma unroll
+    for (int c = 0; c < n; ++c) du[c] = A::mul(p[0], u[c]);
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ static void diffusion(const T* u, const T* p,
+                                                   T t, T* g) {
+#pragma unroll
+    for (int c = 0; c < n; ++c) g[c] = A::mul(p[1], u[c]);
+  }
+  // Milstein's (∂g/∂u)·g, by hand: the JVP of v u along g = v u.
+  template <class A, typename T>
+  __device__ __forceinline__ static void gdg(const T* u, const T* p, T t,
+                                             T* out) {
+#pragma unroll
+    for (int c = 0; c < n; ++c) out[c] = A::mul(p[1], A::mul(p[1], u[c]));
+  }
+  // The Milstein pair's ∂((∂g)·g)·g, by hand: the JVP of v (v u) along
+  // g = v u, as the nested JVP of `milstein_embedded_step` computes it.
+  template <class A, typename T>
+  __device__ __forceinline__ static void ddb(const T* u, const T* p, T t,
+                                             T* out) {
+#pragma unroll
+    for (int c = 0; c < n; ++c)
+      out[c] = A::mul(p[1], A::mul(p[1], A::mul(p[1], u[c])));
+  }
+};
+
+// A.2.2 sigma-factor stress-response network: 4 states, 8 Wiener processes
+// (general noise, chemical-Langevin birth/death terms), 6 parameters
+// (S, D, tau, v0, n, eta).  pow keeps its NaN for a negative base and a
+// non-integer exponent, as torch's ** does.
+struct Crn {
+  static constexpr int n = 4, k = 6, m = 8;
+  static constexpr bool diagonal = false;
+  static constexpr bool has_gdg = false, has_ddb = false;
+  template <class A, typename T>
+  __device__ __forceinline__ static T hill(const T* u, const T* p) {
+    const T sn = pow(A::mul(p[0], u[0]), p[4]);
+    return A::div(sn, A::add(A::add(sn, pow(A::mul(p[1], u[3]), p[4])),
+                             T(1)));
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ static void drift(const T* u, const T* p, T t,
+                                               T* du) {
+    const T tau = p[2];
+    du[0] = A::sub(A::add(p[3], hill<A>(u, p)), u[0]);
+    du[1] = A::div(A::sub(u[0], u[1]), tau);
+    du[2] = A::div(A::sub(u[1], u[2]), tau);
+    du[3] = A::div(A::sub(u[2], u[3]), tau);
+  }
+  template <typename T>
+  __device__ __forceinline__ static T pos(T x) {
+    return sqrt(nmax(x, T(0)));
+  }
+  // g(u)·dW: each row of the 4 x 8 matrix has two non-zero entries; the
+  // plain version sums the row left to right, where the zero terms add
+  // nothing.
+  template <class A, typename T>
+  __device__ __forceinline__ static void noise(const T* u, const T* p, T t,
+                                               const T* dW, T* out) {
+    const T tau = p[2], eta = p[5];
+    const T hl = hill<A>(u, p);
+    out[0] = A::add(A::mul(A::mul(eta, pos(A::add(p[3], hl))), dW[0]),
+                    A::mul(A::mul(-eta, pos(u[0])), dW[1]));
+    out[1] = A::add(A::mul(A::mul(eta, pos(A::div(u[0], tau))), dW[2]),
+                    A::mul(A::mul(-eta, pos(A::div(u[1], tau))), dW[3]));
+    out[2] = A::add(A::mul(A::mul(eta, pos(A::div(u[1], tau))), dW[4]),
+                    A::mul(A::mul(-eta, pos(A::div(u[2], tau))), dW[5]));
+    out[3] = A::add(A::mul(A::mul(eta, pos(A::div(u[2], tau))), dW[6]),
+                    A::mul(A::mul(-eta, pos(A::div(u[3], tau))), dW[7]));
+  }
+};
+
+}  // namespace repro_sde

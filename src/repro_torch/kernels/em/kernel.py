@@ -31,19 +31,21 @@ SOURCE = "sde_ensemble.cu"
 
 
 class SDEFunctor(NamedTuple):
-    """A device functor of the .cu: id, states, parameters, noise kind,
-    Wiener processes, and whether it has the ``gdg`` member."""
+    """A device functor of `csrc/sde_problems.cuh`: id, states, parameters,
+    noise kind, Wiener processes, and whether it has the ``gdg`` member,
+    (∂g/∂u)·g, and the ``ddb`` member, ∂((∂g)·g)·g (the milstein pair's)."""
     id: int
     n: int
     k: int
     noise: str
     m: int
     gdg: bool
+    ddb: bool
 
 
-# as in the .cu (`by_problem`)
-SDE_FUNCTORS = {"gbm": SDEFunctor(0, 3, 2, "diagonal", 3, True),
-                "crn": SDEFunctor(1, 4, 6, "general", 8, False)}
+# as in the .cu files (`by_problem`)
+SDE_FUNCTORS = {"gbm": SDEFunctor(0, 3, 2, "diagonal", 3, True, True),
+                "crn": SDEFunctor(1, 4, 6, "general", 8, False, False)}
 STEPPER_IDS = {"em": 0, "heun_strat": 1, "platen_w2": 2, "milstein": 3}
 DIAGONAL_ONLY = ("platen_w2", "milstein")
 DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
@@ -58,8 +60,8 @@ def device_sde(name: str):
     """Register a Python drift or diffusion with its hand-written device
     functor; a problem's f and g must both carry the same name."""
     if name not in SDE_FUNCTORS:
-        raise ValueError(f"no device functor {name!r} in {SOURCE}; have "
-                         f"{sorted(SDE_FUNCTORS)}")
+        raise ValueError(f"no device functor {name!r} in sde_problems.cuh; "
+                         f"have {sorted(SDE_FUNCTORS)}")
 
     def mark(fn):
         fn.device_sde = name

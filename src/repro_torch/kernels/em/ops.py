@@ -1,17 +1,21 @@
-"""Public wrapper for the fixed-dt SDE ensemble kernel — the counterpart of
-`repro.kernels.em.ops`.
+"""Public wrappers for the SDE ensemble kernels — the counterpart of
+`repro.kernels.em.ops`, and of the reference front door's inline launch of
+the adaptive kernel.
 
-It binds the problem, the seed and the lane offset into the kernel's
-parameters (`sde_body`) and hands the launch to the generic layer
-(`run_ensemble_kernel`) with the optional noise table as a "lanes" extra;
-CUDA tensors launch the kernel, CPU tensors run its plain version.
+Each binds the problem, the seed and the lane offset into the kernel's
+parameters (`sde_body`, `sde_adaptive_body`) and hands the launch to the
+generic layer (`run_ensemble_kernel`), with the optional noise table as a
+"lanes" extra (fixed dt) or the saveat grid as a "broadcast" extra
+(adaptive); CUDA tensors launch the kernel, CPU tensors run its plain
+version.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.core.sde import EnsembleSDEResult, sde_save_grid
-from repro_torch.kernels.ensemble_kernel import run_ensemble_kernel, sde_body
+from repro_torch.kernels.ensemble_kernel import (run_ensemble_kernel,
+                                                 sde_adaptive_body, sde_body)
 
 
 def seed_from_key(key) -> int:
@@ -37,6 +41,24 @@ def solve_sde_ensemble_kernel(prob, u0s, ps, *, t0, dt, n_steps,
                        device=u0s.device)
     extras = [("lanes", noise_table)] if noise_table is not None else []
     return run_ensemble_kernel(body, u0s, ps, ts=ts, extras=extras)
+
+
+def solve_sde_adaptive_kernel(prob, u0s, ps, saveat, *, method, t0, tf,
+                              dt0, rtol, atol, max_iters, seed, depth, order,
+                              error_est, est_order, nf_per_attempt,
+                              lane_offset=0):
+    """Unified-result adaptive SDE kernel entry (returns an EnsembleResult):
+    u0s (N, n), ps (N, k) trajectory-major on one device, saveat (S,) in
+    u0s's dtype.  One launch of the adaptive kernel over the ensemble."""
+    body = sde_adaptive_body(
+        prob.f, prob.g, method, prob.noise, t0=float(t0), tf=float(tf),
+        dt0=float(dt0), rtol=float(rtol), atol=float(atol),
+        max_iters=int(max_iters), m_noise=prob.noise_dim(), seed=int(seed),
+        depth=int(depth), order=float(order), error_est=error_est,
+        est_order=int(est_order), nf_per_attempt=int(nf_per_attempt),
+        lane_offset=int(lane_offset))
+    return run_ensemble_kernel(body, u0s, ps, ts=saveat,
+                               extras=[("broadcast", saveat)])
 
 
 def solve_sde_ensemble_cuda(prob, u0s, ps, key, t0, dt, n_steps,

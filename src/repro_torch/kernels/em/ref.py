@@ -1,13 +1,16 @@
-"""Plain PyTorch oracle for the SDE kernel: a lanes-mode loop over the whole
+"""Plain PyTorch oracles for the SDE kernels: lanes-mode loops over the whole
 ensemble using the SAME stepper definitions and the SAME counter RNG
-(`repro_torch.kernels.rng`), so comparison with the kernel is pathwise, not
-just statistical — the port of `repro.kernels.em.ref`.  Events and
-rematerialisation are still to port (ROADMAP queue 1 items 7 and 9)."""
+(`repro_torch.kernels.rng`), so comparison with a kernel is pathwise, not
+just statistical — the port of `repro.kernels.em.ref`, plus the plain
+version of the adaptive kernel.  Events and rematerialisation are still to
+port (ROADMAP queue 1 items 7 and 9)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.sde import SDE_STEPPERS, sde_step_and_save
+from repro_torch.core.sde import (SDE_EMBEDDED, SDE_STEPPERS,
+                                  sde_nf_per_step, sde_solve_adaptive,
+                                  sde_step_and_save)
 from repro_torch.kernels.rng import M32, counter_normals_threefry
 
 
@@ -46,3 +49,29 @@ def ref_solve(prob, u0s, ps, *, t0, dt, n_steps, method="em", save_every=1,
                        u0s.T, ps.T, t0=t0, dt=dt, n_steps=n_steps,
                        save_every=save_every, seed=seed,
                        noise_table=noise_table, lane_offset=lane_offset)
+
+
+def solve_adaptive_lanes(f, g, method: str, u0, p, saveat, *, noise: str,
+                         m_noise: int, t0, tf, dt0, rtol, atol,
+                         max_iters: int, seed: int, depth: int, order: float,
+                         error_est: str, est_order: int, nf_per_attempt: int,
+                         lane_offset: int = 0):
+    """The plain version of the adaptive kernel: `sde_solve_adaptive` in
+    lanes mode over u0 (n, N), p (k, N), with the GLOBAL lane indices
+    lane_offset + arange(N) mod 2^32.  Returns us (S, n, N), u_final
+    (n, N), t_final (N,) and stats (6, N) int32 with rows (naccept,
+    nreject, status, nf, 0, 0), as the reference's body stacks them."""
+    N = u0.shape[1]
+    lanes = (torch.arange(N, dtype=torch.int64, device=u0.device)
+             + lane_offset) & M32
+    pair = SDE_EMBEDDED[method].fn if error_est == "embedded" else None
+    res = sde_solve_adaptive(
+        f, g, SDE_STEPPERS[method], noise, u0, p, t0, tf, dt0, seed=seed,
+        lane_idx=lanes, m_noise=m_noise, saveat=saveat, rtol=rtol, atol=atol,
+        max_iters=max_iters, lanes=True, depth=depth, order=order,
+        nf_per_step=sde_nf_per_step(method), error_est=error_est,
+        embedded=pair, est_order=est_order, nf_per_attempt=nf_per_attempt)
+    zero = torch.zeros_like(res.naccept)
+    stats = torch.stack([res.naccept, res.nreject, res.status, res.nf, zero,
+                         zero])
+    return res.us, res.u_final, res.t_final, stats

@@ -1,6 +1,6 @@
 """Launch-and-assemble layer of the fused ensemble kernels — the PyTorch
-counterpart of `repro.kernels.ensemble_kernel` for the erk, rosenbrock and
-fixed-dt sde families.
+counterpart of `repro.kernels.ensemble_kernel` for the erk, rosenbrock,
+fixed-dt sde and adaptive sde families.
 
 The reference's TPU factory tiles lanes into VMEM blocks; on the H100 each
 trajectory is one CUDA thread, so there is no tile to choose here.  What
@@ -90,6 +90,28 @@ def sde_body(f, g, method: str, noise: str, *, t0: float, dt: float,
                             save_every=save_every, seed=seed,
                             lane_offset=lane_offset,
                             table=extras[0] if use_table else None)
+
+    return body
+
+
+def sde_adaptive_body(f, g, method: str, noise: str, *, t0: float, tf: float,
+                      dt0: float, rtol: float, atol: float, max_iters: int,
+                      m_noise: int, seed: int, depth: int, order: float,
+                      error_est: str, est_order: int, nf_per_attempt: int,
+                      lane_offset: int) -> Callable:
+    """Adaptive SDE integration with embedded-pair or step-doubling error
+    control on the virtual Brownian tree of depth `depth`, keyed by
+    (seed; lane_offset + lane, row, dyadic index).  `method` names the
+    stepper (`core.sde.SDE_STEPPERS`); extras[0] is the saveat grid (S,)."""
+    from repro_torch.kernels.em.adaptive import sde_adaptive_ensemble
+
+    def body(u0, p, extras):
+        return sde_adaptive_ensemble(
+            f, g, method, u0, p, extras[0], noise=noise, m_noise=m_noise,
+            t0=t0, tf=tf, dt0=dt0, rtol=rtol, atol=atol,
+            max_iters=max_iters, seed=seed, depth=depth, order=order,
+            error_est=error_est, est_order=est_order,
+            nf_per_attempt=nf_per_attempt, lane_offset=lane_offset)
 
     return body
 

@@ -269,3 +269,95 @@ def test_cuda_stiff_wrappers_reject_what_the_kernels_cannot_take(cuda):
                                                       dtype=torch.float64,
                                                       device=cuda))
     assert (rb_kernel.launches, lu_kernel.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the adaptive SDE kernel (csrc/sde_adaptive_ensemble.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name,alg,est", [
+    ("gbm", "em", "embedded"), ("gbm", "milstein", "embedded"),
+    ("gbm", "em", "doubling"), ("gbm", "heun_strat", "doubling"),
+    ("gbm", "platen_w2", "doubling"), ("gbm", "milstein", "doubling"),
+    ("crn", "em", "doubling"), ("crn", "heun_strat", "doubling")])
+def test_cuda_sde_adaptive_kernel_matches_plain_version(cuda, name, alg,
+                                                        est, dtype):
+    """N = 300, every instantiation: the kernel against its plain version
+    (the lanes loop) on the same card.  Both round every operation on
+    their own, so the per-lane counts are identical and the states bitwise
+    or within 1e-12."""
+    from repro_torch.kernels.em import adaptive as k5
+    prob, u0s, ps = sde_inputs(name, 300)
+    ep = ensemble_problem(prob, u0s, ps, device=cuda, dtype=dtype)
+    tf = 1.0 if name == "gbm" else 2.0
+    kw = dict(alg=alg, ensemble="kernel", adaptive=True, error_est=est,
+              t0=0.0, tf=tf, dt0=0.05, rtol=1e-3, atol=1e-5, seed=5,
+              saveat=torch.linspace(tf / 4, tf, 4, dtype=dtype),
+              lane_offset=2 ** 32 - 100, device=cuda)
+    before = k5.launches
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", **kw)
+    assert k5.launches == before + 1
+    assert torch.equal(rk.naccept, rt.naccept)
+    assert torch.equal(rk.nreject, rt.nreject)
+    assert int(rk.nf) == int(rt.nf) and int(rk.status) == int(rt.status)
+    assert torch.equal(rk.t_final, rt.t_final)
+    for a, b in ((rk.us, rt.us), (rk.u_final, rt.u_final)):
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin)
+        torch.testing.assert_close(a[fin], b[fin], rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_sde_adaptive_kernel_f32_runs_and_counts(cuda):
+    """f32: one launch, finite GBM states, the plain version's counts on
+    nearly every lane (f32 rounding may move an accept decision)."""
+    from repro_torch.kernels.em import adaptive as k5
+    prob, u0s, ps = sde_inputs("gbm", 1024)
+    ep = ensemble_problem(tdp.gbm_problem(dtype=torch.float32), u0s, ps,
+                          device=cuda, dtype=torch.float32)
+    kw = dict(alg="em", ensemble="kernel", adaptive=True, t0=0.0, tf=1.0,
+              dt0=0.02, rtol=1e-3, atol=1e-5, seed=7, brownian_depth=14,
+              saveat=[0.25, 0.5, 0.75, 1.0], device=cuda)
+    before = k5.launches
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", **kw)
+    assert k5.launches == before + 1 and int(rk.status) == 0
+    assert bool(torch.isfinite(rk.us).all()) and rk.us.dtype == torch.float32
+    same = (rk.naccept == rt.naccept) & (rk.nreject == rt.nreject)
+    assert float(same.double().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_sde_adaptive_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    """Raises, and never runs the plain version, on CUDA tensors."""
+    from repro_torch.kernels.em import adaptive as k5
+    before = k5.launches
+    plain = SDEProblem(lambda u, p, t: p[0] * u, lambda u, p, t: p[1] * u,
+                       torch.full((3,), 0.1, dtype=torch.float64),
+                       torch.tensor([1.5, 0.2], dtype=torch.float64),
+                       (0.0, 1.0))
+    with pytest.raises(NotImplementedError, match="device form"):
+        tsolve(EnsembleProblem(plain, 8), alg="em", backend="cuda",
+               adaptive=True, t0=0.0, tf=1.0, dt0=0.1, device=cuda)
+    u0 = torch.full((3, 8), 0.1, dtype=torch.float64, device=cuda)
+    p = torch.ones(2, 8, dtype=torch.float64, device=cuda)
+    sv = torch.tensor([1.0, 0.5], dtype=torch.float64, device=cuda)
+    kw = dict(noise="diagonal", m_noise=3, t0=0.0, tf=1.0, dt0=0.1,
+              rtol=1e-3, atol=1e-5, max_iters=100, seed=0, depth=8,
+              order=0.5, error_est="embedded", est_order=1,
+              nf_per_attempt=1)
+    f, g = tdp.gbm_drift, tdp.gbm_diffusion
+    with pytest.raises(ValueError, match="ascending"):
+        k5.sde_adaptive_ensemble(f, g, "em", u0, p, sv, **kw)
+    with pytest.raises(ValueError, match="no embedded pair"):
+        k5.sde_adaptive_ensemble(f, g, "platen_w2", u0, p, sv[:1], **kw)
+    with pytest.raises(ValueError, match="float64"):
+        k5.sde_adaptive_ensemble(f, g, "em", u0, p.float(), sv[:1], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.sde_adaptive_ensemble(f, g, "em", u0.T.contiguous().T, p, sv[:1],
+                                 **kw)
+    assert k5.launches == before

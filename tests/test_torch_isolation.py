@@ -20,7 +20,7 @@ PORT_MODULES = [
     "repro_torch.core.events", "repro_torch.kernels.lu.kernel",
     "repro_torch.kernels.lu.ops", "repro_torch.kernels.lu.ref",
     "repro_torch.kernels.rosenbrock.kernel",
-    "repro_torch.kernels.rosenbrock.ops",
+    "repro_torch.kernels.rosenbrock.ops", "repro_torch.kernels.em.adaptive",
 ]
 
 

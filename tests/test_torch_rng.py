@@ -16,8 +16,10 @@ from repro_torch.kernels import rng as trng
 from repro_torch.kernels.build import NVCC_FLAGS
 from repro_torch.kernels.em import kernel as sde_kernel
 
-CU = (Path(__file__).resolve().parents[1]
-      / "src/repro_torch/csrc/sde_ensemble.cu").read_text()
+# the fixed-dt kernel and the generator header it includes
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+CU = "".join((CSRC / f).read_text() for f in ("sde_ensemble.cu",
+                                              "threefry.cuh"))
 # Both packages compute the normals in float32; XLA-CPU's and PyTorch's f32
 # log/cos differ by a few ulps on some inputs (4.77e-7 absolute at most on
 # 1.6e6 draws), so normals are held to 2e-6 absolute, words to equality.

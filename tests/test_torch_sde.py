@@ -267,7 +267,8 @@ def gbm_ep(N=4):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(adaptive=True), NotImplementedError, "queue 1 item 6"),
+    (dict(adaptive=True, noise_table=np.zeros((10, 3, 4))),
+     NotImplementedError, "fixed-dt only"),
     (dict(saveat=[0.5, 1.0]), NotImplementedError, "save_every"),
     (dict(ensemble="array_eager"), NotImplementedError, "vmap"),
     (dict(event=object()), NotImplementedError, "ROADMAP"),
