@@ -15,7 +15,11 @@ SDE ensembles, the million-trajectory adaptive GBM ensembles (the em
 embedded pair and step doubling, against the closed form on the same
 path), and the million-trajectory ROBER stiff ensembles (rodas5p, and
 rodas4 with lazy W), plus the `array` strategy with the batched LU kernel
-as its linear solver, and times each kernel beside its twin, and the
+as its linear solver, and the event forms of the four ensemble kernels
+(f64 parity on decay, the bouncing ball, ROBER, GBM and the ramp, then the
+million-trajectory bouncing ball in f64 and f32, ROBER with its
+half-conversion event and GBM with a knock-out barrier, fixed and
+adaptive), and times each kernel beside its twin, and the
 `vmap` and `array` strategies on the ODE and fixed-dt SDE forms, on
 rober-1M-rodas5p and on gbm-1M-em-adaptive.  Every phase raises on
 failure, so the script exits non-zero; it also exits non-zero, printing no
@@ -68,6 +72,10 @@ SEED = 0
 # whose rounding of t and u the dynamics amplify.  A CPU run at N = 256 gave
 # 7.8e-6 and 1.7e-4 against the f64 twin; the bars leave about 10x room.
 F32_TOL = {"adaptive": 2e-4, "fixed": 2e-3}
+# K2's staged fixed-dt run (f64) against K1's plain version on the same
+# inputs: max |a - b| within 1e-12, the parity phase's fixed-dt bar (there
+# relative to the largest state, which stays below 50 here).
+K2_TOL = 1e-12
 
 SDE_SEED = 1234
 # Normals of the kernel against the plain stream on the card: the words are
@@ -208,20 +216,26 @@ def lorenz_inputs(N: int, dtype, device, seed: int = SEED):
 PTXAS_TAGS = {
     "erk_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                         ("Tsit5", "tsit5"), ("Dopri5", "dopri5"),
-                        ("Lorenz", "lorenz"), ("Sho", "sho")),
+                        ("Lorenz", "lorenz"), ("Sho", "sho"),
+                        ("Ball", "ball"), ("Decay", "decay"),
+                        ("BallBounce", "bounce"), ("DecayHalf", "half")),
     "sde_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                         ("Gbm", "gbm"), ("Crn", "crn"), ("2EmE", "em"),
                         ("HeunStrat", "heun_strat"),
                         ("PlatenW2", "platen_w2"), ("Milstein", "milstein"),
                         ("Lb0E", "rng"), ("Lb1E", "table"),
-                        ("sde_normals", "normals")),
+                        ("sde_normals", "normals"), ("Ramp", "ramp"),
+                        ("GbmBarrier", "barrier"),
+                        ("RampSawtooth", "sawtooth")),
     "sde_adaptive_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                                  ("Gbm", "gbm"), ("Crn", "crn"),
                                  ("2EmELb0E", "em"), ("HeunStrat", "heun_strat"),
                                  ("PlatenW2", "platen_w2"),
                                  ("8MilsteinELb0E", "milstein"),
                                  ("EmPair", "em pair"),
-                                 ("MilsteinPair", "milstein pair")),
+                                 ("MilsteinPair", "milstein pair"),
+                                 ("Ramp", "ramp"), ("GbmBarrier", "barrier"),
+                                 ("RampSawtooth", "sawtooth")),
     "lu_solve.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                     *((f"Li{k}E", f"n={k}") for k in range(1, 9)),
                     ("Lb0E", "nopivot"), ("Lb1E", "pivot")),
@@ -230,7 +244,10 @@ PTXAS_TAGS = {
                                ("Rodas4", "rodas4"), ("Rodas5p", "rodas5p"),
                                ("Rober", "rober"), ("Orego", "orego"),
                                ("Vdp", "vdp"), ("Lb0E", "eager"),
-                               ("Lb1E", "lazyW")),
+                               ("Lb1E", "lazyW"), ("Ball", "ball"),
+                               ("Decay", "decay"), ("RoberHalf", "half"),
+                               ("BallBounce", "bounce"),
+                               ("DecayHalf", "half")),
 }
 
 
@@ -296,7 +313,7 @@ def phase_build() -> float:
     lib = library_path(SDE_SOURCE)
     for what, keys in (("normals", ("sde_normals_kernel",)),
                        ("f32 em/gbm rng", ("sde_ensemble_kernelIf", "3Gbm",
-                                           "2EmE", "Lb0E"))):
+                                           "2EmE", "Lb0E", "NoEvent"))):
         mix = sass_mix(lib, *keys)
         ints = {op: mix.get(op, 0) for op in ("SHF", "LOP3", "PRMT", "IADD3",
                                               "IMAD")}
@@ -350,19 +367,63 @@ def phase_parity(device, N: int = PARITY_N):
     grid = torch.arange(1, 9, dtype=torch.float64, device=device) / 8.0
     kw = dict(t0=0.0, tf=1.0, dt0=2.0 ** -10, saveat=grid, rtol=1e-8,
               atol=1e-8, adaptive=False)
-    before = erk_kernel.launches
     one = solve_ensemble_cuda(ep.prob, u0s, ps, tab, save_chunks=1, **kw)
+    # ---- K2's path, with the launch count read around it --------------
+    erk_kernel.launches = 0
     three = solve_ensemble_cuda(ep.prob, u0s, ps, tab, save_chunks=3, **kw)
-    if device.type == "cuda" and erk_kernel.launches != before + 4:
-        raise AssertionError("staged run: expected 1 + 3 launches, got "
-                             f"{erk_kernel.launches - before}")
+    sync(device)
+    launches = erk_kernel.launches
+    if device.type == "cuda" and launches != 3:
+        raise AssertionError(f"staged run: expected 3 launches, got "
+                             f"{launches}")
     for field in ("us", "u_final", "naccept"):
         if not torch.equal(getattr(one, field), getattr(three, field)):
             raise AssertionError(f"staged fixed-dt {field} is not bitwise "
                                  "equal to the single launch")
+    # ---- the staged run against K1's plain version on the same inputs --
+    f = ep.prob.f
+    t = time.perf_counter()
+    plain = erk_kernel._plain(f, tab, u0s.T.contiguous(), ps.T.contiguous(),
+                              grid, 0.0, 1.0, 2.0 ** -10, 1e-8, 1e-8, False,
+                              100_000)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    k2_err = max(float((three.us - plain[0].permute(2, 0, 1)).abs().max()),
+                 float((three.u_final - plain[1].T).abs().max()))
+    if k2_err > K2_TOL:
+        raise AssertionError(f"staged fixed-dt against the plain version: "
+                             f"max abs {k2_err:.3e} > {K2_TOL}")
     print(f"parity staged fixed-dt save_chunks=3: bitwise equal to one "
-          f"launch (launches {erk_kernel.launches - before})")
-    return worst
+          f"launch, launches {launches}, max abs against the plain version "
+          f"{k2_err:.3e} (bar {K2_TOL:g})")
+
+    # ---- K2's time: the staged driver on this case, against one launch,
+    # with K1's bound over the same work (f64 operations at the FP64 peak:
+    # the no-event kernel contracts products into fused multiply-adds) ----
+    ms = cuda_ms(lambda: solve_ensemble_cuda(ep.prob, u0s, ps, tab,
+                                             save_chunks=3, **kw), 5)
+    ms_one = cuda_ms(lambda: solve_ensemble_cuda(ep.prob, u0s, ps, tab,
+                                                 save_chunks=1, **kw), 5)
+    S = grid.shape[0]
+    flops = (N * 2 ** 10 * attempt_flops(tab, 3, 9, False)
+             + N * S * save_flops(tab, 3))
+    nbytes = 8 * (6 * N + S + S * 3 * N + 3 * N + N) + 4 * 6 * N
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp64": flops / PEAK_FP64_FLOPS * 1e3}
+    pipe = max(times, key=times.get)
+    print(f"K2 staged driver (save_chunks=3, {launches} launches of K1): "
+          f"{ms:.3f} ms against one launch {ms_one:.3f} ms, bound "
+          f"{times[pipe]:.4f} ms by {pipe} ({flops:.3e} ops, {nbytes:.3e} "
+          f"bytes), plain version {plain_ms:.1f} ms (one run)")
+    k2 = {"name": "run_ensemble_kernel_staged[tsit5,lorenz,f64,fixed,3]",
+          "route": "cuda",
+          "source": "src/repro_torch/kernels/ensemble_kernel.py",
+          "replaces": "src/repro/kernels/ensemble_kernel.py:372",
+          "launches": launches, "max_abs_err": k2_err, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": times[pipe],
+          "bound_by": "bytes" if pipe == "bytes" else "operations",
+          "library_ms": None, "one_launch_ms": ms_one}
+    return worst, k2
 
 
 def attempt_flops(tab, n: int, rhs_flops: int, adaptive: bool) -> int:
@@ -1503,6 +1564,642 @@ def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the event forms of the four ensemble kernels (csrc/events.cuh): K1, K3,
+# K4 and K5 with an event detected, located and applied inside the loop
+# ---------------------------------------------------------------------------
+
+# f64 parity, each kernel against its plain version on the card: K1 per-lane
+# counts identical and states within 1e-10 (its no-event bar); K3 and K5
+# bitwise (every operation rounded on its own on both sides); K4 within
+# 1e-12, its fixed-dt bar (its event form rounds every operation on its
+# own as well, so the phase prints how many lanes are bitwise).
+EVENT_TOL = {"erk": 1e-10, "rosenbrock": 0.0, "sde": 1e-12,
+             "sde_adaptive": 0.0}
+# The bouncing ball at full size (examples/bouncing_ball.py at the paper's
+# 10^6 scale): e linear over (0.75, 0.95), x0 = 10, v0 = 0, g = 9.8, 81
+# saves on [0, 8].  Heights against the closed form within a bar 10x the
+# error of a CPU run of the plain version on 2^18 lanes of the same sweep
+# (2.08e-7 in f64 at rtol = atol = 1e-9; 2.35e-4 in f32 at 1e-6), plus, on
+# a save that lies within the save and end tolerance 1e-7 max(t, 1) after
+# an impact, the gap between the falling and the rising parabola there: a
+# lane whose impact falls that close before tf ends at the impact, and its
+# save at tf keeps the step's pre-bounce interpolant, by the reference's
+# rules (one lane of the 2^20, 2.76e-6 off, on the card and on the CPU).
+BALL_SETTINGS = dict(t0=0.0, tf=8.0, dt0=1e-3)
+BALL_TOL = {"f64": (1e-9, 2.1e-6), "f32": (1e-6, 2.5e-3)}
+# The knock-out barrier: the frozen state's first component within 1e-6 of
+# it in f64 (the reference's bar, tests/test_event_parity.py) and, at full
+# size in f32, within 1e-7 (10x the 7.2e-9 of a CPU run of the f32 plain
+# version at N = 4096, fixed and adaptive: half an f32 ulp of 0.18).
+BARRIER, BARRIER_TOL = 0.18, {"f64": 1e-6, "f32": 1e-7}
+# The ramp's sawtooth on the adaptive path: u(1) = 0.1 within the
+# reference's bound, 9 events of at most one dyadic cell each (2^-11 here).
+SAWTOOTH_BOUND = 9 * 2.0 ** -11 + 1e-4
+ROBER_HALF_TOL = 1e-6
+# Float operations of the event path as the kernels write them (each add,
+# multiply, divide one).  Per accepted step (per active step of the
+# fixed-dt SDE kernel): the condition at both ends.  Per re-anchored start
+# (g_old == 0): one interpolant and a condition.  Per hit: bisect_iters x
+# (the midpoint's 2, its time's 2, the interpolant, the condition), the
+# interpolant at the root, its time's 2 and the affect.  Interpolants:
+# Tsitouras' 46 for the weights and 16 a state; Hermite 14 and 9 a state;
+# rodas5p's Hermite needs f(u1) once (ROBER's 13); linear 3 a state.
+def tsit5_interp_ops(n: int) -> int:
+    return 46 + 16 * n
+
+
+def event_ops(*, steps, reanchors, hits, interp, cond, affect, iters=30):
+    return (steps * 2 * cond + reanchors * (interp + cond)
+            + hits * (iters * (4 + interp + cond) + interp + 2 + affect))
+
+
+def ball_closed_form(ts, e, g=9.8, x0=10.0):
+    """Heights (N, S) of the bouncing ball at the save times ts: parabolas
+    between the impacts t_1 = sqrt(2 x0 / g), t_{k+1} = t_k + 2 e^k t_1;
+    the number of impacts in [0, ts[-1]] per lane; and (N, S) the gap
+    between the rising and the falling parabola on saves within the save
+    tolerance 1e-7 max(t, 1) after an impact (0 elsewhere).  e (N,)
+    float64."""
+    import torch
+    t1 = float(np.sqrt(2.0 * x0 / g))
+    v1 = g * t1
+    out = torch.empty((e.shape[0], len(ts)), dtype=torch.float64,
+                      device=e.device)
+    gap = torch.zeros_like(out)
+    t_imp = torch.full_like(e, t1)        # the latest impact at or before t
+    speed = torch.zeros_like(e)           # the speed just after it
+    hits = torch.zeros(e.shape[0], dtype=torch.int64, device=e.device)
+    for j, t in enumerate(ts):
+        while True:
+            k = hits.double()
+            nxt = torch.where(hits == 0, torch.full_like(e, t1),
+                              t_imp + 2.0 * e ** k * t1)
+            due = nxt <= t
+            if not bool(due.any()):
+                break
+            t_imp = torch.where(due, nxt, t_imp)
+            hits = hits + due.long()
+            speed = torch.where(due, e ** hits.double() * v1, speed)
+        tau = t - t_imp
+        out[:, j] = torch.where(hits == 0,
+                                torch.full_like(e, x0 - 0.5 * g * t * t),
+                                speed * tau - 0.5 * g * tau * tau)
+        near = (hits > 0) & (tau <= 1e-7 * max(abs(t), 1.0))
+        # rising at `speed`, falling at `speed / e`, over tau
+        gap[:, j] = torch.where(near, (speed + speed / e) * tau,
+                                torch.zeros_like(e))
+    return out, hits, gap
+
+
+def event_parity_cases(device, N: int):
+    """(name, kernel family, ensemble, front-door arguments) of the f64
+    event parity phase."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    f64 = torch.float64
+    lams = np.linspace(0.5, 2.0, N)
+    decay = ensemble_problem(dp.linear_decay_problem(), np.ones((N, 1)),
+                             lams[:, None], device=device)
+    es = np.linspace(0.3, 0.9, N)
+    ball = ensemble_problem(dp.bouncing_ball_problem(),
+                            np.stack([np.full(N, 10.0), np.zeros(N)], 1),
+                            np.stack([np.full(N, 9.8), es], 1),
+                            device=device)
+    gbm = sde_inputs("gbm", N, f64, device)
+    ramp = ensemble_problem(dp.ramp_problem(), np.zeros((N, 1)),
+                            np.tile([1.0, 1e-10], (N, 1)), device=device)
+    dec = dict(t0=0.0, tf=3.0, dt0=1e-3, rtol=1e-9, atol=1e-9, saveat=[3.0],
+               event=dp.half_event())
+    bal = dict(t0=0.0, tf=2.0, dt0=1e-3, rtol=1e-9, atol=1e-9,
+               saveat=[0.5, 1.0, 1.5, 2.0], event=dp.bouncing_ball_event())
+    rober = dict(ROBER_SETTINGS, saveat=list(ROBER_SAVEAT),
+                 event=dp.rober_half_event())
+    fixed = dict(t0=0.0, dt0=1.0 / 200, n_steps=200, save_every=50,
+                 seed=SDE_SEED, event=dp.gbm_barrier_event())
+    adapt = dict(ADAPTIVE_SETTINGS["gbm"], adaptive=True, seed=SDE_SEED,
+                 alg="em", event=dp.gbm_barrier_event())
+    adapt["saveat"] = list(adapt["saveat"])
+    saw = dict(event=dp.ramp_sawtooth_event(), seed=SDE_SEED)
+    cases = []
+    for alg in ("tsit5", "dopri5"):
+        cases += [(f"decay {alg}", "erk", decay, dict(dec, alg=alg)),
+                  (f"ball {alg}", "erk", ball, dict(bal, alg=alg))]
+    cases += [("decay rosenbrock23", "rosenbrock", decay,
+               dict(dec, alg="rosenbrock23")),
+              ("ball rosenbrock23", "rosenbrock", ball,
+               dict(bal, alg="rosenbrock23"))]
+    cases += [(f"rober {alg} {'lazyW' if wr else 'eager'}", "rosenbrock",
+               rober_inputs(N, device), dict(rober, alg=alg, w_reuse=wr))
+              for alg, wr in (("rodas4", False), ("rodas4", True),
+                              ("rodas5p", False))]
+    cases += [(f"gbm barrier {alg} fixed", "sde", gbm, dict(fixed, alg=alg))
+              for alg in ("em", "platen_w2")]
+    cases += [(f"gbm barrier em {est}", "sde_adaptive", gbm,
+               dict(adapt, error_est=est))
+              for est in ("embedded", "doubling")]
+    cases += [("ramp sawtooth em fixed", "sde", ramp,
+               dict(saw, alg="em", t0=0.0, dt0=0.0125, n_steps=80,
+                    save_every=20))]
+    cases += [(f"ramp sawtooth em {est}", "sde_adaptive", ramp,
+               dict(saw, alg="em", adaptive=True, error_est=est, t0=0.0,
+                    tf=1.0, dt0=0.05, rtol=1e-3, atol=1e-5,
+                    saveat=[0.25, 0.5, 0.75, 1.0]))
+              for est in ("embedded", "doubling")]
+    return cases
+
+
+def event_compare(rk, rt):
+    """(per-lane counts identical, worst |kernel - plain| over the saves,
+    the final states and times, lanes bitwise equal)."""
+    import torch
+    counts = bool(torch.equal(rk.naccept, rt.naccept)
+                  and torch.equal(rk.nreject, rt.nreject))
+    worst, bitwise = 0.0, None
+    for a, b in ((rk.us, rt.us), (rk.u_final, rt.u_final),
+                 (rk.t_final, rt.t_final)):
+        worst = max(worst, float((a - b).abs().max()))
+        same = (a == b).reshape(a.shape[0], -1).all(dim=1)
+        bitwise = same if bitwise is None else bitwise & same
+    return counts, worst, int(bitwise.sum())
+
+
+def phase_event_parity(device, N: int = PARITY_N):
+    """f64, every event form against its plain version on the same card,
+    through the front door, with the exact answers where there are some."""
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    mods = {"erk": erk_kernel, "rosenbrock": rb_kernel, "sde": sde_kernel,
+            "sde_adaptive": k5}
+    out = {}
+    for name, family, ep, kw in event_parity_cases(device, N):
+        mod, tol = mods[family], EVENT_TOL[family]
+        before = mod.launches
+        t = time.perf_counter()
+        rk = solve_ensemble_local(ep, ensemble="kernel", backend="cuda",
+                                  device=device, **kw)
+        extra = dict(linsolve="lanes") if family == "rosenbrock" else {}
+        rt = solve_ensemble_local(ep, ensemble="kernel", backend="torch",
+                                  device=device, **kw, **extra)
+        sync(device)
+        secs = time.perf_counter() - t
+        if device.type == "cuda" and mod.launches != before + 1:
+            raise AssertionError(f"event parity {name}: the kernel was not "
+                                 "launched")
+        counts, worst, bitwise = event_compare(rk, rt)
+        if not counts or worst > tol or int(rk.status) != 0:
+            raise AssertionError(
+                f"event parity {name}: counts identical {counts}, worst "
+                f"|kernel - plain| {worst:.3e} (bar {tol}), status "
+                f"{int(rk.status)}")
+        tf = kw.get("tf", kw["t0"] + kw.get("n_steps", 0) * kw["dt0"])
+        ended = rk.t_final < tf - 1e-9
+        check = ""
+        if name.startswith("decay"):
+            exact = torch.log(torch.tensor(2.0, dtype=torch.float64)) \
+                / ep.ps[:, 0]
+            d = float((rk.t_final - exact).abs().max())
+            if d > 1e-6:
+                raise AssertionError(f"event parity {name}: t_final off "
+                                     f"ln 2 / lam by {d:.3e}")
+            check = f"t_final vs ln 2 / lam {d:.3e} (bar 1e-6)"
+        elif name.startswith("gbm"):
+            d = float((rk.u_final[ended, 0] - BARRIER).abs().max())
+            if d > BARRIER_TOL["f64"]:
+                raise AssertionError(f"event parity {name}: frozen state off "
+                                     f"the barrier by {d:.3e}")
+            check = (f"{float(ended.double().mean()):.4f} of the lanes hit, "
+                     f"frozen u0 off {BARRIER} by {d:.3e} (bar "
+                     f"{BARRIER_TOL['f64']})")
+        elif name.startswith("rober"):
+            d = float((rk.u_final[ended, 2] - 0.5).abs().max())
+            if d > ROBER_HALF_TOL:
+                raise AssertionError(f"event parity {name}: y3 off 0.5 by "
+                                     f"{d:.3e}")
+            check = (f"{float(ended.double().mean()):.4f} of the lanes hit, "
+                     f"y3 off 0.5 by {d:.3e} (bar {ROBER_HALF_TOL})")
+        elif name.startswith("ramp") and "fixed" not in name:
+            d = float((rk.u_final[:, 0] - 0.1).abs().max())
+            if d > SAWTOOTH_BOUND:
+                raise AssertionError(f"event parity {name}: u(1) off 0.1 by "
+                                     f"{d:.3e}")
+            check = f"u(1) off 0.1 by {d:.3e} (bar {SAWTOOTH_BOUND:.3e})"
+        elif name.startswith("ball"):
+            low = float(rk.us[:, :, 0].min())
+            if low < -1e-6:
+                raise AssertionError(f"event parity {name}: the ball sank to "
+                                     f"{low:.3e}")
+            check = f"lowest saved height {low:.3e}"
+        attempts = int((rk.naccept.long() + rk.nreject.long()).sum())
+        out[name] = dict(worst=worst, bitwise_lanes=bitwise)
+        print(f"event parity {name}: N={N} f64 counts identical, worst "
+              f"|kernel - plain| {worst:.3e} (bar {tol}), {bitwise} of {N} "
+              f"lanes bitwise; {check}; attempts {attempts}; {secs:.1f} s "
+              "with the plain version")
+    return out
+
+
+def _event_row(name, source, replaces, launches, max_abs, ms, plain_ms,
+               times, **extra):
+    """A kernels-line row; `times` maps each bound's name to its ms."""
+    pipe = max(times, key=times.get)
+    return dict({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches,
+                 "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": times[pipe],
+                 "bound_by": "bytes" if pipe == "bytes" else "operations",
+                 "bound_pipe": pipe, "library_ms": None}, **extra)
+
+
+def _print_row(form, front_ms, row, work, times):
+    unfused = row.get("bound_unfused_ms")
+    print(f"{form}: front door {front_ms:.3f} ms, kernel {row['ms']:.3f} ms, "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_pipe']} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + (f"; {unfused:.4f} at the unfused rate" if unfused else "")
+          + f"), kernel / bound {row['ms'] / row['bound_ms']:.2f}x, work "
+          f"{work}; plain version {row['plain_ms']:.1f} ms (one run)")
+
+
+def phase_event_ball(device, N: int = FULL_N, reps: int = 3):
+    """ball-1M-tsit5-events in f64 and f32 through the front door: K1's
+    event form on the bouncing ball, against the closed form and the
+    plain version."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.core.tableaus import get_tableau
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+
+    f64 = torch.float64
+    e64 = torch.linspace(0.75, 0.95, N, dtype=f64, device=device)
+    ts = np.linspace(0.0, 8.0, 81)
+    exact, hits, gap = ball_closed_form(ts, e64)
+    tab = get_tableau("tsit5")
+    ev = dp.bouncing_ball_event()
+    rows, twin64 = [], None
+    for label, dtype in (("f64", f64), ("f32", torch.float32)):
+        form = "ball-1M-tsit5-events" + ("-f32" if label == "f32" else "")
+        tol, bar = BALL_TOL[label]
+        e = e64.to(dtype)
+        ep = EnsembleProblem(
+            dp.bouncing_ball_problem(dtype=dtype), N,
+            u0s=torch.stack([torch.full_like(e, 10.0), torch.zeros_like(e)],
+                            1).contiguous(),
+            ps=torch.stack([torch.full_like(e, 9.8), e], 1).contiguous())
+        kw = dict(alg="tsit5", rtol=tol, atol=tol, saveat=list(ts),
+                  event=ev, device=device, **BALL_SETTINGS)
+        erk_kernel.launches = 0
+        res = solve_ensemble_local(ep, ensemble="kernel", backend="cuda",
+                                   **kw)
+        sync(device)
+        launches = erk_kernel.launches
+        if device.type == "cuda" and launches != 1:
+            raise AssertionError(f"{form}: {launches} kernel launches, not 1")
+        if tuple(res.us.shape) != (N, 81, 2) or int(res.status) != 0 or \
+                not bool(torch.isfinite(res.us).all()):
+            raise AssertionError(f"{form}: shape {tuple(res.us.shape)}, "
+                                 f"status {int(res.status)} or non-finite")
+        err = (res.us[:, :, 0].double() - exact).abs()
+        d_exact = float(err.max())
+        if bool((err > bar + gap).any()):
+            raise AssertionError(
+                f"{form}: heights off the closed form by {d_exact:.3e}, "
+                f"beyond {bar} plus the end-of-step gap on "
+                f"{int((err > bar + gap).sum())} saves")
+        # ---- the kernel and its plain version on the same inputs --------
+        u0s, ps = ep.materialize()
+        u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+        sv = torch.tensor(ts, dtype=dtype, device=device)
+        kargs = dict(t0=0.0, tf=8.0, dt0=1e-3, rtol=tol, atol=tol,
+                     adaptive=True, max_iters=100_000, event=ev)
+        f = ep.prob.f
+
+        def kernel():
+            return erk_kernel.erk_ensemble(f, tab, u0_l, p_l, sv, **kargs)
+
+        out_k = kernel()
+        t = time.perf_counter()
+        out_p = erk_kernel._plain(f, tab, u0_l, p_l, sv, **kargs)
+        sync(device)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        same = (out_k[3][:2] == out_p[3][:2]).all(dim=0)
+        max_abs = max(float((out_k[i].double() - out_p[i].double()).abs()
+                            .max()) for i in (0, 1, 2))
+        if label == "f64":
+            if not bool(same.all()) or max_abs > EVENT_TOL["erk"]:
+                raise AssertionError(
+                    f"{form}: counts differ from the plain version's on "
+                    f"{int((~same).sum())} lanes, or |kernel - plain| "
+                    f"{max_abs:.3e} > {EVENT_TOL['erk']}")
+            twin64 = out_p[0][:, 0].T            # (N, 81) heights
+            note = (f"; counts identical on every lane, |kernel - plain| "
+                    f"{max_abs:.3e} (bar {EVENT_TOL['erk']})")
+        else:
+            d64 = float((res.us[:, :, 0].double() - twin64).abs().max())
+            if d64 > bar + float(gap.max()):
+                raise AssertionError(f"{form}: heights off the f64 plain "
+                                     f"version by {d64:.3e} > {bar}")
+            note = (f"; heights off the f64 plain version by {d64:.3e} (bar "
+                    f"{bar}); counts equal to the f32 plain version's on "
+                    f"{float(same.double().mean()):.4f} of the lanes")
+        del out_p
+        ms = cuda_ms(kernel, reps)
+        front_ms = cuda_ms(lambda: solve_ensemble_local(
+            ep, ensemble="kernel", backend="cuda", **kw), reps)
+        # ---- bound: the run's own attempts, saves and impacts -------------
+        st = out_k[3].long()
+        attempts, accepted = int((st[0] + st[1]).sum()), int(st[0].sum())
+        nhits = int(hits.sum())
+        ops = (attempts * attempt_flops(tab, 2, 0, True)
+               + N * 81 * save_flops(tab, 2)
+               # after a bounce the height is 0: the next step re-anchors
+               + event_ops(steps=accepted, reanchors=nhits, hits=nhits,
+                           interp=tsit5_interp_ops(2), cond=0, affect=1))
+        item = 8 if label == "f64" else 4
+        nbytes = item * (4 * N + 81 + 81 * 2 * N + 2 * N + N) + 4 * 6 * N
+        peak = PEAK_FP64_FLOPS if label == "f64" else PEAK_FP32_FLOPS
+        times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "fp64" if label == "f64" else "fp32": ops / peak * 1e3}
+        # every operation is rounded on its own: at most half the peak
+        unfused = max(times["bytes"], ops / (peak / 2) * 1e3)
+        row = _event_row(f"erk_ensemble[tsit5,ball,{label},bounce]",
+                         "src/repro_torch/csrc/erk_ensemble.cu",
+                         "src/repro/kernels/ensemble_kernel.py:461",
+                         launches, max_abs, ms, plain_ms, times,
+                         bound_unfused_ms=unfused, front_door_ms=front_ms,
+                         attempts=attempts, impacts=nhits,
+                         closed_form_err=d_exact)
+        print(f"{form}: N={N} {label} status 0, launches {launches}, heights "
+              f"off the closed form by {d_exact:.3e} (bar {bar}; "
+              f"{int((gap > 0).sum())} saves within the tolerance after an "
+              f"impact, gap up to {float(gap.max()):.3e}), impacts "
+              f"{nhits} ({nhits / N:.2f} a lane), attempts {attempts} "
+              f"({attempts / N:.1f} a lane)" + note)
+        _print_row(form, front_ms, row, f"{attempts} attempts, {nhits} "
+                   "impacts", times)
+        rows.append(row)
+    return rows
+
+
+def phase_event_rober(device, N: int = FULL_N, reps: int = 3):
+    """rober-1M-rodas5p-event: rober-1M-rodas5p's settings with the
+    terminal half-conversion event, K3's event form."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.tableaus import get_rosenbrock_tableau
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+
+    form = "rober-1M-rodas5p-event"
+    ep = rober_inputs(N, device)
+    sv = torch.tensor(ROBER_SAVEAT, dtype=torch.float64, device=device)
+    ev = dp.rober_half_event()
+    kw = dict(ROBER_SETTINGS, alg="rodas5p", saveat=sv, event=ev,
+              device=device)
+    rb_kernel.launches = 0
+    res = solve_ensemble_local(ep, ensemble="kernel", backend="cuda", **kw)
+    sync(device)
+    launches = rb_kernel.launches
+    if device.type == "cuda" and launches != 1:
+        raise AssertionError(f"{form}: {launches} kernel launches, not 1")
+    if int(res.status) != 0 or not bool(torch.isfinite(res.us).all()):
+        raise AssertionError(f"{form}: status {int(res.status)} or "
+                             "non-finite values")
+    ended = res.t_final < 1e4
+    d_half = float((res.u_final[ended, 2] - 0.5).abs().max())
+    total = float((res.u_final.sum(dim=1) - 1.0).abs().max())
+    if d_half > ROBER_HALF_TOL or total > ROBER_SUM_TOL:
+        raise AssertionError(f"{form}: y3 off 0.5 by {d_half:.3e} or the sum "
+                             f"off 1 by {total:.3e}")
+    rtab = get_rosenbrock_tableau("rodas5p")
+    u0s, ps = ep.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    kargs = dict(jac=ep.prob.jac, t0=0.0, tf=1e4, dt0=1e-6, rtol=1e-6,
+                 atol=1e-8, max_iters=100_000, w_reuse=False, event=ev)
+    f = ep.prob.f
+
+    def kernel():
+        return rb_kernel.rosenbrock_ensemble(f, rtab, u0_l, p_l, sv, **kargs)
+
+    out_k = kernel()
+    t = time.perf_counter()
+    out_p = rb_kernel._plain(f, rtab, u0_l, p_l, sv, **kargs)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    lk, lp = lanes_first(out_k), lanes_first(out_p)
+    bar = within_rober_bar(lk, lp)
+    bitwise = int(((lk == lp).reshape(N, -1).all(dim=1)
+                   & (out_k[2] == out_p[2])).sum())
+    max_abs = max(float((lk - lp).abs().max()),
+                  float((out_k[2] - out_p[2]).abs().max()))
+    if not bool(bar.all()):
+        raise AssertionError(f"{form}: {int((~bar).sum())} lanes beyond the "
+                             f"ROBER bar of the plain version")
+    del out_p
+    ms = cuda_ms(kernel, reps)
+    front_ms = cuda_ms(lambda: solve_ensemble_local(
+        ep, ensemble="kernel", backend="cuda", **kw), reps)
+    st = out_k[3].long()
+    attempts, accepted = int((st[0] + st[1]).sum()), int(st[0].sum())
+    nhits = int(ended.sum())
+    per_attempt, per_jac, per_fact, per_save = rosenbrock_attempt_ops(
+        rtab, 3, *STIFF_RHS_OPS["rober"])
+    hermite = 14 + 9 * 3
+    ops = (attempts * (per_attempt + per_jac + per_fact)
+           + N * len(ROBER_SAVEAT) * per_save
+           + event_ops(steps=accepted, reanchors=0, hits=nhits,
+                       interp=hermite, cond=1, affect=0)
+           + nhits * STIFF_RHS_OPS["rober"][0])       # f(u1), once a hit
+    nbytes = 8 * (6 * N + 4 + 4 * 3 * N + 3 * N + N) + 4 * 6 * N
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp64": ops / PEAK_FP64_FLOPS * 1e3}
+    unfused = max(times["bytes"], ops / PEAK_FP64_UNFUSED_OPS * 1e3)
+    row = _event_row("rosenbrock_ensemble[rodas5p,rober,f64,half]",
+                     "src/repro_torch/csrc/rosenbrock_ensemble.cu",
+                     "src/repro/kernels/ensemble_kernel.py:491", launches,
+                     max_abs, ms, plain_ms, times, bound_unfused_ms=unfused,
+                     front_door_ms=front_ms, attempts=attempts,
+                     terminated_share=nhits / N)
+    print(f"{form}: N={N} f64 status 0, launches {launches}, "
+          f"{nhits / N:.4f} of the lanes reach y3 = 0.5 (off it by "
+          f"{d_half:.3e}, bar {ROBER_HALF_TOL}), y-sum off 1 by {total:.2e}; "
+          f"against the plain version every lane within the ROBER bar, "
+          f"{bitwise} of {N} lanes bitwise, max abs {max_abs:.3e}")
+    _print_row(form, front_ms, row, f"{attempts} attempts", times)
+    return [row]
+
+
+def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
+    """gbm-1M-em-barrier and gbm-1M-em-adaptive-barrier: the GBM forms of
+    K4 and K5 (f32) with the terminal knock-out barrier."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.em.ref import solve_adaptive_lanes
+
+    f32 = torch.float32
+    prob = dp.gbm_problem(r=1.5, v=0.2, dtype=f32)
+    gbm = EnsembleProblem(
+        prob, N, u0s=torch.full((N, 3), 0.1, dtype=f32, device=device),
+        ps=torch.tensor([1.5, 0.2], dtype=f32,
+                        device=device).expand(N, 2).contiguous())
+    u0s, ps = gbm.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    ev = dp.gbm_barrier_event()
+    n, m = 3, 3
+    cfg = dict(ADAPTIVE_FULL)
+    depth, seed = cfg.pop("depth"), cfg.pop("seed")
+    saveat_t = cfg.pop("saveat")
+    forms = [("gbm-1M-em-barrier", sde_kernel,
+              dict(alg="em", t0=0.0, dt0=1.0 / 200, n_steps=200,
+                   save_every=200, seed=SDE_SEED)),
+             ("gbm-1M-em-adaptive-barrier", k5,
+              dict(alg="em", adaptive=True, error_est="embedded", seed=seed,
+                   brownian_depth=depth, saveat=list(saveat_t), **cfg))]
+    rows = []
+    for form, mod, spec in forms:
+        kw = dict(spec, event=ev, device=device)
+        mod.launches = 0
+        res = solve_ensemble_local(gbm, ensemble="kernel", backend="cuda",
+                                   **kw)
+        sync(device)
+        launches = mod.launches
+        if device.type == "cuda" and launches != 1:
+            raise AssertionError(f"{form}: {launches} kernel launches, not 1")
+        if int(res.status) != 0 or not bool(torch.isfinite(res.us).all()):
+            raise AssertionError(f"{form}: status {int(res.status)} or "
+                                 "non-finite values")
+        ended = res.t_final < 1.0 - 1e-6
+        d_bar = float((res.u_final[ended, 0].double() - BARRIER).abs().max())
+        if d_bar > BARRIER_TOL["f32"]:
+            raise AssertionError(f"{form}: frozen u0 off the barrier by "
+                                 f"{d_bar:.3e} > {BARRIER_TOL['f32']}")
+        # ---- the kernel and its plain version on the same inputs ---------
+        if mod is sde_kernel:
+            kargs = dict(t0=0.0, dt=spec["dt0"], n_steps=200, save_every=200,
+                         seed=SDE_SEED, lane_offset=0, event=ev)
+
+            def kernel():
+                return sde_kernel.sde_ensemble(prob.f, prob.g, "em", u0_l,
+                                               p_l, noise="diagonal",
+                                               m_noise=m, **kargs)
+
+            def plain():
+                return sde_kernel._plain(prob.f, prob.g, "em", "diagonal", m,
+                                         u0_l, p_l, table=None, **kargs)
+        else:
+            saveat = torch.tensor(saveat_t, dtype=f32, device=device)
+            args = dict(adaptive_args("em", "embedded", "diagonal", m,
+                                      seed=seed, depth=depth, **cfg),
+                        event=ev)
+
+            def kernel():
+                return k5.sde_adaptive_ensemble(prob.f, prob.g, "em", u0_l,
+                                                p_l, saveat, **args)
+
+            def plain():
+                return solve_adaptive_lanes(prob.f, prob.g, "em", u0_l, p_l,
+                                            saveat, **args)
+
+        out_k = kernel()
+        t = time.perf_counter()
+        out_p = plain()
+        sync(device)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        same = (out_k[3][:2] == out_p[3][:2]).all(dim=0)
+        share = float(same.double().mean())
+        e_lane = ((lanes_first(out_k).double() - lanes_first(out_p).double())
+                  .abs() / (1.0 + lanes_first(out_p).double().abs())) \
+            .reshape(N, -1).max(dim=1).values
+        max_abs = max(float((out_k[i].double() - out_p[i].double()).abs()
+                            .max()) for i in (0, 1, 2))
+        worst_same = float(e_lane[same].max())
+        # both event forms round every operation on its own, as their plain
+        # versions do: the adaptive rows' f32 gate holds them
+        if share < ADAPTIVE_F32_SAME or worst_same > ADAPTIVE_F32_TOL \
+                or float(e_lane.max()) > ADAPTIVE_ANY_TOL:
+            for lane in torch.topk(e_lane, 3).indices.tolist():
+                print(f"{form}: lane {lane}: steps {int(out_k[3][0, lane])} "
+                      f"(plain {int(out_p[3][0, lane])}), t_final "
+                      f"{float(out_k[2][lane]):.6f} "
+                      f"({float(out_p[2][lane]):.6f}), u_final "
+                      f"{out_k[1][:, lane].tolist()} "
+                      f"({out_p[1][:, lane].tolist()}), rel "
+                      f"{float(e_lane[lane]):.3e}")
+            raise AssertionError(
+                f"{form}: counts equal on {share:.5f} of the lanes (bar "
+                f"{ADAPTIVE_F32_SAME}), states rel {worst_same:.3e} on "
+                f"them (bar {ADAPTIVE_F32_TOL}), "
+                f"{float(e_lane.max()):.3e} on all (bar "
+                f"{ADAPTIVE_ANY_TOL})")
+        bitwise = int(((out_k[3] == out_p[3]).all(dim=0)
+                       & (e_lane == 0)).sum())
+        gate = (f"counts equal on {share:.5f} of the lanes (bar "
+                f"{ADAPTIVE_F32_SAME}), states rel {worst_same:.3e} on "
+                f"them (bar {ADAPTIVE_F32_TOL}), {bitwise} of {N} lanes "
+                "bitwise")
+        del out_p
+        ms = cuda_ms(kernel, reps)
+        front_ms = cuda_ms(lambda: solve_ensemble_local(
+            gbm, ensemble="kernel", backend="cuda", **kw), reps)
+        # ---- bound: the run's own steps or attempts, K4's and K5's
+        # formulas, plus the event work --------------------------------
+        st = out_k[3].long()
+        nhits = int(ended.sum())
+        if mod is sde_kernel:
+            steps = int(st[0].sum())       # a frozen lane draws nothing
+            normals = steps * m
+            flops = (steps * SDE_STEP_FLOPS[("gbm", "em")]
+                     + normals * NORMAL_FLOPS)
+            accepted, S = steps, 1
+            work = f"{steps} active steps, {normals} normals"
+        else:
+            attempts, accepted = int((st[0] + st[1]).sum()), int(st[0].sum())
+            normals = attempts * m * (depth + 1)
+            flops = (normals * BRIDGE_FLOPS_PER_NORMAL
+                     + attempts * ADAPTIVE_ATTEMPT_FLOPS["embedded"])
+            S = len(saveat_t)
+            work = (f"{attempts} attempts, {normals} normals")
+        flops += event_ops(steps=accepted, reanchors=0, hits=nhits,
+                           interp=3 * n, cond=1, affect=0)
+        alu_ops = normals * THREEFRY_ALU_OPS
+        issued = normals * (THREEFRY_ALU_OPS + THREEFRY_ADD_OPS) + flops / 2
+        nbytes = 4 * (5 * N + S + S * n * N + n * N + N) + 4 * 6 * N
+        times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "fp32": flops / PEAK_FP32_FLOPS * 1e3,
+                 "int32_alu": alu_ops / (ALU_LANES_PER_SM
+                                         * SM_LANE_CLOCKS_PER_S) * 1e3,
+                 "issue": issued / (ISSUE_LANES_PER_SM
+                                    * SM_LANE_CLOCKS_PER_S) * 1e3}
+        kname = ("sde_ensemble[em,gbm,f32,barrier]" if mod is sde_kernel
+                 else "sde_adaptive_ensemble[em,gbm,f32,embedded,barrier]")
+        src = ("sde_ensemble.cu" if mod is sde_kernel
+               else "sde_adaptive_ensemble.cu")
+        line = ":533" if mod is sde_kernel else ":602"
+        row = _event_row(kname, f"src/repro_torch/csrc/{src}",
+                         f"src/repro/kernels/ensemble_kernel.py{line}",
+                         launches, max_abs, ms, plain_ms, times,
+                         front_door_ms=front_ms, hit_share=nhits / N,
+                         counts_equal_share=share)
+        print(f"{form}: N={N} f32 status 0, launches {launches}, "
+              f"{nhits / N:.4f} of the lanes hit the barrier, frozen u0 off "
+              f"{BARRIER} by {d_bar:.3e} (bar {BARRIER_TOL['f32']}); against "
+              f"the f32 plain version: {gate}, max abs {max_abs:.3e}")
+        _print_row(form, front_ms, row, work, times)
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1523,10 +2220,11 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     gpu = gpu_line()
     phase_build()
-    worst = phase_parity(device)
+    worst, k2_row = phase_parity(device)
     rows = phase_full_size(device)
     for r in rows:
         r["parity_f64_rel_err"] = worst
+    rows.append(k2_row)
     max_dz = phase_sde_rng(device)
     sde_worst = phase_sde_parity(device, max_dz)
     sde_rows = phase_sde_full_size(device)
@@ -1548,6 +2246,12 @@ def main() -> int:
     for r in stiff_rows:
         r["parity_f64"] = stiff
     rows += stiff_rows + lu_rows
+    event_parity = phase_event_parity(device)
+    event_rows = (phase_event_ball(device) + phase_event_rober(device)
+                  + phase_event_barrier(device))
+    for r in event_rows:
+        r["parity_f64"] = event_parity
+    rows += event_rows
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -6,7 +6,8 @@ torch.stack), so the same definition runs per trajectory, array-ensembled
 and lane-vectorized.  The fused CUDA kernels run the hand-written device
 functor each one is registered with (`device_rhs` for an explicit-RK
 RHS, `device_stiff` for a stiff RHS and its Jacobian, `device_sde` for an
-SDE's drift and diffusion).
+SDE's drift and diffusion, `device_event` for an event's condition and
+affect).
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core.events import Event
 from repro_torch.core.problem import EnsembleProblem, ODEProblem, SDEProblem
 from repro_torch.kernels.em.kernel import device_sde
+from repro_torch.kernels.events import device_event
 from repro_torch.kernels.rosenbrock.kernel import device_stiff
 from repro_torch.kernels.tsit5.kernel import device_rhs
 
@@ -48,6 +51,38 @@ def lorenz_ensemble(n_trajectories: int, dtype=torch.float32,
     ps = torch.stack([torch.full_like(rho, 10.0), rho,
                       torch.full_like(rho, 8.0 / 3.0)], dim=1)
     return EnsembleProblem(prob, n_trajectories, ps=ps)
+
+
+# A.1.2 Bouncing ball — the event-handling demo (Fig. 8)
+@device_rhs("ball")
+@device_stiff("ball")
+def bouncing_ball_rhs(u, p, t):
+    # u = [x, v]; p = [g, e]
+    return torch.stack([u[1], -p[0] * torch.ones_like(u[1])])
+
+
+@device_event("ball_bounce")
+def bouncing_ball_condition(u, p, t):
+    return u[0]
+
+
+@device_event("ball_bounce")
+def bouncing_ball_affect(u, p, t):
+    # flip the velocity by the coefficient of restitution e = p[1]
+    return torch.stack([torch.zeros_like(u[0]), -p[1] * u[1]])
+
+
+def bouncing_ball_event() -> Event:
+    """Bounce when the height crosses zero downwards (non-terminal)."""
+    return Event(condition=bouncing_ball_condition,
+                 affect=bouncing_ball_affect, terminal=False, direction=-1)
+
+
+def bouncing_ball_problem(e=0.9, x0=10.0, dtype=torch.float64) -> ODEProblem:
+    u0 = torch.tensor([x0, 0.0], dtype=dtype)
+    p = torch.tensor([9.8, e], dtype=dtype)
+    return ODEProblem(bouncing_ball_rhs, u0, p, (0.0, 15.0),
+                      name="bouncing_ball")
 
 
 # Van der Pol — the standard stiff benchmark (paper §7's missing frontier)
@@ -99,6 +134,17 @@ def rober_jac(u, p, t):
         torch.stack([k1 + z, -2.0 * k2 * y2 - k3 * y3, -k3 * y2]),
         torch.stack([z, 2.0 * k2 * y2, z]),
     ])
+
+
+@device_event("rober_half")
+def rober_half_condition(u, p, t):
+    return u[2] - 0.5
+
+
+def rober_half_event() -> Event:
+    """Half conversion: y3 crosses 0.5 upwards, terminal (the reference's
+    stiff event test, tests/test_stiff.py)."""
+    return Event(condition=rober_half_condition, terminal=True, direction=1)
 
 
 def rober_problem(k1=0.04, k2=3e7, k3=1e4, tspan=(0.0, 1e5),
@@ -159,6 +205,54 @@ def gbm_problem(r=1.5, v=0.01, dtype=torch.float32) -> SDEProblem:
                       noise="diagonal", name="gbm")
 
 
+@device_event("gbm_barrier")
+def gbm_barrier_condition(u, p, t):
+    return u[0] - 0.18
+
+
+def gbm_barrier_event() -> Event:
+    """A knock-out barrier: the first state crosses 0.18 upwards, terminal
+    (the reference's SDE event parity case)."""
+    return Event(condition=gbm_barrier_condition, terminal=True, direction=1)
+
+
+# A constant-drift ramp with negligible noise and a sawtooth event: EM is
+# drift-exact for any dt, so the only error left is the event-resume
+# bookkeeping (the reference's re-anchoring probe).
+@device_sde("ramp")
+def ramp_drift(u, p, t):
+    return torch.ones_like(u) * p[0]
+
+
+@device_sde("ramp")
+def ramp_diffusion(u, p, t):
+    return p[1] * u
+
+
+def ramp_problem(c=1.0, sigma=1e-10, dtype=torch.float64) -> SDEProblem:
+    return SDEProblem(ramp_drift, ramp_diffusion,
+                      torch.tensor([0.0], dtype=dtype),
+                      torch.tensor([c, sigma], dtype=dtype), (0.0, 1.0),
+                      noise="diagonal", name="ramp")
+
+
+@device_event("ramp_sawtooth")
+def ramp_sawtooth_condition(u, p, t):
+    return u[0] - 0.15
+
+
+@device_event("ramp_sawtooth")
+def ramp_sawtooth_affect(u, p, t):
+    return u - 0.1
+
+
+def ramp_sawtooth_event() -> Event:
+    """Cross 0.15 upwards, drop by 0.1 (non-terminal): with drift 1 the
+    crossings come every 0.1 time units, 9 in [0, 1], so u(1) = 0.1."""
+    return Event(condition=ramp_sawtooth_condition,
+                 affect=ramp_sawtooth_affect, direction=1)
+
+
 # A.2.2 Chemical-reaction-network sigma-factor stress-response model
 # (Figs. 10/11): 4 states, 8 Wiener processes (general noise), 6 parameters.
 @device_sde("crn")
@@ -215,7 +309,9 @@ def crn_sweep_arrays(n_trajectories: int, seed: int = 0):
     return u0s, ps
 
 
-# Simple analytic test problems (convergence and dtype tests)
+# Simple analytic test problems (convergence, dtype and event tests)
+@device_rhs("decay")
+@device_stiff("decay")
 def linear_decay_rhs(u, p, t):
     return -p[0] * u
 
@@ -224,6 +320,17 @@ def linear_decay_problem(lam=1.0, dtype=torch.float64) -> ODEProblem:
     return ODEProblem(linear_decay_rhs, torch.tensor([1.0], dtype=dtype),
                       torch.tensor([lam], dtype=dtype), (0.0, 2.0),
                       name="linear_decay")
+
+
+@device_event("decay_half")
+def half_condition(u, p, t):
+    return u[0] - 0.5
+
+
+def half_event() -> Event:
+    """u crosses 1/2 downwards, terminal: on u' = -lam u, u0 = 1 it hits at
+    t* = ln 2 / lam (the reference's event parity case)."""
+    return Event(condition=half_condition, terminal=True, direction=-1)
 
 
 @device_rhs("sho")

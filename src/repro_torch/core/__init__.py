@@ -11,6 +11,7 @@ from .controller import (STATUS_DTMIN_EXHAUSTED, STATUS_MAX_ITERS,
                          hairer_norm, initial_dt, pi_propose)
 from .methods import (MethodSpec, get_method, list_methods, register_method,
                       valid_dispatch)
+from .events import Event
 from .solvers import (AdaptiveOptions, SolveResult, interp_step, rk_step,
                       solve_adaptive, solve_fixed, solve_one)
 from .ensemble import EnsembleResult, solve_ensemble_local
@@ -24,7 +25,7 @@ __all__ = [
     "STATUS_DTMIN_EXHAUSTED",
     "MethodSpec", "get_method", "list_methods", "register_method",
     "valid_dispatch",
-    "AdaptiveOptions", "SolveResult", "interp_step", "rk_step",
+    "AdaptiveOptions", "Event", "SolveResult", "interp_step", "rk_step",
     "solve_adaptive", "solve_fixed", "solve_one",
     "EnsembleResult", "solve_ensemble_local",
     "SDE_STEPPERS", "EnsembleSDEResult", "solve_sde_ensemble",

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from .controller import PIController, initial_dt
+from .events import without_log
 from .methods import MethodSpec, get_method
 from .problem import EnsembleProblem, ODEProblem, SDEProblem
 from .solvers import (AdaptiveOptions, interp_step, rk_step, solve_adaptive,
@@ -129,11 +130,12 @@ def _untile(tiles, N, n):
 # ----------------------------------------------------------------------------
 
 def solve_vmap(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
-               rtol, atol, adaptive, max_iters) -> EnsembleResult:
+               rtol, atol, adaptive, max_iters, event=None) -> EnsembleResult:
     opts = AdaptiveOptions(rtol=rtol, atol=atol, max_iters=max_iters,
                            adaptive=adaptive)
-    res = solve_adaptive(prob.f, tab, u0s.T, ps.T, t0, tf, dt0,
-                         saveat=saveat, opts=opts, lanes=True)
+    res = without_log(solve_adaptive(prob.f, tab, u0s.T, ps.T, t0, tf, dt0,
+                                     saveat=saveat, opts=opts, event=event,
+                                     lanes=True), event)
     return EnsembleResult(ts=saveat, us=res.us.permute(2, 0, 1),
                           u_final=res.u_final.T, t_final=res.t_final,
                           naccept=res.naccept, nreject=res.nreject,
@@ -221,8 +223,8 @@ def solve_array_eager(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
 # ----------------------------------------------------------------------------
 
 def solve_kernel_torch(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
-                       rtol, atol, adaptive, max_iters,
-                       lane_tile=None) -> EnsembleResult:
+                       rtol, atol, adaptive, max_iters, lane_tile=None,
+                       event=None) -> EnsembleResult:
     """The fused-integration lanes path in PyTorch ops: trajectories are
     packed into (n, B) tiles and each tile runs its own loop to completion
     (per-lane dt/accept masks) — the control structure of the kernel, so
@@ -231,8 +233,9 @@ def solve_kernel_torch(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
     u0p, psp, T, B = _tile_lanes(u0s, ps, lane_tile)
     opts = AdaptiveOptions(rtol=rtol, atol=atol, max_iters=max_iters,
                            adaptive=adaptive)
-    tiles = [solve_adaptive(prob.f, tab, u0p[i].T, psp[i].T, t0, tf, dt0,
-                            saveat=saveat, opts=opts, lanes=True)
+    tiles = [without_log(solve_adaptive(prob.f, tab, u0p[i].T, psp[i].T, t0,
+                                        tf, dt0, saveat=saveat, opts=opts,
+                                        event=event, lanes=True), event)
              for i in range(T)]
     return _untile(tiles, N, n)
 
@@ -256,7 +259,7 @@ def solve_kernel_fixed(prob: ODEProblem, u0s, ps, tab, t0, dt, n_steps,
 
 def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
                dt0, saveat, rtol, atol, adaptive, n_steps, save_every,
-               lane_tile, max_iters):
+               lane_tile, max_iters, event):
     tab = spec.tableau
     if adaptive is None:
         adaptive = True   # family default: embedded-error stepping
@@ -267,7 +270,7 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
         n_steps = int(round((tf - t0) / dt0))
     dtype, device = u0s.dtype, u0s.device
     if saveat is None:
-        if not adaptive and ensemble == "kernel":
+        if not adaptive and ensemble == "kernel" and event is None:
             # the fixed-step kernel paths save on the save_every step grid
             if n_steps % save_every != 0:
                 raise ValueError(
@@ -280,11 +283,20 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
 
     if ensemble == "vmap":
         return solve_vmap(prob, u0s, ps, tab, t0, tf, dt0, saveat, rtol, atol,
-                          adaptive, max_iters)
+                          adaptive, max_iters, event)
     if ensemble == "array":
+        if event is not None:
+            # the reference's lock-step loop cannot carry per-trajectory
+            # event state either (it fails on the carry's shape)
+            raise ValueError(
+                "events need per-trajectory control; the erk array strategy "
+                "steps every trajectory with one dt (use 'vmap' or 'kernel')")
         return solve_array(prob, u0s, ps, tab, t0, tf, dt0, saveat, rtol,
                            atol, adaptive, max_iters)
     if ensemble == "array_eager":
+        if event is not None:
+            raise NotImplementedError(
+                "events are not supported on the array_eager strategy")
         return solve_array_eager(prob, u0s, ps, tab, t0, tf, dt0, saveat,
                                  rtol, atol, adaptive)
     if ensemble == "kernel":
@@ -292,16 +304,18 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
             from repro_torch.kernels.tsit5 import ops as erk_ops
             return erk_ops.solve_ensemble_cuda(
                 prob, u0s, ps, tab, t0, tf, dt0, saveat, rtol, atol,
-                adaptive, max_iters=max_iters)
+                adaptive, max_iters=max_iters, event=event)
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r} "
                              "(use 'torch' or 'cuda')")
-        if not adaptive and not explicit_saveat:
+        if not adaptive and event is None and not explicit_saveat:
             return solve_kernel_fixed(prob, u0s, ps, tab, t0, dt0, n_steps,
                                       save_every)
+        # fixed dt with a saveat or an event: the lanes path with
+        # adaptive=False
         return solve_kernel_torch(prob, u0s, ps, tab, t0, tf, dt0, saveat,
                                   rtol, atol, adaptive, max_iters,
-                                  lane_tile=lane_tile)
+                                  lane_tile=lane_tile, event=event)
     raise ValueError(f"unknown ensemble strategy {ensemble!r}")
 
 
@@ -311,7 +325,7 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
 
 def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
                       ensemble, backend, t0, tf, dt0, saveat, rtol, atol,
-                      lane_tile, max_iters, linsolve, w_reuse):
+                      lane_tile, max_iters, linsolve, w_reuse, event):
     from .rosenbrock import LINSOLVES, solve_rosenbrock
 
     rtab = spec.rtableau
@@ -330,7 +344,7 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
                              dtype=u0s.dtype, device=u0s.device)
     N, n = u0s.shape
     kw = dict(rtol=rtol, atol=atol, saveat=saveat, max_iters=max_iters,
-              jac=jac, w_reuse=w_reuse)
+              jac=jac, w_reuse=w_reuse, event=event)
 
     if ensemble == "vmap":
         # the reference vmaps its per-trajectory solver, whose refresh
@@ -338,7 +352,7 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
         # the whole batch with the library LU computes the same
         res = solve_rosenbrock(prob.f, rtab, u0s.T, ps.T, t0, tf, dt0,
                                linsolve="torch", **kw)
-        return _untile([res], N, n)
+        return _untile([without_log(res, event)], N, n)
     if ensemble == "kernel" and backend == "cuda":
         from repro_torch.kernels.rosenbrock.ops import solve_rosenbrock_cuda
         return solve_rosenbrock_cuda(prob, u0s, ps, rtab, t0=t0, tf=tf,
@@ -353,8 +367,9 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
         # the reference's does
         u0p, psp, T, _ = _tile_lanes(
             u0s, ps, None if ensemble == "array" else lane_tile)
-        tiles = [solve_rosenbrock(prob.f, rtab, u0p[i].T, psp[i].T, t0, tf,
-                                  dt0, linsolve=linsolve, **kw)
+        tiles = [without_log(solve_rosenbrock(prob.f, rtab, u0p[i].T,
+                                              psp[i].T, t0, tf, dt0,
+                                              linsolve=linsolve, **kw), event)
                  for i in range(T)]
         return _untile(tiles, N, n)
     raise NotImplementedError(
@@ -368,7 +383,7 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
 
 def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
                backend, t0, tf, dt0, saveat, n_steps, save_every, lane_tile,
-               key, seed, noise_table, adaptive, rtol, atol, max_iters,
+               key, seed, noise_table, event, adaptive, rtol, atol, max_iters,
                lane_offset, brownian_depth, error_est) -> EnsembleResult:
     from repro_torch.kernels.em.ops import (seed_from_key,
                                             solve_sde_ensemble_kernel)
@@ -400,7 +415,7 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
             tf=tf, dt0=dt0, saveat=saveat, lane_tile=lane_tile, seed=seed,
             noise_table=noise_table, rtol=rtol, atol=atol,
             max_iters=max_iters, lane_offset=lane_offset,
-            brownian_depth=brownian_depth, error_est=error_est)
+            brownian_depth=brownian_depth, error_est=error_est, event=event)
     if saveat is not None:
         raise NotImplementedError(
             "fixed-dt SDE snapshots land on the save_every grid (pass "
@@ -422,7 +437,7 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
     nfps = sde_nf_per_step(spec.name)
     ts = sde_save_grid(t0, dt0, n_steps, save_every, dtype, device=dev)
     common = dict(t0=t0, dt=dt0, n_steps=n_steps, save_every=save_every,
-                  seed=seed, lane_offset=lane_offset)
+                  seed=seed, lane_offset=lane_offset, event=event)
 
     if ensemble == "kernel" and backend == "cuda":
         return solve_sde_ensemble_kernel(prob, u0s, ps, method=spec.name,
@@ -434,15 +449,15 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
         # the lanes loop over the WHOLE ensemble, replaying the kernel's
         # exact counter stream; for fixed dt the §5.1 array semantics and
         # per-lane stepping agree
-        us, uf = ref_solve(prob, u0s, ps, method=spec.name,
-                           noise_table=table, **common)
+        us, uf, estate = ref_solve(prob, u0s, ps, method=spec.name,
+                                   noise_table=table, **common)
         return _assemble_sde_result(ts, us.permute(2, 0, 1), uf.T, N,
-                                    n_steps, nfps, t0, dt0, dtype)
+                                    n_steps, nfps, t0, dt0, dtype, estate)
     if ensemble == "vmap":
-        us, uf = _sde_vmap(prob, SDE_STEPPERS[spec.name], u0s, ps,
-                           table=table, **common)
+        us, uf, estate = _sde_vmap(prob, SDE_STEPPERS[spec.name], u0s, ps,
+                                   table=table, **common)
         return _assemble_sde_result(ts, us, uf, N, n_steps, nfps, t0, dt0,
-                                    dtype)
+                                    dtype, estate)
     raise NotImplementedError(
         f"sde methods do not support ensemble={ensemble!r} "
         "(use 'vmap', 'array' or 'kernel')")
@@ -483,8 +498,8 @@ def resolve_adaptive_sde(spec: MethodSpec, noise: str, *, error_est=None,
 def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
                         ensemble, backend, t0, tf, dt0, saveat, lane_tile,
                         seed, noise_table, rtol, atol, max_iters,
-                        lane_offset, brownian_depth,
-                        error_est) -> EnsembleResult:
+                        lane_offset, brownian_depth, error_est,
+                        event) -> EnsembleResult:
     """The adaptive branch of `_solve_sde`: estimator, tree depth and saveat
     resolved as the reference resolves them, then the lanes engine or the
     adaptive kernel."""
@@ -499,7 +514,8 @@ def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
     kw = dict(resolve_adaptive_sde(spec, prob.noise, error_est=error_est,
                                    brownian_depth=brownian_depth, t0=t0,
                                    tf=tf, dt0=dt0),
-              seed=seed, rtol=rtol, atol=atol, max_iters=max_iters)
+              seed=seed, rtol=rtol, atol=atol, max_iters=max_iters,
+              event=event)
     saveat = torch.as_tensor([tf] if saveat is None else saveat,
                              dtype=u0s.dtype, device=u0s.device)
     N, n = u0s.shape
@@ -521,13 +537,13 @@ def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
             u0s, ps, lane_tile if ensemble == "kernel" else None)
         lanes = ((torch.arange(T * B, dtype=torch.int64, device=u0s.device)
                   + lane_offset) & M32).reshape(T, B)
-        tiles = [sde_solve_adaptive(
+        tiles = [without_log(sde_solve_adaptive(
             prob.f, prob.g, SDE_STEPPERS[spec.name], prob.noise, u0p[i].T,
             psp[i].T, t0, tf, dt0, lane_idx=lanes[i], lanes=True,
             m_noise=prob.noise_dim(), saveat=saveat,
             nf_per_step=sde_nf_per_step(spec.name),
             embedded=(spec.embedded.fn if kw["error_est"] == "embedded"
-                      else None), **kw)
+                      else None), **kw), event)
             for i in range(T)]
         return _untile(tiles, N, n)
     raise NotImplementedError(
@@ -536,12 +552,14 @@ def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
 
 
 def _sde_vmap(prob: SDEProblem, stepper, u0s, ps, *, t0, dt, n_steps,
-              save_every, seed, lane_offset, table):
+              save_every, seed, lane_offset, table, event):
     """`torch.func.vmap` of the per-trajectory fixed-count loop (the
     reference's vmap strategy): each trajectory draws its own column of the
-    counter stream, or of the table.  Returns us (N, S, n), u_final (N, n)."""
+    counter stream, or of the table.  Returns us (N, S, n), u_final (N, n)
+    and the per-trajectory event state (None without an event)."""
     from repro_torch.kernels.rng import M32, counter_normals_threefry
-    from .sde import sde_step_and_save
+    from .sde import (sde_event_state0, sde_step_and_save,
+                      sde_step_save_event)
 
     m = prob.noise_dim()
     S = n_steps // save_every
@@ -552,31 +570,47 @@ def _sde_vmap(prob: SDEProblem, stepper, u0s, ps, *, t0, dt, n_steps,
         # in-place snapshot writes are allowed
         us = torch.zeros_like(u0)[None].repeat(S, 1)
         u = u0
+        estate = (sde_event_state0((), t0, u0.dtype, u0.device)
+                  if event is not None else None)
         for k in range(n_steps):
             if table_col is not None:
                 z = table_col[k]
             else:
                 z = counter_normals_threefry(seed, k, lane.expand(m), rows,
                                              u.dtype)
-            u, us = sde_step_and_save(stepper, prob.f, prob.g, prob.noise, u,
-                                      us, p, t0, dt, k, z, save_every)
-        return us, u
+            if event is None:
+                u, us = sde_step_and_save(stepper, prob.f, prob.g, prob.noise,
+                                          u, us, p, t0, dt, k, z, save_every)
+            else:
+                u, us, estate = sde_step_save_event(
+                    stepper, prob.f, prob.g, prob.noise, event, u, us, estate,
+                    p, t0, dt, k, z, save_every)
+        # vmap returns tensors only: no event state without an event
+        return (us, u) if estate is None else (us, u, estate)
 
     lanes = (torch.arange(u0s.shape[0], dtype=torch.int64,
                           device=u0s.device) + lane_offset) & M32
     if table is not None:
-        return torch.func.vmap(one)(u0s, ps, lanes, table.permute(2, 0, 1))
-    return torch.func.vmap(lambda u0, p, lane: one(u0, p, lane, None))(
-        u0s, ps, lanes)
+        out = torch.func.vmap(one)(u0s, ps, lanes, table.permute(2, 0, 1))
+    else:
+        out = torch.func.vmap(lambda u0, p, lane: one(u0, p, lane, None))(
+            u0s, ps, lanes)
+    return out if event is not None else out + (None,)
 
 
 def _assemble_sde_result(ts, us, uf, N, n_steps, nf_per_step, t0, dt,
-                         dtype) -> EnsembleResult:
+                         dtype, estate=None) -> EnsembleResult:
     dev = us.device
+    if estate is None:
+        t_final = torch.full((N,), t0 + n_steps * dt, dtype=dtype, device=dev)
+        naccept = torch.full((N,), n_steps, dtype=torch.int32, device=dev)
+    else:
+        # terminal events freeze lanes early: the true per-lane step count
+        # and the located event time, not the nominal grid end
+        t_final = estate["t_out"].to(dtype).expand(N)
+        naccept = estate["naccept"].expand(N)
     return EnsembleResult(
-        ts=ts, us=us, u_final=uf,
-        t_final=torch.full((N,), t0 + n_steps * dt, dtype=dtype, device=dev),
-        naccept=torch.full((N,), n_steps, dtype=torch.int32, device=dev),
+        ts=ts, us=us, u_final=uf, t_final=t_final, naccept=naccept,
         nreject=torch.zeros((N,), dtype=torch.int32, device=dev),
         nf=torch.tensor(n_steps * nf_per_step * N, device=dev),
         status=torch.tensor(0, dtype=torch.int32, device=dev))
@@ -646,17 +680,19 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
       w_reuse: the stiff family's lazy-W path: None takes the method's
         default (eager), True the default `WReusePolicy`, or a policy.  A
         truthy value on a non-stiff method raises.
-      event, sensitivity: later slices of the port; they raise
+      event: a `repro_torch.core.events.Event` — zero-crossing detection,
+        bisection on the method's dense output, the affect and per-lane
+        termination, on every family and strategy but ``"array_eager"``
+        (and the erk ``"array"`` strategy's lock-step dt).  Terminal events
+        record the located event time in ``t_final``.  The CUDA kernels
+        run an event registered with `device_event`.
+      sensitivity: a later slice of the port; it raises
         `NotImplementedError` naming the ROADMAP item.
       device: where the solve runs.  None means ``"cuda"``.
 
     Returns:
       `EnsembleResult` with trajectory-major ``us (N, S, n)``.
     """
-    if event is not None:
-        raise NotImplementedError(
-            "events are not ported yet: ROADMAP queue 1 item 7 "
-            "(core/events.py)")
     if sensitivity is not None:
         raise NotImplementedError(
             "sensitivities are not ported yet: ROADMAP queue 1 item 9 "
@@ -666,6 +702,10 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
             "ensemble='auto' is not ported yet: ROADMAP queue 1 item 11 "
             "(core/autotune.py)")
     spec = get_method(alg)
+    if event is not None and not spec.events:
+        raise ValueError(
+            f"method {spec.name!r} declares events=False; pick a method whose "
+            "MethodSpec supports event handling")
     prob = eprob.prob
     if getattr(prob, "data", None) is not None:
         raise NotImplementedError(
@@ -700,7 +740,8 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                           key=key, seed=seed, noise_table=noise_table,
                           adaptive=adaptive, rtol=rtol, atol=atol,
                           max_iters=max_iters, lane_offset=lane_offset,
-                          brownian_depth=brownian_depth, error_est=error_est)
+                          brownian_depth=brownian_depth, error_est=error_est,
+                          event=event)
     if error_est is not None:
         raise ValueError(
             "error_est selects the adaptive SDE error estimator; "
@@ -722,14 +763,15 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                                 backend=backend, t0=t0, tf=tf, dt0=dt0,
                                 saveat=saveat, rtol=rtol, atol=atol,
                                 lane_tile=lane_tile, max_iters=max_iters,
-                                linsolve=linsolve, w_reuse=w_reuse)
+                                linsolve=linsolve, w_reuse=w_reuse,
+                                event=event)
     else:
         res = _solve_erk(spec, prob, u0s, ps, ensemble=ensemble,
                          backend=backend, t0=t0, tf=tf, dt0=dt0,
                          saveat=saveat, rtol=rtol, atol=atol,
                          adaptive=adaptive, n_steps=n_steps,
                          save_every=save_every, lane_tile=lane_tile,
-                         max_iters=max_iters)
+                         max_iters=max_iters, event=event)
     if auto_dt_nf:
         res = res._replace(nf=res.nf + auto_dt_nf)
     return res

@@ -32,6 +32,9 @@ class MethodSpec:
                opts in per solve with ``adaptive=True``: an embedded pair
                or step doubling, `core.sde.sde_solve_adaptive`).
     stiff:     the method is linearly implicit (rosenbrock).
+    events:    the method's engines support zero-crossing event handling
+               with per-lane termination (`core.events`); True for every
+               built-in method.
     w_reuse:   rosenbrock only — the method's default for the lazy-W path
                (Jacobian and LU(W) reuse across steps under a
                `repro_torch.core.controller.WReusePolicy`); False steps
@@ -53,6 +56,7 @@ class MethodSpec:
     stepper: Optional[Callable] = None
     adaptive: bool = True
     stiff: bool = False
+    events: bool = True
     w_reuse: bool = False
     noise: Tuple[str, ...] = ()
     embedded: Optional[Any] = None
@@ -128,7 +132,7 @@ def get_method(alg: Any) -> MethodSpec:
 
 
 def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
-                   adaptive: Optional[bool] = None,
+                   adaptive: Optional[bool] = None, events: bool = False,
                    w_reuse: bool = False,
                    error_est: Optional[str] = None) -> Tuple[bool, str]:
     """Is (strategy, backend) a combination the front door would accept?
@@ -142,6 +146,13 @@ def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
         return False, "backend='cuda' is kernel-strategy only"
     if spec.family != "erk" and ensemble == "array_eager":
         return False, f"array_eager is erk-only ({spec.family} family)"
+    if events and not spec.events:
+        return False, f"method {spec.name!r} declares events=False"
+    if events and ensemble == "array_eager":
+        return False, "events are not supported on array_eager"
+    if events and spec.family == "erk" and ensemble == "array":
+        return False, ("events need per-trajectory control; the erk array "
+                       "strategy steps every trajectory with one dt")
     if w_reuse and spec.family != "rosenbrock":
         return False, "w_reuse is rosenbrock-only (no W to reuse)"
     if spec.family == "rosenbrock" and not spec.adaptive:

@@ -24,10 +24,10 @@ one, else from `torch.func.jacfwd`.  The linear solves (``linsolve=``):
 this loop with the lanes LU, one thread per trajectory; this module is its
 plain twin.
 
-Only lanes mode is ported: u (n, B) with per-lane t, dt and masks.  The
-scalar mode and the bounded reverse-differentiable loop
-(``bounded_steps``/``checkpoint_every``) wait for ROADMAP queue 1 item 9,
-events for item 7.
+Only lanes mode is ported: u (n, B) with per-lane t, dt and masks, with
+events (`repro_torch.core.events`) located on the method's dense output.
+The scalar mode and the bounded reverse-differentiable loop
+(``bounded_steps``/``checkpoint_every``) wait for ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ import torch
 from .controller import (STATUS_DTMIN_EXHAUSTED, PIController, WReusePolicy,
                          hairer_norm, pi_propose, sum_left_to_right,
                          w_dt_blame, w_mark_stale, w_refresh)
-from .events import hermite_interp
+from .events import handle_event, hermite_interp
 from .solvers import SolveResult
 from .tableaus import RosenbrockTableau
 
@@ -248,14 +248,12 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
     one factorization per attempt); True takes the default `WReusePolicy`,
     an instance customizes it.  The result's ``njac``/``nfact`` count the
     Jacobians and factorizations per lane (eager: both equal the attempts).
-    Every lane steps until it reaches tf; finished lanes step at dt = 0,
-    an exact no-op."""
+    Every lane steps until it reaches tf (or a terminal event); finished
+    lanes step at dt = 0, an exact no-op.  With an `event` it returns
+    (SolveResult, {"event_t", "event_count"}), the event located on the
+    method's dense output (`_dense_eval`)."""
     if not lanes:
         raise _scalar_mode()
-    if event is not None:
-        raise NotImplementedError(
-            "events on the stiff family are not ported yet: ROADMAP queue 1 "
-            "item 7 (core/events.py)")
     if bounded_steps is not None or checkpoint_every is not None:
         raise NotImplementedError(
             "bounded_steps/checkpoint_every (the reverse-differentiable "
@@ -284,7 +282,9 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
     c = dict(t=t0.expand(B).clone(), u=u0, dt=as_t(dt0).expand(B).clone(),
              enorm_prev=torch.ones((B,), dtype=dtype, device=dev),
              done=torch.zeros((B,), dtype=torch.bool, device=dev), us=us0,
-             naccept=zeros_i(), nreject=zeros_i(), status=zeros_i(), iters=0)
+             naccept=zeros_i(), nreject=zeros_i(), status=zeros_i(), iters=0,
+             event_t=torch.full((B,), float("inf"), dtype=dtype, device=dev),
+             event_count=zeros_i())
     if policy is not None:
         # lazy-W state: what the freshness controller needs to decide, per
         # lane, whether this step may ride on the last step's linear algebra
@@ -342,7 +342,22 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
         if policy is not None and not policy.secant:
             dt_next = w_dt_blame(accept, need_jac, dt_step, dt_next)
         t_new = torch.where(accept, t + dt_step, t)
-        u_new = torch.where(accept[None], u_cand, u)
+
+        # events on the method's dense output; a hit truncates the step at
+        # the event time, and the saves below stop there
+        if event is not None:
+            def interp_fn(theta):
+                return _dense_eval(rtab, theta[None], u, u_cand, F0, F_new,
+                                   kds, dt_step[None])
+
+            u_next, t_new, ev_t, ev_n, term = handle_event(
+                event, interp_fn, u, u_cand, p, t, dt_step, t_new, accept,
+                c["event_t"], c["event_count"], lanes=True)
+        else:
+            u_next = u_cand
+            ev_t, ev_n = c["event_t"], c["event_count"]
+            term = torch.zeros_like(accept)
+        u_new = torch.where(accept[None], u_next, u)
 
         # dense-output grid save (skipped when no lane can cross a point)
         us = c["us"]
@@ -370,12 +385,13 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
         if policy is not None:
             hopeless = hopeless & need_jac
         status = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, c["status"])
-        done = c["done"] | hopeless | (t_new >= tf - eps_end)
+        done = c["done"] | term | hopeless | (t_new >= tf - eps_end)
         out = dict(t=t_new, u=u_new, dt=dt_next, enorm_prev=enorm_prev,
                    done=done, us=us,
                    naccept=c["naccept"] + accept.to(torch.int32),
                    nreject=c["nreject"] + (active & ~accept).to(torch.int32),
-                   status=status.to(torch.int32), iters=c["iters"] + 1)
+                   status=status.to(torch.int32), iters=c["iters"] + 1,
+                   event_t=ev_t, event_count=ev_n)
         if policy is not None:
             age = (torch.where(need_jac, 0, c["age"])
                    + accept.to(torch.int32))
@@ -393,9 +409,12 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
     nsteps = c["naccept"] + c["nreject"]
     status = torch.where(c["status"] > 0, c["status"],
                          torch.where(c["done"], 0, 1).to(torch.int32))
-    return SolveResult(
+    res = SolveResult(
         ts=saveat, us=c["us"], t_final=c["t"], u_final=c["u"],
         naccept=c["naccept"], nreject=c["nreject"],
         status=status.to(torch.int32), nf=nsteps * nf_step,
         njac=c["njac"] if policy is not None else nsteps,
         nfact=c["nfact"] if policy is not None else nsteps)
+    if event is not None:
+        return res, dict(event_t=c["event_t"], event_count=c["event_count"])
+    return res

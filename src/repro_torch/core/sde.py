@@ -19,9 +19,10 @@ embedded pair (`SDE_EMBEDDED`: em, milstein) or by step doubling (every
 stepper), and draws its increments from the virtual Brownian tree
 (`repro_torch.kernels.rng.brownian_bridge_point`), so a rejected step
 replays its path bitwise.  It runs in lanes mode, the plain version of the
-adaptive CUDA kernel (`repro_torch.kernels.em.adaptive`).  Events, the
-bounded reverse-mode loop and the resumable bodies are still to port
-(ROADMAP queue 1 items 7, 9 and 13).
+adaptive CUDA kernel (`repro_torch.kernels.em.adaptive`).  Both loops take
+events (`repro_torch.core.events`), located on the piecewise-linear path
+output.  The bounded reverse-mode loop and the resumable bodies are still
+to port (ROADMAP queue 1 items 9 and 13).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 
 from .controller import (STATUS_DTMIN_EXHAUSTED, PIController, hairer_norm,
                          pi_propose, sum_left_to_right)
+from .events import handle_event, linear_interp
 from .problem import EnsembleProblem, SDEProblem
 from .solvers import SolveResult
 
@@ -219,6 +221,55 @@ def sde_step_and_save(stepper, f, g, noise: str, u, us, p, t0, dt, k: int,
     return u, us
 
 
+def sde_event_state0(cshape, t0, dtype, device=None):
+    """Initial per-control-element event and termination state of the
+    event-aware fixed-dt loop body: (done, t_out, naccept, event_t,
+    event_count)."""
+    return dict(done=torch.zeros(cshape, dtype=torch.bool, device=device),
+                t_out=torch.full(cshape, t0, dtype=dtype, device=device),
+                naccept=torch.zeros(cshape, dtype=torch.int32, device=device),
+                event_t=torch.full(cshape, float("inf"), dtype=dtype,
+                                   device=device),
+                event_count=torch.zeros(cshape, dtype=torch.int32,
+                                        device=device))
+
+
+def sde_step_save_event(stepper, f, g, noise: str, ev, u, us, estate, p, t0,
+                        dt, k: int, z, save_every: int):
+    """Event-aware variant of `sde_step_and_save` — the shared fixed-dt loop
+    body with per-lane termination (paper §6.6 on the SDE family).
+
+    Event times are located by bisection on the piecewise-linear path
+    output.  Terminal hits freeze the lane (its snapshots keep the frozen
+    state); a non-terminal affect is applied at the event point and
+    integration resumes at the step's grid end (the fixed grid is never
+    rewound).  `estate` is the dict of `sde_event_state0`: t_out reports the
+    event time of a terminal hit, else the grid time, and naccept counts the
+    steps a lane was active.  Layout-polymorphic like the no-event body."""
+    dtv = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
+    t = t0 + k * dtv
+    lanes = u.dim() == 2
+    active = ~estate["done"]
+    u_new = stepper(f, g, u, p, t, dtv, z * torch.sqrt(dtv), noise)
+
+    def interp_fn(theta):
+        return linear_interp(u, u_new, theta, lanes=lanes)
+
+    u_next, t_next, ev_t, ev_n, term = handle_event(
+        ev, interp_fn, u, u_new, p, t, dtv, t + dtv, active,
+        estate["event_t"], estate["event_count"], lanes=lanes)
+    act_e = active[None] if lanes else active
+    u = torch.where(act_e, u_next, u)
+    # terminal: report the located event time; otherwise the grid time
+    t_out = torch.where(term, t_next, torch.where(active, t + dtv,
+                                                  estate["t_out"]))
+    us = _sde_snapshot(us, u, k, save_every)
+    estate = dict(done=estate["done"] | term, t_out=t_out,
+                  naccept=estate["naccept"] + active.to(torch.int32),
+                  event_t=ev_t, event_count=ev_n)
+    return u, us, estate
+
+
 def sde_solve_fixed(prob: SDEProblem, u0, p, t0, dt, n_steps: int, key,
                     method: str = "em", save_every: int = 1,
                     noise_table: Optional[Tensor] = None) -> SolveResult:
@@ -316,15 +367,18 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
     the clip order of the cell count, `hopeless` lanes ending with
     STATUS_DTMIN_EXHAUSTED, and nf charged per attempt.
 
-    ``event``, ``bounded_steps`` and ``checkpoint_every`` are later slices
-    of the port (ROADMAP queue 1 items 7 and 9); they raise.
+    **Events** run the shared machinery on the piecewise-linear output.
+    A terminal hit freezes the lane at the located event time (``t_final``
+    reports it, saves stop there); a non-terminal hit applies the affect
+    and resumes on the first dyadic grid point at or after the event time,
+    whose W the tree replays exactly.  With an event the result is
+    (SolveResult, {"event_t", "event_count"}).
+
+    ``bounded_steps`` and ``checkpoint_every`` are a later slice of the
+    port (ROADMAP queue 1 item 9); they raise.
     """
     from repro_torch.kernels import rng
 
-    if event is not None:
-        raise NotImplementedError(
-            "events are not ported yet: ROADMAP queue 1 item 7 "
-            "(core/events.py)")
     if bounded_steps is not None or checkpoint_every is not None:
         raise NotImplementedError(
             "the bounded reverse-differentiable loop is not ported yet: "
@@ -343,17 +397,21 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
         # one trajectory as one lane: the Hairer norm of n components is
         # the same mean either way
         lane = torch.as_tensor(lane_idx, dtype=torch.int64).reshape(1)
-        res = sde_solve_adaptive(
+        out = sde_solve_adaptive(
             f, g, stepper, noise, u0[:, None], p[:, None], t0, tf, dt0,
             seed=seed, lane_idx=lane, m_noise=m_noise, saveat=saveat,
-            rtol=rtol, atol=atol, max_iters=max_iters, lanes=True,
-            depth=depth, order=order, nf_per_step=nf_per_step,
+            rtol=rtol, atol=atol, max_iters=max_iters, event=event,
+            lanes=True, depth=depth, order=order, nf_per_step=nf_per_step,
             error_est=error_est, embedded=embedded, est_order=est_order,
             nf_per_attempt=nf_per_attempt, controller=controller)
-        return SolveResult(ts=res.ts, us=res.us[..., 0],
-                           t_final=res.t_final[0], u_final=res.u_final[:, 0],
-                           naccept=res.naccept[0], nreject=res.nreject[0],
-                           status=res.status[0], nf=res.nf[0])
+        res = out[0] if event is not None else out
+        res = SolveResult(ts=res.ts, us=res.us[..., 0],
+                          t_final=res.t_final[0], u_final=res.u_final[:, 0],
+                          naccept=res.naccept[0], nreject=res.nreject[0],
+                          status=res.status[0], nf=res.nf[0])
+        if event is not None:
+            return res, {k: v[0] for k, v in out[1].items()}
+        return res
     if est_order is None:
         est_order = max(1, int(round(order)))
     if nf_per_attempt is None:
@@ -389,6 +447,8 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     t_out = t0.expand(B)
     naccept, nreject, nf, status = i32(), i32(), i32(), i32()
+    event_t = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    event_count = i32()
     min_cells = 1 if use_pair else 2
     richardson = 1.0 / (2.0 ** order - 1.0)
 
@@ -435,13 +495,35 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
                                          accept)
         idx_new = torch.where(accept, idx + m, idx)
         t_new = t0 + idx_new.to(dtype) * h_res
-        u_next = torch.where(accept[None], u_2, u)
-        t_out = torch.where(accept, t_new, t_out)
 
-        # linear dense save on the accepted step
-        eps = 1e-7 * torch.clamp(t_new.abs(), min=1.0)
+        if event is not None:
+            def interp_fn(theta):
+                return linear_interp(u, u_2, theta, lanes=True)
+
+            u_ev, t_ev, ev_t, ev_n, term = handle_event(
+                event, interp_fn, u, u_2, p, t, dt_step, t_new, accept,
+                event_t, event_count, lanes=True)
+            # a non-terminal hit: the affected state lives at the event
+            # time, so the lane resumes on the first grid point at or after
+            # it (the tree replays W there exactly)
+            hit_nt = (ev_n > event_count) & ~term
+            cells = torch.minimum(torch.clamp(torch.ceil(
+                (t_ev - t) / h_res - 1e-6).to(torch.int64), min=1), m)
+            idx_new = torch.where(hit_nt, idx + cells, idx_new)
+            t_new = t0 + idx_new.to(dtype) * h_res
+            event_t, event_count = ev_t, ev_n
+        else:
+            u_ev, t_ev = u_2, t_new
+            term = hit_nt = torch.zeros_like(accept)
+        u_next = torch.where(accept[None], u_ev, u)
+        # reported time: the event time of a terminal hit, else the grid
+        t_out = torch.where(term, t_ev, torch.where(accept, t_new, t_out))
+        t_lim = torch.where(term, t_ev, t_new)
+
+        # linear dense save on the accepted step, up to t_lim
+        eps = 1e-7 * torch.clamp(t_lim.abs(), min=1.0)
         crossed = ((saveat[:, None] > t[None]) & (saveat[:, None]
-                                                  <= (t_new + eps)[None])
+                                                  <= (t_lim + eps)[None])
                    & accept[None])
         theta = torch.clamp((saveat[:, None] - t[None]) / dt_step[None],
                             0.0, 1.0)
@@ -453,8 +535,11 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
         # bit-identical, so the lane ends with a distinct status
         hopeless = active & ~accept & (at_floor | ~(dt_step > ctrl.dtmin))
         status = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, status)
-        done = done | (idx_new >= n_total) | hopeless
+        done = done | term | (idx_new >= n_total) | hopeless
         w_l = torch.where(accept[None], w_r, w_l)
+        if bool(hit_nt.any()):
+            # re-anchored lanes restart mid-step: their left W is at idx_new
+            w_l = torch.where(hit_nt[None], w_at(idx_new), w_l)
         naccept = naccept + accept.to(torch.int32)
         nreject = nreject + (active & ~accept).to(torch.int32)
         nf = nf + active.to(torch.int32) * nf_per_attempt
@@ -463,9 +548,11 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
 
     status = torch.where(status > 0, status,
                          torch.where(done, 0, 1).to(torch.int32))
-    return SolveResult(ts=saveat, us=us, t_final=t_out, u_final=u,
-                       naccept=naccept, nreject=nreject, status=status,
-                       nf=nf)
+    res = SolveResult(ts=saveat, us=us, t_final=t_out, u_final=u,
+                      naccept=naccept, nreject=nreject, status=status, nf=nf)
+    if event is not None:
+        return res, dict(event_t=event_t, event_count=event_count)
+    return res
 
 
 def solve_sde_ensemble(eprob: EnsembleProblem, key, dt, n_steps=None,

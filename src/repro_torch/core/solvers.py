@@ -24,6 +24,7 @@ import torch
 
 from .controller import (STATUS_DTMIN_EXHAUSTED, PIController, hairer_norm,
                          pi_propose)
+from .events import Event, handle_event
 from .tableaus import Tableau
 
 Tensor = torch.Tensor
@@ -191,11 +192,13 @@ def _grid_save(f, tab, us, saveat, u_old, u_new, ks, p, t_old, dt_step,
 
 
 def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
-                        lanes: bool, saveat, p, tf):
+                        event, lanes: bool, saveat, p, tf):
     """The adaptive loop body over a dict carry — the reference's
-    `_make_adaptive_body` without events and without the bounded adjoint
-    loop (later slices).  Finished lanes step at dt = 0 and every write is
-    accept- or active-masked, so they are exact no-ops."""
+    `_make_adaptive_body` without the bounded adjoint loop (a later slice).
+    Finished lanes step at dt = 0 and every write is accept- or
+    active-masked, so they are exact no-ops.  With an event, FSAL is off:
+    k1 is recomputed at the (possibly affected, possibly truncated) new
+    point, and nf counts every stage."""
 
     def body(c):
         t, u, dt, k1 = c["t"], c["u"], c["dt"], c["k1"]
@@ -220,10 +223,26 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
         accept = accept & active
         t_new = torch.where(accept, t + dt_step, t)
 
+        # events: detect, locate and apply with the shared machinery; a hit
+        # truncates the step at the event time
+        if event is not None:
+            def interp_fn(theta):
+                return interp_step(f, tab, u, u_cand, ks, p, t, dt_step,
+                                   theta, lanes=lanes)
+
+            u_next, t_new, ev_t, ev_n, term = handle_event(
+                event, interp_fn, u, u_cand, p, t, dt_step, t_new, accept,
+                c["event_t"], c["event_count"], lanes=lanes)
+        else:
+            u_next = u_cand
+            ev_t, ev_n = c["event_t"], c["event_count"]
+            term = torch.zeros_like(active)
+
         acc_e = _bc(accept, u) if lanes else accept
-        u_new = torch.where(acc_e, u_cand, u)
-        # FSAL: reuse the last stage
-        if tab.fsal:
+        u_new = torch.where(acc_e, u_next, u)
+        # FSAL: reuse the last stage; recompute after an event may have
+        # moved the state
+        if tab.fsal and event is None:
             k1_new = torch.where(acc_e, ks[-1], k1)
             nf_inc = active.to(torch.int32) * (tab.stages - 1)
         else:
@@ -245,7 +264,7 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
             hopeless = torch.zeros_like(active)
         statusv = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, c["status"])
         eps_end = 1e-7 * torch.clamp(tf.abs(), min=1.0)
-        done = c["done"] | (t_new >= tf - eps_end) | hopeless
+        done = c["done"] | (t_new >= tf - eps_end) | term | hopeless
 
         return dict(
             t=t_new, u=u_new, dt=dt_next, k1=k1_new,
@@ -253,7 +272,7 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
             naccept=c["naccept"] + accept.to(torch.int32),
             nreject=c["nreject"] + (active & ~accept).to(torch.int32),
             nf=c["nf"] + nf_inc, status=statusv.to(torch.int32),
-            iters=c["iters"] + 1)
+            iters=c["iters"] + 1, event_t=ev_t, event_count=ev_n)
 
     return body
 
@@ -261,14 +280,23 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
 def solve_adaptive(f, tab: Tableau, u0, p, t0, tf, dt0,
                    saveat: Optional[Tensor] = None,
                    opts: AdaptiveOptions = AdaptiveOptions(),
+                   event: Optional[Event] = None,
                    lanes: bool = False):
-    """Adaptive (or fixed-accept) integration.
+    """Adaptive (or fixed-accept) integration with optional events.
 
     lanes=False, u0 (n,)   : per-trajectory (scalar control).
     lanes=False, u0 (n, N) : EnsembleGPUArray lock-step semantics (scalar
-                             control, ensemble-wide norm).
+                             control, ensemble-wide norm); no events (one
+                             dt cannot stop one trajectory).
     lanes=True,  u0 (n, B) : per-lane control — EnsembleGPUKernel structure.
+
+    Returns a SolveResult, or (SolveResult, {"event_t", "event_count"})
+    when an event is given.
     """
+    if event is not None and not lanes and u0.dim() != 1:
+        raise ValueError(
+            "events need per-trajectory control: the lock-step array mode "
+            "(lanes=False with u0 (n, N)) steps every trajectory with one dt")
     dtype, device = u0.dtype, u0.device
     ctrl = PIController.for_order(tab.embedded_order)
     cshape = (u0.shape[-1],) if lanes else ()
@@ -291,23 +319,32 @@ def solve_adaptive(f, tab: Tableau, u0, p, t0, tf, dt0,
              enorm_prev=torch.ones(cshape, dtype=dtype, device=device),
              done=torch.zeros(cshape, dtype=torch.bool, device=device),
              us=us0, naccept=i32(0), nreject=i32(0), nf=i32(1),
-             status=i32(0), iters=0)
+             status=i32(0), iters=0,
+             event_t=torch.full(cshape, float("inf"), dtype=dtype,
+                                device=device),
+             event_count=i32(0))
 
-    body = _make_adaptive_body(f, tab, opts, ctrl, lanes, saveat, p, tf)
+    body = _make_adaptive_body(f, tab, opts, ctrl, event, lanes, saveat, p,
+                               tf)
     while c["iters"] < opts.max_iters and not bool(c["done"].all()):
         c = body(c)
     status = torch.where(c["status"] > 0, c["status"],
                          torch.where(c["done"], 0, 1).to(torch.int32))
-    return SolveResult(ts=saveat, us=c["us"], t_final=c["t"],
-                       u_final=c["u"], naccept=c["naccept"],
-                       nreject=c["nreject"], status=status.to(torch.int32),
-                       nf=c["nf"])
+    res = SolveResult(ts=saveat, us=c["us"], t_final=c["t"],
+                      u_final=c["u"], naccept=c["naccept"],
+                      nreject=c["nreject"], status=status.to(torch.int32),
+                      nf=c["nf"])
+    if event is not None:
+        return res, dict(event_t=c["event_t"], event_count=c["event_count"])
+    return res
 
 
 def solve_one(f, tab: Tableau, u0, p, t0, tf, dt0, saveat=None,
-              rtol=1e-6, atol=1e-6, adaptive=True, max_iters=100_000):
-    """Public single-trajectory reference solver (scalar mode)."""
+              rtol=1e-6, atol=1e-6, adaptive=True, max_iters=100_000,
+              event=None):
+    """Public single-trajectory reference solver (scalar mode); with an
+    event, (SolveResult, event log) as `solve_adaptive` returns them."""
     opts = AdaptiveOptions(rtol=rtol, atol=atol, max_iters=max_iters,
                            adaptive=adaptive)
     return solve_adaptive(f, tab, u0, p, t0, tf, dt0, saveat=saveat,
-                          opts=opts, lanes=False)
+                          opts=opts, event=event, lanes=False)

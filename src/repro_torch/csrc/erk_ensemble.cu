@@ -38,11 +38,31 @@
 // t_old < s <= t_new + 1e-7*max(|t_new|, 1) on an accepted step, and save
 // points at or before t0 hold u0.  The wrapper guarantees an ascending
 // save grid, which lets each thread keep a cursor instead of scanning it.
+//
+// Events (the event template parameter, events.cuh): on an accepted step
+// the condition is checked over the step and, on a hit, the event time is
+// bisected on the same dense output the saves use (Tsitouras' interpolant,
+// or Hermite), the affect applied and the step truncated at the event:
+// saves stop at the truncated time, FSAL is off (k1 is re-evaluated at the
+// new point, and nf counts every stage, as the plain version does), and a
+// terminal hit ends the trajectory.
+//
+// Arithmetic (arith.cuh): the event form rounds every operation on its own
+// (`Rounded`), in the plain version's order, as the Rosenbrock and SDE
+// event forms do: a located event time follows the step grid, and on a
+// problem the pair integrates exactly (the ball's parabolas) the error
+// estimate, and so the grid, is made of rounding alone.  The no-event form
+// (repro_ev::NoEvent) leaves nvcc free to contract products into fused
+// multiply-adds (`Contracting`) and compiles to the code it had before
+// events; tools/parent_check.py holds its results bit for bit to earlier
+// builds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+
+#include "events.cuh"
 
 namespace repro_erk {
 
@@ -158,21 +178,77 @@ struct Dopri5 {
 };
 
 // Tsitouras' free interpolant weights b_i(theta), in the reference's
-// operation order (src/repro_torch/core/tableaus.py `_tsit5_bpoly`).
-template <typename T>
+// operation order (src/repro_torch/core/tableaus.py `_tsit5_bpoly`), under
+// the policy A.
+template <class A, typename T>
 __device__ __forceinline__ void tsit5_bpoly(T t, T w[7]) {
-  w[0] = T(-1.0530884977290216) * t * (t - T(1.3299890189751412)) *
-         (t * t - T(1.4364028541716351) * t + T(0.7139816917074209));
-  w[1] = T(0.1017) * t * t *
-         (t * t - T(2.1966568338249754) * t + T(1.2949852507374631));
-  w[2] = T(2.490627285651252793) * t * t *
-         (t * t - T(2.38535645472061657) * t + T(1.57803468208092486));
-  w[3] = T(-16.54810288924490272) * (t - T(1.21712927295533244)) *
-         (t - T(0.61620406037800089)) * t * t;
-  w[4] = T(47.37952196281928122) * (t - T(1.203071208372362603)) *
-         (t - T(0.658047292653547382)) * t * t;
-  w[5] = T(-34.87065786149660974) * (t - T(1.2)) * (t - T(2.0 / 3.0)) * t * t;
-  w[6] = T(2.5) * (t - T(1.0)) * (t - T(0.6)) * t * t;
+  // c t t (t t - a t + b), left to right
+  auto quad = [&](double c, double a, double b) {
+    return A::mul(A::mul(A::mul(T(c), t), t),
+                  A::add(A::sub(A::mul(t, t), A::mul(T(a), t)), T(b)));
+  };
+  // c (t - a) (t - b) t t, left to right
+  auto roots = [&](double c, double a, double b) {
+    return A::mul(A::mul(A::mul(A::mul(T(c), A::sub(t, T(a))),
+                                A::sub(t, T(b))), t), t);
+  };
+  w[0] = A::mul(A::mul(A::mul(T(-1.0530884977290216), t),
+                       A::sub(t, T(1.3299890189751412))),
+                A::add(A::sub(A::mul(t, t), A::mul(T(1.4364028541716351), t)),
+                       T(0.7139816917074209)));
+  w[1] = quad(0.1017, 2.1966568338249754, 1.2949852507374631);
+  w[2] = quad(2.490627285651252793, 2.38535645472061657,
+              1.57803468208092486);
+  w[3] = roots(-16.54810288924490272, 1.21712927295533244,
+               0.61620406037800089);
+  w[4] = roots(47.37952196281928122, 1.203071208372362603,
+               0.658047292653547382);
+  w[5] = roots(-34.87065786149660974, 1.2, 2.0 / 3.0);
+  w[6] = roots(2.5, 1.0, 0.6);
+}
+
+// One term of a sum: from 0 under `Contracting` (nvcc may fuse the term's
+// product into the add, as the no-event kernel always has), from its first
+// term under `Rounded`, as the plain version sums.
+template <class A, typename T>
+__device__ __forceinline__ T accumulate(T acc, T term, bool first) {
+  if constexpr (std::is_same_v<A, repro_arith::Rounded>)
+    return first ? term : A::add(acc, term);
+  else
+    return A::add(acc, term);
+}
+
+// The dense output at theta of the step from u (stages k) to ucand: the
+// tableau's free interpolant, or cubic Hermite on (u, k1, ucand,
+// f(ucand) = k[s-1] by FSAL).
+template <class A, class Tab, int n, int s, typename T>
+__device__ __forceinline__ void dense_output(T th, const T* u, const T* ucand,
+                                             const T (&k)[s][n], T dt_step,
+                                             T* v) {
+  if constexpr (Tab::free_interp) {
+    T w[7];
+    tsit5_bpoly<A>(th, w);
+#pragma unroll
+    for (int c = 0; c < n; ++c) {
+      T incr = T(0);
+#pragma unroll
+      for (int q = 0; q < s; ++q)
+        incr = accumulate<A>(incr, A::mul(w[q], k[q][c]), q == 0);
+      v[c] = A::add(u[c], A::mul(dt_step, incr));
+    }
+  } else {
+    const T om = A::sub(T(1), th);
+    const T h00 = A::mul(A::add(T(1), A::mul(T(2), th)), A::mul(om, om));
+    const T h10 = A::mul(th, A::mul(om, om));
+    const T h01 = A::mul(A::mul(th, th), A::sub(T(3), A::mul(T(2), th)));
+    const T h11 = A::mul(A::mul(th, th), A::sub(th, T(1)));
+#pragma unroll
+    for (int c = 0; c < n; ++c)
+      v[c] = A::add(A::add(A::add(A::mul(h00, u[c]),
+                                  A::mul(A::mul(h10, dt_step), k[0][c])),
+                           A::mul(h01, ucand[c])),
+                    A::mul(A::mul(h11, dt_step), k[s - 1][c]));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -203,24 +279,47 @@ struct Sho {
   }
 };
 
+// The bouncing ball, u = (x, v), p = (g, e): (v, -g).
+struct Ball {
+  static constexpr int n = 2, m = 2;
+  template <typename T>
+  __device__ __forceinline__ static void eval(const T* u, const T* p, T t,
+                                              T* du) {
+    du[0] = u[1];
+    du[1] = -p[0];
+  }
+};
+
+// Linear decay: -lam u (one multiply, rounded alike in both kernels).
+struct Decay {
+  static constexpr int n = 1, m = 1;
+  template <typename T>
+  __device__ __forceinline__ static void eval(const T* u, const T* p, T t,
+                                              T* du) {
+    du[0] = -p[0] * u[0];
+  }
+};
+
 // PI controller constants: `PIController.for_order(embedded_order)`.
 struct Ctrl {
   static constexpr double safety = 0.9, qmin = 0.2, qmax = 10.0,
                           dtmin = 1e-12;
 };
 
-template <typename T, class Tab, class Rhs>
+template <typename T, class Tab, class Rhs, class Ev>
 __global__ void __launch_bounds__(kBlock)
     erk_ensemble_kernel(const T* __restrict__ u0, const T* __restrict__ p,
                         const T* __restrict__ saveat, int S, int N, T t0, T tf,
                         T dt0, T rtol, T atol, int adaptive,
-                        long long max_iters, T* __restrict__ us,
-                        T* __restrict__ u_final, T* __restrict__ t_final,
-                        int* __restrict__ stats) {
+                        long long max_iters, repro_ev::Config evc,
+                        T* __restrict__ us, T* __restrict__ u_final,
+                        T* __restrict__ t_final, int* __restrict__ stats) {
   static_assert(Tab::stages == 7, "tsit5 and dopri5 have 7 stages");
   constexpr int n = Rhs::n, m = Rhs::m, s = Tab::stages;
   constexpr double k_ord = Tab::embedded_order + 1.0;
   constexpr double beta1 = 0.7 / k_ord, beta2 = 0.4 / k_ord;
+  using A = std::conditional_t<Ev::enabled, repro_arith::Rounded,
+                               repro_arith::Contracting>;
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
@@ -248,11 +347,11 @@ __global__ void __launch_bounds__(kBlock)
   while (cur < S && saveat[cur] <= t0) store_save(cur++, u);
   int hi = cur;  // saves [0, hi) have been written
 
-  const T eps_end = T(1e-7) * nmax(fabs(tf), T(1));
+  const T eps_end = A::mul(T(1e-7), nmax(fabs(tf), T(1)));
   const T dtmin = T(Ctrl::dtmin);
 
   for (long long it = 0; !done && it < max_iters; ++it) {
-    const T dt_step = nmin(dt, tf - t);
+    const T dt_step = nmin(dt, A::sub(tf, t));
 
     // ---- one embedded step: stages 1..s-1, then b and btilde sums --------
     static_for<1, s>([&](auto ii) {
@@ -261,28 +360,39 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
       for (int c = 0; c < n; ++c) {
         T acc = T(0);
+        bool first = true;
         static_for<0, i>([&](auto jj) {
           constexpr int j = decltype(jj)::value;
           constexpr double aij = Tab::a(i, j);
-          if constexpr (aij != 0.0) acc = acc + T(aij) * k[j][c];
+          if constexpr (aij != 0.0) {
+            acc = accumulate<A>(acc, A::mul(T(aij), k[j][c]), first);
+            first = false;
+          }
         });
-        ui[c] = u[c] + dt_step * acc;
+        ui[c] = A::add(u[c], A::mul(dt_step, acc));
       }
       constexpr double ci = Tab::c(i);
-      Rhs::eval(ui, pp, t + T(ci) * dt_step, k[i]);
+      Rhs::eval(ui, pp, A::add(t, A::mul(T(ci), dt_step)), k[i]);
     });
     T ucand[n], err[n];
 #pragma unroll
     for (int c = 0; c < n; ++c) {
       T bacc = T(0), eacc = T(0);
+      bool bfirst = true, efirst = true;
       static_for<0, s>([&](auto jj) {
         constexpr int j = decltype(jj)::value;
         constexpr double bj = Tab::b(j), ej = Tab::btilde(j);
-        if constexpr (bj != 0.0) bacc = bacc + T(bj) * k[j][c];
-        if constexpr (ej != 0.0) eacc = eacc + T(ej) * k[j][c];
+        if constexpr (bj != 0.0) {
+          bacc = accumulate<A>(bacc, A::mul(T(bj), k[j][c]), bfirst);
+          bfirst = false;
+        }
+        if constexpr (ej != 0.0) {
+          eacc = accumulate<A>(eacc, A::mul(T(ej), k[j][c]), efirst);
+          efirst = false;
+        }
       });
-      ucand[c] = u[c] + dt_step * bacc;
-      err[c] = dt_step * eacc;
+      ucand[c] = A::add(u[c], A::mul(dt_step, bacc));
+      err[c] = A::mul(dt_step, eacc);
     }
 
     // ---- error control ---------------------------------------------------
@@ -293,75 +403,76 @@ __global__ void __launch_bounds__(kBlock)
       bool finite = true;
 #pragma unroll
       for (int c = 0; c < n; ++c) {
-        const T sc = atol + nmax(fabs(u[c]), fabs(ucand[c])) * rtol;
-        const T r = err[c] / sc;
-        sum = sum + r * r;
+        const T sc = A::add(atol, A::mul(nmax(fabs(u[c]), fabs(ucand[c])),
+                                         rtol));
+        const T r = A::div(err[c], sc);
+        sum = accumulate<A>(sum, A::mul(r, r), c == 0);
         finite = finite && isfinite(ucand[c]);
       }
-      const T enorm = sqrt(sum / T(n));
+      const T enorm = sqrt(A::div(sum, T(n)));
       accept = (enorm <= T(1)) && finite;
       const T e = isfinite(enorm) ? nmax(enorm, T(1e-10)) : T(1e10);
       const T ep = nmax(enorm_prev, T(1e-10));
-      const T pe = T(Ctrl::safety) * pow(e, T(-beta1));
-      const T fac = accept ? clip(pe * pow(ep, T(beta2)), T(Ctrl::qmin),
-                                  T(Ctrl::qmax))
+      const T pe = A::mul(T(Ctrl::safety), T(pow(e, T(-beta1))));
+      const T fac = accept ? clip(A::mul(pe, T(pow(ep, T(beta2)))),
+                                  T(Ctrl::qmin), T(Ctrl::qmax))
                            : clip(pe, T(Ctrl::qmin), T(1));
-      dt_next = nmax(dt * fac, dtmin);
+      dt_next = nmax(A::mul(dt, fac), dtmin);
       ep_next = accept ? e : enorm_prev;
     }
-    const T t_new = accept ? t + dt_step : t;
+    const T t_end = A::add(t, dt_step);
+    T t_new = accept ? t_end : t;
+    bool stop = false;  // a terminal event
 
     if (accept) {
+      auto interp = [&](T th, T* v) {
+        dense_output<A, Tab, n, s>(th, u, ucand, k, dt_step, v);
+      };
+      T unext[n];
+      if constexpr (Ev::enabled) {
+        // ---- the event: a hit truncates the step at the located time ---
+        T t_ev;
+        const bool hit = repro_ev::handle_event<Ev, A, n>(
+            evc, interp, u, ucand, pp, t, dt_step, t_new, unext, t_ev);
+        t_new = t_ev;
+        stop = hit && evc.terminal;
+      }
+
       // ---- dense output onto every save point this step crossed ----------
-      const T eps = T(1e-7) * nmax(fabs(t_new), T(1));
+      const T eps = A::mul(T(1e-7), nmax(fabs(t_new), T(1)));
       const T step = dt_step == T(0) ? T(1) : dt_step;
       int j = cur;
-      for (; j < S && saveat[j] <= t_new + eps; ++j) {
-        const T th = clip((saveat[j] - t) / step, T(0), T(1));
+      for (; j < S && saveat[j] <= A::add(t_new, eps); ++j) {
         T v[n];
-        if constexpr (Tab::free_interp) {
-          T w[7];
-          tsit5_bpoly(th, w);
-#pragma unroll
-          for (int c = 0; c < n; ++c) {
-            T incr = T(0);
-#pragma unroll
-            for (int q = 0; q < s; ++q) incr = incr + w[q] * k[q][c];
-            v[c] = u[c] + dt_step * incr;
-          }
-        } else {
-          // cubic Hermite on (u, k1, u_cand, f(u_cand) = k[s-1] by FSAL)
-          const T om = T(1) - th;
-          const T h00 = (T(1) + T(2) * th) * (om * om);
-          const T h10 = th * (om * om);
-          const T h01 = (th * th) * (T(3) - T(2) * th);
-          const T h11 = (th * th) * (th - T(1));
-#pragma unroll
-          for (int c = 0; c < n; ++c)
-            v[c] = h00 * u[c] + h10 * dt_step * k[0][c] + h01 * ucand[c] +
-                   h11 * dt_step * k[s - 1][c];
-        }
+        interp(clip(A::div(A::sub(saveat[j], t), step), T(0), T(1)), v);
         store_save(j, v);
       }
       hi = j > hi ? j : hi;
       while (cur < S && saveat[cur] <= t_new) ++cur;
 
+      if constexpr (Ev::enabled) {
+        // FSAL is off: the event may have moved the state
 #pragma unroll
-      for (int c = 0; c < n; ++c) {
-        u[c] = ucand[c];
-        k[0][c] = k[s - 1][c];  // FSAL
+        for (int c = 0; c < n; ++c) u[c] = unext[c];
+        Rhs::eval(u, pp, t_new, k[0]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < n; ++c) {
+          u[c] = ucand[c];
+          k[0][c] = k[s - 1][c];  // FSAL
+        }
       }
       ++naccept;
     } else {
       ++nreject;
     }
-    nf += s - 1;
+    nf += Ev::enabled ? s : s - 1;
 
     // dt pinned at the controller floor and still rejecting: the retry is a
     // deterministic live-lock, so the trajectory ends with status 2
     const bool hopeless = adaptive && !accept && !(dt_step > dtmin);
     if (hopeless) status = 2;
-    done = (t_new >= tf - eps_end) || hopeless;
+    done = stop || (t_new >= A::sub(tf, eps_end)) || hopeless;
     t = t_new;
     dt = dt_next;
     enorm_prev = ep_next;
@@ -389,6 +500,7 @@ struct LaunchArgs {
   double t0, tf, dt0, rtol, atol;
   int adaptive;
   long long max_iters;
+  repro_ev::Config ev;
   void* us;
   void* u_final;
   void* t_final;
@@ -396,32 +508,56 @@ struct LaunchArgs {
   cudaStream_t stream;
 };
 
-template <typename T, class Tab, class Rhs>
+template <typename T, class Tab, class Rhs, class Ev>
 int launch(const LaunchArgs& a) {
   const int grid = (a.N + kBlock - 1) / kBlock;
-  erk_ensemble_kernel<T, Tab, Rhs><<<grid, kBlock, 0, a.stream>>>(
+  erk_ensemble_kernel<T, Tab, Rhs, Ev><<<grid, kBlock, 0, a.stream>>>(
       static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
       static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf), T(a.dt0),
-      T(a.rtol), T(a.atol), a.adaptive, a.max_iters, static_cast<T*>(a.us),
-      static_cast<T*>(a.u_final), static_cast<T*>(a.t_final),
-      static_cast<int*>(a.stats));
+      T(a.rtol), T(a.atol), a.adaptive, a.max_iters, a.ev,
+      static_cast<T*>(a.us), static_cast<T*>(a.u_final),
+      static_cast<T*>(a.t_final), static_cast<int*>(a.stats));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, class Tab>
 int by_rhs(int rhs_id, const LaunchArgs& a) {
   switch (rhs_id) {
-    case 0: return launch<T, Tab, Lorenz>(a);
-    case 1: return launch<T, Tab, Sho>(a);
+    case 0: return launch<T, Tab, Lorenz, repro_ev::NoEvent>(a);
+    case 1: return launch<T, Tab, Sho, repro_ev::NoEvent>(a);
+    case 2: return launch<T, Tab, Ball, repro_ev::NoEvent>(a);
+    case 3: return launch<T, Tab, Decay, repro_ev::NoEvent>(a);
   }
   return -1;
 }
 
+// The registered (RHS, event) pairs (EVENT_PAIRS in
+// src/repro_torch/kernels/tsit5/kernel.py).
+template <typename T, class Tab>
+int by_event(int rhs_id, int event_id, const LaunchArgs& a) {
+  if (rhs_id == 2 && event_id == repro_ev::BallBounce::kEventId)
+    return launch<T, Tab, Ball, repro_ev::BallBounce>(a);
+  if (rhs_id == 3 && event_id == repro_ev::DecayHalf::kEventId)
+    return launch<T, Tab, Decay, repro_ev::DecayHalf>(a);
+  return -1;
+}
+
 template <typename T>
-int by_tableau(int tab_id, int rhs_id, const LaunchArgs& a) {
+int by_tableau(int tab_id, int rhs_id, int event_id, const LaunchArgs& a) {
   switch (tab_id) {
-    case 0: return by_rhs<T, Tsit5>(rhs_id, a);
-    case 1: return by_rhs<T, Dopri5>(rhs_id, a);
+    case 0: return event_id ? by_event<T, Tsit5>(rhs_id, event_id, a)
+                            : by_rhs<T, Tsit5>(rhs_id, a);
+    case 1: return event_id ? by_event<T, Dopri5>(rhs_id, event_id, a)
+                            : by_rhs<T, Dopri5>(rhs_id, a);
+  }
+  return -1;
+}
+
+int dispatch(int dtype_id, int tab_id, int rhs_id, int event_id,
+             const LaunchArgs& a) {
+  switch (dtype_id) {
+    case 0: return by_tableau<float>(tab_id, rhs_id, event_id, a);
+    case 1: return by_tableau<double>(tab_id, rhs_id, event_id, a);
   }
   return -1;
 }
@@ -430,8 +566,9 @@ int by_tableau(int tab_id, int rhs_id, const LaunchArgs& a) {
 
 // C interface, bound with ctypes by src/repro_torch/kernels/tsit5/kernel.py.
 // dtype_id: 0 float32, 1 float64.  tab_id: 0 tsit5, 1 dopri5.  rhs_id: 0
-// lorenz, 1 sho.  Returns cudaGetLastError() after the launch, or -1 for an
-// unknown id.  Launches on `stream` and does not synchronise.
+// lorenz, 1 sho, 2 ball, 3 decay.  Returns cudaGetLastError() after the
+// launch, or -1 for an unknown id.  Launches on `stream` and does not
+// synchronise.
 extern "C" int erk_ensemble_launch(int dtype_id, int tab_id, int rhs_id,
                                    const void* u0, const void* p,
                                    const void* saveat, int S, int N, double t0,
@@ -442,11 +579,25 @@ extern "C" int erk_ensemble_launch(int dtype_id, int tab_id, int rhs_id,
                                    void* stream) {
   const repro_erk::LaunchArgs a{u0,   p,         saveat,  S,       N,
                      t0,   tf,        dt0,     rtol,    atol,
-                     adaptive, max_iters, us,  u_final, t_final,
+                     adaptive, max_iters, {0, 0, 0}, us,  u_final, t_final,
                      stats, static_cast<cudaStream_t>(stream)};
-  switch (dtype_id) {
-    case 0: return repro_erk::by_tableau<float>(tab_id, rhs_id, a);
-    case 1: return repro_erk::by_tableau<double>(tab_id, rhs_id, a);
-  }
-  return -1;
+  return repro_erk::dispatch(dtype_id, tab_id, rhs_id, 0, a);
+}
+
+// The event form: event_id names the functor of events.cuh (kEventId),
+// compiled for the pairs of `by_event`; terminal, direction (-1, 0, 1) and
+// bisect_iters are the Python Event's.  -1 for an unregistered pair.
+extern "C" int erk_ensemble_event_launch(
+    int dtype_id, int tab_id, int rhs_id, int event_id, int terminal,
+    int direction, int bisect_iters, const void* u0, const void* p,
+    const void* saveat, int S, int N, double t0, double tf, double dt0,
+    double rtol, double atol, int adaptive, long long max_iters, void* us,
+    void* u_final, void* t_final, void* stats, void* stream) {
+  if (event_id <= 0) return -1;
+  const repro_erk::LaunchArgs a{u0,   p,         saveat,  S,       N,
+                     t0,   tf,        dt0,     rtol,    atol,
+                     adaptive, max_iters, {terminal, direction, bisect_iters},
+                     us,  u_final, t_final,
+                     stats, static_cast<cudaStream_t>(stream)};
+  return repro_erk::dispatch(dtype_id, tab_id, rhs_id, event_id, a);
 }

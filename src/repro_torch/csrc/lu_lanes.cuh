@@ -15,8 +15,8 @@
 //    multiply); back-substitution divides by the diagonal.
 //  - pivmin, the least |pivot|, propagates NaN as `jnp.minimum` does, so a
 //    NaN-poisoned singular system never reports a positive pivmin.
-//  - Every product and difference is rounded on its own (`__dmul_rn`,
-//    `__dsub_rn`: no fused multiply-add), as the plain version's tensor
+//  - Every product and difference is rounded on its own (arith.cuh's
+//    `rmul`, `rsub`: no fused multiply-add), as the plain version's tensor
 //    operations are, so the kernel's LU equals the plain version's bit for
 //    bit on the same card.
 // Only the columns that later steps read are updated: at step k, columns
@@ -29,16 +29,13 @@
 
 #include <cmath>
 
+#include "arith.cuh"
+
 namespace repro_lu {
 
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+using repro_arith::rdiv;
+using repro_arith::rmul;
+using repro_arith::rsub;
 
 // NaN-propagating minimum, as jnp.minimum / torch.minimum.
 template <typename T>
@@ -84,14 +81,14 @@ __device__ __forceinline__ void lu_factor(LuFactors<T, n>& f) {
       }
     }
     f.pivmin = nan_min(f.pivmin, T(fabs(f.r[k][k])));
-    const T inv = div_rn(T(1), f.r[k][k]);
+    const T inv = rdiv(T(1), f.r[k][k]);
 #pragma unroll
     for (int i = k + 1; i < n; ++i) {
-      const T m = mul_rn(f.r[i][k], inv);
+      const T m = rmul(f.r[i][k], inv);
       f.mult[i][k] = m;
 #pragma unroll
       for (int c = k + 1; c < n; ++c)
-        f.r[i][c] = sub_rn(f.r[i][c], mul_rn(m, f.r[k][c]));
+        f.r[i][c] = rsub(f.r[i][c], rmul(m, f.r[k][c]));
     }
   }
 }
@@ -114,14 +111,14 @@ __device__ __forceinline__ void lu_resolve(const LuFactors<T, n>& f, T x[n]) {
     }
 #pragma unroll
     for (int i = k + 1; i < n; ++i)
-      x[i] = sub_rn(x[i], mul_rn(f.mult[i][k], x[k]));
+      x[i] = rsub(x[i], rmul(f.mult[i][k], x[k]));
   }
 #pragma unroll
   for (int i = n - 1; i >= 0; --i) {
     T acc = x[i];
 #pragma unroll
-    for (int j = i + 1; j < n; ++j) acc = sub_rn(acc, mul_rn(f.r[i][j], x[j]));
-    x[i] = div_rn(acc, f.r[i][i]);
+    for (int j = i + 1; j < n; ++j) acc = rsub(acc, rmul(f.r[i][j], x[j]));
+    x[i] = rdiv(acc, f.r[i][i]);
   }
 }
 

@@ -47,12 +47,23 @@
 // Hermite dense output is evaluated only on a step that writes a save (the
 // reference evaluates it every attempt, and `nf` counts it there), and a
 // finished trajectory stops instead of stepping at dt = 0.
+//
+// Events (the event template parameter, events.cuh, compiled in double):
+// on an accepted step the condition is checked over the step and, on a
+// hit, the event time is bisected on the method's dense output (the same
+// interpolant the saves use; Hermite's f(u1) is then evaluated on the
+// steps that hit or start on a root as well), the affect applied and the
+// step truncated at the event, saves stopping there; a terminal hit ends
+// the trajectory.  `nf` is still counted per attempt, as the plain version
+// counts it.  Every operation of the event path is rounded on its own too.
+// The no-event form (repro_ev::NoEvent) runs the code it ran before events.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <type_traits>
 
+#include "events.cuh"
 #include "lu_lanes.cuh"
 
 namespace repro_rb {
@@ -271,20 +282,17 @@ struct Rodas5p {
 
 // ---------------------------------------------------------------------------
 // Arithmetic.  Every add, subtract, multiply and divide of this kernel is
-// rounded on its own (`__dadd_rn` and kin, which nvcc never fuses into a
-// multiply-add), as the plain version's tensor operations round them; the
-// only library call of a step, pow, is left to nvcc's default build, as
-// PyTorch's own pow is.  Kernel and plain version then agree bit for bit.
+// rounded on its own (arith.cuh's `radd` and kin, which nvcc never fuses
+// into a multiply-add), as the plain version's tensor operations round
+// them; the only library call of a step, pow, is left to nvcc's default
+// build, as PyTorch's own pow is.  Kernel and plain version then agree bit
+// for bit.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ T radd(T a, T b) { return repro_lu::add_rn(a, b); }
-template <typename T>
-__device__ __forceinline__ T rsub(T a, T b) { return repro_lu::sub_rn(a, b); }
-template <typename T>
-__device__ __forceinline__ T rmul(T a, T b) { return repro_lu::mul_rn(a, b); }
-template <typename T>
-__device__ __forceinline__ T rdiv(T a, T b) { return repro_lu::div_rn(a, b); }
+using repro_arith::radd;
+using repro_arith::rdiv;
+using repro_arith::rmul;
+using repro_arith::rsub;
 
 // ---------------------------------------------------------------------------
 // Device right-hand sides (src/repro_torch/configs/de_problems.py) with
@@ -391,6 +399,49 @@ struct Vdp {
   }
 };
 
+// The bouncing ball, u = (x, v), p = (g, e): (v, -g), J = [[0, 1], [0, 0]].
+struct Ball {
+  static constexpr int n = 2, m = 2;
+  template <typename T>
+  __device__ __forceinline__ static void eval(const T* u, const T* p, T,
+                                              T* du) {
+    du[0] = u[1];
+    du[1] = -p[0];
+  }
+  template <typename T>
+  __device__ __forceinline__ static void jac(const T*, const T*, T,
+                                             T J[n][n]) {
+    J[0][0] = T(0);
+    J[0][1] = T(1);
+    J[1][0] = T(0);
+    J[1][1] = T(0);
+  }
+  template <typename T>
+  __device__ __forceinline__ static void dfdt(const T*, const T*, T, T* d) {
+#pragma unroll
+    for (int c = 0; c < n; ++c) d[c] = T(0);
+  }
+};
+
+// Linear decay: -lam u, J = -lam.
+struct Decay {
+  static constexpr int n = 1, m = 1;
+  template <typename T>
+  __device__ __forceinline__ static void eval(const T* u, const T* p, T,
+                                              T* du) {
+    du[0] = rmul(-p[0], u[0]);
+  }
+  template <typename T>
+  __device__ __forceinline__ static void jac(const T*, const T* p, T,
+                                             T J[n][n]) {
+    J[0][0] = -p[0];
+  }
+  template <typename T>
+  __device__ __forceinline__ static void dfdt(const T*, const T*, T, T* d) {
+    d[0] = T(0);
+  }
+};
+
 // The step controller's and the lazy-W policy's numbers, from the wrapper
 // (`controller_constants` in src/repro_torch/kernels/rosenbrock/kernel.py).
 struct Control {
@@ -450,12 +501,77 @@ __device__ __forceinline__ void secant_update(T J[n][n], const T* u,
   }
 }
 
-template <typename T, class Tab, class Rhs, bool WReuse>
+// The event form's dense output of a step: the tableau's interpolant rows
+// kd (rodas4), else Hermite's f(u1) (the last stage's, or evaluated), made
+// on first use, then u(θ) as the saves compute it.
+template <class Tab, class Rhs, int n, int s, typename T>
+struct DenseOutput {
+  static constexpr int L = Tab::n_interp;
+  const T (&U)[s][n];
+  const T *u, *ucand, *F0, *Fi, *pp;
+  T t, dt_step;
+  T kd[L > 0 ? L : 1][n], Fn[n];
+  bool ready = false;
+
+  __device__ __forceinline__ void operator()(T th, T* v) {
+    if (!ready) {
+      ready = true;
+      if constexpr (L > 0) {
+        static_for<0, L>([&](auto ll) {
+          constexpr int l = decltype(ll)::value;
+#pragma unroll
+          for (int c = 0; c < n; ++c) {
+            T acc = T(0);
+            static_for<0, s>([&](auto jj) {
+              constexpr int j = decltype(jj)::value;
+              if constexpr (Tab::h(l, j) != 0.0)
+                acc = radd(acc, rmul(T(Tab::h(l, j)), U[j][c]));
+            });
+            kd[l][c] = acc;
+          }
+        });
+      } else if constexpr (Tab::fnew_from_last_stage) {
+#pragma unroll
+        for (int c = 0; c < n; ++c) Fn[c] = Fi[c];
+      } else {
+        Rhs::eval(ucand, pp, radd(t, dt_step), Fn);
+      }
+    }
+    const T om = rsub(T(1), th);
+    if constexpr (L > 0) {
+      const T w = rmul(th, om);
+#pragma unroll
+      for (int c = 0; c < n; ++c) {
+        T inner = kd[L - 1][c];
+#pragma unroll
+        for (int l = L - 2; l >= 0; --l)
+          inner = radd(kd[l][c], rmul(th, inner));
+        v[c] = radd(radd(rmul(om, u[c]), rmul(th, ucand[c])),
+                    rmul(w, inner));
+      }
+    } else {
+      const T om2 = rmul(om, om), th2 = rmul(th, th);
+      const T h00 = rmul(radd(T(1), rmul(T(2), th)), om2);
+      const T h10 = rmul(th, om2);
+      const T h01 = rmul(th2, rsub(T(3), rmul(T(2), th)));
+      const T h11 = rmul(th2, rsub(th, T(1)));
+      const T h10dt = rmul(h10, dt_step), h11dt = rmul(h11, dt_step);
+#pragma unroll
+      for (int c = 0; c < n; ++c)
+        v[c] = radd(radd(radd(rmul(h00, u[c]), rmul(h10dt, F0[c])),
+                         rmul(h01, ucand[c])),
+                    rmul(h11dt, Fn[c]));
+    }
+  }
+};
+
+template <typename T, class Tab, class Rhs, bool WReuse, class Ev>
 __global__ void __launch_bounds__(kBlock)
     rosenbrock_kernel(const T* __restrict__ u0, const T* __restrict__ p,
                       const T* __restrict__ saveat, int S, int N, T t0, T tf,
                       T dt0, T rtol, T atol, long long max_iters,
-                      int nf_per_step, Control k, T* __restrict__ us,
+                      int nf_per_step, Control k, repro_ev::Config evc,
+                      T* __restrict__ us,
                       T* __restrict__ u_final, T* __restrict__ t_final,
                       int* __restrict__ stats) {
   constexpr int n = Rhs::n, m = Rhs::m, s = Tab::stages;
@@ -615,9 +731,34 @@ __global__ void __launch_bounds__(kBlock)
       // at the same dt with a fresh J
       if (k.secant == 0.0 && !accept && !need_jac) dt_next = dt_step;
     }
-    const T t_new = accept ? radd(t, dt_step) : t;
+    T t_new = accept ? radd(t, dt_step) : t;
 
-    if (accept) {
+    T unext[n];
+    bool term = false;
+    if constexpr (Ev::enabled) {
+      if (accept) {
+        // ---- the event: a hit truncates the step at the located time ---
+        DenseOutput<Tab, Rhs, n, s, T> dense{U, u, ucand, F0, Fi, pp, t,
+                                             dt_step};
+        T t_ev;
+        const bool hit = repro_ev::handle_event<Ev, repro_arith::Rounded, n>(
+            evc, dense, u, ucand, pp, t, dt_step, t_new, unext, t_ev);
+        t_new = t_ev;
+        term = hit && evc.terminal;
+        // ---- dense output onto every save point up to the truncated time
+        const T t_eps =
+            radd(t_new, rmul(T(1e-7), nmax(T(fabs(t_new)), T(1))));
+        const T step = dt_step == T(0) ? T(1) : dt_step;
+        int j = cur;
+        for (; j < S && saveat[j] <= t_eps; ++j) {
+          T v[n];
+          dense(clip(rdiv(rsub(saveat[j], t), step), T(0), T(1)), v);
+          store_save(j, v);
+        }
+        hi = j > hi ? j : hi;
+        while (cur < S && saveat[cur] <= t_new) ++cur;
+      }
+    } else if (accept) {
       // ---- dense output onto every save point this step crossed ----------
       const T t_eps = radd(t_new, rmul(T(1e-7), nmax(T(fabs(t_new)), T(1))));
       if (cur < S && saveat[cur] <= t_eps) {
@@ -701,8 +842,13 @@ __global__ void __launch_bounds__(kBlock)
       nfact += need_fact;
     }
     if (accept) {
+      if constexpr (Ev::enabled) {
 #pragma unroll
-      for (int c = 0; c < n; ++c) u[c] = ucand[c];
+        for (int c = 0; c < n; ++c) u[c] = unext[c];
+      } else {
+#pragma unroll
+        for (int c = 0; c < n; ++c) u[c] = ucand[c];
+      }
       ++naccept;
       enorm_prev = e;
     } else {
@@ -715,6 +861,7 @@ __global__ void __launch_bounds__(kBlock)
     const bool hopeless = !accept && !(dt_step > dtmin) && need_jac;
     if (hopeless) status = 2;
     done = (t_new >= tf_end) || hopeless;
+    if constexpr (Ev::enabled) done = done || term;
     t = t_new;
     dt = dt_next;
   }
@@ -743,6 +890,7 @@ struct LaunchArgs {
   long long max_iters;
   int nf_per_step;
   Control k;
+  repro_ev::Config ev;
   void* us;
   void* u_final;
   void* t_final;
@@ -750,13 +898,13 @@ struct LaunchArgs {
   cudaStream_t stream;
 };
 
-template <typename T, class Tab, class Rhs, bool WReuse>
+template <typename T, class Tab, class Rhs, bool WReuse, class Ev>
 int launch(const LaunchArgs& a) {
   const int grid = (a.N + kBlock - 1) / kBlock;
-  rosenbrock_kernel<T, Tab, Rhs, WReuse><<<grid, kBlock, 0, a.stream>>>(
+  rosenbrock_kernel<T, Tab, Rhs, WReuse, Ev><<<grid, kBlock, 0, a.stream>>>(
       static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
       static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf), T(a.dt0),
-      T(a.rtol), T(a.atol), a.max_iters, a.nf_per_step, a.k,
+      T(a.rtol), T(a.atol), a.max_iters, a.nf_per_step, a.k, a.ev,
       static_cast<T*>(a.us), static_cast<T*>(a.u_final),
       static_cast<T*>(a.t_final), static_cast<int*>(a.stats));
   return static_cast<int>(cudaGetLastError());
@@ -764,37 +912,70 @@ int launch(const LaunchArgs& a) {
 
 template <typename T, class Tab, bool WReuse>
 int by_rhs(int rhs_id, const LaunchArgs& a) {
+  using repro_ev::NoEvent;
   switch (rhs_id) {
-    case 0: return launch<T, Tab, Rober, WReuse>(a);
-    case 1: return launch<T, Tab, Orego, WReuse>(a);
-    case 2: return launch<T, Tab, Vdp, WReuse>(a);
+    case 0: return launch<T, Tab, Rober, WReuse, NoEvent>(a);
+    case 1: return launch<T, Tab, Orego, WReuse, NoEvent>(a);
+    case 2: return launch<T, Tab, Vdp, WReuse, NoEvent>(a);
+    case 3: return launch<T, Tab, Ball, WReuse, NoEvent>(a);
+    case 4: return launch<T, Tab, Decay, WReuse, NoEvent>(a);
+  }
+  return -1;
+}
+
+// The registered (RHS, event) pairs (EVENT_PAIRS in
+// src/repro_torch/kernels/rosenbrock/kernel.py), in double only.
+template <typename T, class Tab, bool WReuse>
+int by_event(int rhs_id, int event_id, const LaunchArgs& a) {
+  if constexpr (std::is_same_v<T, double>) {
+    namespace ev = repro_ev;
+    if (rhs_id == 0 && event_id == ev::RoberHalf::kEventId)
+      return launch<T, Tab, Rober, WReuse, ev::RoberHalf>(a);
+    if (rhs_id == 3 && event_id == ev::BallBounce::kEventId)
+      return launch<T, Tab, Ball, WReuse, ev::BallBounce>(a);
+    if (rhs_id == 4 && event_id == ev::DecayHalf::kEventId)
+      return launch<T, Tab, Decay, WReuse, ev::DecayHalf>(a);
   }
   return -1;
 }
 
 template <typename T, bool WReuse>
-int by_tableau(int tab_id, int rhs_id, const LaunchArgs& a) {
+int by_tableau(int tab_id, int rhs_id, int event_id, const LaunchArgs& a) {
   switch (tab_id) {
-    case 0: return by_rhs<T, Ros23w, WReuse>(rhs_id, a);
-    case 1: return by_rhs<T, Rodas4, WReuse>(rhs_id, a);
-    case 2: return by_rhs<T, Rodas5p, WReuse>(rhs_id, a);
+    case 0: return event_id ? by_event<T, Ros23w, WReuse>(rhs_id, event_id, a)
+                            : by_rhs<T, Ros23w, WReuse>(rhs_id, a);
+    case 1: return event_id ? by_event<T, Rodas4, WReuse>(rhs_id, event_id, a)
+                            : by_rhs<T, Rodas4, WReuse>(rhs_id, a);
+    case 2: return event_id
+                       ? by_event<T, Rodas5p, WReuse>(rhs_id, event_id, a)
+                       : by_rhs<T, Rodas5p, WReuse>(rhs_id, a);
   }
   return -1;
 }
 
 template <typename T>
-int by_reuse(int w_reuse, int tab_id, int rhs_id, const LaunchArgs& a) {
-  return w_reuse ? by_tableau<T, true>(tab_id, rhs_id, a)
-                 : by_tableau<T, false>(tab_id, rhs_id, a);
+int by_reuse(int w_reuse, int tab_id, int rhs_id, int event_id,
+             const LaunchArgs& a) {
+  return w_reuse ? by_tableau<T, true>(tab_id, rhs_id, event_id, a)
+                 : by_tableau<T, false>(tab_id, rhs_id, event_id, a);
+}
+
+int dispatch(int dtype_id, int w_reuse, int tab_id, int rhs_id, int event_id,
+             const LaunchArgs& a) {
+  switch (dtype_id) {
+    case 0: return by_reuse<float>(w_reuse, tab_id, rhs_id, event_id, a);
+    case 1: return by_reuse<double>(w_reuse, tab_id, rhs_id, event_id, a);
+  }
+  return -1;
 }
 
 }  // namespace repro_rb
 
 // C interface, bound with ctypes by src/repro_torch/kernels/rosenbrock/
 // kernel.py.  dtype_id: 0 float32, 1 float64.  tab_id: 0 rosenbrock23,
-// 1 rodas4, 2 rodas5p.  rhs_id: 0 rober, 1 orego, 2 vdp.  `control` points
-// to 12 host doubles: beta1, beta2, safety, qmin, qmax, dtmin, dtmax,
-// dt_rtol, growth, enorm_limit, max_age, secant.  Returns
+// 1 rodas4, 2 rodas5p.  rhs_id: 0 rober, 1 orego, 2 vdp, 3 ball, 4 decay.
+// `control` points to 12 host doubles: beta1, beta2, safety, qmin, qmax,
+// dtmin, dtmax, dt_rtol, growth, enorm_limit, max_age, secant.  Returns
 // cudaGetLastError() after the launch, or -1 for an unknown id.  Launches
 // on `stream` and does not synchronise.
 extern "C" int rosenbrock_ensemble_launch(
@@ -809,11 +990,32 @@ extern "C" int rosenbrock_ensemble_launch(
   const repro_rb::LaunchArgs a{u0,      p,         saveat,      S,
                                N,       t0,        tf,          dt0,
                                rtol,    atol,      max_iters,   nf_per_step,
-                               k,       us,        u_final,     t_final,
-                               stats,   static_cast<cudaStream_t>(stream)};
-  switch (dtype_id) {
-    case 0: return repro_rb::by_reuse<float>(w_reuse, tab_id, rhs_id, a);
-    case 1: return repro_rb::by_reuse<double>(w_reuse, tab_id, rhs_id, a);
-  }
-  return -1;
+                               k,       {0, 0, 0}, us,          u_final,
+                               t_final, stats,
+                               static_cast<cudaStream_t>(stream)};
+  return repro_rb::dispatch(dtype_id, w_reuse, tab_id, rhs_id, 0, a);
+}
+
+// The event form (float64): event_id names the functor of events.cuh
+// (kEventId), compiled for the pairs of `by_event`; terminal, direction
+// (-1, 0, 1) and bisect_iters are the Python Event's.  -1 for an
+// unregistered pair.
+extern "C" int rosenbrock_ensemble_event_launch(
+    int dtype_id, int tab_id, int rhs_id, int w_reuse, int event_id,
+    int terminal, int direction, int bisect_iters, const void* u0,
+    const void* p, const void* saveat, int S, int N, double t0, double tf,
+    double dt0, double rtol, double atol, long long max_iters,
+    int nf_per_step, const double* control, void* us, void* u_final,
+    void* t_final, void* stats, void* stream) {
+  if (event_id <= 0) return -1;
+  const double* c = control;
+  const repro_rb::Control k{c[0], c[1], c[2], c[3], c[4],  c[5],
+                            c[6], c[7], c[8], c[9], c[10], c[11]};
+  const repro_rb::LaunchArgs a{u0,      p,         saveat,      S,
+                               N,       t0,        tf,          dt0,
+                               rtol,    atol,      max_iters,   nf_per_step,
+                               k,       {terminal, direction, bisect_iters},
+                               us,      u_final,   t_final,     stats,
+                               static_cast<cudaStream_t>(stream)};
+  return repro_rb::dispatch(dtype_id, w_reuse, tab_id, rhs_id, event_id, a);
 }

@@ -49,12 +49,24 @@
 // defaults, as PyTorch builds its own.  An adaptive step sequence follows
 // the last bit, so a kernel that fused could not be held to its plain
 // version's step counts.  No --use_fast_math.
+//
+// Events (the event template parameter, events.cuh): on an accepted step
+// the condition is checked over it and, on a hit, the event time is
+// bisected on the linear path output and the affect applied, every
+// operation rounded on its own.  A terminal hit ends the trajectory at the
+// event time (t_final, and the saves stop there); a non-terminal hit
+// re-anchors it on the first dyadic grid point at or after the event time,
+// cells = clip(ceil((t_ev - t) / h_res - 1e-6), 1, cells of the step), and
+// the left-end W is refreshed there by one more tree descent (the tree
+// replays W at any index exactly).  The no-event form (repro_ev::NoEvent)
+// compiles to the code it had before events existed.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "events.cuh"
 #include "sde_problems.cuh"
 #include "threefry.cuh"
 
@@ -287,13 +299,14 @@ struct Control {
 // The kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, class P, class St, bool kPair>
+template <typename T, class P, class St, bool kPair, class Ev>
 __global__ void __launch_bounds__(kBlock)
     sde_adaptive_kernel(const T* __restrict__ u0, const T* __restrict__ p,
                         const T* __restrict__ saveat, int S, int N, T t0,
                         T tf, T dt0, T rtol, T atol, long long max_iters,
                         uint32_t seed, uint32_t lane_offset, int depth,
-                        int nf_per_attempt, Control k, T* __restrict__ us,
+                        int nf_per_attempt, Control k, repro_ev::Config evc,
+                        T* __restrict__ us,
                         T* __restrict__ u_final, T* __restrict__ t_final,
                         int* __restrict__ stats) {
   constexpr int n = P::n, m = P::m;
@@ -398,12 +411,41 @@ __global__ void __launch_bounds__(kBlock)
                          : clip(pe, T(k.qmin), T(1));
     const T dt_next = clip(rmul(dt_step, fac), dtmin, dtmax);
 
+    bool term = false;
     if (accept) {
+      const uint32_t idx_old = idx;
       idx += mc;
-      const T t_new = radd(t0, rmul(T(idx), h_res));
-      t_out = t_new;
+      T t_new = radd(t0, rmul(T(idx), h_res));
+      // the saves run up to t_lim: the event time of a terminal hit, else
+      // the (re-anchored) grid time
+      T t_lim = t_new, unext[n];
+      bool hit_nt = false;
+      if constexpr (Ev::enabled) {
+        auto interp = [&](T th, T* v) {
+#pragma unroll
+          for (int c = 0; c < n; ++c)
+            v[c] = radd(u[c], rmul(th, rsub(u2[c], u[c])));
+        };
+        T t_ev;
+        const bool hit = repro_ev::handle_event<Ev, Rounded, n>(
+            evc, interp, u, u2, pp, t, dt_step, t_new, unext, t_ev);
+        term = hit && evc.terminal;
+        hit_nt = hit && !term;
+        if (hit_nt) {
+          // resume on the first grid point at or after the event time
+          const T cells_f =
+              ceil(rsub(rdiv(rsub(t_ev, t), h_res), T(1e-6)));
+          const uint32_t cells =
+              cells_f < T(1) ? 1u
+                             : min(static_cast<uint32_t>(cells_f), mc);
+          idx = idx_old + cells;
+          t_new = radd(t0, rmul(T(idx), h_res));
+        }
+        t_lim = term ? t_ev : t_new;
+      }
+      t_out = t_lim;
       // ---- linear dense output onto every save point the step crossed ---
-      const T lim = radd(t_new, rmul(T(1e-7), nmax(T(fabs(t_new)), T(1))));
+      const T lim = radd(t_lim, rmul(T(1e-7), nmax(T(fabs(t_lim)), T(1))));
       for (int j = cur; j < S && __ldg(saveat + j) <= lim; ++j) {
         const T th = clip(rdiv(rsub(__ldg(saveat + j), t), dt_step), T(0),
                           T(1));
@@ -414,9 +456,15 @@ __global__ void __launch_bounds__(kBlock)
       }
       while (cur < S && __ldg(saveat + cur) <= t_new) ++cur;
 #pragma unroll
-      for (int c = 0; c < n; ++c) u[c] = u2[c];
+      for (int c = 0; c < n; ++c) u[c] = Ev::enabled ? unext[c] : u2[c];
+      if (hit_nt) {
+        // a re-anchored lane restarts mid-step: its left W is at idx
+        bridge_points<T, m>(seed, idx, gl, depth, n_total, sqrt_total,
+                            h_res, w_l);
+      } else {
 #pragma unroll
-      for (int j = 0; j < m; ++j) w_l[j] = w_r[j];
+        for (int j = 0; j < m; ++j) w_l[j] = w_r[j];
+      }
       enorm_prev = e;
       ++naccept;
     } else {
@@ -428,7 +476,7 @@ __global__ void __launch_bounds__(kBlock)
     // so the trajectory ends with status 2
     const bool hopeless = !accept && (at_floor || !(dt_step > dtmin));
     if (hopeless) status = 2;
-    done = idx >= n_total || hopeless;
+    done = idx >= n_total || hopeless || term;
     dt = dt_next;
   }
 
@@ -453,6 +501,7 @@ struct LaunchArgs {
   uint32_t seed, lane_offset;
   int depth, nf_per_attempt;
   Control k;
+  repro_ev::Config ev;
   void* us;
   void* u_final;
   void* t_final;
@@ -460,14 +509,14 @@ struct LaunchArgs {
   cudaStream_t stream;
 };
 
-template <typename T, class P, class St, bool kPair>
+template <typename T, class P, class St, bool kPair, class Ev>
 int launch(const LaunchArgs& a) {
   const int grid = (a.N + kBlock - 1) / kBlock;
-  sde_adaptive_kernel<T, P, St, kPair><<<grid, kBlock, 0, a.stream>>>(
+  sde_adaptive_kernel<T, P, St, kPair, Ev><<<grid, kBlock, 0, a.stream>>>(
       static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
       static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf), T(a.dt0),
       T(a.rtol), T(a.atol), a.max_iters, a.seed, a.lane_offset, a.depth,
-      a.nf_per_attempt, a.k, static_cast<T*>(a.us),
+      a.nf_per_attempt, a.k, a.ev, static_cast<T*>(a.us),
       static_cast<T*>(a.u_final), static_cast<T*>(a.t_final),
       static_cast<int*>(a.stats));
   return static_cast<int>(cudaGetLastError());
@@ -477,36 +526,57 @@ int launch(const LaunchArgs& a) {
 // 0 doubling (every stepper the problem admits), 1 embedded (em and
 // milstein, on a diagonal problem whose functor has gdg, and ddb for
 // milstein).
-template <typename T, class P>
+template <typename T, class P, class Ev = repro_ev::NoEvent>
 int by_method(int stepper_id, int est_id, const LaunchArgs& a) {
   if (est_id == 1) {
     if constexpr (P::diagonal && P::has_gdg) {
-      if (stepper_id == 0) return launch<T, P, EmPair, true>(a);
+      if (stepper_id == 0) return launch<T, P, EmPair, true, Ev>(a);
       if constexpr (P::has_ddb) {
-        if (stepper_id == 3) return launch<T, P, MilsteinPair, true>(a);
+        if (stepper_id == 3) return launch<T, P, MilsteinPair, true, Ev>(a);
       }
     }
     return -1;
   }
   if (est_id != 0) return -1;
   switch (stepper_id) {
-    case 0: return launch<T, P, Em, false>(a);
-    case 1: return launch<T, P, HeunStrat, false>(a);
+    case 0: return launch<T, P, Em, false, Ev>(a);
+    case 1: return launch<T, P, HeunStrat, false, Ev>(a);
   }
   if constexpr (P::diagonal) {
-    if (stepper_id == 2) return launch<T, P, PlatenW2, false>(a);
+    if (stepper_id == 2) return launch<T, P, PlatenW2, false, Ev>(a);
     if constexpr (P::has_gdg) {
-      if (stepper_id == 3) return launch<T, P, Milstein, false>(a);
+      if (stepper_id == 3) return launch<T, P, Milstein, false, Ev>(a);
     }
   }
   return -1;
 }
 
+// event_id 0: the no-event form; else the registered (problem, event)
+// pairs (EVENT_PAIRS in src/repro_torch/kernels/em/kernel.py).
 template <typename T>
-int by_problem(int prob_id, int stepper_id, int est_id, const LaunchArgs& a) {
-  switch (prob_id) {
-    case 0: return by_method<T, Gbm>(stepper_id, est_id, a);
-    case 1: return by_method<T, Crn>(stepper_id, est_id, a);
+int by_problem(int prob_id, int event_id, int stepper_id, int est_id,
+               const LaunchArgs& a) {
+  namespace ev = repro_ev;
+  if (event_id == 0) {
+    switch (prob_id) {
+      case 0: return by_method<T, Gbm>(stepper_id, est_id, a);
+      case 1: return by_method<T, Crn>(stepper_id, est_id, a);
+      case 2: return by_method<T, Ramp>(stepper_id, est_id, a);
+    }
+    return -1;
+  }
+  if (prob_id == 0 && event_id == ev::GbmBarrier::kEventId)
+    return by_method<T, Gbm, ev::GbmBarrier>(stepper_id, est_id, a);
+  if (prob_id == 2 && event_id == ev::RampSawtooth::kEventId)
+    return by_method<T, Ramp, ev::RampSawtooth>(stepper_id, est_id, a);
+  return -1;
+}
+
+int dispatch(int dtype_id, int prob_id, int event_id, int stepper_id,
+             int est_id, const LaunchArgs& a) {
+  switch (dtype_id) {
+    case 0: return by_problem<float>(prob_id, event_id, stepper_id, est_id, a);
+    case 1: return by_problem<double>(prob_id, event_id, stepper_id, est_id, a);
   }
   return -1;
 }
@@ -514,7 +584,7 @@ int by_problem(int prob_id, int stepper_id, int est_id, const LaunchArgs& a) {
 }  // namespace repro_sde_adaptive
 
 // C interface, bound with ctypes by src/repro_torch/kernels/em/adaptive.py.
-// dtype_id: 0 float32, 1 float64.  prob_id: 0 gbm, 1 crn.  stepper_id and
+// dtype_id: 0 float32, 1 float64.  prob_id: 0 gbm, 1 crn, 2 ramp.  stepper_id and
 // est_id: see by_method.  `saveat` is (S,) ascending; `control` points to 8
 // host doubles: beta1, beta2, safety, qmin, qmax, dtmin, dtmax, richardson.
 // The caller keeps 0 <= depth <= 30.  Returns cudaGetLastError() after the
@@ -534,11 +604,32 @@ extern "C" int sde_adaptive_launch(
                          N,         t0,          tf,     dt0,
                          rtol,      atol,        max_iters, seed,
                          lane_offset, depth,     nf_per_attempt, k,
-                         us,        u_final,     t_final, stats,
+                         {0, 0, 0}, us,          u_final, t_final,
+                         stats,     static_cast<cudaStream_t>(stream)};
+  return sa::dispatch(dtype_id, prob_id, 0, stepper_id, est_id, a);
+}
+
+// The event form: event_id names the functor of events.cuh (kEventId),
+// compiled for the pairs of `by_problem`; terminal, direction (-1, 0, 1)
+// and bisect_iters are the Python Event's.  -1 for an unregistered pair.
+extern "C" int sde_adaptive_event_launch(
+    int dtype_id, int prob_id, int stepper_id, int est_id, int event_id,
+    int terminal, int direction, int bisect_iters, const void* u0,
+    const void* p, const void* saveat, int S, int N, double t0, double tf,
+    double dt0, double rtol, double atol, long long max_iters,
+    unsigned int seed, unsigned int lane_offset, int depth,
+    int nf_per_attempt, const double* control, void* us, void* u_final,
+    void* t_final, void* stats, void* stream) {
+  namespace sa = repro_sde_adaptive;
+  if (event_id <= 0) return -1;
+  const double* c = control;
+  const sa::Control k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
+  const sa::LaunchArgs a{u0,        p,           saveat, S,
+                         N,         t0,          tf,     dt0,
+                         rtol,      atol,        max_iters, seed,
+                         lane_offset, depth,     nf_per_attempt, k,
+                         {terminal, direction, bisect_iters}, us,
+                         u_final,   t_final,     stats,
                          static_cast<cudaStream_t>(stream)};
-  switch (dtype_id) {
-    case 0: return sa::by_problem<float>(prob_id, stepper_id, est_id, a);
-    case 1: return sa::by_problem<double>(prob_id, stepper_id, est_id, a);
-  }
-  return -1;
+  return sa::dispatch(dtype_id, prob_id, event_id, stepper_id, est_id, a);
 }

@@ -37,129 +37,151 @@
 // dt and t0 are rounded to T, t = t0 + k*dt is computed from k on every step
 // (never accumulated, never contracted to an fma), dW = z * sqrt(dt), and
 // the normals are computed in float whatever T is, then cast, as JAX
-// computes them in float32.  Products may contract into fused
-// multiply-adds, in the steppers and in the functors (`Contracting`;
-// tools/sde_parent_check.py holds the results bit for bit to earlier
-// builds).  No --use_fast_math: the approximate intrinsics would move
-// every normal.
+// computes them in float32.  The steppers and the functors take an
+// arithmetic policy (arith.cuh): without events products may contract into
+// fused multiply-adds (`Contracting`; tools/parent_check.py holds the
+// results bit for bit to earlier builds).  No --use_fast_math: the
+// approximate intrinsics would move every normal.
+//
+// Events (the event template parameter, events.cuh): after each step the
+// condition is checked over it and, on a hit, the event time is bisected on
+// the linear path output and the affect applied.  Every operation of the
+// event form, the steps included, is rounded on its own (`Rounded`), so a
+// path that grazes the barrier crosses it on the step the plain version
+// crosses it on; a non-terminal affect resumes at
+// the step's grid end, a terminal hit freezes the trajectory (no more
+// steps or noise; its snapshots keep the frozen state), t_final is then the
+// event time and naccept the steps it took.  The noise stream is keyed by
+// step, so it is the same with and without events.  The no-event form
+// (repro_ev::NoEvent) compiles to the code it had before events existed.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "events.cuh"
 #include "sde_problems.cuh"
 #include "threefry.cuh"
 
 namespace repro_sde {
 
 constexpr int kBlock = 128;
-// The functors' arithmetic (sde_problems.cuh): free to contract.
-using Arith = Contracting;
 using repro_rng::box_muller;
 using repro_rng::counter_normal;
 using repro_rng::threefry2x32;
 
-// g(u)·dW for either noise structure, free to contract into the stepper's
-// sums.
-template <class P, typename T>
+// g(u)·dW for either noise structure, under the policy A.
+template <class A, class P, typename T>
 __device__ __forceinline__ void apply_noise(const T* u, const T* p, T t,
                                             const T* dW, T* out) {
   if constexpr (P::diagonal) {
     T g[P::n];
-    P::template diffusion<Arith>(u, p, t, g);
+    P::template diffusion<A>(u, p, t, g);
 #pragma unroll
-    for (int c = 0; c < P::n; ++c) out[c] = g[c] * dW[c];
+    for (int c = 0; c < P::n; ++c) out[c] = A::mul(g[c], dW[c]);
   } else {
-    P::template noise<Arith>(u, p, t, dW, out);
+    P::template noise<A>(u, p, t, dW, out);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Steppers (src/repro_torch/core/sde.py), one step u -> out.
+// Steppers (src/repro_torch/core/sde.py), one step u -> out, in the plain
+// version's operation order under the policy A.
 // ---------------------------------------------------------------------------
 
 struct Em {
   static constexpr int nf = 1;
-  template <class P, typename T>
+  template <class A, class P, typename T>
   __device__ __forceinline__ static void step(const T* u, const T* p, T t,
                                               T dt, T sdt, const T* dW,
                                               T* out) {
     T a[P::n], gw[P::n];
-    P::template drift<Arith>(u, p, t, a);
-    apply_noise<P>(u, p, t, dW, gw);
+    P::template drift<A>(u, p, t, a);
+    apply_noise<A, P>(u, p, t, dW, gw);
 #pragma unroll
-    for (int c = 0; c < P::n; ++c) out[c] = u[c] + a[c] * dt + gw[c];
+    for (int c = 0; c < P::n; ++c)
+      out[c] = A::add(A::add(u[c], A::mul(a[c], dt)), gw[c]);
   }
 };
 
 struct HeunStrat {
   static constexpr int nf = 2;
-  template <class P, typename T>
+  template <class A, class P, typename T>
   __device__ __forceinline__ static void step(const T* u, const T* p, T t,
                                               T dt, T sdt, const T* dW,
                                               T* out) {
     T a[P::n], gw[P::n], du1[P::n], ub[P::n];
-    P::template drift<Arith>(u, p, t, a);
-    apply_noise<P>(u, p, t, dW, gw);
+    P::template drift<A>(u, p, t, a);
+    apply_noise<A, P>(u, p, t, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
-      du1[c] = a[c] * dt + gw[c];
-      ub[c] = u[c] + du1[c];
+      du1[c] = A::add(A::mul(a[c], dt), gw[c]);
+      ub[c] = A::add(u[c], du1[c]);
     }
     const T t1 = radd(t, dt);
-    P::template drift<Arith>(ub, p, t1, a);
-    apply_noise<P>(ub, p, t1, dW, gw);
+    P::template drift<A>(ub, p, t1, a);
+    apply_noise<A, P>(ub, p, t1, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
-      out[c] = u[c] + T(0.5) * (du1[c] + (a[c] * dt + gw[c]));
+      out[c] = A::add(u[c], A::mul(T(0.5), A::add(du1[c],
+                                                  A::add(A::mul(a[c], dt),
+                                                         gw[c]))));
   }
 };
 
 struct PlatenW2 {
   static constexpr int nf = 2;
-  template <class P, typename T>
+  template <class A, class P, typename T>
   __device__ __forceinline__ static void step(const T* u, const T* p, T t,
                                               T dt, T sdt, const T* dW,
                                               T* out) {
     static_assert(P::diagonal, "platen_w2 supports diagonal noise only");
     T a0[P::n], b0[P::n], ubar[P::n], up[P::n], um[P::n];
-    P::template drift<Arith>(u, p, t, a0);
-    P::template diffusion<Arith>(u, p, t, b0);
+    P::template drift<A>(u, p, t, a0);
+    P::template diffusion<A>(u, p, t, b0);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
-      const T drift = u[c] + a0[c] * dt;
-      ubar[c] = drift + b0[c] * dW[c];
-      up[c] = drift + b0[c] * sdt;
-      um[c] = drift - b0[c] * sdt;
+      const T drift = A::add(u[c], A::mul(a0[c], dt));
+      ubar[c] = A::add(drift, A::mul(b0[c], dW[c]));
+      up[c] = A::add(drift, A::mul(b0[c], sdt));
+      um[c] = A::sub(drift, A::mul(b0[c], sdt));
     }
     const T t1 = radd(t, dt);
     T a1[P::n], bp[P::n], bm[P::n];
-    P::template drift<Arith>(ubar, p, t1, a1);
-    P::template diffusion<Arith>(up, p, t1, bp);
-    P::template diffusion<Arith>(um, p, t1, bm);
+    P::template drift<A>(ubar, p, t1, a1);
+    P::template diffusion<A>(up, p, t1, bp);
+    P::template diffusion<A>(um, p, t1, bm);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
-      out[c] = u[c] + T(0.5) * dt * (a1[c] + a0[c]) +
-               T(0.25) * dW[c] * (bp[c] + bm[c] + T(2) * b0[c]) +
-               T(0.25) * (dW[c] * dW[c] - dt) / sdt * (bp[c] - bm[c]);
+      out[c] = A::add(
+          A::add(A::add(u[c], A::mul(A::mul(T(0.5), dt),
+                                     A::add(a1[c], a0[c]))),
+                 A::mul(A::mul(T(0.25), dW[c]),
+                        A::add(A::add(bp[c], bm[c]), A::mul(T(2), b0[c])))),
+          A::mul(A::div(A::mul(T(0.25), A::sub(A::mul(dW[c], dW[c]), dt)),
+                        sdt),
+                 A::sub(bp[c], bm[c])));
   }
 };
 
 struct Milstein {
   static constexpr int nf = 1;
-  template <class P, typename T>
+  template <class A, class P, typename T>
   __device__ __forceinline__ static void step(const T* u, const T* p, T t,
                                               T dt, T sdt, const T* dW,
                                               T* out) {
     static_assert(P::diagonal, "milstein supports diagonal noise only");
     T a0[P::n], b0[P::n], db[P::n];
-    P::template drift<Arith>(u, p, t, a0);
-    P::template diffusion<Arith>(u, p, t, b0);
-    P::template gdg<Arith>(u, p, t, db);
+    P::template drift<A>(u, p, t, a0);
+    P::template diffusion<A>(u, p, t, b0);
+    P::template gdg<A>(u, p, t, db);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
-      out[c] = u[c] + a0[c] * dt + b0[c] * dW[c] +
-               T(0.5) * db[c] * (dW[c] * dW[c] - dt);
+      out[c] = A::add(A::add(A::add(u[c], A::mul(a0[c], dt)),
+                             A::mul(b0[c], dW[c])),
+                      A::mul(A::mul(T(0.5), db[c]),
+                             A::sub(A::mul(dW[c], dW[c]), dt)));
   }
 };
 
@@ -167,14 +189,15 @@ struct Milstein {
 // The kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, class P, class St, bool kTable>
+template <typename T, class P, class St, bool kTable, class Ev>
 __global__ void __launch_bounds__(kBlock)
     sde_ensemble_kernel(const T* __restrict__ u0, const T* __restrict__ p,
                         const T* __restrict__ table, int N, int n_steps,
                         int save_every, double t0d, double dtd, double t_end,
                         uint32_t seed, uint32_t lane_offset,
-                        T* __restrict__ us, T* __restrict__ u_final,
-                        T* __restrict__ t_final, int* __restrict__ stats) {
+                        repro_ev::Config evc, T* __restrict__ us,
+                        T* __restrict__ u_final, T* __restrict__ t_final,
+                        int* __restrict__ stats) {
   constexpr int n = P::n, m = P::m;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
@@ -191,24 +214,51 @@ __global__ void __launch_bounds__(kBlock)
   const uint32_t gl = lane_offset + static_cast<uint32_t>(lane);
   int since = 0;
   size_t slot = 0;
+  // the event form's state: terminated, reported time, steps taken
+  bool done = false;
+  T t_out = t0;
+  int nacc = 0;
 
+  // the event form rounds every operation on its own, the no-event form
+  // leaves nvcc free to contract
+  using A = std::conditional_t<Ev::enabled, Rounded, Contracting>;
   for (int k = 0; k < n_steps; ++k) {
-    T dW[m];
-    if constexpr (kTable) {
-      const T* zk = table + static_cast<size_t>(k) * m * NN + lane;
+    if (!Ev::enabled || !done) {
+      T dW[m];
+      if constexpr (kTable) {
+        const T* zk = table + static_cast<size_t>(k) * m * NN + lane;
 #pragma unroll
-      for (int j = 0; j < m; ++j) dW[j] = zk[j * NN] * sdt;
-    } else {
+        for (int j = 0; j < m; ++j) dW[j] = A::mul(zk[j * NN], sdt);
+      } else {
 #pragma unroll
-      for (int j = 0; j < m; ++j)
-        dW[j] = T(counter_normal(seed, static_cast<uint32_t>(k),
-                                 static_cast<uint32_t>(j), gl)) * sdt;
+        for (int j = 0; j < m; ++j)
+          dW[j] = A::mul(T(counter_normal(seed, static_cast<uint32_t>(k),
+                                          static_cast<uint32_t>(j), gl)),
+                         sdt);
+      }
+      const T t = radd(t0, rmul(T(k), dt));
+      T un[n];
+      St::template step<A, P>(u, pp, t, dt, sdt, dW, un);
+      if constexpr (Ev::enabled) {
+        auto interp = [&](T th, T* v) {
+#pragma unroll
+          for (int c = 0; c < n; ++c)
+            v[c] = A::add(u[c], A::mul(th, A::sub(un[c], u[c])));
+        };
+        const T t_grid = radd(t, dt);
+        T unext[n], t_ev;
+        const bool hit = repro_ev::handle_event<Ev, A, n>(
+            evc, interp, u, un, pp, t, dt, t_grid, unext, t_ev);
+        done = hit && evc.terminal;
+        t_out = done ? t_ev : t_grid;
+        ++nacc;
+#pragma unroll
+        for (int c = 0; c < n; ++c) u[c] = unext[c];
+      } else {
+#pragma unroll
+        for (int c = 0; c < n; ++c) u[c] = un[c];
+      }
     }
-    const T t = radd(t0, rmul(T(k), dt));
-    T un[n];
-    St::template step<P>(u, pp, t, dt, sdt, dW, un);
-#pragma unroll
-    for (int c = 0; c < n; ++c) u[c] = un[c];
     if (++since == save_every) {
       since = 0;
 #pragma unroll
@@ -219,8 +269,8 @@ __global__ void __launch_bounds__(kBlock)
 
 #pragma unroll
   for (int c = 0; c < n; ++c) u_final[c * NN + lane] = u[c];
-  t_final[lane] = T(t_end);
-  stats[0 * NN + lane] = n_steps;
+  t_final[lane] = Ev::enabled ? t_out : T(t_end);
+  stats[0 * NN + lane] = Ev::enabled ? nacc : n_steps;
   stats[1 * NN + lane] = 0;
   stats[2 * NN + lane] = 0;
   stats[3 * NN + lane] = n_steps * St::nf;
@@ -257,6 +307,7 @@ struct LaunchArgs {
   int N, n_steps, save_every;
   double t0, dt, t_end;
   uint32_t seed, lane_offset;
+  repro_ev::Config ev;
   void* us;
   void* u_final;
   void* t_final;
@@ -264,46 +315,67 @@ struct LaunchArgs {
   cudaStream_t stream;
 };
 
-template <typename T, class P, class St, bool kTable>
+template <typename T, class P, class St, bool kTable, class Ev>
 int launch(const LaunchArgs& a) {
   const int grid = (a.N + kBlock - 1) / kBlock;
-  sde_ensemble_kernel<T, P, St, kTable><<<grid, kBlock, 0, a.stream>>>(
+  sde_ensemble_kernel<T, P, St, kTable, Ev><<<grid, kBlock, 0, a.stream>>>(
       static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
       static_cast<const T*>(a.table), a.N, a.n_steps, a.save_every, a.t0,
-      a.dt, a.t_end, a.seed, a.lane_offset, static_cast<T*>(a.us),
+      a.dt, a.t_end, a.seed, a.lane_offset, a.ev, static_cast<T*>(a.us),
       static_cast<T*>(a.u_final), static_cast<T*>(a.t_final),
       static_cast<int*>(a.stats));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, class P, class St>
+template <typename T, class P, class St, class Ev>
 int by_table(int use_table, const LaunchArgs& a) {
-  return use_table ? launch<T, P, St, true>(a) : launch<T, P, St, false>(a);
+  return use_table ? launch<T, P, St, true, Ev>(a)
+                   : launch<T, P, St, false, Ev>(a);
 }
 
 // stepper_id: 0 em, 1 heun_strat, 2 platen_w2, 3 milstein; platen_w2 and
 // milstein exist for the diagonal problems only.
-template <typename T, class P>
+template <typename T, class P, class Ev = repro_ev::NoEvent>
 int by_stepper(int stepper_id, int use_table, const LaunchArgs& a) {
   switch (stepper_id) {
-    case 0: return by_table<T, P, Em>(use_table, a);
-    case 1: return by_table<T, P, HeunStrat>(use_table, a);
+    case 0: return by_table<T, P, Em, Ev>(use_table, a);
+    case 1: return by_table<T, P, HeunStrat, Ev>(use_table, a);
   }
   if constexpr (P::diagonal) {
     switch (stepper_id) {
-      case 2: return by_table<T, P, PlatenW2>(use_table, a);
-      case 3: return by_table<T, P, Milstein>(use_table, a);
+      case 2: return by_table<T, P, PlatenW2, Ev>(use_table, a);
+      case 3: return by_table<T, P, Milstein, Ev>(use_table, a);
     }
   }
   return -1;
 }
 
+// event_id 0: the no-event form; else the registered (problem, event)
+// pairs (EVENT_PAIRS in src/repro_torch/kernels/em/kernel.py).
 template <typename T>
-int by_problem(int prob_id, int stepper_id, int use_table,
+int by_problem(int prob_id, int event_id, int stepper_id, int use_table,
                const LaunchArgs& a) {
-  switch (prob_id) {
-    case 0: return by_stepper<T, Gbm>(stepper_id, use_table, a);
-    case 1: return by_stepper<T, Crn>(stepper_id, use_table, a);
+  namespace ev = repro_ev;
+  if (event_id == 0) {
+    switch (prob_id) {
+      case 0: return by_stepper<T, Gbm>(stepper_id, use_table, a);
+      case 1: return by_stepper<T, Crn>(stepper_id, use_table, a);
+      case 2: return by_stepper<T, Ramp>(stepper_id, use_table, a);
+    }
+    return -1;
+  }
+  if (prob_id == 0 && event_id == ev::GbmBarrier::kEventId)
+    return by_stepper<T, Gbm, ev::GbmBarrier>(stepper_id, use_table, a);
+  if (prob_id == 2 && event_id == ev::RampSawtooth::kEventId)
+    return by_stepper<T, Ramp, ev::RampSawtooth>(stepper_id, use_table, a);
+  return -1;
+}
+
+int dispatch(int dtype_id, int prob_id, int event_id, int stepper_id,
+             int use_table, const LaunchArgs& a) {
+  switch (dtype_id) {
+    case 0: return by_problem<float>(prob_id, event_id, stepper_id, use_table, a);
+    case 1: return by_problem<double>(prob_id, event_id, stepper_id, use_table, a);
   }
   return -1;
 }
@@ -311,10 +383,11 @@ int by_problem(int prob_id, int stepper_id, int use_table,
 }  // namespace repro_sde
 
 // C interface, bound with ctypes by src/repro_torch/kernels/em/kernel.py.
-// dtype_id: 0 float32, 1 float64.  prob_id: 0 gbm, 1 crn.  stepper_id: see
-// by_stepper.  `table` is (n_steps, m, N) of T when use_table is 1, else
-// unused.  Returns cudaGetLastError() after the launch, or -1 for an
-// unknown id or combination.  Launches on `stream` and does not synchronise.
+// dtype_id: 0 float32, 1 float64.  prob_id: 0 gbm, 1 crn, 2 ramp.
+// stepper_id: see by_stepper.  `table` is (n_steps, m, N) of T when
+// use_table is 1, else unused.  Returns cudaGetLastError() after the
+// launch, or -1 for an unknown id or combination.  Launches on `stream` and
+// does not synchronise.
 extern "C" int sde_ensemble_launch(int dtype_id, int prob_id, int stepper_id,
                                    int use_table, const void* u0,
                                    const void* p, const void* table, int N,
@@ -325,13 +398,29 @@ extern "C" int sde_ensemble_launch(int dtype_id, int prob_id, int stepper_id,
                                    void* stream) {
   const repro_sde::LaunchArgs a{u0,   p,       table,       N,       n_steps,
                                 save_every, t0, dt,         t_end,   seed,
-                                lane_offset, us, u_final,   t_final, stats,
+                                lane_offset, {0, 0, 0}, us, u_final, t_final,
+                                stats, static_cast<cudaStream_t>(stream)};
+  return repro_sde::dispatch(dtype_id, prob_id, 0, stepper_id, use_table, a);
+}
+
+// The event form: event_id names the functor of events.cuh (kEventId),
+// compiled for the pairs of `by_problem`; terminal, direction (-1, 0, 1)
+// and bisect_iters are the Python Event's.  -1 for an unregistered pair.
+extern "C" int sde_ensemble_event_launch(
+    int dtype_id, int prob_id, int stepper_id, int use_table, int event_id,
+    int terminal, int direction, int bisect_iters, const void* u0,
+    const void* p, const void* table, int N, int n_steps, int save_every,
+    double t0, double dt, double t_end, unsigned int seed,
+    unsigned int lane_offset, void* us, void* u_final, void* t_final,
+    void* stats, void* stream) {
+  if (event_id <= 0) return -1;
+  const repro_sde::LaunchArgs a{u0,   p,       table,       N,       n_steps,
+                                save_every, t0, dt,         t_end,   seed,
+                                lane_offset, {terminal, direction, bisect_iters},
+                                us, u_final, t_final, stats,
                                 static_cast<cudaStream_t>(stream)};
-  switch (dtype_id) {
-    case 0: return repro_sde::by_problem<float>(prob_id, stepper_id, use_table, a);
-    case 1: return repro_sde::by_problem<double>(prob_id, stepper_id, use_table, a);
-  }
-  return -1;
+  return repro_sde::dispatch(dtype_id, prob_id, event_id, stepper_id,
+                             use_table, a);
 }
 
 // The counter normals of (step0 + s, row, lane_offset + lane) for s < steps,

@@ -6,52 +6,25 @@
 // problems give `noise`, which returns g(u)·dW directly, so a 4 x 8 noise
 // matrix is never held whole in registers.
 //
-// Every member takes an arithmetic policy `A` as its first template
-// argument.  `Rounded` rounds every add, multiply and divide on its own
-// (the _rn intrinsics, which nvcc never contracts into a fused
-// multiply-add), so a functor computes what the plain PyTorch version
-// computes, bit for bit: the adaptive kernel's rule.  `Contracting` leaves
-// nvcc free to fuse a product into the sum it feeds: the fixed-dt kernel's
-// rule, whose results tools/sde_parent_check.py holds bit for bit to
-// earlier builds.  pow and sqrt keep nvcc's defaults (a correctly rounded
-// sqrt), as PyTorch builds its own.
+// Every member takes an arithmetic policy `A` of arith.cuh as its first
+// template argument: `Rounded` in the adaptive kernel and the event forms,
+// so a functor computes what the plain PyTorch version computes, bit for
+// bit; `Contracting` in the fixed-dt kernel's no-event form.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "arith.cuh"
+
 namespace repro_sde {
 
-__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double radd(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float rdiv(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double rdiv(double a, double b) { return __ddiv_rn(a, b); }
-
-struct Rounded {
-  template <typename T>
-  __device__ __forceinline__ static T add(T a, T b) { return radd(a, b); }
-  template <typename T>
-  __device__ __forceinline__ static T sub(T a, T b) { return rsub(a, b); }
-  template <typename T>
-  __device__ __forceinline__ static T mul(T a, T b) { return rmul(a, b); }
-  template <typename T>
-  __device__ __forceinline__ static T div(T a, T b) { return rdiv(a, b); }
-};
-
-struct Contracting {
-  template <typename T>
-  __device__ __forceinline__ static T add(T a, T b) { return a + b; }
-  template <typename T>
-  __device__ __forceinline__ static T sub(T a, T b) { return a - b; }
-  template <typename T>
-  __device__ __forceinline__ static T mul(T a, T b) { return a * b; }
-  template <typename T>
-  __device__ __forceinline__ static T div(T a, T b) { return a / b; }
-};
+using repro_arith::Contracting;
+using repro_arith::radd;
+using repro_arith::rdiv;
+using repro_arith::rmul;
+using repro_arith::Rounded;
+using repro_arith::rsub;
 
 // NaN-propagating max and min, as torch.maximum / jnp.maximum.
 template <typename T>
@@ -95,6 +68,35 @@ struct Gbm {
 #pragma unroll
     for (int c = 0; c < n; ++c)
       out[c] = A::mul(p[1], A::mul(p[1], A::mul(p[1], u[c])));
+  }
+};
+
+// A constant-drift ramp with negligible noise, the event-resume probe:
+// f = p[0] (ones_like(u) * p[0]), g = p[1] u (diagonal), with GBM's
+// hand-written gdg and ddb (the same diffusion).
+struct Ramp {
+  static constexpr int n = 1, k = 2, m = 1;
+  static constexpr bool diagonal = true;
+  static constexpr bool has_gdg = true, has_ddb = true;
+  template <class A, typename T>
+  __device__ __forceinline__ static void drift(const T* u, const T* p, T t,
+                                               T* du) {
+    du[0] = p[0];
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ static void diffusion(const T* u, const T* p,
+                                                   T t, T* g) {
+    g[0] = A::mul(p[1], u[0]);
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ static void gdg(const T* u, const T* p, T t,
+                                             T* out) {
+    out[0] = A::mul(p[1], A::mul(p[1], u[0]));
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ static void ddb(const T* u, const T* p, T t,
+                                             T* out) {
+    out[0] = A::mul(p[1], A::mul(p[1], A::mul(p[1], u[0])));
   }
 };
 

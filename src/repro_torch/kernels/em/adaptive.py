@@ -14,7 +14,8 @@ The drift and diffusion reach the kernel through the device functor both
 are registered with (`repro_torch.kernels.em.kernel.device_sde`).  The
 kernel cannot take a JVP, so the em pair needs the functor's hand-written
 ``gdg``, (∂g/∂u)·g, and the milstein pair its ``ddb`` as well,
-∂((∂g)·g)·g.
+∂((∂g)·g)·g.  An event reaches it through its `device_event` functor
+(`repro_torch.kernels.events`), for the pairs of `em.kernel.EVENT_PAIRS`.
 """
 from __future__ import annotations
 
@@ -25,8 +26,10 @@ import torch
 
 from repro_torch.core.controller import PIController
 from repro_torch.kernels.em.kernel import (DIAGONAL_ONLY, DTYPE_IDS,
-                                           SDE_FUNCTORS, STEPPER_IDS)
+                                           EVENT_PAIRS, SDE_FUNCTORS,
+                                           STEPPER_IDS)
 from repro_torch.kernels.em.ref import solve_adaptive_lanes
+from repro_torch.kernels.events import event_launch_args
 from repro_torch.kernels.rng import check_u32
 
 SOURCE = "sde_adaptive_ensemble.cu"
@@ -40,14 +43,18 @@ launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _bind():
+def _bind(event: bool = False):
+    """The no-event entry, or the event entry (which takes the event id,
+    terminal, direction and bisect_iters after the estimator id)."""
     from repro_torch.kernels.build import load
-    fn = load(SOURCE).sde_adaptive_launch
+    lib = load(SOURCE)
+    fn = lib.sde_adaptive_event_launch if event else lib.sde_adaptive_launch
     vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                          ctypes.c_uint)
-    fn.argtypes = [i32, i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64,
-                   f64, f64, ctypes.c_longlong, u32, u32, i32, i32, vp, vp,
-                   vp, vp, vp, vp]
+    args = [i32, i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64, f64,
+            f64, ctypes.c_longlong, u32, u32, i32, i32, vp, vp, vp, vp, vp,
+            vp]
+    fn.argtypes = args[:4] + [i32] * 4 + args[4:] if event else args
     fn.restype = i32
     return fn
 
@@ -109,14 +116,17 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
                           rtol: float, atol: float, max_iters: int,
                           seed: int, depth: int, order: float,
                           error_est: str, est_order: int,
-                          nf_per_attempt: int, lane_offset: int = 0):
+                          nf_per_attempt: int, lane_offset: int = 0,
+                          event=None):
     """Integrate every lane of u0 (n, N) with parameters p (k, N) from t0
     to tf by `method` with adaptive steps, the error estimated by its
     embedded pair (``error_est="embedded"``) or by step doubling, on the
     virtual Brownian tree of depth `depth` keyed by (seed; lane_offset +
-    lane, row).  Returns us (S, n, N) on the `saveat` grid, u_final (n, N),
-    t_final (N,) and stats (6, N) int32 with rows (naccept, nreject,
-    status, nf, 0, 0)."""
+    lane, row), with an optional `Event` (a terminal hit ends the lane at
+    the event time; a non-terminal one re-anchors it on the dyadic grid).
+    Returns us (S, n, N) on the `saveat` grid, u_final (n, N), t_final (N,)
+    and stats (6, N) int32 with rows (naccept, nreject, status, nf, 0,
+    0)."""
     seed = check_u32("seed", seed)
     lane_offset = check_u32("lane_offset", lane_offset)
     if error_est not in ESTIMATOR_IDS:
@@ -131,13 +141,16 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
     kw = dict(noise=noise, m_noise=m_noise, t0=t0, tf=tf, dt0=dt0, rtol=rtol,
               atol=atol, max_iters=max_iters, seed=seed, depth=depth,
               order=order, error_est=error_est, est_order=est_order,
-              nf_per_attempt=nf_per_attempt, lane_offset=lane_offset)
+              nf_per_attempt=nf_per_attempt, lane_offset=lane_offset,
+              event=event)
     if u0.device.type == "cpu":
         return solve_adaptive_lanes(f, g, method, u0, p, saveat, **kw)
     if u0.device.type != "cuda":
         raise ValueError(f"sde_adaptive_ensemble runs on CPU or CUDA "
                          f"tensors, not {u0.device.type}")
     name, fun = _device_functor(f, g, method, noise, m_noise, error_est)
+    ev = (() if event is None
+          else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not "
@@ -165,14 +178,14 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        rc = _bind()(DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
-                     ESTIMATOR_IDS[error_est], u0.data_ptr(), p.data_ptr(),
-                     saveat.data_ptr(), S, N, float(t0), float(tf),
-                     float(dt0), float(rtol), float(atol), int(max_iters),
-                     seed, lane_offset, int(depth), int(nf_per_attempt),
-                     ctypes.addressof(consts), us.data_ptr(),
-                     u_final.data_ptr(), t_final.data_ptr(),
-                     stats.data_ptr(), stream)
+        rc = _bind(event is not None)(
+            DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
+            ESTIMATOR_IDS[error_est], *ev, u0.data_ptr(), p.data_ptr(),
+            saveat.data_ptr(), S, N, float(t0), float(tf), float(dt0),
+            float(rtol), float(atol), int(max_iters), seed, lane_offset,
+            int(depth), int(nf_per_attempt), ctypes.addressof(consts),
+            us.data_ptr(), u_final.data_ptr(), t_final.data_ptr(),
+            stats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sde_adaptive_ensemble launch failed: CUDA "
                            f"error {rc}")

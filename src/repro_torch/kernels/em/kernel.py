@@ -12,7 +12,8 @@ The kernel cannot call Python drift and diffusion functions.  A pair
 (f, g) reaches it through the hand-written device functor both are
 registered with by `device_sde`; Milstein's derivative term needs the
 functor's hand-written ``gdg`` member, (∂g/∂u)·g, since a kernel cannot
-take a JVP.
+take a JVP.  An event reaches it through its `device_event` functor
+(`repro_torch.kernels.events`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.core.sde import sde_nf_per_step
 from repro_torch.kernels.em.ref import solve_lanes
+from repro_torch.kernels.events import event_launch_args
 from repro_torch.kernels.rng import (M32, check_u32, counter_normals_threefry,
                                      counter_words)
 
@@ -45,7 +47,11 @@ class SDEFunctor(NamedTuple):
 
 # as in the .cu files (`by_problem`)
 SDE_FUNCTORS = {"gbm": SDEFunctor(0, 3, 2, "diagonal", 3, True, True),
-                "crn": SDEFunctor(1, 4, 6, "general", 8, False, False)}
+                "crn": SDEFunctor(1, 4, 6, "general", 8, False, False),
+                "ramp": SDEFunctor(2, 1, 2, "diagonal", 1, True, True)}
+# the (problem, event) pairs whose event form both SDE kernels compile
+# (`by_event`)
+EVENT_PAIRS = {("gbm", "gbm_barrier"), ("ramp", "ramp_sawtooth")}
 STEPPER_IDS = {"em": 0, "heun_strat": 1, "platen_w2": 2, "milstein": 3}
 DIAGONAL_ONLY = ("platen_w2", "milstein")
 DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
@@ -87,16 +93,36 @@ def _bind():
     return run, normals
 
 
+@functools.lru_cache(maxsize=None)
+def _bind_event():
+    """The event entry: the no-event arguments with the event id,
+    terminal, direction and bisect_iters after the table switch."""
+    from repro_torch.kernels.build import load
+    fn = load(SOURCE).sde_ensemble_event_launch
+    args = list(_bind()[0].argtypes)
+    fn.argtypes = args[:4] + [ctypes.c_int] * 4 + args[4:]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _plain(f, g, method, noise, m_noise, u0, p, *, t0, dt, n_steps,
-           save_every, seed, lane_offset, table):
-    us, uf = solve_lanes(f, g, noise, m_noise, method, u0, p, t0=t0, dt=dt,
-                         n_steps=n_steps, save_every=save_every, seed=seed,
-                         noise_table=table, lane_offset=lane_offset)
+           save_every, seed, lane_offset, table, event=None):
+    us, uf, estate = solve_lanes(f, g, noise, m_noise, method, u0, p, t0=t0,
+                                 dt=dt, n_steps=n_steps,
+                                 save_every=save_every, seed=seed,
+                                 noise_table=table, lane_offset=lane_offset,
+                                 event=event)
     N = u0.shape[1]
     full = lambda v: torch.full((N,), v, dtype=torch.int32, device=u0.device)
-    t_final = torch.full((N,), t0 + n_steps * dt, dtype=u0.dtype,
-                         device=u0.device)
-    stats = torch.stack([full(n_steps), full(0), full(0),
+    if estate is None:
+        t_final = torch.full((N,), t0 + n_steps * dt, dtype=u0.dtype,
+                             device=u0.device)
+        naccept = full(n_steps)
+    else:
+        # a terminal event ends a lane early: its located time and the
+        # steps it was active
+        t_final, naccept = estate["t_out"], estate["naccept"]
+    stats = torch.stack([naccept, full(0), full(0),
                          full(n_steps * sde_nf_per_step(method)), full(0),
                          full(0)])
     return us, uf, t_final, stats
@@ -104,14 +130,15 @@ def _plain(f, g, method, noise, m_noise, u0, p, *, t0, dt, n_steps,
 
 def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
                  t0: float, dt: float, n_steps: int, save_every: int,
-                 seed: int, lane_offset: int = 0, table=None):
+                 seed: int, lane_offset: int = 0, table=None, event=None):
     """Integrate every lane of u0 (n, N) with parameters p (k, N) over
     `n_steps` fixed steps of `dt` from t0, by `method` (em, heun_strat,
     platen_w2, milstein), with N(0,1) noise from the Threefry stream
-    (seed; step, row, lane_offset + lane) or from `table` (n_steps, m, N).
-    Returns us (S, n, N) with S = n_steps / save_every, u_final (n, N),
-    t_final (N,) and stats (6, N) int32 with rows (naccept, nreject,
-    status, nf, njac, nfact)."""
+    (seed; step, row, lane_offset + lane) or from `table` (n_steps, m, N),
+    and an optional `Event` (a terminal hit freezes the lane; its t_final
+    is the event time and naccept its active steps).  Returns us (S, n, N)
+    with S = n_steps / save_every, u_final (n, N), t_final (N,) and stats
+    (6, N) int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
     seed = check_u32("seed", seed)
     lane_offset = check_u32("lane_offset", lane_offset)
     if save_every < 1 or n_steps < 0 or n_steps % save_every != 0 \
@@ -123,7 +150,7 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
     if u0.device.type == "cpu":
         return _plain(f, g, method, noise, m_noise, u0, p, t0=t0, dt=dt,
                       n_steps=n_steps, save_every=save_every, seed=seed,
-                      lane_offset=lane_offset, table=table)
+                      lane_offset=lane_offset, table=table, event=event)
     if u0.device.type != "cuda":
         raise ValueError(f"sde_ensemble runs on CPU or CUDA tensors, not "
                          f"{u0.device.type}")
@@ -150,6 +177,8 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
             f"gdg member, (dg/du)·g; {name!r} has none in {SOURCE}")
     if method in DIAGONAL_ONLY and fun.noise != "diagonal":
         raise ValueError(f"{method} supports diagonal noise only")
+    ev = (() if event is None
+          else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not "
@@ -174,9 +203,9 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        rc = _bind()[0](
+        rc = (_bind_event() if event is not None else _bind()[0])(
             DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
-            int(table is not None), u0.data_ptr(), p.data_ptr(),
+            int(table is not None), *ev, u0.data_ptr(), p.data_ptr(),
             table.data_ptr() if table is not None else None, N, n_steps,
             save_every, float(t0), float(dt), float(t0 + n_steps * dt), seed,
             lane_offset, us.data_ptr(), u_final.data_ptr(),

@@ -25,7 +25,7 @@ def seed_from_key(key) -> int:
 
 def solve_sde_ensemble_kernel(prob, u0s, ps, *, t0, dt, n_steps,
                               method="em", save_every=1, seed=0,
-                              noise_table=None, lane_offset=0):
+                              noise_table=None, lane_offset=0, event=None):
     """Unified-result SDE kernel entry (returns an EnsembleResult).
 
     u0s (N, n), ps (N, k) trajectory-major on one device; noise_table
@@ -36,7 +36,7 @@ def solve_sde_ensemble_kernel(prob, u0s, ps, *, t0, dt, n_steps,
                     dt=float(dt), n_steps=int(n_steps),
                     save_every=int(save_every), m_noise=prob.noise_dim(),
                     seed=int(seed), lane_offset=int(lane_offset),
-                    use_table=noise_table is not None)
+                    use_table=noise_table is not None, event=event)
     ts = sde_save_grid(t0, dt, n_steps, save_every, u0s.dtype,
                        device=u0s.device)
     extras = [("lanes", noise_table)] if noise_table is not None else []
@@ -46,7 +46,7 @@ def solve_sde_ensemble_kernel(prob, u0s, ps, *, t0, dt, n_steps,
 def solve_sde_adaptive_kernel(prob, u0s, ps, saveat, *, method, t0, tf,
                               dt0, rtol, atol, max_iters, seed, depth, order,
                               error_est, est_order, nf_per_attempt,
-                              lane_offset=0):
+                              lane_offset=0, event=None):
     """Unified-result adaptive SDE kernel entry (returns an EnsembleResult):
     u0s (N, n), ps (N, k) trajectory-major on one device, saveat (S,) in
     u0s's dtype.  One launch of the adaptive kernel over the ensemble."""
@@ -56,7 +56,7 @@ def solve_sde_adaptive_kernel(prob, u0s, ps, saveat, *, method, t0, tf,
         max_iters=int(max_iters), m_noise=prob.noise_dim(), seed=int(seed),
         depth=int(depth), order=float(order), error_est=error_est,
         est_order=int(est_order), nf_per_attempt=int(nf_per_attempt),
-        lane_offset=int(lane_offset))
+        lane_offset=int(lane_offset), event=event)
     return run_ensemble_kernel(body, u0s, ps, ts=saveat,
                                extras=[("broadcast", saveat)])
 

@@ -44,23 +44,26 @@ def save_chunk_count(n_state: int, n_param: int, n_save: int, *,
 
 
 def erk_body(f, tab, *, t0: float, tf: float, dt0: float, rtol: float,
-             atol: float, adaptive: bool, max_iters: int) -> Callable:
+             atol: float, adaptive: bool, max_iters: int,
+             event=None) -> Callable:
     """The kernel's parameters bound into one launch:
     ``body(u0 (n, N), p (m, N), extras) -> (us, u_final, t_final, stats)``
-    in the lane-major layout; extras[0] is the saveat grid (S,)."""
+    in the lane-major layout; extras[0] is the saveat grid (S,).  Every
+    body takes an optional `Event`, detected, located and applied inside
+    the kernel's loop."""
     from repro_torch.kernels.tsit5.kernel import erk_ensemble
 
     def body(u0, p, extras):
         return erk_ensemble(f, tab, u0, p, extras[0], t0=t0, tf=tf, dt0=dt0,
                             rtol=rtol, atol=atol, adaptive=adaptive,
-                            max_iters=max_iters)
+                            max_iters=max_iters, event=event)
 
     return body
 
 
 def rosenbrock_body(f, rtab, *, jac, t0: float, tf: float, dt0: float,
                     rtol: float, atol: float, max_iters: int,
-                    w_reuse) -> Callable:
+                    w_reuse, event=None) -> Callable:
     """s-stage Rosenbrock stiff integration (rosenbrock23, rodas4, rodas5p)
     with the per-lane LU of W = I − γh·J inline, eager or lazy-W
     (`w_reuse`); `jac` is the problem's analytic Jacobian hook.  extras[0]
@@ -70,14 +73,15 @@ def rosenbrock_body(f, rtab, *, jac, t0: float, tf: float, dt0: float,
     def body(u0, p, extras):
         return rosenbrock_ensemble(f, rtab, u0, p, extras[0], jac=jac, t0=t0,
                                    tf=tf, dt0=dt0, rtol=rtol, atol=atol,
-                                   max_iters=max_iters, w_reuse=w_reuse)
+                                   max_iters=max_iters, w_reuse=w_reuse,
+                                   event=event)
 
     return body
 
 
 def sde_body(f, g, method: str, noise: str, *, t0: float, dt: float,
              n_steps: int, save_every: int, m_noise: int, seed: int,
-             lane_offset: int, use_table: bool) -> Callable:
+             lane_offset: int, use_table: bool, event=None) -> Callable:
     """Fixed-dt SDE integration with the in-kernel Threefry stream keyed by
     (seed; step, noise-row, lane_offset + lane), or a pre-drawn table:
     extras[0] ("lanes", (n_steps, m, N)) when `use_table`.  `method` names
@@ -89,7 +93,8 @@ def sde_body(f, g, method: str, noise: str, *, t0: float, dt: float,
                             m_noise=m_noise, t0=t0, dt=dt, n_steps=n_steps,
                             save_every=save_every, seed=seed,
                             lane_offset=lane_offset,
-                            table=extras[0] if use_table else None)
+                            table=extras[0] if use_table else None,
+                            event=event)
 
     return body
 
@@ -98,7 +103,7 @@ def sde_adaptive_body(f, g, method: str, noise: str, *, t0: float, tf: float,
                       dt0: float, rtol: float, atol: float, max_iters: int,
                       m_noise: int, seed: int, depth: int, order: float,
                       error_est: str, est_order: int, nf_per_attempt: int,
-                      lane_offset: int) -> Callable:
+                      lane_offset: int, event=None) -> Callable:
     """Adaptive SDE integration with embedded-pair or step-doubling error
     control on the virtual Brownian tree of depth `depth`, keyed by
     (seed; lane_offset + lane, row, dyadic index).  `method` names the
@@ -111,7 +116,8 @@ def sde_adaptive_body(f, g, method: str, noise: str, *, t0: float, tf: float,
             t0=t0, tf=tf, dt0=dt0, rtol=rtol, atol=atol,
             max_iters=max_iters, seed=seed, depth=depth, order=order,
             error_est=error_est, est_order=est_order,
-            nf_per_attempt=nf_per_attempt, lane_offset=lane_offset)
+            nf_per_attempt=nf_per_attempt, lane_offset=lane_offset,
+            event=event)
 
     return body
 

@@ -13,7 +13,9 @@ version of the same function, the lanes engine
 The kernel cannot call a Python RHS or differentiate one.  An RHS reaches
 it through the hand-written device functor it is registered with by
 `device_stiff`, which gives f, its Jacobian ∂f/∂u and ∂f/∂t; a problem's
-analytic Jacobian hook must carry the same registration.
+analytic Jacobian hook must carry the same registration.  An event reaches
+it through its `device_event` functor (`repro_torch.kernels.events`); the
+event forms are compiled in float64, the stiff family's precision.
 """
 from __future__ import annotations
 
@@ -23,13 +25,20 @@ import functools
 import torch
 
 from repro_torch.core.controller import PIController
+from repro_torch.core.events import without_log
 from repro_torch.core.rosenbrock import (_policy, rosenbrock_nf_per_step,
                                          solve_rosenbrock)
 from repro_torch.core.tableaus import RosenbrockTableau
+from repro_torch.kernels.events import event_launch_args
 
 SOURCE = "rosenbrock_ensemble.cu"
 # device functor id and (n, m) for each registered RHS — as in the .cu
-STIFF_FUNCTORS = {"rober": (0, 3, 3), "orego": (1, 3, 3), "vdp": (2, 2, 1)}
+STIFF_FUNCTORS = {"rober": (0, 3, 3), "orego": (1, 3, 3), "vdp": (2, 2, 1),
+                  "ball": (3, 2, 2), "decay": (4, 1, 1)}
+# the (RHS, event) pairs whose event form the .cu compiles, in float64
+# (`by_event`)
+EVENT_PAIRS = {("rober", "rober_half"), ("ball", "ball_bounce"),
+               ("decay", "decay_half")}
 TABLEAU_IDS = {"rosenbrock23": 0, "rodas4": 1, "rodas5p": 2}
 DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
@@ -51,22 +60,31 @@ def device_stiff(name: str):
     return mark
 
 
+_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+    + [ctypes.c_double] * 5 + [ctypes.c_longlong, ctypes.c_int] \
+    + [ctypes.c_void_p] * 6
+
+
 @functools.lru_cache(maxsize=None)
-def _bind():
+def _bind(event: bool = False):
+    """The no-event entry, or the event entry (which takes the event id,
+    terminal, direction and bisect_iters after the lazy-W switch)."""
     from repro_torch.kernels.build import load
-    fn = load(SOURCE).rosenbrock_ensemble_launch
-    vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = [i32, i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64,
-                   f64, f64, ctypes.c_longlong, i32, vp, vp, vp, vp, vp, vp]
-    fn.restype = i32
+    lib = load(SOURCE)
+    fn = (lib.rosenbrock_ensemble_event_launch if event
+          else lib.rosenbrock_ensemble_launch)
+    fn.argtypes = (_ARGTYPES[:4] + [ctypes.c_int] * 4 + _ARGTYPES[4:]
+                   if event else _ARGTYPES)
+    fn.restype = ctypes.c_int
     return fn
 
 
 def _plain(f, rtab, u0, p, saveat, *, jac, t0, tf, dt0, rtol, atol,
-           max_iters, w_reuse):
-    res = solve_rosenbrock(f, rtab, u0, p, t0, tf, dt0, rtol=rtol, atol=atol,
-                           saveat=saveat, max_iters=max_iters, lanes=True,
-                           linsolve="lanes", jac=jac, w_reuse=w_reuse)
+           max_iters, w_reuse, event=None):
+    res = without_log(solve_rosenbrock(
+        f, rtab, u0, p, t0, tf, dt0, rtol=rtol, atol=atol, saveat=saveat,
+        max_iters=max_iters, lanes=True, linsolve="lanes", jac=jac,
+        w_reuse=w_reuse, event=event), event)
     stats = torch.stack([res.naccept, res.nreject, res.status,
                          res.nf.to(torch.int32), res.njac.to(torch.int32),
                          res.nfact.to(torch.int32)])
@@ -88,13 +106,15 @@ def controller_constants(rtab: RosenbrockTableau, w_reuse):
 
 def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
                         t0: float, tf: float, dt0: float, rtol: float,
-                        atol: float, max_iters: int, w_reuse=None):
+                        atol: float, max_iters: int, w_reuse=None,
+                        event=None):
     """Integrate every lane of u0 (n, N) with parameters p (m, N) from t0
-    to tf by the s-stage W-method `rtab`, eager or lazy-W (`w_reuse`).
-    Returns us (S, n, N), u_final (n, N), t_final (N,) and stats (6, N)
-    int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
+    to tf by the s-stage W-method `rtab`, eager or lazy-W (`w_reuse`), with
+    an optional `Event` located on the method's dense output.  Returns us
+    (S, n, N), u_final (n, N), t_final (N,) and stats (6, N) int32 with
+    rows (naccept, nreject, status, nf, njac, nfact)."""
     kw = dict(jac=jac, t0=t0, tf=tf, dt0=dt0, rtol=rtol, atol=atol,
-              max_iters=max_iters, w_reuse=w_reuse)
+              max_iters=max_iters, w_reuse=w_reuse, event=event)
     if u0.device.type == "cpu":
         return _plain(f, rtab, u0, p, saveat, **kw)
     if u0.device.type != "cuda":
@@ -118,6 +138,13 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
+    ev = ()
+    if event is not None:
+        ev = event_launch_args(event, name, EVENT_PAIRS, SOURCE)
+        if dtype != torch.float64:
+            raise NotImplementedError(
+                f"the stiff kernel's event forms are compiled in float64 "
+                f"only, not {dtype}")
     N = u0.shape[-1]
     for what, x, shape in (("u0", u0, (n, N)), ("p", p, (m, N)),
                            ("saveat", saveat, (saveat.shape[0],))):
@@ -140,14 +167,14 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        rc = _bind()(DTYPE_IDS[dtype], TABLEAU_IDS[rtab.name], rhs_id,
-                     int(_policy(w_reuse) is not None), u0.data_ptr(),
-                     p.data_ptr(), saveat.data_ptr(), S, N, float(t0),
-                     float(tf), float(dt0), float(rtol), float(atol),
-                     int(max_iters), rosenbrock_nf_per_step(rtab),
-                     ctypes.addressof(consts), us.data_ptr(),
-                     u_final.data_ptr(), t_final.data_ptr(),
-                     stats.data_ptr(), stream)
+        rc = _bind(event is not None)(
+            DTYPE_IDS[dtype], TABLEAU_IDS[rtab.name], rhs_id,
+            int(_policy(w_reuse) is not None), *ev, u0.data_ptr(),
+            p.data_ptr(), saveat.data_ptr(), S, N, float(t0), float(tf),
+            float(dt0), float(rtol), float(atol), int(max_iters),
+            rosenbrock_nf_per_step(rtab), ctypes.addressof(consts),
+            us.data_ptr(), u_final.data_ptr(), t_final.data_ptr(),
+            stats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"rosenbrock_ensemble launch failed: CUDA error "
                            f"{rc}")

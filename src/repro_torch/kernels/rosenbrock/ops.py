@@ -16,7 +16,7 @@ from repro_torch.kernels.ensemble_kernel import (rosenbrock_body,
 
 def solve_rosenbrock_cuda(prob, u0s, ps, rtab, *, t0, tf, dt0, saveat, rtol,
                           atol, max_iters=100_000, jac=None,
-                          w_reuse=None) -> EnsembleResult:
+                          w_reuse=None, event=None) -> EnsembleResult:
     """EnsembleGPUKernel for the stiff family (``ensemble="kernel"``,
     ``backend="cuda"``).  u0s (N, n), ps (N, m) and saveat (S,) on one
     device: CUDA tensors launch the kernel, CPU tensors run its plain
@@ -24,6 +24,6 @@ def solve_rosenbrock_cuda(prob, u0s, ps, rtab, *, t0, tf, dt0, saveat, rtol,
     body = rosenbrock_body(prob.f, rtab, jac=jac, t0=float(t0),
                            tf=float(tf), dt0=float(dt0), rtol=float(rtol),
                            atol=float(atol), max_iters=int(max_iters),
-                           w_reuse=w_reuse)
+                           w_reuse=w_reuse, event=event)
     return run_ensemble_kernel(body, u0s, ps, ts=saveat,
                                extras=[("broadcast", saveat)])

@@ -9,9 +9,10 @@ version of the same function, the lanes-mode solver
 `repro_torch.core.solvers.solve_adaptive(lanes=True)`.
 
 The kernel cannot call a Python RHS.  An RHS reaches it through the
-hand-written device functor it is registered with by `device_rhs`; turning
-an arbitrary ``f(u, p, t)`` into device code automatically (the paper's
-"automated translation") is a later ROADMAP item.
+hand-written device functor it is registered with by `device_rhs`, and an
+event through its `device_event` functor (`repro_torch.kernels.events`);
+turning an arbitrary ``f(u, p, t)`` into device code automatically (the
+paper's "automated translation") is a later ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,12 +21,17 @@ import functools
 
 import torch
 
+from repro_torch.core.events import without_log
 from repro_torch.core.solvers import AdaptiveOptions, solve_adaptive
 from repro_torch.core.tableaus import Tableau
+from repro_torch.kernels.events import event_launch_args
 
 SOURCE = "erk_ensemble.cu"
 # device functor id and (n, m) for each registered RHS — as in the .cu
-RHS_FUNCTORS = {"lorenz": (0, 3, 3), "sho": (1, 2, 1)}
+RHS_FUNCTORS = {"lorenz": (0, 3, 3), "sho": (1, 2, 1), "ball": (2, 2, 2),
+                "decay": (3, 1, 1)}
+# the (RHS, event) pairs whose event form the .cu compiles (`by_event`)
+EVENT_PAIRS = {("ball", "ball_bounce"), ("decay", "decay_half")}
 TABLEAU_IDS = {"tsit5": 0, "dopri5": 1}
 DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
@@ -46,23 +52,31 @@ def device_rhs(name: str):
     return mark
 
 
+_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+    + [ctypes.c_double] * 5 + [ctypes.c_int, ctypes.c_longlong] \
+    + [ctypes.c_void_p] * 5
+
+
 @functools.lru_cache(maxsize=None)
-def _bind():
+def _bind(event: bool = False):
+    """The no-event entry, or the event entry (which takes the event id,
+    terminal, direction and bisect_iters after the RHS id)."""
     from repro_torch.kernels.build import load
-    fn = load(SOURCE).erk_ensemble_launch
-    vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = [i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64, f64,
-                   f64, i32, ctypes.c_longlong, vp, vp, vp, vp, vp]
-    fn.restype = i32
+    lib = load(SOURCE)
+    fn = lib.erk_ensemble_event_launch if event else lib.erk_ensemble_launch
+    fn.argtypes = (_ARGTYPES[:3] + [ctypes.c_int] * 4 + _ARGTYPES[3:]
+                   if event else _ARGTYPES)
+    fn.restype = ctypes.c_int
     return fn
 
 
 def _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol, adaptive,
-           max_iters):
+           max_iters, event=None):
     opts = AdaptiveOptions(rtol=rtol, atol=atol, max_iters=max_iters,
                            adaptive=adaptive)
-    res = solve_adaptive(f, tab, u0, p, t0, tf, dt0, saveat=saveat, opts=opts,
-                         lanes=True)
+    res = without_log(solve_adaptive(f, tab, u0, p, t0, tf, dt0,
+                                     saveat=saveat, opts=opts, event=event,
+                                     lanes=True), event)
     zero = torch.zeros_like(res.naccept)
     stats = torch.stack([res.naccept, res.nreject, res.status, res.nf,
                          zero, zero])
@@ -71,13 +85,14 @@ def _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol, adaptive,
 
 def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
                  dt0: float, rtol: float, atol: float, adaptive: bool,
-                 max_iters: int):
+                 max_iters: int, event=None):
     """Integrate every lane of u0 (n, N) with parameters p (m, N) from t0
-    to tf.  Returns us (S, n, N), u_final (n, N), t_final (N,) and stats
-    (6, N) int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
+    to tf, with an optional `Event` (FSAL off, as in the plain version).
+    Returns us (S, n, N), u_final (n, N), t_final (N,) and stats (6, N)
+    int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
     if u0.device.type == "cpu":
         return _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol,
-                      adaptive, max_iters)
+                      adaptive, max_iters, event)
     if u0.device.type != "cuda":
         raise ValueError(f"erk_ensemble runs on CPU or CUDA tensors, not "
                          f"{u0.device.type}")
@@ -92,6 +107,8 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
             f"tableau {tab.name!r} is not compiled into the CUDA kernel; it "
             f"has {sorted(TABLEAU_IDS)}")
     rhs_id, n, m = RHS_FUNCTORS[name]
+    ev = (() if event is None
+          else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
@@ -116,12 +133,12 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        rc = _bind()(DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id,
-                     u0.data_ptr(), p.data_ptr(), saveat.data_ptr(), S, N,
-                     float(t0), float(tf), float(dt0), float(rtol),
-                     float(atol), int(bool(adaptive)), int(max_iters),
-                     us.data_ptr(), u_final.data_ptr(), t_final.data_ptr(),
-                     stats.data_ptr(), stream)
+        rc = _bind(event is not None)(
+            DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id, *ev,
+            u0.data_ptr(), p.data_ptr(), saveat.data_ptr(), S, N, float(t0),
+            float(tf), float(dt0), float(rtol), float(atol),
+            int(bool(adaptive)), int(max_iters), us.data_ptr(),
+            u_final.data_ptr(), t_final.data_ptr(), stats.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"erk_ensemble launch failed: CUDA error {rc}")
     global launches

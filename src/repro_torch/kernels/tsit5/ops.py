@@ -19,14 +19,15 @@ from repro_torch.kernels.ensemble_kernel import (erk_body, erk_work_words,
 
 def solve_ensemble_cuda(prob, u0s, ps, tab: Tableau, t0, tf, dt0, saveat,
                         rtol, atol, adaptive, max_iters=100_000,
-                        save_chunks=None) -> EnsembleResult:
+                        save_chunks=None, event=None) -> EnsembleResult:
     """EnsembleGPUKernel entry point (``ensemble="kernel"``,
     ``backend="cuda"``).  u0s (N, n), ps (N, m) and saveat (S,) on one
     device: CUDA tensors launch the kernel, CPU tensors run its plain twin.
 
     `save_chunks=None` takes the reference's segment count; pass an explicit
     count to force (or `1` to forbid) staging.  Staging needs an ascending
-    save grid of more than one point, all after t0.
+    save grid of more than one point, all after t0, and no event (a
+    terminated lane cannot thread between segments), as in the reference.
     """
     saveat = torch.as_tensor(saveat, dtype=u0s.dtype, device=u0s.device)
     work_words = erk_work_words(u0s.shape[1], ps.shape[1], tab.stages)
@@ -39,9 +40,9 @@ def solve_ensemble_cuda(prob, u0s, ps, tab: Tableau, t0, tf, dt0, saveat,
     def mk_body(t_start, t_end):
         return erk_body(prob.f, tab, t0=float(t_start), tf=float(t_end),
                         dt0=float(dt0), rtol=float(rtol), atol=float(atol),
-                        adaptive=adaptive, max_iters=max_iters)
+                        adaptive=adaptive, max_iters=max_iters, event=event)
 
-    stageable = (save_chunks > 1 and saveat.shape[0] > 1
+    stageable = (save_chunks > 1 and event is None and saveat.shape[0] > 1
                  and bool(saveat[0] > t0)
                  and bool((saveat[1:] > saveat[:-1]).all()))
     if stageable:

@@ -254,10 +254,14 @@ def test_adaptive_general_noise_embedded_and_later_slices_raise():
     crn = EnsembleProblem(tdp.crn_problem(dtype=torch.float64), 2)
     with pytest.raises(ValueError, match="diagonal-noise only"):
         tsolve(crn, device="cpu", **dict(ADAPT, error_est="embedded"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsolve(ens4(), device="cpu", event=object(), **ADAPT)
+    # events run on the adaptive path; with a sensitivity or the bounded
+    # loop they still reach the later slice
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tsolve(ens4(), device="cpu", event=tdp.gbm_barrier_event(),
+               sensitivity="adjoint", **ADAPT)
     prob = tdp.gbm_problem(dtype=torch.float64)
-    for extra, match in ((dict(event=object()), "item 7"),
+    for extra, match in ((dict(event=tdp.gbm_barrier_event(),
+                               bounded_steps=10), "item 9"),
                          (dict(bounded_steps=10), "item 9"),
                          (dict(checkpoint_every=2), "item 9")):
         with pytest.raises(NotImplementedError, match=match):

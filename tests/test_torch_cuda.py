@@ -361,3 +361,131 @@ def test_cuda_sde_adaptive_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         k5.sde_adaptive_ensemble(f, g, "em", u0.T.contiguous().T, p, sv[:1],
                                  **kw)
     assert k5.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the event forms of the four ensemble kernels (csrc/events.cuh), each
+# against its plain version at N = 64, f64: K1 counts identical and states
+# within 1e-10; K3 and K5 bitwise; K4 within 1e-12
+# ---------------------------------------------------------------------------
+
+def ball_ensemble(N, device):
+    from repro_torch.convert import ensemble_problem
+    es = np.linspace(0.3, 0.9, N)
+    u0s = np.stack([np.full(N, 10.0), np.zeros(N)], 1)
+    ps = np.stack([np.full(N, 9.8), es], 1)
+    return ensemble_problem(tdp.bouncing_ball_problem(), u0s, ps,
+                            device=device)
+
+
+def decay_ensemble(N, device):
+    from repro_torch.convert import ensemble_problem
+    lams = np.linspace(0.5, 2.0, N)
+    return ensemble_problem(tdp.linear_decay_problem(), np.ones((N, 1)),
+                            lams[:, None], device=device)
+
+
+def assert_event_parity(rk, rt, tol):
+    assert torch.equal(rk.naccept, rt.naccept)
+    assert torch.equal(rk.nreject, rt.nreject)
+    for a, b in ((rk.us, rt.us), (rk.u_final, rt.u_final),
+                 (rk.t_final, rt.t_final)):
+        if tol == 0:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["tsit5", "dopri5", "rosenbrock23"])
+@pytest.mark.parametrize("case", ["decay", "ball"])
+def test_cuda_ode_event_forms_match_plain_version(cuda, alg, case):
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    ep = (decay_ensemble if case == "decay" else ball_ensemble)(64, cuda)
+    ev = tdp.half_event() if case == "decay" else tdp.bouncing_ball_event()
+    tf = 3.0 if case == "decay" else 2.0
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, tf=tf, dt0=1e-3,
+              rtol=1e-9, atol=1e-9, saveat=[0.5, 1.0, 1.5, tf],
+              event=ev, device=cuda)
+    mod = rb_kernel if alg == "rosenbrock23" else erk_kernel
+    # the stiff kernel's plain version solves W with the lanes LU
+    lu = dict(linsolve="lanes") if alg == "rosenbrock23" else {}
+    before = mod.launches
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", **kw, **lu)
+    assert mod.launches == before + 1
+    assert_event_parity(rk, rt, 0 if alg == "rosenbrock23" else 1e-10)
+    if case == "ball":
+        assert float(rk.us[:, :, 0].min()) > -1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,w_reuse", [("rodas4", False), ("rodas4", True),
+                                         ("rodas5p", False)])
+def test_cuda_rober_event_form_bitwise(cuda, alg, w_reuse):
+    ep = tdp.rober_ensemble(64, tspan=(0.0, 1e4))
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, tf=1e4, dt0=1e-6,
+              rtol=1e-6, atol=1e-8, saveat=[1e-2, 1.0, 1e2, 1e4],
+              w_reuse=w_reuse, event=tdp.rober_half_event(), device=cuda)
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", linsolve="lanes", **kw)
+    assert_event_parity(rk, rt, 0)
+    done = rk.t_final < 1e4
+    assert bool(done.any())
+    assert float((rk.u_final[done, 2] - 0.5).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,mode", [
+    ("gbm", "fixed-em"), ("gbm", "fixed-platen_w2"), ("gbm", "embedded"),
+    ("gbm", "doubling"), ("ramp", "fixed-em"), ("ramp", "embedded"),
+    ("ramp", "doubling")])
+def test_cuda_sde_event_forms_match_plain_version(cuda, case, mode):
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.convert import ensemble_problem
+    N = 64
+    if case == "gbm":
+        prob = tdp.gbm_problem(r=1.5, v=0.2, dtype=torch.float64)
+        ep = ensemble_problem(prob, np.full((N, 3), 0.1),
+                              np.tile([1.5, 0.2], (N, 1)), device=cuda)
+        ev = tdp.gbm_barrier_event()
+    else:
+        ep = ensemble_problem(tdp.ramp_problem(), np.zeros((N, 1)),
+                              np.tile([1.0, 1e-10], (N, 1)), device=cuda)
+        ev = tdp.ramp_sawtooth_event()
+    if mode.startswith("fixed"):
+        alg = mode.split("-")[1]
+        kw = dict(alg=alg, t0=0.0, tf=1.0, dt0=1 / 200, n_steps=200,
+                  save_every=50, seed=5)
+        mod, tol = sde_kernel, 1e-12
+    else:
+        kw = dict(alg="em", adaptive=True, error_est=mode, t0=0.0, tf=1.0,
+                  dt0=0.05, rtol=1e-3, atol=1e-5, seed=5,
+                  saveat=[0.25, 0.5, 0.75, 1.0])
+        mod, tol = k5, 0
+    before = mod.launches
+    rk = tsolve(ep, ensemble="kernel", backend="cuda", event=ev,
+                device=cuda, **kw)
+    rt = tsolve(ep, ensemble="kernel", backend="torch", event=ev,
+                device=cuda, **kw)
+    assert mod.launches == before + 1
+    assert_event_parity(rk, rt, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_event_without_device_form_raises(cuda):
+    """An event the kernels cannot run raises on the card, naming the
+    registry; it never falls back to the plain version."""
+    from repro_torch.core.events import Event
+    ep = decay_ensemble(8, cuda)
+    before = erk_kernel.launches
+    kw = dict(alg="tsit5", ensemble="kernel", backend="cuda", t0=0.0,
+              tf=1.0, dt0=1e-3, device=cuda)
+    with pytest.raises(NotImplementedError, match="device_event"):
+        tsolve(ep, event=Event(condition=lambda u, p, t: u[0] - 0.5), **kw)
+    with pytest.raises(NotImplementedError, match="not compiled"):
+        tsolve(ep, event=tdp.bouncing_ball_event(), **kw)
+    with pytest.raises(NotImplementedError, match="affect"):
+        tsolve(ep, event=tdp.half_event()._replace(
+            affect=tdp.ramp_sawtooth_affect), **kw)
+    assert erk_kernel.launches == before

@@ -230,10 +230,19 @@ def test_front_door_defaults_to_cuda_and_raises_without_it(monkeypatch):
         solve_ensemble_local(lorenz_ensemble(4), tf=0.1, device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(event=object()),
+def _half_event():
+    from repro_torch.configs.de_problems import half_event
+    return half_event()
+
+
+# events run on every family now; with a sensitivity they still reach the
+# later slice, which raises
+@pytest.mark.parametrize("kw", [dict(event=_half_event(),
+                                     sensitivity="adjoint"),
                                 dict(sensitivity="adjoint"),
                                 dict(ensemble="auto"),
-                                dict(alg="rodas4", event=object()),
+                                dict(alg="rodas4", event=_half_event(),
+                                     sensitivity="adjoint"),
                                 dict(alg="rosenbrock23",
                                      sensitivity="adjoint")])
 def test_front_door_later_slices_raise(kw):

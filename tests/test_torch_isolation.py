@@ -21,6 +21,7 @@ PORT_MODULES = [
     "repro_torch.kernels.lu.ops", "repro_torch.kernels.lu.ref",
     "repro_torch.kernels.rosenbrock.kernel",
     "repro_torch.kernels.rosenbrock.ops", "repro_torch.kernels.em.adaptive",
+    "repro_torch.kernels.events",
 ]
 
 

@@ -271,7 +271,8 @@ def gbm_ep(N=4):
      NotImplementedError, "fixed-dt only"),
     (dict(saveat=[0.5, 1.0]), NotImplementedError, "save_every"),
     (dict(ensemble="array_eager"), NotImplementedError, "vmap"),
-    (dict(event=object()), NotImplementedError, "ROADMAP"),
+    (dict(event=tdp.gbm_barrier_event(), sensitivity="adjoint"),
+     NotImplementedError, "ROADMAP"),
     (dict(dt0=None), ValueError, "explicit dt0"),
     (dict(n_steps=10, save_every=3), ValueError, "divide"),
     (dict(seed=2 ** 32), ValueError, "seed"),

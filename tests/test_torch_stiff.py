@@ -8,6 +8,7 @@ tests/test_torch_cuda.py.
 Bars: building blocks within 1e-12; whole solves with per-lane
 naccept/nreject equal to the reference's and states within the reference's
 ROBER bar (rtol 1e-6, atol 1e-14)."""
+import dataclasses
 import re
 from pathlib import Path
 
@@ -331,8 +332,10 @@ def test_stiff_dispatch_rules_and_errors():
     assert not get_method(no_pair).adaptive
     with pytest.raises(ValueError, match="btilde"):
         tsolve(ens, alg=no_pair, ensemble="vmap", **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsolve(ens, alg="rodas4", event=object(), **kw)
+    # events run on the stiff family; a method that declares none refuses
+    no_events = dataclasses.replace(rodas4, name="rodas4_noev", events=False)
+    with pytest.raises(ValueError, match="events=False"):
+        tsolve(ens, alg=no_events, event=tdp.rober_half_event(), **kw)
     with pytest.raises(ValueError, match="w_reuse"):
         tsolve(ens, alg="tsit5", w_reuse=True, **kw)
     with pytest.raises(ValueError, match="linsolve"):

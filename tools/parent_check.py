@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Holds the no-event forms of the four ensemble kernels bit for bit to an
+earlier build of them, on one NVIDIA H100.
+
+    python3 tools/parent_check.py --parent DIR [--n N]
+
+DIR holds another checkout's `src/repro_torch/csrc` (for example the parent
+commit's, unpacked with `git archive <commit> src/repro_torch/csrc`).  The
+tool builds the explicit-RK (K1), Rosenbrock (K3), fixed-dt SDE (K4) and
+adaptive SDE (K5) kernels from DIR and from this checkout, runs both builds
+through the kernels' wrappers on the same inputs, without events, and
+prints per case whether us, u_final, t_final and the stats are bitwise
+equal, then the card's name and power limit and one JSON object.  The
+inputs are `chip_smoke.py`'s parity inputs: Lorenz with tsit5 and dopri5,
+adaptive and fixed dt, f64 and f32; ROBER with every Rosenbrock method,
+eager and lazy W, OREGO and Van der Pol; GBM with every stepper and the CRN
+sweep with em and heun_strat, f32 and f64, the counter stream and a noise
+table; the adaptive SDE cases.  Exits non-zero where CUDA is absent or any
+case differs.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def k1_cases(cs, dev, n):
+    import torch
+    from repro_torch.core.tableaus import get_tableau
+    from repro_torch.kernels.tsit5 import kernel as K1
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        ep = cs.lorenz_inputs(n, dtype, dev)
+        u0s, ps = ep.materialize()
+        u0, p = u0s.T.contiguous(), ps.T.contiguous()
+        sv = torch.linspace(0.0, 1.0, 11, dtype=dtype, device=dev)
+        tol = 1e-8 if dtype == torch.float64 else 1e-6
+        for alg, adaptive in (("tsit5", True), ("tsit5", False),
+                              ("dopri5", True)):
+            out[(str(dtype)[6:], "lorenz", alg, str(adaptive))] = \
+                lambda u0=u0, p=p, sv=sv, alg=alg, adaptive=adaptive, \
+                tol=tol, f=ep.prob.f: K1.erk_ensemble(
+                    f, get_tableau(alg), u0, p, sv, t0=0.0, tf=1.0,
+                    dt0=1e-3, rtol=tol, atol=tol, adaptive=adaptive,
+                    max_iters=100_000)
+    return out
+
+
+def k3_cases(cs, dev, n):
+    from repro_torch.core.tableaus import get_rosenbrock_tableau
+    from repro_torch.kernels.rosenbrock import kernel as K3
+    out = {}
+    for name, ep, kw, _ in cs.stiff_parity_cases(dev, n):
+        kw = dict(kw)
+        alg, wr = kw.pop("alg"), kw.pop("w_reuse", False)
+        u0s, ps = ep.materialize()
+        sv = kw.pop("saveat").to(dev)
+        out[("float64",) + tuple(name.split())] = \
+            lambda u0=u0s.T.contiguous(), p=ps.T.contiguous(), sv=sv, \
+            alg=alg, wr=wr, kw=kw, prob=ep.prob: K3.rosenbrock_ensemble(
+                prob.f, get_rosenbrock_tableau(alg), u0, p, sv, jac=prob.jac,
+                max_iters=100_000, w_reuse=wr, **kw)
+    return out
+
+
+def k4_cases(cs, dev, n):
+    import torch
+    from repro_torch.kernels.em import kernel as K4
+    cases = [("gbm", alg, 200, 200) for alg in ("em", "heun_strat",
+                                                 "platen_w2", "milstein")]
+    cases += [("crn", alg, 1000, 100) for alg in ("em", "heun_strat")]
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, alg, n_steps, save_every in cases:
+            ep = cs.sde_inputs(name, n, dtype, dev)
+            prob, m = ep.prob, ep.prob.noise_dim()
+            u0s, ps = ep.materialize()
+            dt = 1.0 / 200 if name == "gbm" else 0.1
+            gen = torch.Generator().manual_seed(cs.SEED)
+            table = torch.randn((n_steps, m, n), generator=gen,
+                                dtype=dtype).to(dev)
+            for src in ("rng", "table"):
+                out[(str(dtype)[6:], name, alg, src)] = \
+                    lambda prob=prob, alg=alg, u0=u0s.T.contiguous(), \
+                    p=ps.T.contiguous(), m=m, dt=dt, n_steps=n_steps, \
+                    save_every=save_every, \
+                    table=table if src == "table" else None: K4.sde_ensemble(
+                        prob.f, prob.g, alg, u0, p, noise=prob.noise,
+                        m_noise=m, t0=0.0, dt=dt, n_steps=n_steps,
+                        save_every=save_every, seed=cs.SDE_SEED, table=table)
+    return out
+
+
+def k5_cases(cs, dev, n):
+    import torch
+    from repro_torch.kernels.em import adaptive as K5
+    cases = [("gbm", "em", "embedded"), ("gbm", "em", "doubling"),
+             ("gbm", "milstein", "embedded"), ("gbm", "milstein", "doubling"),
+             ("gbm", "heun_strat", "doubling"),
+             ("gbm", "platen_w2", "doubling"), ("crn", "em", "doubling")]
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for name, alg, est in cases:
+            ep = cs.sde_inputs(name, n, dtype, dev)
+            st = dict(cs.ADAPTIVE_SETTINGS[name])
+            sv = torch.tensor(st.pop("saveat"), dtype=dtype, device=dev)
+            args = cs.adaptive_args(alg, est, ep.prob.noise,
+                                    ep.prob.noise_dim(), seed=cs.SDE_SEED,
+                                    lane_offset=2 ** 32 - 20
+                                    if name == "crn" else 0, **st)
+            u0s, ps = ep.materialize()
+            out[(str(dtype)[6:], name, alg, est)] = \
+                lambda prob=ep.prob, alg=alg, u0=u0s.T.contiguous(), \
+                p=ps.T.contiguous(), sv=sv, args=args: \
+                K5.sde_adaptive_ensemble(prob.f, prob.g, alg, u0, p, sv,
+                                         **args)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, required=True,
+                    help="the earlier checkout's src/repro_torch/csrc")
+    ap.add_argument("--n", type=int, default=4096,
+                    help="trajectories per case (default 4096)")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("parent_check: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.em import adaptive as K5
+    from repro_torch.kernels.em import kernel as K4
+    from repro_torch.kernels.rosenbrock import kernel as K3
+    from repro_torch.kernels.tsit5 import kernel as K1
+
+    dev = torch.device("cuda", 0)
+    cases = {}
+    for label, make in (("K1", k1_cases), ("K3", k3_cases), ("K4", k4_cases),
+                        ("K5", k5_cases)):
+        cases.update({(label,) + k: v for k, v in make(cs, dev,
+                                                       args.n).items()})
+    here = build.CSRC
+    results = {}
+    for label, csrc in (("parent", args.parent.resolve()), ("this", here)):
+        build.CSRC = csrc
+        build.load.cache_clear()
+        for binder in (K1._bind, K3._bind, K4._bind, K5._bind):
+            binder.cache_clear()
+        build.build(["erk_ensemble.cu", "rosenbrock_ensemble.cu",
+                     "sde_ensemble.cu", "sde_adaptive_ensemble.cu"])
+        results[label] = {k: run() for k, run in cases.items()}
+        torch.cuda.synchronize(dev)
+    build.CSRC = here
+    report, ok = {}, True
+    for key, new in results["this"].items():
+        old = results["parent"][key]
+        same = all(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+                   and torch.equal(a.isnan(), b.isnan())
+                   for a, b in zip(new, old))
+        ok &= same
+        report["/".join(key)] = same
+        print(f"{'/'.join(key)}: N={args.n} bitwise equal to the parent "
+              f"build: {same}")
+    print(f"{sum(report.values())} of {len(report)} cases bitwise equal")
+    print(cs.gpu_line())
+    print(json.dumps({"n": args.n, "bitwise_equal": report, "ok": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
