@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `src/repro_torch/csrc/` (the explicit-RK
-ensemble kernel, the fixed-dt SDE kernel, the adaptive SDE kernel on the
-virtual Brownian tree, the batched LU kernel and the fused Rosenbrock stiff
-kernel, all nvcc processes started together), holds each against its plain
-PyTorch twin on the card, drives the port's paths through the front door
+Builds the port's CUDA kernels from `src/repro_torch/csrc/` (the
+explicit-RK ensemble kernel, the fixed-dt SDE kernel, the adaptive SDE
+kernel on the virtual Brownian tree, the batched LU kernel, the fused
+Rosenbrock stiff kernel and the dataset lookup entry, all nvcc processes
+started together), holds each against its plain PyTorch twin on the card,
+drives the port's paths through the front door
 (`solve_ensemble_local(ensemble="kernel", backend="cuda")`): the paper's
 million-trajectory Lorenz ensemble, the million-trajectory geometric
 Brownian motion (Fig. 9) and chemical-reaction-network sweep (Figs. 10/11)
@@ -19,7 +20,13 @@ as its linear solver, and the event forms of the four ensemble kernels
 (f64 parity on decay, the bouncing ball, ROBER, GBM and the ramp, then the
 million-trajectory bouncing ball in f64 and f32, ROBER with its
 half-conversion event and GBM with a knock-out barrier, fixed and
-adaptive), and times each kernel beside its twin, and the
+adaptive), the data forms of the four ensemble kernels (f64 parity on the
+forced oscillator in every lookup mode, adaptive, stiff and with its level
+event, and on the rate-table GBM, fixed and adaptive; the lookup entry on
+2^20 queries of 1-D and 2-D tables; then the million-trajectory data
+rows: the texture benchmark's configuration in three modes beside the
+`vmap` strategy, the adaptive, stiff and event forms and the rate-table
+GBM), and times each kernel beside its twin, and the
 `vmap` and `array` strategies on the ODE and fixed-dt SDE forms, on
 rober-1M-rodas5p and on gbm-1M-em-adaptive.  Every phase raises on
 failure, so the script exits non-zero; it also exits non-zero, printing no
@@ -218,7 +225,11 @@ PTXAS_TAGS = {
                         ("Tsit5", "tsit5"), ("Dopri5", "dopri5"),
                         ("Lorenz", "lorenz"), ("Sho", "sho"),
                         ("Ball", "ball"), ("Decay", "decay"),
-                        ("BallBounce", "bounce"), ("DecayHalf", "half")),
+                        ("BallBounce", "bounce"), ("DecayHalf", "half"),
+                        ("ForcedOscILi0E", "osc-gather"),
+                        ("ForcedOscILi1E", "osc-onehot"),
+                        ("ForcedOscILi2E", "osc-cubic"),
+                        ("OscLevel", "level"), ("Tables", "data")),
     "sde_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                         ("Gbm", "gbm"), ("Crn", "crn"), ("2EmE", "em"),
                         ("HeunStrat", "heun_strat"),
@@ -226,7 +237,8 @@ PTXAS_TAGS = {
                         ("Lb0E", "rng"), ("Lb1E", "table"),
                         ("sde_normals", "normals"), ("Ramp", "ramp"),
                         ("GbmBarrier", "barrier"),
-                        ("RampSawtooth", "sawtooth")),
+                        ("RampSawtooth", "sawtooth"), ("GbmRate", "rate"),
+                        ("Tables", "data")),
     "sde_adaptive_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                                  ("Gbm", "gbm"), ("Crn", "crn"),
                                  ("2EmELb0E", "em"), ("HeunStrat", "heun_strat"),
@@ -235,7 +247,11 @@ PTXAS_TAGS = {
                                  ("EmPair", "em pair"),
                                  ("MilsteinPair", "milstein pair"),
                                  ("Ramp", "ramp"), ("GbmBarrier", "barrier"),
-                                 ("RampSawtooth", "sawtooth")),
+                                 ("RampSawtooth", "sawtooth"),
+                                 ("GbmRate", "rate"), ("Tables", "data")),
+    "interp_lookup.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
+                         ("Li0E", "gather"), ("Li1E", "onehot"),
+                         ("Li2E", "cubic"), ("Lb0E", "1d"), ("Lb1E", "2d")),
     "lu_solve.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                     *((f"Li{k}E", f"n={k}") for k in range(1, 9)),
                     ("Lb0E", "nopivot"), ("Lb1E", "pivot")),
@@ -247,7 +263,8 @@ PTXAS_TAGS = {
                                ("Lb1E", "lazyW"), ("Ball", "ball"),
                                ("Decay", "decay"), ("RoberHalf", "half"),
                                ("BallBounce", "bounce"),
-                               ("DecayHalf", "half")),
+                               ("DecayHalf", "half"), ("ForcedOsc", "osc"),
+                               ("Tables", "data")),
 }
 
 
@@ -301,9 +318,11 @@ def phase_build() -> float:
     from repro_torch.kernels.em.kernel import SOURCE as SDE_SOURCE
     from repro_torch.kernels.lu.kernel import SOURCE as LU_SOURCE
     from repro_torch.kernels.rosenbrock.kernel import SOURCE as RB_SOURCE
+    from repro_torch.kernels.interp import SOURCE as LOOKUP_SOURCE
     from repro_torch.kernels.tsit5.kernel import SOURCE
     t = time.perf_counter()
-    logs = build([SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE, K5_SOURCE])
+    logs = build([SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE, K5_SOURCE,
+                  LOOKUP_SOURCE])
     secs = time.perf_counter() - t
     for src, log in logs.items():
         print(f"build {src}: " + "; ".join(ptxas_summary(log, src)))
@@ -2200,6 +2219,592 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Data-driven problems (paper §6.7): the data forms of K1, K3, K4 and K5,
+# which read `prob.data`'s tables on the card, and the lookup entry
+# ---------------------------------------------------------------------------
+
+# Float operations of a lookup as interp.cuh writes them (add, multiply,
+# divide, min, max, floor one each): locating the cell 7 (sub, div, the
+# clamp's min and max, floor, the weight's sub); gather and onehot 4 more
+# (1 - w, two products, the sum); cubic 32 (the weights 18, four products,
+# three sums).  Its tangent (K3's ∂f/∂t): the cell 7, the scaled tangent 5,
+# the two products and their sum 4.
+LOOKUP_OPS = {"gather": 11, "onehot": 11, "cubic": 32}
+LOOKUP_TANGENT_OPS = 16
+# the forced oscillator's RHS besides its lookup: -k x - c v + F (5)
+OSC_RHS_OPS = 5
+# the rate-table GBM's fixed-dt em step besides the lookup: the drift's
+# product, g dW's 2, the update's 3 and t = t0 + k dt's 2; an adaptive em
+# pair attempt on one state besides the lookup and the bridge normals: the
+# estimator 18, the Hairer norm 10, the controller 10, the dt, t and cell
+# arithmetic 8
+GBM_RATE_STEP_OPS = 8
+GBM_RATE_ATTEMPT_OPS = 46
+# The bench configuration at the paper's scale
+# (benchmarks/bench_texture_interp.py:32-35, N 1024 -> 2^20)
+TEXTURE_FIXED = dict(t0=0.0, tf=1.0, dt0=1.0 / 200, n_steps=200,
+                     save_every=200, adaptive=False)
+# tests/test_texture_data.py's settings: the adaptive kink-limited case,
+# the rosenbrock23 case, the SDE case and the level event
+OSC_ADAPTIVE = dict(t0=0.0, tf=5.0, dt0=1e-2, rtol=1e-8, atol=1e-8,
+                    saveat=list(np.linspace(0.0, 5.0, 11)))
+OSC_STIFF = dict(t0=0.0, tf=3.0, dt0=1e-3, rtol=1e-8, atol=1e-8,
+                 saveat=list(np.linspace(0.0, 3.0, 7)))
+RATE_FIXED = dict(t0=0.0, dt0=1e-3, n_steps=500, save_every=250, seed=7)
+RATE_ADAPTIVE = dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-4, atol=1e-6,
+                     seed=7, adaptive=True,
+                     saveat=list(np.linspace(0.0, 1.0, 5)))
+OSC_EVENT = dict(t0=0.0, tf=5.0, dt0=1e-2, rtol=1e-8, atol=1e-8,
+                 saveat=list(np.linspace(0.0, 5.0, 6)))
+# where a plain version takes minutes at 2^20 lanes it runs on the first
+# DATA_PLAIN_N lanes, and the kernel is held to it on those lanes
+DATA_PLAIN_N = 2 ** 18
+# the onehot plain version sums its contraction in cuBLAS: within 1e-12
+ONEHOT_TOL = 1e-12
+
+
+def osc_inputs(N: int, device, dtype, *, mode="gather", p=(4.0, 0.2),
+               u0=(1.0, 0.0), scale=(0.5, 1.5), prob=None):
+    """The forced oscillator's ensemble: u0 scaled by linspace(scale, N),
+    one parameter pair; the bench table (`texture_oscillator_problem`)
+    unless `prob` is given."""
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    prob = prob or dp.texture_oscillator_problem(mode, dtype=dtype)
+    u0s = np.stack([u0] * N) * np.linspace(*scale, N)[:, None]
+    return ensemble_problem(prob, u0s, np.tile(p, (N, 1)), device=device,
+                            dtype=dtype)
+
+
+def data_parity_cases(device, N: int):
+    """(name, module, ensemble, front-door arguments, extra plain-version
+    arguments, bar) of the f64 data parity phase."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    f64 = torch.float64
+    cases = []
+    # an explicit save grid: the front door's lanes path with adaptive off
+    # is then the plain version (without one, its fixed-step engine
+    # accumulates t otherwise)
+    fixed = {k: v for k, v in TEXTURE_FIXED.items()
+             if k not in ("n_steps", "save_every")}
+    for mode in ("gather", "onehot", "cubic"):
+        cases.append((f"osc {mode} tsit5 fixed", erk_kernel,
+                      osc_inputs(N, device, f64, mode=mode),
+                      dict(fixed, alg="tsit5", saveat=[0.5, 1.0]), {},
+                      ONEHOT_TOL if mode == "onehot" else 0.0))
+    big = dp.forced_oscillator_problem()
+    osc = osc_inputs(N, device, f64, prob=big, p=(2.0, 0.1))
+    for alg in ("tsit5", "dopri5"):
+        cases.append((f"osc gather {alg} adaptive", erk_kernel, osc,
+                      dict(OSC_ADAPTIVE, alg=alg), {}, 0.0))
+    cases.append(("osc cubic tsit5 adaptive", erk_kernel,
+                  osc_inputs(N, device, f64, prob=dataclasses.replace(
+                      big, f=dp.forced_oscillator_cubic_rhs), p=(2.0, 0.1)),
+                  dict(OSC_ADAPTIVE, alg="tsit5"), {}, 0.0))
+    cases.append(("osc level event tsit5", erk_kernel,
+                  osc_inputs(N, device, f64, prob=big, p=(1.0, 0.0),
+                             u0=(0.0, 2.0), scale=(0.8, 1.2)),
+                  dict(OSC_EVENT, alg="tsit5", event=dp.osc_level_event()),
+                  {}, 0.0))
+    stiff = osc_inputs(N, device, f64, prob=dataclasses.replace(
+        big, tspan=(0.0, 3.0)), p=(50.0, 2.0))
+    # rosenbrock23 and lazy-W rodas4 take 3,500 and 11,000 steps a lane on
+    # [0, 3], minutes for the plain version: their parity runs on [0, 0.5],
+    # past the first step from the table's first knot (the row
+    # osc-1M-rosenbrock23-data runs the whole span)
+    short = dict(OSC_STIFF, tf=0.5, saveat=[0.0, 0.25, 0.5])
+    for alg, wr, st in (("rosenbrock23", False, short),
+                        ("rodas5p", False, OSC_STIFF),
+                        ("rodas4", True, short)):
+        cases.append((f"osc {alg} {'lazyW' if wr else 'eager'}", rb_kernel,
+                      stiff, dict(st, alg=alg, w_reuse=wr),
+                      dict(linsolve="lanes"), 0.0))
+    rate = ensemble_problem(dp.gbm_rate_problem(), np.ones((N, 1)),
+                            np.full((N, 1), 0.2), device=device)
+    table = torch.tensor(np.random.default_rng(SEED).standard_normal(
+        (500, 1, N)), dtype=f64, device=device)
+    for alg in ("em", "milstein"):
+        cases.append((f"gbm-rate {alg} fixed", sde_kernel, rate,
+                      dict(RATE_FIXED, alg=alg), {}, 0.0))
+    cases.append(("gbm-rate em fixed table", sde_kernel, rate,
+                  dict(RATE_FIXED, alg="em", noise_table=table), {}, 0.0))
+    for est in ("embedded", "doubling"):
+        cases.append((f"gbm-rate em {est}", k5, rate,
+                      dict(RATE_ADAPTIVE, alg="em", error_est=est), {}, 0.0))
+    return cases
+
+
+def phase_data_parity(device, N: int = PARITY_N):
+    """parity-f64-data: every data form against its plain version on the
+    same card, through the front door, in f64: bitwise (onehot's plain
+    matmul within ONEHOT_TOL); the adaptive onehot form against the plain
+    gather version, bitwise, since on the card the onehot lookup sums the
+    contraction's two terms that are not zero, which is the gather lookup.
+    Then K2: the fixed-dt data form in three launches of K1 (the tables
+    passed to each) against one."""
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    from repro_torch.kernels.tsit5.ops import solve_ensemble_cuda
+    out = {}
+    for name, mod, ep, kw, extra, tol in data_parity_cases(device, N):
+        before = mod.launches
+        t = time.perf_counter()
+        rk = solve_ensemble_local(ep, ensemble="kernel", backend="cuda",
+                                  device=device, **kw)
+        rt = solve_ensemble_local(ep, ensemble="kernel", backend="torch",
+                                  device=device, **kw, **extra)
+        sync(device)
+        secs = time.perf_counter() - t
+        if device.type == "cuda" and mod.launches != before + 1:
+            raise AssertionError(f"data parity {name}: the kernel was not "
+                                 "launched")
+        counts, worst, bitwise = event_compare(rk, rt)
+        if not counts or worst > tol or int(rk.status) != 0 \
+                or not bool(torch.isfinite(rk.us).all()):
+            raise AssertionError(
+                f"data parity {name}: counts identical {counts}, worst "
+                f"|kernel - plain| {worst:.3e} (bar {tol}), status "
+                f"{int(rk.status)}")
+        attempts = int((rk.naccept.long() + rk.nreject.long()).sum())
+        note = ""
+        if name == "osc level event tsit5":
+            hit = float((rk.t_final < 5.0 - 1e-9).double().mean())
+            d = float((rk.u_final[:, 0] - 1.5).abs().max())
+            if hit < 1.0 or d > 1e-6:
+                raise AssertionError(f"data parity {name}: {hit:.4f} of the "
+                                     f"lanes hit, x off 1.5 by {d:.3e}")
+            note = f"; every lane hit, x off 1.5 by {d:.3e} (bar 1e-6)"
+        out[name] = dict(worst=worst, bitwise_lanes=bitwise)
+        print(f"data parity {name}: N={N} f64 counts identical, worst "
+              f"|kernel - plain| {worst:.3e} (bar {tol}), {bitwise} of {N} "
+              f"lanes bitwise; attempts {attempts}{note}; {secs:.1f} s with "
+              "the plain version")
+    # the adaptive onehot form against the plain gather version
+    import dataclasses
+    from repro_torch.configs import de_problems as dp
+    big = dp.forced_oscillator_problem()
+    onehot = dataclasses.replace(big, f=dp.forced_oscillator_onehot_rhs)
+    kw = dict(OSC_ADAPTIVE, alg="tsit5")
+    rk = solve_ensemble_local(osc_inputs(N, device, torch.float64,
+                                         prob=onehot, p=(2.0, 0.1)),
+                              ensemble="kernel", backend="cuda",
+                              device=device, **kw)
+    rt = solve_ensemble_local(osc_inputs(N, device, torch.float64, prob=big,
+                                         p=(2.0, 0.1)),
+                              ensemble="kernel", backend="torch",
+                              device=device, **kw)
+    counts, worst, bitwise = event_compare(rk, rt)
+    if not counts or worst != 0.0:
+        raise AssertionError(f"data parity osc onehot tsit5 adaptive: "
+                             f"counts identical {counts}, worst {worst:.3e} "
+                             "against the plain gather version")
+    out["osc onehot tsit5 adaptive"] = dict(worst=worst, bitwise_lanes=bitwise)
+    print(f"data parity osc onehot tsit5 adaptive: N={N} f64 against the "
+          f"plain gather version: counts identical, {bitwise} of {N} lanes "
+          "bitwise")
+    # K2 with data: three launches of K1's data form against one
+    ep = osc_inputs(N, device, torch.float64)
+    u0s, ps = ep.materialize()
+    sv = torch.tensor([0.25, 0.5, 0.75, 1.0], dtype=torch.float64,
+                      device=device)
+    kw = dict(t0=0.0, tf=1.0, dt0=1.0 / 200, rtol=1e-8, atol=1e-8,
+              adaptive=False, data=ep.prob.data)
+    from repro_torch.core.tableaus import get_tableau
+    before = erk_kernel.launches
+    staged = solve_ensemble_cuda(ep.prob, u0s, ps, get_tableau("tsit5"),
+                                 saveat=sv, save_chunks=3, **kw)
+    launches = erk_kernel.launches - before
+    one = solve_ensemble_cuda(ep.prob, u0s, ps, get_tableau("tsit5"),
+                              saveat=sv, save_chunks=1, **kw)
+    if device.type == "cuda" and launches != 3:
+        raise AssertionError(f"K2 with data: {launches} launches, not 3")
+    # each segment restarts its clock at its first save, where one launch
+    # has summed the steps: F(t) sees t a rounding apart
+    d = max(float((staged.us - one.us).abs().max()),
+            float((staged.u_final - one.u_final).abs().max()))
+    if d > K2_TOL:
+        raise AssertionError(f"K2 with data: staged run {d:.3e} from one "
+                             f"launch > {K2_TOL}")
+    print(f"data parity K2 staged: N={N} f64 three launches of the fixed-dt "
+          f"data form (the tables passed to each) within {d:.3e} of one "
+          f"(bar {K2_TOL})")
+    out["K2 staged"] = dict(launches=launches, max_abs=d)
+    return out
+
+
+def phase_interp_lookup(device, N: int = FULL_N, reps: int = 5):
+    """interp-lookup: 2^20 queries for 1-D and 2-D tables in every mode, in
+    f32 and f64, against core/interp.py on the same card; the queries hold
+    points outside the grid, every knot and both bounds.  The only place
+    the card runs interp2d.  Returns the row of the 1-D f32 gather lookup,
+    with grid_sample (align_corners, border padding: the same clamped
+    linear interpolation) as its library call."""
+    import torch
+    from repro_torch.core.interp import UniformTable1D, UniformTable2D
+    from repro_torch.kernels import interp as kinterp
+    rng = np.random.default_rng(SEED)
+    K, KX, KY = 64, 33, 17
+    v1 = rng.standard_normal(K)
+    v2 = rng.standard_normal((KX, KY))
+    x0, dx, y0, dy = -1.0, 0.125, 2.0, 0.25
+
+    def queries(n, lo, step, k):
+        edge = np.concatenate([lo + step * np.arange(k),
+                               [lo, lo + step * (k - 1)]])
+        return np.concatenate([edge, rng.uniform(lo - 2.0, lo + step * k
+                                                 + 2.0, n - edge.size)])
+
+    qx = queries(N, x0, dx, KX)
+    qy = queries(N, y0, dy, KY)
+    q1 = queries(N, x0, dx, K)
+    row = None
+    for dtype in (torch.float64, torch.float32):
+        t1 = UniformTable1D(torch.tensor(v1, dtype=dtype, device=device),
+                            x0, dx)
+        t2 = UniformTable2D(torch.tensor(v2, dtype=dtype, device=device),
+                            x0, dx, y0, dy)
+        X1 = torch.tensor(q1, dtype=dtype, device=device)
+        X = torch.tensor(qx, dtype=dtype, device=device)
+        Y = torch.tensor(qy, dtype=dtype, device=device)
+        for mode in ("gather", "onehot", "cubic"):
+            tol = 0.0 if mode != "onehot" else (
+                ONEHOT_TOL if dtype == torch.float64 else 1e-6)
+            res = []
+            for dims, tab, args in (("1d", t1, (X1,)), ("2d", t2, (X, Y))):
+                before = kinterp.launches
+                got = kinterp.interp_lookup(tab, *args, mode=mode)
+                want = (kinterp.interp2d(tab, *args, mode) if dims == "2d"
+                        else kinterp.interp1d(tab, *args, mode))
+                sync(device)
+                if device.type == "cuda" and kinterp.launches != before + 1:
+                    raise AssertionError("interp-lookup: no launch")
+                d = float((got.double() - want.double()).abs().max())
+                nbit = int((got == want).sum())
+                if d > tol or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"interp-lookup {dims} {mode} "
+                                         f"{dtype}: |kernel - plain| {d:.3e}"
+                                         f" > {tol}")
+                res.append(f"{dims} {d:.3e} ({nbit} of {N} bitwise)")
+            print(f"interp-lookup {str(dtype)[6:]} {mode}: N={N} queries, "
+                  f"|kernel - plain| " + ", ".join(res) + f" (bar {tol})")
+        if dtype == torch.float32:
+            ms = cuda_ms(lambda: kinterp.interp_lookup(t1, X1), reps)
+            plain_ms = cuda_ms(lambda: kinterp.interp1d(t1, X1), reps)
+            img = t1.values.reshape(1, 1, 1, K)
+            gx = (2.0 * (X1 - x0) / (dx * (K - 1)) - 1.0)
+            grid = torch.stack([gx, torch.zeros_like(gx)], -1).reshape(
+                1, 1, N, 2)
+            lib = lambda: torch.nn.functional.grid_sample(
+                img, grid, mode="bilinear", padding_mode="border",
+                align_corners=True)
+            d_lib = float((lib().reshape(-1) - kinterp.interp1d(t1, X1))
+                          .abs().max())
+            library_ms = cuda_ms(lib, reps)
+            ops = N * LOOKUP_OPS["gather"]
+            nbytes = 4 * (2 * N + K)
+            times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "fp32": ops / PEAK_FP32_FLOPS * 1e3}
+            pipe = max(times, key=times.get)
+            kinterp.launches = 0
+            kinterp.interp_lookup(t1, X1)
+            row = {"name": "interp_lookup[1d,gather,f32]", "route": "cuda",
+                   "source": "src/repro_torch/csrc/interp_lookup.cu",
+                   "replaces": "src/repro/kernels/ensemble_kernel.py:240",
+                   # the test entry; no path of the port launches it
+                   "launches": 0, "max_abs_err": 0.0, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": times[pipe],
+                   "bound_by": "bytes" if pipe == "bytes" else "operations",
+                   "library_ms": library_ms, "library": "grid_sample",
+                   "library_max_abs_err": d_lib}
+            print(f"interp-lookup f32 gather 1d timing: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms "
+                  f"(|grid_sample - plain| {d_lib:.3e}), bound "
+                  f"{times[pipe]:.4f} ms by {pipe}")
+    return row
+
+
+def _data_kernel_fns(form, ep, kw, n_plain):
+    """(kernel(), plain(), stats of the plain lanes) closures calling the
+    wrapper and its plain version directly, lane-major; the plain version
+    on the first `n_plain` lanes."""
+    import torch
+    from repro_torch.core.problem import bind_data
+    from repro_torch.core.tableaus import (get_rosenbrock_tableau,
+                                           get_tableau)
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    prob = ep.prob
+    data = prob.data
+    u0s, ps = ep.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    u0_p, p_p = u0_l[:, :n_plain].contiguous(), p_l[:, :n_plain].contiguous()
+    dtype, dev = u0s.dtype, u0s.device
+    alg = kw["alg"]
+    if alg in ("tsit5", "dopri5"):
+        tab = get_tableau(alg)
+        if "n_steps" in kw:
+            sv = torch.tensor([kw["t0"] + kw["n_steps"] * kw["dt0"]],
+                              dtype=dtype, device=dev)
+        else:
+            sv = torch.tensor(kw["saveat"], dtype=dtype, device=dev)
+        kargs = dict(t0=kw["t0"], tf=kw["tf"], dt0=kw["dt0"],
+                     rtol=kw.get("rtol", 1e-6), atol=kw.get("atol", 1e-6),
+                     adaptive=kw.get("adaptive", True), max_iters=100_000,
+                     event=kw.get("event"))
+        return (lambda: erk_kernel.erk_ensemble(prob.f, tab, u0_l, p_l, sv,
+                                                data=data, **kargs),
+                lambda: erk_kernel._plain(bind_data(prob.f, data), tab, u0_p,
+                                          p_p, sv, **kargs))
+    if alg.startswith("ros") or alg.startswith("rodas"):
+        rtab = get_rosenbrock_tableau(alg)
+        sv = torch.tensor(kw["saveat"], dtype=dtype, device=dev)
+        kargs = dict(jac=None, t0=kw["t0"], tf=kw["tf"], dt0=kw["dt0"],
+                     rtol=kw["rtol"], atol=kw["atol"], max_iters=100_000,
+                     w_reuse=kw.get("w_reuse"))
+        return (lambda: rb_kernel.rosenbrock_ensemble(prob.f, rtab, u0_l,
+                                                      p_l, sv, data=data,
+                                                      **kargs),
+                lambda: rb_kernel._plain(bind_data(prob.f, data), rtab, u0_p,
+                                         p_p, sv, **kargs))
+    if kw.get("adaptive"):
+        args = adaptive_args(alg, kw.get("error_est"), prob.noise, 1,
+                             t0=kw["t0"], tf=kw["tf"], dt0=kw["dt0"],
+                             rtol=kw["rtol"], atol=kw["atol"],
+                             seed=kw["seed"])
+        sv = torch.tensor(kw["saveat"], dtype=dtype, device=dev)
+        from repro_torch.kernels.em.ref import solve_adaptive_lanes
+        return (lambda: k5.sde_adaptive_ensemble(prob.f, prob.g, alg, u0_l,
+                                                 p_l, sv, data=data, **args),
+                lambda: solve_adaptive_lanes(bind_data(prob.f, data),
+                                             bind_data(prob.g, data), alg,
+                                             u0_p, p_p, sv, **args))
+    kargs = dict(t0=kw["t0"], dt=kw["dt0"], n_steps=kw["n_steps"],
+                 save_every=kw["save_every"], seed=kw["seed"], lane_offset=0)
+    return (lambda: sde_kernel.sde_ensemble(prob.f, prob.g, alg, u0_l, p_l,
+                                            noise="diagonal", m_noise=1,
+                                            data=data, **kargs),
+            lambda: sde_kernel._plain(bind_data(prob.f, data),
+                                      bind_data(prob.g, data), alg,
+                                      "diagonal", 1, u0_p, p_p, table=None,
+                                      **kargs))
+
+
+def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
+    """The data rows at the paper's 10^6 scale, inputs on the card: the
+    bench configuration in three lookup modes (f32, fixed dt) beside the
+    same solve on the vmap strategy; the forced oscillator adaptive (f64),
+    on rosenbrock23 (f64) and with the level event (f64); the rate-table
+    GBM fixed and adaptive (f32).  Each through the front door with the
+    launch count read around it, the kernel against its plain version
+    (on the first DATA_PLAIN_N lanes where that is slow), times and bound."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.tableaus import (get_rosenbrock_tableau,
+                                           get_tableau)
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    f32, f64 = torch.float32, torch.float64
+    big = dp.forced_oscillator_problem()
+    forms = []
+    for mode in ("gather", "onehot", "cubic"):
+        forms.append((f"osc-1M-f32-fixed-{mode}", erk_kernel,
+                      osc_inputs(N, device, f32, mode=mode),
+                      dict(TEXTURE_FIXED, alg="tsit5"), mode, N))
+    forms += [
+        ("osc-1M-f64-adaptive", erk_kernel,
+         osc_inputs(N, device, f64, prob=big, p=(2.0, 0.1)),
+         dict(OSC_ADAPTIVE, alg="tsit5"), "gather", DATA_PLAIN_N),
+        ("osc-1M-rosenbrock23-data", rb_kernel,
+         osc_inputs(N, device, f64, prob=dataclasses.replace(
+             big, tspan=(0.0, 3.0)), p=(50.0, 2.0)),
+         dict(OSC_STIFF, alg="rosenbrock23"), "gather", DATA_PLAIN_N),
+        ("gbm-rate-1M-em", sde_kernel,
+         ensemble_problem(dp.gbm_rate_problem(dtype=f32), np.ones((N, 1)),
+                          np.full((N, 1), 0.2), device=device, dtype=f32),
+         dict(RATE_FIXED, alg="em"), "gather", N),
+        ("gbm-rate-1M-em-adaptive", k5,
+         ensemble_problem(dp.gbm_rate_problem(dtype=f32), np.ones((N, 1)),
+                          np.full((N, 1), 0.2), device=device, dtype=f32),
+         dict(RATE_ADAPTIVE, alg="em", error_est="embedded"), "gather",
+         DATA_PLAIN_N),
+        ("osc-1M-tsit5-data-event", erk_kernel,
+         osc_inputs(N, device, f64, prob=big, p=(1.0, 0.0), u0=(0.0, 2.0),
+                    scale=(0.8, 1.2)),
+         dict(OSC_EVENT, alg="tsit5", event=dp.osc_level_event()), "gather",
+         DATA_PLAIN_N)]
+    rows = []
+    for form, mod, ep, kw, mode, n_plain in forms:
+        n_plain = min(n_plain, N)
+        dtype = ep.u0s.dtype
+        label = str(dtype)[6:].replace("float", "f")
+        kwd = dict(kw, device=device)
+        mod.launches = 0
+        res = solve_ensemble_local(ep, ensemble="kernel", backend="cuda",
+                                   **kwd)
+        sync(device)
+        launches = mod.launches
+        if device.type == "cuda" and launches != 1:
+            raise AssertionError(f"{form}: {launches} kernel launches, not 1")
+        S = res.ts.shape[0]
+        if tuple(res.us.shape) != (N, S, ep.u0s.shape[1]) \
+                or int(res.status) != 0 \
+                or not bool(torch.isfinite(res.us).all()):
+            raise AssertionError(f"{form}: shape {tuple(res.us.shape)}, "
+                                 f"status {int(res.status)} or non-finite")
+        kernel, plain = _data_kernel_fns(form, ep, kw, n_plain)
+        out_k = kernel()
+        t = time.perf_counter()
+        out_p = plain()
+        sync(device)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        kp = [x[..., :n_plain] for x in out_k]
+        same = (kp[3][:2] == out_p[3][:2]).all(dim=0)
+        share = float(same.double().mean())
+        max_abs = max(float((kp[i].double() - out_p[i].double()).abs()
+                            .max()) for i in (0, 1, 2))
+        e_lane = ((lanes_first(kp).double() - lanes_first(out_p).double())
+                  .abs() / (1.0 + lanes_first(out_p).double().abs())) \
+            .reshape(n_plain, -1).max(dim=1).values
+        bitwise = int(((kp[3] == out_p[3]).all(dim=0) & (e_lane == 0)).sum())
+        if dtype == f64 or mode == "gather":
+            tol = ONEHOT_TOL if mode == "onehot" else 0.0
+        else:
+            tol = 1e-6 if mode == "onehot" else 0.0
+        if dtype == f64:
+            ok = share == 1.0 and max_abs <= tol
+            gate = (f"counts identical on every lane, |kernel - plain| "
+                    f"{max_abs:.3e} (bar {tol})")
+        else:
+            # f32: bitwise is the aim; an accept decision of the adaptive
+            # form may follow a last-ulp difference (the f32 gate of the
+            # adaptive SDE rows)
+            ok = (share >= ADAPTIVE_F32_SAME
+                  and float(e_lane[same].max()) <= max(tol, ADAPTIVE_F32_TOL)
+                  and float(e_lane.max()) <= ADAPTIVE_ANY_TOL)
+            gate = (f"counts equal on {share:.5f} of the lanes, states rel "
+                    f"{float(e_lane[same].max()):.3e} on them, "
+                    f"{float(e_lane.max()):.3e} on all")
+        if not ok:
+            for lane in torch.topk(e_lane, 3).indices.tolist():
+                print(f"{form}: lane {lane}: counts "
+                      f"{kp[3][:2, lane].tolist()} (plain "
+                      f"{out_p[3][:2, lane].tolist()}), rel "
+                      f"{float(e_lane[lane]):.3e}")
+            raise AssertionError(f"{form}: against the plain version: {gate}")
+        gate += f"; {bitwise} of {n_plain} lanes bitwise"
+        if n_plain < N:
+            gate += f" (the plain version on the first {n_plain} lanes)"
+        del out_p
+        ms = cuda_ms(kernel, reps)
+        front_ms = cuda_ms(lambda: solve_ensemble_local(
+            ep, ensemble="kernel", backend="cuda", **kwd), reps)
+        extra = {}
+        if form.startswith("osc-1M-f32-fixed"):
+            extra["vmap_ms"] = cuda_ms(lambda: solve_ensemble_local(
+                ep, ensemble="vmap", backend="torch", **kwd), 1, warmup=0)
+        # ---- bound: the run's own work, as the kernel writes it ----------
+        st = out_k[3].long()
+        attempts, accepted = int((st[0] + st[1]).sum()), int(st[0].sum())
+        item = 4 if dtype == f32 else 8
+        n = ep.u0s.shape[1]
+        k = ep.ps.shape[1]
+        K = int(ep.prob.data[next(iter(ep.prob.data))].values.numel())
+        nbytes = (item * (n * N + k * N + S + K + S * n * N + n * N + N)
+                  + 4 * 6 * N)
+        peak = PEAK_FP64_FLOPS if dtype == f64 else PEAK_FP32_FLOPS
+        pipe_name = "fp64" if dtype == f64 else "fp32"
+        if mod is erk_kernel:
+            tab = get_tableau(kw["alg"])
+            ops = (attempts * attempt_flops(tab, n, OSC_RHS_OPS
+                                            + LOOKUP_OPS[mode],
+                                            kw.get("adaptive", True))
+                   + N * S * save_flops(tab, n))
+            if "event" in kw:
+                ops += event_ops(steps=accepted, reanchors=0,
+                                 hits=int((out_k[2] < kw["tf"] - 1e-9)
+                                          .sum()),
+                                 interp=tsit5_interp_ops(n), cond=1,
+                                 affect=0)
+            times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     pipe_name: ops / peak * 1e3}
+            work = f"{attempts} attempts"
+        elif mod is rb_kernel:
+            rtab = get_rosenbrock_tableau(kw["alg"])
+            per, jac, fact, save = rosenbrock_attempt_ops(
+                rtab, n, OSC_RHS_OPS + LOOKUP_OPS[mode], 2)
+            ops = (attempts * (per + jac + fact + LOOKUP_TANGENT_OPS)
+                   + N * S * save)
+            times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     pipe_name: ops / peak * 1e3}
+            work = f"{attempts} attempts"
+        else:
+            if mod is sde_kernel:
+                steps = kw["n_steps"] * N
+                normals = steps
+                ops = (steps * (GBM_RATE_STEP_OPS + LOOKUP_OPS["gather"])
+                       + normals * NORMAL_FLOPS)
+                work = f"{steps} steps, {normals} normals"
+            else:
+                depth = int(adaptive_args(
+                    "em", "embedded", "diagonal", 1, t0=kw["t0"],
+                    tf=kw["tf"], dt0=kw["dt0"], rtol=kw["rtol"],
+                    atol=kw["atol"], seed=kw["seed"])["depth"])
+                normals = attempts * (depth + 1)
+                ops = (normals * BRIDGE_FLOPS_PER_NORMAL
+                       + attempts * (GBM_RATE_ATTEMPT_OPS
+                                     + LOOKUP_OPS["gather"]))
+                work = f"{attempts} attempts, {normals} normals"
+            alu_ops = normals * THREEFRY_ALU_OPS
+            issued = normals * (THREEFRY_ALU_OPS + THREEFRY_ADD_OPS) + ops / 2
+            times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     pipe_name: ops / peak * 1e3,
+                     "int32_alu": alu_ops / (ALU_LANES_PER_SM
+                                             * SM_LANE_CLOCKS_PER_S) * 1e3,
+                     "issue": issued / (ISSUE_LANES_PER_SM
+                                        * SM_LANE_CLOCKS_PER_S) * 1e3}
+        # every operation of a data form is rounded on its own: its float
+        # operations at half the peak, with the other limits
+        unfused = max(max(times.values()), times[pipe_name] * 2)
+        src, line = {erk_kernel: ("erk_ensemble.cu", ":461"),
+                     rb_kernel: ("rosenbrock_ensemble.cu", ":491"),
+                     sde_kernel: ("sde_ensemble.cu", ":533"),
+                     k5: ("sde_adaptive_ensemble.cu", ":602")}[mod]
+        kname = {erk_kernel: "erk_ensemble", rb_kernel: "rosenbrock_ensemble",
+                 sde_kernel: "sde_ensemble",
+                 k5: "sde_adaptive_ensemble"}[mod]
+        row = _event_row(f"{kname}[{kw['alg']},{form.split('-1M-')[0]},"
+                         f"{label},data-{mode}"
+                         + (",level" if "event" in kw else "") + "]",
+                         f"src/repro_torch/csrc/{src}",
+                         f"src/repro/kernels/ensemble_kernel.py{line}",
+                         launches, max_abs, ms, plain_ms, times,
+                         bound_unfused_ms=unfused, front_door_ms=front_ms,
+                         form=form, plain_lanes=n_plain, **extra)
+        print(f"{form}: N={N} {label} status 0, launches {launches}; against "
+              f"the plain version: {gate}"
+              + (f"; vmap strategy {extra['vmap_ms']:.1f} ms" if extra
+                 else ""))
+        _print_row(form, front_ms, row, work, times)
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2252,6 +2857,12 @@ def main() -> int:
     for r in event_rows:
         r["parity_f64"] = event_parity
     rows += event_rows
+    data_parity = phase_data_parity(device)
+    lookup_row = phase_interp_lookup(device)
+    data_rows = phase_data_full_size(device)
+    for r in data_rows:
+        r["parity_f64"] = data_parity
+    rows += data_rows + [lookup_row]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": rows}))

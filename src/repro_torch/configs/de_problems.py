@@ -17,11 +17,83 @@ import numpy as np
 import torch
 
 from repro_torch.core.events import Event
+from repro_torch.core.interp import UniformTable1D, interp1d
 from repro_torch.core.problem import EnsembleProblem, ODEProblem, SDEProblem
 from repro_torch.kernels.em.kernel import device_sde
 from repro_torch.kernels.events import device_event
 from repro_torch.kernels.rosenbrock.kernel import device_stiff
 from repro_torch.kernels.tsit5.kernel import device_rhs
+
+
+# ---------------------------------------------------------------------------
+# Forced oscillator — the data-driven demo problem (paper §6.7): the drive
+# term is a UniformTable1D riding `prob.data` into every dispatch path; the
+# kernels read it through the data functors `forced_osc` (gather, K1 and
+# K3), `forced_osc_onehot` and `forced_osc_cubic` (K1)
+# ---------------------------------------------------------------------------
+
+@device_rhs("forced_osc")
+@device_stiff("forced_osc")
+def forced_oscillator_rhs(u, p, t, data):
+    # u'' + p[1] u' + p[0] u = F(t), F interpolated from the dataset
+    return torch.stack([u[1], -p[0] * u[0] - p[1] * u[1]
+                        + interp1d(data["force"], t)])
+
+
+@device_rhs("forced_osc_onehot")
+def forced_oscillator_onehot_rhs(u, p, t, data):
+    return torch.stack([u[1], -p[0] * u[0] - p[1] * u[1]
+                        + interp1d(data["force"], t, "onehot")])
+
+
+@device_rhs("forced_osc_cubic")
+def forced_oscillator_cubic_rhs(u, p, t, data):
+    return torch.stack([u[1], -p[0] * u[0] - p[1] * u[1]
+                        + interp1d(data["force"], t, "cubic")])
+
+
+FORCED_OSC_RHS = {"gather": forced_oscillator_rhs,
+                  "onehot": forced_oscillator_onehot_rhs,
+                  "cubic": forced_oscillator_cubic_rhs}
+
+
+def forced_oscillator_problem(K=65, t_max=10.0, tspan=(0.0, 5.0),
+                              dtype=torch.float64) -> ODEProblem:
+    """Damped oscillator driven by a K-knot force table over [0, t_max]."""
+    xs = np.linspace(0.0, t_max, K)
+    F = np.sin(1.3 * xs) + 0.5 * np.cos(0.4 * xs)
+    tab = UniformTable1D(torch.tensor(F, dtype=dtype), 0.0,
+                         float(xs[1] - xs[0]))
+    return ODEProblem(forced_oscillator_rhs,
+                      torch.tensor([1.0, 0.0], dtype=dtype),
+                      torch.tensor([2.0, 0.1], dtype=dtype), tspan,
+                      data={"force": tab}, name="forced_oscillator")
+
+
+def texture_oscillator_problem(mode="gather", K=64,
+                               dtype=torch.float32) -> ODEProblem:
+    """`benchmarks/bench_texture_interp.py`'s configuration: K knots of
+    sin(6x) + 0.5 cos(17x) on [0, 1], p = (4, 0.2), t in [0, 1], the
+    lookup in `mode`."""
+    xs = np.linspace(0.0, 1.0, K)
+    F = np.sin(6.0 * xs) + 0.5 * np.cos(17.0 * xs)
+    tab = UniformTable1D(torch.tensor(F, dtype=dtype), 0.0,
+                         float(xs[1] - xs[0]))
+    return ODEProblem(FORCED_OSC_RHS[mode],
+                      torch.tensor([1.0, 0.0], dtype=dtype),
+                      torch.tensor([4.0, 0.2], dtype=dtype), (0.0, 1.0),
+                      data={"force": tab}, name=f"forced_osc_{mode}")
+
+
+@device_event("osc_level")
+def osc_level_condition(u, p, t):
+    return u[0] - 1.5
+
+
+def osc_level_event() -> Event:
+    """The oscillator's position crosses 1.5 upwards, terminal (the
+    reference's events-with-data case)."""
+    return Event(condition=osc_level_condition, direction=1, terminal=True)
 
 
 # A.1.1 Lorenz attractor — the headline ODE benchmark (Figs. 4-7)
@@ -203,6 +275,31 @@ def gbm_problem(r=1.5, v=0.01, dtype=torch.float32) -> SDEProblem:
     p = torch.tensor([r, v], dtype=dtype)
     return SDEProblem(gbm_drift, gbm_diffusion, u0, p, (0.0, 1.0),
                       noise="diagonal", name="gbm")
+
+
+# GBM with a time-dependent rate read from a table (paper §6.7 on the SDE
+# family): f = r(t) u, g = s u, diagonal noise
+@device_sde("gbm_rate")
+def gbm_rate_drift(u, p, t, data):
+    return interp1d(data["rate"], t) * u
+
+
+@device_sde("gbm_rate")
+def gbm_rate_diffusion(u, p, t, data):
+    return p[0] * u
+
+
+def gbm_rate_problem(sigma=0.2, dtype=torch.float64) -> SDEProblem:
+    """The reference's SDE-with-data case: a 33-knot rate table
+    0.02 + 0.01 sin(t) over [0, 2], u0 = 1, t in [0, 1]."""
+    ts = np.linspace(0.0, 2.0, 33)
+    rate = UniformTable1D(torch.tensor(0.02 + 0.01 * np.sin(ts),
+                                       dtype=dtype), 0.0,
+                          float(ts[1] - ts[0]))
+    return SDEProblem(gbm_rate_drift, gbm_rate_diffusion,
+                      torch.ones(1, dtype=dtype),
+                      torch.tensor([sigma], dtype=dtype), (0.0, 1.0),
+                      noise="diagonal", data={"rate": rate}, name="gbm_rate")
 
 
 @device_event("gbm_barrier")

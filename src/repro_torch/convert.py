@@ -2,17 +2,20 @@
 
 The reference (`repro`) and the port share no array type.  A test or a user
 who holds the reference's inputs as numpy arrays — ``(u0s, ps)`` of an ODE
-or SDE problem, a save grid, a tableau's coefficients, an SDE noise table —
-turns them into the port's tensors and
+or SDE problem, a save grid, a tableau's coefficients, an SDE noise table,
+a dataset of interpolation tables — turns them into the port's tensors and
 objects here, on a chosen device and dtype, with no loss: numpy float64
 arrays convert exactly, and a narrower dtype rounds once, as the reference
 does when it casts.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.core.interp import UniformTable1D, UniformTable2D
 from repro_torch.core.problem import EnsembleProblem
 from repro_torch.core.tableaus import Tableau
 
@@ -23,12 +26,44 @@ def to_tensor(x, *, device="cpu", dtype=torch.float64) -> torch.Tensor:
                            device=device)
 
 
-def ensemble_problem(prob, u0s, ps, *, device="cpu",
-                     dtype=torch.float64) -> EnsembleProblem:
+def dataset(data, *, device="cpu", dtype=None):
+    """A `prob.data` pytree (dicts, lists and tuples of tables with
+    ``values``, ``x0``, ``dx`` and, in 2-D, ``y0``, ``dy``: the reference's
+    or the port's) as the port's tables on `device`.  ``dtype=None`` keeps
+    each table's own dtype, bit for bit; a narrower dtype rounds once, as
+    the reference's cast does."""
+    if data is None:
+        return None
+    if isinstance(data, dict):
+        return {k: dataset(v, device=device, dtype=dtype)
+                for k, v in data.items()}
+    if isinstance(data, (list, tuple)):
+        return type(data)(dataset(v, device=device, dtype=dtype)
+                          for v in data)
+    if isinstance(data.values, torch.Tensor):
+        vt = data.values.to(device=device).contiguous()
+    else:
+        vt = torch.as_tensor(np.array(data.values), device=device)
+    if dtype is not None:
+        vt = vt.to(dtype)
+    if hasattr(data, "y0"):
+        return UniformTable2D(vt, float(data.x0), float(data.dx),
+                              float(data.y0), float(data.dy))
+    return UniformTable1D(vt, float(data.x0), float(data.dx))
+
+
+def ensemble_problem(prob, u0s, ps, *, device="cpu", dtype=torch.float64,
+                     data=None) -> EnsembleProblem:
     """An `EnsembleProblem` over `prob` with the given trajectory-major
-    (N, n) initial states and (N, m) parameters, on `device` in `dtype`."""
+    (N, n) initial states and (N, m) parameters, on `device` in `dtype`.
+    The problem's dataset, or `data` (a reference dataset pytree) in its
+    place, is carried by `dataset` onto `device` in `dtype` too."""
     u0s_t = to_tensor(u0s, device=device, dtype=dtype)
     ps_t = to_tensor(ps, device=device, dtype=dtype)
+    data = getattr(prob, "data", None) if data is None else data
+    if data is not None:
+        prob = dataclasses.replace(
+            prob, data=dataset(data, device=device, dtype=dtype))
     return EnsembleProblem(prob, int(u0s_t.shape[0]), u0s=u0s_t, ps=ps_t)
 
 

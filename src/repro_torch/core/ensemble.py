@@ -43,11 +43,18 @@ the adaptive CUDA kernel (`repro_torch.kernels.em.adaptive`) on
 "kernel"/"cuda"; every strategy draws the same (seed; lane, row, dyadic
 index) tree, so their paths agree.
 
+A data-driven problem (``prob.data``, paper §6.7) runs on every strategy:
+its dataset is closed over the callbacks once (`bind_problem_data`) for the
+lanes and vmap paths, while the CUDA kernels take the raw 4-argument
+callbacks and the tables as kernel arguments, read on the card by the data
+functor the RHS is registered with.
+
 Entry points run on the card: ``device=None`` means ``"cuda"``, and a
 machine without CUDA raises unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -55,8 +62,10 @@ import torch
 
 from .controller import PIController, initial_dt
 from .events import without_log
+from .interp import data_flatten, data_unflatten
 from .methods import MethodSpec, get_method
-from .problem import EnsembleProblem, ODEProblem, SDEProblem
+from .problem import (EnsembleProblem, ODEProblem, SDEProblem,
+                      bind_problem_data)
 from .solvers import (AdaptiveOptions, interp_step, rk_step, solve_adaptive,
                       solve_fixed)
 
@@ -259,7 +268,10 @@ def solve_kernel_fixed(prob: ODEProblem, u0s, ps, tab, t0, dt, n_steps,
 
 def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
                dt0, saveat, rtol, atol, adaptive, n_steps, save_every,
-               lane_tile, max_iters, event):
+               lane_tile, max_iters, event, raw_prob=None):
+    # `prob` arrives with any dataset closed over its callbacks; the CUDA
+    # branch takes the raw 4-argument callbacks and the tables instead
+    data = getattr(raw_prob, "data", None)
     tab = spec.tableau
     if adaptive is None:
         adaptive = True   # family default: embedded-error stepping
@@ -303,8 +315,9 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
         if backend == "cuda":
             from repro_torch.kernels.tsit5 import ops as erk_ops
             return erk_ops.solve_ensemble_cuda(
-                prob, u0s, ps, tab, t0, tf, dt0, saveat, rtol, atol,
-                adaptive, max_iters=max_iters, event=event)
+                raw_prob if data is not None else prob, u0s, ps, tab, t0, tf,
+                dt0, saveat, rtol, atol, adaptive, max_iters=max_iters,
+                event=event, data=data)
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r} "
                              "(use 'torch' or 'cuda')")
@@ -325,9 +338,11 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
 
 def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
                       ensemble, backend, t0, tf, dt0, saveat, rtol, atol,
-                      lane_tile, max_iters, linsolve, w_reuse, event):
+                      lane_tile, max_iters, linsolve, w_reuse, event,
+                      raw_prob=None):
     from .rosenbrock import LINSOLVES, solve_rosenbrock
 
+    data = getattr(raw_prob, "data", None)
     rtab = spec.rtableau
     if not spec.adaptive:
         # btilde == 0: no embedded error estimate, and the stiff engine has
@@ -355,8 +370,11 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
         return _untile([without_log(res, event)], N, n)
     if ensemble == "kernel" and backend == "cuda":
         from repro_torch.kernels.rosenbrock.ops import solve_rosenbrock_cuda
-        return solve_rosenbrock_cuda(prob, u0s, ps, rtab, t0=t0, tf=tf,
-                                     dt0=dt0, **kw)
+        if data is not None:
+            kw["jac"] = raw_prob.jac
+        return solve_rosenbrock_cuda(raw_prob if data is not None else prob,
+                                     u0s, ps, rtab, t0=t0, tf=tf, dt0=dt0,
+                                     data=data, **kw)
     if ensemble == "kernel" and backend != "torch":
         raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
                          "'cuda')")
@@ -384,7 +402,8 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
 def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
                backend, t0, tf, dt0, saveat, n_steps, save_every, lane_tile,
                key, seed, noise_table, event, adaptive, rtol, atol, max_iters,
-               lane_offset, brownian_depth, error_est) -> EnsembleResult:
+               lane_offset, brownian_depth, error_est,
+               raw_prob=None) -> EnsembleResult:
     from repro_torch.kernels.em.ops import (seed_from_key,
                                             solve_sde_ensemble_kernel)
     from repro_torch.kernels.em.ref import ref_solve
@@ -415,7 +434,8 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
             tf=tf, dt0=dt0, saveat=saveat, lane_tile=lane_tile, seed=seed,
             noise_table=noise_table, rtol=rtol, atol=atol,
             max_iters=max_iters, lane_offset=lane_offset,
-            brownian_depth=brownian_depth, error_est=error_est, event=event)
+            brownian_depth=brownian_depth, error_est=error_est, event=event,
+            raw_prob=raw_prob)
     if saveat is not None:
         raise NotImplementedError(
             "fixed-dt SDE snapshots land on the save_every grid (pass "
@@ -440,8 +460,10 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
                   seed=seed, lane_offset=lane_offset, event=event)
 
     if ensemble == "kernel" and backend == "cuda":
-        return solve_sde_ensemble_kernel(prob, u0s, ps, method=spec.name,
-                                         noise_table=table, **common)
+        data = getattr(raw_prob, "data", None)
+        return solve_sde_ensemble_kernel(
+            raw_prob if data is not None else prob, u0s, ps,
+            method=spec.name, noise_table=table, data=data, **common)
     if ensemble == "kernel" and backend != "torch":
         raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
                          "'cuda')")
@@ -499,7 +521,7 @@ def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
                         ensemble, backend, t0, tf, dt0, saveat, lane_tile,
                         seed, noise_table, rtol, atol, max_iters,
                         lane_offset, brownian_depth, error_est,
-                        event) -> EnsembleResult:
+                        event, raw_prob=None) -> EnsembleResult:
     """The adaptive branch of `_solve_sde`: estimator, tree depth and saveat
     resolved as the reference resolves them, then the lanes engine or the
     adaptive kernel."""
@@ -521,9 +543,11 @@ def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
     N, n = u0s.shape
 
     if ensemble == "kernel" and backend == "cuda":
+        data = getattr(raw_prob, "data", None)
         return solve_sde_adaptive_kernel(
-            prob, u0s, ps, saveat, method=spec.name, t0=t0, tf=tf, dt0=dt0,
-            lane_offset=lane_offset, **kw)
+            raw_prob if data is not None else prob, u0s, ps, saveat,
+            method=spec.name, t0=t0, tf=tf, dt0=dt0,
+            lane_offset=lane_offset, data=data, **kw)
     if ensemble == "kernel" and backend != "torch":
         raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
                          "'cuda')")
@@ -635,7 +659,11 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
 
     Args:
       eprob: `EnsembleProblem` wrapping an `ODEProblem` or `SDEProblem`,
-        with the per-trajectory (u0s, ps) variations.
+        with the per-trajectory (u0s, ps) variations.  A problem's
+        ``data`` (`core.interp` tables its callbacks take as a fourth
+        argument) runs on every strategy; the CUDA kernels read it through
+        the data functor the RHS is registered with, and a method declaring
+        ``data_rhs=False`` is refused.
       alg: a registry name (``"tsit5"``, ``"dopri5"``, ``"rodas5p"``,
         ``"rodas4"``, ``"rosenbrock23"``, ``"em"``, ``"platen_w2"``, ...),
         a `MethodSpec`, or a bare `Tableau` or `RosenbrockTableau`.
@@ -707,11 +735,21 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
             f"method {spec.name!r} declares events=False; pick a method whose "
             "MethodSpec supports event handling")
     prob = eprob.prob
-    if getattr(prob, "data", None) is not None:
-        raise NotImplementedError(
-            "data-driven problems are not ported yet: ROADMAP queue 1 item 8 "
-            "(core/interp.py)")
     dev = resolve_device(device)
+    # data-driven RHS (`prob.data`, the texture-memory analogue): validate
+    # it against the method, then bind the dataset over the callbacks once;
+    # the CUDA branches receive `raw_prob` (4-argument callbacks) and pass
+    # the tables as kernel arguments
+    raw_prob = prob
+    if getattr(prob, "data", None) is not None:
+        if not spec.data_rhs:
+            raise ValueError(
+                f"method {spec.name!r} declares data_rhs=False; its engines "
+                "cannot consume data-driven problems (prob.data)")
+        leaves, tree = data_flatten(prob.data)
+        raw_prob = dataclasses.replace(prob, data=data_unflatten(
+            tree, [leaf.to(dev) for leaf in leaves]))
+        prob = bind_problem_data(raw_prob)
     u0s, ps = eprob.materialize()
     u0s = u0s.to(dev).contiguous()
     ps = ps.to(device=dev, dtype=u0s.dtype).contiguous()
@@ -741,7 +779,7 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                           adaptive=adaptive, rtol=rtol, atol=atol,
                           max_iters=max_iters, lane_offset=lane_offset,
                           brownian_depth=brownian_depth, error_est=error_est,
-                          event=event)
+                          event=event, raw_prob=raw_prob)
     if error_est is not None:
         raise ValueError(
             "error_est selects the adaptive SDE error estimator; "
@@ -764,14 +802,15 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                                 saveat=saveat, rtol=rtol, atol=atol,
                                 lane_tile=lane_tile, max_iters=max_iters,
                                 linsolve=linsolve, w_reuse=w_reuse,
-                                event=event)
+                                event=event, raw_prob=raw_prob)
     else:
         res = _solve_erk(spec, prob, u0s, ps, ensemble=ensemble,
                          backend=backend, t0=t0, tf=tf, dt0=dt0,
                          saveat=saveat, rtol=rtol, atol=atol,
                          adaptive=adaptive, n_steps=n_steps,
                          save_every=save_every, lane_tile=lane_tile,
-                         max_iters=max_iters, event=event)
+                         max_iters=max_iters, event=event,
+                         raw_prob=raw_prob)
     if auto_dt_nf:
         res = res._replace(nf=res.nf + auto_dt_nf)
     return res

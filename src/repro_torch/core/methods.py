@@ -45,6 +45,11 @@ class MethodSpec:
     error_est: sde only — the adaptive error estimators it supports,
                derived when left empty: ("embedded", "doubling") with a
                pair, else ("doubling",).
+    data_rhs:  the method's engines accept data-driven problems
+               (``prob.data``, tables the callbacks take as a fourth
+               argument); True for every built-in method.  A method whose
+               engine cannot consume them declares False and the front door
+               refuses data-driven problems up front.
     aliases:   alternative lookup names (paper-facing spellings).
     """
 
@@ -61,6 +66,7 @@ class MethodSpec:
     noise: Tuple[str, ...] = ()
     embedded: Optional[Any] = None
     error_est: Tuple[str, ...] = ()
+    data_rhs: bool = True
     aliases: Tuple[str, ...] = ()
 
     def __post_init__(self):
@@ -133,8 +139,8 @@ def get_method(alg: Any) -> MethodSpec:
 
 def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
                    adaptive: Optional[bool] = None, events: bool = False,
-                   w_reuse: bool = False,
-                   error_est: Optional[str] = None) -> Tuple[bool, str]:
+                   w_reuse: bool = False, error_est: Optional[str] = None,
+                   data: bool = False) -> Tuple[bool, str]:
     """Is (strategy, backend) a combination the front door would accept?
     Returns ``(ok, reason)`` — the rules `solve_ensemble_local` enforces
     with exceptions, as a predicate."""
@@ -155,6 +161,9 @@ def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
                        "strategy steps every trajectory with one dt")
     if w_reuse and spec.family != "rosenbrock":
         return False, "w_reuse is rosenbrock-only (no W to reuse)"
+    if data and not spec.data_rhs:
+        return False, (f"method {spec.name!r} declares data_rhs=False "
+                       "(no data-driven RHS support)")
     if spec.family == "rosenbrock" and not spec.adaptive:
         return False, "rosenbrock engine requires an embedded pair"
     if adaptive and not spec.adaptive:

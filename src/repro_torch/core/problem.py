@@ -30,8 +30,11 @@ class ODEProblem:
         means the stiff solvers take it by forward-mode AD
         (`torch.func.jacfwd`).  The CUDA kernel takes the Jacobian of the
         device functor the RHS is registered with.
-    data: dataset tables consumed as a fourth RHS argument.  Not ported yet
-        (ROADMAP queue 1, item 8): the front door raises when it is set.
+    data: dataset tables (a dict pytree of `core.interp.UniformTable1D` /
+        `UniformTable2D`) the callbacks take as a fourth argument,
+        ``f(u, p, t, data)`` (and ``jac(u, p, t, data)``); None for a plain
+        3-argument problem.  The CUDA kernels read the tables on the card
+        through the data functor the RHS is registered with.
     """
 
     f: Callable[[Tensor, Tensor, Tensor], Tensor]
@@ -58,7 +61,7 @@ class SDEProblem:
     noise:
       "diagonal":     g returns (n,)   — one Wiener process per state.
       "general":      g returns (n, m) — m Wiener processes, dense coupling.
-    data: as on ODEProblem; not ported yet (the front door raises).
+    data: as on ODEProblem: f and g take it as a fourth argument.
 
     The CUDA kernel runs the pair (f, g) through the device functor both are
     registered with (`repro_torch.kernels.em.kernel.device_sde`).
@@ -109,3 +112,30 @@ class EnsembleProblem:
         if ps is None:
             ps = self.prob.p.expand((N,) + tuple(self.prob.p.shape))
         return u0s, ps
+
+
+def bind_data(fn, data):
+    """A 4-argument callback ``fn(u, p, t, data)`` closed over `data`, or
+    `fn` itself without data."""
+    if data is None:
+        return fn
+    return lambda u, p, t: fn(u, p, t, data)
+
+
+def bind_problem_data(prob, data=None):
+    """Close the problem's callbacks over its dataset.
+
+    Returns a problem whose f / g / jac are plain 3-argument ``(u, p, t)``
+    callables again (``data=None``), with the dataset captured by closure:
+    the engines (`solvers`, `rosenbrock`, `sde`) never learn about data.
+    `data` overrides `prob.data` when given (the kernels' plain versions
+    re-bind with tables rebuilt from their leaves); a problem without data
+    is returned unchanged."""
+    d = prob.data if data is None else data
+    if d is None:
+        return prob
+    rep = {"data": None, "f": bind_data(prob.f, d)}
+    for name in ("jac", "g"):
+        if getattr(prob, name, None) is not None:
+            rep[name] = bind_data(getattr(prob, name), d)
+    return dataclasses.replace(prob, **rep)

@@ -274,19 +274,12 @@ def sde_solve_fixed(prob: SDEProblem, u0, p, t0, dt, n_steps: int, key,
                     method: str = "em", save_every: int = 1,
                     noise_table: Optional[Tensor] = None) -> SolveResult:
     """Fixed-dt SDE integration of one trajectory (n,) or lanes (n, B),
-    noise from `noise_table` (n_steps, m[, B]) of N(0,1) draws.
-
-    The reference's ``key=`` path draws step k from
-    ``jax.random.fold_in(key, k)``, a generator the port does not carry; it
-    raises here.  The counter-RNG stream of the ensemble paths
-    (`solve_ensemble_local(seed=...)`) is ported.  As in the reference, t
-    is accumulated step by step here (t_final = t0 + dt + ... + dt)."""
-    if noise_table is None:
-        raise NotImplementedError(
-            "sde_solve_fixed(key=...) draws from jax.random.fold_in, which "
-            "the port does not carry (ROADMAP queue 3); pass noise_table=, "
-            "or use solve_ensemble_local(seed=...) for the counter-RNG "
-            "stream")
+    noise from `noise_table` (n_steps, m[, B]) of N(0,1) draws, or, as the
+    reference draws it, step k from ``jax.random.normal(fold_in(key, k),
+    (m,) + u0.shape[1:])`` (`repro_torch.kernels.rng.jax_normal`; `key` is
+    a raw jax key's two words or a seed).  As in the reference, t is
+    accumulated step by step here (t_final = t0 + dt + ... + dt)."""
+    from repro_torch.kernels.rng import jax_fold_in, jax_normal
     if n_steps % save_every != 0:
         raise ValueError(f"save_every={save_every} must divide "
                          f"n_steps={n_steps}")
@@ -295,12 +288,17 @@ def sde_solve_fixed(prob: SDEProblem, u0, p, t0, dt, n_steps: int, key,
     dtype = u0.dtype
     dt = torch.as_tensor(dt, dtype=dtype, device=u0.device)
     sdt = _sqrt_dt(dt, dtype)
-    table = torch.as_tensor(noise_table, device=u0.device)
+    table = (None if noise_table is None
+             else torch.as_tensor(noise_table, device=u0.device))
+    nshape = (prob.noise_dim(),) + tuple(u0.shape[1:])
     u = u0
     t = torch.as_tensor(t0, dtype=dtype, device=u0.device)
     us = []
     for k in range(n_steps):
-        z = table[k].to(dtype)
+        if table is not None:
+            z = table[k].to(dtype)
+        else:
+            z = jax_normal(jax_fold_in(key, k), nshape, dtype, u0.device)
         u = stepper(prob.f, prob.g, u, p, t, dt, z * sdt, prob.noise)
         t = t + dt
         if (k + 1) % save_every == 0:

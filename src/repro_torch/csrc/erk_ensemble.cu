@@ -47,6 +47,13 @@
 // new point, and nf counts every stage, as the plain version does), and a
 // terminal hit ends the trajectory.
 //
+// Data (the data template parameter, interp.cuh): a data form's RHS is a
+// functor built from the dataset's tables (`repro_data::Tables`, the
+// kernel argument `dat`), which it reads on the card with interp.cuh's
+// lookups: the forced oscillator of the paper's §6.7 in the gather, onehot
+// and cubic modes, and with the level event.  The no-data form
+// (repro_data::NoData) builds a stateless functor and reads nothing.
+//
 // Arithmetic (arith.cuh): the event form rounds every operation on its own
 // (`Rounded`), in the plain version's order, as the Rosenbrock and SDE
 // event forms do: a located event time follows the step grid, and on a
@@ -55,7 +62,7 @@
 // (repro_ev::NoEvent) leaves nvcc free to contract products into fused
 // multiply-adds (`Contracting`) and compiles to the code it had before
 // events; tools/parent_check.py holds its results bit for bit to earlier
-// builds.
+// builds.  The data forms round every operation on their own as well.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +70,7 @@
 #include <type_traits>
 
 #include "events.cuh"
+#include "interp.cuh"
 
 namespace repro_erk {
 
@@ -300,26 +308,49 @@ struct Decay {
   }
 };
 
+// The forced oscillator, the data-driven demo problem (paper §6.7):
+// u = (x, v), p = (k, c), (v, -k x - c v + F(t)) with the drive F read from
+// the table data["force"] in mode `Mode` (interp.cuh), every operation
+// rounded on its own.
+template <int Mode>
+struct ForcedOsc {
+  static constexpr int n = 2, m = 2;
+  repro_data::Leaf force;
+  __device__ __forceinline__ explicit ForcedOsc(const repro_data::Tables& d)
+      : force(d.leaf[0]) {}
+  template <typename T>
+  __device__ __forceinline__ void eval(const T* u, const T* p, T t,
+                                       T* du) const {
+    using namespace repro_arith;
+    const T F = repro_data::interp1d<Mode, Rounded>(
+        repro_data::Table1D<T>(force), t);
+    du[0] = u[1];
+    du[1] = radd(rsub(rmul(-p[0], u[0]), rmul(p[1], u[1])), F);
+  }
+};
+
 // PI controller constants: `PIController.for_order(embedded_order)`.
 struct Ctrl {
   static constexpr double safety = 0.9, qmin = 0.2, qmax = 10.0,
                           dtmin = 1e-12;
 };
 
-template <typename T, class Tab, class Rhs, class Ev>
+template <typename T, class Tab, class Rhs, class Ev,
+          class Dat = repro_data::NoData>
 __global__ void __launch_bounds__(kBlock)
     erk_ensemble_kernel(const T* __restrict__ u0, const T* __restrict__ p,
                         const T* __restrict__ saveat, int S, int N, T t0, T tf,
                         T dt0, T rtol, T atol, int adaptive,
-                        long long max_iters, repro_ev::Config evc,
+                        long long max_iters, repro_ev::Config evc, Dat dat,
                         T* __restrict__ us, T* __restrict__ u_final,
                         T* __restrict__ t_final, int* __restrict__ stats) {
   static_assert(Tab::stages == 7, "tsit5 and dopri5 have 7 stages");
   constexpr int n = Rhs::n, m = Rhs::m, s = Tab::stages;
   constexpr double k_ord = Tab::embedded_order + 1.0;
   constexpr double beta1 = 0.7 / k_ord, beta2 = 0.4 / k_ord;
-  using A = std::conditional_t<Ev::enabled, repro_arith::Rounded,
-                               repro_arith::Contracting>;
+  using A = std::conditional_t<Ev::enabled || Dat::enabled,
+                               repro_arith::Rounded, repro_arith::Contracting>;
+  const Rhs rhs = repro_data::bind<Rhs>(dat);
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
@@ -338,7 +369,7 @@ __global__ void __launch_bounds__(kBlock)
 
   T k[s][n];
   T t = t0, dt = dt0, enorm_prev = T(1);
-  Rhs::eval(u, pp, t, k[0]);
+  rhs.eval(u, pp, t, k[0]);
   int naccept = 0, nreject = 0, nf = 1, status = 0;
   bool done = false;
 
@@ -372,7 +403,7 @@ __global__ void __launch_bounds__(kBlock)
         ui[c] = A::add(u[c], A::mul(dt_step, acc));
       }
       constexpr double ci = Tab::c(i);
-      Rhs::eval(ui, pp, A::add(t, A::mul(T(ci), dt_step)), k[i]);
+      rhs.eval(ui, pp, A::add(t, A::mul(T(ci), dt_step)), k[i]);
     });
     T ucand[n], err[n];
 #pragma unroll
@@ -454,7 +485,7 @@ __global__ void __launch_bounds__(kBlock)
         // FSAL is off: the event may have moved the state
 #pragma unroll
         for (int c = 0; c < n; ++c) u[c] = unext[c];
-        Rhs::eval(u, pp, t_new, k[0]);
+        rhs.eval(u, pp, t_new, k[0]);
       } else {
 #pragma unroll
         for (int c = 0; c < n; ++c) {
@@ -506,15 +537,19 @@ struct LaunchArgs {
   void* t_final;
   void* stats;
   cudaStream_t stream;
+  repro_data::Tables data;  // the data forms' tables
 };
 
-template <typename T, class Tab, class Rhs, class Ev>
+template <typename T, class Tab, class Rhs, class Ev,
+          class Dat = repro_data::NoData>
 int launch(const LaunchArgs& a) {
   const int grid = (a.N + kBlock - 1) / kBlock;
-  erk_ensemble_kernel<T, Tab, Rhs, Ev><<<grid, kBlock, 0, a.stream>>>(
+  Dat dat{};
+  if constexpr (Dat::enabled) dat = a.data;
+  erk_ensemble_kernel<T, Tab, Rhs, Ev, Dat><<<grid, kBlock, 0, a.stream>>>(
       static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
       static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf), T(a.dt0),
-      T(a.rtol), T(a.atol), a.adaptive, a.max_iters, a.ev,
+      T(a.rtol), T(a.atol), a.adaptive, a.max_iters, a.ev, dat,
       static_cast<T*>(a.us), static_cast<T*>(a.u_final),
       static_cast<T*>(a.t_final), static_cast<int*>(a.stats));
   return static_cast<int>(cudaGetLastError());
@@ -539,6 +574,40 @@ int by_event(int rhs_id, int event_id, const LaunchArgs& a) {
     return launch<T, Tab, Ball, repro_ev::BallBounce>(a);
   if (rhs_id == 3 && event_id == repro_ev::DecayHalf::kEventId)
     return launch<T, Tab, Decay, repro_ev::DecayHalf>(a);
+  return -1;
+}
+
+// The data functors (DATA_LAYOUTS in src/repro_torch/kernels/tsit5/
+// kernel.py): the forced oscillator in each mode, and in gather mode with
+// the level event (DATA_EVENT_PAIRS).
+template <typename T, class Tab>
+int by_data(int rhs_id, int event_id, const LaunchArgs& a) {
+  using repro_data::Tables;
+  using repro_ev::NoEvent;
+  if (event_id == 0) {
+    switch (rhs_id) {
+      case 4: return launch<T, Tab, ForcedOsc<repro_data::kGather>, NoEvent,
+                            Tables>(a);
+      case 5: return launch<T, Tab, ForcedOsc<repro_data::kOneHot>, NoEvent,
+                            Tables>(a);
+      case 6: return launch<T, Tab, ForcedOsc<repro_data::kCubic>, NoEvent,
+                            Tables>(a);
+    }
+    return -1;
+  }
+  if (rhs_id == 4 && event_id == repro_ev::OscLevel::kEventId)
+    return launch<T, Tab, ForcedOsc<repro_data::kGather>, repro_ev::OscLevel,
+                  Tables>(a);
+  return -1;
+}
+
+template <typename T>
+int by_data_tableau(int tab_id, int rhs_id, int event_id,
+                    const LaunchArgs& a) {
+  switch (tab_id) {
+    case 0: return by_data<T, Tsit5>(rhs_id, event_id, a);
+    case 1: return by_data<T, Dopri5>(rhs_id, event_id, a);
+  }
   return -1;
 }
 
@@ -600,4 +669,34 @@ extern "C" int erk_ensemble_event_launch(
                      us,  u_final, t_final,
                      stats, static_cast<cudaStream_t>(stream)};
   return repro_erk::dispatch(dtype_id, tab_id, rhs_id, event_id, a);
+}
+
+// The data form: the RHS functor rhs_id (4-6, the forced oscillator in
+// gather, onehot and cubic mode) reads the n_data tables of `data` (device
+// pointers), `data_shape` (kx, ky per table; ky = 0 in 1-D) and
+// `data_grid` (x0, dx, y0, dy per table); event_id 0, or an event of the
+// pairs of `by_data` with its terminal, direction and bisect_iters.  -1 for
+// an unregistered combination or a bad table count.
+extern "C" int erk_ensemble_data_launch(
+    int dtype_id, int tab_id, int rhs_id, int event_id, int terminal,
+    int direction, int bisect_iters, int n_data, const void* const* data,
+    const int* data_shape, const double* data_grid, const void* u0,
+    const void* p, const void* saveat, int S, int N, double t0, double tf,
+    double dt0, double rtol, double atol, int adaptive, long long max_iters,
+    void* us, void* u_final, void* t_final, void* stats, void* stream) {
+  repro_erk::LaunchArgs a{u0,   p,         saveat,  S,       N,
+                          t0,   tf,        dt0,     rtol,    atol,
+                          adaptive, max_iters,
+                          {terminal, direction, bisect_iters},
+                          us,  u_final, t_final,
+                          stats, static_cast<cudaStream_t>(stream)};
+  if (!repro_data::make_tables(n_data, data, data_shape, data_grid, a.data))
+    return -1;
+  switch (dtype_id) {
+    case 0: return repro_erk::by_data_tableau<float>(tab_id, rhs_id,
+                                                     event_id, a);
+    case 1: return repro_erk::by_data_tableau<double>(tab_id, rhs_id,
+                                                      event_id, a);
+  }
+  return -1;
 }

@@ -124,6 +124,18 @@ struct RampSawtooth {
   }
 };
 
+// The forced oscillator's level crossing (paper §6.7 with events):
+// u[0] - 1.5.
+struct OscLevel {
+  static constexpr bool enabled = true;
+  static constexpr int kEventId = 6;
+  static constexpr bool kAffect = false;
+  template <class A, typename T>
+  __device__ __forceinline__ static T condition(const T* u, const T* p, T t) {
+    return A::sub(u[0], T(1.5));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // handle_event: one accepted step of one lane.
 // ---------------------------------------------------------------------------

@@ -1,0 +1,229 @@
+// Dataset lookups on the card (paper §6.7, "texture memory"), shared by the
+// explicit-RK, Rosenbrock and both SDE kernels and by the lookup test entry
+// (interp_lookup.cu): the device form of src/repro_torch/core/interp.py.
+//
+// Replaces what the TPU kernel does with its "table" extras
+// (src/repro/kernels/ensemble_kernel.py:240-249, rebound at :438-458): a
+// dataset leaf there is a VMEM-resident block broadcast to every lane tile,
+// and the body interpolates it with `repro.core.interp`.  Here a leaf stays
+// in device memory and each thread reads the two (linear) or four (cubic)
+// knots it needs through the read-only data path (`__ldg`); a table of a
+// few hundred words stays in L1/L2 for the whole run.  Hardware texture
+// filtering is not used: it weighs the knots in 9-bit fixed point, and the
+// port holds its lookups to the plain version bit for bit.
+//
+// Every lookup follows the plain version operation by operation under an
+// arithmetic policy `A` of arith.cuh (the data forms pass `Rounded`), with
+// clamped ends: s = (x - x0) / dx clamped to [0, K - 1], the cell
+// i = clamp(floor(s), 0, K - 2), the weight w = s - i.  "onehot" is the
+// TPU's matmul form of the same function; here it sums the contraction's
+// two terms that are not zero, in the order the row of weights holds them,
+// which equals "gather" (the plain version's matmul may fuse, so onehot is
+// held within 1e-12, not bitwise).
+//
+// The forward tangent d/dx of the gather lookup (the Rosenbrock stages'
+// ∂f/∂t) follows the order in which torch.func.jvp evaluates it in the
+// plain version, with JAX's tie rule at the clamp: half the tangent where
+// s sits exactly on 0 or K - 1 (`_Clip` in core/interp.py).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "arith.cuh"
+
+namespace repro_data {
+
+constexpr int kMaxLeaves = 4;
+constexpr int kGather = 0, kOneHot = 1, kCubic = 2;
+
+// One dataset leaf as the wrapper passes it: the values on the card
+// (row-major, contiguous), the shape (ky = 0 for a 1-D table) and the grid.
+struct Leaf {
+  const void* values;
+  int kx, ky;
+  double x0, dx, y0, dy;
+};
+
+// The no-data form: `enabled` is false and nothing is read.
+struct NoData {
+  static constexpr bool enabled = false;
+};
+
+// The data form's kernel argument: the leaves in data_flatten's order.
+struct Tables {
+  static constexpr bool enabled = true;
+  Leaf leaf[kMaxLeaves];
+  int count;
+};
+
+// The Tables of a data entry's arguments: `count` leaves, their device
+// pointers, (kx, ky) shapes and (x0, dx, y0, dy) grids.  False for a count
+// out of range.
+inline bool make_tables(int count, const void* const* values,
+                        const int* shape, const double* grid, Tables& out) {
+  if (count < 1 || count > kMaxLeaves) return false;
+  out.count = count;
+  for (int l = 0; l < count; ++l)
+    out.leaf[l] = Leaf{values[l],       shape[2 * l],     shape[2 * l + 1],
+                       grid[4 * l],     grid[4 * l + 1],  grid[4 * l + 2],
+                       grid[4 * l + 3]};
+  return true;
+}
+
+// A functor of a data form is built from the Tables; a no-data functor is
+// stateless.
+template <class F, class D>
+__device__ __forceinline__ F bind(const D& d) {
+  if constexpr (D::enabled)
+    return F(d);
+  else
+    return F{};
+}
+
+template <typename T>
+__device__ __forceinline__ T load(const T* v, int i) {
+  return __ldg(v + i);
+}
+
+// torch.clamp(s, 0, hi): NaN stays NaN.
+template <typename T>
+__device__ __forceinline__ T clamp_s(T s, T hi) {
+  return s < T(0) ? T(0) : (s > hi ? hi : s);
+}
+
+// The clamped cell and weight of x on a K-knot axis (core/interp.py
+// `_locate`).  A NaN s converts to cell 0, as torch's int cast clamps.
+template <class A, typename T>
+__device__ __forceinline__ void locate(T x, T x0, T dx, int K, int& i, T& w) {
+  const T s = clamp_s(A::div(A::sub(x, x0), dx), T(K - 1));
+  int c = s == s ? static_cast<int>(floor(s)) : 0;
+  c = c < 0 ? 0 : (c > K - 2 ? K - 2 : c);
+  i = c;
+  w = A::sub(s, T(c));
+}
+
+// Keys cubic-convolution weights (a = -1/2), `_catmull_rom_weights`.
+template <class A, typename T>
+__device__ __forceinline__ void catmull_rom(T w, T (&c)[4]) {
+  const T w2 = A::mul(w, w);
+  const T w3 = A::mul(w2, w);
+  c[0] = A::mul(T(0.5), A::sub(A::add(-w3, A::mul(T(2.0), w2)), w));
+  c[1] = A::mul(T(0.5),
+                A::add(A::sub(A::mul(T(3.0), w3), A::mul(T(5.0), w2)),
+                       T(2.0)));
+  c[2] = A::mul(T(0.5),
+                A::add(A::add(A::mul(T(-3.0), w3), A::mul(T(4.0), w2)), w));
+  c[3] = A::mul(T(0.5), A::sub(w3, w2));
+}
+
+__device__ __forceinline__ int clampi(int i, int lo, int hi) {
+  return i < lo ? lo : (i > hi ? hi : i);
+}
+
+// A 1-D table in the working type.
+template <typename T>
+struct Table1D {
+  const T* v;
+  int K;
+  T x0, dx;
+  __device__ __forceinline__ explicit Table1D(const Leaf& l)
+      : v(static_cast<const T*>(l.values)), K(l.kx), x0(T(l.x0)),
+        dx(T(l.dx)) {}
+};
+
+// A 2-D table in the working type, values[i * Ky + j].
+template <typename T>
+struct Table2D {
+  const T* v;
+  int Kx, Ky;
+  T x0, dx, y0, dy;
+  __device__ __forceinline__ explicit Table2D(const Leaf& l)
+      : v(static_cast<const T*>(l.values)), Kx(l.kx), Ky(l.ky),
+        x0(T(l.x0)), dx(T(l.dx)), y0(T(l.y0)), dy(T(l.dy)) {}
+};
+
+// interp1d(table, x, mode).
+template <int Mode, class A, typename T>
+__device__ __forceinline__ T interp1d(const Table1D<T>& tb, T x) {
+  int i;
+  T w;
+  locate<A>(x, tb.x0, tb.dx, tb.K, i, w);
+  if constexpr (Mode == kCubic) {
+    T c[4];
+    catmull_rom<A>(w, c);
+    T out = A::mul(c[0], load(tb.v, clampi(i - 1, 0, tb.K - 1)));
+#pragma unroll
+    for (int k = 1; k < 4; ++k)
+      out = A::add(out, A::mul(c[k], load(tb.v, clampi(i - 1 + k, 0,
+                                                        tb.K - 1))));
+    return out;
+  } else {
+    // gather: v0 (1 - w) + v1 w; onehot: the row (.., 1 - w, w, ..) times
+    // the table, of which these are the two terms that are not zero
+    const T v0 = load(tb.v, i), v1 = load(tb.v, i + 1);
+    return A::add(A::mul(v0, A::sub(T(1), w)), A::mul(v1, w));
+  }
+}
+
+// d/dx interp1d(table, x, "gather"), as torch.func.jvp evaluates it with
+// the JAX tie rule: (-w') v0 + w' v1 with w' = (1 / dx) f_lo f_hi.
+template <class A, typename T>
+__device__ __forceinline__ T interp1d_tangent(const Table1D<T>& tb, T x) {
+  const T hi = T(tb.K - 1);
+  const T s = A::div(A::sub(x, tb.x0), tb.dx);
+  const T f_lo = s > T(0) ? T(1) : (s == T(0) ? T(0.5) : T(0));
+  const T m = s < T(0) ? T(0) : s;
+  const T f_hi = m < hi ? T(1) : (m == hi ? T(0.5) : T(0));
+  const T wt = A::mul(A::mul(A::div(T(1), tb.dx), f_lo), f_hi);
+  int i;
+  T w;
+  locate<A>(x, tb.x0, tb.dx, tb.K, i, w);
+  return A::add(A::mul(-wt, load(tb.v, i)), A::mul(wt, load(tb.v, i + 1)));
+}
+
+// interp2d(table, x, y, mode).
+template <int Mode, class A, typename T>
+__device__ __forceinline__ T interp2d(const Table2D<T>& tb, T x, T y) {
+  int i, j;
+  T wx, wy;
+  locate<A>(x, tb.x0, tb.dx, tb.Kx, i, wx);
+  locate<A>(y, tb.y0, tb.dy, tb.Ky, j, wy);
+  const int Ky = tb.Ky;
+  if constexpr (Mode == kGather) {
+    const int idx = i * Ky + j;
+    const T ox = A::sub(T(1), wx), oy = A::sub(T(1), wy);
+    const T t00 = A::mul(A::mul(load(tb.v, idx), ox), oy);
+    const T t01 = A::mul(A::mul(load(tb.v, idx + 1), ox), wy);
+    const T t10 = A::mul(A::mul(load(tb.v, idx + Ky), wx), oy);
+    const T t11 = A::mul(A::mul(load(tb.v, idx + Ky + 1), wx), wy);
+    return A::add(A::add(A::add(t00, t01), t10), t11);
+  } else if constexpr (Mode == kOneHot) {
+    // rows = wmx @ values at columns j and j + 1, then rows . wmy
+    const T ox = A::sub(T(1), wx), oy = A::sub(T(1), wy);
+    const int idx = i * Ky + j;
+    const T r0 = A::add(A::mul(ox, load(tb.v, idx)),
+                        A::mul(wx, load(tb.v, idx + Ky)));
+    const T r1 = A::add(A::mul(ox, load(tb.v, idx + 1)),
+                        A::mul(wx, load(tb.v, idx + Ky + 1)));
+    return A::add(A::mul(r0, oy), A::mul(r1, wy));
+  } else {
+    T cx[4], cy[4];
+    catmull_rom<A>(wx, cx);
+    catmull_rom<A>(wy, cy);
+    T out = T(0);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int ii = clampi(i - 1 + a, 0, tb.Kx - 1);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int jj = clampi(j - 1 + b, 0, Ky - 1);
+        const T term = A::mul(A::mul(cx[a], cy[b]), load(tb.v, ii * Ky + jj));
+        out = (a == 0 && b == 0) ? term : A::add(out, term);
+      }
+    }
+    return out;
+  }
+}
+
+}  // namespace repro_data

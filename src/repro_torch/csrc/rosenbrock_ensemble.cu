@@ -57,6 +57,15 @@
 // the trajectory.  `nf` is still counted per attempt, as the plain version
 // counts it.  Every operation of the event path is rounded on its own too.
 // The no-event form (repro_ev::NoEvent) runs the code it ran before events.
+//
+// Data (the data template parameter, interp.cuh): a data form's RHS is a
+// functor built from the dataset's tables (`repro_data::Tables`, the
+// kernel argument `dat`) whose f, Jacobian and ∂f/∂t read them on the card:
+// the forced oscillator of the paper's §6.7, whose ∂f/∂t is the tangent of
+// its table lookup (interp.cuh `interp1d_tangent`, JAX's tie rule at the
+// table's ends, as the plain version's jvp gives it).  Compiled in double,
+// the stiff family's precision.  The no-data form (repro_data::NoData)
+// builds a stateless functor and reads nothing.
 
 #include <cuda_runtime.h>
 
@@ -64,6 +73,7 @@
 #include <type_traits>
 
 #include "events.cuh"
+#include "interp.cuh"
 #include "lu_lanes.cuh"
 
 namespace repro_rb {
@@ -442,6 +452,39 @@ struct Decay {
   }
 };
 
+// The forced oscillator (paper §6.7): u = (x, v), p = (k, c),
+// f = (v, -k x - c v + F(t)) with F read from the table data["force"]
+// (gather), J = [[0, 1], [-k, -c]] and ∂f/∂t = (0, F'(t)).
+struct ForcedOsc {
+  static constexpr int n = 2, m = 2;
+  repro_data::Leaf force;
+  __device__ __forceinline__ explicit ForcedOsc(const repro_data::Tables& d)
+      : force(d.leaf[0]) {}
+  template <typename T>
+  __device__ __forceinline__ void eval(const T* u, const T* p, T t,
+                                       T* du) const {
+    const T F = repro_data::interp1d<repro_data::kGather,
+                                     repro_arith::Rounded>(
+        repro_data::Table1D<T>(force), t);
+    du[0] = u[1];
+    du[1] = radd(rsub(rmul(-p[0], u[0]), rmul(p[1], u[1])), F);
+  }
+  template <typename T>
+  __device__ __forceinline__ void jac(const T*, const T* p, T,
+                                      T J[n][n]) const {
+    J[0][0] = T(0);
+    J[0][1] = T(1);
+    J[1][0] = -p[0];
+    J[1][1] = -p[1];
+  }
+  template <typename T>
+  __device__ __forceinline__ void dfdt(const T*, const T*, T t, T* d) const {
+    d[0] = T(0);
+    d[1] = repro_data::interp1d_tangent<repro_arith::Rounded>(
+        repro_data::Table1D<T>(force), t);
+  }
+};
+
 // The step controller's and the lazy-W policy's numbers, from the wrapper
 // (`controller_constants` in src/repro_torch/kernels/rosenbrock/kernel.py).
 struct Control {
@@ -507,6 +550,7 @@ __device__ __forceinline__ void secant_update(T J[n][n], const T* u,
 template <class Tab, class Rhs, int n, int s, typename T>
 struct DenseOutput {
   static constexpr int L = Tab::n_interp;
+  const Rhs& rhs;
   const T (&U)[s][n];
   const T *u, *ucand, *F0, *Fi, *pp;
   T t, dt_step;
@@ -534,7 +578,7 @@ struct DenseOutput {
 #pragma unroll
         for (int c = 0; c < n; ++c) Fn[c] = Fi[c];
       } else {
-        Rhs::eval(ucand, pp, radd(t, dt_step), Fn);
+        rhs.eval(ucand, pp, radd(t, dt_step), Fn);
       }
     }
     const T om = rsub(T(1), th);
@@ -565,17 +609,19 @@ struct DenseOutput {
   }
 };
 
-template <typename T, class Tab, class Rhs, bool WReuse, class Ev>
+template <typename T, class Tab, class Rhs, bool WReuse, class Ev,
+          class Dat = repro_data::NoData>
 __global__ void __launch_bounds__(kBlock)
     rosenbrock_kernel(const T* __restrict__ u0, const T* __restrict__ p,
                       const T* __restrict__ saveat, int S, int N, T t0, T tf,
                       T dt0, T rtol, T atol, long long max_iters,
                       int nf_per_step, Control k, repro_ev::Config evc,
-                      T* __restrict__ us,
+                      Dat dat, T* __restrict__ us,
                       T* __restrict__ u_final, T* __restrict__ t_final,
                       int* __restrict__ stats) {
   constexpr int n = Rhs::n, m = Rhs::m, s = Tab::stages;
   constexpr int L = Tab::n_interp;
+  const Rhs rhs = repro_data::bind<Rhs>(dat);
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
@@ -612,7 +658,7 @@ __global__ void __launch_bounds__(kBlock)
   int age = 0;
   bool jac_stale = false, was_accept = false;
   if constexpr (WReuse) {
-    Rhs::jac(u, pp, t, J);
+    rhs.jac(u, pp, t, J);
     factor_w<T, n>(fac, J, rmul(dt, gam));
 #pragma unroll
     for (int c = 0; c < n; ++c) {
@@ -625,7 +671,7 @@ __global__ void __launch_bounds__(kBlock)
   for (long long it = 0; !done && it < max_iters; ++it) {
     T dt_step = nmin(dt, rsub(tf, t));
     T F0[n];
-    Rhs::eval(u, pp, t, F0);
+    rhs.eval(u, pp, t, F0);
     bool need_jac = true, need_fact = true;
     if constexpr (WReuse) {
       // w_refresh, then the secant touch-up and the dt freeze
@@ -639,20 +685,20 @@ __global__ void __launch_bounds__(kBlock)
       }
       need_fact = jac_stale || drift || upd;
       if (need_fact) {
-        if (need_jac) Rhs::jac(u, pp, t, J);
+        if (need_jac) rhs.jac(u, pp, t, J);
         factor_w<T, n>(fac, J, rmul(dt_step, gam));
         dt_fact = dt_step;
       } else {
         dt_step = nmin(dt_fact, rsub(tf, t));
       }
     } else {
-      Rhs::jac(u, pp, t, J);
+      rhs.jac(u, pp, t, J);
       factor_w<T, n>(fac, J, rmul(dt_step, gam));
     }
 
     // ---- the s stage solves ------------------------------------------------
     T U[s][n], Fi[n], Td[n];
-    Rhs::dfdt(u, pp, t, Td);
+    rhs.dfdt(u, pp, t, Td);
     const T gdt = rmul(gam, dt_step);
     static_for<0, s>([&](auto ii) {
       constexpr int i = decltype(ii)::value;
@@ -671,7 +717,7 @@ __global__ void __launch_bounds__(kBlock)
           });
           g[c] = acc;
         }
-        Rhs::eval(g, pp, radd(t, rmul(T(Tab::c(i)), dt_step)), Fi);
+        rhs.eval(g, pp, radd(t, rmul(T(Tab::c(i)), dt_step)), Fi);
       }
       T x[n];
 #pragma unroll
@@ -738,8 +784,8 @@ __global__ void __launch_bounds__(kBlock)
     if constexpr (Ev::enabled) {
       if (accept) {
         // ---- the event: a hit truncates the step at the located time ---
-        DenseOutput<Tab, Rhs, n, s, T> dense{U, u, ucand, F0, Fi, pp, t,
-                                             dt_step};
+        DenseOutput<Tab, Rhs, n, s, T> dense{rhs, U,  u,  ucand, F0,
+                                             Fi,  pp, t, dt_step};
         T t_ev;
         const bool hit = repro_ev::handle_event<Ev, repro_arith::Rounded, n>(
             evc, dense, u, ucand, pp, t, dt_step, t_new, unext, t_ev);
@@ -782,7 +828,7 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
           for (int c = 0; c < n; ++c) Fn[c] = Fi[c];
         } else {
-          Rhs::eval(ucand, pp, radd(t, dt_step), Fn);
+          rhs.eval(ucand, pp, radd(t, dt_step), Fn);
         }
         int j = cur;
         for (; j < S && saveat[j] <= t_eps; ++j) {
@@ -896,17 +942,22 @@ struct LaunchArgs {
   void* t_final;
   void* stats;
   cudaStream_t stream;
+  repro_data::Tables data;  // the data forms' tables
 };
 
-template <typename T, class Tab, class Rhs, bool WReuse, class Ev>
+template <typename T, class Tab, class Rhs, bool WReuse, class Ev,
+          class Dat = repro_data::NoData>
 int launch(const LaunchArgs& a) {
   const int grid = (a.N + kBlock - 1) / kBlock;
-  rosenbrock_kernel<T, Tab, Rhs, WReuse, Ev><<<grid, kBlock, 0, a.stream>>>(
-      static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
-      static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf), T(a.dt0),
-      T(a.rtol), T(a.atol), a.max_iters, a.nf_per_step, a.k, a.ev,
-      static_cast<T*>(a.us), static_cast<T*>(a.u_final),
-      static_cast<T*>(a.t_final), static_cast<int*>(a.stats));
+  Dat dat{};
+  if constexpr (Dat::enabled) dat = a.data;
+  rosenbrock_kernel<T, Tab, Rhs, WReuse, Ev, Dat>
+      <<<grid, kBlock, 0, a.stream>>>(
+          static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
+          static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf),
+          T(a.dt0), T(a.rtol), T(a.atol), a.max_iters, a.nf_per_step, a.k,
+          a.ev, dat, static_cast<T*>(a.us), static_cast<T*>(a.u_final),
+          static_cast<T*>(a.t_final), static_cast<int*>(a.stats));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -935,6 +986,24 @@ int by_event(int rhs_id, int event_id, const LaunchArgs& a) {
       return launch<T, Tab, Ball, WReuse, ev::BallBounce>(a);
     if (rhs_id == 4 && event_id == ev::DecayHalf::kEventId)
       return launch<T, Tab, Decay, WReuse, ev::DecayHalf>(a);
+  }
+  return -1;
+}
+
+// The data functors (DATA_LAYOUTS in src/repro_torch/kernels/rosenbrock/
+// kernel.py), in double only: rhs_id 5, the forced oscillator.
+template <bool WReuse>
+int by_data(int tab_id, int rhs_id, const LaunchArgs& a) {
+  using repro_data::Tables;
+  using repro_ev::NoEvent;
+  if (rhs_id != 5) return -1;
+  switch (tab_id) {
+    case 0: return launch<double, Ros23w, ForcedOsc, WReuse, NoEvent,
+                          Tables>(a);
+    case 1: return launch<double, Rodas4, ForcedOsc, WReuse, NoEvent,
+                          Tables>(a);
+    case 2: return launch<double, Rodas5p, ForcedOsc, WReuse, NoEvent,
+                          Tables>(a);
   }
   return -1;
 }
@@ -1018,4 +1087,32 @@ extern "C" int rosenbrock_ensemble_event_launch(
                                us,      u_final,   t_final,     stats,
                                static_cast<cudaStream_t>(stream)};
   return repro_rb::dispatch(dtype_id, w_reuse, tab_id, rhs_id, event_id, a);
+}
+
+// The data form (float64): the RHS functor rhs_id (5, the forced
+// oscillator) reads the n_data tables of `data` (device pointers),
+// `data_shape` (kx, ky per table; ky = 0 in 1-D) and `data_grid` (x0, dx,
+// y0, dy per table).  -1 for an unregistered combination, another dtype or
+// a bad table count.
+extern "C" int rosenbrock_ensemble_data_launch(
+    int dtype_id, int tab_id, int rhs_id, int w_reuse, int n_data,
+    const void* const* data, const int* data_shape, const double* data_grid,
+    const void* u0, const void* p, const void* saveat, int S, int N,
+    double t0, double tf, double dt0, double rtol, double atol,
+    long long max_iters, int nf_per_step, const double* control, void* us,
+    void* u_final, void* t_final, void* stats, void* stream) {
+  const double* c = control;
+  const repro_rb::Control k{c[0], c[1], c[2], c[3], c[4],  c[5],
+                            c[6], c[7], c[8], c[9], c[10], c[11]};
+  repro_rb::LaunchArgs a{u0,      p,         saveat,      S,
+                         N,       t0,        tf,          dt0,
+                         rtol,    atol,      max_iters,   nf_per_step,
+                         k,       {0, 0, 0}, us,          u_final,
+                         t_final, stats,
+                         static_cast<cudaStream_t>(stream)};
+  if (dtype_id != 1 ||
+      !repro_data::make_tables(n_data, data, data_shape, data_grid, a.data))
+    return -1;
+  return w_reuse ? repro_rb::by_data<true>(tab_id, rhs_id, a)
+                 : repro_rb::by_data<false>(tab_id, rhs_id, a);
 }

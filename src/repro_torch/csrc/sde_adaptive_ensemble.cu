@@ -85,15 +85,16 @@ __device__ __forceinline__ T clip(T x, T lo, T hi) {
 
 // g(u)·dW, every operation rounded on its own.
 template <class P, typename T>
-__device__ __forceinline__ void noise_rn(const T* u, const T* p, T t,
-                                         const T* dW, T* out) {
+__device__ __forceinline__ void noise_rn(const P& prob, const T* u,
+                                         const T* p, T t, const T* dW,
+                                         T* out) {
   if constexpr (P::diagonal) {
     T g[P::n];
-    P::template diffusion<Arith>(u, p, t, g);
+    prob.template diffusion<Arith>(u, p, t, g);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) out[c] = rmul(g[c], dW[c]);
   } else {
-    P::template noise<Arith>(u, p, t, dW, out);
+    prob.template noise<Arith>(u, p, t, dW, out);
   }
 }
 
@@ -143,11 +144,12 @@ __device__ __forceinline__ void bridge_points(uint32_t seed, uint32_t idx,
 
 struct Em {
   template <class P, typename T>
-  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
+  __device__ __forceinline__ static void step(const P& prob, const T* u,
+                                              const T* p, T t,
                                               T dt, const T* dW, T* out) {
     T a[P::n], gw[P::n];
-    P::template drift<Arith>(u, p, t, a);
-    noise_rn<P>(u, p, t, dW, gw);
+    prob.template drift<Arith>(u, p, t, a);
+    noise_rn(prob, u, p, t, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = radd(radd(u[c], rmul(a[c], dt)), gw[c]);
@@ -156,19 +158,20 @@ struct Em {
 
 struct HeunStrat {
   template <class P, typename T>
-  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
+  __device__ __forceinline__ static void step(const P& prob, const T* u,
+                                              const T* p, T t,
                                               T dt, const T* dW, T* out) {
     T a[P::n], gw[P::n], du1[P::n], ub[P::n];
-    P::template drift<Arith>(u, p, t, a);
-    noise_rn<P>(u, p, t, dW, gw);
+    prob.template drift<Arith>(u, p, t, a);
+    noise_rn(prob, u, p, t, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
       du1[c] = radd(rmul(a[c], dt), gw[c]);
       ub[c] = radd(u[c], du1[c]);
     }
     const T t1 = radd(t, dt);
-    P::template drift<Arith>(ub, p, t1, a);
-    noise_rn<P>(ub, p, t1, dW, gw);
+    prob.template drift<Arith>(ub, p, t1, a);
+    noise_rn(prob, ub, p, t1, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = radd(u[c], rmul(T(0.5), radd(du1[c],
@@ -178,13 +181,14 @@ struct HeunStrat {
 
 struct PlatenW2 {
   template <class P, typename T>
-  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
+  __device__ __forceinline__ static void step(const P& prob, const T* u,
+                                              const T* p, T t,
                                               T dt, const T* dW, T* out) {
     static_assert(P::diagonal, "platen_w2 supports diagonal noise only");
     T a0[P::n], b0[P::n], ubar[P::n], up[P::n], um[P::n];
     const T sdt = sqrt(dt);
-    P::template drift<Arith>(u, p, t, a0);
-    P::template diffusion<Arith>(u, p, t, b0);
+    prob.template drift<Arith>(u, p, t, a0);
+    prob.template diffusion<Arith>(u, p, t, b0);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
       const T drift = radd(u[c], rmul(a0[c], dt));
@@ -194,9 +198,9 @@ struct PlatenW2 {
     }
     const T t1 = radd(t, dt);
     T a1[P::n], bp[P::n], bm[P::n];
-    P::template drift<Arith>(ubar, p, t1, a1);
-    P::template diffusion<Arith>(up, p, t1, bp);
-    P::template diffusion<Arith>(um, p, t1, bm);
+    prob.template drift<Arith>(ubar, p, t1, a1);
+    prob.template diffusion<Arith>(up, p, t1, bp);
+    prob.template diffusion<Arith>(um, p, t1, bm);
     const T half_dt = rmul(T(0.5), dt);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
@@ -213,14 +217,15 @@ struct PlatenW2 {
 
 struct Milstein {
   template <class P, typename T>
-  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
+  __device__ __forceinline__ static void step(const P& prob, const T* u,
+                                              const T* p, T t,
                                               T dt, const T* dW, T* out) {
     static_assert(P::diagonal && P::has_gdg,
                   "milstein needs diagonal noise and the functor's gdg");
     T a0[P::n], b0[P::n], db[P::n];
-    P::template drift<Arith>(u, p, t, a0);
-    P::template diffusion<Arith>(u, p, t, b0);
-    P::template gdg<Arith>(u, p, t, db);
+    prob.template drift<Arith>(u, p, t, a0);
+    prob.template diffusion<Arith>(u, p, t, b0);
+    prob.template gdg<Arith>(u, p, t, db);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = radd(radd(radd(u[c], rmul(a0[c], dt)), rmul(b0[c], dW[c])),
@@ -243,15 +248,16 @@ __device__ __forceinline__ T taming(T a, T dt) {
 // 1/2 ((∂b)·b) (dW² - dt) + (a - a/(1 + dt|a|)) dt.
 struct EmPair {
   template <class P, typename T>
-  __device__ __forceinline__ static void pair(const T* u, const T* p, T t,
+  __device__ __forceinline__ static void pair(const P& prob, const T* u,
+                                              const T* p, T t,
                                               T dt, const T* dW, T* out,
                                               T* err) {
     static_assert(P::diagonal && P::has_gdg,
                   "the em pair needs diagonal noise and the functor's gdg");
     T a0[P::n], b0[P::n], db[P::n];
-    P::template drift<Arith>(u, p, t, a0);
-    P::template diffusion<Arith>(u, p, t, b0);
-    P::template gdg<Arith>(u, p, t, db);
+    prob.template drift<Arith>(u, p, t, a0);
+    prob.template diffusion<Arith>(u, p, t, b0);
+    prob.template gdg<Arith>(u, p, t, db);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
       err[c] = radd(rmul(rmul(T(0.5), db[c]), rsub(rmul(dW[c], dW[c]), dt)),
@@ -265,16 +271,17 @@ struct EmPair {
 // (a - a/(1 + dt|a|)) dt + |∂((∂b)·b)·b| dt^1.5 / sqrt(6).
 struct MilsteinPair {
   template <class P, typename T>
-  __device__ __forceinline__ static void pair(const T* u, const T* p, T t,
+  __device__ __forceinline__ static void pair(const P& prob, const T* u,
+                                              const T* p, T t,
                                               T dt, const T* dW, T* out,
                                               T* err) {
     static_assert(P::diagonal && P::has_gdg && P::has_ddb,
                   "the milstein pair needs diagonal noise, gdg and ddb");
     T a0[P::n], b0[P::n], db[P::n], ddb[P::n];
-    P::template drift<Arith>(u, p, t, a0);
-    P::template diffusion<Arith>(u, p, t, b0);
-    P::template gdg<Arith>(u, p, t, db);
-    P::template ddb<Arith>(u, p, t, ddb);
+    prob.template drift<Arith>(u, p, t, a0);
+    prob.template diffusion<Arith>(u, p, t, b0);
+    prob.template gdg<Arith>(u, p, t, db);
+    prob.template ddb<Arith>(u, p, t, ddb);
     const T dt15 = rmul(dt, sqrt(dt));
     const T sqrt6 = sqrt(T(6));
 #pragma unroll
@@ -299,17 +306,19 @@ struct Control {
 // The kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, class P, class St, bool kPair, class Ev>
+template <typename T, class P, class St, bool kPair, class Ev,
+          class Dat = repro_data::NoData>
 __global__ void __launch_bounds__(kBlock)
     sde_adaptive_kernel(const T* __restrict__ u0, const T* __restrict__ p,
                         const T* __restrict__ saveat, int S, int N, T t0,
                         T tf, T dt0, T rtol, T atol, long long max_iters,
                         uint32_t seed, uint32_t lane_offset, int depth,
                         int nf_per_attempt, Control k, repro_ev::Config evc,
-                        T* __restrict__ us,
+                        Dat dat, T* __restrict__ us,
                         T* __restrict__ u_final, T* __restrict__ t_final,
                         int* __restrict__ stats) {
   constexpr int n = P::n, m = P::m;
+  const P prob = repro_data::bind<P>(dat);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
   const size_t NN = static_cast<size_t>(N);
@@ -366,7 +375,7 @@ __global__ void __launch_bounds__(kBlock)
 
     T u2[n], err[n];
     if constexpr (kPair) {
-      St::template pair<P>(u, pp, t, dt_step, dWf, u2, err);
+      St::template pair(prob, u, pp, t, dt_step, dWf, u2, err);
     } else {
       const uint32_t mh = mc >> 1;
       const T dt_half = rmul(T(mh), h_res);
@@ -382,9 +391,9 @@ __global__ void __launch_bounds__(kBlock)
       // one coarse step against two half steps on the same path; the
       // finer propagates
       T uc[n], uh[n];
-      St::template step<P>(u, pp, t, dt_step, dWf, uc);
-      St::template step<P>(u, pp, t, dt_half, dW1, uh);
-      St::template step<P>(uh, pp, t_mid, dt_half, dW2, u2);
+      St::template step(prob, u, pp, t, dt_step, dWf, uc);
+      St::template step(prob, u, pp, t, dt_half, dW1, uh);
+      St::template step(prob, uh, pp, t_mid, dt_half, dW2, u2);
 #pragma unroll
       for (int c = 0; c < n; ++c)
         err[c] = rmul(rsub(u2[c], uc[c]), T(k.richardson));
@@ -507,18 +516,23 @@ struct LaunchArgs {
   void* t_final;
   void* stats;
   cudaStream_t stream;
+  repro_data::Tables data;  // the data forms' tables
 };
 
-template <typename T, class P, class St, bool kPair, class Ev>
+template <typename T, class P, class St, bool kPair, class Ev,
+          class Dat = repro_data::NoData>
 int launch(const LaunchArgs& a) {
   const int grid = (a.N + kBlock - 1) / kBlock;
-  sde_adaptive_kernel<T, P, St, kPair, Ev><<<grid, kBlock, 0, a.stream>>>(
-      static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
-      static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf), T(a.dt0),
-      T(a.rtol), T(a.atol), a.max_iters, a.seed, a.lane_offset, a.depth,
-      a.nf_per_attempt, a.k, a.ev, static_cast<T*>(a.us),
-      static_cast<T*>(a.u_final), static_cast<T*>(a.t_final),
-      static_cast<int*>(a.stats));
+  Dat dat{};
+  if constexpr (Dat::enabled) dat = a.data;
+  sde_adaptive_kernel<T, P, St, kPair, Ev, Dat>
+      <<<grid, kBlock, 0, a.stream>>>(
+          static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
+          static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf),
+          T(a.dt0), T(a.rtol), T(a.atol), a.max_iters, a.seed, a.lane_offset,
+          a.depth, a.nf_per_attempt, a.k, a.ev, dat, static_cast<T*>(a.us),
+          static_cast<T*>(a.u_final), static_cast<T*>(a.t_final),
+          static_cast<int*>(a.stats));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -526,28 +540,40 @@ int launch(const LaunchArgs& a) {
 // 0 doubling (every stepper the problem admits), 1 embedded (em and
 // milstein, on a diagonal problem whose functor has gdg, and ddb for
 // milstein).
-template <typename T, class P, class Ev = repro_ev::NoEvent>
+template <typename T, class P, class Ev = repro_ev::NoEvent,
+          class Dat = repro_data::NoData>
 int by_method(int stepper_id, int est_id, const LaunchArgs& a) {
   if (est_id == 1) {
     if constexpr (P::diagonal && P::has_gdg) {
-      if (stepper_id == 0) return launch<T, P, EmPair, true, Ev>(a);
+      if (stepper_id == 0) return launch<T, P, EmPair, true, Ev, Dat>(a);
       if constexpr (P::has_ddb) {
-        if (stepper_id == 3) return launch<T, P, MilsteinPair, true, Ev>(a);
+        if (stepper_id == 3)
+          return launch<T, P, MilsteinPair, true, Ev, Dat>(a);
       }
     }
     return -1;
   }
   if (est_id != 0) return -1;
   switch (stepper_id) {
-    case 0: return launch<T, P, Em, false, Ev>(a);
-    case 1: return launch<T, P, HeunStrat, false, Ev>(a);
+    case 0: return launch<T, P, Em, false, Ev, Dat>(a);
+    case 1: return launch<T, P, HeunStrat, false, Ev, Dat>(a);
   }
   if constexpr (P::diagonal) {
-    if (stepper_id == 2) return launch<T, P, PlatenW2, false, Ev>(a);
+    if (stepper_id == 2) return launch<T, P, PlatenW2, false, Ev, Dat>(a);
     if constexpr (P::has_gdg) {
-      if (stepper_id == 3) return launch<T, P, Milstein, false, Ev>(a);
+      if (stepper_id == 3) return launch<T, P, Milstein, false, Ev, Dat>(a);
     }
   }
+  return -1;
+}
+
+// The data functors (DATA_LAYOUTS in src/repro_torch/kernels/em/kernel.py):
+// prob_id 3, the rate-table GBM.
+template <typename T>
+int by_data(int prob_id, int stepper_id, int est_id, const LaunchArgs& a) {
+  if (prob_id == 3)
+    return by_method<T, GbmRate, repro_ev::NoEvent, repro_data::Tables>(
+        stepper_id, est_id, a);
   return -1;
 }
 
@@ -632,4 +658,34 @@ extern "C" int sde_adaptive_event_launch(
                          u_final,   t_final,     stats,
                          static_cast<cudaStream_t>(stream)};
   return sa::dispatch(dtype_id, prob_id, event_id, stepper_id, est_id, a);
+}
+
+// The data form: the problem functor prob_id (3, the rate-table GBM) reads
+// the n_data tables of `data` (device pointers), `data_shape` (kx, ky per
+// table; ky = 0 in 1-D) and `data_grid` (x0, dx, y0, dy per table).  -1 for
+// an unregistered combination or a bad table count.
+extern "C" int sde_adaptive_data_launch(
+    int dtype_id, int prob_id, int stepper_id, int est_id, int n_data,
+    const void* const* data, const int* data_shape, const double* data_grid,
+    const void* u0, const void* p, const void* saveat, int S, int N,
+    double t0, double tf, double dt0, double rtol, double atol,
+    long long max_iters, unsigned int seed, unsigned int lane_offset,
+    int depth, int nf_per_attempt, const double* control, void* us,
+    void* u_final, void* t_final, void* stats, void* stream) {
+  namespace sa = repro_sde_adaptive;
+  const double* c = control;
+  const sa::Control k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
+  sa::LaunchArgs a{u0,        p,           saveat, S,
+                   N,         t0,          tf,     dt0,
+                   rtol,      atol,        max_iters, seed,
+                   lane_offset, depth,     nf_per_attempt, k,
+                   {0, 0, 0}, us,          u_final, t_final,
+                   stats,     static_cast<cudaStream_t>(stream)};
+  if (!repro_data::make_tables(n_data, data, data_shape, data_grid, a.data))
+    return -1;
+  switch (dtype_id) {
+    case 0: return sa::by_data<float>(prob_id, stepper_id, est_id, a);
+    case 1: return sa::by_data<double>(prob_id, stepper_id, est_id, a);
+  }
+  return -1;
 }

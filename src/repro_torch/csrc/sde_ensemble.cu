@@ -43,6 +43,12 @@
 // results bit for bit to earlier builds).  No --use_fast_math: the
 // approximate intrinsics would move every normal.
 //
+// Data (the data template parameter, interp.cuh): the data form's problem
+// functor is built from the dataset's tables (`repro_data::Tables`, the
+// kernel argument `dat`) and reads them on the card: the rate-table GBM of
+// the paper's §6.7, every operation rounded on its own (`Rounded`).  The
+// no-data form (repro_data::NoData) builds a stateless functor.
+//
 // Events (the event template parameter, events.cuh): after each step the
 // condition is checked over it and, on a hit, the event time is bisected on
 // the linear path output and the affect applied.  Every operation of the
@@ -73,15 +79,16 @@ using repro_rng::threefry2x32;
 
 // g(u)·dW for either noise structure, under the policy A.
 template <class A, class P, typename T>
-__device__ __forceinline__ void apply_noise(const T* u, const T* p, T t,
-                                            const T* dW, T* out) {
+__device__ __forceinline__ void apply_noise(const P& prob, const T* u,
+                                            const T* p, T t, const T* dW,
+                                            T* out) {
   if constexpr (P::diagonal) {
     T g[P::n];
-    P::template diffusion<A>(u, p, t, g);
+    prob.template diffusion<A>(u, p, t, g);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) out[c] = A::mul(g[c], dW[c]);
   } else {
-    P::template noise<A>(u, p, t, dW, out);
+    prob.template noise<A>(u, p, t, dW, out);
   }
 }
 
@@ -93,12 +100,12 @@ __device__ __forceinline__ void apply_noise(const T* u, const T* p, T t,
 struct Em {
   static constexpr int nf = 1;
   template <class A, class P, typename T>
-  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
-                                              T dt, T sdt, const T* dW,
-                                              T* out) {
+  __device__ __forceinline__ static void step(const P& prob, const T* u,
+                                              const T* p, T t, T dt, T sdt,
+                                              const T* dW, T* out) {
     T a[P::n], gw[P::n];
-    P::template drift<A>(u, p, t, a);
-    apply_noise<A, P>(u, p, t, dW, gw);
+    prob.template drift<A>(u, p, t, a);
+    apply_noise<A>(prob, u, p, t, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = A::add(A::add(u[c], A::mul(a[c], dt)), gw[c]);
@@ -108,20 +115,20 @@ struct Em {
 struct HeunStrat {
   static constexpr int nf = 2;
   template <class A, class P, typename T>
-  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
-                                              T dt, T sdt, const T* dW,
-                                              T* out) {
+  __device__ __forceinline__ static void step(const P& prob, const T* u,
+                                              const T* p, T t, T dt, T sdt,
+                                              const T* dW, T* out) {
     T a[P::n], gw[P::n], du1[P::n], ub[P::n];
-    P::template drift<A>(u, p, t, a);
-    apply_noise<A, P>(u, p, t, dW, gw);
+    prob.template drift<A>(u, p, t, a);
+    apply_noise<A>(prob, u, p, t, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
       du1[c] = A::add(A::mul(a[c], dt), gw[c]);
       ub[c] = A::add(u[c], du1[c]);
     }
     const T t1 = radd(t, dt);
-    P::template drift<A>(ub, p, t1, a);
-    apply_noise<A, P>(ub, p, t1, dW, gw);
+    prob.template drift<A>(ub, p, t1, a);
+    apply_noise<A>(prob, ub, p, t1, dW, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = A::add(u[c], A::mul(T(0.5), A::add(du1[c],
@@ -133,13 +140,13 @@ struct HeunStrat {
 struct PlatenW2 {
   static constexpr int nf = 2;
   template <class A, class P, typename T>
-  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
-                                              T dt, T sdt, const T* dW,
-                                              T* out) {
+  __device__ __forceinline__ static void step(const P& prob, const T* u,
+                                              const T* p, T t, T dt, T sdt,
+                                              const T* dW, T* out) {
     static_assert(P::diagonal, "platen_w2 supports diagonal noise only");
     T a0[P::n], b0[P::n], ubar[P::n], up[P::n], um[P::n];
-    P::template drift<A>(u, p, t, a0);
-    P::template diffusion<A>(u, p, t, b0);
+    prob.template drift<A>(u, p, t, a0);
+    prob.template diffusion<A>(u, p, t, b0);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
       const T drift = A::add(u[c], A::mul(a0[c], dt));
@@ -149,9 +156,9 @@ struct PlatenW2 {
     }
     const T t1 = radd(t, dt);
     T a1[P::n], bp[P::n], bm[P::n];
-    P::template drift<A>(ubar, p, t1, a1);
-    P::template diffusion<A>(up, p, t1, bp);
-    P::template diffusion<A>(um, p, t1, bm);
+    prob.template drift<A>(ubar, p, t1, a1);
+    prob.template diffusion<A>(up, p, t1, bp);
+    prob.template diffusion<A>(um, p, t1, bm);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = A::add(
@@ -168,14 +175,14 @@ struct PlatenW2 {
 struct Milstein {
   static constexpr int nf = 1;
   template <class A, class P, typename T>
-  __device__ __forceinline__ static void step(const T* u, const T* p, T t,
-                                              T dt, T sdt, const T* dW,
-                                              T* out) {
+  __device__ __forceinline__ static void step(const P& prob, const T* u,
+                                              const T* p, T t, T dt, T sdt,
+                                              const T* dW, T* out) {
     static_assert(P::diagonal, "milstein supports diagonal noise only");
     T a0[P::n], b0[P::n], db[P::n];
-    P::template drift<A>(u, p, t, a0);
-    P::template diffusion<A>(u, p, t, b0);
-    P::template gdg<A>(u, p, t, db);
+    prob.template drift<A>(u, p, t, a0);
+    prob.template diffusion<A>(u, p, t, b0);
+    prob.template gdg<A>(u, p, t, db);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = A::add(A::add(A::add(u[c], A::mul(a0[c], dt)),
@@ -189,16 +196,18 @@ struct Milstein {
 // The kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, class P, class St, bool kTable, class Ev>
+template <typename T, class P, class St, bool kTable, class Ev,
+          class Dat = repro_data::NoData>
 __global__ void __launch_bounds__(kBlock)
     sde_ensemble_kernel(const T* __restrict__ u0, const T* __restrict__ p,
                         const T* __restrict__ table, int N, int n_steps,
                         int save_every, double t0d, double dtd, double t_end,
                         uint32_t seed, uint32_t lane_offset,
-                        repro_ev::Config evc, T* __restrict__ us,
+                        repro_ev::Config evc, Dat dat, T* __restrict__ us,
                         T* __restrict__ u_final, T* __restrict__ t_final,
                         int* __restrict__ stats) {
   constexpr int n = P::n, m = P::m;
+  const P prob = repro_data::bind<P>(dat);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
   const size_t NN = static_cast<size_t>(N);
@@ -219,9 +228,10 @@ __global__ void __launch_bounds__(kBlock)
   T t_out = t0;
   int nacc = 0;
 
-  // the event form rounds every operation on its own, the no-event form
-  // leaves nvcc free to contract
-  using A = std::conditional_t<Ev::enabled, Rounded, Contracting>;
+  // the event and data forms round every operation on their own, the
+  // no-event form leaves nvcc free to contract
+  using A = std::conditional_t<Ev::enabled || Dat::enabled, Rounded,
+                               Contracting>;
   for (int k = 0; k < n_steps; ++k) {
     if (!Ev::enabled || !done) {
       T dW[m];
@@ -238,7 +248,7 @@ __global__ void __launch_bounds__(kBlock)
       }
       const T t = radd(t0, rmul(T(k), dt));
       T un[n];
-      St::template step<A, P>(u, pp, t, dt, sdt, dW, un);
+      St::template step<A>(prob, u, pp, t, dt, sdt, dW, un);
       if constexpr (Ev::enabled) {
         auto interp = [&](T th, T* v) {
 #pragma unroll
@@ -313,40 +323,57 @@ struct LaunchArgs {
   void* t_final;
   void* stats;
   cudaStream_t stream;
+  repro_data::Tables data;  // the data forms' tables
 };
 
-template <typename T, class P, class St, bool kTable, class Ev>
+template <typename T, class P, class St, bool kTable, class Ev,
+          class Dat = repro_data::NoData>
 int launch(const LaunchArgs& a) {
   const int grid = (a.N + kBlock - 1) / kBlock;
-  sde_ensemble_kernel<T, P, St, kTable, Ev><<<grid, kBlock, 0, a.stream>>>(
-      static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
-      static_cast<const T*>(a.table), a.N, a.n_steps, a.save_every, a.t0,
-      a.dt, a.t_end, a.seed, a.lane_offset, a.ev, static_cast<T*>(a.us),
-      static_cast<T*>(a.u_final), static_cast<T*>(a.t_final),
-      static_cast<int*>(a.stats));
+  Dat dat{};
+  if constexpr (Dat::enabled) dat = a.data;
+  sde_ensemble_kernel<T, P, St, kTable, Ev, Dat>
+      <<<grid, kBlock, 0, a.stream>>>(
+          static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
+          static_cast<const T*>(a.table), a.N, a.n_steps, a.save_every, a.t0,
+          a.dt, a.t_end, a.seed, a.lane_offset, a.ev, dat,
+          static_cast<T*>(a.us), static_cast<T*>(a.u_final),
+          static_cast<T*>(a.t_final), static_cast<int*>(a.stats));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, class P, class St, class Ev>
+template <typename T, class P, class St, class Ev,
+          class Dat = repro_data::NoData>
 int by_table(int use_table, const LaunchArgs& a) {
-  return use_table ? launch<T, P, St, true, Ev>(a)
-                   : launch<T, P, St, false, Ev>(a);
+  return use_table ? launch<T, P, St, true, Ev, Dat>(a)
+                   : launch<T, P, St, false, Ev, Dat>(a);
 }
 
 // stepper_id: 0 em, 1 heun_strat, 2 platen_w2, 3 milstein; platen_w2 and
 // milstein exist for the diagonal problems only.
-template <typename T, class P, class Ev = repro_ev::NoEvent>
+template <typename T, class P, class Ev = repro_ev::NoEvent,
+          class Dat = repro_data::NoData>
 int by_stepper(int stepper_id, int use_table, const LaunchArgs& a) {
   switch (stepper_id) {
-    case 0: return by_table<T, P, Em, Ev>(use_table, a);
-    case 1: return by_table<T, P, HeunStrat, Ev>(use_table, a);
+    case 0: return by_table<T, P, Em, Ev, Dat>(use_table, a);
+    case 1: return by_table<T, P, HeunStrat, Ev, Dat>(use_table, a);
   }
   if constexpr (P::diagonal) {
     switch (stepper_id) {
-      case 2: return by_table<T, P, PlatenW2, Ev>(use_table, a);
-      case 3: return by_table<T, P, Milstein, Ev>(use_table, a);
+      case 2: return by_table<T, P, PlatenW2, Ev, Dat>(use_table, a);
+      case 3: return by_table<T, P, Milstein, Ev, Dat>(use_table, a);
     }
   }
+  return -1;
+}
+
+// The data functors (DATA_LAYOUTS in src/repro_torch/kernels/em/kernel.py):
+// prob_id 3, the rate-table GBM.
+template <typename T>
+int by_data(int prob_id, int stepper_id, int use_table, const LaunchArgs& a) {
+  if (prob_id == 3)
+    return by_stepper<T, GbmRate, repro_ev::NoEvent, repro_data::Tables>(
+        stepper_id, use_table, a);
   return -1;
 }
 
@@ -421,6 +448,32 @@ extern "C" int sde_ensemble_event_launch(
                                 static_cast<cudaStream_t>(stream)};
   return repro_sde::dispatch(dtype_id, prob_id, event_id, stepper_id,
                              use_table, a);
+}
+
+// The data form: the problem functor prob_id (3, the rate-table GBM)
+// reads the n_data tables of `data` (device pointers), `data_shape` (kx, ky
+// per table; ky = 0 in 1-D) and `data_grid` (x0, dx, y0, dy per table).  -1
+// for an unregistered combination or a bad table count.
+extern "C" int sde_ensemble_data_launch(
+    int dtype_id, int prob_id, int stepper_id, int use_table, int n_data,
+    const void* const* data, const int* data_shape, const double* data_grid,
+    const void* u0, const void* p, const void* table, int N, int n_steps,
+    int save_every, double t0, double dt, double t_end, unsigned int seed,
+    unsigned int lane_offset, void* us, void* u_final, void* t_final,
+    void* stats, void* stream) {
+  repro_sde::LaunchArgs a{u0,   p,       table,       N,       n_steps,
+                          save_every, t0, dt,         t_end,   seed,
+                          lane_offset, {0, 0, 0}, us, u_final, t_final,
+                          stats, static_cast<cudaStream_t>(stream)};
+  if (!repro_data::make_tables(n_data, data, data_shape, data_grid, a.data))
+    return -1;
+  switch (dtype_id) {
+    case 0: return repro_sde::by_data<float>(prob_id, stepper_id, use_table,
+                                             a);
+    case 1: return repro_sde::by_data<double>(prob_id, stepper_id, use_table,
+                                              a);
+  }
+  return -1;
 }
 
 // The counter normals of (step0 + s, row, lane_offset + lane) for s < steps,

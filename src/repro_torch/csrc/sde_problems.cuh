@@ -6,6 +6,10 @@
 // problems give `noise`, which returns g(u)·dW directly, so a 4 x 8 noise
 // matrix is never held whole in registers.
 //
+// A data functor (the rate-table GBM) is built from the dataset's tables
+// (interp.cuh `Tables`) and reads them on the card; the others are
+// stateless.  The kernels call every member through a functor object.
+//
 // Every member takes an arithmetic policy `A` of arith.cuh as its first
 // template argument: `Rounded` in the adaptive kernel and the event forms,
 // so a functor computes what the plain PyTorch version computes, bit for
@@ -16,6 +20,7 @@
 #include <cuda_runtime.h>
 
 #include "arith.cuh"
+#include "interp.cuh"
 
 namespace repro_sde {
 
@@ -143,6 +148,40 @@ struct Crn {
                     A::mul(A::mul(-eta, pos(A::div(u[2], tau))), dW[5]));
     out[3] = A::add(A::mul(A::mul(eta, pos(A::div(u[2], tau))), dW[6]),
                     A::mul(A::mul(-eta, pos(A::div(u[3], tau))), dW[7]));
+  }
+};
+
+// The rate-table GBM (paper §6.7 on the SDE family): f = r(t) u with the
+// rate r read from the table data["rate"] (gather), g = s u (diagonal),
+// p = (s,), and GBM's hand-written gdg and ddb in s.
+struct GbmRate {
+  static constexpr int n = 1, k = 1, m = 1;
+  static constexpr bool diagonal = true;
+  static constexpr bool has_gdg = true, has_ddb = true;
+  repro_data::Leaf rate;
+  __device__ __forceinline__ explicit GbmRate(const repro_data::Tables& d)
+      : rate(d.leaf[0]) {}
+  template <class A, typename T>
+  __device__ __forceinline__ void drift(const T* u, const T* p, T t,
+                                        T* du) const {
+    const T r = repro_data::interp1d<repro_data::kGather, A>(
+        repro_data::Table1D<T>(rate), t);
+    du[0] = A::mul(r, u[0]);
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ void diffusion(const T* u, const T* p, T t,
+                                            T* g) const {
+    g[0] = A::mul(p[0], u[0]);
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ void gdg(const T* u, const T* p, T t,
+                                      T* out) const {
+    out[0] = A::mul(p[0], A::mul(p[0], u[0]));
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ void ddb(const T* u, const T* p, T t,
+                                      T* out) const {
+    out[0] = A::mul(p[0], A::mul(p[0], A::mul(p[0], u[0])));
   }
 };
 

@@ -16,6 +16,8 @@ kernel cannot take a JVP, so the em pair needs the functor's hand-written
 ``gdg``, (∂g/∂u)·g, and the milstein pair its ``ddb`` as well,
 ∂((∂g)·g)·g.  An event reaches it through its `device_event` functor
 (`repro_torch.kernels.events`), for the pairs of `em.kernel.EVENT_PAIRS`.
+A data-driven pair reaches it through a data functor
+(`em.kernel.DATA_LAYOUTS`) and a third C entry, as in the fixed-dt kernel.
 """
 from __future__ import annotations
 
@@ -25,11 +27,13 @@ import functools
 import torch
 
 from repro_torch.core.controller import PIController
+from repro_torch.core.problem import bind_data
 from repro_torch.kernels.em.kernel import (DIAGONAL_ONLY, DTYPE_IDS,
                                            EVENT_PAIRS, SDE_FUNCTORS,
-                                           STEPPER_IDS)
+                                           STEPPER_IDS, device_data_args)
 from repro_torch.kernels.em.ref import solve_adaptive_lanes
 from repro_torch.kernels.events import event_launch_args
+from repro_torch.kernels.interp import data_argtypes
 from repro_torch.kernels.rng import check_u32
 
 SOURCE = "sde_adaptive_ensemble.cu"
@@ -43,18 +47,22 @@ launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(event: bool = False):
-    """The no-event entry, or the event entry (which takes the event id,
-    terminal, direction and bisect_iters after the estimator id)."""
+def _bind(event: bool = False, data: bool = False):
+    """The no-event entry, the event entry (which takes the event id,
+    terminal, direction and bisect_iters after the estimator id) or the
+    data entry (which takes the tables there)."""
     from repro_torch.kernels.build import load
     lib = load(SOURCE)
-    fn = lib.sde_adaptive_event_launch if event else lib.sde_adaptive_launch
+    fn = (lib.sde_adaptive_data_launch if data
+          else lib.sde_adaptive_event_launch if event
+          else lib.sde_adaptive_launch)
     vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                          ctypes.c_uint)
     args = [i32, i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64, f64,
             f64, ctypes.c_longlong, u32, u32, i32, i32, vp, vp, vp, vp, vp,
             vp]
-    fn.argtypes = args[:4] + [i32] * 4 + args[4:] if event else args
+    extra = data_argtypes() if data else [i32] * 4 if event else []
+    fn.argtypes = args[:4] + extra + args[4:]
     fn.restype = i32
     return fn
 
@@ -79,7 +87,7 @@ def _device_functor(f, g, method: str, noise: str, m_noise: int,
             f"drift/diffusion pair ({getattr(f, '__name__', f)!r}, "
             f"{getattr(g, '__name__', g)!r}) has no device form: register "
             f"both with the same @device_sde functor (automatic translation "
-            "of a Python RHS is a later ROADMAP item)")
+            "of a Python RHS is ROADMAP queue 1 item 17)")
     name = names.pop()
     fun = SDE_FUNCTORS[name]
     if method not in STEPPER_IDS:
@@ -117,16 +125,16 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
                           seed: int, depth: int, order: float,
                           error_est: str, est_order: int,
                           nf_per_attempt: int, lane_offset: int = 0,
-                          event=None):
+                          event=None, data=None):
     """Integrate every lane of u0 (n, N) with parameters p (k, N) from t0
     to tf by `method` with adaptive steps, the error estimated by its
     embedded pair (``error_est="embedded"``) or by step doubling, on the
     virtual Brownian tree of depth `depth` keyed by (seed; lane_offset +
     lane, row), with an optional `Event` (a terminal hit ends the lane at
     the event time; a non-terminal one re-anchors it on the dyadic grid).
-    Returns us (S, n, N) on the `saveat` grid, u_final (n, N), t_final (N,)
-    and stats (6, N) int32 with rows (naccept, nreject, status, nf, 0,
-    0)."""
+    With a dataset `data`, f and g take it as a fourth argument.  Returns
+    us (S, n, N) on the `saveat` grid, u_final (n, N), t_final (N,) and
+    stats (6, N) int32 with rows (naccept, nreject, status, nf, 0, 0)."""
     seed = check_u32("seed", seed)
     lane_offset = check_u32("lane_offset", lane_offset)
     if error_est not in ESTIMATOR_IDS:
@@ -144,11 +152,13 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
               nf_per_attempt=nf_per_attempt, lane_offset=lane_offset,
               event=event)
     if u0.device.type == "cpu":
-        return solve_adaptive_lanes(f, g, method, u0, p, saveat, **kw)
+        return solve_adaptive_lanes(bind_data(f, data), bind_data(g, data),
+                                    method, u0, p, saveat, **kw)
     if u0.device.type != "cuda":
         raise ValueError(f"sde_adaptive_ensemble runs on CPU or CUDA "
                          f"tensors, not {u0.device.type}")
     name, fun = _device_functor(f, g, method, noise, m_noise, error_est)
+    tables = device_data_args(name, data, event, u0, SOURCE)
     ev = (() if event is None
           else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
     dtype = u0.dtype
@@ -178,9 +188,10 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        rc = _bind(event is not None)(
+        rc = _bind(event is not None, tables is not None)(
             DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
-            ESTIMATOR_IDS[error_est], *ev, u0.data_ptr(), p.data_ptr(),
+            ESTIMATOR_IDS[error_est], *ev, *(tables or ()), u0.data_ptr(),
+            p.data_ptr(),
             saveat.data_ptr(), S, N, float(t0), float(tf), float(dt0),
             float(rtol), float(atol), int(max_iters), seed, lane_offset,
             int(depth), int(nf_per_attempt), ctypes.addressof(consts),

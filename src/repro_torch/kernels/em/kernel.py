@@ -13,7 +13,10 @@ The kernel cannot call Python drift and diffusion functions.  A pair
 registered with by `device_sde`; Milstein's derivative term needs the
 functor's hand-written ``gdg`` member, (∂g/∂u)·g, since a kernel cannot
 take a JVP.  An event reaches it through its `device_event` functor
-(`repro_torch.kernels.events`).
+(`repro_torch.kernels.events`).  A data-driven pair ``f(u, p, t, data)``,
+``g(u, p, t, data)`` reaches it through a data functor (`DATA_LAYOUTS`),
+which reads the dataset's tables on the card through a third C entry
+(`kernels/interp.py`).
 """
 from __future__ import annotations
 
@@ -23,9 +26,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.problem import bind_data
 from repro_torch.core.sde import sde_nf_per_step
 from repro_torch.kernels.em.ref import solve_lanes
 from repro_torch.kernels.events import event_launch_args
+from repro_torch.kernels.interp import (DataLayout, data_argtypes,
+                                        data_launch_args)
 from repro_torch.kernels.rng import (M32, check_u32, counter_normals_threefry,
                                      counter_words)
 
@@ -48,7 +54,10 @@ class SDEFunctor(NamedTuple):
 # as in the .cu files (`by_problem`)
 SDE_FUNCTORS = {"gbm": SDEFunctor(0, 3, 2, "diagonal", 3, True, True),
                 "crn": SDEFunctor(1, 4, 6, "general", 8, False, False),
-                "ramp": SDEFunctor(2, 1, 2, "diagonal", 1, True, True)}
+                "ramp": SDEFunctor(2, 1, 2, "diagonal", 1, True, True),
+                "gbm_rate": SDEFunctor(3, 1, 1, "diagonal", 1, True, True)}
+# the data functors and the dataset each reads (`by_data` in both .cu)
+DATA_LAYOUTS = {"gbm_rate": DataLayout((("rate", 1),))}
 # the (problem, event) pairs whose event form both SDE kernels compile
 # (`by_event`)
 EVENT_PAIRS = {("gbm", "gbm_barrier"), ("ramp", "ramp_sawtooth")}
@@ -105,6 +114,33 @@ def _bind_event():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bind_data():
+    """The data entry: the no-event arguments with the tables after the
+    table switch."""
+    from repro_torch.kernels.build import load
+    fn = load(SOURCE).sde_ensemble_data_launch
+    args = list(_bind()[0].argtypes)
+    fn.argtypes = args[:4] + data_argtypes() + args[4:]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def device_data_args(name: str, data, event, u0, source: str):
+    """The data entry's table arguments for the SDE functor `name` (None
+    without data), or the reason the pair cannot run on the card."""
+    if data is None:
+        if name in DATA_LAYOUTS:
+            raise ValueError(f"the device functor {name!r} reads a dataset; "
+                             "the problem has none (prob.data)")
+        return None
+    tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
+    if event is not None:
+        raise NotImplementedError(
+            f"the data forms of {source} take no event")
+    return tables
+
+
 def _plain(f, g, method, noise, m_noise, u0, p, *, t0, dt, n_steps,
            save_every, seed, lane_offset, table, event=None):
     us, uf, estate = solve_lanes(f, g, noise, m_noise, method, u0, p, t0=t0,
@@ -130,13 +166,15 @@ def _plain(f, g, method, noise, m_noise, u0, p, *, t0, dt, n_steps,
 
 def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
                  t0: float, dt: float, n_steps: int, save_every: int,
-                 seed: int, lane_offset: int = 0, table=None, event=None):
+                 seed: int, lane_offset: int = 0, table=None, event=None,
+                 data=None):
     """Integrate every lane of u0 (n, N) with parameters p (k, N) over
     `n_steps` fixed steps of `dt` from t0, by `method` (em, heun_strat,
     platen_w2, milstein), with N(0,1) noise from the Threefry stream
     (seed; step, row, lane_offset + lane) or from `table` (n_steps, m, N),
     and an optional `Event` (a terminal hit freezes the lane; its t_final
-    is the event time and naccept its active steps).  Returns us (S, n, N)
+    is the event time and naccept its active steps); with a dataset `data`,
+    f and g take it as a fourth argument.  Returns us (S, n, N)
     with S = n_steps / save_every, u_final (n, N), t_final (N,) and stats
     (6, N) int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
     seed = check_u32("seed", seed)
@@ -148,7 +186,8 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
                          f"dividing it, got n_steps={n_steps}, "
                          f"save_every={save_every}")
     if u0.device.type == "cpu":
-        return _plain(f, g, method, noise, m_noise, u0, p, t0=t0, dt=dt,
+        return _plain(bind_data(f, data), bind_data(g, data), method, noise,
+                      m_noise, u0, p, t0=t0, dt=dt,
                       n_steps=n_steps, save_every=save_every, seed=seed,
                       lane_offset=lane_offset, table=table, event=event)
     if u0.device.type != "cuda":
@@ -160,7 +199,7 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
             f"drift/diffusion pair ({getattr(f, '__name__', f)!r}, "
             f"{getattr(g, '__name__', g)!r}) has no device form: register "
             f"both with the same @device_sde functor of {SOURCE} (automatic "
-            "translation of a Python RHS is a later ROADMAP item)")
+            "translation of a Python RHS is ROADMAP queue 1 item 17)")
     name = names.pop()
     fun = SDE_FUNCTORS[name]
     if method not in STEPPER_IDS:
@@ -177,6 +216,7 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
             f"gdg member, (dg/du)·g; {name!r} has none in {SOURCE}")
     if method in DIAGONAL_ONLY and fun.noise != "diagonal":
         raise ValueError(f"{method} supports diagonal noise only")
+    tables = device_data_args(name, data, event, u0, SOURCE)
     ev = (() if event is None
           else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
     dtype = u0.dtype
@@ -203,9 +243,12 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        rc = (_bind_event() if event is not None else _bind()[0])(
+        entry = (_bind_data() if tables is not None
+                 else _bind_event() if event is not None else _bind()[0])
+        rc = entry(
             DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
-            int(table is not None), *ev, u0.data_ptr(), p.data_ptr(),
+            int(table is not None), *ev, *(tables or ()), u0.data_ptr(),
+            p.data_ptr(),
             table.data_ptr() if table is not None else None, N, n_steps,
             save_every, float(t0), float(dt), float(t0 + n_steps * dt), seed,
             lane_offset, us.data_ptr(), u_final.data_ptr(),

@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.sde import EnsembleSDEResult, sde_save_grid
-from repro_torch.kernels.ensemble_kernel import (run_ensemble_kernel,
+from repro_torch.kernels.ensemble_kernel import (data_extras,
+                                                 run_ensemble_kernel,
                                                  sde_adaptive_body, sde_body)
 
 
@@ -25,40 +26,46 @@ def seed_from_key(key) -> int:
 
 def solve_sde_ensemble_kernel(prob, u0s, ps, *, t0, dt, n_steps,
                               method="em", save_every=1, seed=0,
-                              noise_table=None, lane_offset=0, event=None):
+                              noise_table=None, lane_offset=0, event=None,
+                              data=None):
     """Unified-result SDE kernel entry (returns an EnsembleResult).
 
     u0s (N, n), ps (N, k) trajectory-major on one device; noise_table
     (n_steps, m, N) of N(0,1) draws in u0s's dtype, or None for the
     Threefry stream.  lane_offset shifts the counter-RNG lane indices to
-    this shard's GLOBAL trajectory indices."""
+    this shard's GLOBAL trajectory indices.  With a dataset (`data`), f and
+    g take it as a fourth argument."""
     body = sde_body(prob.f, prob.g, method, prob.noise, t0=float(t0),
                     dt=float(dt), n_steps=int(n_steps),
                     save_every=int(save_every), m_noise=prob.noise_dim(),
                     seed=int(seed), lane_offset=int(lane_offset),
-                    use_table=noise_table is not None, event=event)
+                    use_table=noise_table is not None, event=event,
+                    data=data)
     ts = sde_save_grid(t0, dt, n_steps, save_every, u0s.dtype,
                        device=u0s.device)
     extras = [("lanes", noise_table)] if noise_table is not None else []
-    return run_ensemble_kernel(body, u0s, ps, ts=ts, extras=extras)
+    return run_ensemble_kernel(body, u0s, ps, ts=ts,
+                               extras=extras + data_extras(data))
 
 
 def solve_sde_adaptive_kernel(prob, u0s, ps, saveat, *, method, t0, tf,
                               dt0, rtol, atol, max_iters, seed, depth, order,
                               error_est, est_order, nf_per_attempt,
-                              lane_offset=0, event=None):
+                              lane_offset=0, event=None, data=None):
     """Unified-result adaptive SDE kernel entry (returns an EnsembleResult):
     u0s (N, n), ps (N, k) trajectory-major on one device, saveat (S,) in
-    u0s's dtype.  One launch of the adaptive kernel over the ensemble."""
+    u0s's dtype.  One launch of the adaptive kernel over the ensemble; with
+    a dataset (`data`), f and g take it as a fourth argument."""
     body = sde_adaptive_body(
         prob.f, prob.g, method, prob.noise, t0=float(t0), tf=float(tf),
         dt0=float(dt0), rtol=float(rtol), atol=float(atol),
         max_iters=int(max_iters), m_noise=prob.noise_dim(), seed=int(seed),
         depth=int(depth), order=float(order), error_est=error_est,
         est_order=int(est_order), nf_per_attempt=int(nf_per_attempt),
-        lane_offset=int(lane_offset), event=event)
+        lane_offset=int(lane_offset), event=event, data=data)
     return run_ensemble_kernel(body, u0s, ps, ts=saveat,
-                               extras=[("broadcast", saveat)])
+                               extras=[("broadcast", saveat)]
+                               + data_extras(data))
 
 
 def solve_sde_ensemble_cuda(prob, u0s, ps, key, t0, dt, n_steps,

@@ -6,7 +6,10 @@ The reference's TPU factory tiles lanes into VMEM blocks; on the H100 each
 trajectory is one CUDA thread, so there is no tile to choose here.  What
 stays is the layout contract — trajectory-major (N, n) in, lane-major
 (n, N) through the kernel, an `EnsembleResult` out — and the saveat-
-segmented multi-launch driver with its ``save_chunks=`` API.  The
+segmented multi-launch driver with its ``save_chunks=`` API.  A dataset
+(``prob.data``) reaches a body as "table" extras, one per leaf in
+`data_flatten`'s order, at the tail of the extras; `_data_binder` rebuilds
+the tables from them and the body hands them to its wrapper.  The
 segment count keeps the reference's rule (`save_chunk_count`), so the port
 splits a save grid exactly where the reference does and returns the same
 numbers.
@@ -17,6 +20,8 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.interp import data_flatten, data_unflatten
 
 # the reference's §5.2 budget: half of a 16 MB TPU VMEM, in 128-lane tiles;
 # kept only so that `save_chunk_count` segments as the reference does
@@ -43,50 +48,75 @@ def save_chunk_count(n_state: int, n_param: int, n_save: int, *,
     return int(-(-n_save // max(1, max_saves)))
 
 
+def _data_binder(data) -> Callable:
+    """``bind(extras) -> dataset``: the tables rebuilt from the last
+    ``len(leaves)`` extras (the "table" extras of `data`'s leaves), or None
+    without data — the reference's `_data_binder`."""
+    if data is None:
+        return lambda extras: None
+    leaves, tree = data_flatten(data)
+    k = len(leaves)
+    return lambda extras: data_unflatten(
+        tree, tuple(extras[len(extras) - k:]) if k else ())
+
+
+def data_extras(data) -> list:
+    """The "table" extras of a dataset: one per leaf, in `data_flatten`'s
+    order (none without data)."""
+    return [("table", leaf) for leaf in data_flatten(data)[0]]
+
+
 def erk_body(f, tab, *, t0: float, tf: float, dt0: float, rtol: float,
              atol: float, adaptive: bool, max_iters: int,
-             event=None) -> Callable:
+             event=None, data=None) -> Callable:
     """The kernel's parameters bound into one launch:
     ``body(u0 (n, N), p (m, N), extras) -> (us, u_final, t_final, stats)``
     in the lane-major layout; extras[0] is the saveat grid (S,).  Every
     body takes an optional `Event`, detected, located and applied inside
-    the kernel's loop."""
+    the kernel's loop, and an optional dataset (`data`, whose leaves are
+    the last extras; `f` then takes it as a fourth argument)."""
     from repro_torch.kernels.tsit5.kernel import erk_ensemble
+    bind = _data_binder(data)
 
     def body(u0, p, extras):
         return erk_ensemble(f, tab, u0, p, extras[0], t0=t0, tf=tf, dt0=dt0,
                             rtol=rtol, atol=atol, adaptive=adaptive,
-                            max_iters=max_iters, event=event)
+                            max_iters=max_iters, event=event,
+                            data=bind(extras))
 
     return body
 
 
 def rosenbrock_body(f, rtab, *, jac, t0: float, tf: float, dt0: float,
                     rtol: float, atol: float, max_iters: int,
-                    w_reuse, event=None) -> Callable:
+                    w_reuse, event=None, data=None) -> Callable:
     """s-stage Rosenbrock stiff integration (rosenbrock23, rodas4, rodas5p)
     with the per-lane LU of W = I − γh·J inline, eager or lazy-W
     (`w_reuse`); `jac` is the problem's analytic Jacobian hook.  extras[0]
-    is the saveat grid (S,)."""
+    is the saveat grid (S,); a dataset's leaves are the last extras."""
     from repro_torch.kernels.rosenbrock.kernel import rosenbrock_ensemble
+    bind = _data_binder(data)
 
     def body(u0, p, extras):
         return rosenbrock_ensemble(f, rtab, u0, p, extras[0], jac=jac, t0=t0,
                                    tf=tf, dt0=dt0, rtol=rtol, atol=atol,
                                    max_iters=max_iters, w_reuse=w_reuse,
-                                   event=event)
+                                   event=event, data=bind(extras))
 
     return body
 
 
 def sde_body(f, g, method: str, noise: str, *, t0: float, dt: float,
              n_steps: int, save_every: int, m_noise: int, seed: int,
-             lane_offset: int, use_table: bool, event=None) -> Callable:
+             lane_offset: int, use_table: bool, event=None,
+             data=None) -> Callable:
     """Fixed-dt SDE integration with the in-kernel Threefry stream keyed by
     (seed; step, noise-row, lane_offset + lane), or a pre-drawn table:
     extras[0] ("lanes", (n_steps, m, N)) when `use_table`.  `method` names
-    the stepper (`core.sde.SDE_STEPPERS`)."""
+    the stepper (`core.sde.SDE_STEPPERS`); a dataset's leaves are the last
+    extras."""
     from repro_torch.kernels.em.kernel import sde_ensemble
+    bind = _data_binder(data)
 
     def body(u0, p, extras):
         return sde_ensemble(f, g, method, u0, p, noise=noise,
@@ -94,7 +124,7 @@ def sde_body(f, g, method: str, noise: str, *, t0: float, dt: float,
                             save_every=save_every, seed=seed,
                             lane_offset=lane_offset,
                             table=extras[0] if use_table else None,
-                            event=event)
+                            event=event, data=bind(extras))
 
     return body
 
@@ -103,12 +133,14 @@ def sde_adaptive_body(f, g, method: str, noise: str, *, t0: float, tf: float,
                       dt0: float, rtol: float, atol: float, max_iters: int,
                       m_noise: int, seed: int, depth: int, order: float,
                       error_est: str, est_order: int, nf_per_attempt: int,
-                      lane_offset: int, event=None) -> Callable:
+                      lane_offset: int, event=None, data=None) -> Callable:
     """Adaptive SDE integration with embedded-pair or step-doubling error
     control on the virtual Brownian tree of depth `depth`, keyed by
     (seed; lane_offset + lane, row, dyadic index).  `method` names the
-    stepper (`core.sde.SDE_STEPPERS`); extras[0] is the saveat grid (S,)."""
+    stepper (`core.sde.SDE_STEPPERS`); extras[0] is the saveat grid (S,),
+    and a dataset's leaves are the last extras."""
     from repro_torch.kernels.em.adaptive import sde_adaptive_ensemble
+    bind = _data_binder(data)
 
     def body(u0, p, extras):
         return sde_adaptive_ensemble(
@@ -117,7 +149,7 @@ def sde_adaptive_body(f, g, method: str, noise: str, *, t0: float, tf: float,
             max_iters=max_iters, seed=seed, depth=depth, order=order,
             error_est=error_est, est_order=est_order,
             nf_per_attempt=nf_per_attempt, lane_offset=lane_offset,
-            event=event)
+            event=event, data=bind(extras))
 
     return body
 
@@ -125,8 +157,9 @@ def sde_adaptive_body(f, g, method: str, noise: str, *, t0: float, tf: float,
 # extras are (kind, tensor) with kind:
 #   "broadcast" — identical for every lane (the saveat grid)
 #   "lanes"     — (..., N), one column per trajectory (noise tables)
-# The reference's "table" kind (dataset tables) waits for ROADMAP queue 2
-# item 7.
+#   "table"     — one dataset leaf, read by every lane: passed contiguous
+#                 in its own shape (the reference flattens it to a (1, K)
+#                 row for a VMEM block and reshapes it in the body)
 Extra = Tuple[str, torch.Tensor]
 
 
@@ -141,7 +174,7 @@ def run_ensemble_kernel(body: Callable, u0s, ps, *, ts,
     N = u0s.shape[0]
     ex = []
     for kind, arr in extras:
-        if kind not in ("broadcast", "lanes"):
+        if kind not in ("broadcast", "lanes", "table"):
             raise ValueError(f"unknown extra kind {kind!r}")
         arr = torch.as_tensor(arr).contiguous()
         if kind == "lanes" and arr.shape[-1] != N:
@@ -162,7 +195,8 @@ def run_ensemble_kernel_staged(body_factory: Callable, u0s, ps, *, ts,
     `save_chunks` segments, one launch each; `u_final` and the step counters
     thread between them.  `body_factory(t_start, seg_ts, last)` returns
     ``(body, extras)`` for a segment that restarts integration at the
-    previous segment's endpoint.
+    previous segment's endpoint; a dataset's "table" extras go to every
+    segment, as the reference's factory passes them.
 
     Fixed-dt runs whose segment boundaries land on the step grid are
     bitwise-identical to one launch; adaptive runs restart the controller at

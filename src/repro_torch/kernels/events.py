@@ -27,7 +27,8 @@ EVENT_FUNCTORS = {"ball_bounce": EventFunctor(1, True),
                   "decay_half": EventFunctor(2, False),
                   "rober_half": EventFunctor(3, False),
                   "gbm_barrier": EventFunctor(4, False),
-                  "ramp_sawtooth": EventFunctor(5, True)}
+                  "ramp_sawtooth": EventFunctor(5, True),
+                  "osc_level": EventFunctor(6, False)}
 
 
 def device_event(name: str):

@@ -10,6 +10,18 @@ requested dtype, then cast, as the reference does (its ``jnp.log`` and
 ``jnp.cos`` run on float32 inputs); ``2π`` is rounded to float32 first, as
 JAX rounds the weakly typed Python constant.
 
+`jax_fold_in`, `jax_random_bits`, `jax_uniform` and `jax_normal` are
+`jax.random`'s own key stream (jax 0.9, ``jax_threefry_partitionable``
+on, its default), read from jax's `_src/prng.py` and `_src/random.py`: a
+key is two uint32 words; fold_in hashes (0, data) under it; the bits of an
+array of shape s are Threefry of (i >> 32, i & 0xFFFFFFFF) for its
+row-major index i, the two words XORed (32-bit) or joined (64-bit); a
+uniform fills the mantissa of a float in [1, 2); a normal is
+sqrt(2) erfinv(u) with u uniform on (-1, 1), erfinv by XLA's own
+polynomials (`xla_erfinv`).  The words and uniforms equal JAX's bit for
+bit; the normals differ by a few ulps where XLA fuses the polynomial's
+multiply-adds and where its log1p and PyTorch's differ.  `core.sde.sde_solve_fixed(key=...)` draws from them.
+
 The virtual Brownian tree (`bridge_normals`, `brownian_bridge_point`) is
 the adaptive SDE kernel's noise (`csrc/sde_adaptive_ensemble.cu`): the same
 Threefry core keyed with a second key word of its own, and a `depth`-level
@@ -187,3 +199,152 @@ def brownian_bridge_point(seed: int, idx, lane_idx, row_idx, *, depth: int,
         w_r = torch.where(left, w_mid, w_r)
         w_l = torch.where(left, w_l, w_mid)
     return torch.where(idx == 0, w_l, w_r)
+
+
+# ---------------------------------------------------------------------------
+# jax.random's key stream (threefry, partitionable layout)
+# ---------------------------------------------------------------------------
+
+def jax_key(key):
+    """A raw `jax.random` key (two uint32 words, e.g. ``PRNGKey(s)`` as a
+    numpy array), or a seed (int): ``PRNGKey(seed)``'s words."""
+    if isinstance(key, (int, np.integer)):
+        seed = int(key) & 0xFFFFFFFFFFFFFFFF
+        return (seed >> 32) & M32, seed & M32
+    words = np.asarray(key).reshape(-1)
+    if words.shape[0] != 2:
+        raise ValueError(f"a raw threefry key has 2 words, got {words.shape}")
+    return int(words[0]) & M32, int(words[1]) & M32
+
+
+def jax_fold_in(key, data: int):
+    """``jax.random.fold_in(key, data)``: Threefry of (0, data) under the
+    key, as the new key's two words."""
+    k0, k1 = jax_key(key)
+    c = torch.tensor([[0], [int(data) & M32]], dtype=torch.int64)
+    y0, y1 = threefry2x32(k0, k1, c[0], c[1])
+    return int(y0[0]), int(y1[0])
+
+
+def jax_random_bits(key, shape, bit_width: int = 32, device="cpu"):
+    """``jax.random.bits(key, shape)`` for 32- or 64-bit words, as int64
+    tensors holding the unsigned values (64-bit: two int64 tensors, the
+    high and low words)."""
+    k0, k1 = jax_key(key)
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k0, k1, idx >> 32, idx & M32)
+    b1, b2 = b1.reshape(tuple(shape)), b2.reshape(tuple(shape))
+    if bit_width == 32:
+        return b1 ^ b2
+    if bit_width == 64:
+        return b1, b2
+    raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
+
+
+def jax_uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0,
+                device="cpu"):
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``: the
+    random mantissa of a float in [1, 2), minus 1, scaled, floored at
+    minval."""
+    if dtype == torch.float32:
+        bits = jax_random_bits(key, shape, 32, device)
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        hi, lo = jax_random_bits(key, shape, 64, device)
+        f = (((hi << 20) | (lo >> 12)) | 0x3FF0000000000000).view(
+            torch.float64)
+    else:
+        raise TypeError(f"jax_uniform takes float32 or float64, not {dtype}")
+    lo_t = torch.tensor(minval, dtype=dtype, device=device)
+    hi_t = torch.tensor(maxval, dtype=dtype, device=device)
+    return torch.maximum(lo_t, (f - 1.0) * (hi_t - lo_t) + lo_t)
+
+
+# XLA's erf_inv polynomials (Giles' approximation, as XLA lowers
+# chlo.erf_inv; jax's `_src/pallas/utils.py` carries the same constants)
+_ERFINV32 = ((2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941),
+             (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682))
+_ERFINV64_625 = (
+    -3.6444120640178196996e-21, -1.685059138182016589e-19,
+    1.2858480715256400167e-18, 1.115787767802518096e-17,
+    -1.333171662854620906e-16, 2.0972767875968561637e-17,
+    6.6376381343583238325e-15, -4.0545662729752068639e-14,
+    -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+    -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+    1.051212273321532285e-09, -4.1126339803469836976e-09,
+    -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+    -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+    0.0001867342080340571352, -0.00074070253416626697512,
+    -0.0060336708714301490533, 0.24015818242558961693,
+    1.6536545626831027356)
+_ERFINV64_16 = (
+    2.2137376921775787049e-09, 9.0756561938885390979e-08,
+    -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+    1.5027403968909827627e-06, -4.013867526981545969e-06,
+    2.9234449089955446044e-06, 1.2475304481671778723e-05,
+    -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+    2.4031110387097893999e-05, -0.0003550375203628474796,
+    0.00095328937973738049703, -0.0016882755560235047313,
+    0.0024914420961078508066, -0.0037512085075692412107,
+    0.005370914553590063617, 1.0052589676941592334,
+    3.0838856104922207635)
+_ERFINV64_GT16 = (
+    -2.7109920616438573243e-11, -2.5556418169965252055e-10,
+    1.5076572693500548083e-09, -3.7894654401267369937e-09,
+    7.6157012080783393804e-09, -1.4960026627149240478e-08,
+    2.9147953450901080826e-08, -6.7711997758452339498e-08,
+    2.2900482228026654717e-07, -9.9298272942317002539e-07,
+    4.5260625972231537039e-06, -1.9681778105531670567e-05,
+    7.5995277030017761139e-05, -0.00021503011930044477347,
+    -0.00013871931833623122026, 1.0103004648645343977,
+    4.8499064014085844221)
+
+
+def xla_erfinv(x):
+    """erfinv as XLA computes it (float32 or float64): Giles' polynomials
+    in w = -log1p(-x^2), by Horner's rule, then times x; ±inf at ±1."""
+    w = -torch.log1p(x * -x)
+    if x.dtype == torch.float32:
+        lt = w < 5.0
+        w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+        c = lambda i: torch.where(lt, _ERFINV32[0][i], _ERFINV32[1][i]).to(
+            x.dtype)
+        p = c(0)
+        for i in range(1, 9):
+            p = c(i) + p * w
+    else:
+        lt625, lt16 = w < 6.25, w < 16.0
+
+        def c(i):
+            v = torch.full_like(x, _ERFINV64_625[i])
+            if i < 19:
+                v = torch.where(lt625, v, _ERFINV64_16[i])
+            if i < 17:
+                v = torch.where(lt16, v, _ERFINV64_GT16[i])
+            return v
+
+        w = torch.where(lt625, w - 3.125,
+                        torch.sqrt(w) - torch.where(lt16, 3.25, 5.0).to(
+                            x.dtype))
+        p = c(0)
+        for i in range(1, 17):
+            p = c(i) + p * w
+        for i in range(17, 19):
+            p = torch.where(lt16, c(i) + p * w, p)
+        for i in range(19, 23):
+            p = torch.where(lt625, c(i) + p * w, p)
+    return torch.where(x.abs() == 1.0, float("inf") * x, p * x)
+
+
+def jax_normal(key, shape, dtype=torch.float32, device="cpu"):
+    """``jax.random.normal(key, shape, dtype)``: sqrt(2) erfinv(u), u
+    uniform on [nextafter(-1, 0), 1), with XLA's erfinv (`xla_erfinv`)."""
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    lo = float(np.nextafter(npd(-1.0), npd(0.0)))
+    u = jax_uniform(key, shape, dtype, lo, 1.0, device)
+    return float(npd(np.sqrt(2.0))) * xla_erfinv(u)

@@ -15,7 +15,10 @@ it through the hand-written device functor it is registered with by
 `device_stiff`, which gives f, its Jacobian ∂f/∂u and ∂f/∂t; a problem's
 analytic Jacobian hook must carry the same registration.  An event reaches
 it through its `device_event` functor (`repro_torch.kernels.events`); the
-event forms are compiled in float64, the stiff family's precision.
+event forms are compiled in float64, the stiff family's precision.  A
+data-driven RHS ``f(u, p, t, data)`` reaches it through a data functor
+(`DATA_LAYOUTS`), whose Jacobian and ∂f/∂t read the tables too, through a
+third C entry in float64 (`kernels/interp.py`).
 """
 from __future__ import annotations
 
@@ -26,15 +29,21 @@ import torch
 
 from repro_torch.core.controller import PIController
 from repro_torch.core.events import without_log
+from repro_torch.core.problem import bind_data
 from repro_torch.core.rosenbrock import (_policy, rosenbrock_nf_per_step,
                                          solve_rosenbrock)
 from repro_torch.core.tableaus import RosenbrockTableau
 from repro_torch.kernels.events import event_launch_args
+from repro_torch.kernels.interp import (DataLayout, data_argtypes,
+                                        data_launch_args)
 
 SOURCE = "rosenbrock_ensemble.cu"
 # device functor id and (n, m) for each registered RHS — as in the .cu
 STIFF_FUNCTORS = {"rober": (0, 3, 3), "orego": (1, 3, 3), "vdp": (2, 2, 1),
-                  "ball": (3, 2, 2), "decay": (4, 1, 1)}
+                  "ball": (3, 2, 2), "decay": (4, 1, 1),
+                  "forced_osc": (5, 2, 2)}
+# the data functors and the dataset each reads (`by_data`, float64)
+DATA_LAYOUTS = {"forced_osc": DataLayout((("force", 1),))}
 # the (RHS, event) pairs whose event form the .cu compiles, in float64
 # (`by_event`)
 EVENT_PAIRS = {("rober", "rober_half"), ("ball", "ball_bounce"),
@@ -79,6 +88,16 @@ def _bind(event: bool = False):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bind_data():
+    """The data entry (float64): the tables after the lazy-W switch."""
+    from repro_torch.kernels.build import load
+    fn = load(SOURCE).rosenbrock_ensemble_data_launch
+    fn.argtypes = _ARGTYPES[:4] + data_argtypes() + _ARGTYPES[4:]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _plain(f, rtab, u0, p, saveat, *, jac, t0, tf, dt0, rtol, atol,
            max_iters, w_reuse, event=None):
     res = without_log(solve_rosenbrock(
@@ -107,16 +126,19 @@ def controller_constants(rtab: RosenbrockTableau, w_reuse):
 def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
                         t0: float, tf: float, dt0: float, rtol: float,
                         atol: float, max_iters: int, w_reuse=None,
-                        event=None):
+                        event=None, data=None):
     """Integrate every lane of u0 (n, N) with parameters p (m, N) from t0
     to tf by the s-stage W-method `rtab`, eager or lazy-W (`w_reuse`), with
-    an optional `Event` located on the method's dense output.  Returns us
-    (S, n, N), u_final (n, N), t_final (N,) and stats (6, N) int32 with
-    rows (naccept, nreject, status, nf, njac, nfact)."""
-    kw = dict(jac=jac, t0=t0, tf=tf, dt0=dt0, rtol=rtol, atol=atol,
+    an optional `Event` located on the method's dense output and an
+    optional dataset `data`, which `f` and `jac` then take as a fourth
+    argument.  Returns us (S, n, N), u_final (n, N), t_final (N,) and stats
+    (6, N) int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
+    kw = dict(t0=t0, tf=tf, dt0=dt0, rtol=rtol, atol=atol,
               max_iters=max_iters, w_reuse=w_reuse, event=event)
     if u0.device.type == "cpu":
-        return _plain(f, rtab, u0, p, saveat, **kw)
+        return _plain(bind_data(f, data), rtab, u0, p, saveat,
+                      jac=None if jac is None else bind_data(jac, data),
+                      **kw)
     if u0.device.type != "cuda":
         raise ValueError(f"rosenbrock_ensemble runs on CPU or CUDA tensors, "
                          f"not {u0.device.type}")
@@ -125,7 +147,7 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
         raise NotImplementedError(
             f"RHS {getattr(f, '__name__', f)!r} has no device form: register "
             f"a functor with its Jacobian in {SOURCE} with @device_stiff "
-            "(automatic translation of a Python RHS is a later ROADMAP item)")
+            "(automatic translation of a Python RHS is ROADMAP queue 1 item 17)")
     if jac is not None and getattr(jac, "device_stiff", None) != name:
         raise NotImplementedError(
             f"Jacobian {getattr(jac, '__name__', jac)!r} is not the device "
@@ -139,7 +161,17 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
     ev = ()
-    if event is not None:
+    if data is not None:
+        tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
+        if dtype != torch.float64 or event is not None:
+            raise NotImplementedError(
+                "the stiff kernel's data forms are compiled in float64 "
+                f"without events, not {dtype}"
+                + (" with an event" if event is not None else ""))
+    elif name in DATA_LAYOUTS:
+        raise ValueError(f"the device functor {name!r} reads a dataset; "
+                         "the problem has none (prob.data)")
+    elif event is not None:
         ev = event_launch_args(event, name, EVENT_PAIRS, SOURCE)
         if dtype != torch.float64:
             raise NotImplementedError(
@@ -167,9 +199,12 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        rc = _bind(event is not None)(
+        entry = (_bind_data() if data is not None
+                 else _bind(event is not None))
+        rc = entry(
             DTYPE_IDS[dtype], TABLEAU_IDS[rtab.name], rhs_id,
-            int(_policy(w_reuse) is not None), *ev, u0.data_ptr(),
+            int(_policy(w_reuse) is not None), *ev,
+            *(tables if data is not None else ()), u0.data_ptr(),
             p.data_ptr(), saveat.data_ptr(), S, N, float(t0), float(tf),
             float(dt0), float(rtol), float(atol), int(max_iters),
             rosenbrock_nf_per_step(rtab), ctypes.addressof(consts),

@@ -10,7 +10,10 @@ version of the same function, the lanes-mode solver
 
 The kernel cannot call a Python RHS.  An RHS reaches it through the
 hand-written device functor it is registered with by `device_rhs`, and an
-event through its `device_event` functor (`repro_torch.kernels.events`);
+event through its `device_event` functor (`repro_torch.kernels.events`).
+A data-driven RHS ``f(u, p, t, data)`` reaches it through a data functor
+(`DATA_LAYOUTS`), which reads the dataset's tables on the card through a
+second C entry (`kernels/interp.py`);
 turning an arbitrary ``f(u, p, t)`` into device code automatically (the
 paper's "automated translation") is a later ROADMAP item.
 """
@@ -22,16 +25,26 @@ import functools
 import torch
 
 from repro_torch.core.events import without_log
+from repro_torch.core.problem import bind_data
 from repro_torch.core.solvers import AdaptiveOptions, solve_adaptive
 from repro_torch.core.tableaus import Tableau
 from repro_torch.kernels.events import event_launch_args
+from repro_torch.kernels.interp import (DataLayout, data_argtypes,
+                                        data_launch_args)
 
 SOURCE = "erk_ensemble.cu"
 # device functor id and (n, m) for each registered RHS — as in the .cu
 RHS_FUNCTORS = {"lorenz": (0, 3, 3), "sho": (1, 2, 1), "ball": (2, 2, 2),
-                "decay": (3, 1, 1)}
-# the (RHS, event) pairs whose event form the .cu compiles (`by_event`)
+                "decay": (3, 1, 1), "forced_osc": (4, 2, 2),
+                "forced_osc_onehot": (5, 2, 2), "forced_osc_cubic": (6, 2, 2)}
+# the data functors and the dataset each reads (`by_data`)
+_FORCE = DataLayout((("force", 1),))
+DATA_LAYOUTS = {"forced_osc": _FORCE, "forced_osc_onehot": _FORCE,
+                "forced_osc_cubic": _FORCE}
+# the (RHS, event) pairs whose event form the .cu compiles (`by_event`),
+# and those of the data forms (`by_data`)
 EVENT_PAIRS = {("ball", "ball_bounce"), ("decay", "decay_half")}
+DATA_EVENT_PAIRS = {("forced_osc", "osc_level")}
 TABLEAU_IDS = {"tsit5": 0, "dopri5": 1}
 DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
@@ -55,6 +68,18 @@ def device_rhs(name: str):
 _ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
     + [ctypes.c_double] * 5 + [ctypes.c_int, ctypes.c_longlong] \
     + [ctypes.c_void_p] * 5
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_data():
+    """The data entry: the event id, terminal, direction and bisect_iters
+    (0 without an event), then the tables, after the RHS id."""
+    from repro_torch.kernels.build import load
+    fn = load(SOURCE).erk_ensemble_data_launch
+    fn.argtypes = (_ARGTYPES[:3] + [ctypes.c_int] * 4 + data_argtypes()
+                   + _ARGTYPES[3:])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,14 +110,15 @@ def _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol, adaptive,
 
 def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
                  dt0: float, rtol: float, atol: float, adaptive: bool,
-                 max_iters: int, event=None):
+                 max_iters: int, event=None, data=None):
     """Integrate every lane of u0 (n, N) with parameters p (m, N) from t0
-    to tf, with an optional `Event` (FSAL off, as in the plain version).
+    to tf, with an optional `Event` (FSAL off, as in the plain version) and
+    an optional dataset `data`, which `f` then takes as a fourth argument.
     Returns us (S, n, N), u_final (n, N), t_final (N,) and stats (6, N)
     int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
     if u0.device.type == "cpu":
-        return _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol,
-                      adaptive, max_iters, event)
+        return _plain(bind_data(f, data), tab, u0, p, saveat, t0, tf, dt0,
+                      rtol, atol, adaptive, max_iters, event)
     if u0.device.type != "cuda":
         raise ValueError(f"erk_ensemble runs on CPU or CUDA tensors, not "
                          f"{u0.device.type}")
@@ -101,14 +127,22 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
         raise NotImplementedError(
             f"RHS {getattr(f, '__name__', f)!r} has no device form: register "
             f"a functor in {SOURCE} with @device_rhs (automatic translation "
-            "of a Python RHS is a later ROADMAP item)")
+            "of a Python RHS is ROADMAP queue 1 item 17)")
     if tab.name not in TABLEAU_IDS:
         raise NotImplementedError(
             f"tableau {tab.name!r} is not compiled into the CUDA kernel; it "
             f"has {sorted(TABLEAU_IDS)}")
     rhs_id, n, m = RHS_FUNCTORS[name]
-    ev = (() if event is None
-          else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
+    if data is not None:
+        tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
+        ev = ((0, 0, 0, 0) if event is None
+              else event_launch_args(event, name, DATA_EVENT_PAIRS, SOURCE))
+    elif name in DATA_LAYOUTS:
+        raise ValueError(f"the device functor {name!r} reads a dataset; "
+                         "the problem has none (prob.data)")
+    else:
+        ev = (() if event is None
+              else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
@@ -133,9 +167,11 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        rc = _bind(event is not None)(
+        entry = (_bind_data() if data is not None
+                 else _bind(event is not None))
+        rc = entry(
             DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id, *ev,
-            u0.data_ptr(), p.data_ptr(), saveat.data_ptr(), S, N, float(t0),
+            *(tables if data is not None else ()), u0.data_ptr(), p.data_ptr(), saveat.data_ptr(), S, N, float(t0),
             float(tf), float(dt0), float(rtol), float(atol),
             int(bool(adaptive)), int(max_iters), us.data_ptr(),
             u_final.data_ptr(), t_final.data_ptr(), stats.data_ptr(), stream)

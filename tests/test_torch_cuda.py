@@ -489,3 +489,178 @@ def test_cuda_event_without_device_form_raises(cuda):
         tsolve(ep, event=tdp.half_event()._replace(
             affect=tdp.ramp_sawtooth_affect), **kw)
     assert erk_kernel.launches == before
+
+
+# ---------------------------------------------------------------------------
+# data-driven problems (prob.data): the data forms of K1, K3, K4 and K5 and
+# the lookup entry, each against its plain version on the card
+# ---------------------------------------------------------------------------
+
+def osc_ensemble(N, dev, mode="gather", dtype=torch.float64, p=(4.0, 0.2)):
+    prob = tdp.texture_oscillator_problem(mode, dtype=dtype)
+    u0s = np.stack([[1.0, 0.0]] * N) * np.linspace(0.5, 1.5, N)[:, None]
+    return ensemble_problem(prob, u0s, np.tile(p, (N, 1)), device=dev,
+                            dtype=dtype)
+
+
+def assert_same(rk, rt, tol):
+    for name in ("us", "u_final", "t_final"):
+        a, b = getattr(rk, name), getattr(rt, name)
+        if tol == 0:
+            assert torch.equal(a, b), name
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    assert torch.equal(rk.naccept.to(torch.int64), rt.naccept.to(torch.int64))
+    assert torch.equal(rk.nreject.to(torch.int64), rt.nreject.to(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [False, True], ids=["fixed", "adaptive"])
+@pytest.mark.parametrize("mode", ["gather", "onehot", "cubic"])
+@pytest.mark.parametrize("alg", ["tsit5", "dopri5"])
+def test_cuda_erk_data_forms_match_plain_version(cuda, alg, mode, adaptive):
+    ep = osc_ensemble(256, cuda, mode)
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, tf=1.0, dt0=1 / 200,
+              rtol=1e-8, atol=1e-8, adaptive=adaptive,
+              saveat=[0.25, 0.5, 1.0], device=cuda)
+    before = erk_kernel.launches
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", **kw)
+    assert erk_kernel.launches == before + 1
+    # every operation of a data form is rounded on its own: bitwise.  The
+    # plain onehot sums its contraction in cuBLAS, which moves the
+    # adaptive step grid at the table's kinks; the kernel sums the
+    # contraction's two terms that are not zero, the gather lookup, so the
+    # onehot form equals the plain gather version
+    if mode == "onehot" and adaptive:
+        rt = tsolve(osc_ensemble(256, cuda, "gather"), backend="torch", **kw)
+    assert_same(rk, rt, 1e-12 if mode == "onehot" and not adaptive else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_erk_data_event_form_matches_plain_version(cuda):
+    N = 128
+    u0s = np.stack([[0.0, 2.0]] * N) * np.linspace(0.8, 1.2, N)[:, None]
+    ep = ensemble_problem(tdp.forced_oscillator_problem(), u0s,
+                          np.tile([1.0, 0.0], (N, 1)), device=cuda)
+    kw = dict(alg="tsit5", ensemble="kernel", t0=0.0, tf=5.0, dt0=1e-2,
+              rtol=1e-8, atol=1e-8, saveat=[1.0, 2.0, 5.0],
+              event=tdp.osc_level_event(), device=cuda)
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", **kw)
+    assert_same(rk, rt, 0)
+    assert bool((rk.t_final < 5.0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_reuse", [False, True], ids=["eager", "lazy-W"])
+@pytest.mark.parametrize("alg", ["rosenbrock23", "rodas4", "rodas5p"])
+def test_cuda_rosenbrock_data_form_matches_plain_version(cuda, alg, w_reuse):
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    import dataclasses
+    N = 128
+    prob = dataclasses.replace(tdp.forced_oscillator_problem(),
+                               tspan=(0.0, 3.0))
+    u0s = np.stack([[1.0, 0.0]] * N) * np.linspace(0.5, 1.5, N)[:, None]
+    ep = ensemble_problem(prob, u0s, np.tile([50.0, 2.0], (N, 1)),
+                          device=cuda)
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, tf=3.0, dt0=1e-3,
+              rtol=1e-8, atol=1e-8, saveat=np.linspace(0.0, 3.0, 7),
+              w_reuse=w_reuse, device=cuda)
+    before = rb_kernel.launches
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", linsolve="lanes", **kw)
+    assert rb_kernel.launches == before + 1
+    assert_same(rk, rt, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed-em", "fixed-milstein",
+                                  "fixed-table", "embedded", "doubling"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_cuda_sde_data_forms_match_plain_version(cuda, mode, dtype):
+    from repro_torch.kernels.em import adaptive as k5
+    N = 256
+    prob = tdp.gbm_rate_problem(dtype=dtype)
+    ep = ensemble_problem(prob, np.ones((N, 1)), np.full((N, 1), 0.2),
+                          device=cuda, dtype=dtype)
+    if mode.startswith("fixed"):
+        kw = dict(alg="em" if mode == "fixed-table" else mode[6:],
+                  t0=0.0, tf=0.5, dt0=1e-3, n_steps=500, save_every=250,
+                  seed=7)
+        if mode == "fixed-table":
+            z = np.random.default_rng(3).standard_normal((500, 1, N))
+            kw["noise_table"] = torch.tensor(z, dtype=dtype, device=cuda)
+        mod = sde_kernel
+    else:
+        kw = dict(alg="em", adaptive=True, error_est=mode, t0=0.0, tf=1.0,
+                  dt0=1e-3, rtol=1e-4, atol=1e-6, seed=7,
+                  saveat=[0.25, 0.5, 0.75, 1.0])
+        mod = k5
+    before = mod.launches
+    rk = tsolve(ep, ensemble="kernel", backend="cuda", device=cuda, **kw)
+    rt = tsolve(ep, ensemble="kernel", backend="torch", device=cuda, **kw)
+    assert mod.launches == before + 1
+    if dtype == torch.float64:
+        assert_same(rk, rt, 0)
+    else:
+        # float32: the same arithmetic; an accept decision may follow a
+        # last-ulp difference of the normals
+        torch.testing.assert_close(rk.u_final, rt.u_final, rtol=1e-5,
+                                   atol=1e-6)
+        same = (rk.naccept == rt.naccept).double().mean()
+        assert float(same) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", ["gather", "onehot", "cubic"])
+def test_cuda_interp_lookup_matches_plain_version(cuda, mode, dtype):
+    from repro_torch.core.interp import UniformTable1D, UniformTable2D
+    from repro_torch.kernels import interp as kinterp
+    rng = np.random.default_rng(0)
+    t1 = UniformTable1D(torch.tensor(rng.standard_normal(33), dtype=dtype,
+                                     device=cuda), -2.0, 0.25)
+    t2 = UniformTable2D(torch.tensor(rng.standard_normal((9, 13)),
+                                     dtype=dtype, device=cuda),
+                        0.0, 0.5, -1.0, 0.25)
+    # out of range, exact knots, both bounds
+    x = np.concatenate([rng.uniform(-4.0, 8.0, 4000),
+                        -2.0 + 0.25 * np.arange(33), [-2.0, 6.0]])
+    y = rng.uniform(-2.0, 3.0, x.shape[0])
+    y[:3] = [-1.0, 2.0, 0.5]
+    qx = torch.tensor(x, dtype=dtype, device=cuda)
+    qy = torch.tensor(y, dtype=dtype, device=cuda)
+    tol = 0 if mode != "onehot" else (1e-12 if dtype == torch.float64
+                                      else 1e-6)
+    before = kinterp.launches
+    for tab, args in ((t1, (qx,)), (t2, (qx, qy))):
+        got = kinterp.interp_lookup(tab, *args, mode=mode)
+        want = (kinterp.interp2d(tab, *args, mode) if len(args) == 2
+                else kinterp.interp1d(tab, *args, mode))
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert kinterp.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_data_without_device_form_raises(cuda):
+    """A data-driven RHS without a data functor raises on the card, naming
+    the automated-translation item; it never falls back."""
+    import dataclasses
+    ep = osc_ensemble(8, cuda)
+    plain = dataclasses.replace(
+        ep.prob, f=lambda u, p, t, d: tdp.forced_oscillator_rhs(u, p, t, d))
+    before = erk_kernel.launches
+    kw = dict(alg="tsit5", ensemble="kernel", backend="cuda", t0=0.0,
+              tf=1.0, dt0=1e-2, device=cuda)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tsolve(EnsembleProblem(plain, 8, u0s=ep.u0s, ps=ep.ps), **kw)
+    lor = tdp.lorenz_problem(torch.float64)
+    bad = dataclasses.replace(lor, data=ep.prob.data,
+                              f=lambda u, p, t, d: tdp.lorenz_rhs(u, p, t))
+    bad.f.device_rhs = "lorenz"
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tsolve(EnsembleProblem(bad, 8), **kw)
+    assert erk_kernel.launches == before

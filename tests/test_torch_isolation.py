@@ -1,5 +1,6 @@
-"""The port stands alone: neither `repro_torch` nor chip_smoke.py imports
-JAX or the reference package `repro`."""
+"""The port stands alone: neither `repro_torch`, nor chip_smoke.py, nor the
+port's examples (examples/*_torch.py) import JAX or the reference package
+`repro`."""
 import os
 import re
 import subprocess
@@ -21,7 +22,8 @@ PORT_MODULES = [
     "repro_torch.kernels.lu.ops", "repro_torch.kernels.lu.ref",
     "repro_torch.kernels.rosenbrock.kernel",
     "repro_torch.kernels.rosenbrock.ops", "repro_torch.kernels.em.adaptive",
-    "repro_torch.kernels.events",
+    "repro_torch.kernels.events", "repro_torch.core.interp",
+    "repro_torch.kernels.interp",
 ]
 
 
@@ -46,7 +48,8 @@ IMPORT_REPRO = re.compile(r"^\s*(import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
 @pytest.mark.parametrize(
     "path", sorted(str(p.relative_to(ROOT)) for p in
                    list((ROOT / "src/repro_torch").rglob("*.py"))
-                   + [ROOT / "chip_smoke.py"]))
+                   + [ROOT / "chip_smoke.py"]
+                   + list((ROOT / "examples").glob("*_torch.py"))))
 def test_port_source_imports_no_jax_and_no_repro(path):
     text = (ROOT / path).read_text()
     assert not IMPORT_JAX.search(text), path

@@ -125,3 +125,54 @@ def test_cuda_source_constants_equal_the_python_ones():
         [trng._ROTATIONS[i % 2] for i in range(5)]
     # the approximate intrinsics would move every normal
     assert not any("fast_math" in flag for flag in NVCC_FLAGS)
+
+
+# ---------------------------------------------------------------------------
+# jax.random's own key stream (sde_solve_fixed(key=...))
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 3, 2 ** 31 + 5])
+def test_jax_fold_in_and_bits_bitwise(seed):
+    import jax
+    key = jax.random.PRNGKey(seed)
+    for data in (0, 1, 7, 123_456, 2 ** 32 - 1):
+        want = tuple(int(w) for w in np.asarray(jax.random.fold_in(key,
+                                                                   data)))
+        assert trng.jax_fold_in(np.asarray(key), data) == want
+    sub = jax.random.fold_in(key, 5)
+    for shape in ((1,), (7,), (3, 5), (2, 3, 4)):
+        got = trng.jax_random_bits(np.asarray(sub), shape)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax.random.bits(sub, shape, jnp.uint32)))
+        hi, lo = trng.jax_random_bits(np.asarray(sub), shape, 64)
+        joined = ((hi.numpy().astype(np.uint64) << np.uint64(32))
+                  | lo.numpy().astype(np.uint64))
+        np.testing.assert_array_equal(
+            joined, np.asarray(jax.random.bits(sub, shape, jnp.uint64)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_jax_uniform_bitwise_and_normal_within_ulps(dtype):
+    """Uniforms on [0, 1) bit for bit, on a range within one ulp; normals
+    within 2 (float32) and 16 (float64)
+    ulps of max(|z|, 1): XLA's erfinv polynomials are ported, but XLA's
+    log1p differs from PyTorch's (by up to 128 ulps of w in float64)."""
+    import jax
+    tdt = getattr(torch, dtype)
+    key = jax.random.fold_in(jax.random.PRNGKey(11), 2)
+    shape = (4, 5000)
+    jdt = getattr(jnp, dtype)
+    np.testing.assert_array_equal(
+        trng.jax_uniform(np.asarray(key), shape, tdt).numpy(),
+        np.asarray(jax.random.uniform(key, shape, jdt)))
+    # on a range XLA fuses floats * (max - min) + min: one ulp at most
+    want = np.asarray(jax.random.uniform(key, shape, jdt, -0.5, 2.0))
+    got = trng.jax_uniform(np.asarray(key), shape, tdt, -0.5, 2.0).numpy()
+    assert float((np.abs(got - want) / np.spacing(
+        np.maximum(np.abs(want), 0.5).astype(want.dtype))).max()) <= 1
+    want = np.asarray(jax.random.normal(key, shape, getattr(jnp, dtype)))
+    got = trng.jax_normal(np.asarray(key), shape, tdt).numpy()
+    ulps = np.abs(got - want) / np.spacing(
+        np.maximum(np.abs(want), 1).astype(want.dtype))
+    assert float(ulps.max()) <= (2 if dtype == "float32" else 16)
+    assert abs(float(got.mean())) < 0.02 and abs(float(got.std()) - 1) < 0.02

@@ -296,9 +296,23 @@ def test_sde_method_on_ode_problem_and_noise_kinds_raise():
         with pytest.raises(ValueError, match="supports noise"):
             tsolve(crn, alg=alg, t0=0.0, dt0=0.1, n_steps=2, device="cpu")
     prob = tdp.gbm_problem(dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="fold_in"):
-        tsde.sde_solve_fixed(prob, prob.u0, prob.p, 0.0, 0.1, 4,
-                             key=np.zeros(2, np.uint32))
+    # sde_solve_fixed(key=...) draws the reference's jax.random stream
+    # (it raised before the key stream was ported): one trajectory and a
+    # lanes tile, against the reference on the same key
+    jprob = jdp.gbm_problem(dtype=jnp.float64)
+    key = jax.random.PRNGKey(3)
+    lanes = np.stack([np.asarray(jprob.u0)] * 5, 1) * np.linspace(
+        0.5, 1.5, 5)
+    for u0 in (np.asarray(jprob.u0), lanes):
+        p = np.asarray(jprob.p) if u0.ndim == 1 else np.stack(
+            [np.asarray(jprob.p)] * 5, 1)
+        ref = jsde.sde_solve_fixed(jprob, jnp.asarray(u0), jnp.asarray(p),
+                                   0.0, 0.1, 4, key=key, save_every=2)
+        got = tsde.sde_solve_fixed(prob, torch.tensor(u0), torch.tensor(p),
+                                   0.0, 0.1, 4, key=np.asarray(key),
+                                   save_every=2)
+        np.testing.assert_allclose(got.us.numpy(), np.asarray(ref.us),
+                                   rtol=TABLE_TOL, atol=0)
     with pytest.raises(ValueError, match="diagonal"):
         tsde.platen_w2_step(None, None, prob.u0, prob.p, 0.0, 0.1,
                             prob.u0, noise="general")
@@ -340,7 +354,16 @@ def test_run_ensemble_kernel_extras_are_checked():
     u0s, ps = torch.zeros(4, 3), torch.zeros(4, 2)
     with pytest.raises(ValueError, match="extra kind"):
         run_ensemble_kernel(body, u0s, ps, ts=torch.zeros(1),
-                            extras=[("table", torch.zeros(3))])
+                            extras=[("tiles", torch.zeros(3))])
+    # "table" (a dataset leaf) is a kind since the data forms: it reaches
+    # the body contiguous, in its own shape
+    seen = []
+    ok = lambda u0, p, ex: seen.append(ex) or (
+        torch.zeros(1, 3, 4), torch.zeros(3, 4), torch.zeros(4),
+        torch.zeros(6, 4, dtype=torch.int32))
+    run_ensemble_kernel(ok, u0s, ps, ts=torch.zeros(1),
+                        extras=[("table", torch.zeros(3, 5).T)])
+    assert seen[0][0].shape == (5, 3) and seen[0][0].is_contiguous()
     with pytest.raises(ValueError, match="N=4"):
         run_ensemble_kernel(body, u0s, ps, ts=torch.zeros(1),
                             extras=[("lanes", torch.zeros(2, 5))])

@@ -10,13 +10,16 @@ tool builds the explicit-RK (K1), Rosenbrock (K3), fixed-dt SDE (K4) and
 adaptive SDE (K5) kernels from DIR and from this checkout, runs both builds
 through the kernels' wrappers on the same inputs, without events, and
 prints per case whether us, u_final, t_final and the stats are bitwise
-equal, then the card's name and power limit and one JSON object.  The
+equal, and whether every instantiation of the earlier build compiles to
+the same registers and spills (nvcc's -Xptxas=-v report, keyed by
+`chip_smoke.ptxas_summary`'s tags), then the card's name and power limit
+and one JSON object.  The
 inputs are `chip_smoke.py`'s parity inputs: Lorenz with tsit5 and dopri5,
 adaptive and fixed dt, f64 and f32; ROBER with every Rosenbrock method,
 eager and lazy W, OREGO and Van der Pol; GBM with every stepper and the CRN
 sweep with em and heun_strat, f32 and f64, the counter stream and a noise
-table; the adaptive SDE cases.  Exits non-zero where CUDA is absent or any
-case differs.
+table; the adaptive SDE cases.  Exits non-zero where CUDA is absent, any
+case differs or an instantiation of the earlier build moved.
 """
 from __future__ import annotations
 
@@ -147,17 +150,35 @@ def main() -> int:
         cases.update({(label,) + k: v for k, v in make(cs, dev,
                                                        args.n).items()})
     here = build.CSRC
-    results = {}
+    results, regs = {}, {}
+    sources = ["erk_ensemble.cu", "rosenbrock_ensemble.cu", "sde_ensemble.cu",
+               "sde_adaptive_ensemble.cu"]
     for label, csrc in (("parent", args.parent.resolve()), ("this", here)):
         build.CSRC = csrc
         build.load.cache_clear()
         for binder in (K1._bind, K3._bind, K4._bind, K5._bind):
             binder.cache_clear()
-        build.build(["erk_ensemble.cu", "rosenbrock_ensemble.cu",
-                     "sde_ensemble.cu", "sde_adaptive_ensemble.cu"])
+        for src in sources:
+            # rebuild, so that the register report is this build's
+            build.library_path(src).unlink(missing_ok=True)
+        logs = build.build(sources)
+        regs[label] = {src: sorted(cs.ptxas_summary(logs[src], src))
+                       for src in sources}
         results[label] = {k: run() for k, run in cases.items()}
         torch.cuda.synchronize(dev)
     build.CSRC = here
+    moved, n_inst = [], 0
+    for src in sources:
+        new = list(regs["this"][src])
+        for entry in regs["parent"][src]:
+            n_inst += 1
+            if entry in new:
+                new.remove(entry)
+            else:
+                moved.append(f"{src} {entry}")
+    print(f"registers: {n_inst - len(moved)} of {n_inst} instantiations of "
+          "the parent build unchanged" + "".join(f"\n  moved: {m}"
+                                                  for m in moved))
     report, ok = {}, True
     for key, new in results["this"].items():
         old = results["parent"][key]
@@ -169,8 +190,10 @@ def main() -> int:
         print(f"{'/'.join(key)}: N={args.n} bitwise equal to the parent "
               f"build: {same}")
     print(f"{sum(report.values())} of {len(report)} cases bitwise equal")
+    ok &= not moved
     print(cs.gpu_line())
-    print(json.dumps({"n": args.n, "bitwise_equal": report, "ok": ok}))
+    print(json.dumps({"n": args.n, "bitwise_equal": report,
+                      "registers_moved": moved, "ok": ok}))
     return 0 if ok else 1
 
 
