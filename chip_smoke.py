@@ -26,7 +26,12 @@ event, and on the rate-table GBM, fixed and adaptive; the lookup entry on
 2^20 queries of 1-D and 2-D tables; then the million-trajectory data
 rows: the texture benchmark's configuration in three modes beside the
 `vmap` strategy, the adaptive, stiff and event forms and the rate-table
-GBM), and times each kernel beside its twin, and the
+GBM), the gradients across the kernel boundary (`kernel_adjoint`: f64
+parity of every family's adjoint on the kernel route against the torch
+route and central differences, the five full-width gradient rows with
+their forward and backward times and the backward's peak memory, and the
+population fit of examples/parameter_estimation_torch.py), and times each
+kernel beside its twin, and the
 `vmap` and `array` strategies on the ODE and fixed-dt SDE forms, on
 rober-1M-rodas5p and on gbm-1M-em-adaptive.  Every phase raises on
 failure, so the script exits non-zero; it also exits non-zero, printing no
@@ -2260,6 +2265,9 @@ OSC_EVENT = dict(t0=0.0, tf=5.0, dt0=1e-2, rtol=1e-8, atol=1e-8,
 # where a plain version takes minutes at 2^20 lanes it runs on the first
 # DATA_PLAIN_N lanes, and the kernel is held to it on those lanes
 DATA_PLAIN_N = 2 ** 18
+# the stiff data row's plain version took 41 s on 2^18 lanes of an H100: it
+# runs on the first 2^16, to make room for the gradient phases
+DATA_STIFF_PLAIN_N = 2 ** 16
 # the onehot plain version sums its contraction in cuBLAS: within 1e-12
 ONEHOT_TOL = 1e-12
 
@@ -2633,7 +2641,7 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
         ("osc-1M-rosenbrock23-data", rb_kernel,
          osc_inputs(N, device, f64, prob=dataclasses.replace(
              big, tspan=(0.0, 3.0)), p=(50.0, 2.0)),
-         dict(OSC_STIFF, alg="rosenbrock23"), "gather", DATA_PLAIN_N),
+         dict(OSC_STIFF, alg="rosenbrock23"), "gather", DATA_STIFF_PLAIN_N),
         ("gbm-rate-1M-em", sde_kernel,
          ensemble_problem(dp.gbm_rate_problem(dtype=f32), np.ones((N, 1)),
                           np.full((N, 1), 0.2), device=device, dtype=f32),
@@ -2805,6 +2813,738 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# gradients across the kernel boundary (`kernel_adjoint`, paper §6.6)
+# ---------------------------------------------------------------------------
+
+GRAD_N = 4096
+# central differences of one lane's loss (of the whole loss for a table
+# value), relative step GRAD_FD_EPS, against the adjoint within GRAD_FD_REL
+GRAD_FD_EPS, GRAD_FD_REL = 1e-6, 1e-4
+# The cuda route's gradient is the vjp of the replay at the cotangents of
+# the kernel's outputs, the torch route's at those of the replay's own.  The
+# two are bitwise equal where the kernel's outputs equal its plain
+# version's bit for bit (every form that rounds each operation alone: K3,
+# K5, the event and data forms); the no-event forms of K1 and K4 let nvcc
+# contract into fused multiply-adds, so their outputs, and through the
+# cotangents the gradients, differ by rounding: held within GRAD_TORCH_REL
+# relative to the largest entry.  At the kernel's own cotangents the two
+# routes run the same replay, so there every per-lane gradient is bitwise.
+GRAD_TORCH_REL = 1e-10
+# At full width the primal of K1's contracted form sits up to 3.3e-9 from
+# its plain version's on 2^18 lanes of the f64 Lorenz row (every lane's
+# counts equal: adaptive steps carry the rounding), and its gradient at the
+# routes' own cotangents 1.7e-9 of the largest entry (an H100): a row whose
+# primal is not bitwise is held there within its rtol, the solver's own
+# accuracy; a fixed-dt row without one within GRAD_TORCH_REL.
+# A table's gradient sums every lane's lookups with atomic adds, in no fixed
+# order: on 2^20 lanes the two routes' f32 sums sat 9.0e-4 of the largest
+# entry apart, and each as far from the f64 gradient (the f32 sum's own
+# rounding, an H100); both held within GRAD_TABLE_REL, 11x that, where a
+# gradient missing one of the replay's 15 segments would sit ~1/15 off.
+GRAD_TABLE_REL = 1e-2
+# full-size rows: the backward's peak is measured at GRAD_MEM_N lanes under
+# the default checkpoint_every and under one segment; a row whose peak,
+# scaled to 2^20 lanes, would pass GRAD_MEM_LIMIT bytes runs at 2^18
+GRAD_MEM_N = 2 ** 16
+GRAD_MEM_LIMIT = 40e9
+# the torch route's whole gradient (the plain version of kernel_adjoint:
+# the bounded loop forward and backward) is timed and compared on the first
+# GRAD_PLAIN_N lanes, to keep the smoke's time down (its backward is the
+# cuda route's); a table's gradient sums every lane, so that row's torch
+# route runs on all of them
+GRAD_PLAIN_N = 2 ** 18
+# Under `torch.use_deterministic_algorithms` the table's sums take a fixed
+# order and the two routes agree bit for bit; on 2^20 lanes that took
+# minutes, so the smoke holds it on the first GRAD_DET_N lanes.
+GRAD_DET_N = 2 ** 14
+# the population fit of examples/parameter_estimation_torch.py: 4 guesses,
+# every one within 0.2 of the true rho.  The example's 60 iterations are
+# launch-bound at 4 lanes; a CPU run of the same fit ended within 0.078 of
+# rho after 10 iterations (0.024 after 12), so the smoke runs 10.
+FIT_ITERS, FIT_TOL = 10, 0.2
+
+
+class _Steps(dict):
+    """Seconds of each sub-step of a phase, summed by name."""
+
+    def __init__(self):
+        super().__init__()
+        self._t = time.perf_counter()
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self[name] = self.get(name, 0.0) + now - self._t
+        self._t = now
+
+    def __str__(self):
+        return ", ".join(f"{k} {v:.1f} s" for k, v in self.items())
+
+
+def lane_loss(res):
+    """Each trajectory's share of sum(us^2) + sum(u_final^2), NaN lanes
+    (the CRN sweep's, by design) masked to 0."""
+    import torch
+    per = (res.us ** 2).sum(dim=(1, 2)) + (res.u_final ** 2).sum(dim=1)
+    return torch.where(torch.isfinite(per), per, torch.zeros_like(per))
+
+
+def total_loss(res):
+    """The gradient rows' default loss: every lane's `lane_loss` summed."""
+    return lane_loss(res).sum()
+
+
+def _with_table(prob, values):
+    """`prob` with its one 1-D table's values replaced."""
+    import dataclasses
+    key = next(iter(prob.data))
+    tab = prob.data[key]
+    return dataclasses.replace(
+        prob, data={key: type(tab)(values, tab.x0, tab.dx)})
+
+
+def grad_run(ep, kw, wrt, *, backend="cuda", loss=None,
+             deterministic=False, retain=False):
+    """One gradient through the front door, timed: ``wrt`` holds "u0s",
+    "ps" and/or "table".  Returns a namespace: the result, the gradients,
+    the forward and backward ms, the backward's peak bytes and the inputs
+    (``xs``).  ``retain=True`` keeps the graph for another backward.  A
+    table's gradient sums every lane's lookups with atomic adds, in no
+    fixed order; ``deterministic=True`` runs the gradient under
+    `torch.use_deterministic_algorithms`."""
+    import types
+    import torch
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
+        try:
+            return grad_run(ep, kw, wrt, backend=backend, loss=loss,
+                            retain=retain)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    loss = loss or total_loss
+    u0s, ps = ep.materialize()
+    u = u0s.detach().clone().requires_grad_("u0s" in wrt)
+    p = ps.detach().clone().requires_grad_("ps" in wrt)
+    prob, xs = ep.prob, {"u0s": u, "ps": p}
+    if "table" in wrt:
+        tab = prob.data[next(iter(prob.data))]
+        xs["table"] = tab.values.detach().clone().requires_grad_(True)
+        prob = _with_table(prob, xs["table"])
+    dev = u.device
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    sync(dev)
+    ev[0].record()
+    res = solve_ensemble_local(EnsembleProblem(prob, u.shape[0], u0s=u,
+                                               ps=p), ensemble="kernel",
+                               backend=backend, sensitivity="adjoint",
+                               device=dev, **kw)
+    ev[1].record()
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    L = loss(res)
+    grads = dict(zip(wrt, torch.autograd.grad(L, [xs[k] for k in wrt],
+                                              retain_graph=retain)))
+    ev[2].record()
+    sync(dev)
+    return types.SimpleNamespace(
+        res=res, grads=grads, fwd_ms=ev[0].elapsed_time(ev[1]),
+        bwd_ms=ev[1].elapsed_time(ev[2]),
+        peak=torch.cuda.max_memory_allocated(dev), xs=xs)
+
+
+def loss_cotangents(res, loss=None):
+    """The cotangents that ``loss`` (default `total_loss`) sends into a
+    result's ``us`` and ``u_final`` at the result's own values (zeros where
+    it reads none)."""
+    import torch
+    loss = loss or total_loss
+    outs = [res.us.detach().requires_grad_(True),
+            res.u_final.detach().requires_grad_(True)]
+    cot = torch.autograd.grad(loss(res._replace(us=outs[0],
+                                                u_final=outs[1])),
+                              outs, allow_unused=True)
+    return [torch.zeros_like(o) if c is None else c
+            for o, c in zip(outs, cot)]
+
+
+def grad_diff(name, ga, gb):
+    """Two routes' gradients over ``gb``'s keys: (max |a - b| over the
+    largest |b|, max |a - b|); 0.0 means bitwise.  NaN lanes (the CRN
+    sweep's, by design) must sit in the same places."""
+    import torch
+    rel = worst = 0.0
+    for k in gb:
+        a, b = ga[k], gb[k]
+        if not bool(torch.equal(torch.isnan(a), torch.isnan(b))):
+            raise AssertionError(f"{name}: NaN placement of d/d{k}")
+        fb = torch.nan_to_num(b)
+        d = (torch.nan_to_num(a) - fb).abs().max()
+        worst = max(worst, float(d))
+        rel = max(rel, float(d / fb.abs().max().clamp_min(1e-300)))
+    return rel, worst
+
+
+def _nan_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))) and bool(
+        torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def _fd_entries(grads, fin):
+    """Four (leaf, lane, column) entries for central differences: the
+    largest gradient entries of ps (u0s for the SDE rows without ps
+    gradients) on finite lanes, and two table values."""
+    import torch
+    leaf = "ps" if "ps" in grads else "u0s"
+    g = torch.where(fin[:, None], grads[leaf].abs(), torch.zeros_like(
+        grads[leaf]))
+    top = torch.topk(g.flatten(), 4 if "table" not in grads else 2).indices
+    out = [(leaf, int(i) // g.shape[1], int(i) % g.shape[1]) for i in top]
+    if "table" in grads:
+        tops = torch.topk(grads["table"].abs(), 2).indices
+        out += [("table", None, int(k)) for k in tops]
+    return out
+
+
+def grad_fd(ep, kw, entry, sde: bool, eps: float = GRAD_FD_EPS) -> float:
+    """Central difference of one lane's loss (the whole loss for a table
+    value) with respect to one input, through the kernel without
+    sensitivity, at the relative step ``eps``."""
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    leaf, i, j = entry
+    u0s, ps = ep.materialize()
+    prob = ep.prob
+    if leaf == "table":
+        vals = prob.data[next(iter(prob.data))].values
+        base = float(vals[j])
+    else:
+        x = u0s if leaf == "u0s" else ps
+        base = float(x[i, j])
+        u0s, ps = u0s[i:i + 1], ps[i:i + 1]
+    h = eps * max(1.0, abs(base))
+    out = []
+    for sgn in (1.0, -1.0):
+        uu, pp, pr = u0s.clone(), ps.clone(), prob
+        if leaf == "table":
+            v = vals.clone()
+            v[j] += sgn * h
+            pr = _with_table(prob, v)
+        elif leaf == "u0s":
+            uu[0, j] += sgn * h
+        else:
+            pp[0, j] += sgn * h
+        extra = dict(lane_offset=i) if (sde and leaf != "table") else {}
+        res = solve_ensemble_local(EnsembleProblem(pr, uu.shape[0], u0s=uu,
+                                                   ps=pp),
+                                   ensemble="kernel", backend="cuda",
+                                   device=uu.device, **dict(kw, **extra))
+        out.append(float(lane_loss(res).sum()))
+    return (out[0] - out[1]) / (2 * h)
+
+
+def grad_parity_cases(device, N: int):
+    """(name, kernel module, ensemble, front-door arguments, wrt) of the
+    f64 gradient parity phase."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    f64 = torch.float64
+    lor = lorenz_inputs(N, f64, device)
+    lkw = dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-8, atol=1e-8,
+               saveat=[0.25, 0.5, 0.75, 1.0])
+    rober = rober_inputs(N, device)
+    # the stiff kernel inlines the lanes LU: the replay takes the same
+    rkw = dict(t0=0.0, tf=10.0, dt0=1e-6, rtol=1e-6, atol=1e-8,
+               saveat=[1.0, 10.0], linsolve="lanes")
+    vdp = ensemble_problem(dp.vdp_problem(), np.tile([2.0, 0.0], (N, 1)),
+                           np.linspace(5.0, 20.0, N)[:, None], device=device)
+    gbm = sde_inputs("gbm", N, f64, device)
+    crn = sde_inputs("crn", N, f64, device)
+    fixed = dict(t0=0.0, dt0=1.0 / 200, n_steps=200, save_every=50,
+                 seed=SDE_SEED)
+    adapt = dict(ADAPTIVE_SETTINGS["gbm"], adaptive=True, seed=SDE_SEED)
+    adapt["saveat"] = list(adapt["saveat"])
+    es = np.linspace(0.3, 0.9, N)
+    ball = ensemble_problem(dp.bouncing_ball_problem(),
+                            np.stack([np.full(N, 10.0), np.zeros(N)], 1),
+                            np.stack([np.full(N, 9.8), es], 1),
+                            device=device)
+    both = ("u0s", "ps")
+    return [
+        ("tsit5 lorenz", erk_kernel, lor, dict(lkw, alg="tsit5"), both),
+        ("dopri5 lorenz", erk_kernel, lor, dict(lkw, alg="dopri5"), both),
+        ("rodas5p rober eager", rb_kernel, rober, dict(rkw, alg="rodas5p"),
+         both),
+        ("rodas5p rober lazyW", rb_kernel, rober,
+         dict(rkw, alg="rodas5p", w_reuse=True), both),
+        ("rosenbrock23 vdp", rb_kernel, vdp,
+         dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-6, atol=1e-8,
+              saveat=[0.5, 1.0], linsolve="lanes", alg="rosenbrock23"),
+         both),
+        ("em gbm fixed", sde_kernel, gbm, dict(fixed, alg="em"), both),
+        ("platen_w2 gbm fixed", sde_kernel, gbm,
+         dict(fixed, alg="platen_w2"), both),
+        ("em crn fixed", sde_kernel, crn,
+         dict(t0=0.0, dt0=0.1, n_steps=100, save_every=50, seed=SDE_SEED,
+              alg="em"), both),
+        ("em gbm adaptive embedded", k5, gbm,
+         dict(adapt, alg="em", error_est="embedded"), both),
+        ("em gbm adaptive doubling", k5, gbm,
+         dict(adapt, alg="em", error_est="doubling"), both),
+        ("tsit5 osc gather table", erk_kernel,
+         osc_inputs(N, device, f64, mode="gather"),
+         dict(TEXTURE_FIXED, alg="tsit5", saveat=[1.0]),
+         ("u0s", "ps", "table")),
+        ("tsit5 ball event", erk_kernel, ball,
+         dict(t0=0.0, tf=2.0, dt0=1e-3, rtol=1e-9, atol=1e-9,
+              saveat=[0.5, 1.0, 1.5, 2.0], event=dp.bouncing_ball_event(),
+              alg="tsit5"), both),
+    ]
+
+
+def phase_grad_parity(device, N: int = GRAD_N):
+    """f64, N lanes: every family's gradient through `kernel_adjoint` on
+    backend="cuda".  Per case: the primal bitwise equal to the same call
+    without sensitivity; the gradients against the torch route's (bitwise,
+    or within GRAD_TORCH_REL where the kernel form contracts); central
+    differences on four entries within GRAD_FD_REL; status 0."""
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.sensitivity import suggest_adjoint_steps
+    t_phase = time.perf_counter()
+    worst = {"torch_rel": 0.0, "fd_rel": 0.0}
+    total = _Steps()
+    for name, mod, ep, kw, wrt in grad_parity_cases(device, N):
+        steps = _Steps()
+        kw = dict(kw)
+        sde = mod.__name__.endswith(("em.kernel", "em.adaptive"))
+        fixed_dt = "n_steps" in kw or kw.get("adaptive") is False
+        if not fixed_dt:
+            kw["adjoint_steps"] = suggest_adjoint_steps(
+                ep, ensemble="kernel", backend="cuda", device=device, **kw)
+        plain = solve_ensemble_local(ep, ensemble="kernel", backend="cuda",
+                                     device=device, **{
+                                         k: v for k, v in kw.items()
+                                         if k != "adjoint_steps"})
+        steps.lap("bound and primal")
+        mod.launches = 0
+        cu = grad_run(ep, kw, wrt)
+        res, g_cuda = cu.res, cu.grads
+        if device.type == "cuda" and mod.launches < 1:
+            raise AssertionError(f"grad {name}: no kernel launch")
+        if int(res.status) != 0:
+            raise AssertionError(f"grad {name}: status {int(res.status)}")
+        for field in ("us", "u_final", "t_final", "naccept", "nreject"):
+            if not _nan_equal(getattr(res, field).detach().double(),
+                              getattr(plain, field).double()):
+                raise AssertionError(f"grad {name}: primal {field} differs "
+                                     "from the solve without sensitivity")
+        steps.lap("cuda route")
+        rel, _ = grad_diff(f"grad {name}", g_cuda,
+                           grad_run(ep, kw, wrt, backend="torch").grads)
+        if rel > GRAD_TORCH_REL:
+            raise AssertionError(f"grad {name}: cuda vs torch route "
+                                 f"{rel:.3e} > {GRAD_TORCH_REL}")
+        steps.lap("torch route")
+        fin = torch.isfinite(res.u_final.detach()).all(dim=1)
+        fd_rel = 0.0
+        for entry in _fd_entries(g_cuda, fin):
+            leaf, i, j = entry
+            g = float(g_cuda[leaf][j] if leaf == "table"
+                      else g_cuda[leaf][i, j])
+            fd = grad_fd(ep, {k: v for k, v in kw.items()
+                              if k != "adjoint_steps"}, entry, sde)
+            r = abs(g - fd) / max(abs(fd), 1e-300)
+            fd_rel = max(fd_rel, r)
+            if r > GRAD_FD_REL:
+                raise AssertionError(f"grad {name}: d/d{leaf}[{i},{j}] "
+                                     f"{g:.10e} vs FD {fd:.10e} ({r:.2e})")
+        steps.lap("FD")
+        worst["torch_rel"] = max(worst["torch_rel"], rel)
+        worst["fd_rel"] = max(worst["fd_rel"], fd_rel)
+        for k, v in steps.items():
+            total[k] = total.get(k, 0.0) + v
+        print(f"grad parity {name}: status 0, primal bitwise, cuda vs torch "
+              f"route {'bitwise' if rel == 0.0 else f'max rel {rel:.3e}'}, FD "
+              f"max rel {fd_rel:.2e}, bound "
+              f"{kw.get('adjoint_steps', 'n_steps + 1')} ({steps})")
+    print(f"grad parity: {N} lanes f64, worst cuda vs torch {worst['torch_rel']:.3e}, "
+          f"worst FD {worst['fd_rel']:.2e} "
+          f"({time.perf_counter() - t_phase:.1f} s: {total})")
+    return worst
+
+
+def _replay_meter():
+    """Count the replay's checkpointed segments and the bytes of their
+    input carries (`core.loops._remat` wrapped for the duration)."""
+    import torch
+    from repro_torch.core import loops
+    real, meter = loops._remat, {"segments": 0, "carry_bytes": 0}
+
+    def walk(x):
+        if torch.is_tensor(x):
+            return x.numel() * x.element_size()
+        if isinstance(x, dict):
+            x = list(x.values())
+        if isinstance(x, (list, tuple)):
+            return sum(walk(v) for v in x)
+        return 0
+
+    def counting(fn, *args):
+        meter["segments"] += 1
+        meter["carry_bytes"] += walk(args)
+        return real(fn, *args)
+
+    def install():
+        loops._remat = counting
+
+    def remove():
+        loops._remat = real
+
+    return meter, install, remove
+
+
+def _subset(ep, n):
+    """The first n trajectories of an ensemble."""
+    from repro_torch.core.problem import EnsembleProblem
+    u0s, ps = ep.materialize()
+    return EnsembleProblem(ep.prob, n, u0s=u0s[:n].contiguous(),
+                           ps=ps[:n].contiguous())
+
+
+def grad_full_forms(device, N: int):
+    """(row, kernel module, ensemble, front-door arguments, wrt, loss,
+    float operations of one replay attempt or step, peak rate) at N
+    lanes: the five cells of the kernel rows, their settings kept."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.core.tableaus import get_rosenbrock_tableau, get_tableau
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    f32, f64 = torch.float32, torch.float64
+    fp64, fp32 = PEAK_FP64_UNFUSED_OPS, PEAK_FP32_FLOPS / 2
+    host = __import__("repro_torch.configs.de_problems",
+                      fromlist=["x"]).lorenz_ensemble(N, dtype=f64)
+    lor = EnsembleProblem(host.prob, N, **dict(zip(
+        ("u0s", "ps"), (x.to(device).contiguous()
+                        for x in host.materialize()))))
+    gbm = EnsembleProblem(
+        dp.gbm_problem(r=1.5, v=0.2, dtype=f32), N,
+        u0s=torch.full((N, 3), 0.1, dtype=f32, device=device),
+        ps=torch.tensor([1.5, 0.2], dtype=f32,
+                        device=device).expand(N, 2).contiguous())
+    cfg = dict(ADAPTIVE_FULL)
+    depth = cfg.pop("depth")
+    cfg["saveat"] = list(cfg["saveat"])
+    tsit5 = get_tableau("tsit5")
+    rb_ops, rb_jac, rb_fact, _ = rosenbrock_attempt_ops(
+        get_rosenbrock_tableau("rodas5p"), 3, *STIFF_RHS_OPS["rober"])
+    uf_sum = lambda res: res.u_final.sum()
+    # ops per replay attempt: an adaptive erk/rosenbrock attempt runs its
+    # cascade twice (the adjoint-safe second pass); SDE attempts once
+    return [
+        ("grad-lorenz-1M-f64-tsit5", erk_kernel, lor,
+         dict(alg="tsit5", t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-8, atol=1e-8,
+              saveat=list(np.linspace(0.0, 1.0, 5))), ("u0s", "ps"), None,
+         2 * attempt_flops(tsit5, 3, 9, True), fp64),
+        ("grad-gbm-1M-em", sde_kernel, gbm,
+         dict(alg="em", t0=0.0, dt0=1.0 / 200, n_steps=200, save_every=200,
+              seed=SDE_SEED), ("u0s",), uf_sum,
+         SDE_STEP_FLOPS[("gbm", "em")] + 3 * NORMAL_FLOPS, fp32),
+        # the replay takes the kernel's own LU (lanes), not the library's
+        ("grad-rober-1M-rodas5p", rb_kernel, rober_inputs(N, device),
+         dict(ROBER_SETTINGS, alg="rodas5p", saveat=list(ROBER_SAVEAT),
+              linsolve="lanes"),
+         ("u0s", "ps"), None, 2 * (rb_ops + rb_jac + rb_fact), fp64),
+        ("grad-gbm-1M-em-adaptive", k5, gbm,
+         dict(cfg, alg="em", adaptive=True, error_est="embedded",
+              brownian_depth=depth), ("u0s",), uf_sum,
+         ADAPTIVE_ATTEMPT_FLOPS["embedded"]
+         + 3 * depth * BRIDGE_FLOPS_PER_NORMAL, fp32),
+        ("grad-osc-1M-f32-fixed-gather", erk_kernel,
+         osc_inputs(N, device, f32, mode="gather"),
+         dict(TEXTURE_FIXED, alg="tsit5", saveat=[1.0]), ("table",), None,
+         attempt_flops(tsit5, 2, OSC_RHS_OPS + LOOKUP_OPS["gather"], False),
+         fp32),
+    ]
+
+
+# ROBER's d/dk1 on 8 lanes against central differences.  The adaptive
+# solver's output jumps by O(rtol) where a perturbation moves its step
+# sequence, so differences taken at the row's rtol 1e-6 are noisy (up to
+# 2.4e-4 from the adjoint, a CPU run on 64 lanes); taken at rtol 1e-9,
+# atol 1e-11 with a relative step of 1e-5 they are the derivative within
+# 5e-6 (the adjoint at those settings on the same lanes), and the row's own
+# adjoint, which differentiates its realized steps, sat 6.3e-6 from them
+# on 2^20 lanes of an H100.
+ROBER_FD = dict(rtol=1e-9, atol=1e-11, eps=1e-5)
+
+
+def rober_fd_check(ep, kw, g_row):
+    """The worst relative difference of the row's d/dk1 from central
+    differences at ROBER_FD's tolerances, on 8 lanes spread over the
+    ensemble."""
+    n = ep.materialize()[0].shape[0]
+    fkw = {a: b for a, b in kw.items() if a != "adjoint_steps"}
+    fkw.update(rtol=ROBER_FD["rtol"], atol=ROBER_FD["atol"])
+    worst = 0.0
+    for i in np.linspace(0, n - 1, 8).astype(int).tolist():
+        fd = grad_fd(ep, fkw, ("ps", i, 0), False, eps=ROBER_FD["eps"])
+        worst = max(worst, abs(float(g_row[i, 0]) - fd) / abs(fd))
+    if worst > GRAD_FD_REL:
+        raise AssertionError(f"ROBER d/dk1 against FD {worst:.2e}")
+    return worst
+
+
+def phase_grad_full_size(device, N: int = FULL_N):
+    """The five gradient rows at full width, through `kernel_adjoint` on
+    backend="cuda", each beside the torch route's gradient (the plain
+    version: the bounded loop forward and backward) on shared lanes.  Per
+    row: the cuda route's gradient bitwise equal to the torch route's at
+    the kernel's own cotangents (a table's sums within GRAD_TABLE_REL, and
+    of the f64 gradient); at the torch route's own cotangents bitwise where
+    the primals are, else within the row's rtol; the row's own check; the kernel forward ms,
+    the backward ms, the replay's bounded iterations, the backward's peak
+    memory, at GRAD_MEM_N lanes that peak under the default
+    checkpoint_every and under one segment, and the bound."""
+    import torch
+    from repro_torch.core.sensitivity import suggest_adjoint_steps
+    rows = []
+    n_names = len(grad_full_forms(device, GRAD_MEM_N))
+    for k in range(n_names):
+        t_row = time.perf_counter()
+        steps = _Steps()
+        # ---- the memory probe at GRAD_MEM_N lanes ------------------------
+        name, mod, ep_m, kw, wrt, loss, _, _ = grad_full_forms(
+            device, GRAD_MEM_N)[k]
+        kw = dict(kw)
+        fixed_dt = "n_steps" in kw or kw.get("adaptive") is False
+        if not fixed_dt:
+            kw["adjoint_steps"] = suggest_adjoint_steps(
+                ep_m, ensemble="kernel", backend="cuda", device=device, **kw)
+        bound_probe = kw.get("adjoint_steps", kw.get("n_steps", 0) + 1)
+        peak_default = grad_run(ep_m, kw, wrt, loss=loss).peak
+        steps.lap("probe default")
+        try:
+            peak_one = grad_run(ep_m, dict(kw, checkpoint_every=bound_probe
+                                           + 1), wrt, loss=loss).peak
+        except torch.cuda.OutOfMemoryError:
+            peak_one = None       # one segment does not fit on the card
+        torch.cuda.empty_cache()
+        steps.lap("probe one segment")
+        n_row = N
+        while n_row > GRAD_MEM_N and \
+                peak_default * n_row / GRAD_MEM_N > GRAD_MEM_LIMIT:
+            n_row //= 4
+        del ep_m
+        # ---- the main path at n_row lanes --------------------------------
+        name, mod, ep, kw, wrt, loss, attempt_ops, peak_rate = \
+            grad_full_forms(device, n_row)[k]
+        kw = dict(kw)
+        if not fixed_dt:
+            kw["adjoint_steps"] = suggest_adjoint_steps(
+                ep, ensemble="kernel", backend="cuda", device=device, **kw)
+        meter, install, remove = _replay_meter()
+        mod.launches = 0
+        install()
+        try:
+            run = grad_run(ep, kw, wrt, loss=loss)
+        finally:
+            remove()
+        res, g = run.res, run.grads
+        launches = mod.launches
+        if (device.type == "cuda" and launches < 1) or int(res.status) != 0:
+            raise AssertionError(f"{name}: launches {launches}, status "
+                                 f"{int(res.status)}")
+        for key, v in g.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{name}: non-finite d/d{key}")
+        steps.lap("timed")
+        # ---- against the torch route on the shared lanes -----------------
+        table = "table" in wrt
+        n_plain = n_row if table else min(n_row, GRAD_PLAIN_N)
+        tr = grad_run(_subset(ep, n_plain), kw, wrt, loss=loss,
+                      backend="torch", retain=True)
+        plain_ms = tr.fwd_ms + tr.bwd_ms
+        steps.lap("torch route")
+        g_sh = {key: v if key == "table" else v[:n_plain]
+                for key, v in g.items()}
+        rel, max_abs = grad_diff(name, g_sh, tr.grads)
+        primal_same = all(_nan_equal(getattr(res, f)[:n_plain].detach(),
+                                     getattr(tr.res, f).detach())
+                          for f in ("us", "u_final"))
+        primal_rel = max(rel_err(getattr(res, f)[:n_plain].detach(),
+                                 getattr(tr.res, f).detach())
+                         for f in ("us", "u_final"))
+        moved = int(((res.naccept[:n_plain] != tr.res.naccept)
+                     | (res.nreject[:n_plain] != tr.res.nreject)).sum())
+        # the vjp of the plain version at the kernel's own cotangents is
+        # what kernel_adjoint computes: where the primals are bitwise, those
+        # are the torch route's own cotangents
+        if primal_same:
+            rel_at = rel
+        else:
+            cot = [c[:n_plain] for c in loss_cotangents(res, loss)]
+            g_at = dict(zip(wrt, torch.autograd.grad(
+                [tr.res.us, tr.res.u_final], [tr.xs[key] for key in wrt],
+                grad_outputs=cot)))
+            rel_at, _ = grad_diff(name, g_sh, g_at)
+            del g_at
+        limit_at = GRAD_TABLE_REL if table else 0.0
+        limit = limit_at if primal_same else kw.get("rtol", GRAD_TORCH_REL)
+        if rel_at > limit_at or rel > limit:
+            raise AssertionError(
+                f"{name}: against the plain version {rel_at:.3e} at the "
+                f"kernel's cotangents (limit {limit_at}), {rel:.3e} at its "
+                f"own (limit {limit})")
+        peak_t = tr.peak
+        del tr
+        steps.lap("compare")
+        u0s, ps = ep.materialize()
+        check, extra = "", {}
+        if name.startswith("grad-gbm"):
+            # GBM is linear: every path's dS_T/ds0 = S_T/s0 (f32: the
+            # replay's product of 200 factors against the kernel's, each
+            # rounded at 2^-24 twice a step, 2.4e-5; bar 1e-4)
+            exact = res.u_final.detach() / u0s
+            r = float(((g["u0s"] - exact).abs() / exact.abs()).max())
+            if r > 1e-4:
+                raise AssertionError(f"{name}: pathwise delta {r:.3e}")
+            check = f"pathwise dS_T/ds0 = S_T/s0 on every lane, max rel {r:.3e}"
+            if "n_steps" in kw:
+                d = g["u0s"].double().flatten()
+                want = (1.0 + 1.5 / 200) ** 200
+                se = float(d.std() / np.sqrt(d.numel()))
+                if abs(float(d.mean()) - want) > 4 * se:
+                    raise AssertionError(f"{name}: mean delta "
+                                         f"{float(d.mean())} vs {want}")
+                check += (f"; mean delta {float(d.mean()):.5f} vs "
+                          f"(1 + r dt)^n = {want:.5f} (SE {se:.2e})")
+        elif name.startswith("grad-rober"):
+            worst = rober_fd_check(ep, kw, g["ps"])
+            check = (f"d/dk1 against FD (taken at rtol 1e-9) on 8 lanes, "
+                     f"max rel {worst:.2e}")
+        elif table:
+            # the f64 gradient of the same row: how far the f32 sums sit
+            # from a higher precision, beside the routes' atomic-order spread
+            g64 = grad_run(osc_inputs(n_row, device, torch.float64,
+                                      mode="gather"), kw, wrt,
+                           loss=loss).grads["table"]
+            f64_rel = float((g["table"].double() - g64).abs().max()
+                            / g64.abs().max())
+            if f64_rel > GRAD_TABLE_REL:
+                raise AssertionError(f"{name}: {f64_rel:.3e} from the f64 "
+                                     "table gradient")
+            steps.lap("f64 control")
+            # with a fixed order the two routes agree bit for bit
+            ep_d = _subset(ep, GRAD_DET_N)
+            g_d = grad_run(ep_d, kw, wrt, loss=loss,
+                           deterministic=True).grads["table"]
+            g_dt = grad_run(ep_d, kw, wrt, loss=loss, backend="torch",
+                            deterministic=True).grads["table"]
+            if not bool(torch.equal(g_d, g_dt)):
+                raise AssertionError(f"{name}: table gradient not bitwise "
+                                     "to the torch route under "
+                                     "deterministic algorithms")
+            extra = {"det_n": GRAD_DET_N,
+                     "det_max_abs_err": float((g_d - g_dt).abs().max()),
+                     "f64_control_rel": f64_rel}
+            check = (f"d/d(64 table values) within {GRAD_TABLE_REL:g} of the "
+                     f"largest entry ({rel:.3e}; the f32 gradient sits "
+                     f"{f64_rel:.3e} from the f64 one), bitwise to "
+                     "backend='torch' under deterministic algorithms on "
+                     f"{GRAD_DET_N} lanes")
+        else:
+            check = "the row's own check is the torch route's above"
+        steps.lap("row check")
+        # ---- bound -------------------------------------------------------
+        attempts = int((res.naccept.long() + res.nreject.long()).sum())
+        ops = 3 * attempts * attempt_ops
+        out_bytes = sum(v.numel() * v.element_size() for v in g.values())
+        in_bytes = sum(x.numel() * x.element_size() for x in (u0s, ps))
+        res_bytes = sum(x.numel() * x.element_size()
+                        for x in (res.us, res.u_final))
+        nbytes = 2 * meter["carry_bytes"] + in_bytes + res_bytes + out_bytes
+        t_ops = ops / peak_rate * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        iters = kw.get("adjoint_steps", kw.get("n_steps", 0) + 1)
+        fwd_ms, bwd_ms, peak = run.fwd_ms, run.bwd_ms, run.peak
+        row = {"name": f"kernel_adjoint[{name}]", "route": "cuda",
+               "source": "src/repro_torch/kernels/ensemble_kernel.py",
+               "replaces": "src/repro/kernels/ensemble_kernel.py:294",
+               "launches": launches, "max_abs_err": max_abs,
+               "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+               "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None, "n": n_row, "plain_n": n_plain,
+               "rel_err": rel, "lanes_counts_differ": moved, "primal_bitwise": primal_same,
+               "primal_rel_err": primal_rel,
+               "rel_err_at_kernel_cotangents": rel_at,
+               "bound_steps": iters,
+               "segments": meter["segments"],
+               "peak_bytes": peak, "plain_peak_bytes": peak_t,
+               "peak_2p16_default": peak_default,
+               "peak_2p16_one_segment": peak_one,
+               "step_s": dict(steps), **extra}
+        print(f"{name}: N={n_row} launches {launches}, forward {fwd_ms:.3f} "
+              f"ms, backward {bwd_ms:.3f} ms (torch route {plain_ms:.3f} "
+              f"ms on {n_plain} lanes), bound {iters} iterations in "
+              f"{meter['segments']} "
+              f"segments, backward peak {peak / 1e9:.3f} GB (torch route "
+              f"{peak_t / 1e9:.3f} GB); at {GRAD_MEM_N} lanes default "
+              f"{peak_default / 1e9:.3f} GB vs one segment "
+              + (f"{peak_one / 1e9:.3f} GB" if peak_one is not None
+                 else "out of memory")
+              + f"; bound {max(t_ops, t_bytes):.3f} ms ({ops:.3e} ops, "
+              f"{nbytes:.3e} bytes); cuda vs torch route on {n_plain} lanes: "
+              f"at the kernel's cotangents "
+              + ("bitwise" if rel_at == 0.0 else f"max rel {rel_at:.3e}")
+              + f", at the route's own max abs {max_abs:.3e}, max rel "
+              f"{rel:.3e} ({moved} lanes' counts differ; primal "
+              + ("bitwise" if primal_same else f"max rel {primal_rel:.3e}")
+              + f"); {check} ({time.perf_counter() - t_row:.1f} s: {steps})")
+        rows.append(row)
+        del ep, res, g, run
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_population_fit(device):
+    """examples/parameter_estimation_torch.py's population fit on
+    backend="cuda": four guesses, FIT_ITERS iterations, every one within
+    FIT_TOL of the true rho."""
+    import importlib.util
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "parameter_estimation_torch",
+        ROOT / "examples" / "parameter_estimation_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    data = mod.make_data(device, "cuda")
+    guesses = torch.tensor([8.0, 14.0, 22.0, 28.0], dtype=torch.float64)
+    rhos, loss = mod.fit(guesses, data, iters=FIT_ITERS, device=device,
+                         backend="cuda")
+    err = float((rhos - mod.TRUE_RHO).abs().max())
+    print(f"population fit: guesses {guesses.tolist()} -> "
+          f"{[round(r, 4) for r in rhos.tolist()]} in {FIT_ITERS} "
+          f"iterations, loss {loss:.3e} ({time.perf_counter() - t0:.1f} s)")
+    if err > FIT_TOL:
+        raise AssertionError(f"population fit: {err:.3f} from the true rho")
+    return err
+
+
 def main() -> int:
     try:
         import torch
@@ -2863,6 +3603,12 @@ def main() -> int:
     for r in data_rows:
         r["parity_f64"] = data_parity
     rows += data_rows + [lookup_row]
+    grad = phase_grad_parity(device)
+    grad_rows = phase_grad_full_size(device)
+    for r in grad_rows:
+        r["parity_f64"] = grad
+    rows += grad_rows
+    phase_population_fit(device)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -43,6 +43,13 @@ the adaptive CUDA kernel (`repro_torch.kernels.em.adaptive`) on
 "kernel"/"cuda"; every strategy draws the same (seed; lane, row, dyadic
 index) tree, so their paths agree.
 
+Gradients (paper §6.6, ``sensitivity=``): ``"adjoint"`` swaps the loops
+for their bounded, checkpointed form (`core.loops`) and differentiates the
+realized step sequence by reverse mode; on "kernel"/"cuda" the forward
+solve runs the kernel and the backward pass replays the plain version
+(`repro_torch.kernels.ensemble_kernel.kernel_adjoint`).  ``"forward"``
+rides `torch.func.jvp` through the plain loops (`core.sensitivity`).
+
 A data-driven problem (``prob.data``, paper §6.7) runs on every strategy:
 its dataset is closed over the callbacks once (`bind_problem_data`) for the
 lanes and vmap paths, while the CUDA kernels take the raw 4-argument
@@ -139,9 +146,11 @@ def _untile(tiles, N, n):
 # ----------------------------------------------------------------------------
 
 def solve_vmap(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
-               rtol, atol, adaptive, max_iters, event=None) -> EnsembleResult:
+               rtol, atol, adaptive, max_iters, event=None,
+               bounded_steps=None, checkpoint_every=None) -> EnsembleResult:
     opts = AdaptiveOptions(rtol=rtol, atol=atol, max_iters=max_iters,
-                           adaptive=adaptive)
+                           adaptive=adaptive, bounded_steps=bounded_steps,
+                           checkpoint_every=checkpoint_every)
     res = without_log(solve_adaptive(prob.f, tab, u0s.T, ps.T, t0, tf, dt0,
                                      saveat=saveat, opts=opts, event=event,
                                      lanes=True), event)
@@ -156,10 +165,12 @@ def solve_vmap(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
 # ----------------------------------------------------------------------------
 
 def solve_array(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
-                rtol, atol, adaptive, max_iters) -> EnsembleResult:
+                rtol, atol, adaptive, max_iters, bounded_steps=None,
+                checkpoint_every=None) -> EnsembleResult:
     # (n, N) state with scalar control: ONE dt + an ensemble-wide norm
     opts = AdaptiveOptions(rtol=rtol, atol=atol, max_iters=max_iters,
-                           adaptive=adaptive)
+                           adaptive=adaptive, bounded_steps=bounded_steps,
+                           checkpoint_every=checkpoint_every)
     res = solve_adaptive(prob.f, tab, u0s.T, ps.T, t0, tf, dt0,
                          saveat=saveat, opts=opts, lanes=False)
     N = u0s.shape[0]
@@ -233,7 +244,8 @@ def solve_array_eager(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
 
 def solve_kernel_torch(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
                        rtol, atol, adaptive, max_iters, lane_tile=None,
-                       event=None) -> EnsembleResult:
+                       event=None, bounded_steps=None,
+                       checkpoint_every=None) -> EnsembleResult:
     """The fused-integration lanes path in PyTorch ops: trajectories are
     packed into (n, B) tiles and each tile runs its own loop to completion
     (per-lane dt/accept masks) — the control structure of the kernel, so
@@ -241,7 +253,8 @@ def solve_kernel_torch(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
     N, n = u0s.shape
     u0p, psp, T, B = _tile_lanes(u0s, ps, lane_tile)
     opts = AdaptiveOptions(rtol=rtol, atol=atol, max_iters=max_iters,
-                           adaptive=adaptive)
+                           adaptive=adaptive, bounded_steps=bounded_steps,
+                           checkpoint_every=checkpoint_every)
     tiles = [without_log(solve_adaptive(prob.f, tab, u0p[i].T, psp[i].T, t0,
                                         tf, dt0, saveat=saveat, opts=opts,
                                         event=event, lanes=True), event)
@@ -250,11 +263,14 @@ def solve_kernel_torch(prob: ODEProblem, u0s, ps, tab, t0, tf, dt0, saveat,
 
 
 def solve_kernel_fixed(prob: ODEProblem, u0s, ps, tab, t0, dt, n_steps,
-                       save_every) -> EnsembleResult:
+                       save_every, remat=False,
+                       checkpoint_every=None) -> EnsembleResult:
     """Fixed-dt fused path over (n, N) lanes: every step accepted, a
-    snapshot every `save_every` steps."""
+    snapshot every `save_every` steps (``remat``: `solve_fixed`'s
+    checkpointed form)."""
     N, n = u0s.shape
-    res = solve_fixed(prob.f, tab, u0s.T, ps.T, t0, dt, n_steps, save_every)
+    res = solve_fixed(prob.f, tab, u0s.T, ps.T, t0, dt, n_steps, save_every,
+                      remat=remat, checkpoint_every=checkpoint_every)
     return EnsembleResult(
         ts=res.ts, us=res.us.permute(2, 0, 1), u_final=res.u_final.T,
         t_final=res.t_final.expand(N), naccept=res.naccept.expand(N),
@@ -263,15 +279,63 @@ def solve_kernel_fixed(prob: ODEProblem, u0s, ps, tab, t0, dt, n_steps,
 
 
 # ----------------------------------------------------------------------------
+# sensitivity plumbing shared by the family dispatchers
+# ----------------------------------------------------------------------------
+
+def _resolve_adjoint(sensitivity, adaptive, adjoint_steps, n_steps):
+    """(bounded_steps, remat) for the engines under sensitivity='adjoint'.
+
+    Adaptive stepping has no static iteration count, so reverse mode needs
+    an explicit ``adjoint_steps`` bound (probe the forward solve:
+    ``naccept + nreject``; a bound that turns out too small reports
+    ``status == 1``).  Fixed-dt stepping derives the bound from ``n_steps``
+    (one attempt per step) and asks the fixed-step paths for checkpointed
+    segments instead."""
+    if sensitivity != "adjoint":
+        return None, False
+    if adjoint_steps is not None:
+        return int(adjoint_steps), True
+    if adaptive:
+        raise ValueError(
+            "sensitivity='adjoint' with adaptive stepping needs an explicit "
+            "adjoint_steps bound on the attempt count (run the forward solve "
+            "once and use naccept + nreject plus margin; a too-small bound "
+            "surfaces as status == 1, never as a wrong gradient)")
+    # fixed-accept stepping: exactly one attempt per step
+    return int(n_steps) + 1, True
+
+
+def _kernel_run(run, replay, sensitivity, u0s, ps, leaves):
+    """A kernel branch's result: `run` alone, or under `kernel_adjoint`
+    with `replay` (the family's bounded plain path) for the backward
+    pass."""
+    if sensitivity == "adjoint":
+        from repro_torch.kernels.ensemble_kernel import kernel_adjoint
+        return kernel_adjoint(run, replay)(u0s, ps, *leaves)
+    return run(u0s, ps, *leaves)
+
+
+def _bind_leaves(raw_prob, tree, leaves, prob):
+    """The problem with its callbacks closed over tables rebuilt from
+    `leaves` (a kernel replay's grad-requiring copies), or `prob` (bound
+    over the problem's own tables, if any) without leaves."""
+    if not leaves:
+        return prob
+    return bind_problem_data(raw_prob, data_unflatten(tree, leaves))
+
+
+# ----------------------------------------------------------------------------
 # family dispatch: erk
 # ----------------------------------------------------------------------------
 
 def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
                dt0, saveat, rtol, atol, adaptive, n_steps, save_every,
-               lane_tile, max_iters, event, raw_prob=None):
+               lane_tile, max_iters, event, sensitivity=None,
+               adjoint_steps=None, checkpoint_every=None, raw_prob=None):
     # `prob` arrives with any dataset closed over its callbacks; the CUDA
     # branch takes the raw 4-argument callbacks and the tables instead
     data = getattr(raw_prob, "data", None)
+    leaves, tree = data_flatten(data)
     tab = spec.tableau
     if adaptive is None:
         adaptive = True   # family default: embedded-error stepping
@@ -280,6 +344,9 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
     explicit_saveat = saveat is not None
     if not adaptive and n_steps is None:
         n_steps = int(round((tf - t0) / dt0))
+    bounded, remat = _resolve_adjoint(sensitivity, adaptive, adjoint_steps,
+                                      n_steps)
+    ck = dict(bounded_steps=bounded, checkpoint_every=checkpoint_every)
     dtype, device = u0s.dtype, u0s.device
     if saveat is None:
         if not adaptive and ensemble == "kernel" and event is None:
@@ -295,7 +362,7 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
 
     if ensemble == "vmap":
         return solve_vmap(prob, u0s, ps, tab, t0, tf, dt0, saveat, rtol, atol,
-                          adaptive, max_iters, event)
+                          adaptive, max_iters, event, **ck)
     if ensemble == "array":
         if event is not None:
             # the reference's lock-step loop cannot carry per-trajectory
@@ -304,7 +371,7 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
                 "events need per-trajectory control; the erk array strategy "
                 "steps every trajectory with one dt (use 'vmap' or 'kernel')")
         return solve_array(prob, u0s, ps, tab, t0, tf, dt0, saveat, rtol,
-                           atol, adaptive, max_iters)
+                           atol, adaptive, max_iters, **ck)
     if ensemble == "array_eager":
         if event is not None:
             raise NotImplementedError(
@@ -314,21 +381,34 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
     if ensemble == "kernel":
         if backend == "cuda":
             from repro_torch.kernels.tsit5 import ops as erk_ops
-            return erk_ops.solve_ensemble_cuda(
-                raw_prob if data is not None else prob, u0s, ps, tab, t0, tf,
-                dt0, saveat, rtol, atol, adaptive, max_iters=max_iters,
-                event=event, data=data)
+            kprob = raw_prob if data is not None else prob
+
+            def run(u, p, *lv):
+                return erk_ops.solve_ensemble_cuda(
+                    kprob, u, p, tab, t0, tf, dt0, saveat, rtol, atol,
+                    adaptive, max_iters=max_iters, event=event,
+                    data=data_unflatten(tree, lv) if data is not None
+                    else None)
+
+            def replay(u, p, *lv):
+                return solve_kernel_torch(
+                    _bind_leaves(raw_prob, tree, lv, prob), u, p, tab, t0,
+                    tf, dt0, saveat, rtol, atol, adaptive, max_iters,
+                    event=event, **ck)
+
+            return _kernel_run(run, replay, sensitivity, u0s, ps, leaves)
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r} "
                              "(use 'torch' or 'cuda')")
         if not adaptive and event is None and not explicit_saveat:
             return solve_kernel_fixed(prob, u0s, ps, tab, t0, dt0, n_steps,
-                                      save_every)
+                                      save_every, remat=remat,
+                                      checkpoint_every=checkpoint_every)
         # fixed dt with a saveat or an event: the lanes path with
         # adaptive=False
         return solve_kernel_torch(prob, u0s, ps, tab, t0, tf, dt0, saveat,
                                   rtol, atol, adaptive, max_iters,
-                                  lane_tile=lane_tile, event=event)
+                                  lane_tile=lane_tile, event=event, **ck)
     raise ValueError(f"unknown ensemble strategy {ensemble!r}")
 
 
@@ -339,10 +419,15 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
 def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
                       ensemble, backend, t0, tf, dt0, saveat, rtol, atol,
                       lane_tile, max_iters, linsolve, w_reuse, event,
-                      raw_prob=None):
+                      sensitivity=None, adjoint_steps=None,
+                      checkpoint_every=None, raw_prob=None):
     from .rosenbrock import LINSOLVES, solve_rosenbrock
 
     data = getattr(raw_prob, "data", None)
+    leaves, tree = data_flatten(data)
+    # the stiff engine is always adaptive: the adjoint needs the explicit
+    # attempt bound
+    bounded, _ = _resolve_adjoint(sensitivity, True, adjoint_steps, None)
     rtab = spec.rtableau
     if not spec.adaptive:
         # btilde == 0: no embedded error estimate, and the stiff engine has
@@ -360,21 +445,36 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
     N, n = u0s.shape
     kw = dict(rtol=rtol, atol=atol, saveat=saveat, max_iters=max_iters,
               jac=jac, w_reuse=w_reuse, event=event)
+    ck = dict(bounded_steps=bounded, checkpoint_every=checkpoint_every)
+
+    def lanes_run(u, p, *lv, tile=lane_tile):
+        # the lanes engine in tiles; `lv` are the table leaves when it
+        # replays a data-driven kernel solve under kernel_adjoint
+        bp = _bind_leaves(raw_prob, tree, lv, prob)
+        u0p, psp, T, _ = _tile_lanes(u, p, tile)
+        tiles = [without_log(solve_rosenbrock(
+            bp.f, rtab, u0p[i].T, psp[i].T, t0, tf, dt0, linsolve=linsolve,
+            **dict(kw, jac=bp.jac), **ck), event) for i in range(T)]
+        return _untile(tiles, N, n)
 
     if ensemble == "vmap":
         # the reference vmaps its per-trajectory solver, whose refresh
         # predicates are psum-reduced over the batch: the lanes engine over
         # the whole batch with the library LU computes the same
         res = solve_rosenbrock(prob.f, rtab, u0s.T, ps.T, t0, tf, dt0,
-                               linsolve="torch", **kw)
+                               linsolve="torch", **kw, **ck)
         return _untile([without_log(res, event)], N, n)
     if ensemble == "kernel" and backend == "cuda":
         from repro_torch.kernels.rosenbrock.ops import solve_rosenbrock_cuda
-        if data is not None:
-            kw["jac"] = raw_prob.jac
-        return solve_rosenbrock_cuda(raw_prob if data is not None else prob,
-                                     u0s, ps, rtab, t0=t0, tf=tf, dt0=dt0,
-                                     data=data, **kw)
+        kprob = raw_prob if data is not None else prob
+
+        def run(u, p, *lv):
+            return solve_rosenbrock_cuda(
+                kprob, u, p, rtab, t0=t0, tf=tf, dt0=dt0,
+                data=data_unflatten(tree, lv) if data is not None else None,
+                **dict(kw, jac=kprob.jac))
+
+        return _kernel_run(run, lanes_run, sensitivity, u0s, ps, leaves)
     if ensemble == "kernel" and backend != "torch":
         raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
                          "'cuda')")
@@ -383,13 +483,8 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
         # scalar-dt Rosenbrock would need an (N·n)-sized Jacobian, so the
         # array strategy keeps one state matrix with per-lane control, as
         # the reference's does
-        u0p, psp, T, _ = _tile_lanes(
-            u0s, ps, None if ensemble == "array" else lane_tile)
-        tiles = [without_log(solve_rosenbrock(prob.f, rtab, u0p[i].T,
-                                              psp[i].T, t0, tf, dt0,
-                                              linsolve=linsolve, **kw), event)
-                 for i in range(T)]
-        return _untile(tiles, N, n)
+        return lanes_run(u0s, ps,
+                         tile=None if ensemble == "array" else lane_tile)
     raise NotImplementedError(
         f"rosenbrock methods do not support ensemble={ensemble!r} "
         "(use 'vmap', 'array' or 'kernel')")
@@ -402,7 +497,8 @@ def _solve_rosenbrock(spec: MethodSpec, prob: ODEProblem, u0s, ps, *,
 def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
                backend, t0, tf, dt0, saveat, n_steps, save_every, lane_tile,
                key, seed, noise_table, event, adaptive, rtol, atol, max_iters,
-               lane_offset, brownian_depth, error_est,
+               lane_offset, brownian_depth, error_est, sensitivity=None,
+               adjoint_steps=None, checkpoint_every=None,
                raw_prob=None) -> EnsembleResult:
     from repro_torch.kernels.em.ops import (seed_from_key,
                                             solve_sde_ensemble_kernel)
@@ -435,7 +531,8 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
             noise_table=noise_table, rtol=rtol, atol=atol,
             max_iters=max_iters, lane_offset=lane_offset,
             brownian_depth=brownian_depth, error_est=error_est, event=event,
-            raw_prob=raw_prob)
+            sensitivity=sensitivity, adjoint_steps=adjoint_steps,
+            checkpoint_every=checkpoint_every, raw_prob=raw_prob)
     if saveat is not None:
         raise NotImplementedError(
             "fixed-dt SDE snapshots land on the save_every grid (pass "
@@ -456,28 +553,45 @@ def _solve_sde(spec: MethodSpec, prob: SDEProblem, u0s, ps, *, ensemble,
                              f"{(n_steps, m, N)}, got {tuple(table.shape)}")
     nfps = sde_nf_per_step(spec.name)
     ts = sde_save_grid(t0, dt0, n_steps, save_every, dtype, device=dev)
+    _, remat = _resolve_adjoint(sensitivity, False, adjoint_steps, n_steps)
     common = dict(t0=t0, dt=dt0, n_steps=n_steps, save_every=save_every,
                   seed=seed, lane_offset=lane_offset, event=event)
+    data = getattr(raw_prob, "data", None)
+    leaves, tree = data_flatten(data)
+
+    def ref_run(u, p, *lv):
+        # the lanes loop over the WHOLE ensemble, replaying the kernel's
+        # exact counter stream; for fixed dt the §5.1 array semantics and
+        # per-lane stepping agree.  `lv` are the table leaves when it
+        # replays a data-driven kernel solve under kernel_adjoint.
+        bp = _bind_leaves(raw_prob, tree, lv, prob)
+        us, uf, estate = ref_solve(bp, u, p, method=spec.name,
+                                   noise_table=table, remat=remat,
+                                   checkpoint_every=checkpoint_every,
+                                   **common)
+        return _assemble_sde_result(ts, us.permute(2, 0, 1), uf.T, N,
+                                    n_steps, nfps, t0, dt0, dtype, estate)
 
     if ensemble == "kernel" and backend == "cuda":
-        data = getattr(raw_prob, "data", None)
-        return solve_sde_ensemble_kernel(
-            raw_prob if data is not None else prob, u0s, ps,
-            method=spec.name, noise_table=table, data=data, **common)
+        kprob = raw_prob if data is not None else prob
+
+        def run(u, p, *lv):
+            return solve_sde_ensemble_kernel(
+                kprob, u, p, method=spec.name, noise_table=table,
+                data=data_unflatten(tree, lv) if data is not None else None,
+                **common)
+
+        return _kernel_run(run, ref_run, sensitivity, u0s, ps, leaves)
     if ensemble == "kernel" and backend != "torch":
         raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
                          "'cuda')")
     if ensemble in ("array", "kernel"):
-        # the lanes loop over the WHOLE ensemble, replaying the kernel's
-        # exact counter stream; for fixed dt the §5.1 array semantics and
-        # per-lane stepping agree
-        us, uf, estate = ref_solve(prob, u0s, ps, method=spec.name,
-                                   noise_table=table, **common)
-        return _assemble_sde_result(ts, us.permute(2, 0, 1), uf.T, N,
-                                    n_steps, nfps, t0, dt0, dtype, estate)
+        return ref_run(u0s, ps)
     if ensemble == "vmap":
         us, uf, estate = _sde_vmap(prob, SDE_STEPPERS[spec.name], u0s, ps,
-                                   table=table, **common)
+                                   table=table, remat=remat,
+                                   checkpoint_every=checkpoint_every,
+                                   **common)
         return _assemble_sde_result(ts, us, uf, N, n_steps, nfps, t0, dt0,
                                     dtype, estate)
     raise NotImplementedError(
@@ -521,7 +635,9 @@ def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
                         ensemble, backend, t0, tf, dt0, saveat, lane_tile,
                         seed, noise_table, rtol, atol, max_iters,
                         lane_offset, brownian_depth, error_est,
-                        event, raw_prob=None) -> EnsembleResult:
+                        event, sensitivity=None, adjoint_steps=None,
+                        checkpoint_every=None,
+                        raw_prob=None) -> EnsembleResult:
     """The adaptive branch of `_solve_sde`: estimator, tree depth and saveat
     resolved as the reference resolves them, then the lanes engine or the
     adaptive kernel."""
@@ -541,53 +657,117 @@ def _solve_sde_adaptive(spec: MethodSpec, prob: SDEProblem, u0s, ps, *,
     saveat = torch.as_tensor([tf] if saveat is None else saveat,
                              dtype=u0s.dtype, device=u0s.device)
     N, n = u0s.shape
+    bounded, _ = _resolve_adjoint(sensitivity, True, adjoint_steps, None)
+    data = getattr(raw_prob, "data", None)
+    leaves, tree = data_flatten(data)
 
-    if ensemble == "kernel" and backend == "cuda":
-        data = getattr(raw_prob, "data", None)
-        return solve_sde_adaptive_kernel(
-            raw_prob if data is not None else prob, u0s, ps, saveat,
-            method=spec.name, t0=t0, tf=tf, dt0=dt0,
-            lane_offset=lane_offset, data=data, **kw)
-    if ensemble == "kernel" and backend != "torch":
-        raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
-                         "'cuda')")
-    if ensemble in ("vmap", "array", "kernel"):
+    def lanes_run(u, p, *lv, tile=lane_tile):
         # "vmap": torch.func.vmap cannot batch a data-dependent loop, so the
         # lanes engine runs over the whole batch (what JAX's vmap of a while
         # loop lowers to); "array": the whole ensemble as one lanes tile with
         # per-lane control, as the reference's; "kernel"/"torch": tiles of
-        # `lane_tile`.  Per-lane results do not depend on the tiling.
-        u0p, psp, T, B = _tile_lanes(
-            u0s, ps, lane_tile if ensemble == "kernel" else None)
-        lanes = ((torch.arange(T * B, dtype=torch.int64, device=u0s.device)
+        # `lane_tile`.  Per-lane results do not depend on the tiling.  `lv`
+        # are the table leaves when it replays a data-driven kernel solve.
+        bp = _bind_leaves(raw_prob, tree, lv, prob)
+        u0p, psp, T, B = _tile_lanes(u, p, tile)
+        lanes = ((torch.arange(T * B, dtype=torch.int64, device=u.device)
                   + lane_offset) & M32).reshape(T, B)
         tiles = [without_log(sde_solve_adaptive(
-            prob.f, prob.g, SDE_STEPPERS[spec.name], prob.noise, u0p[i].T,
+            bp.f, bp.g, SDE_STEPPERS[spec.name], prob.noise, u0p[i].T,
             psp[i].T, t0, tf, dt0, lane_idx=lanes[i], lanes=True,
             m_noise=prob.noise_dim(), saveat=saveat,
             nf_per_step=sde_nf_per_step(spec.name),
             embedded=(spec.embedded.fn if kw["error_est"] == "embedded"
-                      else None), **kw), event)
+                      else None), bounded_steps=bounded,
+            checkpoint_every=checkpoint_every, **kw), event)
             for i in range(T)]
         return _untile(tiles, N, n)
+
+    if ensemble == "kernel" and backend == "cuda":
+        kprob = raw_prob if data is not None else prob
+
+        def run(u, p, *lv):
+            return solve_sde_adaptive_kernel(
+                kprob, u, p, saveat, method=spec.name, t0=t0, tf=tf, dt0=dt0,
+                lane_offset=lane_offset,
+                data=data_unflatten(tree, lv) if data is not None else None,
+                **kw)
+
+        return _kernel_run(run, lanes_run, sensitivity, u0s, ps, leaves)
+    if ensemble == "kernel" and backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} (use 'torch' or "
+                         "'cuda')")
+    if ensemble in ("vmap", "array", "kernel"):
+        return lanes_run(u0s, ps,
+                         tile=lane_tile if ensemble == "kernel" else None)
     raise NotImplementedError(
         f"sde methods do not support ensemble={ensemble!r} "
         "(use 'vmap', 'array' or 'kernel')")
 
 
 def _sde_vmap(prob: SDEProblem, stepper, u0s, ps, *, t0, dt, n_steps,
-              save_every, seed, lane_offset, table, event):
+              save_every, seed, lane_offset, table, event, remat=False,
+              checkpoint_every=None):
     """`torch.func.vmap` of the per-trajectory fixed-count loop (the
     reference's vmap strategy): each trajectory draws its own column of the
     counter stream, or of the table.  Returns us (N, S, n), u_final (N, n)
-    and the per-trajectory event state (None without an event)."""
+    and the per-trajectory event state (None without an event).
+
+    ``remat=True`` runs the same per-trajectory steps one `vmap` per step
+    inside `checkpointed_fori` (a checkpoint cannot sit inside `vmap`)."""
     from repro_torch.kernels.rng import M32, counter_normals_threefry
+    from .loops import checkpointed_fori
     from .sde import (sde_event_state0, sde_step_and_save,
                       sde_step_save_event)
 
     m = prob.noise_dim()
     S = n_steps // save_every
     rows = torch.arange(m, dtype=torch.int64, device=u0s.device)
+    lanes = (torch.arange(u0s.shape[0], dtype=torch.int64,
+                          device=u0s.device) + lane_offset) & M32
+    tcols = table.permute(2, 0, 1) if table is not None else None
+
+    def draw(k, lane, table_col, dtype):
+        if table_col is not None:
+            return table_col[k]
+        return counter_normals_threefry(seed, k, lane.expand(m), rows, dtype)
+
+    if remat:
+        def one_step(k, u, p, lane, table_col, estate):
+            z = draw(k, lane, table_col, u.dtype)
+            if event is None:
+                return sde_step_and_save(stepper, prob.f, prob.g, prob.noise,
+                                         u, None, p, t0, dt, k, z,
+                                         save_every)[0]
+            u, _, estate = sde_step_save_event(
+                stepper, prob.f, prob.g, prob.noise, event, u, None, estate,
+                p, t0, dt, k, z, save_every)
+            return u, estate
+
+        def body(k, carry):
+            u, estate, snaps = carry
+            if event is None:
+                u = torch.func.vmap(
+                    lambda uu, pp, ll, tc: one_step(k, uu, pp, ll, tc, None),
+                    in_dims=(0, 0, 0, None if tcols is None else 0))(
+                        u, ps, lanes, tcols)
+            else:
+                u, estate = torch.func.vmap(
+                    lambda uu, pp, ll, tc, es: one_step(k, uu, pp, ll, tc,
+                                                        es),
+                    in_dims=(0, 0, 0, None if tcols is None else 0, 0))(
+                        u, ps, lanes, tcols, estate)
+            if (k + 1) % save_every == 0:
+                snaps = snaps + (u,)
+            return u, estate, snaps
+
+        estate0 = (sde_event_state0((u0s.shape[0],), t0, u0s.dtype,
+                                    u0s.device) if event is not None
+                   else None)
+        u, estate, snaps = checkpointed_fori(
+            0, n_steps, body, (u0s, estate0, ()),
+            checkpoint_every=checkpoint_every)
+        return torch.stack(snaps, dim=1), u, estate
 
     def one(u0, p, lane, table_col):
         # zeros_like keeps the snapshot buffer batched under vmap, so the
@@ -597,11 +777,7 @@ def _sde_vmap(prob: SDEProblem, stepper, u0s, ps, *, t0, dt, n_steps,
         estate = (sde_event_state0((), t0, u0.dtype, u0.device)
                   if event is not None else None)
         for k in range(n_steps):
-            if table_col is not None:
-                z = table_col[k]
-            else:
-                z = counter_normals_threefry(seed, k, lane.expand(m), rows,
-                                             u.dtype)
+            z = draw(k, lane, table_col, u.dtype)
             if event is None:
                 u, us = sde_step_and_save(stepper, prob.f, prob.g, prob.noise,
                                           u, us, p, t0, dt, k, z, save_every)
@@ -612,10 +788,8 @@ def _sde_vmap(prob: SDEProblem, stepper, u0s, ps, *, t0, dt, n_steps,
         # vmap returns tensors only: no event state without an event
         return (us, u) if estate is None else (us, u, estate)
 
-    lanes = (torch.arange(u0s.shape[0], dtype=torch.int64,
-                          device=u0s.device) + lane_offset) & M32
     if table is not None:
-        out = torch.func.vmap(one)(u0s, ps, lanes, table.permute(2, 0, 1))
+        out = torch.func.vmap(one)(u0s, ps, lanes, tcols)
     else:
         out = torch.func.vmap(lambda u0, p, lane: one(u0, p, lane, None))(
             u0s, ps, lanes)
@@ -652,7 +826,8 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                          max_iters=100_000, event=None, key=None, seed=None,
                          noise_table=None, linsolve="torch", lane_offset=0,
                          brownian_depth=None, error_est=None,
-                         w_reuse=None, sensitivity=None,
+                         w_reuse=None, sensitivity=None, adjoint_steps=None,
+                         checkpoint_every=None,
                          device=None) -> EnsembleResult:
     """Single-device ensemble solve of an explicit-RK, Rosenbrock or SDE
     method through any strategy and backend.
@@ -714,17 +889,29 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
         (and the erk ``"array"`` strategy's lock-step dt).  Terminal events
         record the located event time in ``t_final``.  The CUDA kernels
         run an event registered with `device_event`.
-      sensitivity: a later slice of the port; it raises
-        `NotImplementedError` naming the ROADMAP item.
+      sensitivity: gradients through the solve (paper §6.6).  None: a
+        plain solve.  ``"forward"``: the plain loops, which
+        `torch.func.jvp` crosses (`core.sensitivity.forward_sensitivity`);
+        refused on ``backend="cuda"``.  ``"adjoint"``: the loops become
+        their bounded, checkpointed form (`core.loops`) with the step-size
+        controller detached, so `torch.autograd` gives the discrete adjoint
+        of the realized step sequence with O(sqrt-steps) memory; on
+        ``backend="cuda"`` the kernel runs the forward solve and the
+        backward pass replays the plain version
+        (`kernels.ensemble_kernel.kernel_adjoint`).  Gradients reach u0s,
+        ps and a problem's table values; refused on ``"array_eager"`` and
+        on a method declaring ``differentiable=False``.
+      adjoint_steps: the bound on the adaptive attempt count for
+        ``sensitivity="adjoint"`` (required for adaptive stepping:
+        `core.sensitivity.suggest_adjoint_steps`); a bound too small
+        reports ``status == 1``.  Fixed dt takes ``n_steps + 1``.
+      checkpoint_every: loop iterations per checkpointed segment of the
+        adjoint (default sqrt of the bound).
       device: where the solve runs.  None means ``"cuda"``.
 
     Returns:
       `EnsembleResult` with trajectory-major ``us (N, S, n)``.
     """
-    if sensitivity is not None:
-        raise NotImplementedError(
-            "sensitivities are not ported yet: ROADMAP queue 1 item 9 "
-            "(core/loops.py and core/sensitivity.py)")
     if ensemble == "auto":
         raise NotImplementedError(
             "ensemble='auto' is not ported yet: ROADMAP queue 1 item 11 "
@@ -734,6 +921,26 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
         raise ValueError(
             f"method {spec.name!r} declares events=False; pick a method whose "
             "MethodSpec supports event handling")
+    if sensitivity is not None:
+        # the rules of methods.valid_dispatch(sensitivity=...), with the
+        # reference's words
+        if sensitivity not in ("forward", "adjoint"):
+            raise ValueError(f"unknown sensitivity {sensitivity!r} "
+                             "(use 'forward' or 'adjoint')")
+        if sensitivity not in spec.sensitivity:
+            raise ValueError(
+                f"method {spec.name!r} declares differentiable=False; its "
+                "engines do not satisfy the AD contract")
+        if ensemble == "array_eager":
+            raise ValueError(
+                "sensitivity through ensemble='array_eager' is not possible: "
+                "the eager loop is host-driven python, not traceable")
+        if sensitivity == "forward" and backend == "cuda":
+            raise ValueError(
+                "forward sensitivities ride jvp through the while-loop "
+                "engines; the CUDA kernels support sensitivity='adjoint' "
+                "(autograd.Function boundary) only — use backend='torch' for "
+                "jvp")
     prob = eprob.prob
     dev = resolve_device(device)
     # data-driven RHS (`prob.data`, the texture-memory analogue): validate
@@ -779,7 +986,10 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                           adaptive=adaptive, rtol=rtol, atol=atol,
                           max_iters=max_iters, lane_offset=lane_offset,
                           brownian_depth=brownian_depth, error_est=error_est,
-                          event=event, raw_prob=raw_prob)
+                          event=event, sensitivity=sensitivity,
+                          adjoint_steps=adjoint_steps,
+                          checkpoint_every=checkpoint_every,
+                          raw_prob=raw_prob)
     if error_est is not None:
         raise ValueError(
             "error_est selects the adaptive SDE error estimator; "
@@ -802,7 +1012,10 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                                 saveat=saveat, rtol=rtol, atol=atol,
                                 lane_tile=lane_tile, max_iters=max_iters,
                                 linsolve=linsolve, w_reuse=w_reuse,
-                                event=event, raw_prob=raw_prob)
+                                event=event, sensitivity=sensitivity,
+                                adjoint_steps=adjoint_steps,
+                                checkpoint_every=checkpoint_every,
+                                raw_prob=raw_prob)
     else:
         res = _solve_erk(spec, prob, u0s, ps, ensemble=ensemble,
                          backend=backend, t0=t0, tf=tf, dt0=dt0,
@@ -810,6 +1023,9 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
                          adaptive=adaptive, n_steps=n_steps,
                          save_every=save_every, lane_tile=lane_tile,
                          max_iters=max_iters, event=event,
+                         sensitivity=sensitivity,
+                         adjoint_steps=adjoint_steps,
+                         checkpoint_every=checkpoint_every,
                          raw_prob=raw_prob)
     if auto_dt_nf:
         res = res._replace(nf=res.nf + auto_dt_nf)

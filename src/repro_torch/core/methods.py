@@ -50,6 +50,11 @@ class MethodSpec:
                argument); True for every built-in method.  A method whose
                engine cannot consume them declares False and the front door
                refuses data-driven problems up front.
+    differentiable: the method's engines satisfy the AD contract (finished
+               lanes are exact no-ops, the bounded loop equals the while
+               loop, rejected attempts stay out of the differentiated
+               graph); True for every built-in method.  The supported
+               ``sensitivity`` modes derive from it.
     aliases:   alternative lookup names (paper-facing spellings).
     """
 
@@ -67,7 +72,13 @@ class MethodSpec:
     embedded: Optional[Any] = None
     error_est: Tuple[str, ...] = ()
     data_rhs: bool = True
+    differentiable: bool = True
     aliases: Tuple[str, ...] = ()
+
+    @property
+    def sensitivity(self) -> Tuple[str, ...]:
+        """Supported sensitivity modes, derived from `differentiable`."""
+        return ("forward", "adjoint") if self.differentiable else ()
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -140,7 +151,8 @@ def get_method(alg: Any) -> MethodSpec:
 def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
                    adaptive: Optional[bool] = None, events: bool = False,
                    w_reuse: bool = False, error_est: Optional[str] = None,
-                   data: bool = False) -> Tuple[bool, str]:
+                   data: bool = False,
+                   sensitivity: Optional[str] = None) -> Tuple[bool, str]:
     """Is (strategy, backend) a combination the front door would accept?
     Returns ``(ok, reason)`` — the rules `solve_ensemble_local` enforces
     with exceptions, as a predicate."""
@@ -174,6 +186,21 @@ def valid_dispatch(spec: MethodSpec, ensemble: str, backend: str = "torch", *,
         if error_est not in spec.error_est:
             return False, (f"method {spec.name!r} supports error_est "
                            f"{spec.error_est}, not {error_est!r}")
+    if sensitivity is not None:
+        if sensitivity not in ("forward", "adjoint"):
+            return False, (f"unknown sensitivity {sensitivity!r} "
+                           "(use 'forward' or 'adjoint')")
+        if sensitivity not in spec.sensitivity:
+            return False, (f"method {spec.name!r} declares "
+                           "differentiable=False")
+        if ensemble == "array_eager":
+            return False, ("array_eager is a host-driven python loop with "
+                           "host step control, so not differentiable")
+        if sensitivity == "forward" and backend == "cuda":
+            return False, ("forward sensitivities ride jvp through the "
+                           "while-loop engines; the CUDA kernels support "
+                           "sensitivity='adjoint' (autograd.Function "
+                           "boundary) only")
     return True, "ok"
 
 

@@ -25,9 +25,11 @@ this loop with the lanes LU, one thread per trajectory; this module is its
 plain twin.
 
 Only lanes mode is ported: u (n, B) with per-lane t, dt and masks, with
-events (`repro_torch.core.events`) located on the method's dense output.
-The scalar mode and the bounded reverse-differentiable loop
-(``bounded_steps``/``checkpoint_every``) wait for ROADMAP queue 1 item 9.
+events (`repro_torch.core.events`) located on the method's dense output,
+and the bounded reverse-differentiable loop (``bounded_steps``/
+``checkpoint_every``, `repro_torch.core.loops.solver_loop`).  The scalar
+mode is still to port (ROADMAP queue 1 item 19): the lanes engine serves
+every strategy, gradients included.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from .controller import (STATUS_DTMIN_EXHAUSTED, PIController, WReusePolicy,
                          hairer_norm, pi_propose, sum_left_to_right,
                          w_dt_blame, w_mark_stale, w_refresh)
 from .events import handle_event, hermite_interp
+from .loops import solver_loop
 from .solvers import SolveResult
 from .tableaus import RosenbrockTableau
 
@@ -48,7 +51,7 @@ LINSOLVES = ("torch", "lanes", "cuda")
 def _scalar_mode():
     return NotImplementedError(
         "the scalar (per-trajectory) Rosenbrock mode is not ported yet: "
-        "ROADMAP queue 1 item 9 (core/loops.py); use lanes=True")
+        "ROADMAP queue 1 item 19; use lanes=True")
 
 
 def _jac_lanes(f, u, p, t, jac=None):
@@ -251,14 +254,16 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
     Every lane steps until it reaches tf (or a terminal event); finished
     lanes step at dt = 0, an exact no-op.  With an `event` it returns
     (SolveResult, {"event_t", "event_count"}), the event located on the
-    method's dense output (`_dense_eval`)."""
+    method's dense output (`_dense_eval`).
+
+    ``bounded_steps`` runs that many loop bodies in checkpointed segments of
+    ``checkpoint_every`` (`repro_torch.core.loops.solver_loop`), with the
+    error norm detached and the stage solves run a second time at
+    where(accept, dt, 0) for the differentiated graph: the discrete adjoint
+    of the realized step sequence.  A bound too small reports status 1."""
     if not lanes:
         raise _scalar_mode()
-    if bounded_steps is not None or checkpoint_every is not None:
-        raise NotImplementedError(
-            "bounded_steps/checkpoint_every (the reverse-differentiable "
-            "loop) are not ported yet: ROADMAP queue 1 item 9 "
-            "(core/loops.py)")
+    bounded = bounded_steps is not None
     policy = _policy(w_reuse)
     dtype, dev = u0.dtype, u0.device
     q = min(rtab.order, rtab.embedded_order)  # order the estimator measures
@@ -298,7 +303,7 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
     zero = torch.zeros((), dtype=dtype, device=dev)
     eps_end = 1e-7 * torch.clamp(tf.abs(), min=1.0)
 
-    while c["iters"] < max_iters and not bool(c["done"].all()):
+    def body(c):
         t, u, dt = c["t"], c["u"], c["dt"]
         active = ~c["done"]
         dt_step = torch.where(active, torch.minimum(dt, tf - t), zero)
@@ -335,12 +340,30 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
                 f, rtab, u, p, t, dt_step,
                 lambda rhs: _w_resolve(fac, rhs, linsolve), F0=F0)
         enorm = hairer_norm(err, u, u_cand, atol, rtol, dim=0)
+        if bounded:
+            # frozen-step discrete adjoint: the controller and freshness
+            # chain is cut from the graph
+            enorm = enorm.detach()
         finite = torch.isfinite(u_cand).all(dim=0)
         accept = (enorm <= 1.0) & finite & active
         dt_next, enorm_prev = pi_propose(ctrl, dt, enorm, c["enorm_prev"],
                                          accept)
         if policy is not None and not policy.secant:
             dt_next = w_dt_blame(accept, need_jac, dt_step, dt_next)
+        dt_try = dt_step   # the attempt's size, for the dtmin-floor check
+        if bounded:
+            # adjoint-safe second pass: re-run the stage solves at
+            # where(accept, dt, 0), an exact no-op on rejected attempts, so
+            # the backward pass never differentiates a stage solve at a
+            # rejected (possibly overflowed) candidate
+            dt_step = torch.where(accept, dt_step, zero)
+            if policy is None:
+                u_cand, err, F0, F_new, kds = rosenbrock_step(
+                    f, rtab, u, p, t, dt_step, linsolve=linsolve, jac=jac)
+            else:
+                u_cand, err, _, F_new, kds = _stage_loop(
+                    f, rtab, u, p, t, dt_step,
+                    lambda rhs: _w_resolve(fac, rhs, linsolve), F0=F0)
         t_new = torch.where(accept, t + dt_step, t)
 
         # events on the method's dense output; a hit truncates the step at
@@ -381,7 +404,7 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
         # dt pinned at the controller floor and still rejecting: the retry
         # is identical, so the lane terminates.  On the lazy path a
         # rejection taken on a reused J is exempt: its retry refreshes J.
-        hopeless = active & ~accept & ~(dt_step > ctrl.dtmin)
+        hopeless = active & ~accept & ~(dt_try > ctrl.dtmin)
         if policy is not None:
             hopeless = hopeless & need_jac
         status = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, c["status"])
@@ -404,8 +427,12 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
                 was_accept=accept,
                 njac=c["njac"] + need_jac.to(torch.int32),
                 nfact=c["nfact"] + need_fact.to(torch.int32))
-        c = out
+        return out
 
+    c = solver_loop(
+        lambda c: c["iters"] < max_iters and not bool(c["done"].all()),
+        body, c, bounded_steps=bounded_steps,
+        checkpoint_every=checkpoint_every)
     nsteps = c["naccept"] + c["nreject"]
     status = torch.where(c["status"] > 0, c["status"],
                          torch.where(c["done"], 0, 1).to(torch.int32))

@@ -21,8 +21,11 @@ stepper), and draws its increments from the virtual Brownian tree
 replays its path bitwise.  It runs in lanes mode, the plain version of the
 adaptive CUDA kernel (`repro_torch.kernels.em.adaptive`).  Both loops take
 events (`repro_torch.core.events`), located on the piecewise-linear path
-output.  The bounded reverse-mode loop and the resumable bodies are still
-to port (ROADMAP queue 1 items 9 and 13).
+output.  Under ``bounded_steps`` the adaptive loop is the bounded,
+checkpointed form of `repro_torch.core.loops.solver_loop` (reverse mode);
+the counter-RNG noise is a pure function of integers, so a recomputed
+segment replays its path bitwise.  The resumable bodies are still to port
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 from .controller import (STATUS_DTMIN_EXHAUSTED, PIController, hairer_norm,
                          pi_propose, sum_left_to_right)
 from .events import handle_event, linear_interp
+from .loops import checkpointed_fori, solver_loop
 from .problem import EnsembleProblem, SDEProblem
 from .solvers import SolveResult
 
@@ -202,8 +206,10 @@ def sde_save_grid(t0, dt, n_steps: int, save_every: int, dtype,
 
 def _sde_snapshot(us, u, k: int, save_every: int):
     """Snapshot write for step k (shared by the fixed-dt loop bodies):
-    step k fills slot (k+1)/save_every - 1 when save_every divides k+1."""
-    if (k + 1) % save_every == 0:
+    step k fills slot (k+1)/save_every - 1 when save_every divides k+1.
+    ``us=None`` writes nothing (the checkpointed loops collect their
+    snapshots out of place)."""
+    if us is not None and (k + 1) % save_every == 0:
         us[(k + 1) // save_every - 1] = u
     return us
 
@@ -272,13 +278,19 @@ def sde_step_save_event(stepper, f, g, noise: str, ev, u, us, estate, p, t0,
 
 def sde_solve_fixed(prob: SDEProblem, u0, p, t0, dt, n_steps: int, key,
                     method: str = "em", save_every: int = 1,
-                    noise_table: Optional[Tensor] = None) -> SolveResult:
+                    noise_table: Optional[Tensor] = None,
+                    remat: bool = False) -> SolveResult:
     """Fixed-dt SDE integration of one trajectory (n,) or lanes (n, B),
     noise from `noise_table` (n_steps, m[, B]) of N(0,1) draws, or, as the
     reference draws it, step k from ``jax.random.normal(fold_in(key, k),
     (m,) + u0.shape[1:])`` (`repro_torch.kernels.rng.jax_normal`; `key` is
     a raw jax key's two words or a seed).  As in the reference, t is
-    accumulated step by step here (t_final = t0 + dt + ... + dt)."""
+    accumulated step by step here (t_final = t0 + dt + ... + dt).
+
+    ``remat=True`` runs the same steps through
+    `repro_torch.core.loops.checkpointed_fori`: the primal is bitwise the
+    same, and the backward pass replays each segment's noise from its
+    carry instead of keeping every step."""
     from repro_torch.kernels.rng import jax_fold_in, jax_normal
     if n_steps % save_every != 0:
         raise ValueError(f"save_every={save_every} must divide "
@@ -291,18 +303,25 @@ def sde_solve_fixed(prob: SDEProblem, u0, p, t0, dt, n_steps: int, key,
     table = (None if noise_table is None
              else torch.as_tensor(noise_table, device=u0.device))
     nshape = (prob.noise_dim(),) + tuple(u0.shape[1:])
-    u = u0
-    t = torch.as_tensor(t0, dtype=dtype, device=u0.device)
-    us = []
-    for k in range(n_steps):
+
+    def step(k, c):
+        u, t, snaps = c
         if table is not None:
             z = table[k].to(dtype)
         else:
             z = jax_normal(jax_fold_in(key, k), nshape, dtype, u0.device)
         u = stepper(prob.f, prob.g, u, p, t, dt, z * sdt, prob.noise)
-        t = t + dt
         if (k + 1) % save_every == 0:
-            us.append(u)
+            snaps = snaps + (u,)
+        return u, t + dt, snaps
+
+    c = (u0, torch.as_tensor(t0, dtype=dtype, device=u0.device), ())
+    if remat:
+        c = checkpointed_fori(0, n_steps, step, c)
+    else:
+        for k in range(n_steps):
+            c = step(k, c)
+    u, t, us = c
     ts = (torch.as_tensor(t0, dtype=dtype, device=u0.device)
           + dt * save_every * torch.arange(1, S + 1, dtype=dtype,
                                            device=u0.device))
@@ -372,15 +391,13 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
     whose W the tree replays exactly.  With an event the result is
     (SolveResult, {"event_t", "event_count"}).
 
-    ``bounded_steps`` and ``checkpoint_every`` are a later slice of the
-    port (ROADMAP queue 1 item 9); they raise.
+    ``bounded_steps`` runs that many loop bodies in checkpointed segments
+    of ``checkpoint_every`` (`repro_torch.core.loops.solver_loop`) with the
+    error norm detached: the pathwise discrete adjoint.  A bound too small
+    reports status 1.
     """
     from repro_torch.kernels import rng
 
-    if bounded_steps is not None or checkpoint_every is not None:
-        raise NotImplementedError(
-            "the bounded reverse-differentiable loop is not ported yet: "
-            "ROADMAP queue 1 item 9 (core/loops.py)")
     if error_est not in ("embedded", "doubling"):
         raise ValueError(f"unknown error_est {error_est!r} "
                          "(use 'embedded' or 'doubling')")
@@ -401,7 +418,8 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
             rtol=rtol, atol=atol, max_iters=max_iters, event=event,
             lanes=True, depth=depth, order=order, nf_per_step=nf_per_step,
             error_est=error_est, embedded=embedded, est_order=est_order,
-            nf_per_attempt=nf_per_attempt, controller=controller)
+            nf_per_attempt=nf_per_attempt, controller=controller,
+            bounded_steps=bounded_steps, checkpoint_every=checkpoint_every)
         res = out[0] if event is not None else out
         res = SolveResult(ts=res.ts, us=res.us[..., 0],
                           t_final=res.t_final[0], u_final=res.u_final[:, 0],
@@ -434,30 +452,31 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
 
     saveat = as_t([tf] if saveat is None else saveat).reshape(-1)
     S = saveat.shape[0]
-    us = torch.where((saveat <= t0)[:, None, None], u0[None],
-                     torch.zeros((S, n, B), dtype=dtype, device=dev))
     i32 = lambda: torch.zeros(B, dtype=torch.int32, device=dev)
-    w_l = torch.zeros((m_noise, B), dtype=dtype, device=dev)  # W(0) = 0
-    idx = torch.zeros(B, dtype=torch.int64, device=dev)
-    u = u0
-    dt = as_t(dt0).expand(B)
-    enorm_prev = torch.ones(B, dtype=dtype, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    t_out = t0.expand(B)
-    naccept, nreject, nf, status = i32(), i32(), i32(), i32()
-    event_t = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-    event_count = i32()
+    c0 = dict(
+        us=torch.where((saveat <= t0)[:, None, None], u0[None],
+                       torch.zeros((S, n, B), dtype=dtype, device=dev)),
+        w_l=torch.zeros((m_noise, B), dtype=dtype, device=dev),  # W(0) = 0
+        idx=torch.zeros(B, dtype=torch.int64, device=dev), u=u0,
+        dt=as_t(dt0).expand(B),
+        enorm_prev=torch.ones(B, dtype=dtype, device=dev),
+        done=torch.zeros(B, dtype=torch.bool, device=dev),
+        t_out=t0.expand(B), naccept=i32(), nreject=i32(), nf=i32(),
+        status=i32(),
+        event_t=torch.full((B,), float("inf"), dtype=dtype, device=dev),
+        event_count=i32(), iters=0)
     min_cells = 1 if use_pair else 2
     richardson = 1.0 / (2.0 ** order - 1.0)
 
-    iters = 0
-    while iters < max_iters and not bool(done.all()):
-        active = ~done
-        idx = torch.where(active, idx, 0)
+    def body(c):
+        u, w_l, event_t, event_count = (c["u"], c["w_l"], c["event_t"],
+                                        c["event_count"])
+        active = ~c["done"]
+        idx = torch.where(active, c["idx"], 0)
         t = t0 + idx.to(dtype) * h_res
         # quantize the proposed dt to whole dyadic cells; doubling needs an
         # even count so its half steps land on grid points
-        want = (torch.minimum(dt, t_total) / h_res).to(torch.int64)
+        want = (torch.minimum(c["dt"], t_total) / h_res).to(torch.int64)
         # below the floor no finer path exists at this depth: force-accept
         at_floor = want < min_cells
         m = want if use_pair else (want >> 1) << 1
@@ -487,10 +506,15 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
             u_2 = stepper(f, g, u_h, p, t_mid, dt_half, dW2, noise)
             err = (u_2 - u_c) * richardson
         enorm = hairer_norm(err, u, u_2, atol, rtol, dim=0)
+        if bounded_steps is not None:
+            # pathwise discrete adjoint: the controller chain is primal
+            # only (dt is consumed as an integer cell count anyway), and the
+            # Hairer norm's sqrt stays out of the backward pass
+            enorm = enorm.detach()
         finite = torch.isfinite(u_2).all(dim=0)
         accept = ((enorm <= 1.0) | at_floor) & finite & active
-        dt_next, enorm_prev = pi_propose(ctrl, dt_step, enorm, enorm_prev,
-                                         accept)
+        dt_next, enorm_prev = pi_propose(ctrl, dt_step, enorm,
+                                         c["enorm_prev"], accept)
         idx_new = torch.where(accept, idx + m, idx)
         t_new = t0 + idx_new.to(dtype) * h_res
 
@@ -515,7 +539,8 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
             term = hit_nt = torch.zeros_like(accept)
         u_next = torch.where(accept[None], u_ev, u)
         # reported time: the event time of a terminal hit, else the grid
-        t_out = torch.where(term, t_ev, torch.where(accept, t_new, t_out))
+        t_out = torch.where(term, t_ev, torch.where(accept, t_new,
+                                                    c["t_out"]))
         t_lim = torch.where(term, t_ev, t_new)
 
         # linear dense save on the accepted step, up to t_lim
@@ -526,30 +551,38 @@ def sde_solve_adaptive(f, g, stepper, noise: str, u0, p, t0, tf, dt0, *,
         theta = torch.clamp((saveat[:, None] - t[None]) / dt_step[None],
                             0.0, 1.0)
         vals = u[None] + theta[:, None, :] * (u_2 - u)[None]
-        us = torch.where(crossed[:, None, :], vals, us)
+        us = torch.where(crossed[:, None, :], vals, c["us"])
 
         # rejecting at the resolution floor (only a non-finite state can)
         # or with dt pinned at the controller floor: the retry is
         # bit-identical, so the lane ends with a distinct status
         hopeless = active & ~accept & (at_floor | ~(dt_step > ctrl.dtmin))
-        status = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, status)
-        done = done | term | (idx_new >= n_total) | hopeless
+        status = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, c["status"])
+        done = c["done"] | term | (idx_new >= n_total) | hopeless
         w_l = torch.where(accept[None], w_r, w_l)
         if bool(hit_nt.any()):
             # re-anchored lanes restart mid-step: their left W is at idx_new
             w_l = torch.where(hit_nt[None], w_at(idx_new), w_l)
-        naccept = naccept + accept.to(torch.int32)
-        nreject = nreject + (active & ~accept).to(torch.int32)
-        nf = nf + active.to(torch.int32) * nf_per_attempt
-        idx, u, dt = idx_new, u_next, dt_next
-        iters += 1
+        return dict(
+            us=us, w_l=w_l, idx=idx_new, u=u_next, dt=dt_next,
+            enorm_prev=enorm_prev, done=done, t_out=t_out,
+            naccept=c["naccept"] + accept.to(torch.int32),
+            nreject=c["nreject"] + (active & ~accept).to(torch.int32),
+            nf=c["nf"] + active.to(torch.int32) * nf_per_attempt,
+            status=status, event_t=event_t, event_count=event_count,
+            iters=c["iters"] + 1)
 
-    status = torch.where(status > 0, status,
-                         torch.where(done, 0, 1).to(torch.int32))
-    res = SolveResult(ts=saveat, us=us, t_final=t_out, u_final=u,
-                      naccept=naccept, nreject=nreject, status=status, nf=nf)
+    c = solver_loop(
+        lambda c: c["iters"] < max_iters and not bool(c["done"].all()),
+        body, c0, bounded_steps=bounded_steps,
+        checkpoint_every=checkpoint_every)
+    status = torch.where(c["status"] > 0, c["status"],
+                         torch.where(c["done"], 0, 1).to(torch.int32))
+    res = SolveResult(ts=saveat, us=c["us"], t_final=c["t_out"],
+                      u_final=c["u"], naccept=c["naccept"],
+                      nreject=c["nreject"], status=status, nf=c["nf"])
     if event is not None:
-        return res, dict(event_t=event_t, event_count=event_count)
+        return res, dict(event_t=c["event_t"], event_count=c["event_count"])
     return res
 
 

@@ -14,6 +14,10 @@ shapes — the PyTorch counterpart of `repro.core.solvers`.
 
 The reference's ``lax.while_loop`` is a Python loop here; its loop body
 (`_make_adaptive_body`) keeps the reference's expressions and their order.
+Under ``AdaptiveOptions.bounded_steps`` the loop is the bounded,
+checkpointed form of `repro_torch.core.loops.solver_loop` (reverse mode),
+and ``solve_fixed(remat=True)`` checkpoints its step loop
+(`loops.checkpointed_fori`).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 from .controller import (STATUS_DTMIN_EXHAUSTED, PIController, hairer_norm,
                          pi_propose)
 from .events import Event, handle_event
+from .loops import checkpointed_fori, solver_loop
 from .tableaus import Tableau
 
 Tensor = torch.Tensor
@@ -132,23 +137,39 @@ def interp_step(f, tab: Tableau, u_old, u_new, ks, p, t, dt, theta,
 
 
 def solve_fixed(f, tab: Tableau, u0, p, t0, dt, n_steps: int,
-                save_every: int = 1):
+                save_every: int = 1, remat: bool = False,
+                checkpoint_every: Optional[int] = None):
     """Fixed-dt integration; saves every `save_every`-th step, so
-    S = n_steps // save_every snapshots.  Any state shape."""
+    S = n_steps // save_every snapshots.  Any state shape.
+
+    ``remat=True`` runs the same steps through
+    `repro_torch.core.loops.checkpointed_fori` (``checkpoint_every`` steps
+    per segment, default sqrt(n_steps)): the primal is bitwise unchanged,
+    and the backward pass keeps one (u, t) carry per segment and recomputes
+    the stages inside segments."""
     if n_steps % save_every != 0:
         raise ValueError("n_steps must be divisible by save_every")
     S = n_steps // save_every
     dtype, device = u0.dtype, u0.device
     dt = torch.as_tensor(dt, dtype=dtype, device=device)
     t0 = torch.as_tensor(t0, dtype=dtype, device=device)
-    u, t = u0, t0
-    us = []
-    for _ in range(S):
-        for _ in range(save_every):
-            k1 = f(u, p, t)
-            u, _, _ = rk_step(f, tab, u, p, t, dt, k1)
-            t = t + dt
-        us.append(u)
+
+    def step(k, c):
+        u, t, snaps = c
+        k1 = f(u, p, t)
+        u, _, _ = rk_step(f, tab, u, p, t, dt, k1)
+        if (k + 1) % save_every == 0:
+            snaps = snaps + (u,)     # out of place: a segment's input stays
+        return u, t + dt, snaps
+
+    c = (u0, t0, ())
+    if remat:
+        c = checkpointed_fori(0, n_steps, step, c,
+                              checkpoint_every=checkpoint_every)
+    else:
+        for k in range(n_steps):
+            c = step(k, c)
+    u, t, us = c
     ts = t0 + dt * save_every * torch.arange(1, S + 1, dtype=dtype,
                                              device=device)
     fsal = 1 if tab.fsal else 0
@@ -164,6 +185,14 @@ class AdaptiveOptions:
     atol: float = 1e-6
     max_iters: int = 100_000
     adaptive: bool = True            # False => accept every step at fixed dt
+    # Reverse mode (`core.loops`, `core.sensitivity`): replace the while
+    # loop by `bounded_steps` body applications in checkpointed segments and
+    # keep the step-size controller out of the autograd graph (the discrete
+    # adjoint of the realized step sequence).  Whenever the bound covers the
+    # iteration count the accept/step sequence is the while loop's; a bound
+    # too small reports status == 1.
+    bounded_steps: Optional[int] = None
+    checkpoint_every: Optional[int] = None
 
 
 def _grid_save(f, tab, us, saveat, u_old, u_new, ks, p, t_old, dt_step,
@@ -194,11 +223,14 @@ def _grid_save(f, tab, us, saveat, u_old, u_new, ks, p, t_old, dt_step,
 def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
                         event, lanes: bool, saveat, p, tf):
     """The adaptive loop body over a dict carry — the reference's
-    `_make_adaptive_body` without the bounded adjoint loop (a later slice).
-    Finished lanes step at dt = 0 and every write is accept- or
-    active-masked, so they are exact no-ops.  With an event, FSAL is off:
-    k1 is recomputed at the (possibly affected, possibly truncated) new
-    point, and nf counts every stage."""
+    `_make_adaptive_body`.  Finished lanes step at dt = 0 and every write is
+    accept- or active-masked, so they are exact no-ops.  With an event,
+    FSAL is off: k1 is recomputed at the (possibly affected, possibly
+    truncated) new point, and nf counts every stage.  Under
+    ``opts.bounded_steps`` the error norm is detached and the stage cascade
+    is run a second time at where(accept, dt, 0) for the differentiated
+    graph."""
+    bounded = opts.bounded_steps is not None
 
     def body(c):
         t, u, dt, k1 = c["t"], c["u"], c["dt"], c["k1"]
@@ -214,6 +246,11 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
             finite = torch.isfinite(u_cand)
             finite = finite.all(dim=0) if lanes else finite.all()
             accept = (enorm <= 1.0) & finite
+            if bounded:
+                # frozen-step discrete adjoint: the controller chain
+                # (enorm -> dt) is cut from the graph — the realized step
+                # sequence is differentiated, not the step-size policy
+                enorm = enorm.detach()
             dt_next, enorm_prev = pi_propose(ctrl, dt, enorm, c["enorm_prev"],
                                              accept)
         else:
@@ -221,6 +258,15 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
             dt_next, enorm_prev = dt, c["enorm_prev"]
 
         accept = accept & active
+        dt_try = dt_step   # the attempt's size, for the dtmin-floor check
+        if bounded and opts.adaptive:
+            # adjoint-safe second pass: the cascade above only decided
+            # accept and the controller; re-run it at where(accept, dt, 0)
+            # so the differentiated cascade is an exact no-op on rejected
+            # attempts and the backward pass never differentiates f at a
+            # rejected (possibly overflowed) candidate
+            dt_step = torch.where(accept, dt_step, torch.zeros_like(dt_step))
+            u_cand, err, ks = rk_step(f, tab, u, p, t, dt_step, k1)
         t_new = torch.where(accept, t + dt_step, t)
 
         # events: detect, locate and apply with the shared machinery; a hit
@@ -259,7 +305,7 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
         # dt pinned at the controller floor and still rejecting: terminate
         # the lane with a distinct status instead of spinning to max_iters
         if opts.adaptive:
-            hopeless = active & ~accept & ~(dt_step > ctrl.dtmin)
+            hopeless = active & ~accept & ~(dt_try > ctrl.dtmin)
         else:
             hopeless = torch.zeros_like(active)
         statusv = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, c["status"])
@@ -326,8 +372,10 @@ def solve_adaptive(f, tab: Tableau, u0, p, t0, tf, dt0,
 
     body = _make_adaptive_body(f, tab, opts, ctrl, event, lanes, saveat, p,
                                tf)
-    while c["iters"] < opts.max_iters and not bool(c["done"].all()):
-        c = body(c)
+    c = solver_loop(
+        lambda c: c["iters"] < opts.max_iters and not bool(c["done"].all()),
+        body, c, bounded_steps=opts.bounded_steps,
+        checkpoint_every=opts.checkpoint_every)
     status = torch.where(c["status"] > 0, c["status"],
                          torch.where(c["done"], 0, 1).to(torch.int32))
     res = SolveResult(ts=saveat, us=c["us"], t_final=c["t"],

@@ -2,13 +2,14 @@
 ensemble using the SAME stepper definitions and the SAME counter RNG
 (`repro_torch.kernels.rng`), so comparison with a kernel is pathwise, not
 just statistical — the port of `repro.kernels.em.ref`, plus the plain
-version of the adaptive kernel.  Rematerialisation is still to port
-(ROADMAP queue 1 item 9)."""
+version of the adaptive kernel.  ``remat=True`` runs the fixed-dt step loop
+through `repro_torch.core.loops.checkpointed_fori` (reverse mode)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.events import without_log
+from repro_torch.core.loops import checkpointed_fori
 from repro_torch.core.sde import (SDE_EMBEDDED, SDE_STEPPERS,
                                   sde_event_state0, sde_nf_per_step,
                                   sde_solve_adaptive, sde_step_and_save,
@@ -18,11 +19,18 @@ from repro_torch.kernels.rng import M32, counter_normals_threefry
 
 def solve_lanes(f, g, noise: str, m_noise: int, method: str, u0, p, *, t0,
                 dt, n_steps: int, save_every: int = 1, seed: int = 0,
-                noise_table=None, lane_offset: int = 0, event=None):
+                noise_table=None, lane_offset: int = 0, event=None,
+                remat: bool = False, checkpoint_every=None):
     """u0 (n, N), p (k, N) lane-major; noise_table (n_steps, m, N) or None
     for the Threefry stream over GLOBAL lane indices (local index +
     lane_offset, mod 2^32).  Returns us (S, n, N), u_final (n, N) and the
-    event state of `sde_event_state0` (None without an event)."""
+    event state of `sde_event_state0` (None without an event).
+
+    ``remat=True`` runs the identical step sequence through
+    `checkpointed_fori` (``checkpoint_every`` steps per segment, default
+    sqrt(n_steps)), collecting the snapshots out of place: the primal is
+    bitwise the same, and the backward pass keeps one carry per segment and
+    replays the counter-RNG noise inside segments."""
     stepper = SDE_STEPPERS[method]
     n, N = u0.shape
     dtype, dev = u0.dtype, u0.device
@@ -31,11 +39,10 @@ def solve_lanes(f, g, noise: str, m_noise: int, method: str, u0, p, *, t0,
     lane = gl[None].expand(m_noise, N)
     rows = torch.arange(m_noise, dtype=torch.int64,
                         device=dev)[:, None].expand(m_noise, N)
-    us = torch.zeros((S, n, N), dtype=dtype, device=dev)
-    u = u0
     estate = (sde_event_state0((N,), t0, dtype, dev) if event is not None
               else None)
-    for k in range(n_steps):
+
+    def step(k, u, us, estate):
         if noise_table is not None:
             z = noise_table[k].to(dtype)
         else:
@@ -43,23 +50,42 @@ def solve_lanes(f, g, noise: str, m_noise: int, method: str, u0, p, *, t0,
         if event is None:
             u, us = sde_step_and_save(stepper, f, g, noise, u, us, p, t0, dt,
                                       k, z, save_every)
-        else:
-            u, us, estate = sde_step_save_event(stepper, f, g, noise, event,
-                                                u, us, estate, p, t0, dt, k,
-                                                z, save_every)
+            return u, us, None
+        return sde_step_save_event(stepper, f, g, noise, event, u, us,
+                                   estate, p, t0, dt, k, z, save_every)
+
+    if remat:
+        def body(k, carry):
+            u, estate, snaps = carry
+            u, _, estate = step(k, u, None, estate)
+            if (k + 1) % save_every == 0:
+                snaps = snaps + (u,)
+            return u, estate, snaps
+
+        u, estate, snaps = checkpointed_fori(
+            0, n_steps, body, (u0, estate, ()),
+            checkpoint_every=checkpoint_every)
+        return torch.stack(snaps), u, estate
+    us = torch.zeros((S, n, N), dtype=dtype, device=dev)
+    u = u0
+    for k in range(n_steps):
+        u, us, estate = step(k, u, us, estate)
     return us, u, estate
 
 
 def ref_solve(prob, u0s, ps, *, t0, dt, n_steps, method="em", save_every=1,
-              seed=0, noise_table=None, lane_offset=0, event=None):
+              seed=0, noise_table=None, lane_offset=0, event=None,
+              remat=False, checkpoint_every=None):
     """u0s (N, n), ps (N, m) trajectory-major.  Replays the kernel's exact
-    noise stream or a supplied (n_steps, m, N) table.
-    Returns (us (S, n, N), uf (n, N), event state or None)."""
+    noise stream or a supplied (n_steps, m, N) table; ``remat`` as in
+    `solve_lanes`.  Returns (us (S, n, N), uf (n, N), event state or
+    None)."""
     return solve_lanes(prob.f, prob.g, prob.noise, prob.noise_dim(), method,
                        u0s.T, ps.T, t0=t0, dt=dt, n_steps=n_steps,
                        save_every=save_every, seed=seed,
                        noise_table=noise_table, lane_offset=lane_offset,
-                       event=event)
+                       event=event, remat=remat,
+                       checkpoint_every=checkpoint_every)
 
 
 def solve_adaptive_lanes(f, g, method: str, u0, p, saveat, *, noise: str,

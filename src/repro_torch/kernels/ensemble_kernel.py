@@ -13,6 +13,10 @@ the tables from them and the body hands them to its wrapper.  The
 segment count keeps the reference's rule (`save_chunk_count`), so the port
 splits a save grid exactly where the reference does and returns the same
 numbers.
+
+`kernel_adjoint` carries reverse mode across the kernel boundary: the
+kernels write their outputs through raw pointers, outside autograd, so a
+launch refuses inputs that require grad unless it runs inside it.
 """
 from __future__ import annotations
 
@@ -163,14 +167,34 @@ def sde_adaptive_body(f, g, method: str, noise: str, *, t0: float, tf: float,
 Extra = Tuple[str, torch.Tensor]
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a kernel launch: the kernels write
+    their outputs outside autograd, so a loss would silently miss the
+    solve's share of a gradient (the reference's `jax.grad` fails on a bare
+    `pallas_call` for the same reason).  Inside `kernel_adjoint` the
+    launch runs with grad disabled and passes."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{what}: an input requires grad, and the CUDA kernels are not "
+            "differentiable by themselves; pass sensitivity=\"adjoint\" (the "
+            "kernel_adjoint boundary, which replays the plain version in the "
+            "backward pass) or detach the inputs")
+
+
 def run_ensemble_kernel(body: Callable, u0s, ps, *, ts,
                         extras: Sequence[Extra] = ()):
     """Launch `body` over the ensemble and assemble an EnsembleResult.
 
     u0s (N, n), ps (N, m) trajectory-major; ts (S,) the result's save-time
-    grid; `extras` reach the body, in order, as contiguous tensors."""
+    grid; `extras` reach the body, in order, as contiguous tensors.  Inputs
+    that require grad are refused (`refuse_grad`) on every device, the
+    plain version included, as the kernel path must not be differentiated
+    outside `kernel_adjoint`."""
     from repro_torch.core.ensemble import EnsembleResult
 
+    refuse_grad("the ensemble kernel", u0s, ps,
+                *(arr for _, arr in extras))
     N = u0s.shape[0]
     ex = []
     for kind, arr in extras:
@@ -227,3 +251,78 @@ def run_ensemble_kernel_staged(body_factory: Callable, u0s, ps, *, ts,
                 nfact=acc.nfact + res.nfact,
                 status=torch.maximum(acc.status, res.status))
     return acc._replace(ts=ts, us=torch.cat(parts, dim=1))
+
+
+# the EnsembleResult fields that cross the `kernel_adjoint` boundary: the
+# state outputs carry gradients, the rest are non-differentiable outputs
+_DIFF_FIELDS = ("us", "u_final")
+_NONDIFF_FIELDS = ("t_final", "naccept", "nreject", "nf", "status", "njac",
+                   "nfact")
+
+
+class _KernelAdjoint(torch.autograd.Function):
+    """Forward: the kernel on detached inputs.  Backward: the bounded,
+    checkpointed plain version replayed under autograd."""
+
+    @staticmethod
+    def forward(ctx, primal_fn, replay_fn, box, u0s, ps, *leaves):
+        res = primal_fn(u0s.detach(), ps.detach(),
+                        *(leaf.detach() for leaf in leaves))
+        box["res"] = res
+        ctx.replay_fn = replay_fn
+        ctx.save_for_backward(u0s, ps, *leaves)
+        tens = [name for name in _NONDIFF_FIELDS
+                if torch.is_tensor(getattr(res, name))]
+        box["nondiff"] = tens
+        outs = [getattr(res, name) for name in _DIFF_FIELDS + tuple(tens)]
+        ctx.mark_non_differentiable(*outs[len(_DIFF_FIELDS):])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, ct_us, ct_uf, *_):
+        # an unused output's cotangent arrives as zeros (materialized)
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(nd)
+                  for x, nd in zip(ctx.saved_tensors, need)]
+            res = ctx.replay_fn(*xs)
+            got = iter(torch.autograd.grad(
+                (res.us, res.u_final), [x for x, nd in zip(xs, need) if nd],
+                (ct_us, ct_uf), allow_unused=True))
+        grads = [next(got) if nd else None for nd in need]
+        grads = [torch.zeros_like(x) if nd and g is None else g
+                 for x, nd, g in zip(xs, need, grads)]
+        return (None, None, None) + tuple(grads)
+
+
+def kernel_adjoint(primal_fn: Callable, replay_fn: Callable) -> Callable:
+    """Reverse mode across the kernel boundary — the port of the
+    reference's `jax.custom_vjp` factory, as a `torch.autograd.Function`.
+
+    The kernels write their outputs outside autograd, so the FORWARD solve
+    stays on the kernel (``primal_fn``, run on detached inputs with grad
+    disabled) and the backward pass re-runs the kernel's plain version
+    (``replay_fn`` — the bounded, checkpointed `core.loops.solver_loop`
+    path of the same family) under autograd.  The forward pass keeps only
+    the inputs; the replay's checkpointed segments bound the backward
+    pass's memory (one carry per segment, recompute inside segments), so
+    peak memory stays O(sqrt-steps).  SDE replays are exact: the
+    counter-RNG noise is a pure function of (seed; step or grid index, row,
+    global lane), so the recomputed path is the path the kernel integrated.
+
+    Both callables map ``(u0s, ps, *leaves) -> EnsembleResult``; the
+    variadic tail holds a data-driven problem's table leaves, real inputs
+    of the Function, so gradients reach measured data too.  Gradients flow
+    through the state outputs ``us`` and ``u_final``; the solver statistics
+    and ``t_final`` (a terminal event's located time) are
+    non-differentiable outputs.  Returns ``run(u0s, ps, *leaves) ->
+    EnsembleResult``."""
+
+    def run(u0s, ps, *leaves):
+        box = {}
+        outs = _KernelAdjoint.apply(primal_fn, replay_fn, box, u0s, ps,
+                                    *leaves)
+        names = _DIFF_FIELDS + tuple(box["nondiff"])
+        return box["res"]._replace(**dict(zip(names, outs)))
+
+    return run

@@ -12,6 +12,8 @@ card, where each system is one thread.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.ensemble_kernel import refuse_grad
+
 from .kernel import lu_solve
 from .ref import ref_solve
 
@@ -25,13 +27,15 @@ def batched_solve(W, b, backend="cuda", pivot=True):
     ``backend="cuda"`` runs the LU kernel (`lu_solve`; its plain version on
     CPU tensors) with partial pivoting (``pivot=False`` turns it off), and
     the singular systems fall back to the reference solve, exactly where
-    ``~(pivmin > 0)``; ``backend="torch"`` is the reference solve alone."""
+    ``~(pivmin > 0)``; ``backend="torch"`` is the reference solve alone.
+    The kernel path refuses inputs that require grad (`refuse_grad`)."""
     global rerouted
     if backend == "torch":
         return ref_solve(W, b)
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r} (use 'cuda' or "
                          "'torch')")
+    refuse_grad("the batched LU kernel (linsolve='cuda')", W, b)
     x, pivmin = lu_solve(W.permute(1, 2, 0).contiguous(), b.T.contiguous(),
                          pivot=pivot)
     x = x.T

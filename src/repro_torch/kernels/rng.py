@@ -115,8 +115,13 @@ def sqrt_rn(x):
     """The correctly rounded square root, as XLA's and CUDA's are.
     PyTorch's CPU sqrt misses it by one ulp on some float64 inputs (at
     every ATen CPU capability), so on the CPU this takes numpy's, the
-    hardware instruction."""
+    hardware instruction.  Its arguments are tree widths and spans, never
+    differentiated: under a `torch.func` transform (which wraps every
+    tensor, so it has no numpy view) the values go through a list."""
     if x.device.type == "cpu":
+        if torch._C._functorch.is_functorch_wrapped_tensor(x):
+            return torch.tensor(np.sqrt(np.asarray(x.tolist())),
+                                dtype=x.dtype)
         return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
     return torch.sqrt(x)
 

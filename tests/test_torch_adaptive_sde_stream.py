@@ -254,21 +254,45 @@ def test_adaptive_general_noise_embedded_and_later_slices_raise():
     crn = EnsembleProblem(tdp.crn_problem(dtype=torch.float64), 2)
     with pytest.raises(ValueError, match="diagonal-noise only"):
         tsolve(crn, device="cpu", **dict(ADAPT, error_est="embedded"))
-    # events run on the adaptive path; with a sensitivity or the bounded
-    # loop they still reach the later slice
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # events and the bounded loop run on the adaptive path now.  Event +
+    # adjoint without a bound is the reference's refusal, word for word;
+    # with one, the gradient reaches u0s through the event on the stream
+    with pytest.raises(ValueError) as want:
+        jsolve(jens4(), sensitivity="adjoint",
+               event=jsde.Event(condition=lambda u, p, t: u[0] - 0.18,
+                                terminal=True, direction=1), **ADAPT)
+    with pytest.raises(ValueError) as got:
         tsolve(ens4(), device="cpu", event=tdp.gbm_barrier_event(),
                sensitivity="adjoint", **ADAPT)
+    assert str(got.value) == str(want.value)
+    u = torch.full((4, 3), 0.1, dtype=torch.float64, requires_grad=True)
+    res = tsolve(EnsembleProblem(tdp.gbm_problem(r=R, v=V,
+                                                 dtype=torch.float64), 4,
+                                 u0s=u), device="cpu",
+                 event=tdp.gbm_barrier_event(), sensitivity="adjoint",
+                 adjoint_steps=200, **ADAPT)
+    g, = torch.autograd.grad(res.u_final.sum(), u)
+    assert int(res.status) == 0 and bool(torch.isfinite(g).all())
+    # the bounded loop (with and without an event) equals the while loop
+    # bitwise once the bound covers the attempts, and reports status 1
+    # below them
     prob = tdp.gbm_problem(dtype=torch.float64)
-    for extra, match in ((dict(event=tdp.gbm_barrier_event(),
-                               bounded_steps=10), "item 9"),
-                         (dict(bounded_steps=10), "item 9"),
-                         (dict(checkpoint_every=2), "item 9")):
-        with pytest.raises(NotImplementedError, match=match):
-            tsde.sde_solve_adaptive(prob.f, prob.g, tsde.em_step,
-                                    "diagonal", prob.u0, prob.p, 0.0, 1.0,
-                                    0.1, seed=0, lane_idx=0, m_noise=3,
-                                    depth=8, **extra)
+    args = (prob.f, prob.g, tsde.em_step, "diagonal", prob.u0, prob.p, 0.0,
+            1.0, 0.1)
+    kw = dict(seed=0, lane_idx=0, m_noise=3, depth=8)
+    for extra in (dict(event=tdp.gbm_barrier_event()), {}):
+        plain = tsde.sde_solve_adaptive(*args, **kw, **extra)
+        r0 = plain[0] if extra else plain
+        K = int(r0.naccept + r0.nreject)
+        for bound in (dict(bounded_steps=K + 3),
+                      dict(bounded_steps=K + 3, checkpoint_every=2)):
+            out = tsde.sde_solve_adaptive(*args, **kw, **extra, **bound)
+            o0 = out[0] if extra else out
+            for a, b in zip(o0, r0):
+                assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+        short = tsde.sde_solve_adaptive(*args, **kw, **extra,
+                                        bounded_steps=max(1, K // 2))
+        assert int((short[0] if extra else short).status) == 1
 
 
 def test_kernel_binding_refuses_combinations_it_has_no_instantiation_of():

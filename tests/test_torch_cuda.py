@@ -664,3 +664,86 @@ def test_cuda_data_without_device_form_raises(cuda):
     with pytest.raises(NotImplementedError, match="item 17"):
         tsolve(EnsembleProblem(bad, 8), **kw)
     assert erk_kernel.launches == before
+
+
+# ---------------------------------------------------------------------------
+# gradients across the kernel boundary (kernel_adjoint)
+# ---------------------------------------------------------------------------
+
+def _grad(ep, backend, wrt, **kw):
+    """(result, gradients of sum(us^2) + sum(u_final^2)) with
+    sensitivity="adjoint" on the kernel strategy."""
+    u0s, ps = ep.materialize()
+    u = u0s.detach().clone().requires_grad_("u0s" in wrt)
+    p = ps.detach().clone().requires_grad_("ps" in wrt)
+    res = tsolve(EnsembleProblem(ep.prob, u.shape[0], u0s=u, ps=p),
+                 ensemble="kernel", backend=backend, sensitivity="adjoint",
+                 device=u.device, **kw)
+    L = (res.us ** 2).sum() + (res.u_final ** 2).sum()
+    return res, torch.autograd.grad(L, [u if k == "u0s" else p
+                                        for k in wrt])
+
+
+def _grad_cases(cuda):
+    u0s, ps = lorenz_arrays(64)
+    gbm_u0, gbm_p = np.full((64, 3), 0.1), np.tile([1.5, 0.2], (64, 1))
+    rober = ensemble_problem(tdp.rober_problem(), np.tile([1.0, 0, 0],
+                                                          (64, 1)),
+                             np.tile([0.04, 3e7, 1e4], (64, 1))
+                             * np.linspace(0.5, 2.0, 64)[:, None],
+                             device=cuda)
+    gbm = ensemble_problem(tdp.gbm_problem(r=1.5, v=0.2,
+                                           dtype=torch.float64), gbm_u0,
+                           gbm_p, device=cuda)
+    return {
+        "erk": (ensemble_problem(lorenz_problem(torch.float64), u0s, ps,
+                                 device=cuda),
+                dict(alg="tsit5", t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-8,
+                     atol=1e-8, saveat=[0.5, 1.0], adjoint_steps=200)),
+        "rosenbrock": (rober, dict(alg="rodas5p", t0=0.0, tf=10.0,
+                                   dt0=1e-6, rtol=1e-6, atol=1e-8,
+                                   saveat=[1.0, 10.0], linsolve="lanes",
+                                   adjoint_steps=200)),
+        "sde": (gbm, dict(alg="em", t0=0.0, dt0=1.0 / 100, n_steps=100,
+                          save_every=50, seed=5)),
+        "sde_adaptive": (gbm, dict(alg="em", t0=0.0, tf=1.0, dt0=0.05,
+                                   adaptive=True, rtol=1e-3, atol=1e-5,
+                                   seed=5, saveat=[0.5, 1.0],
+                                   adjoint_steps=200)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["erk", "rosenbrock", "sde",
+                                    "sde_adaptive"])
+def test_cuda_kernel_adjoint_primal_and_gradient(cuda, family):
+    """The primal is the plain kernel solve bit for bit.  The gradient
+    replays the torch route's bounded loop: bitwise equal to that route's
+    where the kernel rounds every operation (K3, K5); on K1's and K4's
+    no-event forms nvcc contracts, the cotangents' base moves by rounding,
+    and the two agree within 1e-10 of the largest entry."""
+    ep, kw = _grad_cases(cuda)[family]
+    res, g_cuda = _grad(ep, "cuda", ("u0s", "ps"), **kw)
+    plain = tsolve(ep, ensemble="kernel", backend="cuda", device=cuda,
+                   **{k: v for k, v in kw.items() if k != "adjoint_steps"})
+    assert torch.equal(res.us.detach(), plain.us)
+    assert torch.equal(res.u_final.detach(), plain.u_final)
+    assert int(res.status) == 0
+    _, g_torch = _grad(ep, "torch", ("u0s", "ps"), **kw)
+    for a, b in zip(g_cuda, g_torch):
+        assert bool(torch.isfinite(a).all())
+        if family in ("rosenbrock", "sde_adaptive"):
+            assert torch.equal(a, b)
+        else:
+            assert float((a - b).abs().max()) <= 1e-10 * float(
+                b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_launch_refuses_grad_outside_kernel_adjoint(cuda):
+    ep, kw = _grad_cases(cuda)["sde"]
+    u0s, ps = ep.materialize()
+    with pytest.raises(ValueError, match='sensitivity="adjoint"'):
+        tsolve(EnsembleProblem(ep.prob, 64, u0s=u0s.requires_grad_(True),
+                               ps=ps), ensemble="kernel", backend="cuda",
+               device=cuda, **kw)

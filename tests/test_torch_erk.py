@@ -235,8 +235,10 @@ def _half_event():
     return half_event()
 
 
-# events run on every family now; with a sensitivity they still reach the
-# later slice, which raises
+# events and sensitivities run on every family now; ensemble="auto" is a
+# later slice, which raises.  The sensitivity cases are held to the
+# reference: the same refusal where it refuses (an adaptive adjoint without
+# adjoint_steps), and with a bound, the same gradients (f64, rel 1e-10).
 @pytest.mark.parametrize("kw", [dict(event=_half_event(),
                                      sensitivity="adjoint"),
                                 dict(sensitivity="adjoint"),
@@ -246,10 +248,47 @@ def _half_event():
                                 dict(alg="rosenbrock23",
                                      sensitivity="adjoint")])
 def test_front_door_later_slices_raise(kw):
+    import jax
+    from repro.configs.de_problems import lorenz_problem as jlorenz
+    from repro.core.ensemble import solve_ensemble_local as jsolve
+    from repro.core.events import Event as JEvent
+    from repro.core.problem import EnsembleProblem as JEP
     from repro_torch.configs.de_problems import lorenz_ensemble
-    from repro_torch.core.ensemble import solve_ensemble_local
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_ensemble_local(lorenz_ensemble(4), tf=0.1, device="cpu", **kw)
+    from repro_torch.core.ensemble import solve_ensemble_local as tsolve
+    from repro_torch.core.problem import EnsembleProblem as TEP
+    if kw.get("ensemble") == "auto":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tsolve(lorenz_ensemble(4), tf=0.1, device="cpu", **kw)
+        return
+    ep = lorenz_ensemble(4, dtype=torch.float64)
+    u0s, ps = (x.numpy().copy() for x in ep.materialize())
+    jkw = dict(kw)
+    if "event" in jkw:
+        jkw["event"] = JEvent(condition=lambda u, p, t: u[0] - 0.5,
+                              terminal=True, direction=-1)
+    jep = JEP(jlorenz(jnp.float64), 4, u0s=jnp.asarray(u0s),
+              ps=jnp.asarray(ps))
+    with pytest.raises(ValueError) as want:
+        jsolve(jep, tf=0.1, **jkw)
+    with pytest.raises(ValueError) as got:
+        tsolve(ep, tf=0.1, device="cpu", **kw)
+    assert str(got.value) == str(want.value)
+
+    def jloss(u, p):
+        r = jsolve(JEP(jlorenz(jnp.float64), 4, u0s=u, ps=p), tf=0.1,
+                   adjoint_steps=64, **jkw)
+        return jnp.sum(r.u_final ** 2)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(u0s), jnp.asarray(ps))
+    u = torch.tensor(u0s, requires_grad=True)
+    p = torch.tensor(ps, requires_grad=True)
+    res = tsolve(TEP(ep.prob, 4, u0s=u, ps=p), tf=0.1, adjoint_steps=64,
+                 device="cpu", **kw)
+    assert int(res.status) == 0
+    tg = torch.autograd.grad((res.u_final ** 2).sum(), (u, p))
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
+                                   atol=1e-12)
 
 
 def test_user_tableau_from_reference_arrays_through_front_door():

@@ -1,7 +1,8 @@
-"""The port's examples (examples/quickstart_torch.py and
-examples/bouncing_ball_torch.py, the twins of the reference's) run end to
-end on the CPU at a small N, where ``backend="cuda"`` runs the kernels'
-plain versions."""
+"""The port's examples (examples/quickstart_torch.py,
+examples/bouncing_ball_torch.py, examples/parameter_estimation_torch.py and
+examples/sde_finance_torch.py, the twins of the reference's) run end to end
+on the CPU at a small N, where ``backend="cuda"`` runs the kernels' plain
+versions."""
 import importlib.util
 from pathlib import Path
 
@@ -9,6 +10,17 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The inputs are a few lanes: one intra-op thread a process keeps the
+    suite's parallel workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def load(name):
@@ -24,7 +36,7 @@ def test_quickstart_torch_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     for section in ("kernel/cuda", "rosenbrock23 kernel", "em kernel",
                     "barrier event", "decay half point",
-                    "forced oscillator"):
+                    "forced oscillator", "adjoint through the kernel"):
         assert section in out, section
     assert res.u_final.shape == (32, 2)
     assert bool(torch.isfinite(res.u_final).all())
@@ -37,3 +49,26 @@ def test_bouncing_ball_torch_runs_on_the_cpu(n, capsys):
     assert res.us.shape == (n, 81, 2)
     assert float(res.us[:, :, 0].min()) > -1e-3
     assert "first impact" in capsys.readouterr().out
+
+
+def test_parameter_estimation_torch_fit_converges():
+    """The reference's bar (tests/test_grad_parity.py::
+    test_parameter_estimation_example_smoke): guesses 14 and 22 end within
+    0.5 of 17.3 in 25 iterations.  The torch backend's bounded loop is the
+    kernel route's backward replay; tests/test_torch_kernel_adjoint.py
+    holds the two bitwise."""
+    mod = load("parameter_estimation_torch")
+    data = mod.make_data("cpu", "torch")
+    rhos, _ = mod.fit(torch.tensor([14.0, 22.0], dtype=torch.float64), data,
+                      iters=25, lr=0.15, device="cpu", backend="torch")
+    assert bool(((rhos - mod.TRUE_RHO).abs() < 0.5).all()), rhos
+
+
+def test_sde_finance_torch_runs_on_the_cpu(capsys):
+    delta = load("sde_finance_torch").main(["--device", "cpu", "--n",
+                                            "4000"])
+    out = capsys.readouterr().out
+    for section in ("Black-Scholes =", "term-structure analytic",
+                    "delta(K=1.1) adjoint"):
+        assert section in out, section
+    assert 0.4 < delta < 0.9

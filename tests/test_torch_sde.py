@@ -271,8 +271,11 @@ def gbm_ep(N=4):
      NotImplementedError, "fixed-dt only"),
     (dict(saveat=[0.5, 1.0]), NotImplementedError, "save_every"),
     (dict(ensemble="array_eager"), NotImplementedError, "vmap"),
-    (dict(event=tdp.gbm_barrier_event(), sensitivity="adjoint"),
-     NotImplementedError, "ROADMAP"),
+    # the event + adjoint path runs at fixed dt (held to the reference's
+    # gradient in tests/test_torch_grad_parity.py); adaptive, it needs the
+    # bound, as the reference does
+    (dict(event=tdp.gbm_barrier_event(), sensitivity="adjoint",
+          adaptive=True), ValueError, "adjoint_steps"),
     (dict(dt0=None), ValueError, "explicit dt0"),
     (dict(n_steps=10, save_every=3), ValueError, "divide"),
     (dict(seed=2 ** 32), ValueError, "seed"),

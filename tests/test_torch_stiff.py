@@ -345,12 +345,18 @@ def test_stiff_dispatch_rules_and_errors():
     with pytest.raises(ValueError, match="backend"):
         tsolve(ens, alg="rodas4", backend="pallas", **kw)
     u0s, ps = ens.materialize()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         trb.solve_rosenbrock(tdp.rober_rhs, ttab.RODAS4, u0s[0], ps[0], 0.0,
                              1.0, 1e-6, lanes=False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trb.solve_rosenbrock(tdp.rober_rhs, ttab.RODAS4, u0s.T, ps.T, 0.0,
-                             1.0, 1e-6, bounded_steps=100)
+    # the bounded reverse-mode loop runs: bitwise the while loop's result
+    # once the bound covers the attempts
+    plain = trb.solve_rosenbrock(tdp.rober_rhs, ttab.RODAS4, u0s.T, ps.T,
+                                 0.0, 1.0, 1e-6)
+    bounded = trb.solve_rosenbrock(tdp.rober_rhs, ttab.RODAS4, u0s.T, ps.T,
+                                   0.0, 1.0, 1e-6, bounded_steps=100)
+    assert int((plain.naccept + plain.nreject).max()) <= 100
+    for a, b in zip(plain, bounded):
+        assert torch.equal(a, b)
     assert valid_dispatch(rodas4, "kernel", "cuda", w_reuse=True)[0]
     assert not valid_dispatch(rodas4, "array_eager")[0]
     assert not valid_dispatch(get_method("tsit5"), "kernel", w_reuse=True)[0]

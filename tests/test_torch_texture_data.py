@@ -14,8 +14,10 @@ rosenbrock23 (the reference's case, its span cut from 3 to 0.5) within
 table takes JAX's tangent at t0 = 0, the first knot);
 the SDE on a shared noise table within 1e-12, and adaptive on the
 reference's normals with identical counts; event times within 1e-6 (the
-kink-limited grid again; the port's two kernel backends bitwise).  The reference's data cases for gradients, sharding and autotune
-wait for ROADMAP queue 1 items 9, 12 and 11.
+kink-limited grid again; the port's two kernel backends bitwise).  The
+reference's gradient case is held in tests/test_torch_grad_parity.py
+(`test_grad_wrt_table_values_matches_reference`); its sharding and autotune
+cases wait for ROADMAP queue 1 items 12 and 11.
 """
 import dataclasses
 import functools
