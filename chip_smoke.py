@@ -6,8 +6,8 @@
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (the
 explicit-RK ensemble kernel, the fixed-dt SDE kernel, the adaptive SDE
 kernel on the virtual Brownian tree, the batched LU kernel, the fused
-Rosenbrock stiff kernel and the dataset lookup entry, all nvcc processes
-started together), holds each against its plain PyTorch twin on the card,
+Rosenbrock stiff kernel, the dataset lookup entry and flash attention, all
+nvcc processes started together), holds each against its plain PyTorch twin on the card,
 drives the port's paths through the front door
 (`solve_ensemble_local(ensemble="kernel", backend="cuda")`): the paper's
 million-trajectory Lorenz ensemble, the million-trajectory geometric
@@ -30,8 +30,15 @@ GBM), the gradients across the kernel boundary (`kernel_adjoint`: f64
 parity of every family's adjoint on the kernel route against the torch
 route and central differences, the five full-width gradient rows with
 their forward and backward times and the backward's peak memory, and the
-population fit of examples/parameter_estimation_torch.py), and times each
-kernel beside its twin, and the
+population fit of examples/parameter_estimation_torch.py), flash
+attention (K7, the LM scaffolding's kernel: parity against its plain
+version and the dense oracle in float32, bfloat16 and float64, then the
+dense-LM serving path at internlm2-1.8b's full width in bfloat16 with K7 as
+its attention core: four 4096-token requests and one 32,768-token prompt,
+prefill then greedy decode through `make_serve_plan`, held against
+`forward` and an f32 run, and K7 on the model's own q, k, v against its
+plain version, the dense oracle, the model's dense core and SDPA), and
+times each kernel beside its twin, and the
 `vmap` and `array` strategies on the ODE and fixed-dt SDE forms, on
 rober-1M-rodas5p and on gbm-1M-em-adaptive.  Every phase raises on
 failure, so the script exits non-zero; it also exits non-zero, printing no
@@ -257,6 +264,11 @@ PTXAS_TAGS = {
     "interp_lookup.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                          ("Li0E", "gather"), ("Li1E", "onehot"),
                          ("Li2E", "cubic"), ("Lb0E", "1d"), ("Lb1E", "2d")),
+    "flash_attention.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
+                           ("kernelI13__nv_bfloat16", "bf16"),
+                           *((f"Li{d}E", f"hd={d}") for d in (16, 32, 64, 128,
+                                                              256)),
+                           ("Lb0E", "noncausal"), ("Lb1E", "causal")),
     "lu_solve.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                     *((f"Li{k}E", f"n={k}") for k in range(1, 9)),
                     ("Lb0E", "nopivot"), ("Lb1E", "pivot")),
@@ -321,13 +333,14 @@ def phase_build() -> float:
     from repro_torch.kernels.build import build, library_path
     from repro_torch.kernels.em.adaptive import SOURCE as K5_SOURCE
     from repro_torch.kernels.em.kernel import SOURCE as SDE_SOURCE
+    from repro_torch.kernels.flashattn.kernel import SOURCE as K7_SOURCE
     from repro_torch.kernels.lu.kernel import SOURCE as LU_SOURCE
     from repro_torch.kernels.rosenbrock.kernel import SOURCE as RB_SOURCE
     from repro_torch.kernels.interp import SOURCE as LOOKUP_SOURCE
     from repro_torch.kernels.tsit5.kernel import SOURCE
     t = time.perf_counter()
     logs = build([SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE, K5_SOURCE,
-                  LOOKUP_SOURCE])
+                  LOOKUP_SOURCE, K7_SOURCE])
     secs = time.perf_counter() - t
     for src, log in logs.items():
         print(f"build {src}: " + "; ".join(ptxas_summary(log, src)))
@@ -3545,6 +3558,415 @@ def phase_population_fit(device):
     return err
 
 
+# ---------------------------------------------------------------------------
+# flash attention (K7) and the dense-LM serving path it was written for
+# ---------------------------------------------------------------------------
+
+# Published H100 SXM dense BF16 tensor-core peak (NVIDIA data sheet): the
+# bound of any attention kernel on bf16 inputs; PEAK_FP32_FLOPS is the
+# ceiling of K7's CUDA-core design.
+PEAK_BF16_TENSOR_FLOPS = 989e12
+# K7 against its plain version and the dense oracle: float32 and float64
+# inputs (both computed in float32) within 2e-5 of 1 + |value|, the
+# reference's own bar against the oracle (tests/test_flashattn.py);
+# bfloat16 inputs within 2 bfloat16 ulps (`flashattn.ref.bf16_ulps`: both
+# round a float32 result once, which may straddle a rounding boundary, and
+# the second ulp covers their float32 difference where the ulp is measured
+# at 2^-8 of the largest |value|).
+FLASH_TOL = 2e-5
+FLASH_BF16_ULPS = 2.0
+# (name, B, T, H, KV, hd, causal, block_q, block_k): the reference test's
+# cases (each also in float64, its f64 case), T = 1000 ragged against every
+# block, hd 64, 128 and 256, and g = H / KV = 1, 2, 8
+FLASH_CASES = (
+    ("causal-64-16-16", 2, 64, 4, 2, 32, True, 16, 16),
+    ("causal-64-32-16", 2, 64, 4, 2, 32, True, 32, 16),
+    ("causal-48-16-16", 2, 48, 4, 2, 32, True, 16, 16),
+    ("causal-128-64-32", 2, 128, 4, 2, 32, True, 64, 32),
+    ("gqa-4-4", 1, 32, 4, 4, 16, True, 16, 16),
+    ("gqa-4-1", 1, 32, 4, 1, 16, True, 16, 16),
+    ("gqa-8-2", 1, 32, 8, 2, 16, True, 16, 16),
+    ("noncausal", 1, 32, 2, 2, 16, False, 16, 16),
+    ("ragged-T-40", 1, 40, 2, 2, 16, True, 16, 16),
+    ("ragged-1000-hd64-g1", 1, 1000, 4, 4, 64, True, 128, 128),
+    ("ragged-1000-hd128-g2", 2, 1000, 16, 8, 128, True, 128, 128),
+    ("ragged-1000-hd256-g8", 1, 1000, 8, 1, 256, True, 128, 128),
+)
+LM_ARCH = "internlm2-1.8b"
+LM_SEED = 0
+# row: (batch, prompt tokens, cache_len, greedy decode steps, q_chunk).
+# serve: four 4096-token requests; prefill_32k: the reference's SHAPES
+# cell (32,768 tokens) cut from a global batch of 32 to 1 on one card,
+# q_chunk 512 as the reference's serve factory sets for cache_len >= 8192.
+LM_ROWS = {
+    "lm-internlm2-1.8b-serve": (4, 4096, 4160, 64, 0),
+    "lm-internlm2-1.8b-prefill_32k": (1, 32768, 32784, 16, 512),
+}
+LM_K7_LAYERS = (0, 23)     # the layers whose q, k, v K7 is held on
+LM_LAST_ROWS = 512         # at 32k the dense forms hold the last rows only
+LM_REPS = 3
+# Relative Frobenius norm of the bf16 model's logits over the true vocab
+# against (a) an f32 run of the same weights (the reference's dense
+# attention math) and (b) `forward` on T + 1 tokens against decode's logits
+# at position T.  A bf16 operation rounds to 2^-9 relative; a layer rounds
+# its residual stream about four times (norm, attention out, MLP out, the
+# adds), so 24 layers random-walk to ~sqrt(96) 2^-9 = 1.9e-2 for one bf16
+# run against exact, ~2.7e-2 for two independent ones: the bar 5e-2 leaves
+# 2x (a bar above it would be a fault for ROADMAP queue 3).
+LM_BF16_REL = 5e-2
+# K7 (float32 scores and P, one rounding of the output) against SDPA's
+# bf16 flash path (P rounded to bf16 before P V, 2^-9 relative) and
+# against the model's own dense core (scores, exp and probabilities each
+# rounded to bf16: scores of magnitude ~4 move by 4 2^-9, 0.8% in P), by
+# relative norm.
+K7_SDPA_REL = 1e-2
+K7_CORE_REL = 3e-2
+
+
+def flash_err(got, want) -> float:
+    """max |got - want| / (1 + |want|)."""
+    return float(((got.double() - want.double()).abs()
+                  / (1.0 + want.double().abs())).max())
+
+
+def rel_norm(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def flash_work(B, T, H, KV, hd, elem_bytes=2):
+    """(useful causal flops, bytes of q, k, v read and o written)."""
+    flops = 4 * B * H * hd * T * (T + 1) // 2
+    nbytes = elem_bytes * (2 * B * T * H * hd + 2 * B * T * KV * hd)
+    return flops, nbytes
+
+
+def phase_flash_parity(device):
+    """K7 against its plain version (on the same padded inputs) and the
+    dense oracle `ref_attention`, on FLASH_CASES in float32, bfloat16 and
+    float64, one launch each."""
+    import torch
+    from repro_torch.kernels.flashattn import kernel as fk
+    from repro_torch.kernels.flashattn.ops import (flash_attention,
+                                                   pad_to_blocks)
+    from repro_torch.kernels.flashattn.ref import bf16_ulps, ref_attention
+    worst = {}
+    for name, B, T, H, KV, hd, causal, bq, bk in FLASH_CASES:
+        rng = np.random.default_rng(SEED)
+        arrays = [rng.standard_normal(s) for s in
+                  ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
+        for dt in (torch.float32, torch.bfloat16, torch.float64):
+            q, k, v = (torch.from_numpy(a).to(device=device, dtype=dt)
+                       for a in arrays)
+            before = fk.launches
+            got = flash_attention(q, k, v, causal=causal, block_q=bq,
+                                  block_k=bk)
+            qp, kp, vp, bq_, bk_ = pad_to_blocks(q, k, v, causal=causal,
+                                                 block_q=bq, block_k=bk)
+            plain = fk.flash_attention_plain(qp, kp, vp, causal=causal,
+                                             block_q=bq_, block_k=bk_)[:, :T]
+            ref = ref_attention(q, k, v, causal=causal)
+            sync(device)
+            if fk.launches != before + 1:
+                raise AssertionError(f"flash {name}: K7 was not launched")
+            if got.dtype != dt or got.shape != q.shape:
+                raise AssertionError(f"flash {name}: {got.dtype} "
+                                     f"{tuple(got.shape)} out")
+            tag = str(dt).split(".")[-1]
+            if dt == torch.bfloat16:
+                errs = (bf16_ulps(got, plain), bf16_ulps(got, ref))
+                bar = FLASH_BF16_ULPS
+            else:
+                errs = (flash_err(got, plain), flash_err(got, ref))
+                bar = FLASH_TOL
+            if max(errs) > bar:
+                raise AssertionError(f"flash {name} {tag}: against the plain "
+                                     f"version {errs[0]:.3e}, the oracle "
+                                     f"{errs[1]:.3e} > {bar}")
+            w = worst.setdefault(tag, [0.0, 0.0])
+            worst[tag] = [max(w[0], errs[0]), max(w[1], errs[1])]
+    for tag, (e_plain, e_ref) in worst.items():
+        unit = "bf16 ulps" if tag == "bfloat16" else "of 1 + |value|"
+        bar = FLASH_BF16_ULPS if tag == "bfloat16" else FLASH_TOL
+        print(f"flash parity {tag}: {len(FLASH_CASES)} cases, K7 against "
+              f"the plain version {e_plain:.3e}, against ref_attention "
+              f"{e_ref:.3e} {unit} (bar {bar})")
+    return worst
+
+
+class FlashProbe:
+    """An attention core that runs K7 (`flash_attention`) and, while
+    `keep`, keeps the q, k, v of the chosen layers' calls."""
+
+    def __init__(self, layers, n_layers):
+        self.layers, self.n_layers = layers, n_layers
+        self.calls, self.keep, self.kept = 0, False, {}
+
+    def __call__(self, q, k, v, *, causal=True):
+        from repro_torch.kernels.flashattn.ops import flash_attention
+        layer = self.calls % self.n_layers
+        self.calls += 1
+        if self.keep and layer in self.layers:
+            self.kept[layer] = (q, k, v)
+        return flash_attention(q, k, v, causal=causal)
+
+
+def kernel_modules():
+    """Every wrapper module with a launch counter."""
+    from repro_torch.kernels import interp
+    from repro_torch.kernels.em import adaptive, kernel as em_kernel
+    from repro_torch.kernels.flashattn import kernel as flash_kernel
+    from repro_torch.kernels.lu import kernel as lu_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    return {"erk_ensemble": erk_kernel, "sde_ensemble": em_kernel,
+            "sde_adaptive_ensemble": adaptive,
+            "rosenbrock_ensemble": rb_kernel, "lu_solve": lu_kernel,
+            "interp_lookup": interp, "flash_attention": flash_kernel}
+
+
+def dense_last_rows(q, k, v, n):
+    """The dense f32 oracle (`ref_attention`'s math) on the last n query
+    rows of a causal attention."""
+    import torch
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qf = q[:, T - n:].float().reshape(B, n, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()) / float(hd) ** 0.5
+    rows = torch.arange(T - n, T, device=q.device)[:, None]
+    s = s.masked_fill(torch.arange(S, device=q.device)[None, :] > rows,
+                      -torch.inf)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, n, H, hd).to(q.dtype)
+
+
+def lm_k7_row(device, name, kept, T, main_launches):
+    """K7 on the served model's roped q, k and v of LM_K7_LAYERS: held
+    against its plain version (every row), `ref_attention` and the model's
+    own dense core (every row at 4k, the last LM_LAST_ROWS at 32k), and
+    SDPA; timed beside the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flashattn import kernel as fk
+    from repro_torch.kernels.flashattn.ops import flash_attention
+    from repro_torch.kernels.flashattn.ref import bf16_ulps, ref_attention
+    from repro_torch.models.layers import attention_core
+    ms, plain_ms, sdpa_ms, max_abs, checks = [], [], [], 0.0, {}
+    for layer in LM_K7_LAYERS:
+        q, k, v = kept[layer]
+        B, _, H, hd = q.shape
+        KV = k.shape[2]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+
+        got = flash_attention(q, k, v)
+        plain = fk.flash_attention_plain(q, k, v)
+        lib = sdpa()
+        if T <= 4096:
+            n = T
+            ref = ref_attention(q, k, v)
+            core = attention_core(q, k, v)
+        else:
+            n = LM_LAST_ROWS
+            ref = dense_last_rows(q, k, v, n)
+            core = attention_core(q[:, T - n:], k, v, q_offset=T - n)
+        core = core.reshape(B, n, H, hd)
+        sync(device)
+        c = {"plain_ulps": bf16_ulps(got, plain),
+             "ref_ulps": bf16_ulps(got[:, T - n:], ref),
+             "sdpa_rel": rel_norm(got, lib),
+             "core_rel": rel_norm(got[:, T - n:], core),
+             "plain_max_abs": float((got.float() - plain.float()).abs().max())}
+        del plain, ref, core, lib
+        for key, bar in (("plain_ulps", FLASH_BF16_ULPS),
+                         ("ref_ulps", FLASH_BF16_ULPS),
+                         ("sdpa_rel", K7_SDPA_REL), ("core_rel", K7_CORE_REL)):
+            if not c[key] <= bar:
+                raise AssertionError(f"{name} K7 layer {layer}: {key} "
+                                     f"{c[key]:.3e} > {bar}")
+        max_abs = max(max_abs, c["plain_max_abs"])
+        checks[f"layer{layer}"] = c
+        ms.append(cuda_ms(lambda: flash_attention(q, k, v), LM_REPS))
+        sdpa_ms.append(cuda_ms(sdpa, LM_REPS))
+        plain_ms.append(cuda_ms(lambda: fk.flash_attention_plain(q, k, v),
+                                1))
+        torch.cuda.empty_cache()
+    flops, nbytes = flash_work(B, T, H, KV, hd)
+    t_ops = flops / PEAK_BF16_TENSOR_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    fp32_ms = flops / PEAK_FP32_FLOPS * 1e3
+    row = {"name": f"flash_attention[bf16,hd={hd},{name}]", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flashattn/kernel.py:76",
+           "launches": main_launches, "max_abs_err": max_abs,
+           "ms": statistics.median(ms), "plain_ms": statistics.median(plain_ms),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": statistics.median(sdpa_ms),
+           "library": "torch.nn.functional.scaled_dot_product_attention",
+           "fp32_ceiling_ms": fp32_ms, "shape": [B, T, H, KV, hd],
+           "layers": list(LM_K7_LAYERS), "checks": checks}
+    print(f"{name} K7: ({B}, {T}, {H}, {KV}, {hd}) bf16, layers "
+          f"{list(LM_K7_LAYERS)}: {row['ms']:.3f} ms (per layer "
+          f"{[round(t, 3) for t in ms]}), SDPA {row['library_ms']:.3f} ms, "
+          f"plain {row['plain_ms']:.1f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({flops:.4e} useful flops at 989 TFLOP/s bf16, {nbytes:.4e} "
+          f"bytes {t_bytes:.4f} ms), FP32 CUDA-core ceiling {fp32_ms:.3f} "
+          f"ms; K7 / bound {row['ms'] / row['bound_ms']:.1f}x, K7 / SDPA "
+          f"{row['ms'] / row['library_ms']:.1f}x; holds "
+          + json.dumps({k: {kk: float(f"{vv:.4g}") for kk, vv in d.items()}
+                        for k, d in checks.items()}))
+    return row
+
+
+def phase_lm_serve(device):
+    """The dense-LM serving path at internlm2-1.8b's full width in bf16,
+    weights from a seeded generator, K7 as the attention core
+    (`model.attn_core`): per LM_ROWS row, the main path once (prefill, then
+    greedy decode steps through `make_serve_plan(mesh=None)`; every launch
+    counter set to 0 before it, K7 launched once a layer), its holds
+    (decode at position T against `forward` on T + 1 tokens; the prefill's
+    logits against an f32 run of the same weights on the reference's dense
+    attention; finite logits and masked pad columns), its times (prefill
+    with K7 and with the reference's dense bf16 core, decode per step,
+    tokens/s; CUDA events, median of LM_REPS after a warm-up) and peak
+    memory, then K7's row on the model's own q, k, v (`lm_k7_row`)."""
+    import torch
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.models.lm import _logits
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve import make_serve_plan
+    cfg = get_arch(LM_ARCH)
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    model = build_model(cfg, torch.bfloat16, device=device).init_params(gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{LM_ARCH}: {n_params} parameters (vocab padded to "
+          f"{cfg.vocab_padded}; {cfg.n_params()} with the true vocab), "
+          f"bf16, drawn in {time.perf_counter() - t0:.1f} s")
+    mods = kernel_modules()
+    k7_rows, lm_rows = [], []
+    for name, (B, T, cache_len, steps, q_chunk) in LM_ROWS.items():
+        t_row = time.perf_counter()
+        rng = np.random.default_rng(LM_SEED + T)
+        toks = torch.from_numpy(rng.integers(0, V, (B, T))).to(device)
+        batch = {"tokens": toks}
+        probe = FlashProbe(LM_K7_LAYERS, cfg.n_layers)
+        model.attn_core, model.q_chunk = probe, q_chunk
+        plan = make_serve_plan(model, None, B, cache_len)
+        # ---- the main path, once -----------------------------------------
+        sync(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        for mod in mods.values():
+            mod.launches = 0
+        probe.keep = True
+        logits, cache = plan.prefill_fn(batch)
+        probe.keep = False
+        cur = logits[..., :V].argmax(-1)
+        first_tok, gen_toks = cur, []
+        for s in range(steps):
+            step_logits, cache = plan.decode_fn(cache, cur)
+            if s == 0:
+                first_logits = step_logits
+            cur = step_logits[..., :V].argmax(-1)
+            gen_toks.append(cur)
+        sync(device)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        launches = {k: m.launches for k, m in mods.items()}
+        if launches.pop("flash_attention") != cfg.n_layers or any(
+                launches.values()):
+            raise AssertionError(f"{name}: launches on the main path "
+                                 f"{launches}, K7 {mods['flash_attention'].launches}"
+                                 f" (want {cfg.n_layers})")
+        gen_toks = torch.cat(gen_toks, dim=1)
+        pad = logits[..., V:]
+        if not (bool(torch.isfinite(logits[..., :V]).all())
+                and bool(torch.isfinite(first_logits[..., :V]).all())
+                and bool((pad == torch.finfo(torch.bfloat16).min / 8).all())
+                and logits.shape == (B, 1, cfg.vocab_padded)
+                and int(cache["pos"]) == T + steps
+                and bool(((gen_toks >= 0) & (gen_toks < V)).all())):
+            raise AssertionError(f"{name}: logits, cache or tokens malformed")
+        steps_s = {"main path": time.perf_counter() - t_row}
+        # ---- holds ---------------------------------------------------------
+        with torch.inference_mode():
+            x, _ = model.forward(torch.cat([toks, first_tok], dim=1))
+            fwd = _logits(x[:, -1:], model, cfg)
+            del x
+            decode_rel = rel_norm(first_logits[..., :V], fwd[..., :V])
+            # the same weights in f32, on the reference's dense attention
+            model32 = build_model(cfg, torch.float32, device=device)
+            model32.load_state_dict(model.state_dict())
+            model32.q_chunk = q_chunk
+            x, _ = model32.forward(toks)
+            f32 = _logits(x[:, -1:], model32, cfg)
+            del x
+            f32_rel = rel_norm(logits[..., :V], f32[..., :V])
+            del model32
+        for what, err in (("decode at T against forward on T + 1",
+                           decode_rel),
+                          ("prefill against the f32 run", f32_rel)):
+            if not err <= LM_BF16_REL:
+                raise AssertionError(f"{name}: {what}: relative norm "
+                                     f"{err:.3e} > {LM_BF16_REL}")
+        torch.cuda.empty_cache()
+        steps_s["holds"] = time.perf_counter() - t_row - sum(steps_s.values())
+        # ---- times -----------------------------------------------------------
+        prefill_ms = cuda_ms(lambda: plan.prefill_fn(batch), LM_REPS)
+        torch.cuda.empty_cache()
+
+        def decode_run():
+            with torch.inference_mode():
+                cache["pos"].fill_(T)
+            tok = first_tok
+            for _ in range(steps):
+                out, _ = plan.decode_fn(cache, tok)
+                tok = out[..., :V].argmax(-1)
+
+        decode_ms = cuda_ms(decode_run, LM_REPS) / steps
+        # the reference's dense bf16 core, for comparison (once at 32k)
+        model.attn_core = None
+        dense_ms = cuda_ms(lambda: plan.prefill_fn(batch),
+                           LM_REPS if T <= 4096 else 1,
+                           warmup=1 if T <= 4096 else 0)
+        torch.cuda.empty_cache()
+        steps_s["times"] = time.perf_counter() - t_row - sum(steps_s.values())
+        lm = {"name": name, "arch": LM_ARCH, "batch": B, "prompt": T,
+              "cache_len": cache_len, "decode_steps": steps,
+              "q_chunk": q_chunk, "prefill_ms": prefill_ms,
+              "prefill_dense_core_ms": dense_ms,
+              "prefill_dense_core_reps": LM_REPS if T <= 4096 else 1,
+              "decode_ms_per_step": decode_ms,
+              "tokens_per_s": B / (decode_ms / 1e3), "peak_gb": peak_gb,
+              "decode_vs_forward_rel": decode_rel,
+              "prefill_vs_f32_rel": f32_rel, "bar": LM_BF16_REL}
+        print(f"{name}: prefill {B} x {T} tokens {prefill_ms:.1f} ms with "
+              f"K7 ({dense_ms:.1f} ms with the dense bf16 core), decode "
+              f"{decode_ms:.3f} ms a step ({lm['tokens_per_s']:.1f} generated "
+              f"tokens/s over {steps} steps), peak {peak_gb:.3f} GB; decode "
+              f"at T against forward on T + 1 {decode_rel:.3e}, prefill "
+              f"against the f32 run {f32_rel:.3e} (bar {LM_BF16_REL}); K7 "
+              f"launches on the main path {cfg.n_layers}, other kernels 0")
+        k7 = lm_k7_row(device, name, probe.kept, T, cfg.n_layers)
+        del probe, cache, logits, first_logits, fwd, f32
+        torch.cuda.empty_cache()
+        steps_s["K7 row"] = (time.perf_counter() - t_row
+                             - sum(steps_s.values()))
+        lm["step_s"] = {k: round(v, 1) for k, v in steps_s.items()}
+        print("lm " + json.dumps(lm))
+        k7["serve"] = lm
+        k7_rows.append(k7)
+        lm_rows.append(lm)
+    model.attn_core = None
+    return k7_rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3609,6 +4031,11 @@ def main() -> int:
         r["parity_f64"] = grad
     rows += grad_rows
     phase_population_fit(device)
+    flash_parity = phase_flash_parity(device)
+    k7_rows = phase_lm_serve(device)
+    for r in k7_rows:
+        r["parity"] = flash_parity
+    rows += k7_rows
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": rows}))

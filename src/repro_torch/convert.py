@@ -85,3 +85,31 @@ def tableau_from_arrays(name: str, a, b, btilde, c, *, order: int,
     as64 = lambda v: np.array(v, dtype=np.float64)
     return Tableau(name, as64(a), as64(b), as64(btilde), as64(c), int(order),
                    int(embedded_order), bool(fsal), interp_bpoly)
+
+
+def lm_params(params, cfg, *, device="cpu", dtype=torch.float64):
+    """A dense `DecoderLM` of `cfg` on `device` in `dtype` holding the
+    reference's ``init_params`` pytree ``params`` (its leaves as numpy
+    arrays; the block leaves stacked (L, …) as the reference's scan keeps
+    them, unstacked here).  Copies exactly: float64 to float64 bit for bit,
+    a narrower dtype rounding once."""
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, dtype=dtype, device=device)
+    names = ["embed", "final_norm"] + ([] if cfg.tie_embeddings
+                                       else ["unembed"])
+    with torch.no_grad():
+        for name in names:
+            getattr(model, name).copy_(to_tensor(np.array(params[name]),
+                                                 device=device, dtype=dtype))
+        blocks = params["blocks"]
+        for i, blk in enumerate(model.blocks):
+            for group in ("attn", "mlp"):
+                for name, p in getattr(blk, group).items():
+                    p.copy_(to_tensor(np.array(blocks[group][name][i]),
+                                      device=device,
+                                      dtype=dtype))
+            for name in ("ln1", "ln2"):
+                getattr(blk, name).copy_(to_tensor(np.array(blocks[name][i]),
+                                                   device=device,
+                                                   dtype=dtype))
+    return model

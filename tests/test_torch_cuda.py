@@ -747,3 +747,99 @@ def test_cuda_launch_refuses_grad_outside_kernel_adjoint(cuda):
         tsolve(EnsembleProblem(ep.prob, 64, u0s=u0s.requires_grad_(True),
                                ps=ps), ensemble="kernel", backend="cuda",
                device=cuda, **kw)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (csrc/flash_attention.cu) and the dense LM served with it
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = {"gqa-2": (2, 64, 4, 2, 32, True),
+                "ragged-40": (1, 40, 2, 2, 16, True),
+                "noncausal": (1, 32, 2, 2, 16, False),
+                "ragged-1000-g8": (1, 1000, 8, 1, 128, True),
+                "hd256": (1, 300, 4, 2, 256, True),
+                "hd64-g1": (1, 200, 4, 4, 64, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_cuda_flash_attention_matches_plain_version(cuda, shape, dtype):
+    """The kernel against its plain version (on the CPU, same inputs):
+    float32 and float64 inputs within 2e-5 (the reference's bar against the
+    dense oracle; both compute in float32), bfloat16 within 2 ulps."""
+    from repro_torch.kernels.flashattn import kernel as flash_kernel
+    from repro_torch.kernels.flashattn.ops import flash_attention
+    from repro_torch.kernels.flashattn.ref import bf16_ulps
+    B, T, H, KV, hd, causal = FLASH_SHAPES[shape]
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s))
+               .to(getattr(torch, dtype)) for s in
+               ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    before = flash_kernel.launches
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = flash_attention(q, k, v, causal=causal)
+    if dtype == "bfloat16":
+        assert bf16_ulps(got.cpu(), want) <= 2.0
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    from repro_torch.kernels.flashattn.kernel import flash_attention_kernel
+    q = torch.zeros(1, 64, 4, 32, device=cuda)
+    kv = torch.zeros(1, 64, 2, 32, device=cuda)
+    kv48 = torch.zeros(1, 64, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_kernel(torch.zeros(1, 64, 4, 48, device=cuda), kv48,
+                               kv48, block_q=64, block_k=64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_kernel(q.half(), kv.half(), kv.half(), block_q=64,
+                               block_k=64)
+    with pytest.raises(ValueError, match="multiple of"):
+        flash_attention_kernel(q[:, :, :3].contiguous(), kv, kv,
+                               block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_kernel(q, torch.zeros(1, 64, 2, 64, device=cuda)
+                               [..., :32], kv, block_q=64, block_k=64)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_lm_serves_with_the_flash_core(cuda):
+    """internlm2 reduced, float32, the same weights on the CPU and the card:
+    the card's prefill with K7 as its attention core against the CPU's
+    dense core (2e-4 of the largest logit, tests/test_torch_lm.py's float32
+    bar), one K7 launch a layer, and 4 greedy decode steps equal."""
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.kernels.flashattn import kernel as flash_kernel
+    from repro_torch.kernels.flashattn.ops import flash_attention
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve import make_serve_plan
+    cfg = get_arch("internlm2-1.8b-smoke")
+    cpu = build_model(cfg, torch.float32, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, torch.float32, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.attn_core = flash_attention
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    plans = [make_serve_plan(m, None, 2, 48) for m in (cpu, gpu)]
+    before = flash_kernel.launches
+    (lc, cc), (lg, cg) = (p.prefill_fn({"tokens": toks.to(m.device)})
+                          for p, m in zip(plans, (cpu, gpu)))
+    assert flash_kernel.launches == before + cfg.n_layers
+    V = cfg.vocab_size
+    scale = float(lc[..., :V].abs().max())
+    assert float((lg.cpu() - lc)[..., :V].abs().max()) <= 2e-4 * scale
+    tc = lc[..., :V].argmax(-1)
+    tg = lg[..., :V].argmax(-1)
+    for _ in range(4):
+        assert torch.equal(tg.cpu(), tc)
+        (lc, cc), (lg, cg) = plans[0].decode_fn(cc, tc), plans[1].decode_fn(
+            cg, tg)
+        tc, tg = lc[..., :V].argmax(-1), lg[..., :V].argmax(-1)
+    assert torch.equal(tg.cpu(), tc)

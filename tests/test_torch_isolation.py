@@ -23,7 +23,12 @@ PORT_MODULES = [
     "repro_torch.kernels.rosenbrock.kernel",
     "repro_torch.kernels.rosenbrock.ops", "repro_torch.kernels.em.adaptive",
     "repro_torch.kernels.events", "repro_torch.core.interp",
-    "repro_torch.kernels.interp",
+    "repro_torch.kernels.interp", "repro_torch.kernels.flashattn.kernel",
+    "repro_torch.kernels.flashattn.ops", "repro_torch.kernels.flashattn.ref",
+    "repro_torch.models.config", "repro_torch.models.layers",
+    "repro_torch.models.lm", "repro_torch.models.model",
+    "repro_torch.configs.archs", "repro_torch.configs.internlm2_1_8b",
+    "repro_torch.train.serve",
 ]
 
 
