@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` (the
 explicit-RK ensemble kernel, the fixed-dt SDE kernel, the adaptive SDE
 kernel on the virtual Brownian tree, the batched LU kernel, the fused
-Rosenbrock stiff kernel, the dataset lookup entry and flash attention, all
-nvcc processes started together), holds each against its plain PyTorch twin on the card,
+Rosenbrock stiff kernel, the dataset lookup entry and flash attention in
+its two forms, CUDA cores and tensor cores, all nvcc processes started
+together), holds each against its plain PyTorch twin on the card,
 drives the port's paths through the front door
 (`solve_ensemble_local(ensemble="kernel", backend="cuda")`): the paper's
 million-trajectory Lorenz ensemble, the million-trajectory geometric
@@ -31,13 +32,14 @@ parity of every family's adjoint on the kernel route against the torch
 route and central differences, the five full-width gradient rows with
 their forward and backward times and the backward's peak memory, and the
 population fit of examples/parameter_estimation_torch.py), flash
-attention (K7, the LM scaffolding's kernel: parity against its plain
-version and the dense oracle in float32, bfloat16 and float64, then the
-dense-LM serving path at internlm2-1.8b's full width in bfloat16 with K7 as
-its attention core: four 4096-token requests and one 32,768-token prompt,
-prefill then greedy decode through `make_serve_plan`, held against
-`forward` and an f32 run, and K7 on the model's own q, k, v against its
-plain version, the dense oracle, the model's dense core and SDPA), and
+attention (K7, the LM scaffolding's kernel: parity of both forms against
+the plain version and the dense oracle in float32, bfloat16 and float64,
+then the dense-LM serving path at internlm2-1.8b's full width in bfloat16
+with K7's tensor-core form as its attention core: four 4096-token
+requests and one 32,768-token prompt, prefill then greedy decode through
+`make_serve_plan`, held against `forward` and an f32 run, and K7 on the
+model's own q, k, v against its plain version, the dense oracle, the
+model's dense core and SDPA), and
 times each kernel beside its twin, and the
 `vmap` and `array` strategies on the ODE and fixed-dt SDE forms, on
 rober-1M-rodas5p and on gbm-1M-em-adaptive.  Every phase raises on
@@ -264,6 +266,9 @@ PTXAS_TAGS = {
     "interp_lookup.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                          ("Li0E", "gather"), ("Li1E", "onehot"),
                          ("Li2E", "cubic"), ("Lb0E", "1d"), ("Lb1E", "2d")),
+    "flash_attention_sm90.cu": (("sm90_kernel", "bf16"),
+                                *((f"Li{d}E", f"hd={d}") for d in (64, 128)),
+                                ("Lb0E", "noncausal"), ("Lb1E", "causal")),
     "flash_attention.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
                            ("kernelI13__nv_bfloat16", "bf16"),
                            *((f"Li{d}E", f"hd={d}") for d in (16, 32, 64, 128,
@@ -334,13 +339,14 @@ def phase_build() -> float:
     from repro_torch.kernels.em.adaptive import SOURCE as K5_SOURCE
     from repro_torch.kernels.em.kernel import SOURCE as SDE_SOURCE
     from repro_torch.kernels.flashattn.kernel import SOURCE as K7_SOURCE
+    from repro_torch.kernels.flashattn.kernel import SM90_SOURCE
     from repro_torch.kernels.lu.kernel import SOURCE as LU_SOURCE
     from repro_torch.kernels.rosenbrock.kernel import SOURCE as RB_SOURCE
     from repro_torch.kernels.interp import SOURCE as LOOKUP_SOURCE
     from repro_torch.kernels.tsit5.kernel import SOURCE
     t = time.perf_counter()
     logs = build([SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE, K5_SOURCE,
-                  LOOKUP_SOURCE, K7_SOURCE])
+                  LOOKUP_SOURCE, K7_SOURCE, SM90_SOURCE])
     secs = time.perf_counter() - t
     for src, log in logs.items():
         print(f"build {src}: " + "; ".join(ptxas_summary(log, src)))
@@ -356,7 +362,36 @@ def phase_build() -> float:
                                               "IMAD")}
         print(f"sass {what}: {sum(mix.values())} instructions, integer "
               + json.dumps(ints))
+    # K7's tensor-core form on the LM path: wgmma and TMA in its SASS, no
+    # spills in ptxas's report
+    mix = sass_mix(library_path(SM90_SOURCE), "flash_sm90_kernel",
+                   "Li128ELb1E")
+    report = [e for e in ptxas_summary(logs.get(SM90_SOURCE)
+                                       or ptxas_log(SM90_SOURCE), SM90_SOURCE)
+              if e.startswith("bf16,hd=128,causal:")]
+    print(f"sass K7 sm90 bf16 hd=128 causal: HGMMA {mix.get('HGMMA', 0)}, "
+          f"UTMALDG {mix.get('UTMALDG', 0)}; ptxas {report}")
+    if not (mix.get("HGMMA") and mix.get("UTMALDG")):
+        raise AssertionError("K7's sm90 form compiled without HGMMA or "
+                             "UTMALDG")
+    if len(report) != 1 or "0 bytes spill stores, 0 bytes spill loads" \
+            not in report[0]:
+        raise AssertionError(f"K7's sm90 form spills: {report}")
     return secs
+
+
+def ptxas_log(source: str) -> str:
+    """nvcc's -Xptxas=-v report of `source`, compiled once more into a
+    scratch library (for a build that was already cached)."""
+    from repro_torch.kernels.build import CSRC, NVCC_FLAGS, library_path, nvcc
+    tmp = library_path(source).with_suffix(".report.tmp")
+    try:
+        return subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(CSRC / source)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              check=True).stdout
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def phase_parity(device, N: int = PARITY_N):
@@ -3564,17 +3599,25 @@ def phase_population_fit(device):
 
 # Published H100 SXM dense BF16 tensor-core peak (NVIDIA data sheet): the
 # bound of any attention kernel on bf16 inputs; PEAK_FP32_FLOPS is the
-# ceiling of K7's CUDA-core design.
+# ceiling of K7's CUDA-core form.
 PEAK_BF16_TENSOR_FLOPS = 989e12
-# K7 against its plain version and the dense oracle: float32 and float64
-# inputs (both computed in float32) within 2e-5 of 1 + |value|, the
-# reference's own bar against the oracle (tests/test_flashattn.py);
-# bfloat16 inputs within 2 bfloat16 ulps (`flashattn.ref.bf16_ulps`: both
-# round a float32 result once, which may straddle a rounding boundary, and
-# the second ulp covers their float32 difference where the ulp is measured
-# at 2^-8 of the largest |value|).
+# K7's CUDA-core form against its plain version and the dense oracle:
+# float32 and float64 inputs (both computed in float32) within 2e-5 of
+# 1 + |value|, the reference's own bar against the oracle
+# (tests/test_flashattn.py); bfloat16 inputs within 2 bfloat16 ulps
+# (`flashattn.ref.bf16_ulps`: both round a float32 result once, which may
+# straddle a rounding boundary, and the second ulp covers their float32
+# difference where the ulp is measured at 2^-8 of the largest |value|).
 FLASH_TOL = 2e-5
 FLASH_BF16_ULPS = 2.0
+# K7's tensor-core form (bf16 at hd 64 and 128) rounds P to bf16 before
+# P V: that moves o by at most u sum_j p_j |v_j| / l <= u max|v| (u = 2^-8,
+# bf16's unit roundoff), and each of the two output roundings (kernel and
+# plain version) by u |o| <= u max|v|.  So it is held to the plain version
+# and the oracle within 3 u max|v| elementwise and u by relative norm (two
+# independent roundings of rms u / sqrt(3) give ~3.2e-3).
+SM90_ELEM = 3 * 2.0 ** -8
+SM90_REL = 2.0 ** -8
 # (name, B, T, H, KV, hd, causal, block_q, block_k): the reference test's
 # cases (each also in float64, its f64 case), T = 1000 ragged against every
 # block, hd 64, 128 and 256, and g = H / KV = 1, 2, 8
@@ -3608,17 +3651,18 @@ LM_REPS = 3
 # Relative Frobenius norm of the bf16 model's logits over the true vocab
 # against (a) an f32 run of the same weights (the reference's dense
 # attention math) and (b) `forward` on T + 1 tokens against decode's logits
-# at position T.  A bf16 operation rounds to 2^-9 relative; a layer rounds
-# its residual stream about four times (norm, attention out, MLP out, the
-# adds), so 24 layers random-walk to ~sqrt(96) 2^-9 = 1.9e-2 for one bf16
-# run against exact, ~2.7e-2 for two independent ones: the bar 5e-2 leaves
-# 2x (a bar above it would be a fault for ROADMAP queue 3).
+# at position T.  A bf16 operation rounds by at most its unit roundoff
+# 2^-8 relative, rms 2^-8 / sqrt(3) = 2.3e-3; a layer rounds its residual
+# stream about four times (norm, attention out, MLP out, the adds), so 24
+# layers random-walk to ~sqrt(96) 2.3e-3 = 2.2e-2 for one bf16 run against
+# exact, ~3.1e-2 for two independent ones: the bar 5e-2 leaves 1.6x (a bar
+# above it would be a fault for ROADMAP queue 3).
 LM_BF16_REL = 5e-2
-# K7 (float32 scores and P, one rounding of the output) against SDPA's
-# bf16 flash path (P rounded to bf16 before P V, 2^-9 relative) and
-# against the model's own dense core (scores, exp and probabilities each
-# rounded to bf16: scores of magnitude ~4 move by 4 2^-9, 0.8% in P), by
-# relative norm.
+# K7 (float32 scores; P rounded to bf16 for P V in the tensor-core form)
+# against SDPA's bf16 flash path (P rounded to bf16 before P V, 2^-8
+# relative) and against the model's own dense core (scores, exp and
+# probabilities each rounded to bf16: scores of magnitude ~4 move by
+# 4 2^-8, 1.6% in P), by relative norm.
 K7_SDPA_REL = 1e-2
 K7_CORE_REL = 3e-2
 
@@ -3640,10 +3684,20 @@ def flash_work(B, T, H, KV, hd, elem_bytes=2):
     return flops, nbytes
 
 
+def sm90_errs(got, want, v):
+    """(max |got - want| / max |v|, relative norm): K7's tensor-core form
+    against a float32-P attention, at SM90_ELEM and SM90_REL."""
+    d = got.double() - want.double()
+    return (float(d.abs().max() / v.double().abs().max()),
+            float(d.norm() / want.double().norm()))
+
+
 def phase_flash_parity(device):
     """K7 against its plain version (on the same padded inputs) and the
     dense oracle `ref_attention`, on FLASH_CASES in float32, bfloat16 and
-    float64, one launch each."""
+    float64, one launch each: the tensor-core form (bf16 at hd 64, 128) at
+    SM90_ELEM and SM90_REL, the CUDA-core form at FLASH_TOL and
+    FLASH_BF16_ULPS."""
     import torch
     from repro_torch.kernels.flashattn import kernel as fk
     from repro_torch.kernels.flashattn.ops import (flash_attention,
@@ -3657,7 +3711,8 @@ def phase_flash_parity(device):
         for dt in (torch.float32, torch.bfloat16, torch.float64):
             q, k, v = (torch.from_numpy(a).to(device=device, dtype=dt)
                        for a in arrays)
-            before = fk.launches
+            form = fk.form_of(dt, hd)
+            before = (fk.launches, fk.launches_sm90)
             got = flash_attention(q, k, v, causal=causal, block_q=bq,
                                   block_k=bk)
             qp, kp, vp, bq_, bk_ = pad_to_blocks(q, k, v, causal=causal,
@@ -3666,30 +3721,41 @@ def phase_flash_parity(device):
                                              block_q=bq_, block_k=bk_)[:, :T]
             ref = ref_attention(q, k, v, causal=causal)
             sync(device)
-            if fk.launches != before + 1:
-                raise AssertionError(f"flash {name}: K7 was not launched")
+            if (fk.launches, fk.launches_sm90) != (
+                    before[0] + 1, before[1] + (form == "sm90")):
+                raise AssertionError(f"flash {name}: K7's {form} form was "
+                                     f"not launched alone")
             if got.dtype != dt or got.shape != q.shape:
                 raise AssertionError(f"flash {name}: {got.dtype} "
                                      f"{tuple(got.shape)} out")
             tag = str(dt).split(".")[-1]
-            if dt == torch.bfloat16:
+            if form == "sm90":
+                tag += " sm90"
+                errs = sm90_errs(got, plain, v) + sm90_errs(got, ref, v)
+                bars = (SM90_ELEM, SM90_REL) * 2
+            elif dt == torch.bfloat16:
                 errs = (bf16_ulps(got, plain), bf16_ulps(got, ref))
-                bar = FLASH_BF16_ULPS
+                bars = (FLASH_BF16_ULPS,) * 2
             else:
                 errs = (flash_err(got, plain), flash_err(got, ref))
-                bar = FLASH_TOL
-            if max(errs) > bar:
+                bars = (FLASH_TOL,) * 2
+            if any(e > bar for e, bar in zip(errs, bars)):
                 raise AssertionError(f"flash {name} {tag}: against the plain "
-                                     f"version {errs[0]:.3e}, the oracle "
-                                     f"{errs[1]:.3e} > {bar}")
-            w = worst.setdefault(tag, [0.0, 0.0])
-            worst[tag] = [max(w[0], errs[0]), max(w[1], errs[1])]
-    for tag, (e_plain, e_ref) in worst.items():
-        unit = "bf16 ulps" if tag == "bfloat16" else "of 1 + |value|"
-        bar = FLASH_BF16_ULPS if tag == "bfloat16" else FLASH_TOL
-        print(f"flash parity {tag}: {len(FLASH_CASES)} cases, K7 against "
-              f"the plain version {e_plain:.3e}, against ref_attention "
-              f"{e_ref:.3e} {unit} (bar {bar})")
+                                     f"version and the oracle {errs} > "
+                                     f"{bars}")
+            w = worst.setdefault(tag, [0.0] * len(errs) + [0])
+            worst[tag] = [max(a, b) for a, b in zip(w, errs)] + [w[-1] + 1]
+    for tag, w in worst.items():
+        if tag.endswith("sm90"):
+            what = (f"against the plain version {w[0]:.3e} of max|v|, "
+                    f"{w[1]:.3e} by norm; against ref_attention {w[2]:.3e}, "
+                    f"{w[3]:.3e} (bars {SM90_ELEM:.3e}, {SM90_REL:.3e})")
+        else:
+            unit = "bf16 ulps" if tag == "bfloat16" else "of 1 + |value|"
+            bar = FLASH_BF16_ULPS if tag == "bfloat16" else FLASH_TOL
+            what = (f"against the plain version {w[0]:.3e}, against "
+                    f"ref_attention {w[1]:.3e} {unit} (bar {bar})")
+        print(f"flash parity {tag}: {w[-1]} cases, K7 {what}")
     return worst
 
 
@@ -3745,18 +3811,20 @@ def lm_k7_row(device, name, kept, T, main_launches):
     """K7 on the served model's roped q, k and v of LM_K7_LAYERS: held
     against its plain version (every row), `ref_attention` and the model's
     own dense core (every row at 4k, the last LM_LAST_ROWS at 32k), and
-    SDPA; timed beside the plain version and SDPA."""
+    SDPA; timed beside the plain version, SDPA and its CUDA-core form on
+    the same tensors."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn import kernel as fk
     from repro_torch.kernels.flashattn.ops import flash_attention
     from repro_torch.kernels.flashattn.ref import bf16_ulps, ref_attention
     from repro_torch.models.layers import attention_core
-    ms, plain_ms, sdpa_ms, max_abs, checks = [], [], [], 0.0, {}
+    ms, plain_ms, sdpa_ms, core_ms, max_abs, checks = [], [], [], [], 0.0, {}
     for layer in LM_K7_LAYERS:
         q, k, v = kept[layer]
         B, _, H, hd = q.shape
         KV = k.shape[2]
+        form = fk.form_of(q.dtype, hd)
 
         def sdpa():
             return F.scaled_dot_product_attention(
@@ -3776,15 +3844,22 @@ def lm_k7_row(device, name, kept, T, main_launches):
             core = attention_core(q[:, T - n:], k, v, q_offset=T - n)
         core = core.reshape(B, n, H, hd)
         sync(device)
-        c = {"plain_ulps": bf16_ulps(got, plain),
-             "ref_ulps": bf16_ulps(got[:, T - n:], ref),
-             "sdpa_rel": rel_norm(got, lib),
-             "core_rel": rel_norm(got[:, T - n:], core),
-             "plain_max_abs": float((got.float() - plain.float()).abs().max())}
+        if form == "sm90":
+            c = dict(zip(("plain_elem", "plain_rel", "ref_elem", "ref_rel"),
+                         sm90_errs(got, plain, v)
+                         + sm90_errs(got[:, T - n:], ref, v)))
+            bars = {"plain_elem": SM90_ELEM, "plain_rel": SM90_REL,
+                    "ref_elem": SM90_ELEM, "ref_rel": SM90_REL}
+        else:
+            c = {"plain_ulps": bf16_ulps(got, plain),
+                 "ref_ulps": bf16_ulps(got[:, T - n:], ref)}
+            bars = {"plain_ulps": FLASH_BF16_ULPS, "ref_ulps": FLASH_BF16_ULPS}
+        c.update(sdpa_rel=rel_norm(got, lib),
+                 core_rel=rel_norm(got[:, T - n:], core),
+                 plain_max_abs=float((got.float() - plain.float()).abs().max()))
+        bars.update(sdpa_rel=K7_SDPA_REL, core_rel=K7_CORE_REL)
         del plain, ref, core, lib
-        for key, bar in (("plain_ulps", FLASH_BF16_ULPS),
-                         ("ref_ulps", FLASH_BF16_ULPS),
-                         ("sdpa_rel", K7_SDPA_REL), ("core_rel", K7_CORE_REL)):
+        for key, bar in bars.items():
             if not c[key] <= bar:
                 raise AssertionError(f"{name} K7 layer {layer}: {key} "
                                      f"{c[key]:.3e} > {bar}")
@@ -3792,6 +3867,8 @@ def lm_k7_row(device, name, kept, T, main_launches):
         checks[f"layer{layer}"] = c
         ms.append(cuda_ms(lambda: flash_attention(q, k, v), LM_REPS))
         sdpa_ms.append(cuda_ms(sdpa, LM_REPS))
+        core_ms.append(cuda_ms(lambda: fk._launch("cuda_core", q, k, v, True),
+                               LM_REPS))
         plain_ms.append(cuda_ms(lambda: fk.flash_attention_plain(q, k, v),
                                 1))
         torch.cuda.empty_cache()
@@ -3799,8 +3876,9 @@ def lm_k7_row(device, name, kept, T, main_launches):
     t_ops = flops / PEAK_BF16_TENSOR_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     fp32_ms = flops / PEAK_FP32_FLOPS * 1e3
+    source = fk.SM90_SOURCE if form == "sm90" else fk.SOURCE
     row = {"name": f"flash_attention[bf16,hd={hd},{name}]", "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "source": f"src/repro_torch/csrc/{source}",
            "replaces": "src/repro/kernels/flashattn/kernel.py:76",
            "launches": main_launches, "max_abs_err": max_abs,
            "ms": statistics.median(ms), "plain_ms": statistics.median(plain_ms),
@@ -3808,16 +3886,22 @@ def lm_k7_row(device, name, kept, T, main_launches):
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": statistics.median(sdpa_ms),
            "library": "torch.nn.functional.scaled_dot_product_attention",
+           "form": form, "cuda_core_ms": statistics.median(core_ms),
            "fp32_ceiling_ms": fp32_ms, "shape": [B, T, H, KV, hd],
            "layers": list(LM_K7_LAYERS), "checks": checks}
-    print(f"{name} K7: ({B}, {T}, {H}, {KV}, {hd}) bf16, layers "
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+    row["ms_over_library"] = row["ms"] / row["library_ms"]
+    print(f"{name} K7 ({form} form): ({B}, {T}, {H}, {KV}, {hd}) bf16, layers "
           f"{list(LM_K7_LAYERS)}: {row['ms']:.3f} ms (per layer "
-          f"{[round(t, 3) for t in ms]}), SDPA {row['library_ms']:.3f} ms, "
-          f"plain {row['plain_ms']:.1f} ms; bound {row['bound_ms']:.4f} ms "
-          f"({flops:.4e} useful flops at 989 TFLOP/s bf16, {nbytes:.4e} "
-          f"bytes {t_bytes:.4f} ms), FP32 CUDA-core ceiling {fp32_ms:.3f} "
-          f"ms; K7 / bound {row['ms'] / row['bound_ms']:.1f}x, K7 / SDPA "
-          f"{row['ms'] / row['library_ms']:.1f}x; holds "
+          f"{[round(t, 3) for t in ms]}), {row['tflops']:.1f} TFLOP/s; SDPA "
+          f"{row['library_ms']:.3f} ms, the CUDA-core form "
+          f"{row['cuda_core_ms']:.3f} ms, plain {row['plain_ms']:.1f} ms; "
+          f"bound {row['bound_ms']:.4f} ms ({flops:.4e} useful flops at 989 "
+          f"TFLOP/s bf16, {nbytes:.4e} bytes {t_bytes:.4f} ms), FP32 "
+          f"CUDA-core ceiling {fp32_ms:.3f} ms; K7 / bound "
+          f"{row['ms_over_bound']:.2f}x, K7 / SDPA "
+          f"{row['ms_over_library']:.2f}x; holds "
           + json.dumps({k: {kk: float(f"{vv:.4g}") for kk, vv in d.items()}
                         for k, d in checks.items()}))
     return row
@@ -3828,7 +3912,8 @@ def phase_lm_serve(device):
     weights from a seeded generator, K7 as the attention core
     (`model.attn_core`): per LM_ROWS row, the main path once (prefill, then
     greedy decode steps through `make_serve_plan(mesh=None)`; every launch
-    counter set to 0 before it, K7 launched once a layer), its holds
+    counter set to 0 before it, K7's tensor-core form launched once a
+    layer and nothing else), its holds
     (decode at position T against `forward` on T + 1 tokens; the prefill's
     logits against an f32 run of the same weights on the reference's dense
     attention; finite logits and masked pad columns), its times (prefill
@@ -3865,6 +3950,7 @@ def phase_lm_serve(device):
         torch.cuda.reset_peak_memory_stats(device)
         for mod in mods.values():
             mod.launches = 0
+        mods["flash_attention"].launches_sm90 = 0
         probe.keep = True
         logits, cache = plan.prefill_fn(batch)
         probe.keep = False
@@ -3879,11 +3965,12 @@ def phase_lm_serve(device):
         sync(device)
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
         launches = {k: m.launches for k, m in mods.items()}
-        if launches.pop("flash_attention") != cfg.n_layers or any(
-                launches.values()):
+        k7_counts = (launches.pop("flash_attention"),
+                     mods["flash_attention"].launches_sm90)
+        if k7_counts != (cfg.n_layers,) * 2 or any(launches.values()):
             raise AssertionError(f"{name}: launches on the main path "
-                                 f"{launches}, K7 {mods['flash_attention'].launches}"
-                                 f" (want {cfg.n_layers})")
+                                 f"{launches}, K7 (all, sm90) {k7_counts} "
+                                 f"(want {cfg.n_layers} of the sm90 form)")
         gen_toks = torch.cat(gen_toks, dim=1)
         pad = logits[..., V:]
         if not (bool(torch.isfinite(logits[..., :V]).all())
@@ -3952,7 +4039,8 @@ def phase_lm_serve(device):
               f"tokens/s over {steps} steps), peak {peak_gb:.3f} GB; decode "
               f"at T against forward on T + 1 {decode_rel:.3e}, prefill "
               f"against the f32 run {f32_rel:.3e} (bar {LM_BF16_REL}); K7 "
-              f"launches on the main path {cfg.n_layers}, other kernels 0")
+              f"launches on the main path {cfg.n_layers}, all of the sm90 "
+              f"form, other kernels 0")
         k7 = lm_k7_row(device, name, probe.kept, T, cfg.n_layers)
         del probe, cache, logits, first_logits, fwd, f32
         torch.cuda.empty_cache()

@@ -16,13 +16,26 @@ formula, ``l = max(l, 1e-30)``, and the output is cast to q's dtype (so a
 float64 input is computed in float32, as the reference's
 ``astype(float32)`` does).  GQA maps head h to kv head ``h // (H // KV)``.
 
-`flash_attention_kernel` is the wrapper of the CUDA kernel
-`csrc/flash_attention.cu`, which replaces the TPU kernel
+`flash_attention_kernel` is the wrapper of the CUDA kernel, which
+replaces the TPU kernel
 `repro.kernels.flashattn.kernel.flash_attention_pallas`: on CUDA tensors it
 checks its inputs and launches the kernel (or raises); on CPU tensors, and
-only there, it runs `flash_attention_plain`.  The kernel tiles by 64 query
-rows and 64 keys, whatever ``block_q`` and ``block_k`` say (they were
-chosen for the TPU's VMEM), so its sums are taken in another order.
+only there, it runs `flash_attention_plain`.  The kernel has two forms,
+chosen statically from (dtype, hd) by `form_of`:
+
+- ``"sm90"`` (`csrc/flash_attention_sm90.cu`), bfloat16 at the head dims
+  of `SM90_HEAD_DIMS`: both products on the tensor cores (wgmma), tiles by
+  TMA, 128 query rows and 128 keys a tile.  It scales the float32 scores
+  (not q) and rounds P to bfloat16 before P V, as SDPA does, so it lies
+  within 3·2^-8·max|v| elementwise and 2^-8 by relative norm of the plain
+  version;
+- ``"cuda_core"`` (`csrc/flash_attention.cu`), everything else: float32
+  FMAs on the CUDA cores, 64 x 64 tiles, within 2e-5 (float32, float64)
+  or 2 bfloat16 ulps of the plain version.
+
+Neither form follows ``block_q`` and ``block_k`` (chosen for the TPU's
+VMEM), so sums are taken in another order.  A form that fails to build or
+launch raises: the wrapper never falls back to the other.
 """
 from __future__ import annotations
 
@@ -31,13 +44,22 @@ import functools
 
 import torch
 
-SOURCE = "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+SOURCE = "flash_attention.cu"          # the CUDA-core form
+SM90_SOURCE = "flash_attention_sm90.cu"  # the tensor-core form
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the CUDA-core form's instantiations
+# the (dtype, hd) instantiations of the tensor-core form
+SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+# both C entries: (dtype_id, hd, causal, q, k, v, o, B, T, S, H, KV, scale,
+# stream)
+ARGTYPES = ((ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 4
+            + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_void_p))
 MASKED = -1e30
 
-# launches of the CUDA kernel since the counter was last set to 0
+# launches of the CUDA kernel (either form) since the counter was last set
+# to 0, and of its tensor-core form alone
 launches = 0
+launches_sm90 = 0
 
 
 def flash_attention_plain(q, k, v, *, causal=True, block_q=128,
@@ -90,14 +112,21 @@ def flash_attention_plain(q, k, v, *, causal=True, block_q=128,
     return out.permute(0, 2, 3, 1, 4).reshape(B, T, H, hd)
 
 
+def form_of(dtype, hd) -> str:
+    """The kernel form that takes (dtype, hd) on the card: "sm90" or
+    "cuda_core"."""
+    return "sm90" if hd in SM90_HEAD_DIMS.get(dtype, ()) else "cuda_core"
+
+
 @functools.lru_cache(maxsize=None)
-def _bind():
+def _bind(form):
     from repro_torch.kernels.build import load
-    fn = load(SOURCE).flash_attention_launch
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i32, i32, i32, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                   ctypes.c_float, vp]
-    fn.restype = i32
+    if form == "sm90":
+        fn = load(SM90_SOURCE).flash_attention_sm90_launch
+    else:
+        fn = load(SOURCE).flash_attention_launch
+    fn.argtypes = list(ARGTYPES)
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -142,14 +171,27 @@ def flash_attention_kernel(q, k, v, *, causal=True, block_q=128,
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"{what} must be contiguous with shape {shape}, "
                              f"got {tuple(x.shape)}")
+    return _launch(form_of(q.dtype, hd), q, k, v, causal)
+
+
+def _launch(form, q, k, v, causal):
+    """One launch of `form` on checked CUDA tensors."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if form == "sm90" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the sm90 flash attention form reads q, k and v "
+                         "by TMA: their storage must be 16-byte aligned")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = _bind()(DTYPE_IDS[q.dtype], hd, int(bool(causal)), q.data_ptr(),
-                     k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H,
-                     KV, 1.0 / float(hd) ** 0.5, stream)
+        rc = _bind(form)(DTYPE_IDS[q.dtype], hd, int(bool(causal)),
+                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), B, T, S, H, KV,
+                         1.0 / float(hd) ** 0.5, stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention launch failed: CUDA error {rc}")
-    global launches
+        raise RuntimeError(f"flash attention ({form} form) launch failed: "
+                           f"CUDA error {rc}")
+    global launches, launches_sm90
     launches += 1
+    launches_sm90 += form == "sm90"
     return out

@@ -750,7 +750,8 @@ def test_cuda_launch_refuses_grad_outside_kernel_adjoint(cuda):
 
 
 # ---------------------------------------------------------------------------
-# flash attention (csrc/flash_attention.cu) and the dense LM served with it
+# flash attention (csrc/flash_attention.cu, csrc/flash_attention_sm90.cu)
+# and the dense LM served with it
 # ---------------------------------------------------------------------------
 
 FLASH_SHAPES = {"gqa-2": (2, 64, 4, 2, 32, True),
@@ -759,6 +760,29 @@ FLASH_SHAPES = {"gqa-2": (2, 64, 4, 2, 32, True),
                 "ragged-1000-g8": (1, 1000, 8, 1, 128, True),
                 "hd256": (1, 300, 4, 2, 256, True),
                 "hd64-g1": (1, 200, 4, 4, 64, True)}
+# the tensor-core form (bfloat16 at hd 64 and 128): FLASH_SHAPES at both of
+# its head dims, and T = 1000 with g = 2 and 8 at B H = 64
+SM90_SHAPES = {f"{name}-hd{hd}": (B, T, H, KV, hd, causal)
+               for name, (B, T, H, KV, _, causal) in FLASH_SHAPES.items()
+               for hd in (64, 128)}
+SM90_SHAPES.update({"t1000-g2-bh64": (4, 1000, 16, 8, 128, True),
+                    "t1000-g8-bh64": (8, 1000, 8, 1, 128, True)})
+# |kernel - plain| <= 3 2^-8 max|v| elementwise and 2^-8 by relative norm:
+# P rounded to bfloat16 (u = 2^-8) moves o by at most u max|v|, each of two
+# output roundings by u |o| (tests/test_torch_flashattn.py)
+SM90_ELEM, SM90_REL = 3 * 2.0 ** -8, 2.0 ** -8
+
+
+def _flash_inputs(B, T, H, KV, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s)).to(dtype)
+            for s in ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
+
+
+def _sm90_errs(got, want, v):
+    d = got.double() - want.double()
+    return (float(d.abs().max() / v.double().abs().max()),
+            float(d.norm() / want.double().norm()))
 
 
 @pytest.mark.cuda
@@ -767,25 +791,78 @@ FLASH_SHAPES = {"gqa-2": (2, 64, 4, 2, 32, True),
 def test_cuda_flash_attention_matches_plain_version(cuda, shape, dtype):
     """The kernel against its plain version (on the CPU, same inputs):
     float32 and float64 inputs within 2e-5 (the reference's bar against the
-    dense oracle; both compute in float32), bfloat16 within 2 ulps."""
+    dense oracle; both compute in float32), bfloat16 within 2 ulps on the
+    CUDA-core form and at the tensor-core form's bar (SM90_ELEM, SM90_REL:
+    it rounds P to bfloat16) where hd is 64 or 128."""
     from repro_torch.kernels.flashattn import kernel as flash_kernel
     from repro_torch.kernels.flashattn.ops import flash_attention
     from repro_torch.kernels.flashattn.ref import bf16_ulps
     B, T, H, KV, hd, causal = FLASH_SHAPES[shape]
-    rng = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s))
-               .to(getattr(torch, dtype)) for s in
-               ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
-    before = flash_kernel.launches
+    q, k, v = _flash_inputs(B, T, H, KV, hd, getattr(torch, dtype))
+    sm90 = flash_kernel.form_of(q.dtype, hd) == "sm90"
+    before = (flash_kernel.launches, flash_kernel.launches_sm90)
     got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal)
     torch.cuda.synchronize()
-    assert flash_kernel.launches == before + 1
+    assert (flash_kernel.launches, flash_kernel.launches_sm90) == (
+        before[0] + 1, before[1] + sm90)
     assert got.dtype == q.dtype and got.shape == q.shape
     want = flash_attention(q, k, v, causal=causal)
-    if dtype == "bfloat16":
+    if sm90:
+        elem, rel = _sm90_errs(got.cpu(), want, v)
+        assert elem <= SM90_ELEM and rel <= SM90_REL, (elem, rel)
+    elif dtype == "bfloat16":
         assert bf16_ulps(got.cpu(), want) <= 2.0
     else:
         torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SM90_SHAPES))
+def test_cuda_flash_sm90_form_matches_plain_version(cuda, shape):
+    """The tensor-core form (bfloat16, hd 64 and 128) against the plain
+    version on the CPU at SM90_ELEM and SM90_REL; one launch of it, and
+    none of the CUDA-core form."""
+    from repro_torch.kernels.flashattn import kernel as flash_kernel
+    from repro_torch.kernels.flashattn.ops import flash_attention
+    B, T, H, KV, hd, causal = SM90_SHAPES[shape]
+    q, k, v = _flash_inputs(B, T, H, KV, hd, torch.bfloat16, seed=1)
+    before = (flash_kernel.launches, flash_kernel.launches_sm90)
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_kernel.launches, flash_kernel.launches_sm90) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    elem, rel = _sm90_errs(got.cpu(), flash_attention(q, k, v, causal=causal),
+                           v)
+    assert elem <= SM90_ELEM and rel <= SM90_REL, (elem, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_sm90_form_never_falls_back(cuda, monkeypatch):
+    """A bfloat16 CUDA tensor at hd 64 or 128 goes to the tensor-core form
+    only: when its launch fails the wrapper raises, counts nothing and
+    never calls the CUDA-core form; float32 at the same hd takes the
+    CUDA-core form."""
+    from repro_torch.kernels.flashattn import kernel as flash_kernel
+    called = []
+
+    def bind(form):
+        def launch(*args):
+            called.append(form)
+            return 1 if form == "sm90" else 0
+        return launch
+
+    monkeypatch.setattr(flash_kernel, "_bind", bind)
+    before = (flash_kernel.launches, flash_kernel.launches_sm90)
+    for hd in (64, 128):
+        q, k, v = (x.to(cuda) for x in _flash_inputs(1, 128, 2, 2, hd,
+                                                     torch.bfloat16))
+        with pytest.raises(RuntimeError, match="sm90 form"):
+            flash_kernel.flash_attention_kernel(q, k, v)
+        flash_kernel.flash_attention_kernel(q.float(), k.float(), v.float())
+    assert called == ["sm90", "cuda_core"] * 2
+    assert (flash_kernel.launches, flash_kernel.launches_sm90) == (
+        before[0] + 2, before[1])
 
 
 @pytest.mark.cuda
@@ -806,6 +883,12 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_kernel(q, torch.zeros(1, 64, 2, 64, device=cuda)
                                [..., :32], kv, block_q=64, block_k=64)
+    # the tensor-core form reads by TMA: 16-byte aligned storage only
+    qb = torch.zeros(1 * 64 * 4 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    kvb = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_kernel(qb[1:].view(1, 64, 4, 64), kvb, kvb,
+                               block_q=64, block_k=64)
 
 
 @pytest.mark.cuda
@@ -843,3 +926,37 @@ def test_cuda_dense_lm_serves_with_the_flash_core(cuda):
             cg, tg)
         tc, tg = lc[..., :V].argmax(-1), lg[..., :V].argmax(-1)
     assert torch.equal(tg.cpu(), tc)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_lm_serves_with_the_sm90_flash_core(cuda):
+    """internlm2 reduced (4 layers, head dim 128 as the full model's), the
+    same weights served in bfloat16 with K7 as the attention core (its
+    tensor-core form, once a layer) and in float32 on the dense core: the
+    prefill's logits within 5e-2 by relative norm over the true vocab
+    (chip_smoke.py's LM_BF16_REL, the bfloat16 bar)."""
+    import dataclasses
+
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.kernels.flashattn import kernel as flash_kernel
+    from repro_torch.kernels.flashattn.ops import flash_attention
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve import make_serve_plan
+    cfg = dataclasses.replace(get_arch("internlm2-1.8b-smoke"), head_dim=128)
+    f32 = build_model(cfg, torch.float32, device=cuda).init_params(
+        torch.Generator(device=cuda).manual_seed(0))
+    bf16 = build_model(cfg, torch.bfloat16, device=cuda)
+    bf16.load_state_dict(f32.state_dict())
+    bf16.attn_core = flash_attention
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 300))).to(cuda)
+    before = (flash_kernel.launches, flash_kernel.launches_sm90)
+    lb, _ = make_serve_plan(bf16, None, 2, 320).prefill_fn({"tokens": toks})
+    torch.cuda.synchronize()
+    assert (flash_kernel.launches, flash_kernel.launches_sm90) == (
+        before[0] + cfg.n_layers, before[1] + cfg.n_layers)
+    lf, _ = make_serve_plan(f32, None, 2, 320).prefill_fn({"tokens": toks})
+    V = cfg.vocab_size
+    got, want = lb[..., :V].double(), lf[..., :V].double()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) <= 5e-2

@@ -12,8 +12,21 @@ reference's value (both round a float32 result once; the float32 values
 may straddle a rounding boundary, one ulp, and the second ulp covers their
 float32 difference on outputs far below the tensor's scale, where the ulp
 is measured at 2^-8 of the largest |value|).
+
+The tensor-core form of the kernel (csrc/flash_attention_sm90.cu, bfloat16
+at hd 64 and 128) scales the float32 scores and rounds P to bfloat16
+before P V.  Rounding P moves o by at most u·Σ p_j|v_j|/l ≤ u·max|v|
+(u = 2^-8, bfloat16's unit roundoff), and each of two output roundings by
+u·|o| ≤ u·max|v|; so it is held within 3·2^-8·max|v| elementwise and 2^-8
+by relative norm (two independent roundings of rms 2^-8/√3 give ≈ 3.2e-3).
+Here an arithmetic model of that form (`_sm90_model`) shows that the bar
+holds against the plain version and the reference.  The .cu sources are
+parsed for their instantiations and C entries.
 """
+import ctypes
 import functools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +35,9 @@ import torch
 
 from repro.kernels.flashattn.ops import flash_attention as ref_flash
 from repro.kernels.flashattn.ref import ref_attention as ref_dense
+from repro_torch.kernels.flashattn import kernel as fk
 from repro_torch.kernels.flashattn.kernel import flash_attention_plain
-from repro_torch.kernels.flashattn.ops import flash_attention
+from repro_torch.kernels.flashattn.ops import flash_attention, pad_to_blocks
 from repro_torch.kernels.flashattn.ref import bf16_ulps, ref_attention
 
 # the reference test's cases: (B, T, S, H, KV, hd, dtype, causal, bq, bk)
@@ -125,3 +139,166 @@ def test_plain_version_asserts_block_multiples():
     q = torch.zeros(1, 40, 2, 16)
     with pytest.raises(AssertionError):
         flash_attention_plain(q, q, q, block_q=16, block_k=16)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core form's bar, on an arithmetic model of its rounding
+# ---------------------------------------------------------------------------
+
+U_BF16 = 2.0 ** -8
+SM90_ELEM = 3 * U_BF16        # of max|v|
+SM90_REL = U_BF16             # relative Frobenius norm
+# (B, T, H, KV, hd, causal): GQA g = 1, 2, 8, ragged T = 40 and 1000, and
+# non-causal, at the tensor-core form's head dims
+SM90_CASES = {
+    "g1-T1000-hd64": (1, 1000, 4, 4, 64, True),
+    "g2-T1000-hd128": (1, 1000, 4, 2, 128, True),
+    "g8-T1000-hd128": (1, 1000, 8, 1, 128, True),
+    "g2-T40-hd128": (2, 40, 4, 2, 128, True),
+    "g8-T40-hd64": (1, 40, 8, 1, 64, True),
+    "noncausal-T256-hd128": (1, 256, 4, 2, 128, False),
+    "noncausal-T40-hd64": (1, 40, 2, 2, 64, False),
+}
+
+
+def _sm90_inputs(case, seed=3):
+    B, T, H, KV, hd, _ = SM90_CASES[case]
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((B, T, H, hd)),
+              rng.standard_normal((B, T, KV, hd)),
+              rng.standard_normal((B, T, KV, hd)))
+    return _as_dtype(arrays, "bfloat16")
+
+
+def _sm90_model(q, k, v, causal):
+    """The tensor-core form's arithmetic, densely: float32 scores of the
+    bfloat16 inputs scaled by hd^-0.5 after the product, masked to -1e30,
+    exp against the row max, l from the float32 P, P rounded to bfloat16
+    for P V (float32 sums), o = acc / max(l, 1e-30) rounded once."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    kv_of = torch.arange(H) // (H // KV)
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3)[:, kv_of]
+    vf = v.float().permute(0, 2, 1, 3)[:, kv_of]
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / float(hd) ** 0.5)
+    if causal:
+        s = torch.where(torch.arange(S)[None, :] <= torch.arange(T)[:, None],
+                        s, fk.MASKED)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = p.to(torch.bfloat16).float() @ vf
+    return (acc / l).to(q.dtype).permute(0, 2, 1, 3)
+
+
+def _sm90_errs(got, want, v):
+    d = got.double() - want.double()
+    return (float(d.abs().max() / v.double().abs().max()),
+            float(d.norm() / want.double().norm()))
+
+
+@functools.cache
+def _sm90_reference(case):
+    causal = SM90_CASES[case][5]
+    _, (q, k, v) = _sm90_inputs(case)
+    return np.asarray(ref_flash(q, k, v, causal=causal).astype(jnp.float64))
+
+
+@pytest.mark.parametrize("against", ["plain", "reference"])
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_bar_holds_on_a_model_of_its_rounding(case, against):
+    """The model of the tensor-core form lies within 3·2^-8·max|v| and
+    2^-8 by relative norm of the plain version (on the padded inputs, as
+    the wrapper calls it) and of the reference's Pallas kernel."""
+    causal = SM90_CASES[case][5]
+    (q, k, v), _ = _sm90_inputs(case)
+    T = q.shape[1]
+    qp, kp, vp, bq, bk = pad_to_blocks(q, k, v, causal=causal)
+    got = _sm90_model(qp, kp, vp, causal)[:, :T]
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    if against == "plain":
+        want = flash_attention_plain(qp, kp, vp, causal=causal, block_q=bq,
+                                     block_k=bk)[:, :T]
+    else:
+        want = torch.from_numpy(_sm90_reference(case))
+    elem, rel = _sm90_errs(got, want, v)
+    assert elem <= SM90_ELEM and rel <= SM90_REL, (elem, rel)
+
+
+def test_sm90_bar_sees_a_two_percent_scale_fault():
+    """The relative-norm bar passes the model and fails the same output
+    scaled by 1.02, a fault of the size of P's rounding summed coherently
+    (an l taken from a wrongly scaled P, say)."""
+    (q, k, v), _ = _sm90_inputs("g2-T1000-hd128")
+    qp, kp, vp, bq, bk = pad_to_blocks(q, k, v)
+    want = flash_attention_plain(qp, kp, vp, block_q=bq, block_k=bk)
+    got = _sm90_model(qp, kp, vp, True)
+    off = (got.float() * 1.02).to(torch.bfloat16)
+    assert max(_sm90_errs(got, want, vp)) <= SM90_REL
+    assert _sm90_errs(off, want, vp)[1] > SM90_REL
+
+
+@pytest.mark.parametrize("dtype,hd,form", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 256, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float64, 64, "cuda_core")])
+def test_form_is_chosen_from_dtype_and_head_dim(dtype, hd, form):
+    assert fk.form_of(dtype, hd) == form
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    (q, k, v), _ = _sm90_inputs("g2-T40-hd128")
+    before = (fk.launches, fk.launches_sm90)
+    got = fk.flash_attention_kernel(q, k, v, block_q=40, block_k=40)
+    assert (fk.launches, fk.launches_sm90) == before
+    assert torch.equal(got, flash_attention_plain(q, k, v, block_q=40,
+                                                  block_k=40))
+
+
+# ---------------------------------------------------------------------------
+# the .cu sources: instantiations and C entries
+# ---------------------------------------------------------------------------
+
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+           "const void*": ctypes.c_void_p, "void*": ctypes.c_void_p}
+
+
+def _entry(source, name):
+    """(argument C types, body) of the extern "C" function `name`."""
+    text = (CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)\s*\{(.*?)\n\}",
+                  text, re.S)
+    assert m, f"{name} not found in {source}"
+    args = [re.sub(r"\s+", " ", a.strip()).rsplit(" ", 1)[0]
+            .replace(" *", "*") for a in m.group(1).split(",")]
+    return args, m.group(2)
+
+
+@pytest.mark.parametrize("source,name", [
+    (fk.SOURCE, "flash_attention_launch"),
+    (fk.SM90_SOURCE, "flash_attention_sm90_launch")])
+def test_c_entry_arguments_match_the_ctypes_binding(source, name):
+    args, _ = _entry(source, name)
+    assert [C_TYPES[a] for a in args] == list(fk.ARGTYPES), args
+
+
+def test_sm90_instantiations_equal_the_wrappers_table():
+    """The tensor-core entry takes one dtype id and the head dims of its
+    switch; with the kernel's template arguments they are the wrapper's
+    SM90_HEAD_DIMS."""
+    _, body = _entry(fk.SM90_SOURCE, "flash_attention_sm90_launch")
+    dtype_ids = [int(x) for x in re.findall(r"dtype_id != (\d+)", body)]
+    ids = {i: dt for dt, i in fk.DTYPE_IDS.items()}
+    cases = [int(x) for x in re.findall(r"case (\d+):", body)]
+    templated = [int(x) for x in re.findall(r"by_causal<(\d+)>", body)]
+    assert cases == templated
+    assert {ids[i]: tuple(cases) for i in dtype_ids} == fk.SM90_HEAD_DIMS
+
+
+def test_cuda_core_instantiations_equal_the_wrappers_head_dims():
+    text = (CSRC / fk.SOURCE).read_text()
+    by_hd = text[text.index("int by_hd("):]
+    by_hd = by_hd[:by_hd.index("\n}\n")]
+    assert tuple(int(x) for x in re.findall(r"case (\d+):", by_hd)) \
+        == fk.HEAD_DIMS
