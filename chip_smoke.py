@@ -45,13 +45,20 @@ times each kernel beside its twin, and the
 rober-1M-rodas5p and on gbm-1M-em-adaptive.  Every phase raises on
 failure, so the script exits non-zero; it also exits non-zero, printing no
 result, where CUDA is absent or the port's sources are not beside it.  The
+stiff and adaptive SDE rows also print each kernel's warp SIMT efficiency
+(from its own stats, one trajectory a thread), its registers, and, for the
+stiff kernel, its FP64 bound counted in the card's instructions (the fast
+paths of a division, sqrt and pow in this build's SASS); the batched LU
+kernel is timed at its path's shape, 2^16 systems a launch, as well.  The
 last line is one JSON object naming the device; the line before it lists
 every kernel with its launches on its path, its error against the plain
 version, its time and its bound.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -81,6 +88,9 @@ PEAK_FP64_UNFUSED_OPS = PEAK_FP64_FLOPS / 2
 SM_LANE_CLOCKS_PER_S = 132 * 1.98e9
 ALU_LANES_PER_SM = 64
 ISSUE_LANES_PER_SM = 128
+# FP64 instructions (DADD, DMUL, DFMA, ...) issue at 64 lanes per SM per
+# clock on compute capability 9.0 (the same table): 16.7e12 a second.
+FP64_INSTR_PER_S = 64 * SM_LANE_CLOCKS_PER_S
 
 FULL_N = 2 ** 20
 PARITY_N = 4096
@@ -309,29 +319,172 @@ def ptxas_summary(log: str, source: str):
     return out
 
 
-def sass_mix(lib: Path, *keys: str) -> dict:
-    """Opcode counts (without modifiers or predicates) of the one kernel in
-    `lib` whose mangled name holds every key, read with cuobjdump."""
+def sass_listings(lib: Path) -> dict:
+    """{mangled name: [(address, predicated, opcode, text)]} of every kernel
+    in `lib` (opcodes without modifiers or predicates), read with
+    cuobjdump."""
     from repro_torch.kernels.build import nvcc
     tool = Path(nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    counts, found, inside = {}, 0, False
+    funcs, cur = {}, None
     for ln in out.splitlines():
-        if "Function :" in ln:
-            inside = all(k in ln for k in keys)
-            found += inside
-        elif inside and ln.lstrip().startswith("/*") and ";" in ln:
-            ops = ln.split("*/", 1)[1].split(";")[0].split()
-            if ops and ops[0].startswith("@"):
-                ops = ops[1:]
+        t = ln.strip()
+        if "Function :" in t:
+            cur = funcs.setdefault(t.split("Function :", 1)[1].strip(), [])
+        elif cur is not None and t.startswith("/*") and ";" in t:
+            addr, body = t[2:].split("*/", 1)
+            ops = body.split(";")[0].split()
+            pred = bool(ops) and ops[0].startswith("@")
+            ops = ops[1:] if pred else ops
             if ops:
-                op = ops[0].split(".")[0]
-                counts[op] = counts.get(op, 0) + 1
-    if found != 1:
-        raise AssertionError(f"sass: {found} kernels in {lib.name} match "
+                cur.append((int(addr, 16), pred, ops[0].split(".")[0],
+                            " ".join(ops)))
+    return funcs
+
+
+def sass_mix(lib: Path, *keys: str) -> dict:
+    """Opcode counts of the one kernel in `lib` whose mangled name holds
+    every key."""
+    hits = [rows for name, rows in sass_listings(lib).items()
+            if all(k in name for k in keys)]
+    if len(hits) != 1:
+        raise AssertionError(f"sass: {len(hits)} kernels in {lib.name} match "
                              f"{keys}")
+    counts = {}
+    for _, _, op, _ in hits[0]:
+        counts[op] = counts.get(op, 0) + 1
     return counts
+
+
+# The FP64 pipe's opcodes on sm_90 (each one instruction at the FP64 rate).
+FP64_PIPE = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+# One f64 division (`__ddiv_rn`), sqrt and pow, each alone in a kernel
+# built with the port's nvcc flags, for `fp64_fast_paths`.
+FP64_PROBE_CU = r"""
+#include <cuda_runtime.h>
+#include <cmath>
+extern "C" __global__ void probe_div(const double* a, const double* b,
+                                     double* o) {
+  o[threadIdx.x] = __ddiv_rn(a[threadIdx.x], b[threadIdx.x]);
+}
+extern "C" __global__ void probe_sqrt(const double* a, const double* b,
+                                      double* o) {
+  o[threadIdx.x] = sqrt(a[threadIdx.x]);
+}
+extern "C" __global__ void probe_pow(const double* a, const double* b,
+                                     double* o) {
+  o[threadIdx.x] = pow(a[threadIdx.x], b[threadIdx.x]);
+}
+"""
+
+
+def _path_mix(rows, start: int, stop_op: str, depth: int = 0) -> dict:
+    """FP64-pipe, MUFU and all instructions from address `start` to the
+    first unpredicated `stop_op`, with the routines that the CALLs on the
+    way run to their RET, unless a predicated branch may jump over the CALL
+    (a division's or sqrt's slow path: the fast one branches past it)."""
+    index = {r[0]: i for i, r in enumerate(rows)}
+    mix = {"fp64": 0, "mufu": 0, "all": 0}
+    skip_to = -1   # the end of a block a predicated branch may jump over
+    for addr, pred, op, text in rows[index[start]:]:
+        if op == stop_op and not pred:
+            break
+        mix["all"] += 1
+        mix["fp64"] += op in FP64_PIPE
+        mix["mufu"] += op == "MUFU"
+        if op == "BRA" and pred:
+            skip_to = max(skip_to, int(text.split()[-1], 16))
+        elif op == "CALL" and not pred and addr >= skip_to and depth < 4:
+            target = int(text.split()[-1], 16)
+            for key, v in _path_mix(rows, target, "RET", depth + 1).items():
+                mix[key] += v
+    return mix
+
+
+def fp64_fast_paths() -> dict:
+    """{"div" | "sqrt" | "pow": {"fp64": FP64-pipe instructions, "mufu":
+    MUFU seeds, "all": instructions}} on the fast path of one operation,
+    from the SASS of a probe compiled with the port's flags: the kernel's
+    instructions up to its EXIT with the routines it calls unpredicated."""
+    from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc
+    key = hashlib.sha256((FP64_PROBE_CU + " ".join(NVCC_FLAGS)).encode())
+    lib = BUILD_DIR / f"fp64_probe-{key.hexdigest()[:16]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = lib.with_suffix(".cu")
+        src.write_text(FP64_PROBE_CU)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, lib)
+    listings = sass_listings(lib)
+    return {op: _path_mix(listings[f"probe_{op}"], 0, "EXIT")
+            for op in ("div", "sqrt", "pow")}
+
+
+# mangled-name fragments of the K3 and K5 instantiations on the rows
+K35_KEYS = {
+    "rober-1M-rodas5p": ("rosenbrock_kernelId", "7Rodas5p", "5RoberELb0E",
+                         "7NoEvent", "6NoData"),
+    "rober-1M-rodas4-eager": ("rosenbrock_kernelId", "6Rodas4",
+                              "5RoberELb0E", "7NoEvent", "6NoData"),
+    "rober-1M-rodas4-lazyW": ("rosenbrock_kernelId", "6Rodas4",
+                              "5RoberELb1E", "7NoEvent", "6NoData"),
+    "rober-1M-rodas5p-event": ("rosenbrock_kernelId", "7Rodas5p",
+                               "5RoberELb0E", "9RoberHalf"),
+    "osc-1M-rosenbrock23-data": ("rosenbrock_kernelId", "6Ros23w",
+                                 "9ForcedOscELb0E", "6Tables"),
+    "gbm-1M-em-adaptive": ("sde_adaptive_kernelIf", "3Gbm", "6EmPair",
+                           "7NoEvent", "6NoData"),
+    "gbm-1M-em-adaptive-doubling": ("sde_adaptive_kernelIf", "3Gbm",
+                                    "2EmELb0E", "7NoEvent", "6NoData"),
+    "gbm-1M-em-adaptive-barrier": ("sde_adaptive_kernelIf", "3Gbm",
+                                   "6EmPair", "10GbmBarrier"),
+    "gbm-rate-1M-em-adaptive": ("sde_adaptive_kernelIf", "7GbmRate",
+                                "6EmPair", "6Tables"),
+}
+# the nvcc reports of the last build (phase_build), per source, and the
+# fast paths of an f64 division, sqrt and pow in this build's SASS
+BUILD_LOGS: dict = {}
+FP64_FAST: dict = {}
+# seconds of the work behind the K3, K5 and K6 reports, and of each phase
+REPORT_S = {"fp64 probe": 0.0, "register reports": 0.0, "K6 at 2^16": 0.0}
+PHASE_S: dict = {}
+
+
+def ptxas_entry(log: str, keys) -> str:
+    """'N registers, spills' of the one kernel in nvcc's -Xptxas=-v report
+    whose mangled name holds every key."""
+    lines, hits = log.splitlines(), []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and all(k in ln for k in keys):
+            spill, regs = "", ""
+            for nxt in lines[i + 1:i + 6]:
+                if "spill stores" in nxt:
+                    spill = nxt.strip()
+                if "Used" in nxt and "registers" in nxt:
+                    regs = nxt.split("Used", 1)[1].split(",")[0].strip()
+                    break
+            hits.append(f"{regs}, {spill}")
+    if len(hits) != 1:
+        raise AssertionError(f"ptxas: {len(hits)} kernels match {keys}")
+    return hits[0]
+
+
+def row_registers(form: str) -> str:
+    """The registers and spills of the K3 or K5 instantiation of a row."""
+    from repro_torch.kernels.build import build_log
+    from repro_torch.kernels.em.adaptive import SOURCE as K5_SOURCE
+    from repro_torch.kernels.rosenbrock.kernel import SOURCE as RB_SOURCE
+    t = time.perf_counter()
+    keys = K35_KEYS[form]
+    src = RB_SOURCE if keys[0].startswith("rosenbrock") else K5_SOURCE
+    if src not in BUILD_LOGS:
+        BUILD_LOGS[src] = build_log(src) or ptxas_log(src)
+    out = ptxas_entry(BUILD_LOGS[src], keys)
+    REPORT_S["register reports"] += time.perf_counter() - t
+    return out
 
 
 def phase_build() -> float:
@@ -348,9 +501,15 @@ def phase_build() -> float:
     logs = build([SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE, K5_SOURCE,
                   LOOKUP_SOURCE, K7_SOURCE, SM90_SOURCE])
     secs = time.perf_counter() - t
+    BUILD_LOGS.update(logs)
     for src, log in logs.items():
         print(f"build {src}: " + "; ".join(ptxas_summary(log, src)))
     print(f"build: {secs:.1f} s ({'compiled' if logs else 'cached'})")
+    t = time.perf_counter()
+    FP64_FAST.update(fp64_fast_paths())
+    REPORT_S["fp64 probe"] = time.perf_counter() - t
+    print("fp64 fast paths (FP64-pipe instructions, MUFU, all up to EXIT): "
+          + json.dumps(FP64_FAST))
     # the integer instruction mix behind the SDE kernel's bound: one normal
     # per thread in the normals kernel; 3 normals per step in f32 em/gbm
     lib = library_path(SDE_SOURCE)
@@ -1026,6 +1185,7 @@ def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
     from repro_torch.kernels import rng
     from repro_torch.kernels.em import adaptive as k5
     from repro_torch.kernels.em.ref import solve_adaptive_lanes
+    from repro_torch.kernels.queue import simt_efficiency
 
     f32, f64 = torch.float32, torch.float64
     r, v = 1.5, 0.2
@@ -1135,7 +1295,8 @@ def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
         stats = out_k[3]
         attempts = int((stats[0].long() + stats[1].long()).sum())
         descents = 1 if est == "embedded" else 2
-        normals = attempts * descents * m * (depth + 1)
+        # depth normals a descent and row, W(T) once a trajectory and row
+        normals = attempts * descents * m * depth + N * m
         item = 4
         bytes_moved = (item * (n * N + 2 * N + S)
                        + item * (S * n * N + n * N + N) + 4 * 6 * N)
@@ -1152,6 +1313,8 @@ def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
         pipe = max(times, key=times.get)
         bound = times[pipe]
         lane_att = (stats[0] + stats[1]).double()
+        eff = simt_efficiency(stats[0].long() + stats[1].long())
+        regs = row_registers(form)
         print(f"sde {form}: N={N} f32 status 0, launches {launches}; kernel "
               f"vs f32 plain: counts equal on {share:.5f} of the lanes (bar "
               f"{ADAPTIVE_F32_SAME}), u_final rel {worst_same:.3e} on them "
@@ -1171,6 +1334,8 @@ def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
                   f"{k} {v:.4f}" for k, v in times.items())
               + "); front door ms " + json.dumps(
                   {k: round(v, 3) for k, v in strategies.items()}))
+        print(f"sde {form}: SIMT efficiency {eff:.4f} (one trajectory a "
+              f"thread), registers {regs}")
         rows.append({
             "name": f"sde_adaptive_ensemble[em,gbm,f32,{est}]",
             "route": "cuda",
@@ -1180,6 +1345,7 @@ def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if pipe == "bytes" else "operations",
             "bound_pipe": pipe, "library_ms": None,
+            "simt_efficiency": eff, "registers": regs,
             "counts_equal_share": share,
             "strong_error_median": sk[0]})
     return rows
@@ -1487,7 +1653,23 @@ def phase_array_linsolve_cuda(device, N: int = 2 ** 16):
           f"linsolve=torch every lane within the ROBER bar, worst {worst:.3e}"
           f", lanes with equal counts {same:.4f}; front door "
           f"{secs_cuda:.3f} s (cuda) and {secs_torch:.3f} s (torch)")
-    return launches
+    # K6 at the path's shape: one launch solves N systems of n = 3
+    t = time.perf_counter()
+    n = 3
+    Wn, bn = lu_batch(n, N)
+    Wl = torch.from_numpy(Wn).to(device).permute(1, 2, 0).contiguous()
+    bl = torch.from_numpy(bn).to(device).T.contiguous()
+    ms = cuda_ms(lambda: lu_kernel.lu_solve(Wl, bl), 20)
+    nbytes = 8 * (n * n * N + 2 * n * N + N)
+    bound = max(nbytes / HBM_BYTES_PER_S, lu_ops(n) * N / PEAK_FP64_FLOPS) \
+        * 1e3
+    print(f"lu n=3 at the path's shape: N={N} systems a launch, kernel "
+          f"{ms:.4f} ms, bound {bound:.4f} ms ({nbytes:.3e} bytes); "
+          f"launches x (time - bound) {launches * (ms - bound):.2f} ms a "
+          "path run")
+    REPORT_S["K6 at 2^16"] = time.perf_counter() - t
+    return launches, {"path_n_systems": N, "path_ms": ms,
+                      "path_bound_ms": bound}
 
 
 def rosenbrock_attempt_ops(rtab, n: int, rhs: int, jac: int):
@@ -1514,12 +1696,40 @@ def rosenbrock_attempt_ops(rtab, n: int, rhs: int, jac: int):
     return ops, jac, fact, save
 
 
+def rosenbrock_special_ops(rtab, n: int, lookups: int = 0):
+    """(divisions, square roots, pows) inside rosenbrock_attempt_ops'
+    counts: per attempt the s back-substitutions' n divides, the error
+    norm's n + 1 and its sqrt, the controller's two pows and one divide a
+    table lookup; per factorization n reciprocals; per save one divide."""
+    return ({"div": rtab.stages * n + n + 1 + lookups, "sqrt": 1, "pow": 2},
+            {"div": n}, {"div": 1})
+
+
+def bound_instr_ms(ops: float, special: dict, fast: dict) -> float:
+    """The FP64 bound in the card's instructions: each add and multiply one
+    instruction, each division, sqrt and pow its fast path's FP64-pipe
+    instructions (`fp64_fast_paths`, this build's SASS), over the FP64
+    instruction rate."""
+    instr = ops + sum(k * (fast[op]["fp64"] - 1) for op, k in special.items())
+    return instr / FP64_INSTR_PER_S * 1e3
+
+
+def special_total(parts) -> dict:
+    """Σ count x {op: per-unit count} over (count, per-unit) pairs."""
+    out = {}
+    for count, per in parts:
+        for op, k in per.items():
+            out[op] = out.get(op, 0) + count * k
+    return out
+
+
 def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
     """The stiff path at full size, f64, through the front door: ROBER with
     rodas5p, and with rodas4 on lazy W beside eager rodas4."""
     import torch
     from repro_torch.core.ensemble import solve_ensemble_local
     from repro_torch.core.tableaus import get_rosenbrock_tableau
+    from repro_torch.kernels.queue import simt_efficiency
     from repro_torch.kernels.rosenbrock import kernel as rb_kernel
 
     ep = rober_inputs(N, device)
@@ -1600,6 +1810,13 @@ def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
         bound_unfused = max(ops / PEAK_FP64_UNFUSED_OPS * 1e3, t_bytes)
+        sp_att, sp_fact, sp_save = rosenbrock_special_ops(rtab, 3)
+        special = special_total([(attempts, sp_att),
+                                 (int(res.nfact), sp_fact),
+                                 (N * S, sp_save)])
+        b_instr = max(bound_instr_ms(ops, special, FP64_FAST), t_bytes)
+        eff = simt_efficiency(out_k[3][0].long() + out_k[3][1].long())
+        regs = row_registers(form)
         print(f"{form}: N={N} f64 status 0, launches {launches}, attempts "
               f"{attempts} ({attempts / N:.1f} a lane), njac "
               f"{int(res.njac)}, nfact {int(res.nfact)}, y-sum off 1 by "
@@ -1614,6 +1831,10 @@ def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
               f"Jacobian, {per_fact} a factorization; {nbytes:.3e} bytes "
               f"{t_bytes:.4f} ms); front door ms "
               + json.dumps({k: round(v, 3) for k, v in strategies.items()}))
+        print(f"{form}: bound in the card's instructions {b_instr:.4f} ms "
+              f"(kernel / it {ms / b_instr:.2f}x; {special['div']:.4e} "
+              f"divisions, {special['sqrt']:.4e} sqrt, {special['pow']:.4e} "
+              f"pow), SIMT efficiency {eff:.4f}, registers {regs}")
         if form != "rober-1M-rodas4-eager":
             rows.append({
                 "name": f"rosenbrock_ensemble[{alg},rober,f64,"
@@ -1625,6 +1846,8 @@ def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
                 "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "bound_unfused_ms": bound_unfused,
+                "bound_instr_ms": b_instr, "simt_efficiency": eff,
+                "registers": regs,
                 "library_ms": None, "attempts": attempts,
                 "njac": int(res.njac), "nfact": int(res.nfact)})
     lazy, eager = njac["rober-1M-rodas4-lazyW"], njac["rober-1M-rodas4-eager"]
@@ -2027,6 +2250,7 @@ def phase_event_rober(device, N: int = FULL_N, reps: int = 3):
     from repro_torch.configs import de_problems as dp
     from repro_torch.core.ensemble import solve_ensemble_local
     from repro_torch.core.tableaus import get_rosenbrock_tableau
+    from repro_torch.kernels.queue import simt_efficiency
     from repro_torch.kernels.rosenbrock import kernel as rb_kernel
 
     form = "rober-1M-rodas5p-event"
@@ -2093,18 +2317,28 @@ def phase_event_rober(device, N: int = FULL_N, reps: int = 3):
     times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "fp64": ops / PEAK_FP64_FLOPS * 1e3}
     unfused = max(times["bytes"], ops / PEAK_FP64_UNFUSED_OPS * 1e3)
+    sp_att, sp_fact, sp_save = rosenbrock_special_ops(rtab, 3)
+    special = special_total([(attempts, sp_att), (attempts, sp_fact),
+                             (N * len(ROBER_SAVEAT), sp_save)])
+    b_instr = max(bound_instr_ms(ops, special, FP64_FAST), times["bytes"])
+    eff = simt_efficiency(st[0] + st[1])
+    regs = row_registers(form)
     row = _event_row("rosenbrock_ensemble[rodas5p,rober,f64,half]",
                      "src/repro_torch/csrc/rosenbrock_ensemble.cu",
                      "src/repro/kernels/ensemble_kernel.py:491", launches,
                      max_abs, ms, plain_ms, times, bound_unfused_ms=unfused,
-                     front_door_ms=front_ms, attempts=attempts,
-                     terminated_share=nhits / N)
+                     bound_instr_ms=b_instr, simt_efficiency=eff,
+                     registers=regs, front_door_ms=front_ms,
+                     attempts=attempts, terminated_share=nhits / N)
     print(f"{form}: N={N} f64 status 0, launches {launches}, "
           f"{nhits / N:.4f} of the lanes reach y3 = 0.5 (off it by "
           f"{d_half:.3e}, bar {ROBER_HALF_TOL}), y-sum off 1 by {total:.2e}; "
           f"against the plain version every lane within the ROBER bar, "
           f"{bitwise} of {N} lanes bitwise, max abs {max_abs:.3e}")
     _print_row(form, front_ms, row, f"{attempts} attempts", times)
+    print(f"{form}: bound in the card's instructions {b_instr:.4f} ms "
+          f"(kernel / it {ms / b_instr:.2f}x), SIMT efficiency {eff:.4f}, "
+          f"registers {regs}")
     return [row]
 
 
@@ -2118,6 +2352,7 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
     from repro_torch.kernels.em import adaptive as k5
     from repro_torch.kernels.em import kernel as sde_kernel
     from repro_torch.kernels.em.ref import solve_adaptive_lanes
+    from repro_torch.kernels.queue import simt_efficiency
 
     f32 = torch.float32
     prob = dp.gbm_problem(r=1.5, v=0.2, dtype=f32)
@@ -2237,7 +2472,7 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
             work = f"{steps} active steps, {normals} normals"
         else:
             attempts, accepted = int((st[0] + st[1]).sum()), int(st[0].sum())
-            normals = attempts * m * (depth + 1)
+            normals = attempts * m * depth + N * m
             flops = (normals * BRIDGE_FLOPS_PER_NORMAL
                      + attempts * ADAPTIVE_ATTEMPT_FLOPS["embedded"])
             S = len(saveat_t)
@@ -2255,6 +2490,9 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
                                     * SM_LANE_CLOCKS_PER_S) * 1e3}
         kname = ("sde_ensemble[em,gbm,f32,barrier]" if mod is sde_kernel
                  else "sde_adaptive_ensemble[em,gbm,f32,embedded,barrier]")
+        k5_extra = ({} if mod is sde_kernel else
+                    {"simt_efficiency": simt_efficiency(st[0] + st[1]),
+                     "registers": row_registers(form)})
         src = ("sde_ensemble.cu" if mod is sde_kernel
                else "sde_adaptive_ensemble.cu")
         line = ":533" if mod is sde_kernel else ":602"
@@ -2262,12 +2500,16 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
                          f"src/repro/kernels/ensemble_kernel.py{line}",
                          launches, max_abs, ms, plain_ms, times,
                          front_door_ms=front_ms, hit_share=nhits / N,
-                         counts_equal_share=share)
+                         counts_equal_share=share, **k5_extra)
         print(f"{form}: N={N} f32 status 0, launches {launches}, "
               f"{nhits / N:.4f} of the lanes hit the barrier, frozen u0 off "
               f"{BARRIER} by {d_bar:.3e} (bar {BARRIER_TOL['f32']}); against "
               f"the f32 plain version: {gate}, max abs {max_abs:.3e}")
         _print_row(form, front_ms, row, work, times)
+        if k5_extra:
+            print(f"{form}: SIMT efficiency {k5_extra['simt_efficiency']:.4f}"
+                  f" (one trajectory a thread), registers "
+                  f"{k5_extra['registers']}")
         rows.append(row)
     return rows
 
@@ -2281,10 +2523,11 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
 # divide, min, max, floor one each): locating the cell 7 (sub, div, the
 # clamp's min and max, floor, the weight's sub); gather and onehot 4 more
 # (1 - w, two products, the sum); cubic 32 (the weights 18, four products,
-# three sums).  Its tangent (K3's ∂f/∂t): the cell 7, the scaled tangent 5,
-# the two products and their sum 4.
+# three sums).  Its tangent (K3's ∂f/∂t), from the lookup's own cell and
+# the 1/dx formed once a thread: the scale's 2 products, the two products
+# and their sum 4.
 LOOKUP_OPS = {"gather": 11, "onehot": 11, "cubic": 32}
-LOOKUP_TANGENT_OPS = 16
+LOOKUP_TANGENT_OPS = 6
 # the forced oscillator's RHS besides its lookup: -k x - c v + F (5)
 OSC_RHS_OPS = 5
 # the rate-table GBM's fixed-dt em step besides the lookup: the drift's
@@ -2673,6 +2916,7 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
                                            get_tableau)
     from repro_torch.kernels.em import adaptive as k5
     from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.queue import simt_efficiency
     from repro_torch.kernels.rosenbrock import kernel as rb_kernel
     from repro_torch.kernels.tsit5 import kernel as erk_kernel
     f32, f64 = torch.float32, torch.float64
@@ -2809,6 +3053,13 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
             times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                      pipe_name: ops / peak * 1e3}
             work = f"{attempts} attempts"
+            # a lookup a stage: F0's (with the tangent) and s - 1 more
+            sp_att, sp_fact, sp_save = rosenbrock_special_ops(
+                rtab, n, lookups=rtab.stages)
+            special = special_total([(attempts, sp_att), (attempts, sp_fact),
+                                     (N * S, sp_save)])
+            extra["bound_instr_ms"] = max(
+                bound_instr_ms(ops, special, FP64_FAST), times["bytes"])
         else:
             if mod is sde_kernel:
                 steps = kw["n_steps"] * N
@@ -2821,7 +3072,8 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
                     "em", "embedded", "diagonal", 1, t0=kw["t0"],
                     tf=kw["tf"], dt0=kw["dt0"], rtol=kw["rtol"],
                     atol=kw["atol"], seed=kw["seed"])["depth"])
-                normals = attempts * (depth + 1)
+                # depth normals a descent, W(T) once a trajectory
+                normals = attempts * depth + N
                 ops = (normals * BRIDGE_FLOPS_PER_NORMAL
                        + attempts * (GBM_RATE_ATTEMPT_OPS
                                      + LOOKUP_OPS["gather"]))
@@ -2837,6 +3089,9 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
         # every operation of a data form is rounded on its own: its float
         # operations at half the peak, with the other limits
         unfused = max(max(times.values()), times[pipe_name] * 2)
+        if form in K35_KEYS:
+            extra["simt_efficiency"] = simt_efficiency(st[0] + st[1])
+            extra["registers"] = row_registers(form)
         src, line = {erk_kernel: ("erk_ensemble.cu", ":461"),
                      rb_kernel: ("rosenbrock_ensemble.cu", ":491"),
                      sde_kernel: ("sde_ensemble.cu", ":533"),
@@ -2854,9 +3109,17 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
                          form=form, plain_lanes=n_plain, **extra)
         print(f"{form}: N={N} {label} status 0, launches {launches}; against "
               f"the plain version: {gate}"
-              + (f"; vmap strategy {extra['vmap_ms']:.1f} ms" if extra
-                 else ""))
+              + (f"; vmap strategy {extra['vmap_ms']:.1f} ms"
+                 if "vmap_ms" in extra else ""))
         _print_row(form, front_ms, row, work, times)
+        if form in K35_KEYS:
+            b_instr = row.get("bound_instr_ms")
+            print(f"{form}: "
+                  + (f"bound in the card's instructions {b_instr:.4f} ms "
+                     f"(kernel / it {ms / b_instr:.2f}x), " if b_instr
+                     else "")
+                  + f"SIMT efficiency {row['simt_efficiency']:.4f}, "
+                  f"registers {row['registers']}")
         rows.append(row)
     return rows
 
@@ -4055,6 +4318,16 @@ def phase_lm_serve(device):
     return k7_rows
 
 
+def timed(phase, *args):
+    """phase(*args), its seconds kept in PHASE_S under its name."""
+    t = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        PHASE_S[phase.__name__.removeprefix("phase_")] = round(
+            time.perf_counter() - t, 1)
+
+
 def main() -> int:
     try:
         import torch
@@ -4074,56 +4347,63 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     gpu = gpu_line()
-    phase_build()
-    worst, k2_row = phase_parity(device)
-    rows = phase_full_size(device)
+    timed(phase_build)
+    worst, k2_row = timed(phase_parity, device)
+    rows = timed(phase_full_size, device)
     for r in rows:
         r["parity_f64_rel_err"] = worst
     rows.append(k2_row)
-    max_dz = phase_sde_rng(device)
-    sde_worst = phase_sde_parity(device, max_dz)
-    sde_rows = phase_sde_full_size(device)
+    max_dz = timed(phase_sde_rng, device)
+    sde_worst = timed(phase_sde_parity, device, max_dz)
+    sde_rows = timed(phase_sde_full_size, device)
     for r in sde_rows:
         r["parity_f64_rel_err"] = sde_worst
     rows += sde_rows
-    adaptive = phase_sde_adaptive_parity(device)
-    adaptive_rows = phase_sde_adaptive_full_size(device)
+    adaptive = timed(phase_sde_adaptive_parity, device)
+    adaptive_rows = timed(phase_sde_adaptive_full_size, device)
     for r in adaptive_rows:
         r["parity_f64"] = adaptive
     rows += adaptive_rows
-    stiff = phase_stiff_parity(device)
-    lu_rows = phase_lu(device)
-    lu_launches = phase_array_linsolve_cuda(device)
+    stiff = timed(phase_stiff_parity, device)
+    lu_rows = timed(phase_lu, device)
+    lu_launches, lu_path = timed(phase_array_linsolve_cuda, device)
     for r in lu_rows:
         # the stiff path solves ROBER's 3 x 3 systems: no path launches n = 8
         r["launches"] = lu_launches if r["n"] == 3 else 0
-    stiff_rows = phase_stiff_full_size(device)
+        if r["n"] == 3:
+            r.update(lu_path)
+    stiff_rows = timed(phase_stiff_full_size, device)
     for r in stiff_rows:
         r["parity_f64"] = stiff
     rows += stiff_rows + lu_rows
-    event_parity = phase_event_parity(device)
-    event_rows = (phase_event_ball(device) + phase_event_rober(device)
-                  + phase_event_barrier(device))
+    event_parity = timed(phase_event_parity, device)
+    event_rows = (timed(phase_event_ball, device)
+                  + timed(phase_event_rober, device)
+                  + timed(phase_event_barrier, device))
     for r in event_rows:
         r["parity_f64"] = event_parity
     rows += event_rows
-    data_parity = phase_data_parity(device)
-    lookup_row = phase_interp_lookup(device)
-    data_rows = phase_data_full_size(device)
+    data_parity = timed(phase_data_parity, device)
+    lookup_row = timed(phase_interp_lookup, device)
+    data_rows = timed(phase_data_full_size, device)
     for r in data_rows:
         r["parity_f64"] = data_parity
     rows += data_rows + [lookup_row]
-    grad = phase_grad_parity(device)
-    grad_rows = phase_grad_full_size(device)
+    grad = timed(phase_grad_parity, device)
+    grad_rows = timed(phase_grad_full_size, device)
     for r in grad_rows:
         r["parity_f64"] = grad
     rows += grad_rows
-    phase_population_fit(device)
-    flash_parity = phase_flash_parity(device)
-    k7_rows = phase_lm_serve(device)
+    timed(phase_population_fit, device)
+    flash_parity = timed(phase_flash_parity, device)
+    k7_rows = timed(phase_lm_serve, device)
     for r in k7_rows:
         r["parity"] = flash_parity
     rows += k7_rows
+    print("seconds a phase: " + json.dumps(PHASE_S))
+    print("seconds inside them of the fp64 probe, the register reports "
+          "and K6 at 2^16: "
+          + json.dumps({k: round(v, 1) for k, v in REPORT_S.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -22,9 +22,11 @@
 // held within 1e-12, not bitwise).
 //
 // The forward tangent d/dx of the gather lookup (the Rosenbrock stages'
-// ∂f/∂t) follows the order in which torch.func.jvp evaluates it in the
-// plain version, with JAX's tie rule at the clamp: half the tangent where
-// s sits exactly on 0 or K - 1 (`_Clip` in core/interp.py).
+// ∂f/∂t) comes with the value from one location of x
+// (`interp1d_and_tangent`) and follows the order in which torch.func.jvp
+// evaluates it in the plain version, with JAX's tie rule at the clamp:
+// half the tangent where s sits exactly on 0 or K - 1 (`_Clip` in
+// core/interp.py).
 
 #pragma once
 
@@ -92,15 +94,21 @@ __device__ __forceinline__ T clamp_s(T s, T hi) {
   return s < T(0) ? T(0) : (s > hi ? hi : s);
 }
 
-// The clamped cell and weight of x on a K-knot axis (core/interp.py
-// `_locate`).  A NaN s converts to cell 0, as torch's int cast clamps.
+// The clamped cell and weight of the grid coordinate s = (x - x0) / dx on
+// a K-knot axis.  A NaN s converts to cell 0, as torch's int cast clamps.
 template <class A, typename T>
-__device__ __forceinline__ void locate(T x, T x0, T dx, int K, int& i, T& w) {
-  const T s = clamp_s(A::div(A::sub(x, x0), dx), T(K - 1));
+__device__ __forceinline__ void cell(T s_raw, int K, int& i, T& w) {
+  const T s = clamp_s(s_raw, T(K - 1));
   int c = s == s ? static_cast<int>(floor(s)) : 0;
   c = c < 0 ? 0 : (c > K - 2 ? K - 2 : c);
   i = c;
   w = A::sub(s, T(c));
+}
+
+// The clamped cell and weight of x (core/interp.py `_locate`).
+template <class A, typename T>
+__device__ __forceinline__ void locate(T x, T x0, T dx, int K, int& i, T& w) {
+  cell<A>(A::div(A::sub(x, x0), dx), K, i, w);
 }
 
 // Keys cubic-convolution weights (a = -1/2), `_catmull_rom_weights`.
@@ -166,20 +174,28 @@ __device__ __forceinline__ T interp1d(const Table1D<T>& tb, T x) {
   }
 }
 
-// d/dx interp1d(table, x, "gather"), as torch.func.jvp evaluates it with
-// the JAX tie rule: (-w') v0 + w' v1 with w' = (1 / dx) f_lo f_hi.
+// interp1d(table, x, "gather") and its tangent d/dx from one location of
+// x (the value's cell and weight, the tangent's clamp factors, the same
+// two knots).  The tangent follows the order in which torch.func.jvp
+// evaluates it in the plain version, with the JAX tie rule:
+// (-w') v0 + w' v1 with w' = (1 / dx) f_lo f_hi; `inv_dx` is 1 / dx, formed
+// by the caller once.
 template <class A, typename T>
-__device__ __forceinline__ T interp1d_tangent(const Table1D<T>& tb, T x) {
+__device__ __forceinline__ void interp1d_and_tangent(const Table1D<T>& tb,
+                                                     T inv_dx, T x, T& value,
+                                                     T& tangent) {
   const T hi = T(tb.K - 1);
   const T s = A::div(A::sub(x, tb.x0), tb.dx);
+  int i;
+  T w;
+  cell<A>(s, tb.K, i, w);
+  const T v0 = load(tb.v, i), v1 = load(tb.v, i + 1);
+  value = A::add(A::mul(v0, A::sub(T(1), w)), A::mul(v1, w));
   const T f_lo = s > T(0) ? T(1) : (s == T(0) ? T(0.5) : T(0));
   const T m = s < T(0) ? T(0) : s;
   const T f_hi = m < hi ? T(1) : (m == hi ? T(0.5) : T(0));
-  const T wt = A::mul(A::mul(A::div(T(1), tb.dx), f_lo), f_hi);
-  int i;
-  T w;
-  locate<A>(x, tb.x0, tb.dx, tb.K, i, w);
-  return A::add(A::mul(-wt, load(tb.v, i)), A::mul(wt, load(tb.v, i + 1)));
+  const T wt = A::mul(A::mul(inv_dx, f_lo), f_hi);
+  tangent = A::add(A::mul(-wt, v0), A::mul(wt, v1));
 }
 
 // interp2d(table, x, y, mode).

@@ -28,13 +28,24 @@
 // the wrapper at launch (`Control`), so kernel and plain version share
 // them.  Save points are written lane-major (S, n, N) when crossed.
 //
-// What bounds it on an H100: FP64 arithmetic.  A trajectory reads and
+// What bounds it on an H100: FP64 instructions.  A trajectory reads and
 // writes a few dozen words in all, while every attempt costs s right-hand
 // sides, a Jacobian, an n³/3 elimination and s back-substitutions — about a
-// thousand double operations for rodas5p on ROBER — in registers.  The
-// design keeps everything per step in registers and lets no thread wait on
-// another's step control; it does not address warp divergence (a warp runs
-// until its slowest trajectory retires).
+// thousand double operations for rodas5p on ROBER — in registers.  A
+// division or sqrt rounded correctly is a fast path of several FP64
+// instructions and a pow more (PERF.md §6 counts them in this build's
+// SASS, `bound_instr_ms`), so the arithmetic, not the memory, is the
+// floor.  Divergence costs little: neighbouring trajectories of a sweep
+// take nearly the same steps (warp SIMT efficiency 0.989–1.000 on every
+// row at 2^20 trajectories), so the kernel keeps one trajectory per thread
+// and takes none from a work queue (trajectory_queue.cuh, which the
+// adaptive SDE kernel uses).  What the design does: everything per step
+// stays in registers, no thread waits on another's step control, and the
+// data form locates each attempt's t once for f and ∂f/∂t.  Every form
+// launches 128 threads a block with its registers left to ptxas: a cap of
+// 128 registers on every form (4 warps a scheduler) slowed the data form
+// by 3% and sped the two forms above 128 registers by 4% and 6%, each in
+// one reading (PERF.md §6, PR 20).
 //
 // Semantics follow the reference loop body expression by expression:
 // W = I − (dt·γ)·J; the stage right-hand side (γ·dt)·F_i + Σ (γ·C_ij)·U_j
@@ -62,7 +73,7 @@
 // functor built from the dataset's tables (`repro_data::Tables`, the
 // kernel argument `dat`) whose f, Jacobian and ∂f/∂t read them on the card:
 // the forced oscillator of the paper's §6.7, whose ∂f/∂t is the tangent of
-// its table lookup (interp.cuh `interp1d_tangent`, JAX's tie rule at the
+// its table lookup (interp.cuh `interp1d_and_tangent`, JAX's tie rule at the
 // table's ends, as the plain version's jvp gives it).  Compiled in double,
 // the stiff family's precision.  The no-data form (repro_data::NoData)
 // builds a stateless functor and reads nothing.
@@ -306,11 +317,11 @@ using repro_arith::rsub;
 
 // ---------------------------------------------------------------------------
 // Device right-hand sides (src/repro_torch/configs/de_problems.py) with
-// their Jacobians ∂f/∂u and ∂f/∂t, in the Python functions' operation
-// order.  ROBER's Jacobian is the reference's analytic `rober_jac`; OREGO's
-// and Van der Pol's are written out by hand where the reference takes
-// jacfwd.  All three are autonomous: ∂f/∂t = 0, as the reference's jvp
-// gives it.
+// their Jacobians ∂f/∂u and, beside f at an attempt's start (`eval_dfdt`),
+// ∂f/∂t, in the Python functions' operation order.  ROBER's Jacobian is
+// the reference's analytic `rober_jac`; OREGO's and Van der Pol's are
+// written out by hand where the reference takes jacfwd.  All three are
+// autonomous: ∂f/∂t = 0, as the reference's jvp gives it.
 // ---------------------------------------------------------------------------
 
 struct Rober {
@@ -342,7 +353,9 @@ struct Rober {
     J[2][2] = T(0);
   }
   template <typename T>
-  __device__ __forceinline__ static void dfdt(const T*, const T*, T, T* d) {
+  __device__ __forceinline__ static void eval_dfdt(const T* u, const T* p,
+                                                   T t, T* du, T* d) {
+    eval(u, p, t, du);
 #pragma unroll
     for (int c = 0; c < n; ++c) d[c] = T(0);
   }
@@ -377,7 +390,9 @@ struct Orego {
     J[2][2] = -w;
   }
   template <typename T>
-  __device__ __forceinline__ static void dfdt(const T*, const T*, T, T* d) {
+  __device__ __forceinline__ static void eval_dfdt(const T* u, const T* p,
+                                                   T t, T* du, T* d) {
+    eval(u, p, t, du);
 #pragma unroll
     for (int c = 0; c < n; ++c) d[c] = T(0);
   }
@@ -403,7 +418,9 @@ struct Vdp {
     J[1][1] = rmul(mu, rsub(T(1.0), rmul(u[0], u[0])));
   }
   template <typename T>
-  __device__ __forceinline__ static void dfdt(const T*, const T*, T, T* d) {
+  __device__ __forceinline__ static void eval_dfdt(const T* u, const T* p,
+                                                   T t, T* du, T* d) {
+    eval(u, p, t, du);
 #pragma unroll
     for (int c = 0; c < n; ++c) d[c] = T(0);
   }
@@ -427,7 +444,9 @@ struct Ball {
     J[1][1] = T(0);
   }
   template <typename T>
-  __device__ __forceinline__ static void dfdt(const T*, const T*, T, T* d) {
+  __device__ __forceinline__ static void eval_dfdt(const T* u, const T* p,
+                                                   T t, T* du, T* d) {
+    eval(u, p, t, du);
 #pragma unroll
     for (int c = 0; c < n; ++c) d[c] = T(0);
   }
@@ -447,25 +466,31 @@ struct Decay {
     J[0][0] = -p[0];
   }
   template <typename T>
-  __device__ __forceinline__ static void dfdt(const T*, const T*, T, T* d) {
+  __device__ __forceinline__ static void eval_dfdt(const T* u, const T* p,
+                                                   T t, T* du, T* d) {
+    eval(u, p, t, du);
     d[0] = T(0);
   }
 };
 
 // The forced oscillator (paper §6.7): u = (x, v), p = (k, c),
 // f = (v, -k x - c v + F(t)) with F read from the table data["force"]
-// (gather), J = [[0, 1], [-k, -c]] and ∂f/∂t = (0, F'(t)).
+// (gather), J = [[0, 1], [-k, -c]] and ∂f/∂t = (0, F'(t)).  f and ∂f/∂t at
+// an attempt's start share one lookup of t (`interp1d_and_tangent`: one
+// division and one pair of knot reads for both); 1/dx, the tangent's
+// scale, is formed once, when the functor is built.  Compiled in double.
 struct ForcedOsc {
   static constexpr int n = 2, m = 2;
-  repro_data::Leaf force;
+  repro_data::Table1D<double> force;
+  double inv_dx;
   __device__ __forceinline__ explicit ForcedOsc(const repro_data::Tables& d)
-      : force(d.leaf[0]) {}
+      : force(d.leaf[0]), inv_dx(rdiv(1.0, force.dx)) {}
   template <typename T>
   __device__ __forceinline__ void eval(const T* u, const T* p, T t,
                                        T* du) const {
+    static_assert(std::is_same_v<T, double>, "the data forms are double");
     const T F = repro_data::interp1d<repro_data::kGather,
-                                     repro_arith::Rounded>(
-        repro_data::Table1D<T>(force), t);
+                                     repro_arith::Rounded>(force, t);
     du[0] = u[1];
     du[1] = radd(rsub(rmul(-p[0], u[0]), rmul(p[1], u[1])), F);
   }
@@ -478,10 +503,16 @@ struct ForcedOsc {
     J[1][1] = -p[1];
   }
   template <typename T>
-  __device__ __forceinline__ void dfdt(const T*, const T*, T t, T* d) const {
+  __device__ __forceinline__ void eval_dfdt(const T* u, const T* p, T t,
+                                            T* du, T* d) const {
+    static_assert(std::is_same_v<T, double>, "the data forms are double");
+    T F, dF;
+    repro_data::interp1d_and_tangent<repro_arith::Rounded>(force, inv_dx, t,
+                                                           F, dF);
+    du[0] = u[1];
+    du[1] = radd(rsub(rmul(-p[0], u[0]), rmul(p[1], u[1])), F);
     d[0] = T(0);
-    d[1] = repro_data::interp1d_tangent<repro_arith::Rounded>(
-        repro_data::Table1D<T>(force), t);
+    d[1] = dF;
   }
 };
 
@@ -670,8 +701,8 @@ __global__ void __launch_bounds__(kBlock)
 
   for (long long it = 0; !done && it < max_iters; ++it) {
     T dt_step = nmin(dt, rsub(tf, t));
-    T F0[n];
-    rhs.eval(u, pp, t, F0);
+    T F0[n], Td[n];
+    rhs.eval_dfdt(u, pp, t, F0, Td);
     bool need_jac = true, need_fact = true;
     if constexpr (WReuse) {
       // w_refresh, then the secant touch-up and the dt freeze
@@ -697,8 +728,7 @@ __global__ void __launch_bounds__(kBlock)
     }
 
     // ---- the s stage solves ------------------------------------------------
-    T U[s][n], Fi[n], Td[n];
-    rhs.dfdt(u, pp, t, Td);
+    T U[s][n], Fi[n];
     const T gdt = rmul(gam, dt_step);
     static_for<0, s>([&](auto ii) {
       constexpr int i = decltype(ii)::value;

@@ -18,29 +18,34 @@
 // interpolation.  Outputs us (S, n, N), u_final, t_final and the 6-row
 // stats block (naccept, nreject, status, nf, 0, 0).
 //
-// Design: one trajectory per thread, the whole adaptive loop in one launch.
-// u, W at the left end (m values, carried across attempts and replaced on
-// accept), dt, the previous error norm, the dyadic index and the counters
-// stay in registers; a thread retires when its trajectory is done, so it
-// makes exactly the attempts the reference's lanes loop makes for its lane.
-// The saveat grid is read through the read-only path, and `us` is stored
-// lane-major, so neighbouring threads store neighbouring words.  The tree
-// descent is a loop of `depth` levels plus the endpoint node 0, with
-// selects, not branches; the interval (l, r] and the heap id it walks are
-// the same for every noise row, so one walk draws all m rows.  `depth` is
-// uniform across the ensemble, so the descent does not diverge within a
-// warp: lanes diverge only in how many attempts they make.  The estimator,
-// the stepper and the problem are template parameters, so each combination
-// compiles to straight code.
+// Design: the whole adaptive loop in one launch, trajectories taken from a
+// work queue (trajectory_queue.cuh): a persistent grid, each thread
+// starting on its own index and, when its trajectory ends, taking the next
+// one from a device counter, so a lane that finishes early starts another
+// trajectory instead of idling until its warp's slowest lane is done.  The
+// loop is flat, one attempt an iteration, and a lane whose trajectory ended
+// writes it out, takes the next index and starts it inside the iteration,
+// so the warp reconverges at every attempt.  A trajectory's inputs, outputs
+// and noise are keyed by its index (gl = lane_offset + index), so it makes
+// exactly the attempts the reference's lanes loop makes for its lane, and
+// every output is what one trajectory per thread gives, bit for bit.  u, W
+// at the left end (m values, carried across attempts and replaced on
+// accept), W(T) of each row (drawn once a trajectory, node 0 of every
+// descent), dt, the previous error norm, the dyadic index and the counters
+// stay in registers.  The saveat grid is read through the read-only path,
+// and `us` is stored lane-major.  The tree descent is a loop of `depth`
+// levels with selects, not branches; the interval (l, r] and the heap id
+// it walks are the same for every noise row, so one walk draws all m rows.
+// The estimator, the stepper and the problem are template parameters, so
+// each combination compiles to straight code.
 //
 // What bounds it on an H100: integer work, as in the fixed-dt kernel.  An
-// attempt draws (depth + 1)·m normals per descent, one descent with the
-// embedded pair and two with doubling (45 or 90 Threefry calls at depth 14
-// with m = 3), against a few dozen floating-point operations of the
-// stepper.  The design draws nothing it does not use and keeps the
-// generator in registers; it keeps the reference's structure, with the
-// endpoint drawn on every descent (caching W(T) per row is exact, and
-// later work), and a warp runs as long as its slowest lane.
+// attempt draws depth·m normals per descent, one descent with the embedded
+// pair and two with doubling (42 or 84 Threefry calls at depth 14 with
+// m = 3), against a few dozen floating-point operations of the stepper.
+// The design draws nothing it does not use (W(T) once a trajectory, not
+// once a descent), keeps the generator in registers, and lets no lane idle
+// behind a slower one but at the tail of the run.
 //
 // Arithmetic: every add, multiply and divide of this file and of the
 // functors it instantiates (sde_problems.cuh) is rounded on its own (the
@@ -69,6 +74,7 @@
 #include "events.cuh"
 #include "sde_problems.cuh"
 #include "threefry.cuh"
+#include "trajectory_queue.cuh"
 
 namespace repro_sde_adaptive {
 
@@ -100,21 +106,22 @@ __device__ __forceinline__ void noise_rn(const P& prob, const T* u,
 
 // ---------------------------------------------------------------------------
 // The virtual Brownian tree: W(idx · t_total / 2^depth) of every noise row
-// of one lane.  w_mid = 0.5 (w_l + w_r) + (0.5 sqrt(h)) z; go left where
-// idx <= mid; the heap id gains a 1 bit on a step right.
+// of one lane, from W(T) of each row (`w_end`, node 0 of the tree, drawn
+// once a trajectory).  w_mid = 0.5 (w_l + w_r) + (0.5 sqrt(h)) z; go left
+// where idx <= mid; the heap id gains a 1 bit on a step right.
 // ---------------------------------------------------------------------------
 
 template <typename T, int m>
 __device__ __forceinline__ void bridge_points(uint32_t seed, uint32_t idx,
                                               uint32_t lane, int depth,
-                                              uint32_t n_total, T sqrt_total,
-                                              T h_res, T* w) {
+                                              uint32_t n_total,
+                                              const T* w_end, T h_res,
+                                              T* w) {
   T w_l[m], w_r[m];
 #pragma unroll
   for (int j = 0; j < m; ++j) {
     w_l[j] = T(0);
-    w_r[j] = rmul(sqrt_total,
-                  T(repro_rng::bridge_normal(seed, 0u, uint32_t(j), lane)));
+    w_r[j] = w_end[j];
   }
   uint32_t l = 0, r = n_total, nid = 1;
   for (int d = 0; d < depth; ++d) {
@@ -316,20 +323,17 @@ __global__ void __launch_bounds__(kBlock)
                         int nf_per_attempt, Control k, repro_ev::Config evc,
                         Dat dat, T* __restrict__ us,
                         T* __restrict__ u_final, T* __restrict__ t_final,
-                        int* __restrict__ stats) {
+                        int* __restrict__ stats,
+                        unsigned* __restrict__ queue) {
   constexpr int n = P::n, m = P::m;
   const P prob = repro_data::bind<P>(dat);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= N) return;
+  // the trajectory this thread starts on; repro_queue::next hands out
+  // the rest
+  unsigned lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= static_cast<unsigned>(N)) return;
   const size_t NN = static_cast<size_t>(N);
 
-  T u[n], pp[P::k];
-#pragma unroll
-  for (int c = 0; c < n; ++c) u[c] = u0[c * NN + lane];
-#pragma unroll
-  for (int j = 0; j < P::k; ++j) pp[j] = p[j * NN + lane];
-
-  const uint32_t gl = lane_offset + static_cast<uint32_t>(lane);
+  // the same for every trajectory
   const uint32_t n_total = 1u << depth;
   const T t_total = rsub(tf, t0);
   const T h_res = rdiv(t_total, T(n_total));
@@ -337,167 +341,201 @@ __global__ void __launch_bounds__(kBlock)
   const T dtmin = T(k.dtmin), dtmax = T(k.dtmax);
   const uint32_t min_cells = kPair ? 1u : 2u;
 
-  // save points at or before t0 hold u0, the others 0 until crossed; `cur`
-  // is the first save point after the current time
-  int cur = 0;
-  for (int j = 0; j < S; ++j) {
-    const bool pre = __ldg(saveat + j) <= t0;
-#pragma unroll
-    for (int c = 0; c < n; ++c)
-      us[(static_cast<size_t>(j) * n + c) * NN + lane] = pre ? u[c] : T(0);
-    cur += pre;
-  }
-
-  T w_l[m];
-#pragma unroll
-  for (int j = 0; j < m; ++j) w_l[j] = T(0);  // W(0) = 0
-  uint32_t idx = 0;
+  // the trajectory's state: u, W at the left end and at T (m values each,
+  // W(T) drawn once a trajectory), dt, the previous error norm, the dyadic
+  // index, the counters, and `cur`, the first save point after the current
+  // time
+  T u[n], pp[P::k], w_l[m], w_end[m];
+  uint32_t gl = 0, idx = 0;
   T dt = dt0, enorm_prev = T(1), t_out = t0;
-  int naccept = 0, nreject = 0, nf = 0, status = 0;
-  bool done = false;
+  int naccept = 0, nreject = 0, nf = 0, status = 0, cur = 0;
+  long long it = 0;
+  bool done = false, fresh = true;
 
-  for (long long it = 0; it < max_iters && !done; ++it) {
-    const T t = radd(t0, rmul(T(idx), h_res));
-    // quantise the proposed dt to whole cells; below the floor no finer
-    // path exists at this depth, so the step force-accepts
-    const uint32_t want =
-        static_cast<uint32_t>(rdiv(nmin(dt, t_total), h_res));
-    const bool at_floor = want < min_cells;
-    uint32_t mc = kPair ? want : ((want >> 1) << 1);
-    mc = min(max(mc, min_cells), n_total - idx);
-    const T dt_step = rmul(T(mc), h_res);
-
-    T w_r[m], dWf[m];
-    bridge_points<T, m>(seed, idx + mc, gl, depth, n_total, sqrt_total,
-                        h_res, w_r);
+  for (;;) {
+    if (fresh) {
+      // ---- start trajectory `lane` ----------------------------------------
+      fresh = false;
 #pragma unroll
-    for (int j = 0; j < m; ++j) dWf[j] = rsub(w_r[j], w_l[j]);
-
-    T u2[n], err[n];
-    if constexpr (kPair) {
-      St::template pair(prob, u, pp, t, dt_step, dWf, u2, err);
-    } else {
-      const uint32_t mh = mc >> 1;
-      const T dt_half = rmul(T(mh), h_res);
-      const T t_mid = radd(t0, rmul(T(idx + mh), h_res));
-      T w_m[m], dW1[m], dW2[m];
-      bridge_points<T, m>(seed, idx + mh, gl, depth, n_total, sqrt_total,
-                          h_res, w_m);
+      for (int c = 0; c < n; ++c) u[c] = u0[c * NN + lane];
 #pragma unroll
-      for (int j = 0; j < m; ++j) {
-        dW1[j] = rsub(w_m[j], w_l[j]);
-        dW2[j] = rsub(w_r[j], w_m[j]);
-      }
-      // one coarse step against two half steps on the same path; the
-      // finer propagates
-      T uc[n], uh[n];
-      St::template step(prob, u, pp, t, dt_step, dWf, uc);
-      St::template step(prob, u, pp, t, dt_half, dW1, uh);
-      St::template step(prob, uh, pp, t_mid, dt_half, dW2, u2);
-#pragma unroll
-      for (int c = 0; c < n; ++c)
-        err[c] = rmul(rsub(u2[c], uc[c]), T(k.richardson));
-    }
-
-    // ---- error control: Hairer norm, PI controller ----------------------
-    T sum = T(0);
-    bool finite = true;
-#pragma unroll
-    for (int c = 0; c < n; ++c) {
-      const T sc = radd(atol, rmul(nmax(T(fabs(u[c])), T(fabs(u2[c]))),
-                                   rtol));
-      const T r = rdiv(err[c], sc);
-      sum = radd(sum, rmul(r, r));
-      finite = finite && isfinite(u2[c]);
-    }
-    const T enorm = sqrt(rdiv(sum, T(n)));
-    const bool accept = ((enorm <= T(1)) || at_floor) && finite;
-    const T e = isfinite(enorm) ? nmax(enorm, T(1e-10)) : T(1e10);
-    const T ep = nmax(enorm_prev, T(1e-10));
-    const T pe = rmul(T(k.safety), T(pow(e, T(-k.beta1))));
-    const T fac = accept ? clip(rmul(pe, T(pow(ep, T(k.beta2)))), T(k.qmin),
-                                T(k.qmax))
-                         : clip(pe, T(k.qmin), T(1));
-    const T dt_next = clip(rmul(dt_step, fac), dtmin, dtmax);
-
-    bool term = false;
-    if (accept) {
-      const uint32_t idx_old = idx;
-      idx += mc;
-      T t_new = radd(t0, rmul(T(idx), h_res));
-      // the saves run up to t_lim: the event time of a terminal hit, else
-      // the (re-anchored) grid time
-      T t_lim = t_new, unext[n];
-      bool hit_nt = false;
-      if constexpr (Ev::enabled) {
-        auto interp = [&](T th, T* v) {
-#pragma unroll
-          for (int c = 0; c < n; ++c)
-            v[c] = radd(u[c], rmul(th, rsub(u2[c], u[c])));
-        };
-        T t_ev;
-        const bool hit = repro_ev::handle_event<Ev, Rounded, n>(
-            evc, interp, u, u2, pp, t, dt_step, t_new, unext, t_ev);
-        term = hit && evc.terminal;
-        hit_nt = hit && !term;
-        if (hit_nt) {
-          // resume on the first grid point at or after the event time
-          const T cells_f =
-              ceil(rsub(rdiv(rsub(t_ev, t), h_res), T(1e-6)));
-          const uint32_t cells =
-              cells_f < T(1) ? 1u
-                             : min(static_cast<uint32_t>(cells_f), mc);
-          idx = idx_old + cells;
-          t_new = radd(t0, rmul(T(idx), h_res));
-        }
-        t_lim = term ? t_ev : t_new;
-      }
-      t_out = t_lim;
-      // ---- linear dense output onto every save point the step crossed ---
-      const T lim = radd(t_lim, rmul(T(1e-7), nmax(T(fabs(t_lim)), T(1))));
-      for (int j = cur; j < S && __ldg(saveat + j) <= lim; ++j) {
-        const T th = clip(rdiv(rsub(__ldg(saveat + j), t), dt_step), T(0),
-                          T(1));
+      for (int j = 0; j < P::k; ++j) pp[j] = p[j * NN + lane];
+      gl = lane_offset + static_cast<uint32_t>(lane);
+      // save points at or before t0 hold u0, the others 0 until crossed
+      cur = 0;
+      for (int j = 0; j < S; ++j) {
+        const bool pre = __ldg(saveat + j) <= t0;
 #pragma unroll
         for (int c = 0; c < n; ++c)
-          us[(static_cast<size_t>(j) * n + c) * NN + lane] =
-              radd(u[c], rmul(th, rsub(u2[c], u[c])));
+          us[(static_cast<size_t>(j) * n + c) * NN + lane] = pre ? u[c] : T(0);
+        cur += pre;
       }
-      while (cur < S && __ldg(saveat + cur) <= t_new) ++cur;
 #pragma unroll
-      for (int c = 0; c < n; ++c) u[c] = Ev::enabled ? unext[c] : u2[c];
-      if (hit_nt) {
-        // a re-anchored lane restarts mid-step: its left W is at idx
-        bridge_points<T, m>(seed, idx, gl, depth, n_total, sqrt_total,
-                            h_res, w_l);
-      } else {
-#pragma unroll
-        for (int j = 0; j < m; ++j) w_l[j] = w_r[j];
+      for (int j = 0; j < m; ++j) {
+        w_l[j] = T(0);  // W(0) = 0
+        const float z = repro_rng::bridge_normal(seed, 0u, uint32_t(j), gl);
+        w_end[j] = rmul(sqrt_total, T(z));
       }
-      enorm_prev = e;
-      ++naccept;
-    } else {
-      ++nreject;
+      idx = 0;
+      dt = dt0;
+      enorm_prev = T(1);
+      t_out = t0;
+      naccept = nreject = nf = status = 0;
+      it = 0;
+      done = false;
     }
-    nf += nf_per_attempt;
-    // rejecting at the resolution floor (only a non-finite state can) or
-    // with dt pinned at the controller floor: the retry is bit-identical,
-    // so the trajectory ends with status 2
-    const bool hopeless = !accept && (at_floor || !(dt_step > dtmin));
-    if (hopeless) status = 2;
-    done = idx >= n_total || hopeless || term;
-    dt = dt_next;
-  }
 
+    if (!done && it < max_iters) {
+      // ---- one attempt ----------------------------------------------------
+      const T t = radd(t0, rmul(T(idx), h_res));
+      // quantise the proposed dt to whole cells; below the floor no finer
+      // path exists at this depth, so the step force-accepts
+      const uint32_t want =
+          static_cast<uint32_t>(rdiv(nmin(dt, t_total), h_res));
+      const bool at_floor = want < min_cells;
+      uint32_t mc = kPair ? want : ((want >> 1) << 1);
+      mc = min(max(mc, min_cells), n_total - idx);
+      const T dt_step = rmul(T(mc), h_res);
+
+      T w_r[m], dWf[m];
+      bridge_points<T, m>(seed, idx + mc, gl, depth, n_total, w_end, h_res,
+                          w_r);
 #pragma unroll
-  for (int c = 0; c < n; ++c) u_final[c * NN + lane] = u[c];
-  t_final[lane] = t_out;
-  stats[0 * NN + lane] = naccept;
-  stats[1 * NN + lane] = nreject;
-  stats[2 * NN + lane] = status > 0 ? status : (done ? 0 : 1);
-  stats[3 * NN + lane] = nf;
-  stats[4 * NN + lane] = 0;
-  stats[5 * NN + lane] = 0;
+      for (int j = 0; j < m; ++j) dWf[j] = rsub(w_r[j], w_l[j]);
+
+      T u2[n], err[n];
+      if constexpr (kPair) {
+        St::template pair(prob, u, pp, t, dt_step, dWf, u2, err);
+      } else {
+        const uint32_t mh = mc >> 1;
+        const T dt_half = rmul(T(mh), h_res);
+        const T t_mid = radd(t0, rmul(T(idx + mh), h_res));
+        T w_m[m], dW1[m], dW2[m];
+        bridge_points<T, m>(seed, idx + mh, gl, depth, n_total, w_end, h_res,
+                            w_m);
+#pragma unroll
+        for (int j = 0; j < m; ++j) {
+          dW1[j] = rsub(w_m[j], w_l[j]);
+          dW2[j] = rsub(w_r[j], w_m[j]);
+        }
+        // one coarse step against two half steps on the same path; the
+        // finer propagates
+        T uc[n], uh[n];
+        St::template step(prob, u, pp, t, dt_step, dWf, uc);
+        St::template step(prob, u, pp, t, dt_half, dW1, uh);
+        St::template step(prob, uh, pp, t_mid, dt_half, dW2, u2);
+#pragma unroll
+        for (int c = 0; c < n; ++c)
+          err[c] = rmul(rsub(u2[c], uc[c]), T(k.richardson));
+      }
+
+      // ---- error control: Hairer norm, PI controller --------------------
+      T sum = T(0);
+      bool finite = true;
+#pragma unroll
+      for (int c = 0; c < n; ++c) {
+        const T sc = radd(atol, rmul(nmax(T(fabs(u[c])), T(fabs(u2[c]))),
+                                     rtol));
+        const T r = rdiv(err[c], sc);
+        sum = radd(sum, rmul(r, r));
+        finite = finite && isfinite(u2[c]);
+      }
+      const T enorm = sqrt(rdiv(sum, T(n)));
+      const bool accept = ((enorm <= T(1)) || at_floor) && finite;
+      const T e = isfinite(enorm) ? nmax(enorm, T(1e-10)) : T(1e10);
+      const T ep = nmax(enorm_prev, T(1e-10));
+      const T pe = rmul(T(k.safety), T(pow(e, T(-k.beta1))));
+      const T fac = accept ? clip(rmul(pe, T(pow(ep, T(k.beta2)))),
+                                  T(k.qmin), T(k.qmax))
+                           : clip(pe, T(k.qmin), T(1));
+      const T dt_next = clip(rmul(dt_step, fac), dtmin, dtmax);
+
+      bool term = false;
+      if (accept) {
+        const uint32_t idx_old = idx;
+        idx += mc;
+        T t_new = radd(t0, rmul(T(idx), h_res));
+        // the saves run up to t_lim: the event time of a terminal hit,
+        // else the (re-anchored) grid time
+        T t_lim = t_new, unext[n];
+        bool hit_nt = false;
+        if constexpr (Ev::enabled) {
+          auto interp = [&](T th, T* v) {
+#pragma unroll
+            for (int c = 0; c < n; ++c)
+              v[c] = radd(u[c], rmul(th, rsub(u2[c], u[c])));
+          };
+          T t_ev;
+          const bool hit = repro_ev::handle_event<Ev, Rounded, n>(
+              evc, interp, u, u2, pp, t, dt_step, t_new, unext, t_ev);
+          term = hit && evc.terminal;
+          hit_nt = hit && !term;
+          if (hit_nt) {
+            // resume on the first grid point at or after the event time
+            const T cells_f =
+                ceil(rsub(rdiv(rsub(t_ev, t), h_res), T(1e-6)));
+            const uint32_t cells =
+                cells_f < T(1) ? 1u
+                               : min(static_cast<uint32_t>(cells_f), mc);
+            idx = idx_old + cells;
+            t_new = radd(t0, rmul(T(idx), h_res));
+          }
+          t_lim = term ? t_ev : t_new;
+        }
+        t_out = t_lim;
+        // ---- linear dense output onto every save point the step crossed
+        const T lim = radd(t_lim, rmul(T(1e-7), nmax(T(fabs(t_lim)), T(1))));
+        for (int j = cur; j < S && __ldg(saveat + j) <= lim; ++j) {
+          const T th = clip(rdiv(rsub(__ldg(saveat + j), t), dt_step), T(0),
+                            T(1));
+#pragma unroll
+          for (int c = 0; c < n; ++c)
+            us[(static_cast<size_t>(j) * n + c) * NN + lane] =
+                radd(u[c], rmul(th, rsub(u2[c], u[c])));
+        }
+        while (cur < S && __ldg(saveat + cur) <= t_new) ++cur;
+#pragma unroll
+        for (int c = 0; c < n; ++c) u[c] = Ev::enabled ? unext[c] : u2[c];
+        if (hit_nt) {
+          // a re-anchored lane restarts mid-step: its left W is at idx
+          bridge_points<T, m>(seed, idx, gl, depth, n_total, w_end, h_res,
+                              w_l);
+        } else {
+#pragma unroll
+          for (int j = 0; j < m; ++j) w_l[j] = w_r[j];
+        }
+        enorm_prev = e;
+        ++naccept;
+      } else {
+        ++nreject;
+      }
+      nf += nf_per_attempt;
+      // rejecting at the resolution floor (only a non-finite state can) or
+      // with dt pinned at the controller floor: the retry is bit-identical,
+      // so the trajectory ends with status 2
+      const bool hopeless = !accept && (at_floor || !(dt_step > dtmin));
+      if (hopeless) status = 2;
+      done = idx >= n_total || hopeless || term;
+      dt = dt_next;
+      ++it;
+    }
+
+    if (done || it >= max_iters) {
+      // ---- finish trajectory `lane`, then take the next ------------------
+#pragma unroll
+      for (int c = 0; c < n; ++c) u_final[c * NN + lane] = u[c];
+      t_final[lane] = t_out;
+      stats[0 * NN + lane] = naccept;
+      stats[1 * NN + lane] = nreject;
+      stats[2 * NN + lane] = status > 0 ? status : (done ? 0 : 1);
+      stats[3 * NN + lane] = nf;
+      stats[4 * NN + lane] = 0;
+      stats[5 * NN + lane] = 0;
+      lane = repro_queue::next(queue);
+      if (lane >= static_cast<unsigned>(N)) break;
+      fresh = true;
+    }
+  }
 }
 
 struct LaunchArgs {
@@ -515,6 +553,7 @@ struct LaunchArgs {
   void* u_final;
   void* t_final;
   void* stats;
+  void* queue;  // the work queue's counter, zeroed by the wrapper
   cudaStream_t stream;
   repro_data::Tables data;  // the data forms' tables
 };
@@ -522,17 +561,17 @@ struct LaunchArgs {
 template <typename T, class P, class St, bool kPair, class Ev,
           class Dat = repro_data::NoData>
 int launch(const LaunchArgs& a) {
-  const int grid = (a.N + kBlock - 1) / kBlock;
+  const auto kernel = sde_adaptive_kernel<T, P, St, kPair, Ev, Dat>;
+  const int grid = repro_queue::persistent_grid(kernel, kBlock, a.N);
   Dat dat{};
   if constexpr (Dat::enabled) dat = a.data;
-  sde_adaptive_kernel<T, P, St, kPair, Ev, Dat>
-      <<<grid, kBlock, 0, a.stream>>>(
+  kernel<<<grid, kBlock, 0, a.stream>>>(
           static_cast<const T*>(a.u0), static_cast<const T*>(a.p),
           static_cast<const T*>(a.saveat), a.S, a.N, T(a.t0), T(a.tf),
           T(a.dt0), T(a.rtol), T(a.atol), a.max_iters, a.seed, a.lane_offset,
           a.depth, a.nf_per_attempt, a.k, a.ev, dat, static_cast<T*>(a.us),
           static_cast<T*>(a.u_final), static_cast<T*>(a.t_final),
-          static_cast<int*>(a.stats));
+          static_cast<int*>(a.stats), static_cast<unsigned*>(a.queue));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -613,16 +652,18 @@ int dispatch(int dtype_id, int prob_id, int event_id, int stepper_id,
 // dtype_id: 0 float32, 1 float64.  prob_id: 0 gbm, 1 crn, 2 ramp.  stepper_id and
 // est_id: see by_method.  `saveat` is (S,) ascending; `control` points to 8
 // host doubles: beta1, beta2, safety, qmin, qmax, dtmin, dtmax, richardson.
-// The caller keeps 0 <= depth <= 30.  Returns cudaGetLastError() after the
-// launch, or -1 for an unknown id or combination.  Launches on `stream` and
-// does not synchronise.
+// The caller keeps 0 <= depth <= 30.  `queue` points to one 32-bit word on
+// the card, zeroed on `stream` before the launch: the work queue's counter
+// (trajectory_queue.cuh).  Returns cudaGetLastError() after the launch, or
+// -1 for an unknown id or combination.  Launches on `stream` and does not
+// synchronise.
 extern "C" int sde_adaptive_launch(
     int dtype_id, int prob_id, int stepper_id, int est_id, const void* u0,
     const void* p, const void* saveat, int S, int N, double t0, double tf,
     double dt0, double rtol, double atol, long long max_iters,
     unsigned int seed, unsigned int lane_offset, int depth,
     int nf_per_attempt, const double* control, void* us, void* u_final,
-    void* t_final, void* stats, void* stream) {
+    void* t_final, void* stats, void* queue, void* stream) {
   namespace sa = repro_sde_adaptive;
   const double* c = control;
   const sa::Control k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
@@ -631,7 +672,8 @@ extern "C" int sde_adaptive_launch(
                          rtol,      atol,        max_iters, seed,
                          lane_offset, depth,     nf_per_attempt, k,
                          {0, 0, 0}, us,          u_final, t_final,
-                         stats,     static_cast<cudaStream_t>(stream)};
+                         stats,     queue,
+                         static_cast<cudaStream_t>(stream)};
   return sa::dispatch(dtype_id, prob_id, 0, stepper_id, est_id, a);
 }
 
@@ -645,7 +687,7 @@ extern "C" int sde_adaptive_event_launch(
     double dt0, double rtol, double atol, long long max_iters,
     unsigned int seed, unsigned int lane_offset, int depth,
     int nf_per_attempt, const double* control, void* us, void* u_final,
-    void* t_final, void* stats, void* stream) {
+    void* t_final, void* stats, void* queue, void* stream) {
   namespace sa = repro_sde_adaptive;
   if (event_id <= 0) return -1;
   const double* c = control;
@@ -655,7 +697,7 @@ extern "C" int sde_adaptive_event_launch(
                          rtol,      atol,        max_iters, seed,
                          lane_offset, depth,     nf_per_attempt, k,
                          {terminal, direction, bisect_iters}, us,
-                         u_final,   t_final,     stats,
+                         u_final,   t_final,     stats,  queue,
                          static_cast<cudaStream_t>(stream)};
   return sa::dispatch(dtype_id, prob_id, event_id, stepper_id, est_id, a);
 }
@@ -671,7 +713,7 @@ extern "C" int sde_adaptive_data_launch(
     double t0, double tf, double dt0, double rtol, double atol,
     long long max_iters, unsigned int seed, unsigned int lane_offset,
     int depth, int nf_per_attempt, const double* control, void* us,
-    void* u_final, void* t_final, void* stats, void* stream) {
+    void* u_final, void* t_final, void* stats, void* queue, void* stream) {
   namespace sa = repro_sde_adaptive;
   const double* c = control;
   const sa::Control k{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]};
@@ -680,7 +722,8 @@ extern "C" int sde_adaptive_data_launch(
                    rtol,      atol,        max_iters, seed,
                    lane_offset, depth,     nf_per_attempt, k,
                    {0, 0, 0}, us,          u_final, t_final,
-                   stats,     static_cast<cudaStream_t>(stream)};
+                   stats,     queue,
+                   static_cast<cudaStream_t>(stream)};
   if (!repro_data::make_tables(n_data, data, data_shape, data_grid, a.data))
     return -1;
   switch (dtype_id) {

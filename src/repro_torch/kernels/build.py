@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,7 +48,8 @@ def library_path(source: str) -> Path:
 def build(sources: Sequence[str]) -> Dict[str, str]:
     """Compile every source whose library is missing, all nvcc processes
     started together.  Returns the compiler's output (register and spill
-    report) per source built; raises with nvcc's message on failure."""
+    report) per source built, also kept beside each library (`build_log`);
+    raises with nvcc's message on failure."""
     todo = [s for s in sources if not library_path(s).exists()]
     if not todo:
         return {}
@@ -65,10 +66,18 @@ def build(sources: Sequence[str]) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {s}:\n{logs[s]}")
             continue
+        library_path(s).with_suffix(".log").write_text(logs[s])
         os.replace(tmp, library_path(s))
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def build_log(source: str) -> Optional[str]:
+    """nvcc's output when the library of `source` was built, or None where
+    the library was built without one kept."""
+    path = library_path(source).with_suffix(".log")
+    return path.read_text() if path.exists() else None
 
 
 @functools.lru_cache(maxsize=None)

@@ -46,24 +46,29 @@ MAX_DEPTH = 30
 launches = 0
 
 
+def argtypes(event: bool = False, data: bool = False):
+    """The ctypes argument types of the no-event entry, the event entry
+    (the event id, terminal, direction and bisect_iters after the
+    estimator id) or the data entry (the tables there)."""
+    vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                         ctypes.c_uint)
+    args = [i32, i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64, f64,
+            f64, ctypes.c_longlong, u32, u32, i32, i32, vp, vp, vp, vp, vp,
+            vp, vp]
+    extra = data_argtypes() if data else [i32] * 4 if event else []
+    return args[:4] + extra + args[4:]
+
+
 @functools.lru_cache(maxsize=None)
 def _bind(event: bool = False, data: bool = False):
-    """The no-event entry, the event entry (which takes the event id,
-    terminal, direction and bisect_iters after the estimator id) or the
-    data entry (which takes the tables there)."""
+    """The no-event, event or data entry of the built library."""
     from repro_torch.kernels.build import load
     lib = load(SOURCE)
     fn = (lib.sde_adaptive_data_launch if data
           else lib.sde_adaptive_event_launch if event
           else lib.sde_adaptive_launch)
-    vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
-                         ctypes.c_uint)
-    args = [i32, i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64, f64,
-            f64, ctypes.c_longlong, u32, u32, i32, i32, vp, vp, vp, vp, vp,
-            vp]
-    extra = data_argtypes() if data else [i32] * 4 if event else []
-    fn.argtypes = args[:4] + extra + args[4:]
-    fn.restype = i32
+    fn.argtypes = argtypes(event, data)
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -188,6 +193,9 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
+        # the work queue's counter (csrc/trajectory_queue.cuh), zeroed on
+        # the launch's stream
+        queue = torch.zeros(1, dtype=torch.int32, device=u0.device)
         rc = _bind(event is not None, tables is not None)(
             DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
             ESTIMATOR_IDS[error_est], *ev, *(tables or ()), u0.data_ptr(),
@@ -196,7 +204,7 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
             float(rtol), float(atol), int(max_iters), seed, lane_offset,
             int(depth), int(nf_per_attempt), ctypes.addressof(consts),
             us.data_ptr(), u_final.data_ptr(), t_final.data_ptr(),
-            stats.data_ptr(), stream)
+            stats.data_ptr(), queue.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sde_adaptive_ensemble launch failed: CUDA "
                            f"error {rc}")

@@ -74,26 +74,32 @@ _ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
     + [ctypes.c_void_p] * 6
 
 
+def argtypes(event: bool = False, data: bool = False):
+    """The ctypes argument types of the no-event entry, the event entry
+    (the event id, terminal, direction and bisect_iters after the lazy-W
+    switch) or the data entry (float64; the tables there)."""
+    extra = data_argtypes() if data else [ctypes.c_int] * 4 if event else []
+    return _ARGTYPES[:4] + extra + _ARGTYPES[4:]
+
+
 @functools.lru_cache(maxsize=None)
 def _bind(event: bool = False):
-    """The no-event entry, or the event entry (which takes the event id,
-    terminal, direction and bisect_iters after the lazy-W switch)."""
+    """The no-event entry, or the event entry."""
     from repro_torch.kernels.build import load
     lib = load(SOURCE)
     fn = (lib.rosenbrock_ensemble_event_launch if event
           else lib.rosenbrock_ensemble_launch)
-    fn.argtypes = (_ARGTYPES[:4] + [ctypes.c_int] * 4 + _ARGTYPES[4:]
-                   if event else _ARGTYPES)
+    fn.argtypes = argtypes(event)
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _bind_data():
-    """The data entry (float64): the tables after the lazy-W switch."""
+    """The data entry (float64)."""
     from repro_torch.kernels.build import load
     fn = load(SOURCE).rosenbrock_ensemble_data_launch
-    fn.argtypes = _ARGTYPES[:4] + data_argtypes() + _ARGTYPES[4:]
+    fn.argtypes = argtypes(data=True)
     fn.restype = ctypes.c_int
     return fn
 

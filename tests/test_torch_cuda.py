@@ -667,6 +667,83 @@ def test_cuda_data_without_device_form_raises(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the trajectory work queue of K3 and K5 (csrc/trajectory_queue.cuh): sizes
+# at its edges, each one launch, bitwise against the plain version
+# ---------------------------------------------------------------------------
+
+QUEUE_SIZES = {"below-a-warp": (17, 0), "ragged": (5000, 0),
+               "offset-2^32-20": (300, 2 ** 32 - 20),
+               "2^20+1": (2 ** 20 + 1, 0)}
+
+
+def assert_bitwise(out_k, out_p):
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("est", ["embedded", "doubling"])
+@pytest.mark.parametrize("size", list(QUEUE_SIZES))
+def test_cuda_sde_adaptive_queue_edges_bitwise(cuda, size, est):
+    """K5 in f64 on GBM (rows of u0 spread 10%), N below one warp, N no
+    multiple of the persistent grid, N = 2^20 + 1 and a lane offset that
+    wraps the 32-bit lane key."""
+    from repro_torch.core.ensemble import resolve_adaptive_sde
+    from repro_torch.core.methods import get_method
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em.ref import solve_adaptive_lanes
+    N, offset = QUEUE_SIZES[size]
+    f64 = torch.float64
+    prob = tdp.gbm_problem(r=1.5, v=0.2, dtype=f64)
+    rng = np.random.default_rng(4)
+    u0 = torch.tensor(0.1 * (1.0 + 0.1 * rng.random((3, N))), dtype=f64,
+                      device=cuda)
+    p = torch.tensor([[1.5], [0.2]], dtype=f64,
+                     device=cuda).expand(2, N).contiguous()
+    sv = torch.tensor([0.125, 0.25], dtype=f64, device=cuda)
+    kw = dict(resolve_adaptive_sde(get_method("em"), "diagonal",
+                                   error_est=est, brownian_depth=14,
+                                   t0=0.0, tf=0.25, dt0=0.05),
+              noise="diagonal", m_noise=3, t0=0.0, tf=0.25, dt0=0.05,
+              rtol=1e-3, atol=1e-5, max_iters=100_000, seed=7,
+              lane_offset=offset)
+    before = k5.launches
+    out_k = k5.sde_adaptive_ensemble(prob.f, prob.g, "em", u0, p, sv, **kw)
+    assert k5.launches == before + 1
+    out_p = solve_adaptive_lanes(prob.f, prob.g, "em", u0, p, sv, **kw)
+    assert int(out_k[3][2].max()) == 0
+    assert_bitwise(out_k, out_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,w_reuse", [("rodas5p", False),
+                                         ("rodas4", True)])
+@pytest.mark.parametrize("N", [17, 5000, 2 ** 20 + 1])
+def test_cuda_rosenbrock_grid_edges_bitwise(cuda, N, alg, w_reuse):
+    """K3 in f64 on ROBER (k1 log-swept), one trajectory a thread (it takes
+    no work queue and draws no random numbers): N below one warp, N no
+    multiple of the block and N = 2^20 + 1, whose last block holds one
+    trajectory."""
+    from repro_torch.core.tableaus import get_rosenbrock_tableau
+    from repro_torch.kernels.rosenbrock import kernel as k3
+    ep = tdp.rober_ensemble(N, tspan=(0.0, 10.0))
+    u0s, ps = ep.materialize()
+    u0 = u0s.T.contiguous().to(cuda)
+    p = ps.T.contiguous().to(cuda)
+    sv = torch.tensor([1e-2, 1.0, 10.0], dtype=torch.float64, device=cuda)
+    rtab = get_rosenbrock_tableau(alg)
+    kw = dict(jac=ep.prob.jac, t0=0.0, tf=10.0, dt0=1e-6, rtol=1e-6,
+              atol=1e-8, max_iters=100_000, w_reuse=w_reuse)
+    before = k3.launches
+    out_k = k3.rosenbrock_ensemble(ep.prob.f, rtab, u0, p, sv, **kw)
+    assert k3.launches == before + 1
+    out_p = k3._plain(ep.prob.f, rtab, u0, p, sv, **kw)
+    assert int(out_k[3][2].max()) == 0
+    assert_bitwise(out_k, out_p)
+
+
+# ---------------------------------------------------------------------------
 # gradients across the kernel boundary (kernel_adjoint)
 # ---------------------------------------------------------------------------
 
