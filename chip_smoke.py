@@ -48,17 +48,25 @@ result, where CUDA is absent or the port's sources are not beside it.  The
 stiff and adaptive SDE rows also print each kernel's warp SIMT efficiency
 (from its own stats, one trajectory a thread), its registers, and, for the
 stiff kernel, its FP64 bound counted in the card's instructions (the fast
-paths of a division, sqrt and pow in this build's SASS); the batched LU
-kernel is timed at its path's shape, 2^16 systems a launch, as well.  The
-last line is one JSON object naming the device; the line before it lists
-every kernel with its launches on its path, its error against the plain
-version, its time and its bound.
+paths of a division, sqrt and pow in this build's SASS); the fixed-dt SDE
+rows print theirs in f32 instructions a pipe (`k4_bound_instr`: the fast
+paths of a counter normal, powf, a division and sqrtf), their registers
+and their step loop's instruction mix.  The batched LU kernel's factor
+and resolve entries are held bit for bit to its one-shot entry and timed
+at 2^20 systems and at the `array` path's 2^16 (device time in a CUDA
+graph of 50 launches, the wrapper's host time); the path launches one
+factor a W build and one resolve a stage solve, its resolves run under
+the sync check, and its front door is a median of 3 for both W-solve
+routes.  The last line is one JSON object naming the device; the line
+before it lists every kernel with its launches on its path, its error
+against the plain version, its time and its bound.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -284,7 +292,9 @@ PTXAS_TAGS = {
                            *((f"Li{d}E", f"hd={d}") for d in (16, 32, 64, 128,
                                                               256)),
                            ("Lb0E", "noncausal"), ("Lb1E", "causal")),
-    "lu_solve.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
+    "lu_solve.cu": (("lu_factor_kernel", "factor"),
+                    ("lu_resolve_kernel", "resolve"),
+                    ("kernelIf", "f32"), ("kernelId", "f64"),
                     *((f"Li{k}E", f"n={k}") for k in range(1, 9)),
                     ("Lb0E", "nopivot"), ("Lb1E", "pivot")),
     "rosenbrock_ensemble.cu": (("kernelIf", "f32"), ("kernelId", "f64"),
@@ -379,6 +389,29 @@ extern "C" __global__ void probe_pow(const double* a, const double* b,
 """
 
 
+# The pipe of each sm_90 opcode the f32 kernels issue (opcodes without
+# modifiers), and each pipe's lanes per SM per clock, from the CUDA C++
+# Programming Guide's throughput table for compute capability 9.0: FP32
+# multiply-add 128 (with IMAD counted there, as the compiler moves integer
+# adds onto it); integer add, logic, shifts, compares and min/max 64;
+# conversions and the special functions (MUFU) 16.  An opcode of no pipe
+# here (moves, branches, memory) counts only against the issue rate, one
+# warp instruction per scheduler per clock (128 lanes an SM).
+PIPE_OF = {**dict.fromkeys(("FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I",
+                            "FMUL32I", "IMAD", "HFMA2", "HADD2", "HMUL2"),
+                           "fma"),
+           **dict.fromkeys(("IADD3", "LOP3", "SHF", "LEA", "ISETP", "FSETP",
+                            "FMNMX", "IMNMX", "SEL", "FSEL", "PRMT", "IABS",
+                            "SGXT", "BMSK", "PLOP3", "VIADD", "VIMNMX"),
+                           "alu"),
+           "MUFU": "mufu",
+           **dict.fromkeys(("I2F", "F2I", "F2F", "I2FP", "F2IP", "FRND",
+                            "I2I"), "conv")}
+PIPE_LANES_PER_SM = {"alu": 64, "fma": 128, "mufu": 16, "conv": 16,
+                     "all": ISSUE_LANES_PER_SM}
+MIX_KEYS = ("fp64", "mufu", "all", "alu", "fma", "conv")
+
+
 def _path_mix(rows, start: int, stop_op: str, depth: int = 0) -> dict:
     """FP64-pipe, MUFU and all instructions from address `start` to the
     first unpredicated `stop_op`, with the routines that the CALLs on the
@@ -402,6 +435,73 @@ def _path_mix(rows, start: int, stop_op: str, depth: int = 0) -> dict:
     return mix
 
 
+def _target(text: str) -> int:
+    """The address a BRA or CALL goes to (the last hex number of its
+    text), or -1."""
+    hits = re.findall(r"0x[0-9a-f]+", text)
+    return int(hits[-1], 16) if hits else -1
+
+
+def fast_path_mix(rows, start: int = 0, stop_op: str = "EXIT",
+                  depth: int = 0) -> dict:
+    """Instructions a pipe (`PIPE_OF`, "all" for every one) on a routine's
+    fast path: from `start` to the first unpredicated `stop_op`, taking
+    every forward branch (nvcc's libm routines branch forward past their
+    slow paths: cosf past the Payne-Hanek reduction, a division or sqrt
+    past the CALL of its slow routine, powf past its special cases),
+    falling through backward ones, and running the routines of the CALLs
+    on the way to their RET."""
+    index = {r[0]: i for i, r in enumerate(rows)}
+    mix = dict.fromkeys(MIX_KEYS, 0)
+    i, seen = index[start], set()
+    while i < len(rows) and i not in seen:
+        seen.add(i)
+        addr, pred, op, text = rows[i]
+        if op == stop_op and not pred:
+            break
+        mix["all"] += 1
+        mix["fp64"] += op in FP64_PIPE
+        if op in PIPE_OF:
+            mix[PIPE_OF[op]] += 1
+        target = _target(text)
+        if op == "BRA" and target > addr:
+            i = index[target]
+            continue
+        if op == "CALL" and depth < 4:
+            for key, v in fast_path_mix(rows, target, "RET",
+                                        depth + 1).items():
+                mix[key] += v
+        i += 1
+    return mix
+
+
+def loop_mix(rows) -> dict:
+    """The step loop of a kernel in its SASS: the backward branch that
+    spans the most code and what it closes, with the inner loops (cosf's
+    Payne-Hanek reduction, taken only for |x| >= 105615) left out.  Its
+    instructions a pipe, counted once each as they stand (static, the
+    special-value blocks of the libm routines included), and its
+    opcodes."""
+    back = [(_target(text), addr) for addr, _, op, text in rows
+            if op == "BRA" and 0 <= _target(text) < addr]
+    if not back:
+        raise AssertionError("sass: no loop")
+    head, end = max(back, key=lambda b: b[1] - b[0])
+    inner = [(h, e) for h, e in back if head < h and e < end]
+    mix = dict.fromkeys(MIX_KEYS, 0)
+    ops = {}
+    for addr, _, op, _ in rows:
+        if head <= addr <= end and not any(h <= addr <= e for h, e in inner):
+            mix["all"] += 1
+            mix["fp64"] += op in FP64_PIPE
+            if op in PIPE_OF:
+                mix[PIPE_OF[op]] += 1
+            ops[op] = ops.get(op, 0) + 1
+    mix["inner_loops"] = len(inner)
+    mix["opcodes"] = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+    return mix
+
+
 def fp64_fast_paths() -> dict:
     """{"div" | "sqrt" | "pow": {"fp64": FP64-pipe instructions, "mufu":
     MUFU seeds, "all": instructions}} on the fast path of one operation,
@@ -421,6 +521,171 @@ def fp64_fast_paths() -> dict:
     listings = sass_listings(lib)
     return {op: _path_mix(listings[f"probe_{op}"], 0, "EXIT")
             for op in ("div", "sqrt", "pow")}
+
+
+# The f32 operations of the fixed-dt SDE kernel (K4), each alone in a
+# kernel built with the port's nvcc flags, for `f32_fast_paths`: the
+# kernel's libm calls and intrinsics, and one counter normal of
+# threefry.cuh (Threefry-2x32-20 and Box-Muller, as the kernel draws it);
+# `probe_base` (a load and a store) is subtracted from each.
+F32_PROBE_CU = r"""
+#include <cuda_runtime.h>
+#include <cmath>
+#include <cstdint>
+#include "threefry.cuh"
+#define PROBE(name, expr)                                               \
+  extern "C" __global__ void probe_##name(const float* a, const float* b, \
+                                          float* o) {                   \
+    const unsigned i = threadIdx.x;                                     \
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a);           \
+    const uint32_t* k = reinterpret_cast<const uint32_t*>(b);           \
+    o[i] = (expr);                                                      \
+  }
+PROBE(base, a[i])
+PROBE(logf, logf(a[i]))
+PROBE(cosf, cosf(a[i]))
+PROBE(sqrtf, sqrtf(a[i]))
+PROBE(fsqrt_rn, __fsqrt_rn(a[i]))
+PROBE(powf, powf(a[i], b[i]))
+PROBE(fdiv_rn, __fdiv_rn(a[i], b[i]))
+PROBE(uint2float_rn, __uint2float_rn(w[i]))
+PROBE(normal, repro_rng::counter_normal(k[0], k[1], k[2], w[i]))
+"""
+F32_PROBES = ("logf", "cosf", "sqrtf", "fsqrt_rn", "powf", "fdiv_rn",
+              "uint2float_rn", "normal")
+
+
+def f32_fast_paths() -> dict:
+    """{op: {pipe: instructions}} on the fast path of each f32 operation
+    of `F32_PROBE_CU` (`fast_path_mix` to EXIT, less `probe_base`), from
+    the SASS of a probe compiled with the port's flags."""
+    from repro_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc
+    key = hashlib.sha256((F32_PROBE_CU + " ".join(NVCC_FLAGS)).encode()
+                         + (CSRC / "threefry.cuh").read_bytes())
+    lib = BUILD_DIR / f"f32_probe-{key.hexdigest()[:16]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = lib.with_suffix(".cu")
+        src.write_text(F32_PROBE_CU)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                        str(tmp), str(src)], check=True, capture_output=True,
+                       timeout=300)
+        os.replace(tmp, lib)
+    listings = sass_listings(lib)
+    base = fast_path_mix(listings["probe_base"])
+    out = {}
+    for op in F32_PROBES:
+        mix = fast_path_mix(listings[f"probe_{op}"])
+        out[op] = {k: max(0, mix[k] - base[k]) for k in MIX_KEYS}
+    return out
+
+
+# K4's rows: the mangled-name fragments of each row's instantiation, its
+# Wiener processes, and its float work a step besides the normals, as the
+# kernel writes it with every repeated sub-expression counted once (the
+# least work of the step): divisions, square roots, pows, min/max,
+# conversions (the step index to float; a table lookup's floor) and the
+# other adds and multiplies, which the no-event, no-data forms may fuse
+# in pairs (`contracted`).  crn: the Hill term once (2 pows, 1 division,
+# 4 more), the drift's 3 divisions, the noise's 4 distinct u/tau, 6
+# distinct square roots and maxima, 21 adds and multiplies (negation is
+# an operand modifier), the update 12, t 2.  gbm em: 18 and t 2; platen_w2
+# 87 and t 2 besides the 3 divisions by sqrt(dt); the barrier form: em's
+# and the condition (`event_ops`); the rate table: the lookup's division,
+# clamp and floor, 7 more, and the step's 7.
+K4_ROWS = {
+    "gbm-1M-em": (("sde_ensemble_kernelIf", "3Gbm", "2EmELb0E", "7NoEvent",
+                   "6NoData"), 3,
+                  dict(simple=20, conv=1, contracted=True)),
+    "gbm-1M-platen_w2": (("sde_ensemble_kernelIf", "3Gbm", "8PlatenW2",
+                          "Lb0E", "7NoEvent", "6NoData"), 3,
+                         dict(simple=89, fdiv_rn=3, conv=1,
+                              contracted=True)),
+    "crn-1M-em": (("sde_ensemble_kernelIf", "3Crn", "2EmELb0E", "7NoEvent",
+                   "6NoData"), 8,
+                  dict(simple=44, powf=2, fdiv_rn=8, sqrtf=6, alu=6, conv=1,
+                       contracted=True)),
+    "gbm-1M-em-barrier": (("sde_ensemble_kernelIf", "3Gbm", "2EmELb0E",
+                           "10GbmBarrier"), 3,
+                          dict(simple=20, conv=1, contracted=False)),
+    "gbm-rate-1M-em": (("sde_ensemble_kernelIf", "7GbmRate", "2EmELb0E",
+                        "6Tables"), 1,
+                       dict(simple=14, fdiv_rn=1, alu=2, conv=2,
+                            contracted=False)),
+}
+
+
+def k4_bound_instr(row: str, steps: int, fast: dict, extra_ops: int = 0):
+    """K4's bound in the card's instructions on `steps` active lane-steps:
+    (ms, pipe, {pipe: ms}).  A step issues its m normals at
+    `f32_fast_paths`' counter normal and one multiply each (dW = z
+    sqrt(dt)), each division, sqrt and pow of `K4_ROWS` at its fast path,
+    the min/max on the ALU pipe, the conversions, and the other float
+    operations on the FMA pipe, one instruction for two where the form
+    contracts; `extra_ops` (the event forms' condition work, rounded
+    alone) on the FMA pipe.  Each pipe's time is its instructions over its
+    lanes an SM a clock (`PIPE_LANES_PER_SM`), the issue time all of them
+    over 128; the bound is the largest."""
+    _, m, step = K4_ROWS[row]
+    per = dict.fromkeys(PIPE_LANES_PER_SM, 0.0)
+
+    def add(mix, k=1.0):
+        for pipe in per:
+            per[pipe] += k * mix.get(pipe, 0)
+
+    add(fast["normal"], m)
+    add({"fma": 1, "all": 1}, m)
+    for op in ("powf", "fdiv_rn", "sqrtf"):
+        add(fast[op], step.get(op, 0))
+    simple = step["simple"] / (2 if step["contracted"] else 1)
+    add({"fma": simple, "all": simple})
+    add({"alu": step.get("alu", 0), "conv": step.get("conv", 0),
+         "all": step.get("alu", 0) + step.get("conv", 0)})
+    times = {pipe: (per[pipe] * steps + (extra_ops if pipe in ("fma", "all")
+                                         else 0))
+             / (PIPE_LANES_PER_SM[pipe] * SM_LANE_CLOCKS_PER_S) * 1e3
+             for pipe in per}
+    pipe = max(times, key=times.get)
+    return times[pipe], pipe, times
+
+
+def k4_sass_report(row: str) -> dict:
+    """Registers and spills of a K4 row's instantiation, and its step
+    loop's pipe mix and opcodes (`loop_mix`) in this build's SASS."""
+    from repro_torch.kernels.build import build_log, library_path
+    from repro_torch.kernels.em.kernel import SOURCE
+    t = time.perf_counter()
+    keys = K4_ROWS[row][0]
+    if SOURCE not in BUILD_LOGS:
+        BUILD_LOGS[SOURCE] = build_log(SOURCE) or ptxas_log(SOURCE)
+    lib = library_path(SOURCE)
+    if lib not in SASS_CACHE:
+        SASS_CACHE[lib] = sass_listings(lib)
+    hits = [rows for name, rows in SASS_CACHE[lib].items()
+            if all(k in name for k in keys)]
+    if len(hits) != 1:
+        raise AssertionError(f"sass: {len(hits)} kernels match {keys}")
+    out = {"registers": ptxas_entry(BUILD_LOGS[SOURCE], keys),
+           "loop": loop_mix(hits[0])}
+    REPORT_S["register reports"] += time.perf_counter() - t
+    return out
+
+
+def k4_row_extra(row: str, steps: int, extra_ops: int = 0) -> dict:
+    """The K4 keys of a kernels-line row: bound_instr_ms and its pipe, the
+    pipes' times, registers, the step loop's pipe mix; printed too."""
+    b, pipe, times = k4_bound_instr(row, steps, F32_FAST, extra_ops)
+    rep = k4_sass_report(row)
+    loop = {k: rep["loop"][k] for k in MIX_KEYS if k != "fp64"}
+    print(f"{row}: bound in the card's instructions {b:.4f} ms by {pipe} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f" ms); registers {rep['registers']}; step loop in the SASS "
+          + json.dumps(loop) + ", opcodes "
+          + json.dumps(dict(list(rep["loop"]["opcodes"].items())[:16])))
+    return {"bound_instr_ms": b, "bound_instr_pipe": pipe,
+            "bound_instr_times": times, "registers": rep["registers"],
+            "step_loop": loop}
 
 
 # mangled-name fragments of the K3 and K5 instantiations on the rows
@@ -448,8 +713,11 @@ K35_KEYS = {
 # fast paths of an f64 division, sqrt and pow in this build's SASS
 BUILD_LOGS: dict = {}
 FP64_FAST: dict = {}
-# seconds of the work behind the K3, K5 and K6 reports, and of each phase
-REPORT_S = {"fp64 probe": 0.0, "register reports": 0.0, "K6 at 2^16": 0.0}
+F32_FAST: dict = {}
+SASS_CACHE: dict = {}
+# seconds of the work behind the K3, K4, K5 and K6 reports, and of each
+# phase
+REPORT_S = {"probes": 0.0, "register reports": 0.0, "K6 at 2^16": 0.0}
 PHASE_S: dict = {}
 
 
@@ -507,9 +775,12 @@ def phase_build() -> float:
     print(f"build: {secs:.1f} s ({'compiled' if logs else 'cached'})")
     t = time.perf_counter()
     FP64_FAST.update(fp64_fast_paths())
-    REPORT_S["fp64 probe"] = time.perf_counter() - t
+    F32_FAST.update(f32_fast_paths())
+    REPORT_S["probes"] = time.perf_counter() - t
     print("fp64 fast paths (FP64-pipe instructions, MUFU, all up to EXIT): "
           + json.dumps(FP64_FAST))
+    print("f32 fast paths (instructions a pipe, all up to EXIT): "
+          + json.dumps(F32_FAST))
     # the integer instruction mix behind the SDE kernel's bound: one normal
     # per thread in the normals kernel; 3 normals per step in f32 em/gbm
     lib = library_path(SDE_SOURCE)
@@ -1026,9 +1297,10 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
                 f"beyond {SDE_OUTLIER} (allowed {1e-4 * N:.0f})")
         ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, 1, warmup=0)
+        # the plain version through the front door ("kernel"/"torch") is
+        # the twin timed above, so it is not run again
         strategies = {}
         for sname, (ens, be) in {"kernel_cuda": ("kernel", "cuda"),
-                                 "kernel_torch": ("kernel", "torch"),
                                  "vmap": ("vmap", "torch"),
                                  "array": ("array", "torch")}.items():
             strategies[sname] = cuda_ms(lambda: solve_ensemble_local(
@@ -1066,6 +1338,9 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
               f"{flops:.3e} float ops, {bytes_moved:.3e} bytes); front door "
               "ms " + json.dumps({k: round(v, 3)
                                   for k, v in strategies.items()}))
+        extra = k4_row_extra(form, N * n_steps)
+        print(f"{form}: kernel / bound in instructions "
+              f"{ms / extra['bound_instr_ms']:.2f}x")
         rows.append({
             "name": f"sde_ensemble[{alg},{name},f32,rng]", "route": "cuda",
             "source": "src/repro_torch/csrc/sde_ensemble.cu",
@@ -1073,7 +1348,7 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
             "launches": launches, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if pipe == "bytes" else "operations",
-            "bound_pipe": pipe, "library_ms": None})
+            "bound_pipe": pipe, "library_ms": None, **extra})
     return rows
 
 
@@ -1536,6 +1811,90 @@ def lu_ops(n: int) -> int:
     return ops + 2 * n * (n - 1) + n
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN where NaN."""
+    import torch
+    return bool(torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))
+
+
+def launches_ms(launch, n: int = 50, reps: int = 3) -> float:
+    """Device time of one launch: CUDA events around `n` back-to-back
+    launches on buffers the caller made, over n (median of `reps`)."""
+    import torch
+    launch()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def graph_ms(launch, n: int = 50, reps: int = 3) -> float:
+    """As `launches_ms`, with the n launches captured in one CUDA graph and
+    replayed, so that no host time lies between them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    return launches_ms(graph.replay, 1, reps) / n
+
+
+def lu_split_work(n: int, N: int, item: int = 8):
+    """(bytes, float operations) of the factor and of one resolve of N
+    systems of n (csrc/lu_solve.cu): the factor reads W and writes the
+    state (n² words, n - 1 pivot bytes, pivmin); a resolve reads the state
+    and b and writes x."""
+    resolve_ops = 2 * n * (n - 1) + n
+    factor = (N * (2 * n * n * item + (n - 1) + item),
+              N * (lu_ops(n) - resolve_ops))
+    resolve = (N * (n * n * item + (n - 1) + 2 * n * item),
+               N * resolve_ops)
+    return factor, resolve
+
+
+def work_bound_ms(work) -> float:
+    nbytes, ops = work
+    return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_FP64_FLOPS) * 1e3
+
+
+def k6_split_times(W, b) -> dict:
+    """The factor and resolve entries on W (N, n, n) and b (n, N) on the
+    card: device ms by events around 50 launches (and in a CUDA graph),
+    the wrapper's host ms (`perf_counter`, no sync), and each bound."""
+    import torch
+    from repro_torch.kernels.lu import kernel as lu_kernel
+    n, N = W.shape[-1], W.shape[0]
+    lu, piv, pm = lu_kernel.lu_factor(W)
+    factor = lambda: lu_kernel.lu_factor(W)
+    resolve = lambda: lu_kernel.lu_resolve(lu, piv, b)
+    out = {}
+    for name, fn, work in zip(("factor", "resolve"), (factor, resolve),
+                              lu_split_work(n, N)):
+        host = []
+        for _ in range(20):
+            t = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        out[name] = {"ms": launches_ms(fn), "graph_ms": graph_ms(fn),
+                     "host_ms": statistics.median(host),
+                     "bound_ms": work_bound_ms(work)}
+    return out
+
+
 def phase_lu(device, N: int = FULL_N, reps: int = 5):
     """The batched LU kernel against its plain version on 2^20 systems of
     n = 3 and n = 8, with singular ones, and its reroute; times the kernel,
@@ -1579,6 +1938,57 @@ def phase_lu(device, N: int = FULL_N, reps: int = 5):
             raise AssertionError(f"lu n={n}: the rerouted systems are not "
                                  "the reference solve's output")
         rerouted = lu_ops_mod.rerouted
+        # the factor and resolve entries: the one-shot kernel's bits, x and
+        # pivmin, singular systems included, on the batch-major W (no
+        # copy); and the reroute taken at factor time
+        fl0, rl0 = lu_kernel.factor_launches, lu_kernel.resolve_launches
+        lu_st, piv_st, pm_st = lu_kernel.lu_factor(W)
+        xs = lu_kernel.lu_resolve(lu_st, piv_st, bl)
+        fac = lu_ops_mod.factor(W)
+        lu_ops_mod.rerouted = 0
+        xr = lu_ops_mod.resolve(fac, b.T)
+        sync(device)
+        if device.type == "cuda" and (
+                lu_kernel.factor_launches - fl0 != 2
+                or lu_kernel.resolve_launches - rl0 != 2):
+            raise AssertionError(f"lu n={n}: the factor and resolve entries "
+                                 "were not launched")
+        split_bitwise = same_bits(xs, x) and same_bits(pm_st, pm)
+        if not (split_bitwise and same_bits(xr, xb.T)
+                and lu_ops_mod.rerouted == rerouted):
+            raise AssertionError(f"lu n={n}: factor + resolve differ from "
+                                 "the one-shot kernel or its reroute")
+        split = k6_split_times(W, bl)
+        plain_f = lambda: lu_kernel.pack_factors(
+            lu_kernel.lu_factor_lanes(Wl), n)
+        plain_r = lambda: lu_kernel.lu_resolve_lanes(
+            lu_kernel.unpack_factors(lu_st, piv_st, pm_st), bl)
+        LU, lpiv, _ = torch.linalg.lu_factor_ex(W)
+        lib_f = lambda: torch.linalg.lu_factor_ex(W)
+        lib_r = lambda: torch.linalg.lu_solve(LU, lpiv, b[..., None])
+        split_rows = []
+        for name, plain, lib, libname in (
+                ("factor", plain_f, lib_f, "torch.linalg.lu_factor_ex"),
+                ("resolve", plain_r, lib_r, "torch.linalg.lu_solve")):
+            t = split[name]
+            t.update(plain_ms=cuda_ms(plain, 1), library_ms=cuda_ms(lib, 3))
+            print(f"lu n={n} {name}: N={N}, bitwise to the one-shot kernel "
+                  f"{split_bitwise} (x and pivmin, {int(sing.sum())} singular "
+                  f"systems included; the reroute at factor time equal), "
+                  f"device {t['ms']:.4f} ms a launch (50 back to back; "
+                  f"{t['graph_ms']:.4f} in a CUDA graph), wrapper host "
+                  f"{t['host_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"(bytes), plain {t['plain_ms']:.3f} ms, library {libname} "
+                  f"{t['library_ms']:.3f} ms")
+            split_rows.append({
+                "name": f"lu_{name}[f64,n={n}]", "n": n, "route": "cuda",
+                "source": "src/repro_torch/csrc/lu_solve.cu",
+                "replaces": "src/repro/kernels/lu/kernel.py:115",
+                "launches": None, "max_abs_err": 0.0 if split_bitwise
+                else float("nan"), "ms": t["ms"], "graph_ms": t["graph_ms"],
+                "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                "library_ms": t["library_ms"], "library": libname})
 
         ms = cuda_ms(lambda: lu_kernel.lu_solve(Wl, bl), reps)
         plain_ms = cuda_ms(lambda: lu_kernel.lu_solve_lanes(
@@ -1607,35 +2017,52 @@ def phase_lu(device, N: int = FULL_N, reps: int = 5):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": solve_ms, "library": "torch.linalg.solve_ex",
             "lu_factor_ex_lu_solve_ms": lufs_ms, "rerouted": rerouted})
+        rows += split_rows
     return rows
 
 
-def phase_array_linsolve_cuda(device, N: int = 2 ** 16):
+def phase_array_linsolve_cuda(device, N: int = 2 ** 16, reps: int = 3):
     """The `array` strategy with the batched LU kernel as its W solve:
-    ROBER, rodas4, against the same strategy on the library's LU."""
+    ROBER, rodas4, against the same strategy on the library's LU.  One
+    factor launch per W build, one resolve launch per stage solve, no sync
+    inside a resolve; the front door a median of `reps` for both routes;
+    the factor's and the resolve's device times at the path's shape."""
     import torch
+    from repro_torch.core import rosenbrock as rb
     from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.tableaus import get_rosenbrock_tableau
     from repro_torch.kernels.lu import kernel as lu_kernel
     from repro_torch.kernels.lu import ops as lu_ops_mod
 
     ep = rober_inputs(N, device)
     kw = dict(ROBER_SETTINGS, alg="rodas4", ensemble="array", device=device,
               saveat=torch.tensor(ROBER_SAVEAT, dtype=torch.float64))
-    lu_kernel.launches = lu_ops_mod.rerouted = 0
-    t = time.perf_counter()
-    rc = solve_ensemble_local(ep, linsolve="cuda", **kw)
-    sync(device)
-    secs_cuda = time.perf_counter() - t
-    launches, rerouted = lu_kernel.launches, lu_ops_mod.rerouted
-    t = time.perf_counter()
-    rt = solve_ensemble_local(ep, linsolve="torch", **kw)
-    sync(device)
-    secs_torch = time.perf_counter() - t
+
+    def run(linsolve):
+        t = time.perf_counter()
+        res = solve_ensemble_local(ep, linsolve=linsolve, **kw)
+        sync(device)
+        return res, time.perf_counter() - t
+
+    lu_kernel.launches = lu_kernel.factor_launches = 0
+    lu_kernel.resolve_launches = lu_ops_mod.rerouted = 0
+    rc, secs = run("cuda")
+    launches = (lu_kernel.factor_launches, lu_kernel.resolve_launches,
+                lu_kernel.launches)
+    rerouted = lu_ops_mod.rerouted
+    secs_cuda, secs_torch = [secs], []
+    rt, secs = run("torch")
+    secs_torch.append(secs)
+    for _ in range(reps - 1):
+        secs_cuda.append(run("cuda")[1])
+        secs_torch.append(run("torch")[1])
     iters = int((rc.naccept + rc.nreject).max())
     stages = 6
-    if device.type == "cuda" and launches != stages * iters:
-        raise AssertionError(f"array linsolve=cuda: {launches} LU launches, "
-                             f"not one per stage solve ({stages} x {iters})")
+    # eager rodas4 builds W once a loop iteration
+    if device.type == "cuda" and launches != (iters, stages * iters, 0):
+        raise AssertionError(f"array linsolve=cuda: (factor, resolve, "
+                             f"one-shot) launches {launches}, not ({iters}, "
+                             f"{stages} x {iters}, 0)")
     if int(rc.status) != 0 or int(rt.status) != 0:
         raise AssertionError("array linsolve=cuda: status not 0")
     bar = within_rober_bar(rc.us, rt.us) & within_rober_bar(rc.u_final,
@@ -1647,29 +2074,67 @@ def phase_array_linsolve_cuda(device, N: int = 2 ** 16):
                   & (rc.nreject == rt.nreject)).double().mean())
     worst = float(torch.maximum(lane_rel(rc.us, rt.us),
                                 lane_rel(rc.u_final, rt.u_final)).max())
-    print(f"array rodas4 linsolve=cuda: N={N} f64 status 0, LU launches "
-          f"{launches} (one per stage solve: {stages} x {iters} loop "
-          f"iterations), {rerouted} systems rerouted; against "
+    # one step's stage solves under the sync check: a resolve that read
+    # anything back to the host would raise
+    rtab = get_rosenbrock_tableau("rodas4")
+    u0s, ps = ep.materialize()
+    u, p = u0s.T.contiguous(), ps.T.contiguous()
+    t0 = torch.zeros(N, dtype=u.dtype, device=device)
+    dt = torch.full((N,), 1e-3, dtype=u.dtype, device=device)
+    fac = rb._w_factor(rb._w_build(rb._jac_lanes(ep.prob.f, u, p, t0,
+                                                 ep.prob.jac), dt,
+                                   float(rtab.gamma)), "cuda")
+    checked = []
+
+    def solve(rhs):
+        if device.type != "cuda":
+            return rb._w_resolve(fac, rhs, "cuda")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x = rb._w_resolve(fac, rhs, "cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked.append(x)
+        return x
+
+    rb._stage_loop(ep.prob.f, rtab, u, p, t0, dt, solve)
+    if device.type == "cuda" and len(checked) != stages:
+        raise AssertionError("array linsolve=cuda: the sync check ran "
+                             f"{len(checked)} resolves")
+    med_c, med_t = statistics.median(secs_cuda), statistics.median(secs_torch)
+    print(f"array rodas4 linsolve=cuda: N={N} f64 status 0, launches: "
+          f"factor {launches[0]} (one per W build: {iters} loop "
+          f"iterations), resolve {launches[1]} (one per stage solve: "
+          f"{stages} x {iters}), one-shot {launches[2]}; {rerouted} systems "
+          f"rerouted; {stages} resolves of a step under "
+          "set_sync_debug_mode('error') raised nothing; against "
           f"linsolve=torch every lane within the ROBER bar, worst {worst:.3e}"
-          f", lanes with equal counts {same:.4f}; front door "
-          f"{secs_cuda:.3f} s (cuda) and {secs_torch:.3f} s (torch)")
-    # K6 at the path's shape: one launch solves N systems of n = 3
+          f", lanes with equal counts {same:.4f}; front door median of "
+          f"{reps}: {med_c:.3f} s (cuda) and {med_t:.3f} s (torch); runs "
+          + json.dumps({"cuda": [round(x, 3) for x in secs_cuda],
+                        "torch": [round(x, 3) for x in secs_torch]}))
+    # K6's two entries at the path's shape (2^16 systems of n = 3) and at
+    # 2^20, the path's W layout and a stage's right-hand side
     t = time.perf_counter()
-    n = 3
-    Wn, bn = lu_batch(n, N)
-    Wl = torch.from_numpy(Wn).to(device).permute(1, 2, 0).contiguous()
-    bl = torch.from_numpy(bn).to(device).T.contiguous()
-    ms = cuda_ms(lambda: lu_kernel.lu_solve(Wl, bl), 20)
-    nbytes = 8 * (n * n * N + 2 * n * N + N)
-    bound = max(nbytes / HBM_BYTES_PER_S, lu_ops(n) * N / PEAK_FP64_FLOPS) \
-        * 1e3
-    print(f"lu n=3 at the path's shape: N={N} systems a launch, kernel "
-          f"{ms:.4f} ms, bound {bound:.4f} ms ({nbytes:.3e} bytes); "
-          f"launches x (time - bound) {launches * (ms - bound):.2f} ms a "
-          "path run")
+    out = {"path_n_systems": N, "front_door_s": {"cuda": med_c,
+                                                  "torch": med_t}}
+    for n_sys in (N, FULL_N):
+        Wn, bn = lu_batch(3, n_sys)
+        W = torch.from_numpy(Wn).to(device)
+        b = torch.from_numpy(bn).to(device).T.contiguous()
+        split = k6_split_times(W, b)
+        loss = {k: launches[i] * (split[k]["ms"] - split[k]["bound_ms"])
+                for i, k in enumerate(("factor", "resolve"))}
+        print(f"lu n=3 split at N={n_sys}: " + "; ".join(
+            f"{k} device {v['ms']:.4f} ms ({v['graph_ms']:.4f} in a graph), "
+            f"host {v['host_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
+            for k, v in split.items())
+            + (f"; the path's launches x (device - bound): factor "
+               f"{loss['factor']:.2f} ms, resolve {loss['resolve']:.2f} ms"
+               if n_sys == N else ""))
+        out[f"split_{n_sys}"] = split
     REPORT_S["K6 at 2^16"] = time.perf_counter() - t
-    return launches, {"path_n_systems": N, "path_ms": ms,
-                      "path_bound_ms": bound}
+    return launches, out
 
 
 def rosenbrock_attempt_ops(rtab, n: int, rhs: int, jac: int):
@@ -2477,8 +2942,9 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
                      + attempts * ADAPTIVE_ATTEMPT_FLOPS["embedded"])
             S = len(saveat_t)
             work = (f"{attempts} attempts, {normals} normals")
-        flops += event_ops(steps=accepted, reanchors=0, hits=nhits,
-                           interp=3 * n, cond=1, affect=0)
+        ev_flops = event_ops(steps=accepted, reanchors=0, hits=nhits,
+                             interp=3 * n, cond=1, affect=0)
+        flops += ev_flops
         alu_ops = normals * THREEFRY_ALU_OPS
         issued = normals * (THREEFRY_ALU_OPS + THREEFRY_ADD_OPS) + flops / 2
         nbytes = 4 * (5 * N + S + S * n * N + n * N + N) + 4 * 6 * N
@@ -2490,9 +2956,13 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
                                     * SM_LANE_CLOCKS_PER_S) * 1e3}
         kname = ("sde_ensemble[em,gbm,f32,barrier]" if mod is sde_kernel
                  else "sde_adaptive_ensemble[em,gbm,f32,embedded,barrier]")
-        k5_extra = ({} if mod is sde_kernel else
-                    {"simt_efficiency": simt_efficiency(st[0] + st[1]),
-                     "registers": row_registers(form)})
+        # K4: a warp steps while any of its lanes is active, so its SIMT
+        # efficiency over the active steps tells what frozen lanes cost
+        k5_extra = (dict(k4_row_extra(form, steps, ev_flops),
+                         simt_efficiency=simt_efficiency(st[0]))
+                    if mod is sde_kernel
+                    else {"simt_efficiency": simt_efficiency(st[0] + st[1]),
+                          "registers": row_registers(form)})
         src = ("sde_ensemble.cu" if mod is sde_kernel
                else "sde_adaptive_ensemble.cu")
         line = ":533" if mod is sde_kernel else ":602"
@@ -2506,7 +2976,11 @@ def phase_event_barrier(device, N: int = FULL_N, reps: int = 3):
               f"{BARRIER} by {d_bar:.3e} (bar {BARRIER_TOL['f32']}); against "
               f"the f32 plain version: {gate}, max abs {max_abs:.3e}")
         _print_row(form, front_ms, row, work, times)
-        if k5_extra:
+        if mod is sde_kernel:
+            print(f"{form}: kernel / bound in instructions "
+                  f"{ms / k5_extra['bound_instr_ms']:.2f}x, SIMT efficiency "
+                  f"of the active steps {k5_extra['simt_efficiency']:.4f}")
+        else:
             print(f"{form}: SIMT efficiency {k5_extra['simt_efficiency']:.4f}"
                   f" (one trajectory a thread), registers "
                   f"{k5_extra['registers']}")
@@ -3067,6 +3541,7 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
                 ops = (steps * (GBM_RATE_STEP_OPS + LOOKUP_OPS["gather"])
                        + normals * NORMAL_FLOPS)
                 work = f"{steps} steps, {normals} normals"
+                extra.update(k4_row_extra(form, steps))
             else:
                 depth = int(adaptive_args(
                     "em", "embedded", "diagonal", 1, t0=kw["t0"],
@@ -3112,6 +3587,9 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
               + (f"; vmap strategy {extra['vmap_ms']:.1f} ms"
                  if "vmap_ms" in extra else ""))
         _print_row(form, front_ms, row, work, times)
+        if mod is sde_kernel:
+            print(f"{form}: kernel / bound in instructions "
+                  f"{ms / row['bound_instr_ms']:.2f}x")
         if form in K35_KEYS:
             b_instr = row.get("bound_instr_ms")
             print(f"{form}: "
@@ -4366,11 +4844,15 @@ def main() -> int:
     rows += adaptive_rows
     stiff = timed(phase_stiff_parity, device)
     lu_rows = timed(phase_lu, device)
-    lu_launches, lu_path = timed(phase_array_linsolve_cuda, device)
+    (f_launches, r_launches, one_shot), lu_path = timed(
+        phase_array_linsolve_cuda, device)
     for r in lu_rows:
         # the stiff path solves ROBER's 3 x 3 systems: no path launches n = 8
-        r["launches"] = lu_launches if r["n"] == 3 else 0
+        r["launches"] = 0
         if r["n"] == 3:
+            r["launches"] = {"lu_factor": f_launches,
+                             "lu_resolve": r_launches}.get(
+                                 r["name"].split("[")[0], one_shot)
             r.update(lu_path)
     stiff_rows = timed(phase_stiff_full_size, device)
     for r in stiff_rows:
@@ -4401,8 +4883,8 @@ def main() -> int:
         r["parity"] = flash_parity
     rows += k7_rows
     print("seconds a phase: " + json.dumps(PHASE_S))
-    print("seconds inside them of the fp64 probe, the register reports "
-          "and K6 at 2^16: "
+    print("seconds inside them of the fp64 and f32 probes, the register "
+          "reports and K6 at 2^16: "
           + json.dumps({k: round(v, 1) for k, v in REPORT_S.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)

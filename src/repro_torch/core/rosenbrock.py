@@ -18,11 +18,11 @@ one, else from `torch.func.jacfwd`.  The linear solves (``linsolve=``):
 ``"torch"`` the library's batched LU (`torch.linalg.lu_factor_ex` /
 `lu_solve`, standing where the reference's LAPACK ``"jnp"`` stands),
 ``"lanes"`` the lanes LU body inline (`repro_torch.kernels.lu.kernel`), and
-``"cuda"`` one launch of the batched LU kernel per stage solve
-(`repro_torch.kernels.lu.ops.batched_solve`, the reference's
-``"pallas"``).  The fused CUDA kernel `csrc/rosenbrock_ensemble.cu` runs
-this loop with the lanes LU, one thread per trajectory; this module is its
-plain twin.
+``"cuda"`` the batched LU kernel split in two (the reference's
+``"pallas"``): one factor launch per W build and one resolve launch per
+stage solve (`repro_torch.kernels.lu.ops.factor` / `resolve`).  The fused
+CUDA kernel `csrc/rosenbrock_ensemble.cu` runs this loop with the lanes
+LU, one thread per trajectory; this module is its plain twin.
 
 Only lanes mode is ported: u (n, B) with per-lane t, dt and masks, with
 events (`repro_torch.core.events`) located on the method's dense output,
@@ -80,10 +80,12 @@ def _w_build(J, dt, gam):
 
 
 def _w_factor(W, mode):
-    """Factor W (B, n, n) for `_w_resolve`.  ``"cuda"`` carries W itself:
-    a factorization cannot persist across a kernel launch, so each resolve
-    launches the batched kernel (J reuse still saves the Jacobians;
-    ``nfact`` then counts W rebuilds)."""
+    """Factor W (B, n, n) for `_w_resolve`.  ``"cuda"`` launches the LU
+    kernel's factorization, which writes its state to the card's memory,
+    where it stays between launches: each stage solve then launches only
+    the resolve (the reference's TPU kernel, which cannot keep a
+    factorization across launches, factors W again for every solve).  The
+    singular systems are found here, once a factorization."""
     if mode == "torch":
         LU, piv, _ = torch.linalg.lu_factor_ex(W)
         return LU, piv
@@ -91,7 +93,8 @@ def _w_factor(W, mode):
         from repro_torch.kernels.lu.kernel import lu_factor_lanes
         return lu_factor_lanes(W.permute(1, 2, 0))
     if mode == "cuda":
-        return W
+        from repro_torch.kernels.lu.ops import factor
+        return factor(W)
     raise ValueError(f"unknown linsolve mode {mode!r}; have {LINSOLVES}")
 
 
@@ -104,8 +107,8 @@ def _w_resolve(fac, rhs, mode):
         from repro_torch.kernels.lu.kernel import lu_resolve_lanes
         return lu_resolve_lanes(fac, rhs)
     if mode == "cuda":
-        from repro_torch.kernels.lu.ops import batched_solve
-        return batched_solve(fac, rhs.T, backend="cuda").T
+        from repro_torch.kernels.lu.ops import resolve
+        return resolve(fac, rhs)
     raise ValueError(f"unknown linsolve mode {mode!r}; have {LINSOLVES}")
 
 
@@ -131,7 +134,11 @@ def _tree_where(mask_of, new, old):
 
 def _w_select(mask, fac_new, fac_old, mode):
     """Per-lane masked refresh of the factored state, mask (B,).  The
-    ``"lanes"`` leaves keep the lane axis last; the others lead with it."""
+    ``"lanes"`` leaves keep the lane axis last; the others lead with it.
+    ``"cuda"`` selects the kernel's lane-major state and its reroute."""
+    if mode == "cuda":
+        from repro_torch.kernels.lu.ops import select
+        return select(mask, fac_new, fac_old)
     if mode == "lanes":
         mask_of = lambda a: mask
     else:

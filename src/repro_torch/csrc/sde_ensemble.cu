@@ -27,10 +27,17 @@
 // Threefry-2x32-20 call (about 74 32-bit adds, funnel shifts and xors) plus
 // a log, a sqrt and a cos, against a few floating-point operations of the
 // stepper per state; the bytes moved per trajectory are a few dozen.  The
-// design keeps the generator in registers and draws nothing it does not
-// use; it takes one normal per Threefry call, as the reference does, so the
-// stream stays the reference's (using both Box-Muller outputs is later
-// work).
+// design keeps the generator in registers, draws each step's normals at the
+// end of the step before it (below), and draws nothing else; it takes one
+// normal per Threefry call, as the reference does, so the stream stays the
+// reference's (using both Box-Muller outputs is later work).  A problem
+// whose drift and noise share a term computes it once a point
+// (`drift_noise`: CRN's Hill term).  Counted in the card's instructions
+// (chip_smoke.py `k4_bound_instr`), a normal issues ~147 (70 on the ALU
+// pipe), so the kernel is bound by instruction issue with the ALU pipe
+// close behind; the libm routines' slow-path branches cut each step into
+// short blocks, which keeps the ALU-heavy Threefry rounds and the FMA-heavy
+// Box-Muller and problem work from overlapping within a warp.
 //
 // Semantics follow the reference loop body (src/repro/core/sde.py
 // `sde_step_and_save` and the steppers above it) expression by expression:
@@ -92,6 +99,27 @@ __device__ __forceinline__ void apply_noise(const P& prob, const T* u,
   }
 }
 
+// Whether P computes its drift and noise together (sde_problems.cuh).
+template <class P, class = void>
+struct SharesDriftNoise : std::false_type {};
+template <class P>
+struct SharesDriftNoise<P, std::void_t<decltype(P::kSharedDriftNoise)>>
+    : std::bool_constant<P::kSharedDriftNoise> {};
+
+// f(u) and g(u)·dW at one point: through the problem's `drift_and_noise`
+// where it shares terms between them, else the two calls.
+template <class A, class P, typename T>
+__device__ __forceinline__ void drift_noise(const P& prob, const T* u,
+                                            const T* p, T t, const T* dW,
+                                            T* a, T* gw) {
+  if constexpr (SharesDriftNoise<P>::value) {
+    prob.template drift_and_noise<A>(u, p, t, dW, a, gw);
+  } else {
+    prob.template drift<A>(u, p, t, a);
+    apply_noise<A>(prob, u, p, t, dW, gw);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Steppers (src/repro_torch/core/sde.py), one step u -> out, in the plain
 // version's operation order under the policy A.
@@ -104,8 +132,7 @@ struct Em {
                                               const T* p, T t, T dt, T sdt,
                                               const T* dW, T* out) {
     T a[P::n], gw[P::n];
-    prob.template drift<A>(u, p, t, a);
-    apply_noise<A>(prob, u, p, t, dW, gw);
+    drift_noise<A>(prob, u, p, t, dW, a, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = A::add(A::add(u[c], A::mul(a[c], dt)), gw[c]);
@@ -119,16 +146,14 @@ struct HeunStrat {
                                               const T* p, T t, T dt, T sdt,
                                               const T* dW, T* out) {
     T a[P::n], gw[P::n], du1[P::n], ub[P::n];
-    prob.template drift<A>(u, p, t, a);
-    apply_noise<A>(prob, u, p, t, dW, gw);
+    drift_noise<A>(prob, u, p, t, dW, a, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c) {
       du1[c] = A::add(A::mul(a[c], dt), gw[c]);
       ub[c] = A::add(u[c], du1[c]);
     }
     const T t1 = radd(t, dt);
-    prob.template drift<A>(ub, p, t1, a);
-    apply_noise<A>(prob, ub, p, t1, dW, gw);
+    drift_noise<A>(prob, ub, p, t1, dW, a, gw);
 #pragma unroll
     for (int c = 0; c < P::n; ++c)
       out[c] = A::add(u[c], A::mul(T(0.5), A::add(du1[c],
@@ -196,6 +221,15 @@ struct Milstein {
 // The kernel
 // ---------------------------------------------------------------------------
 
+// The m counter normals of one step, rows 0..m-1.
+template <int m>
+__device__ __forceinline__ void draw_normals(uint32_t seed, uint32_t step,
+                                             uint32_t gl, float* z) {
+#pragma unroll
+  for (int j = 0; j < m; ++j)
+    z[j] = counter_normal(seed, step, static_cast<uint32_t>(j), gl);
+}
+
 template <typename T, class P, class St, bool kTable, class Ev,
           class Dat = repro_data::NoData>
 __global__ void __launch_bounds__(kBlock)
@@ -232,6 +266,18 @@ __global__ void __launch_bounds__(kBlock)
   // no-event form leaves nvcc free to contract
   using A = std::conditional_t<Ev::enabled || Dat::enabled, Rounded,
                                Contracting>;
+  // The counter stream is drawn one step ahead: step k + 1's normals do not
+  // depend on u, so they are drawn right after step k's stepper, where
+  // their Threefry rounds (ALU pipe) can issue beside the end of step k's
+  // float work (FMA pipe).  Drawn before the stepper instead, they held
+  // more registers across it and gained less (tools/k46_probe.py --ab;
+  // PERF.md).  The stream is keyed by step, so every normal is the one
+  // the step would draw itself; a lane frozen by a terminal event has
+  // drawn one step ahead and draws nothing more.
+  float z_next[kTable ? 1 : m];
+  if constexpr (!kTable) {
+    if (n_steps > 0) draw_normals<m>(seed, 0u, gl, z_next);
+  }
   for (int k = 0; k < n_steps; ++k) {
     if (!Ev::enabled || !done) {
       T dW[m];
@@ -241,14 +287,15 @@ __global__ void __launch_bounds__(kBlock)
         for (int j = 0; j < m; ++j) dW[j] = A::mul(zk[j * NN], sdt);
       } else {
 #pragma unroll
-        for (int j = 0; j < m; ++j)
-          dW[j] = A::mul(T(counter_normal(seed, static_cast<uint32_t>(k),
-                                          static_cast<uint32_t>(j), gl)),
-                         sdt);
+        for (int j = 0; j < m; ++j) dW[j] = A::mul(T(z_next[j]), sdt);
       }
       const T t = radd(t0, rmul(T(k), dt));
       T un[n];
       St::template step<A>(prob, u, pp, t, dt, sdt, dW, un);
+      if constexpr (!kTable) {
+        if (k + 1 < n_steps)
+          draw_normals<m>(seed, static_cast<uint32_t>(k + 1), gl, z_next);
+      }
       if constexpr (Ev::enabled) {
         auto interp = [&](T th, T* v) {
 #pragma unroll

@@ -10,6 +10,13 @@
 // (interp.cuh `Tables`) and reads them on the card; the others are
 // stateless.  The kernels call every member through a functor object.
 //
+// A problem whose drift and noise share a sub-expression (CRN's Hill term)
+// also gives `drift_and_noise`, both at one point, the shared term computed
+// once; `kSharedDriftNoise` marks it, and the fixed-dt kernel's steppers
+// call it where they evaluate both at the same (u, t).  Its outputs are the
+// two members' bit for bit: the shared term is the same expression on the
+// same inputs, and it feeds no product that could contract differently.
+//
 // Every member takes an arithmetic policy `A` of arith.cuh as its first
 // template argument: `Rounded` in the adaptive kernel and the event forms,
 // so a functor computes what the plain PyTorch version computes, bit for
@@ -122,11 +129,7 @@ struct Crn {
   template <class A, typename T>
   __device__ __forceinline__ static void drift(const T* u, const T* p, T t,
                                                T* du) {
-    const T tau = p[2];
-    du[0] = A::sub(A::add(p[3], hill<A>(u, p)), u[0]);
-    du[1] = A::div(A::sub(u[0], u[1]), tau);
-    du[2] = A::div(A::sub(u[1], u[2]), tau);
-    du[3] = A::div(A::sub(u[2], u[3]), tau);
+    drift_at<A>(u, p, hill<A>(u, p), du);
   }
   template <typename T>
   __device__ __forceinline__ static T pos(T x) {
@@ -138,8 +141,33 @@ struct Crn {
   template <class A, typename T>
   __device__ __forceinline__ static void noise(const T* u, const T* p, T t,
                                                const T* dW, T* out) {
-    const T tau = p[2], eta = p[5];
+    noise_at<A>(u, p, hill<A>(u, p), dW, out);
+  }
+  // drift and g(u)·dW at one point, the Hill term (2 pows, a division)
+  // computed once
+  static constexpr bool kSharedDriftNoise = true;
+  template <class A, typename T>
+  __device__ __forceinline__ static void drift_and_noise(const T* u,
+                                                         const T* p, T t,
+                                                         const T* dW, T* du,
+                                                         T* out) {
     const T hl = hill<A>(u, p);
+    drift_at<A>(u, p, hl, du);
+    noise_at<A>(u, p, hl, dW, out);
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ static void drift_at(const T* u, const T* p,
+                                                  T hl, T* du) {
+    const T tau = p[2];
+    du[0] = A::sub(A::add(p[3], hl), u[0]);
+    du[1] = A::div(A::sub(u[0], u[1]), tau);
+    du[2] = A::div(A::sub(u[1], u[2]), tau);
+    du[3] = A::div(A::sub(u[2], u[3]), tau);
+  }
+  template <class A, typename T>
+  __device__ __forceinline__ static void noise_at(const T* u, const T* p,
+                                                  T hl, const T* dW, T* out) {
+    const T tau = p[2], eta = p[5];
     out[0] = A::add(A::mul(A::mul(eta, pos(A::add(p[3], hl))), dW[0]),
                     A::mul(A::mul(-eta, pos(u[0])), dW[1]));
     out[1] = A::add(A::mul(A::mul(eta, pos(A::div(u[0], tau))), dW[2]),

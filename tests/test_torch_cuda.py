@@ -1037,3 +1037,151 @@ def test_cuda_bf16_lm_serves_with_the_sm90_flash_core(cuda):
     got, want = lb[..., :V].double(), lf[..., :V].double()
     assert bool(torch.isfinite(got).all())
     assert float((got - want).norm() / want.norm()) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# K6 split in two (csrc/lu_solve.cu `lu_factor_launch`, `lu_resolve_launch`)
+# and K4's shared Hill term and normals drawn a step ahead
+# ---------------------------------------------------------------------------
+
+def lu_systems(n, N, dtype, seed=3):
+    """(N, n, n) systems as chip_smoke.lu_batch makes them (a zero diagonal
+    one in 64, then a zero column and a zero matrix where N allows), and
+    b (N, n)."""
+    rng = np.random.default_rng(seed + n)
+    W = rng.standard_normal((N, n, n))
+    W[::64, np.arange(n), np.arange(n)] = 0.0
+    if N > 3:
+        W[N // 3, :, n // 2] = 0.0
+        W[N - 2] = 0.0
+    return (torch.from_numpy(W).to(dtype),
+            torch.from_numpy(rng.standard_normal((N, n))).to(dtype))
+
+
+def same_bits(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        a.nan_to_num(7.0), b.nan_to_num(7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["batch-major", "lane-major"])
+@pytest.mark.parametrize("pivot", [True, False], ids=["pivot", "nopivot"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("N", [1, 127, 2 ** 16 + 3])
+def test_cuda_lu_factor_resolve_bitwise_to_one_shot(cuda, N, n, dtype, pivot,
+                                                    layout):
+    """The factor entry on W at either layout (no copy), then the resolve
+    entry, give the one-shot kernel's x and pivmin bit for bit, singular
+    systems included; the state's lane-major layout is what the plain
+    version packs."""
+    from repro_torch.kernels.lu import kernel as lu_kernel
+    W, b = lu_systems(n, N, dtype)
+    W, b = W.to(cuda), b.to(cuda)
+    Wl, bl = W.permute(1, 2, 0).contiguous(), b.T.contiguous()
+    Wv = W if layout == "batch-major" else Wl.permute(2, 0, 1)
+    before = lu_kernel.factor_launches, lu_kernel.resolve_launches
+    lu, piv, pm = lu_kernel.lu_factor(Wv, pivot=pivot)
+    x = lu_kernel.lu_resolve(lu, piv, b.T)      # a strided right-hand side
+    assert (lu_kernel.factor_launches, lu_kernel.resolve_launches) == (
+        before[0] + 1, before[1] + 1)
+    x1, pm1 = lu_kernel.lu_solve(Wl, bl, pivot=pivot)
+    assert same_bits(x, x1) and same_bits(pm, pm1)
+    plain = lu_kernel.pack_factors(lu_kernel.lu_factor_lanes(Wl, pivot=pivot),
+                                   n)
+    for got, want in zip((lu, piv, pm), plain):
+        assert same_bits(got.double(), want.double())
+
+
+@pytest.mark.cuda
+def test_cuda_lu_reroute_at_factor_time_matches_batched_solve(cuda):
+    from repro_torch.kernels.lu import ops as lu_ops
+    W, b = lu_systems(3, 5000, torch.float64)
+    W, b = W.to(cuda), b.to(cuda)
+    fac = lu_ops.factor(W)
+    assert fac.singular is not None
+    before = lu_ops.rerouted
+    want = lu_ops.batched_solve(W, b)
+    k = lu_ops.rerouted - before
+    got = lu_ops.resolve(fac, b.T)
+    assert lu_ops.rerouted - before == 2 * k == 2 * fac.singular.numel()
+    assert same_bits(got, want.T)
+
+
+@pytest.mark.cuda
+def test_cuda_lu_resolve_does_not_sync(cuda):
+    """A resolve against a factorization with no singular system reads
+    nothing back to the host: it runs under set_sync_debug_mode('error'),
+    under which a host read raises."""
+    from repro_torch.core import rosenbrock as rb
+    from repro_torch.kernels.lu import ops as lu_ops
+    W, b = lu_systems(3, 4096, torch.float64)
+    W = W.to(cuda) + 4.0 * torch.eye(3, dtype=W.dtype, device=cuda)
+    b = b.to(cuda).T.contiguous()
+    fac = rb._w_factor(W, "cuda")
+    assert fac.singular is None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = rb._w_resolve(fac, b, "cuda")
+        x2 = lu_ops.resolve(fac, 2.0 * b)
+        with pytest.raises(RuntimeError):
+            int(x.sum())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert same_bits(x2, lu_ops.resolve(fac, 2.0 * b))
+    assert same_bits(x, lu_ops.batched_solve(W, b.T).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps,save_every", [(1, 1), (40, 40), (40, 8)])
+@pytest.mark.parametrize("name,alg", [("crn", "em"), ("crn", "heun_strat"),
+                                      ("gbm", "em"), ("gbm", "platen_w2")])
+def test_cuda_sde_kernel_edges_match_plain_version(cuda, name, alg, n_steps,
+                                                   save_every):
+    """The normals drawn a step ahead and CRN's Hill term shared between
+    drift and noise, at one step, a save only at the end, and N = 1000 (not
+    a multiple of the block): f64 against the plain version at the bars of
+    test_cuda_sde_kernel_matches_plain_version."""
+    prob, u0s, ps = sde_inputs(name, 1000)
+    ep = ensemble_problem(prob, u0s, ps, device=cuda)
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, dt0=0.05,
+              n_steps=n_steps, save_every=save_every, seed=5,
+              lane_offset=2 ** 32 - 300, device=cuda)
+    before = sde_kernel.launches
+    rk = tsolve(ep, backend="cuda", **kw)
+    rt = tsolve(ep, backend="torch", **kw)
+    assert sde_kernel.launches == before + 1
+    fin = torch.isfinite(rt.us)
+    assert torch.equal(torch.isfinite(rk.us), fin)
+    torch.testing.assert_close(rk.us[fin], rt.us[fin], rtol=1e-12,
+                               atol=1e-14)
+    assert torch.equal(rk.naccept, rt.naccept)
+    assert torch.equal(rk.t_final, rt.t_final) and int(rk.nf) == int(rt.nf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n_steps,save_every", [(200, 50), (1, 1)])
+def test_cuda_sde_barrier_frozen_lanes_bitwise(cuda, dtype, n_steps,
+                                               save_every):
+    """The event form (every operation rounded alone) on lanes that freeze
+    at the barrier at different steps and lanes that never reach it: a
+    frozen lane has drawn one step ahead and uses none of it, so states,
+    times and counts equal the plain version's bit for bit."""
+    from repro_torch.convert import ensemble_problem
+    N = 1000
+    u0 = np.linspace(0.05, 0.2, N)
+    ep = ensemble_problem(tdp.gbm_problem(r=1.5, v=0.2, dtype=dtype),
+                          np.stack([u0] * 3, 1), np.tile([1.5, 0.2], (N, 1)),
+                          device=cuda, dtype=dtype)
+    kw = dict(alg="em", t0=0.0, dt0=1 / 200, n_steps=n_steps,
+              save_every=save_every, seed=5, event=tdp.gbm_barrier_event(),
+              device=cuda)
+    rk = tsolve(ep, ensemble="kernel", backend="cuda", **kw)
+    rt = tsolve(ep, ensemble="kernel", backend="torch", **kw)
+    if n_steps > 1:
+        frozen = rk.naccept < n_steps
+        assert 0 < int(frozen.sum()) < N
+    assert_event_parity(rk, rt, 0)

@@ -21,6 +21,13 @@ stream and a noise table; the adaptive SDE cases; and the event and data
 forms of K3 and K5 (the f64 event and data parity cases of those two
 kernels, through the front door).  A parent whose adaptive SDE entries
 take no work-queue word (earlier than the queue) is called without it.
+K6 (`lu_solve.cu`): on `chip_smoke.lu_batch`'s systems (n = 3 and 8, f64,
+singular ones included) x and pivmin of the factor and resolve entries,
+or of the one-shot entry where the build has no split; and the `array`
+stiff path with ``linsolve="cuda"`` (ROBER, rodas4, eager and lazy W),
+its us, u_final, t_final and counts, with a parent build without the
+split run through the one-shot solve per stage as that parent's
+Rosenbrock engine ran it.
 
 `--moved-ok` names sources (comma-separated, with or without `.cu`) whose
 registers a change moves on purpose: their moved instantiations are
@@ -151,6 +158,70 @@ def event_data_cases(cs, dev, n):
     return out
 
 
+def _has_split():
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lu.kernel import SOURCE
+    return "lu_factor_launch" in (build.CSRC / SOURCE).read_text()
+
+
+def _one_shot_linsolve():
+    """The lu ops patched to solve each stage with the one-shot kernel, as
+    a Rosenbrock engine without the split did: the factorization is W
+    itself, each resolve `batched_solve`, the lazy-W select a where on W."""
+    import contextlib
+    import torch
+    from repro_torch.kernels.lu import ops
+    patches = {"factor": lambda W, pivot=True: W,
+               "resolve": lambda W, b: ops.batched_solve(W, b.T).T,
+               "select": lambda mask, new, old: torch.where(
+                   mask[:, None, None], new, old)}
+
+    @contextlib.contextmanager
+    def patched():
+        saved = {k: getattr(ops, k) for k in patches}
+        for k, v in patches.items():
+            setattr(ops, k, v)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                setattr(ops, k, v)
+    return patched()
+
+
+def k6_cases(cs, dev, n):
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.kernels.lu import kernel as K6
+    out = {}
+    for size in (3, 8):
+        Wn, bn = cs.lu_batch(size, cs.FULL_N)
+        W = torch.from_numpy(Wn).to(dev)
+        bl = torch.from_numpy(bn).to(dev).T.contiguous()
+
+        def solve(W=W, bl=bl):
+            if _has_split():
+                lu, piv, pm = K6.lu_factor(W)
+                return K6.lu_resolve(lu, piv, bl), pm
+            return K6.lu_solve(W.permute(1, 2, 0).contiguous(), bl)
+        out[("float64", f"n={size}", "lu")] = solve
+    ep = cs.rober_inputs(n, dev)
+    for wr in (False, True):
+        kw = dict(cs.ROBER_SETTINGS, alg="rodas4", ensemble="array",
+                  device=dev, linsolve="cuda", w_reuse=wr,
+                  saveat=torch.tensor(cs.ROBER_SAVEAT, dtype=torch.float64))
+
+        def path(kw=kw):
+            import contextlib
+            with (contextlib.nullcontext() if _has_split()
+                  else _one_shot_linsolve()):
+                r = solve_ensemble_local(ep, **kw)
+            return (r.us, r.u_final, r.t_final, r.naccept, r.nreject, r.njac,
+                    r.nfact)
+        out[("float64", "array", "rodas4", "lazyW" if wr else "eager")] = path
+    return out
+
+
 def _front(solve, ep, kw, dev):
     res = solve(ep, ensemble="kernel", backend="cuda", device=dev, **kw)
     return (res.us, res.u_final, res.t_final, res.naccept, res.nreject,
@@ -190,25 +261,28 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.em import adaptive as K5
     from repro_torch.kernels.em import kernel as K4
+    from repro_torch.kernels.lu import kernel as K6
     from repro_torch.kernels.rosenbrock import kernel as K3
     from repro_torch.kernels.tsit5 import kernel as K1
 
     dev = torch.device("cuda", 0)
     cases = {}
     for label, make in (("K1", k1_cases), ("K3", k3_cases), ("K4", k4_cases),
-                        ("K5", k5_cases)):
+                        ("K5", k5_cases), ("K6", k6_cases)):
         cases.update({(label,) + k: v for k, v in make(cs, dev,
                                                        args.n).items()})
     cases.update(event_data_cases(cs, dev, args.n))
     here = build.CSRC
     results, regs = {}, {}
     sources = ["erk_ensemble.cu", "rosenbrock_ensemble.cu", "sde_ensemble.cu",
-               "sde_adaptive_ensemble.cu"]
+               "sde_adaptive_ensemble.cu", "lu_solve.cu"]
     k5_bind = K5._bind
     for label, csrc in (("parent", args.parent.resolve()), ("this", here)):
         build.CSRC = csrc
         build.load.cache_clear()
-        for binder in (K1._bind, K3._bind, K3._bind_data, K4._bind, k5_bind):
+        for binder in (K1._bind, K3._bind, K3._bind_data, K4._bind,
+                       K4._bind_event, K4._bind_data, k5_bind, K6._bind,
+                       K6._bind_split):
             binder.cache_clear()
         # a parent from before the work queue takes no queue word
         K5._bind = (k5_bind if "void* queue" in (csrc / K5.SOURCE).read_text()
