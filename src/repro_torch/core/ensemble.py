@@ -358,6 +358,26 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
                 1, n_steps // save_every + 1, dtype=torch.float64)
         else:
             saveat = [tf]
+    if ensemble == "kernel" and backend == "cuda":
+        # the grid as given: the kernel path reads it on the host before it
+        # moves to the card (`kernels/tsit5/ops.py::save_grid`)
+        from repro_torch.kernels.tsit5 import ops as erk_ops
+        kprob = raw_prob if data is not None else prob
+
+        def run(u, p, *lv):
+            return erk_ops.solve_ensemble_cuda(
+                kprob, u, p, tab, t0, tf, dt0, saveat, rtol, atol,
+                adaptive, max_iters=max_iters, event=event,
+                data=data_unflatten(tree, lv) if data is not None
+                else None)
+
+        def replay(u, p, *lv):
+            return solve_kernel_torch(
+                _bind_leaves(raw_prob, tree, lv, prob), u, p, tab, t0,
+                tf, dt0, torch.as_tensor(saveat, dtype=dtype, device=device),
+                rtol, atol, adaptive, max_iters, event=event, **ck)
+
+        return _kernel_run(run, replay, sensitivity, u0s, ps, leaves)
     saveat = torch.as_tensor(saveat, dtype=dtype, device=device)
 
     if ensemble == "vmap":
@@ -379,24 +399,6 @@ def _solve_erk(spec: MethodSpec, prob, u0s, ps, *, ensemble, backend, t0, tf,
         return solve_array_eager(prob, u0s, ps, tab, t0, tf, dt0, saveat,
                                  rtol, atol, adaptive)
     if ensemble == "kernel":
-        if backend == "cuda":
-            from repro_torch.kernels.tsit5 import ops as erk_ops
-            kprob = raw_prob if data is not None else prob
-
-            def run(u, p, *lv):
-                return erk_ops.solve_ensemble_cuda(
-                    kprob, u, p, tab, t0, tf, dt0, saveat, rtol, atol,
-                    adaptive, max_iters=max_iters, event=event,
-                    data=data_unflatten(tree, lv) if data is not None
-                    else None)
-
-            def replay(u, p, *lv):
-                return solve_kernel_torch(
-                    _bind_leaves(raw_prob, tree, lv, prob), u, p, tab, t0,
-                    tf, dt0, saveat, rtol, atol, adaptive, max_iters,
-                    event=event, **ck)
-
-            return _kernel_run(run, replay, sensitivity, u0s, ps, leaves)
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r} "
                              "(use 'torch' or 'cuda')")

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.interp import data_flatten, data_unflatten
@@ -75,18 +74,37 @@ def erk_body(f, tab, *, t0: float, tf: float, dt0: float, rtol: float,
              event=None, data=None) -> Callable:
     """The kernel's parameters bound into one launch:
     ``body(u0 (n, N), p (m, N), extras) -> (us, u_final, t_final, stats)``
-    in the lane-major layout; extras[0] is the saveat grid (S,).  Every
-    body takes an optional `Event`, detected, located and applied inside
-    the kernel's loop, and an optional dataset (`data`, whose leaves are
-    the last extras; `f` then takes it as a fourth argument)."""
-    from repro_torch.kernels.tsit5.kernel import erk_ensemble
+    in the lane-major layout; extras[0] is the saveat grid (S,), which the
+    caller has checked to ascend on the host
+    (`kernels.tsit5.ops.solve_ensemble_cuda`).  Every body takes an
+    optional `Event`, detected, located and applied inside the kernel's
+    loop, and an optional dataset (`data`, whose leaves are the last
+    extras; `f` then takes it as a fourth argument)."""
+    from repro_torch.kernels.tsit5.kernel import _erk_ensemble
     bind = _data_binder(data)
 
     def body(u0, p, extras):
-        return erk_ensemble(f, tab, u0, p, extras[0], t0=t0, tf=tf, dt0=dt0,
-                            rtol=rtol, atol=atol, adaptive=adaptive,
-                            max_iters=max_iters, event=event,
-                            data=bind(extras))
+        return _erk_ensemble(f, tab, u0, p, extras[0], t0=t0, tf=tf,
+                             dt0=dt0, rtol=rtol, atol=atol,
+                             adaptive=adaptive, max_iters=max_iters,
+                             event=event, data=bind(extras),
+                             grid_checked=True)
+
+    return body
+
+
+def erk_staged_body(f, tab, *, dt0: float, rtol: float, atol: float,
+                    adaptive: bool, max_iters: int, data=None) -> Callable:
+    """K2's launches of K1 over the segments of a save grid:
+    ``body(u0 (n, N), p (m, N), ts (S,), segments) -> (us, u_final,
+    t_final, stats (k, 6, N))`` (`kernels.tsit5.kernel.erk_ensemble_staged`;
+    no event: a terminated lane cannot thread between segments)."""
+    from repro_torch.kernels.tsit5.kernel import erk_ensemble_staged
+
+    def body(u0, p, ts, segments):
+        return erk_ensemble_staged(f, tab, u0, p, ts, segments, dt0=dt0,
+                                   rtol=rtol, atol=atol, adaptive=adaptive,
+                                   max_iters=max_iters, data=data)
 
     return body
 
@@ -182,20 +200,8 @@ def refuse_grad(what: str, *tensors) -> None:
             "backward pass) or detach the inputs")
 
 
-def run_ensemble_kernel(body: Callable, u0s, ps, *, ts,
-                        extras: Sequence[Extra] = ()):
-    """Launch `body` over the ensemble and assemble an EnsembleResult.
-
-    u0s (N, n), ps (N, m) trajectory-major; ts (S,) the result's save-time
-    grid; `extras` reach the body, in order, as contiguous tensors.  Inputs
-    that require grad are refused (`refuse_grad`) on every device, the
-    plain version included, as the kernel path must not be differentiated
-    outside `kernel_adjoint`."""
-    from repro_torch.core.ensemble import EnsembleResult
-
-    refuse_grad("the ensemble kernel", u0s, ps,
-                *(arr for _, arr in extras))
-    N = u0s.shape[0]
+def _lane_extras(extras: Sequence[Extra], N: int) -> tuple:
+    """The extras as the bodies take them: contiguous tensors, in order."""
     ex = []
     for kind, arr in extras:
         if kind not in ("broadcast", "lanes", "table"):
@@ -205,52 +211,79 @@ def run_ensemble_kernel(body: Callable, u0s, ps, *, ts,
             raise ValueError(f"a 'lanes' extra needs N={N} columns, got "
                              f"shape {tuple(arr.shape)}")
         ex.append(arr)
-    us, uf, t_fin, stats = body(u0s.T.contiguous(), ps.T.contiguous(),
-                                tuple(ex))
+    return tuple(ex)
+
+
+def _result(ts, us, uf, t_fin, stats):
+    """An EnsembleResult from a lane-major launch's outputs, stats (6, N)
+    the per-lane counters."""
+    from repro_torch.core.ensemble import EnsembleResult
     return EnsembleResult(
         ts=ts, us=us.permute(2, 0, 1), u_final=uf.T, t_final=t_fin,
         naccept=stats[0], nreject=stats[1], nf=stats[3].sum(),
         status=stats[2].max(), njac=stats[4].sum(), nfact=stats[5].sum())
 
 
-def run_ensemble_kernel_staged(body_factory: Callable, u0s, ps, *, ts,
-                               save_chunks: int):
-    """Segmented launch: the save grid (ascending, all > t0) is split into
-    `save_chunks` segments, one launch each; `u_final` and the step counters
-    thread between them.  `body_factory(t_start, seg_ts, last)` returns
-    ``(body, extras)`` for a segment that restarts integration at the
-    previous segment's endpoint; a dataset's "table" extras go to every
-    segment, as the reference's factory passes them.
+def run_ensemble_kernel(body: Callable, u0s, ps, *, ts,
+                        extras: Sequence[Extra] = ()):
+    """Launch `body` over the ensemble and assemble an EnsembleResult.
+
+    u0s (N, n), ps (N, m) trajectory-major; ts (S,) the result's save-time
+    grid; `extras` reach the body, in order, as contiguous tensors.  Inputs
+    that require grad are refused (`refuse_grad`) on every device, the
+    plain version included, as the kernel path must not be differentiated
+    outside `kernel_adjoint`."""
+    refuse_grad("the ensemble kernel", u0s, ps,
+                *(arr for _, arr in extras))
+    ex = _lane_extras(extras, u0s.shape[0])
+    return _result(ts, *body(u0s.T.contiguous(), ps.T.contiguous(), ex))
+
+
+def save_segments(host: Sequence[float], save_chunks: int, t0: float,
+                  tf: float):
+    """``(t0s, tfs, starts)`` of the staged driver's segments of a save
+    grid (its values on the host, ascending, all > t0): `save_chunks`
+    segments as `np.array_split` cuts them (the first S % k one save
+    longer), each restarting at its predecessor's last save (the first at
+    t0) and ending at its own last save (the last at tf); ``starts`` has
+    k + 1 entries, the last S."""
+    S = len(host)
+    k = int(max(1, min(save_chunks, S)))
+    starts = [i * (S // k) + min(i, S % k) for i in range(k + 1)]
+    t0s = [float(t0)] + [float(host[a - 1]) for a in starts[1:-1]]
+    tfs = [float(host[b - 1]) for b in starts[1:-1]] + [float(tf)]
+    return t0s, tfs, starts
+
+
+def run_ensemble_kernel_staged(staged_body: Callable, u0s, ps, *, ts,
+                               save_chunks: int, t0: float, tf: float,
+                               ts_host=None):
+    """Segmented launch: the save grid ts (S,) (ascending, all > t0) is
+    split into `save_chunks` segments (`save_segments`), one launch each;
+    `u_final` and the step counters thread between them, as the
+    reference's driver threads them.  ``staged_body(u0 (n, N), p (m, N),
+    ts, segments)`` launches them all (`erk_staged_body`: in one call on
+    the card) and returns ``(us, u_final, t_final, stats (k, 6, N))``.
+
+    The segment boundaries come from `ts_host`, the grid's values on the
+    host (read from ts once where not given), so a grid handed over on the
+    host costs no read of the card.  u0 and p go lane-major once; each
+    launch's u_final is the next one's u0 as it is, each writes its saves
+    into its slice of one (S, n, N) output and its stats into its block
+    of one (k, 6, N) output, whose counters are summed (status: the
+    largest) on the card.
 
     Fixed-dt runs whose segment boundaries land on the step grid are
     bitwise-identical to one launch; adaptive runs restart the controller at
     each boundary, so they agree to solver accuracy, not bitwise."""
-    ts_np = ts.cpu().numpy()
-    S = int(ts_np.shape[0])
-    save_chunks = int(max(1, min(save_chunks, S)))
-    segs = [idx for idx in np.array_split(np.arange(S), save_chunks)
-            if idx.size]
-
-    u_cur = u0s
-    parts, acc = [], None
-    for k, idx in enumerate(segs):
-        t_start = float(ts_np[idx[0] - 1]) if k else None  # None: problem t0
-        body, extras = body_factory(t_start, ts_np[idx], k == len(segs) - 1)
-        seg_ts = torch.as_tensor(ts_np[idx], dtype=ts.dtype, device=ts.device)
-        res = run_ensemble_kernel(body, u_cur, ps, ts=seg_ts, extras=extras)
-        u_cur = res.u_final
-        parts.append(res.us)
-        if acc is None:
-            acc = res
-        else:
-            acc = acc._replace(
-                u_final=res.u_final, t_final=res.t_final,
-                naccept=acc.naccept + res.naccept,
-                nreject=acc.nreject + res.nreject,
-                nf=acc.nf + res.nf, njac=acc.njac + res.njac,
-                nfact=acc.nfact + res.nfact,
-                status=torch.maximum(acc.status, res.status))
-    return acc._replace(ts=ts, us=torch.cat(parts, dim=1))
+    refuse_grad("the ensemble kernel", u0s, ps)
+    host = (ts.cpu() if ts_host is None else ts_host).tolist()
+    segments = save_segments(host, save_chunks, t0, tf)
+    us, uf, t_fin, block = staged_body(u0s.T.contiguous(),
+                                       ps.T.contiguous(), ts, segments)
+    stats = block.sum(dim=0, dtype=torch.int32)
+    stats[2] = block.select(1, 2).amax(dim=0)
+    return _result(ts, us, uf, t_fin, stats)
 
 
 # the EnsembleResult fields that cross the `kernel_adjoint` boundary: the

@@ -1,5 +1,7 @@
-"""ctypes binding of the fused explicit-RK ensemble kernel
-(`csrc/erk_ensemble.cu`), which replaces the TPU kernel
+"""ctypes binding of the fused explicit-RK ensemble kernel (K1: the body
+`csrc/erk_body.cuh`, built in `csrc/erk_ensemble.cu` for tsit5 and dopri5
+and in `csrc/erk_tableaus.cu` for the other six tableaus of
+`core.tableaus.TABLEAUS`), which replaces the TPU kernel
 `repro.kernels.ensemble_kernel.run_ensemble_kernel` + `erk_body`.
 
 `erk_ensemble` is the wrapper: for CUDA tensors it checks its inputs,
@@ -22,17 +24,20 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core.events import without_log
 from repro_torch.core.problem import bind_data
 from repro_torch.core.solvers import AdaptiveOptions, solve_adaptive
-from repro_torch.core.tableaus import Tableau
+from repro_torch.core.tableaus import TABLEAUS, Tableau
 from repro_torch.kernels.events import event_launch_args
 from repro_torch.kernels.interp import (DataLayout, data_argtypes,
                                         data_launch_args)
 
 SOURCE = "erk_ensemble.cu"
+# rkck54, bs3, rkf45, rk4, vern7 and gbs10: their no-event, no-data form
+TABLEAUS_SOURCE = "erk_tableaus.cu"
 # device functor id and (n, m) for each registered RHS — as in the .cu
 RHS_FUNCTORS = {"lorenz": (0, 3, 3), "sho": (1, 2, 1), "ball": (2, 2, 2),
                 "decay": (3, 1, 1), "forced_osc": (4, 2, 2),
@@ -45,7 +50,10 @@ DATA_LAYOUTS = {"forced_osc": _FORCE, "forced_osc_onehot": _FORCE,
 # and those of the data forms (`by_data`)
 EVENT_PAIRS = {("ball", "ball_bounce"), ("decay", "decay_half")}
 DATA_EVENT_PAIRS = {("forced_osc", "osc_level")}
-TABLEAU_IDS = {"tsit5": 0, "dopri5": 1}
+# the tableau ids of the two C dispatches (`by_tableau` in SOURCE,
+# `by_tableau_no_event` in TABLEAUS_SOURCE)
+TABLEAU_IDS = {"tsit5": 0, "dopri5": 1, "rkck54": 2, "bs3": 3, "rkf45": 4,
+               "rk4": 5, "vern7": 6, "gbs10": 7}
 DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
 # launches of the CUDA kernel since the counter was last set to 0
@@ -68,31 +76,70 @@ def device_rhs(name: str):
 _ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
     + [ctypes.c_double] * 5 + [ctypes.c_int, ctypes.c_longlong] \
     + [ctypes.c_void_p] * 5
+_STAGED_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6 \
+    + [ctypes.c_int] + [ctypes.c_double] * 3 \
+    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 7
+
+
+def argtypes(event: bool = False, data: bool = False,
+             staged: bool = False) -> list:
+    """The ctypes types of a C entry's arguments: the no-event entry; the
+    event entry (the event id, terminal, direction and bisect_iters after
+    the RHS id); the data entry (those four, 0 without an event, then the
+    tables); the staged entries (the state size, the segment count and the
+    segments' t0s, tfs and starts after the RHS id, the data one with the
+    tables after those)."""
+    if staged:
+        return (_STAGED_ARGTYPES[:8] + (data_argtypes() if data else [])
+                + _STAGED_ARGTYPES[8:])
+    if event or data:
+        return (_ARGTYPES[:3] + [ctypes.c_int] * 4
+                + (data_argtypes() if data else []) + _ARGTYPES[3:])
+    return list(_ARGTYPES)
 
 
 @functools.lru_cache(maxsize=None)
 def _bind_data():
-    """The data entry: the event id, terminal, direction and bisect_iters
-    (0 without an event), then the tables, after the RHS id."""
+    """The data entry of SOURCE."""
     from repro_torch.kernels.build import load
     fn = load(SOURCE).erk_ensemble_data_launch
-    fn.argtypes = (_ARGTYPES[:3] + [ctypes.c_int] * 4 + data_argtypes()
-                   + _ARGTYPES[3:])
+    fn.argtypes = argtypes(data=True)
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(event: bool = False):
-    """The no-event entry, or the event entry (which takes the event id,
-    terminal, direction and bisect_iters after the RHS id)."""
+def _bind(event: bool = False, source: str = SOURCE):
+    """The no-event entry of `source`, or the event entry of SOURCE."""
     from repro_torch.kernels.build import load
-    lib = load(SOURCE)
-    fn = lib.erk_ensemble_event_launch if event else lib.erk_ensemble_launch
-    fn.argtypes = (_ARGTYPES[:3] + [ctypes.c_int] * 4 + _ARGTYPES[3:]
-                   if event else _ARGTYPES)
+    lib = load(source)
+    if event:
+        fn = lib.erk_ensemble_event_launch
+    elif source == TABLEAUS_SOURCE:
+        fn = lib.erk_tableaus_launch
+    else:
+        fn = lib.erk_ensemble_launch
+    fn.argtypes = argtypes(event=event)
     fn.restype = ctypes.c_int
     return fn
+
+
+def source_of(name: str) -> str:
+    """The source that compiles tableau `name` into K1."""
+    return SOURCE if name in ("tsit5", "dopri5") else TABLEAUS_SOURCE
+
+
+def _compiled(tab: Tableau) -> bool:
+    """Whether `tab` is one of the compiled tableaus: a name of
+    TABLEAU_IDS with that tableau's coefficients (a user tableau named
+    alike is not)."""
+    ref = TABLEAUS.get(tab.name)
+    if ref is tab:
+        return tab.name in TABLEAU_IDS
+    return (tab.name in TABLEAU_IDS and ref is not None
+            and tab.fsal == ref.fsal
+            and all(np.array_equal(getattr(tab, k), getattr(ref, k))
+                    for k in ("a", "b", "btilde", "c")))
 
 
 def _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol, adaptive,
@@ -115,10 +162,16 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
     to tf, with an optional `Event` (FSAL off, as in the plain version) and
     an optional dataset `data`, which `f` then takes as a fourth argument.
     Returns us (S, n, N), u_final (n, N), t_final (N,) and stats (6, N)
-    int32 with rows (naccept, nreject, status, nf, njac, nfact)."""
-    if u0.device.type == "cpu":
-        return _plain(bind_data(f, data), tab, u0, p, saveat, t0, tf, dt0,
-                      rtol, atol, adaptive, max_iters, event)
+    int32 with rows (naccept, nreject, status, nf, njac, nfact).  On the
+    card the save grid must ascend: checking it reads the card."""
+    return _erk_ensemble(f, tab, u0, p, saveat, t0=t0, tf=tf, dt0=dt0,
+                         rtol=rtol, atol=atol, adaptive=adaptive,
+                         max_iters=max_iters, event=event, data=data)
+
+
+def _form(f, tab: Tableau, u0, p, saveat, event, data):
+    """The checks of a launch on the card, and what its C entry takes:
+    (source, RHS id, n, the event's arguments, the tables' arguments)."""
     if u0.device.type != "cuda":
         raise ValueError(f"erk_ensemble runs on CPU or CUDA tensors, not "
                          f"{u0.device.type}")
@@ -128,11 +181,19 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
             f"RHS {getattr(f, '__name__', f)!r} has no device form: register "
             f"a functor in {SOURCE} with @device_rhs (automatic translation "
             "of a Python RHS is ROADMAP queue 1 item 17)")
-    if tab.name not in TABLEAU_IDS:
+    if not _compiled(tab):
         raise NotImplementedError(
             f"tableau {tab.name!r} is not compiled into the CUDA kernel; it "
-            f"has {sorted(TABLEAU_IDS)}")
+            f"has {sorted(TABLEAU_IDS)} (a user tableau reaches the kernel "
+            "with the automatic translation, ROADMAP queue 1 item 17)")
+    source = source_of(tab.name)
+    if source != SOURCE and (event is not None or data is not None):
+        raise NotImplementedError(
+            f"the {'event' if event is not None else 'data'} form of "
+            f"tableau {tab.name!r} is not compiled into the CUDA kernel (it "
+            "has tsit5's and dopri5's; ROADMAP queue 2 item 14)")
     rhs_id, n, m = RHS_FUNCTORS[name]
+    tables = ()
     if data is not None:
         tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
         ev = ((0, 0, 0, 0) if event is None
@@ -147,31 +208,46 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
     N = u0.shape[-1]
+    S = saveat.shape[0]
     for what, x, shape in (("u0", u0, (n, N)), ("p", p, (m, N)),
-                           ("saveat", saveat, (saveat.shape[0],))):
+                           ("saveat", saveat, (S,))):
         if x.device != u0.device or x.dtype != dtype:
             raise ValueError(f"{what} must be a {dtype} tensor on {u0.device}")
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"{what} must be contiguous with shape {shape} "
                              f"for {name}, got {tuple(x.shape)}")
-    S = saveat.shape[0]
     if S < 1 or N < 1 or N >= 2 ** 31:
         raise ValueError(f"need 1 <= N < 2^31 lanes and S >= 1 saves, got "
                          f"N={N}, S={S}")
-    if S > 1 and not bool((saveat[1:] >= saveat[:-1]).all()):
-        raise ValueError("the CUDA kernel needs an ascending saveat grid")
+    return source, rhs_id, n, ev, tables
 
-    us = torch.empty((S, n, N), dtype=dtype, device=u0.device)
-    u_final = torch.empty((n, N), dtype=dtype, device=u0.device)
-    t_final = torch.empty((N,), dtype=dtype, device=u0.device)
-    stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
-    stream = torch.cuda.current_stream(u0.device).cuda_stream
-    with torch.cuda.device(u0.device):
+
+def _erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0, tf, dt0, rtol,
+                  atol, adaptive, max_iters, event=None, data=None,
+                  grid_checked=False):
+    """`erk_ensemble`, without the ascending check where the caller has
+    made it on the host (`grid_checked`), so that a launch reads nothing
+    back from the card."""
+    if u0.device.type == "cpu":
+        return _plain(bind_data(f, data), tab, u0, p, saveat, t0, tf, dt0,
+                      rtol, atol, adaptive, max_iters, event)
+    source, rhs_id, n, ev, tables = _form(f, tab, u0, p, saveat, event, data)
+    S, N = saveat.shape[0], u0.shape[-1]
+    if not grid_checked and S > 1 and not bool(
+            (saveat[1:] >= saveat[:-1]).all()):
+        raise ValueError("the CUDA kernel needs an ascending saveat grid")
+    dtype, dev = u0.dtype, u0.device
+    us = torch.empty((S, n, N), dtype=dtype, device=dev)
+    u_final = torch.empty((n, N), dtype=dtype, device=dev)
+    t_final = torch.empty((N,), dtype=dtype, device=dev)
+    stats = torch.empty((6, N), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         entry = (_bind_data() if data is not None
-                 else _bind(event is not None))
+                 else _bind(event is not None, source))
         rc = entry(
-            DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id, *ev,
-            *(tables if data is not None else ()), u0.data_ptr(), p.data_ptr(), saveat.data_ptr(), S, N, float(t0),
+            DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id, *ev, *tables,
+            u0.data_ptr(), p.data_ptr(), saveat.data_ptr(), S, N, float(t0),
             float(tf), float(dt0), float(rtol), float(atol),
             int(bool(adaptive)), int(max_iters), us.data_ptr(),
             u_final.data_ptr(), t_final.data_ptr(), stats.data_ptr(), stream)
@@ -180,3 +256,66 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
     global launches
     launches += 1
     return us, u_final, t_final, stats
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_staged(source: str, data: bool):
+    """The staged entry of `source` (K2's k launches in one call)."""
+    from repro_torch.kernels.build import load
+    lib = load(source)
+    if source == TABLEAUS_SOURCE:
+        fn = lib.erk_tableaus_staged_launch
+    else:
+        fn = (lib.erk_ensemble_data_staged_launch if data
+              else lib.erk_ensemble_staged_launch)
+    fn.argtypes = argtypes(data=data, staged=True)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def erk_ensemble_staged(f, tab: Tableau, u0, p, saveat, segments, *, dt0,
+                        rtol, atol, adaptive, max_iters, data=None):
+    """K2's launches of K1: the segments ``(t0s, tfs, starts)`` of the save
+    grid, one launch each (``starts`` has k + 1 entries, the last S):
+    segment i integrates from t0s[i] to tfs[i] and saves on
+    saveat[starts[i]:starts[i + 1]] into its slice of us, the first from
+    u0, each from its predecessor's final state.  On the card the k
+    launches go in one call, so the host pays for one; the caller has
+    checked the grid to ascend, on the host.  On CPU tensors the plain
+    version runs segment by segment.  Returns us (S, n, N), u_final
+    (n, N) and t_final (N,) of the last segment, and stats (k, 6, N), a
+    block a segment."""
+    t0s, tfs, starts = segments
+    k = len(t0s)
+    N = u0.shape[-1]
+    if u0.device.type == "cpu":
+        us = torch.empty((starts[-1],) + tuple(u0.shape), dtype=u0.dtype)
+        block = torch.empty((k, 6, N), dtype=torch.int32)
+        fb = bind_data(f, data)
+        for i in range(k):
+            us[starts[i]:starts[i + 1]], u0, t_final, block[i] = _plain(
+                fb, tab, u0, p, saveat[starts[i]:starts[i + 1]], t0s[i],
+                tfs[i], dt0, rtol, atol, adaptive, max_iters)
+        return us, u0, t_final, block
+    source, rhs_id, n, _, tables = _form(f, tab, u0, p, saveat, None, data)
+    dtype, dev = u0.dtype, u0.device
+    us = torch.empty((starts[-1], n, N), dtype=dtype, device=dev)
+    mids = torch.empty((2, n, N), dtype=dtype, device=dev)
+    u_final = torch.empty((n, N), dtype=dtype, device=dev)
+    t_final = torch.empty((N,), dtype=dtype, device=dev)
+    block = torch.empty((k, 6, N), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _bind_staged(source, data is not None)(
+            DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id, n, k,
+            (ctypes.c_double * k)(*t0s), (ctypes.c_double * k)(*tfs),
+            (ctypes.c_int * (k + 1))(*starts), *tables, u0.data_ptr(),
+            p.data_ptr(), saveat.data_ptr(), N, float(dt0), float(rtol),
+            float(atol), int(bool(adaptive)), int(max_iters), us.data_ptr(),
+            mids[0].data_ptr(), mids[1].data_ptr(), u_final.data_ptr(),
+            t_final.data_ptr(), block.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"erk_ensemble launch failed: CUDA error {rc}")
+    global launches
+    launches += k
+    return us, u_final, t_final, block

@@ -3,19 +3,39 @@ counterpart of `repro.kernels.tsit5.ops.solve_ensemble_pallas`.
 
 It binds the problem into the kernel's parameters (`erk_body`) and, when
 the save grid is large, routes through the saveat-segmented driver
-(`run_ensemble_kernel_staged`) exactly where the reference does.
+(`run_ensemble_kernel_staged`, its launches in one call:
+`erk_staged_body`) exactly where the reference does.  The
+grid's order and the segments' boundaries are read on the host, before
+the grid goes to the card, so a solve given its grid on the host reads
+nothing back from the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.ensemble import EnsembleResult
 from repro_torch.core.tableaus import Tableau
 from repro_torch.kernels.ensemble_kernel import (data_extras, erk_body,
-                                                 erk_work_words,
+                                                 erk_staged_body,
+                                                 erk_work_words, refuse_grad,
                                                  run_ensemble_kernel,
                                                  run_ensemble_kernel_staged,
                                                  save_chunk_count)
+
+
+def save_grid(saveat, like: torch.Tensor):
+    """(the grid on `like`'s device in its dtype, its values on the host):
+    a grid on the host (a list, an array or a CPU tensor) goes to the card
+    through pinned memory, in a copy the host does not wait for; a grid on
+    the card is read back once."""
+    if torch.is_tensor(saveat) and saveat.device.type != "cpu":
+        grid = saveat.to(device=like.device, dtype=like.dtype)
+        return grid, grid.cpu().numpy()
+    host = torch.as_tensor(saveat, dtype=like.dtype)
+    if like.device.type != "cuda":
+        return host.to(like.device), host.numpy()
+    return host.pin_memory().to(like.device, non_blocking=True), host.numpy()
 
 
 def solve_ensemble_cuda(prob, u0s, ps, tab: Tableau, t0, tf, dt0, saveat,
@@ -23,8 +43,9 @@ def solve_ensemble_cuda(prob, u0s, ps, tab: Tableau, t0, tf, dt0, saveat,
                         save_chunks=None, event=None,
                         data=None) -> EnsembleResult:
     """EnsembleGPUKernel entry point (``ensemble="kernel"``,
-    ``backend="cuda"``).  u0s (N, n), ps (N, m) and saveat (S,) on one
-    device: CUDA tensors launch the kernel, CPU tensors run its plain twin.
+    ``backend="cuda"``).  u0s (N, n) and ps (N, m) on one device, saveat
+    (S,) on the host or on that device: CUDA tensors launch the kernel,
+    CPU tensors run its plain twin.
 
     `save_chunks=None` takes the reference's segment count; pass an explicit
     count to force (or `1` to forbid) staging.  Staging needs an ascending
@@ -33,34 +54,32 @@ def solve_ensemble_cuda(prob, u0s, ps, tab: Tableau, t0, tf, dt0, saveat,
     With a dataset (`data`, which ``prob.f`` takes as a fourth argument)
     every launch receives its tables.
     """
-    saveat = torch.as_tensor(saveat, dtype=u0s.dtype, device=u0s.device)
+    grid, host = save_grid(saveat, u0s)
+    if u0s.device.type == "cuda" and not bool(np.all(host[1:] >= host[:-1])):
+        raise ValueError("the CUDA kernel needs an ascending saveat grid")
     work_words = erk_work_words(u0s.shape[1], ps.shape[1], tab.stages)
     if save_chunks is None:
         save_chunks = save_chunk_count(u0s.shape[1], ps.shape[1],
-                                       int(saveat.shape[0]),
+                                       int(host.shape[0]),
                                        itemsize=u0s.element_size(),
                                        work_words=work_words)
 
-    def mk_body(t_start, t_end):
-        return erk_body(prob.f, tab, t0=float(t_start), tf=float(t_end),
-                        dt0=float(dt0), rtol=float(rtol), atol=float(atol),
-                        adaptive=adaptive, max_iters=max_iters, event=event,
-                        data=data)
-
     tables = data_extras(data)
-
-    stageable = (save_chunks > 1 and event is None and saveat.shape[0] > 1
-                 and bool(saveat[0] > t0)
-                 and bool((saveat[1:] > saveat[:-1]).all()))
+    stageable = (save_chunks > 1 and event is None and host.shape[0] > 1
+                 and bool(host[0] > t0)
+                 and bool(np.all(host[1:] > host[:-1])))
     if stageable:
-        def body_factory(t_start, seg_ts, last):
-            seg_t0 = t0 if t_start is None else t_start
-            seg_tf = tf if last else float(seg_ts[-1])
-            sv = torch.as_tensor(seg_ts, dtype=u0s.dtype, device=u0s.device)
-            return mk_body(seg_t0, seg_tf), [("broadcast", sv)] + tables
+        refuse_grad("the ensemble kernel", *(leaf for _, leaf in tables))
+        body = erk_staged_body(prob.f, tab, dt0=float(dt0),
+                               rtol=float(rtol), atol=float(atol),
+                               adaptive=adaptive, max_iters=max_iters,
+                               data=data)
+        return run_ensemble_kernel_staged(body, u0s, ps, ts=grid,
+                                          save_chunks=save_chunks, t0=t0,
+                                          tf=tf, ts_host=host)
 
-        return run_ensemble_kernel_staged(body_factory, u0s, ps, ts=saveat,
-                                          save_chunks=save_chunks)
-
-    return run_ensemble_kernel(mk_body(t0, tf), u0s, ps, ts=saveat,
-                               extras=[("broadcast", saveat)] + tables)
+    body = erk_body(prob.f, tab, t0=float(t0), tf=float(tf), dt0=float(dt0),
+                    rtol=float(rtol), atol=float(atol), adaptive=adaptive,
+                    max_iters=max_iters, event=event, data=data)
+    return run_ensemble_kernel(body, u0s, ps, ts=grid,
+                               extras=[("broadcast", grid)] + tables)

@@ -63,16 +63,97 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     kw = dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-6, atol=1e-6, adaptive=True,
               max_iters=100)
     f = lorenz_problem().f
+    from repro_torch.convert import tableau_from_arrays
+    vern7 = get_tableau("vern7")
+    user = tableau_from_arrays("user_vern7", vern7.a, vern7.b, vern7.btilde,
+                               vern7.c, order=vern7.order,
+                               embedded_order=vern7.embedded_order,
+                               fsal=vern7.fsal)
     with pytest.raises(NotImplementedError, match="device form"):
         erk_kernel.erk_ensemble(lambda u, p, t: -u, tab, u0, p, sv, **kw)
-    with pytest.raises(NotImplementedError, match="not compiled"):
-        erk_kernel.erk_ensemble(f, get_tableau("vern7"), u0, p, sv, **kw)
+    with pytest.raises(NotImplementedError, match="not compiled.*item 17"):
+        erk_kernel.erk_ensemble(f, user, u0, p, sv, **kw)
+    with pytest.raises(NotImplementedError, match="not compiled.*item 14"):
+        erk_kernel.erk_ensemble(f, vern7, u0, p, sv,
+                                event=tdp.bouncing_ball_event(), **kw)
     with pytest.raises(ValueError, match="ascending"):
         erk_kernel.erk_ensemble(f, tab, u0, p, sv.flip(0).contiguous(), **kw)
     with pytest.raises(ValueError, match="contiguous"):
         erk_kernel.erk_ensemble(f, tab, u0.T.contiguous().T, p, sv, **kw)
     with pytest.raises(ValueError, match="float64"):
         erk_kernel.erk_ensemble(f, tab, u0, p.float(), sv, **kw)
+
+
+# the tableaus of csrc/erk_tableaus.cu compiled `Rounded`: bitwise to the
+# plain version; the others within K1's bars
+ROUNDED = {"rkck54", "vern7", "gbs10"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("N", [1, 127, 4096 + 3])
+@pytest.mark.parametrize("alg", ["rkck54", "bs3", "rkf45", "rk4", "vern7",
+                                 "gbs10"])
+def test_cuda_new_tableau_forms_match_plain_version(cuda, alg, N, dtype):
+    """t in [0, 1/4].  Fixed dt 1/64 with a save in the middle of every
+    step (Hermite at theta 1/2: f(u_new), evaluated once an accepted step
+    where the pair has no FSAL), and adaptive (not rk4, which has no error estimate; in f32
+    only the `Rounded` forms, whose accept decisions are the plain
+    version's).  The kernel against its plain version on the card:
+    `Rounded` forms bitwise; the others' counts identical and states
+    within 1e-10 (fixed dt 1e-12) in f64, 1e-5 relative in f32."""
+    tab = get_tableau(alg)
+    u0s, ps = lorenz_arrays(N)
+    u0 = torch.tensor(u0s.T, dtype=dtype, device=cuda).contiguous()
+    p = torch.tensor(ps.T, dtype=dtype, device=cuda).contiguous()
+    f = lorenz_problem().f
+    tol = 1e-8 if dtype == torch.float64 else 1e-5
+    cases = [(False, (torch.arange(16, dtype=dtype) + 0.5) / 64, 1 / 64)]
+    if alg != "rk4" and (dtype == torch.float64 or alg in ROUNDED):
+        cases.append((True, torch.linspace(0, 0.25, 6, dtype=dtype), 1e-3))
+    for adaptive, sv, dt0 in cases:
+        sv = sv.to(cuda)
+        kw = dict(t0=0.0, tf=0.25, dt0=dt0, rtol=tol, atol=tol,
+                  adaptive=adaptive, max_iters=100_000)
+        before = erk_kernel.launches
+        got = erk_kernel.erk_ensemble(f, tab, u0, p, sv, **kw)
+        assert erk_kernel.launches == before + 1
+        want = erk_kernel._plain(f, tab, u0, p, sv, **kw)
+        if alg in ROUNDED:
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            continue
+        assert torch.equal(got[3], want[3])
+        bar = (1e-5 if dtype == torch.float32
+               else 1e-10 if adaptive else 1e-12)
+        for a, b in zip(got[:3], want[:3]):
+            torch.testing.assert_close(a, b, rtol=bar, atol=bar)
+
+
+@pytest.mark.cuda
+def test_cuda_staged_front_door_reads_nothing_back(cuda):
+    """A save grid given on the host, large enough that the front door
+    stages it (two launches by the reference's count): the solve runs
+    under `set_sync_debug_mode("error")`, so nothing of it waits for the
+    card, and gives what it gave without the check."""
+    u0s, ps = lorenz_arrays(64)
+    ep = ensemble_problem(lorenz_problem(torch.float64), u0s, ps,
+                          device=cuda)
+    kw = dict(alg="tsit5", ensemble="kernel", backend="cuda", t0=0.0,
+              tf=1.0, dt0=1e-3, rtol=1e-8, atol=1e-8,
+              saveat=np.linspace(0.01, 1.0, 2000), device=cuda)
+    want = tsolve(ep, **kw)
+    torch.cuda.synchronize()
+    before = erk_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tsolve(ep, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert erk_kernel.launches == before + 2
+    for field in ("us", "u_final", "t_final", "naccept", "nreject", "nf"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,9 @@ from repro_torch.core import controller as tctl
 from repro_torch.core import solvers as tsol
 from repro_torch.core import tableaus as ttab
 
-CU = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/erk_ensemble.cu"
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+# K1's two translation units: tsit5 and dopri5, and the other six tableaus
+CU_FILES = (CSRC / "erk_ensemble.cu", CSRC / "erk_tableaus.cu")
 
 
 def _t(x):
@@ -70,19 +72,38 @@ def test_tsit5_bpoly_matches_at_50_thetas():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
 
 
+def _cu_struct(struct):
+    """The text of `struct` from whichever of K1's sources defines it."""
+    for cu in CU_FILES:
+        text = cu.read_text()
+        if f"struct {struct} {{" in text:
+            return text.split(f"struct {struct} {{", 1)[1].split("\n};", 1)[0]
+    raise AssertionError(f"no struct {struct} in {CU_FILES}")
+
+
 def _cu_array(struct, fn):
-    body = CU.read_text().split(f"struct {struct} {{", 1)[1]
+    body = _cu_struct(struct)
     block = body.split(f"static constexpr double {fn}(", 1)[1]
     block = block.split("= {", 1)[1].split("};", 1)[0]
     return np.array([float(x) for x in
                      re.findall(r"-?\d+\.\d+(?:e-?\d+)?", block)])
 
 
-@pytest.mark.parametrize("struct,name", [("Tsit5", "tsit5"),
-                                         ("Dopri5", "dopri5")])
+K1_STRUCTS = [("Tsit5", "tsit5"), ("Dopri5", "dopri5"), ("Rkck54", "rkck54"),
+              ("Bs3", "bs3"), ("Rkf45", "rkf45"), ("Rk4", "rk4"),
+              ("Vern7", "vern7"), ("Gbs10", "gbs10")]
+
+
+@pytest.mark.parametrize("struct,name", K1_STRUCTS)
 def test_cuda_kernel_constants_equal_tableau(struct, name):
-    """The kernel's compiled-in coefficients are the tableau's floats."""
+    """The kernel's compiled-in coefficients are the tableau's floats, and
+    its stage count and FSAL flag the tableau's."""
     tab = ttab.get_tableau(name)
+    body = _cu_struct(struct)
+    assert f"static constexpr int stages = {tab.stages};" in body
+    assert (f"static constexpr bool fsal = {'true' if tab.fsal else 'false'}"
+            in body)
+    assert ("free_interp = true" in body) == (tab.interp_bpoly is not None)
     np.testing.assert_array_equal(_cu_array(struct, "a"), tab.a.ravel())
     np.testing.assert_array_equal(_cu_array(struct, "b"), tab.b)
     np.testing.assert_array_equal(_cu_array(struct, "btilde"), tab.btilde)

@@ -179,17 +179,19 @@ def test_table_leaves_receive_gradients_bitwise_to_torch_backend():
 
 
 def test_launch_refuses_grad_outside_kernel_adjoint(monkeypatch):
-    """The wrapper is stubbed: a refused call never reaches it, and under
+    """The wrapper's entry on the front door's path (`_erk_ensemble`, the
+    wrapper without its device-side grid check, the grid being checked on
+    the host) is stubbed: a refused call never reaches it, and under
     kernel_adjoint it receives detached inputs with grad disabled."""
     calls = []
-    real = k1.erk_ensemble
+    real = k1._erk_ensemble
 
     def stub(f, tab, u0, p, saveat, **kw):
         calls.append((u0.requires_grad, p.requires_grad,
                       torch.is_grad_enabled()))
         return real(f, tab, u0, p, saveat, **kw)
 
-    monkeypatch.setattr(k1, "erk_ensemble", stub)
+    monkeypatch.setattr(k1, "_erk_ensemble", stub)
     prob, u0s, ps = lorenz()
     kw = dict(alg="tsit5", t0=0.0, tf=0.2, dt0=1e-2, ensemble="kernel",
               backend="cuda", device="cpu")

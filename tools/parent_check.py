@@ -21,6 +21,11 @@ stream and a noise table; the adaptive SDE cases; and the event and data
 forms of K3 and K5 (the f64 event and data parity cases of those two
 kernels, through the front door).  A parent whose adaptive SDE entries
 take no work-queue word (earlier than the queue) is called without it.
+K1's f64 event and data parity cases run through the front door as K3's
+and K5's do.  K2 (`run_ensemble_kernel_staged`, Python as well as K1's
+build): where DIR is a checkout's `src/repro_torch/csrc`, its staged cases
+(`K2_SCRIPT`) run under that checkout's `repro_torch` and under this
+one's, each in a process of its own, and are compared the same way.
 K6 (`lu_solve.cu`): on `chip_smoke.lu_batch`'s systems (n = 3 and 8, f64,
 singular ones included) x and pivmin of the factor and resolve entries,
 or of the one-shot entry where the build has no split; and the `array`
@@ -139,22 +144,69 @@ def k5_cases(cs, dev, n):
 
 
 def event_data_cases(cs, dev, n):
-    """The f64 event and data parity cases of K3 and K5, through the front
-    door."""
+    """The f64 event and data parity cases of K1, K3 and K5, through the
+    front door."""
     from repro_torch.core.ensemble import solve_ensemble_local
     from repro_torch.kernels.em import adaptive as K5
     from repro_torch.kernels.rosenbrock import kernel as K3
+    from repro_torch.kernels.tsit5 import kernel as K1
     out = {}
+    labels = {"erk": "K1", "rosenbrock": "K3", "sde_adaptive": "K5",
+              K1: "K1", K3: "K3", K5: "K5"}
     for name, family, ep, kw in cs.event_parity_cases(dev, n):
-        if family in ("rosenbrock", "sde_adaptive"):
-            label = "K3" if family == "rosenbrock" else "K5"
-            out[(label, "float64", "event") + tuple(name.split())] = \
-                lambda ep=ep, kw=kw: _front(solve_ensemble_local, ep, kw, dev)
+        if family in labels:
+            out[(labels[family], "float64", "event") + tuple(name.split())] \
+                = lambda ep=ep, kw=kw: _front(solve_ensemble_local, ep, kw,
+                                              dev)
     for name, mod, ep, kw, _, _ in cs.data_parity_cases(dev, n):
-        if mod in (K3, K5):
-            label = "K3" if mod is K3 else "K5"
-            out[(label, "float64", "data") + tuple(name.split())] = \
+        if mod in labels:
+            out[(labels[mod], "float64", "data") + tuple(name.split())] = \
                 lambda ep=ep, kw=kw: _front(solve_ensemble_local, ep, kw, dev)
+    return out
+
+
+# K2's staged cases, each run by the `repro_torch` of a checkout's src in a
+# process of its own (K2 is Python as well as K1's build): tsit5 on
+# `chip_smoke.lorenz_inputs`, save grid arange(1, 9) / 8 given on the
+# host, three launches, fixed dt 2^-10 and adaptive, f64 and f32, and
+# dopri5 adaptive in f64.
+K2_SCRIPT = r"""
+import sys
+import torch
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import chip_smoke as cs
+from repro_torch.core.tableaus import get_tableau
+from repro_torch.kernels.tsit5.ops import solve_ensemble_cuda
+dev = torch.device("cuda", 0)
+out = {}
+for dtype in (torch.float64, torch.float32):
+    ep = cs.lorenz_inputs(int(sys.argv[4]), dtype, dev)
+    u0s, ps = ep.materialize()
+    grid = torch.arange(1, 9, dtype=torch.float64) / 8.0
+    for alg, adaptive in (("tsit5", False), ("tsit5", True),
+                          ("dopri5", True)):
+        if alg == "dopri5" and dtype == torch.float32:
+            continue
+        r = solve_ensemble_cuda(ep.prob, u0s, ps, get_tableau(alg), 0.0,
+                                1.0, 2.0 ** -10, grid, 1e-8, 1e-8, adaptive,
+                                save_chunks=3)
+        out["/".join(("K2", str(dtype)[6:], alg, str(adaptive)))] = [
+            x.cpu() for x in (r.us, r.u_final, r.t_final, r.naccept,
+                              r.nreject, r.nf, r.status)]
+torch.save(out, sys.argv[3])
+"""
+
+
+def k2_cases(src: Path, n: int) -> dict:
+    """{case: outputs} of K2's staged cases under `src`'s repro_torch."""
+    import subprocess
+    import torch
+    path = ROOT / "build" / f"parent_check_k2_{abs(hash(str(src)))}.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([sys.executable, "-c", K2_SCRIPT, str(ROOT), str(src),
+                    str(path), str(n)], check=True)
+    out = torch.load(path)
+    path.unlink()
     return out
 
 
@@ -297,6 +349,15 @@ def main() -> int:
         torch.cuda.synchronize(dev)
     build.CSRC = here
     K5._bind = k5_bind
+    # K2: the parent checkout's Python and build against this checkout's
+    parent_src = args.parent.resolve().parents[1]
+    if (parent_src / "repro_torch" / "__init__.py").exists():
+        for label, src in (("parent", parent_src), ("this", ROOT / "src")):
+            results[label].update({tuple(k.split("/")): v for k, v in
+                                   k2_cases(src, args.n).items()})
+    else:
+        print(f"K2: {parent_src} holds no repro_torch; its staged cases "
+              "are not compared")
     moved, allowed, n_inst = [], [], 0
     for src in sources:
         new = list(regs["this"][src])
