@@ -9,7 +9,15 @@ of the reference, the fixed-dt SDE kernel, the adaptive SDE
 kernel on the virtual Brownian tree, the batched LU kernel, the fused
 Rosenbrock stiff kernel, the dataset lookup entry and flash attention in
 its two forms, CUDA cores and tensor cores, all nvcc processes started
-together), holds each against its plain PyTorch twin on the card,
+together), holds each against its plain PyTorch twin on the card, runs the
+automated translation (`phase_translate`: every generated unit of the
+phase built in one parallel call, a new RHS's first-use and second-use
+compile seconds, and the generated functors of K1 on all eight tableaus
+and a user tableau, K2, K3 with ROBER's Jacobian traced and with derived
+Jacobians on ROBER, OREGO, Van der Pol and a time-dependent RHS, and K4 on
+GBM and CRN, each against the hand-written functor and against its plain
+version, plus one gradient; `phase_translate_rows`: three generated rows
+at 2^20 beside their hand-written rows, timed in turns),
 drives the port's paths through the front door
 (`solve_ensemble_local(ensemble="kernel", backend="cuda")`): the paper's
 million-trajectory Lorenz ensemble (tsit5, and vern7 beside it; every
@@ -1296,6 +1304,730 @@ def phase_parity(device, N: int = PARITY_N):
           **{k: v for k, v in times_k2.items()
              if k not in ("staged_ms", "one_ms")}}
     return worst, k2
+
+
+# ---------------------------------------------------------------------------
+# the automated translation (src/repro_torch/translate): an RHS without a
+# registration traced into a device functor and compiled into K1, K2, K3
+# and K4 in a generated translation unit
+# ---------------------------------------------------------------------------
+
+# f64 parity of the generated functors, 4096 lanes: against the hand-written
+# functor on the same inputs (every case; bitwise where the kernel rounds
+# every operation alone: K1's Rounded tableaus, K3 with ROBER's analytic
+# Jacobian traced), and against the plain version driven by the traced
+# function's `evaluate` (`translate.ir.as_function`) at K1_PARITY's bars,
+# per-lane counts identical; K3 against the plain version with jac=None
+# (`torch.func.jacfwd`) bitwise or with counts identical within
+# STIFF_SAME_COUNTS_TOL and the ROBER bar; K4 against the plain version on
+# a noise table within 1e-12.
+HEUN_EULER = dict(a=[[0.0, 0.0], [1.0, 0.0]], b=[0.5, 0.5],
+                  btilde=[-0.5, 0.5], c=[0.0, 1.0], order=2,
+                  embedded_order=1, fsal=False)
+TRANSLATE_SDE = {"gbm": ("em", "heun_strat", "platen_w2", "milstein"),
+                 "crn": ("em", "heun_strat")}
+# the K1 cases held to the plain version even where bitwise the hand-written
+# run: a contracted and a Rounded form
+TRANSLATE_K1_PLAIN = {("tsit5", True), ("vern7", True)}
+# lanes of the phase's gradient case
+TRANSLATE_GRAD_N = 1024
+_WRAPPED: dict = {}
+
+
+def unregistered(fn):
+    """A plain wrapper of `fn`: it carries no device registration, so the
+    CUDA wrappers translate it (one wrapper a function, so its trace and
+    unit are made once)."""
+    if fn not in _WRAPPED:
+        def wrapper(u, p, t):
+            return fn(u, p, t)
+        wrapper.__name__ = wrapper.__qualname__ = \
+            f"{fn.__name__}_unregistered"
+        _WRAPPED[fn] = wrapper
+    return _WRAPPED[fn]
+
+
+def probe_ops(u, p, t):
+    """One op a state for the one-op probe (`translate.units.probe_unit`):
+    the forms where PyTorch's CUDA kernels take special paths (pow by a
+    Python number, division by one, NaN in maximum and the clamps) and the
+    library calls."""
+    import torch
+    return torch.stack([
+        u[0] ** 2, u[1] ** 3, u[2] ** 0.5, u[3] ** -1, u[4] ** -2,
+        u[5] ** -0.5, u[6] / 3.0, u[7] / 7.0, torch.exp(u[8]),
+        torch.log(u[9]), torch.sin(u[10]), torch.cos(u[11]),
+        torch.tanh(u[12]), u[13] ** 2.5, torch.sqrt(u[14]),
+        torch.maximum(u[15], u[16]), torch.clamp_min(u[17], 0.5),
+        3.0 / u[18], u[19] - 0.1, 1.0 - u[20], u[21] ** p[0],
+        u[22] * u[23] + u[21], torch.where(u[22] > u[23], u[22], -u[23]),
+        torch.abs(u[23] - 1.0)])
+
+
+PROBE_NAMES = ("**2", "**3", "**0.5", "**-1", "**-2", "**-0.5", "/3.0",
+               "/7.0", "exp", "log", "sin", "cos", "tanh", "**2.5", "sqrt",
+               "maximum", "clamp_min", "3.0/x", "x-0.1", "1.0-x", "x**p",
+               "x*y+z", "where", "abs")
+
+
+def probe_run(device, dtype, N: int = 2 ** 16):
+    """K1's generated functor of `probe_ops` once a lane under each policy
+    against the same ops in PyTorch on the card: {policy: {op: "bitwise"
+    or how many lanes differ}}, NaN inputs on some lanes of maximum and
+    clamp_min."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.build import load_generated
+    from repro_torch.translate.ir import evaluate
+    from repro_torch.translate.trace import trace
+    from repro_torch.translate.units import probe_unit
+    traced = trace(probe_ops, 24, 1, outputs=(24,))
+    fn = load_generated(probe_unit(traced, dtype)).probe_launch
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator().manual_seed(SEED)
+    u = (torch.rand(24, N, generator=gen, dtype=torch.float64) * 4
+         + 0.01).to(dtype).to(device)
+    u[15:17, :100] = float("nan")
+    u[17, 100:200] = float("nan")
+    p = (torch.rand(1, N, generator=gen, dtype=torch.float64) * 3).to(
+        dtype).to(device)
+    t = torch.zeros(N, dtype=dtype, device=device)
+    want = evaluate(traced, u, p, t)
+    out = {}
+    for policy, rounded in (("Rounded", 1), ("Contracting", 0)):
+        got = torch.empty_like(want)
+        rc = fn(int(dtype == torch.float64), rounded, u.data_ptr(),
+                p.data_ptr(), t.data_ptr(), got.data_ptr(), N,
+                torch.cuda.current_stream(device).cuda_stream)
+        sync(device)
+        if rc != 0:
+            raise RuntimeError(f"probe launch failed: CUDA error {rc}")
+        res = {}
+        for i, name in enumerate(PROBE_NAMES):
+            a, b = got[i], want[i]
+            differ = int(((a != b) & ~(a.isnan() & b.isnan())).sum())
+            res[name] = "bitwise" if differ == 0 else f"{differ} lanes"
+        out[policy] = res
+    return out
+
+
+def cos_stiff(u, p, t):
+    """tests/test_kernels.py:243-244's time-dependent stiff RHS."""
+    import torch
+    return torch.stack([-p[0] * (u[0] - torch.cos(t))])
+
+
+def translate_problem(ep, *, jac="keep"):
+    """`ep` with its callbacks replaced by their `unregistered` wrappers;
+    ``jac=None`` drops the Jacobian hook."""
+    import dataclasses
+    from repro_torch.core.problem import EnsembleProblem
+    prob = ep.prob
+    repl = {"f": unregistered(prob.f)}
+    if hasattr(prob, "g"):
+        repl["g"] = unregistered(prob.g)
+    elif jac != "keep":
+        repl["jac"] = jac
+    u0s, ps = ep.materialize()
+    return EnsembleProblem(dataclasses.replace(prob, **repl), ep.n_trajectories,
+                           u0s=u0s, ps=ps)
+
+
+def plain_problem(ep):
+    """`ep` with its callbacks replaced by their translation's plain
+    version, `ir.evaluate` of the traced function."""
+    import dataclasses
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.translate.ir import as_function
+    from repro_torch.translate.trace import trace, trace_pair
+    prob = ep.prob
+    n, m = prob.u0.shape[0], prob.p.shape[0]
+    if hasattr(prob, "g"):
+        g_out = (n,) if prob.noise == "diagonal" else (n, prob.noise_dim())
+        tf, tg = trace_pair(prob.f, prob.g, n, m, f_outputs=(n,),
+                            g_outputs=g_out)
+        repl = dict(f=as_function(tf), g=as_function(tg))
+    else:
+        repl = dict(f=as_function(trace(prob.f, n, m, outputs=(n,))))
+        if prob.jac is not None:
+            repl["jac"] = as_function(trace(prob.jac, n, m,
+                                            outputs=(n, n)))
+    u0s, ps = ep.materialize()
+    return EnsembleProblem(dataclasses.replace(prob, **repl), ep.n_trajectories,
+                           u0s=u0s, ps=ps)
+
+
+def same_run(a, b) -> bool:
+    """Two front-door results bitwise equal (NaN where NaN)."""
+    import torch
+    for k in ("us", "u_final", "t_final", "naccept", "nreject", "nf",
+              "status", "njac", "nfact"):
+        x, y = getattr(a, k), getattr(b, k)
+        if torch.is_tensor(x) and x.is_floating_point():
+            if not (torch.equal(x.isnan(), y.isnan())
+                    and torch.equal(torch.nan_to_num(x),
+                                    torch.nan_to_num(y))):
+                return False
+        elif not bool(torch.equal(torch.as_tensor(x).cpu(),
+                                  torch.as_tensor(y).cpu())):
+            return False
+    return True
+
+
+def translate_inputs(device, N: int):
+    """The phase's ensembles: Lorenz and ROBER, OREGO and Van der Pol as
+    the stiff parity phase makes them, the cos(t) RHS, GBM and CRN as the
+    SDE parity phase makes them (f64)."""
+    import torch
+    from repro_torch.convert import ensemble_problem
+    from repro_torch.core.problem import ODEProblem
+    f64 = torch.float64
+    stiff = {name.split()[0]: (ep, kw) for name, ep, kw, _ in
+             stiff_parity_cases(device, N)
+             if name in ("rober rodas5p eager", "orego rodas5p", "vdp rodas4")}
+    cos_prob = ODEProblem(cos_stiff, torch.zeros(1, dtype=f64),
+                          torch.tensor([1e5], dtype=f64), (0.0, 1.0))
+    cos_ep = ensemble_problem(cos_prob, np.zeros((N, 1)),
+                              np.geomspace(1e3, 1e5, N)[:, None],
+                              device=device)
+    stiff["cos"] = (cos_ep, dict(alg="rosenbrock23", t0=0.0, tf=1.0,
+                                 dt0=1e-6, rtol=1e-4, atol=1e-7,
+                                 saveat=torch.linspace(0.0, 1.0, 5,
+                                                       dtype=f64)))
+    return dict(lorenz=lorenz_inputs(N, f64, device), stiff=stiff,
+                gbm=sde_inputs("gbm", N, f64, device),
+                crn=sde_inputs("crn", N, f64, device))
+
+
+def translate_units(inputs, device):
+    """Every generated unit the phase and its rows launch (f64 parity; the
+    f32 Lorenz and CRN rows), made by the wrappers' own `generated_unit`."""
+    import torch
+    from repro_torch.convert import tableau_from_arrays
+    from repro_torch.core.tableaus import get_rosenbrock_tableau, get_tableau
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    from repro_torch.configs import de_problems as dp
+    f32, f64 = torch.float32, torch.float64
+    lor = unregistered(dp.lorenz_rhs)
+    units = [erk_kernel.generated_unit(lor, get_tableau(alg), 3, 3, f64)
+             for alg in erk_kernel.TABLEAU_IDS]
+    units.append(erk_kernel.generated_unit(
+        lor, tableau_from_arrays("heun_euler", **HEUN_EULER), 3, 3, f64))
+    units.append(erk_kernel.generated_unit(lor, get_tableau("tsit5"), 3, 3,
+                                           f32))
+    rober = unregistered(dp.rober_rhs)
+    for alg in ("rosenbrock23", "rodas4", "rodas5p"):
+        units.append(rb_kernel.generated_unit(
+            rober, dp.rober_jac, get_rosenbrock_tableau(alg), 3, 3, f64))
+    for name, (ep, kw) in inputs["stiff"].items():
+        n, m = ep.prob.u0.shape[0], ep.prob.p.shape[0]
+        units.append(rb_kernel.generated_unit(
+            unregistered(ep.prob.f), None,
+            get_rosenbrock_tableau(kw["alg"]), n, m, f64))
+    for name, methods in TRANSLATE_SDE.items():
+        prob = inputs[name].prob
+        fun = sde_kernel.SDEFunctor(-1, prob.u0.shape[0], prob.p.shape[0],
+                                    prob.noise, prob.noise_dim(),
+                                    prob.noise == "diagonal", False)
+        f, g = unregistered(prob.f), unregistered(prob.g)
+        units += [sde_kernel.generated_unit(f, g, alg, fun, f64)
+                  for alg in methods]
+        if name == "crn":
+            units.append(sde_kernel.generated_unit(f, g, "em", fun, f32))
+    from repro_torch.translate.trace import trace
+    from repro_torch.translate.units import probe_unit
+    probe = trace(probe_ops, 24, 1, outputs=(24,))
+    units += [probe_unit(probe, dtype) for dtype in (f32, f64)]
+    return units
+
+
+def phase_translate(device, N: int = PARITY_N):
+    """The generated functors against the hand-written ones and against
+    their plain versions (f64, N lanes), after one parallel build of every
+    generated unit; the first-use and second-use compile seconds of a new
+    RHS; one gradient through `kernel_adjoint` on a generated forward."""
+    import subprocess as sp
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import tableau_from_arrays
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.sensitivity import suggest_adjoint_steps
+    from repro_torch.core.tableaus import get_tableau
+    from repro_torch.kernels import build
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    from repro_torch.kernels.tsit5.ops import solve_ensemble_cuda
+    on_card = device.type == "cuda"
+    f64 = torch.float64
+    out = {"bitwise_to_hand": {}, "plain": {}}
+
+    # ---- trace every problem, then build every unit in one call ---------
+    inputs = translate_inputs(device, N)
+    t = time.perf_counter()
+    units = translate_units(inputs, device)
+    trace_s = time.perf_counter() - t
+    t = time.perf_counter()
+    logs = build.build(units) if on_card else {}
+    build_s = time.perf_counter() - t
+    out.update(units=len(units), trace_s=trace_s, build_s=build_s)
+    print(f"translate: {len(units)} generated units traced and emitted in "
+          f"{trace_s:.2f} s, built in parallel in {build_s:.1f} s "
+          f"({len(logs)} compiled)")
+    for name, log in logs.items():
+        regs = re.findall(r"Used (\d+) registers", log)
+        spill = re.findall(r"(\d+) bytes spill stores", log)
+        print(f"translate build {name}: registers {regs}, spill stores "
+              f"{spill}")
+
+    # ---- a new RHS: first use compiles its unit, a second use (and a
+    # second process) compiles nothing ----------------------------------
+    if on_card:
+        fresh = lambda u, p, t: torch.stack([  # noqa: E731
+            p[0] * (u[1] - u[0]), p[1] * u[0] - u[1] - u[0] * u[2],
+            u[0] * u[1] - p[2] * u[2] + 0.0 * t])
+        tab32 = get_tableau("tsit5")
+        t = time.perf_counter()
+        unit = erk_kernel.generated_unit(fresh, tab32, 3, 3, torch.float32)
+        build.load_generated(unit)
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        build.load_generated(erk_kernel.generated_unit(fresh, tab32, 3, 3,
+                                                       torch.float32))
+        second_s = time.perf_counter() - t
+        code = ("import sys, time; sys.path.insert(0, 'src'); "
+                "from repro_torch.kernels import build; "
+                "from repro_torch.translate.units import Unit; "
+                "t = time.perf_counter(); "
+                "logs = build.build([Unit(sys.argv[1], sys.stdin.read())]); "
+                "print(len(logs), time.perf_counter() - t)")
+        got = sp.run([sys.executable, "-c", code, unit.name], input=unit.text,
+                     capture_output=True, text=True, cwd=str(ROOT),
+                     check=True).stdout.split()
+        out.update(first_use_s=first_s, second_use_s=second_s,
+                   second_process_compiled=int(got[0]),
+                   second_process_s=float(got[1]))
+        print(f"translate: a new RHS on tsit5 f32: first use {first_s:.2f} s "
+              f"(trace, emit, nvcc, load), second use {second_s:.4f} s, a "
+              f"second process compiled {got[0]} units in {float(got[1]):.3f}"
+              " s")
+
+    # ---- the one-op probe: each op of the emitter against PyTorch's ----
+    if on_card:
+        for dtype in (torch.float32, f64):
+            got = probe_run(device, dtype)
+            out[f"probe_{str(dtype)[6:]}"] = got
+            for policy, res in got.items():
+                print(f"translate probe {str(dtype)[6:]} {policy}: "
+                      + json.dumps(res))
+            wrong = [k for k, v in got["Rounded"].items() if v != "bitwise"]
+            if wrong:
+                raise AssertionError(f"translate probe {dtype}: {wrong} not "
+                                     "bitwise PyTorch's CUDA ops")
+
+    clock = [time.perf_counter()]
+    out["seconds"] = {}
+
+    def lap(what):
+        now = time.perf_counter()
+        out["seconds"][what] = now - clock[0]
+        clock[0] = now
+
+    def launched(mod, before, what, k=1):
+        if on_card and mod.launches != before + k:
+            raise AssertionError(f"translate {what}: {mod.launches - before}"
+                                 f" launches, expected {k}")
+
+    def record(key, bitwise, plain_err=None):
+        out["bitwise_to_hand"][key] = bitwise
+        if plain_err is not None:
+            out["plain"][key] = plain_err
+
+    # ---- K1: Lorenz on every tableau: against the hand-written functor;
+    # against the plain version (evaluate) on TRANSLATE_K1_PLAIN and on any
+    # case that is not bitwise the hand-written run (phase_parity holds the
+    # hand-written runs to their plain versions) -------------------------
+    lor = inputs["lorenz"]
+    lor_w, lor_p = translate_problem(lor), plain_problem(translate_problem(lor))
+    saveat = torch.linspace(0.0, 1.0, 11, dtype=f64)
+    for alg, adaptive, tol, settings in K1_PARITY:
+        kw = dict(dict(rtol=1e-8, atol=1e-8, dt0=1e-3), **settings, t0=0.0,
+                  tf=1.0, saveat=saveat, device=device, ensemble="kernel",
+                  alg=alg, adaptive=adaptive)
+        key = f"K1 {alg} {'adaptive' if adaptive else 'fixed'}"
+        rh = solve_ensemble_local(lor, backend="cuda", **kw)
+        before = erk_kernel.launches
+        rg = solve_ensemble_local(lor_w, backend="cuda", **kw)
+        launched(erk_kernel, before, key)
+        bitwise = same_run(rg, rh)
+        line = f"translate {key}: generated == hand-written {bitwise}"
+        err = None
+        if not bitwise or (alg, adaptive) in TRANSLATE_K1_PLAIN:
+            rp = solve_ensemble_local(lor_p, backend="torch", **kw)
+            other = int(((rg.naccept != rp.naccept)
+                         | (rg.nreject != rp.nreject)).sum())
+            plain_bitwise = same_run(rg, rp)
+            err = 0.0 if plain_bitwise else max(
+                rel_err(rg.us, rp.us), rel_err(rg.u_final, rp.u_final))
+            line += (f"; against the plain version (evaluate): lanes with "
+                     f"other counts {other}, rel err {err:.3e}, bitwise "
+                     f"{plain_bitwise} (bar "
+                     f"{'bitwise' if tol is None else tol})")
+            if other or (tol is None and not plain_bitwise) or (
+                    tol is not None and err > tol):
+                raise AssertionError(f"translate {key}: misses its bar")
+        record(key, bitwise, err)
+        print(line)
+        if tol is None and not bitwise:
+            raise AssertionError(f"translate {key}: a Rounded form not "
+                                 "bitwise the hand-written one")
+
+    lap("K1")
+    # ---- K2: the staged driver through the generated unit --------------
+    u0s, ps = lor.materialize()
+    grid = torch.arange(1, 9, dtype=f64) / 8.0
+    skw = dict(t0=0.0, tf=1.0, dt0=2.0 ** -10, saveat=grid, rtol=1e-8,
+               atol=1e-8, adaptive=False)
+    for alg in ("tsit5", "vern7"):
+        tab = get_tableau(alg)
+        before = erk_kernel.launches
+        three = solve_ensemble_cuda(lor_w.prob, u0s, ps, tab, save_chunks=3,
+                                    **skw)
+        sync(device)
+        launched(erk_kernel, before, f"K2 {alg}", 3)
+        one = solve_ensemble_cuda(lor_w.prob, u0s, ps, tab, save_chunks=1,
+                                  **skw)
+        hand = solve_ensemble_cuda(lor.prob, u0s, ps, tab, save_chunks=3,
+                                   **skw)
+        ok = all(torch.equal(getattr(three, k), getattr(one, k))
+                 for k in ("us", "u_final", "t_final", "naccept"))
+        bitwise = same_run(three, hand)
+        record(f"K2 {alg} staged", bitwise)
+        print(f"translate K2 {alg} save_chunks=3: bitwise one launch {ok}, "
+              f"bitwise the hand-written staged run {bitwise}")
+        if not (ok and bitwise):
+            raise AssertionError(f"translate K2 {alg}: not bitwise")
+
+    lap("K2")
+    # ---- a user tableau: Heun–Euler 2(1) from its arrays ----------------
+    heun = tableau_from_arrays("heun_euler", **HEUN_EULER)
+    # second order: rtol 1e-3 keeps the plain version's host loop short
+    for adaptive, extra in ((True, dict(rtol=1e-3, atol=1e-3, dt0=1e-3)),
+                            (False, dict(dt0=2.0 ** -8))):
+        kw = dict(extra, t0=0.0, tf=1.0, saveat=saveat, device=device,
+                  ensemble="kernel", alg=heun, adaptive=adaptive)
+        key = f"K1 heun_euler {'adaptive' if adaptive else 'fixed'}"
+        before = erk_kernel.launches
+        rg = solve_ensemble_local(lor_w, backend="cuda", **kw)
+        launched(erk_kernel, before, key)
+        rp = solve_ensemble_local(lor_p, backend="torch", **kw)
+        bitwise = same_run(rg, rp)
+        record(key, None, 0.0 if bitwise else max(
+            rel_err(rg.us, rp.us), rel_err(rg.u_final, rp.u_final)))
+        print(f"translate {key} (user tableau): bitwise the plain version "
+              f"{bitwise}, attempts {int((rg.naccept + rg.nreject).sum())}")
+        if not bitwise:
+            raise AssertionError(f"translate {key}: not bitwise")
+
+    lap("user tableau")
+    # ---- K3: ROBER with its analytic Jacobian traced, and derived -------
+    rober, rober_kw = inputs["stiff"]["rober"]
+    rober_w = translate_problem(rober)
+    for alg in ("rosenbrock23", "rodas4", "rodas5p"):
+        for wr in (False, True):
+            kw = dict(rober_kw, alg=alg, w_reuse=wr, device=device)
+            key = f"K3 rober {alg} {'lazyW' if wr else 'eager'} jac traced"
+            rh = solve_ensemble_local(rober, ensemble="kernel",
+                                      backend="cuda", **kw)
+            before = rb_kernel.launches
+            rg = solve_ensemble_local(rober_w, ensemble="kernel",
+                                      backend="cuda", **kw)
+            launched(rb_kernel, before, key)
+            bitwise = same_run(rg, rh)
+            plain = None
+            if (alg, wr) in (("rodas5p", False), ("rodas4", True)):
+                rp = solve_ensemble_local(plain_problem(rober_w),
+                                          ensemble="kernel", backend="torch",
+                                          linsolve="lanes", **kw)
+                plain = 0.0 if same_run(rg, rp) else stiff_compare(
+                    key, rg, rp, rober=True)[2]
+            record(key, bitwise, plain)
+            print(f"translate {key}: generated == hand-written {bitwise}"
+                  + ("" if plain is None else
+                     f"; against the plain version {plain:.3e} (0: bitwise)"))
+            if not bitwise:
+                raise AssertionError(f"translate {key}: not bitwise")
+    for name, (ep, kw) in inputs["stiff"].items():
+        kw = dict(kw, device=device)
+        gen = translate_problem(ep, jac=None)
+        key = f"K3 {name} {kw['alg']} jac derived"
+        before = rb_kernel.launches
+        rg = solve_ensemble_local(gen, ensemble="kernel", backend="cuda",
+                                  **kw)
+        launched(rb_kernel, before, key)
+        rp = solve_ensemble_local(plain_problem(gen), ensemble="kernel",
+                                  backend="torch", linsolve="lanes", **kw)
+        bitwise = same_run(rg, rp)
+        share, worst_same, worst = (1.0, 0.0, 0.0) if bitwise else \
+            stiff_compare(key, rg, rp, rober=name == "rober")
+        hand = None
+        if name == "rober":
+            hand = same_run(rg, solve_ensemble_local(
+                ep, ensemble="kernel", backend="cuda", **kw))
+        record(key, hand, 0.0 if bitwise else worst)
+        print(f"translate {key}: against the plain version with jac=None "
+              f"(jacfwd) bitwise {bitwise}, lanes with equal counts "
+              f"{share:.4f}, worst {worst:.3e}"
+              + ("" if hand is None else
+                 f"; == the analytic hand-written run {hand}"))
+
+    lap("K3")
+    # ---- K4: GBM on every stepper, CRN on em and heun_strat -------------
+    settings = {"gbm": dict(dt0=0.01, n_steps=100, save_every=25),
+                "crn": dict(dt0=0.1, n_steps=100, save_every=25)}
+    for name, methods in TRANSLATE_SDE.items():
+        ep = inputs[name]
+        gen = translate_problem(ep)
+        m = ep.prob.noise_dim()
+        gen_t = torch.Generator().manual_seed(SEED)
+        table = torch.randn((settings[name]["n_steps"], m, N),
+                            generator=gen_t, dtype=f64).to(device)
+        for alg in methods:
+            for src in ("rng", "table"):
+                kw = dict(settings[name], alg=alg, ensemble="kernel", t0=0.0,
+                          seed=SDE_SEED, device=device,
+                          noise_table=table if src == "table" else None)
+                key = f"K4 {name} {alg} {src}"
+                rh = solve_ensemble_local(ep, backend="cuda", **kw)
+                before = sde_kernel.launches
+                rg = solve_ensemble_local(gen, backend="cuda", **kw)
+                launched(sde_kernel, before, key)
+                bitwise = same_run(rg, rh)
+                plain = None
+                if src == "table":
+                    rp = solve_ensemble_local(plain_problem(gen),
+                                              backend="torch", **kw)
+                    mism, err = finite_compare(rg.us, rp.us)
+                    mism_f, err_f = finite_compare(rg.u_final, rp.u_final)
+                    plain = max(err, err_f)
+                    if mism or mism_f or plain > 1e-12:
+                        raise AssertionError(f"translate {key}: against the "
+                                             f"plain version {plain:.3e}")
+                elif not bitwise:
+                    # the counter stream: against the hand-written run, at
+                    # the plain-version bar (both meet it, phase_sde_parity)
+                    mism, err = finite_compare(rg.us, rh.us)
+                    mism_f, err_f = finite_compare(rg.u_final, rh.u_final)
+                    if mism or mism_f or max(err, err_f) > 1e-12 or not (
+                            torch.equal(rg.naccept, rh.naccept)):
+                        raise AssertionError(f"translate {key}: against the "
+                                             "hand-written run "
+                                             f"{max(err, err_f):.3e}")
+                    out.setdefault("rng_vs_hand", {})[key] = max(err, err_f)
+                record(key, bitwise, plain)
+                print(f"translate {key}: generated == hand-written {bitwise}"
+                      + ("" if plain is None else
+                         f"; against the plain version {plain:.3e} (bar "
+                         "1e-12)")
+                      + (f"; against it {out['rng_vs_hand'][key]:.3e} (bar "
+                         "1e-12)" if key in out.get("rng_vs_hand", {})
+                         else ""))
+
+    lap("K4")
+    # ---- one gradient: tsit5 on Lorenz, the generated forward (on
+    # TRANSLATE_GRAD_N lanes: the backward replays the plain version) ----
+    glor = lorenz_inputs(min(N, TRANSLATE_GRAD_N), f64, device)
+    gkw = dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-8, atol=1e-8,
+               saveat=[0.25, 0.5, 0.75, 1.0])
+    gkw["adjoint_steps"] = suggest_adjoint_steps(
+        glor, ensemble="kernel", backend="cuda", device=device, **gkw)
+    before = erk_kernel.launches
+    gg = grad_run(translate_problem(glor), gkw, ("u0s", "ps"))
+    launched(erk_kernel, before, "gradient")
+    gh = grad_run(glor, gkw, ("u0s", "ps"))
+    rel, worst = grad_diff("translate gradient", gg.grads, gh.grads)
+    out["gradient_rel"] = rel
+    lap("gradient")
+    print("translate: seconds a part " + json.dumps(
+        {k: round(v, 1) for k, v in out["seconds"].items()}))
+    print(f"translate gradient tsit5 lorenz: the generated forward's "
+          f"gradient against the hand-written forward's: rel {rel:.3e}, max "
+          f"abs {worst:.3e} (0: bitwise); primal bitwise "
+          f"{same_run(gg.res, gh.res)}")
+    if rel != 0.0:
+        raise AssertionError("translate gradient: not bitwise")
+    return out
+
+
+def phase_translate_rows(device, hand_rows, N: int = FULL_N,
+                         reps: int = 5):
+    """The generated functors at 2^20 beside the hand-written rows on the
+    same inputs, hand and generated kernels timed in turns (CUDA events,
+    median of `reps`): lorenz-1M-f32-adaptive, crn-1M-em and
+    rober-1M-rodas5p with the derived Jacobian."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.configs.de_problems import lorenz_ensemble
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.core.tableaus import get_rosenbrock_tableau, get_tableau
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    from repro_torch.translate.ir import as_function
+    from repro_torch.translate.trace import trace, trace_pair
+    by_name = {r["name"]: r for r in hand_rows}
+    rows = []
+
+    def in_turns(hand, gen):
+        th, tg = [], []
+        for _ in range(reps):
+            th.append(cuda_ms(hand, 1))
+            tg.append(cuda_ms(gen, 1))
+        return statistics.median(th), statistics.median(tg)
+
+    def row(hand_name, name, launches, max_abs, ms, hand_ms, plain_ms,
+            bitwise, **extra):
+        h = by_name[hand_name]
+        r = {"name": name, "route": "cuda", "source": h["source"],
+             "replaces": h["replaces"], "launches": launches,
+             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+             "library_ms": None, "functor": "generated",
+             "hand_written_ms": hand_ms, "generated_over_hand": ms / hand_ms,
+             "bitwise_to_hand_written": bitwise, **extra}
+        if "bound_instr_ms" in h:
+            r["bound_instr_ms"] = h["bound_instr_ms"]
+        print(f"translate row {name}: generated {ms:.3f} ms, hand-written "
+              f"{hand_ms:.3f} ms ({ms / hand_ms:.3f}x), bitwise {bitwise}, "
+              f"launches {launches}, max abs against the plain version "
+              f"{max_abs:.3e}, plain {plain_ms:.1f} ms")
+        rows.append(r)
+
+    # ---- lorenz-1M-f32-adaptive[generated] ------------------------------
+    host = lorenz_ensemble(N, dtype=torch.float32)
+    u0s, ps = (x.to(device).contiguous() for x in host.materialize())
+    ep = EnsembleProblem(host.prob, N, u0s=u0s, ps=ps)
+    gen = translate_problem(ep)
+    kw = dict(alg="tsit5", t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-6, atol=1e-6,
+              saveat=torch.linspace(0.0, 1.0, 5), device=device)
+    erk_kernel.launches = 0
+    res = solve_ensemble_local(gen, ensemble="kernel", backend="cuda", **kw)
+    sync(device)
+    launches = erk_kernel.launches
+    tab = get_tableau("tsit5")
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    sv = res.ts.contiguous()
+    kargs = dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-6, atol=1e-6,
+                 adaptive=True, max_iters=100_000)
+    fh, fg = ep.prob.f, gen.prob.f
+    out_h = erk_kernel.erk_ensemble(fh, tab, u0_l, p_l, sv, **kargs)
+    out_g = erk_kernel.erk_ensemble(fg, tab, u0_l, p_l, sv, **kargs)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_h, out_g))
+    fp = as_function(trace(fg, 3, 3, outputs=(3,)))
+    t = time.perf_counter()
+    out_p = erk_kernel._plain(fp, tab, u0_l, p_l, sv, **kargs)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    max_abs = max(float((out_g[i] - out_p[i]).abs().max()) for i in (0, 1))
+    hand_ms, ms = in_turns(
+        lambda: erk_kernel.erk_ensemble(fh, tab, u0_l, p_l, sv, **kargs),
+        lambda: erk_kernel.erk_ensemble(fg, tab, u0_l, p_l, sv, **kargs))
+    row("erk_ensemble[tsit5,lorenz,f32,adaptive]",
+        "erk_ensemble[tsit5,lorenz,f32,adaptive,generated]", launches,
+        max_abs, ms, hand_ms, plain_ms, bitwise)
+
+    # ---- crn-1M-em[generated] -------------------------------------------
+    crn = sde_inputs("crn", N, torch.float32, device)
+    gen = translate_problem(crn)
+    spec = dict(dt0=0.1, n_steps=1000, save_every=100)
+    sde_kernel.launches = 0
+    solve_ensemble_local(gen, alg="em", ensemble="kernel", backend="cuda",
+                         t0=0.0, seed=SDE_SEED, device=device, **spec)
+    sync(device)
+    launches = sde_kernel.launches
+    u0s, ps = crn.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    sargs = dict(noise="general", m_noise=8, t0=0.0, dt=0.1, n_steps=1000,
+                 save_every=100, seed=SDE_SEED, lane_offset=0)
+    (fh, gh), (fg, gg) = (crn.prob.f, crn.prob.g), (gen.prob.f, gen.prob.g)
+    out_h = sde_kernel.sde_ensemble(fh, gh, "em", u0_l, p_l, **sargs)
+    out_g = sde_kernel.sde_ensemble(fg, gg, "em", u0_l, p_l, **sargs)
+    bitwise = all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                  for a, b in zip(out_h, out_g))
+    # the plain version (evaluate) on the first 2^16 lanes
+    n_plain = min(N, 2 ** 16)
+    tf_, tg_ = trace_pair(fg, gg, 4, 6, f_outputs=(4,), g_outputs=(4, 8))
+    t = time.perf_counter()
+    out_p = sde_kernel._plain(as_function(tf_), as_function(tg_), "em",
+                              "general", 8, u0_l[:, :n_plain].contiguous(),
+                              p_l[:, :n_plain].contiguous(), table=None,
+                              **{k: v for k, v in sargs.items()
+                                 if k not in ("noise", "m_noise")})
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    mism, max_abs, e = lane_errors(
+        lanes_first([x[..., :n_plain] for x in out_g[:2]]),
+        lanes_first(out_p))
+    q, bar = SDE_F32_TOL["crn"]
+    outliers = int((e > SDE_OUTLIER).sum())
+    if float(e.quantile(q)) > bar or mism + outliers > 1e-4 * n_plain:
+        raise AssertionError(f"crn-1M-em[generated]: against the plain "
+                             f"version {float(e.quantile(q)):.3e} at quantile "
+                             f"{q} > {bar}, or {mism + outliers} lanes off")
+    hand_ms, ms = in_turns(
+        lambda: sde_kernel.sde_ensemble(fh, gh, "em", u0_l, p_l, **sargs),
+        lambda: sde_kernel.sde_ensemble(fg, gg, "em", u0_l, p_l, **sargs))
+    row("sde_ensemble[em,crn,f32,rng]", "sde_ensemble[em,crn,f32,rng,"
+        "generated]", launches, max_abs, ms, hand_ms, plain_ms, bitwise,
+        plain_lanes=n_plain, plain_finite_mismatch=mism)
+
+    # ---- rober-1M-rodas5p[derived-jac] ----------------------------------
+    rober = rober_inputs(N, device)
+    gen = translate_problem(rober, jac=None)
+    sv = torch.tensor(ROBER_SAVEAT, dtype=torch.float64, device=device)
+    rkw = dict(ROBER_SETTINGS, alg="rodas5p", saveat=sv, device=device)
+    rb_kernel.launches = 0
+    solve_ensemble_local(gen, ensemble="kernel", backend="cuda", **rkw)
+    sync(device)
+    launches = rb_kernel.launches
+    rtab = get_rosenbrock_tableau("rodas5p")
+    u0s, ps = rober.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    rargs = dict(t0=0.0, tf=1e4, dt0=1e-6, rtol=1e-6, atol=1e-8,
+                 max_iters=100_000, w_reuse=None)
+    fh, fg = rober.prob.f, gen.prob.f
+    out_h = rb_kernel.rosenbrock_ensemble(fh, rtab, u0_l, p_l, sv,
+                                          jac=rober.prob.jac, **rargs)
+    out_g = rb_kernel.rosenbrock_ensemble(fg, rtab, u0_l, p_l, sv, jac=None,
+                                          **rargs)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_h, out_g))
+    fp = as_function(trace(fg, 3, 3, outputs=(3,)))
+    t = time.perf_counter()
+    out_p = rb_kernel._plain(fp, rtab, u0_l, p_l, sv, jac=None, **rargs)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    lk, lp = lanes_first(out_g), lanes_first(out_p)
+    max_abs = float((lk - lp).abs().max())
+    within = bool(within_rober_bar(lk, lp).all())
+    hand_ms, ms = in_turns(
+        lambda: rb_kernel.rosenbrock_ensemble(fh, rtab, u0_l, p_l, sv,
+                                              jac=rober.prob.jac, **rargs),
+        lambda: rb_kernel.rosenbrock_ensemble(fg, rtab, u0_l, p_l, sv,
+                                              jac=None, **rargs))
+    row("rosenbrock_ensemble[rodas5p,rober,f64,eager]",
+        "rosenbrock_ensemble[rodas5p,rober,f64,eager,derived-jac]",
+        launches, max_abs, ms, hand_ms, plain_ms, bitwise,
+        within_rober_bar_of_plain=within,
+        attempts=int((out_g[3][0].long() + out_g[3][1].long()).sum()))
+    if not within:
+        raise AssertionError("rober-1M-rodas5p[derived-jac]: lanes beyond "
+                             "the ROBER bar of the plain version")
+    return rows
 
 
 def attempt_flops(tab, n: int, rhs_flops: int, adaptive: bool) -> int:
@@ -5258,6 +5990,7 @@ def main() -> int:
     gpu = gpu_line()
     timed(phase_build)
     worst, k2_row = timed(phase_parity, device)
+    translate = timed(phase_translate, device)
     rows = timed(phase_full_size, device)
     for r in rows:
         r["parity_f64_rel_err"] = worst
@@ -5289,6 +6022,10 @@ def main() -> int:
     for r in stiff_rows:
         r["parity_f64"] = stiff
     rows += stiff_rows + lu_rows
+    translate_rows = timed(phase_translate_rows, device, rows)
+    for r in translate_rows:
+        r["parity_f64"] = translate
+    rows += translate_rows
     event_parity = timed(phase_event_parity, device)
     event_rows = (timed(phase_event_ball, device)
                   + timed(phase_event_rober, device)
@@ -5313,6 +6050,11 @@ def main() -> int:
     for r in k7_rows:
         r["parity"] = flash_parity
     rows += k7_rows
+    for r in rows:
+        if r["name"].startswith(("erk_ensemble", "run_ensemble_kernel_staged",
+                                 "rosenbrock_ensemble", "sde_ensemble",
+                                 "sde_adaptive_ensemble")):
+            r.setdefault("functor", "hand-written")
     print("seconds a phase: " + json.dumps(PHASE_S))
     print("seconds inside them of the fp64 and f32 probes, the register "
           "reports and K6 at 2^16: "

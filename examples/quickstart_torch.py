@@ -5,8 +5,12 @@ Define a DE once in component-style PyTorch; `solve_ensemble_local`
 dispatches a registered method (explicit RK such as "tsit5", the stiff
 "rosenbrock23", SDE steppers such as "em") through an execution strategy
 (``ensemble="array" | "vmap" | "kernel"``) and backend (``backend="torch"``,
-the lanes twin, or ``"cuda"``, the hand-written kernels, which run an RHS
-through the device functor it is registered with):
+the lanes twin, or ``"cuda"``, the hand-written kernels).  The Lorenz
+system and the Van der Pol oscillator below are defined inline, as the
+reference's quickstart defines them, and registered nowhere: on
+``backend="cuda"`` the automated translation (`repro_torch.translate`)
+traces each into a device functor and compiles the kernel for it at
+first use (seconds; the library is kept under ``build/repro_torch/gen/``):
 
     PYTHONPATH=src python examples/quickstart_torch.py [--device cpu] [--n 1024]
 
@@ -22,9 +26,17 @@ import time
 import torch
 
 from repro_torch.configs import de_problems as dp
-from repro_torch.core import EnsembleProblem, Event, solve_ensemble_local
+from repro_torch.core import (EnsembleProblem, Event, ODEProblem,
+                              SDEProblem, solve_ensemble_local)
 from repro_torch.core.sensitivity import (ensemble_value_and_grad,
                                           suggest_adjoint_steps)
+
+
+def lorenz(u, p, t):
+    s, r, b = p[0], p[1], p[2]
+    return torch.stack([s * (u[1] - u[0]),
+                        r * u[0] - u[1] - u[0] * u[2],
+                        u[0] * u[1] - b * u[2]])
 
 
 def _sync(device):
@@ -41,7 +53,13 @@ def main(argv=None):
     f32, f64 = torch.float32, torch.float64
 
     # --- ODE: a Lorenz parameter ensemble three ways -------------------------
-    ens = dp.lorenz_ensemble(N, dtype=f32)
+    prob = ODEProblem(lorenz, torch.tensor([1.0, 0.0, 0.0], dtype=f32),
+                      torch.tensor([10.0, 21.0, 8 / 3], dtype=f32),
+                      (0.0, 1.0))
+    rho = torch.linspace(0.0, 21.0, N, dtype=f32)
+    ps = torch.stack([torch.full((N,), 10.0), rho,
+                      torch.full((N,), 8 / 3)], dim=1)
+    ens = EnsembleProblem(prob, N, ps=ps)
     saveat = torch.linspace(0.0, 1.0, 11, dtype=f32)
     for strategy, backend in (("array", "torch"), ("vmap", "torch"),
                               ("kernel", "cuda")):
@@ -59,7 +77,13 @@ def main(argv=None):
           "lock-steps the ensemble (§5.1).")
 
     # --- stiff family, same front door: W = I - γh·J by per-lane LU ----------
-    stiff = dp.vdp_ensemble(64)
+    # the Jacobian the kernel factors is derived from the traced RHS
+    vdp = ODEProblem(lambda u, p, t: torch.stack(
+        [u[1], p[0] * ((1.0 - u[0] ** 2) * u[1]) - u[0]]),
+        torch.tensor([2.0, 0.0], dtype=f64), torch.tensor([10.0], dtype=f64),
+        (0.0, 1.0))
+    mus = torch.linspace(5.0, 20.0, 64, dtype=f64)
+    stiff = EnsembleProblem(vdp, 64, ps=mus[:, None])
     res = solve_ensemble_local(stiff, alg="rosenbrock23", ensemble="kernel",
                                backend="cuda", t0=0.0, tf=1.0, dt0=1e-3,
                                rtol=1e-6, atol=1e-6, device=dev)
@@ -67,7 +91,10 @@ def main(argv=None):
           f"steps, u_final[0] = {res.u_final[0].tolist()}")
 
     # --- SDE family: counter-RNG Euler-Maruyama -------------------------------
-    gbm = EnsembleProblem(dp.gbm_problem(r=1.5, v=0.1), N)
+    gbm = EnsembleProblem(SDEProblem(
+        lambda u, p, t: p[0] * u, lambda u, p, t: p[1] * u,
+        torch.full((3,), 0.1, dtype=f32), torch.tensor([1.5, 0.1], dtype=f32),
+        (0.0, 1.0)), N)
     res = solve_ensemble_local(gbm, alg="em", ensemble="kernel",
                                backend="cuda", t0=0.0, dt0=1e-3,
                                n_steps=1000, save_every=1000, seed=7,

@@ -4,9 +4,11 @@ The PyTorch counterpart of `repro.core.problem`.  The user writes
 ``f(u, p, t)`` once, in *component style* (index ``u[0], u[1], ...`` and
 combine with ``torch.stack``), so the same definition broadcasts over
 ``u: (n,)``, ``u: (n, N)`` and ``u: (n, B)`` lane tiles.  The fused CUDA
-kernel cannot call a Python ``f``: an RHS reaches it only through the
-hand-written device functor it is registered with
-(`repro_torch.kernels.tsit5.kernel.device_rhs`).
+kernels cannot call a Python ``f``: a registered RHS reaches them through
+the hand-written device functor it is registered with
+(`repro_torch.kernels.tsit5.kernel.device_rhs` and kin), any other through
+the automated translation (`repro_torch.translate`), which traces ``f``
+once into a device functor and compiles the kernel for it.
 """
 from __future__ import annotations
 
@@ -29,7 +31,9 @@ class ODEProblem:
         (n, n) for u (n,) and (n, n, B) for a lane tile u (n, B).  None
         means the stiff solvers take it by forward-mode AD
         (`torch.func.jacfwd`).  The CUDA kernel takes the Jacobian of the
-        device functor the RHS is registered with.
+        device functor the RHS is registered with; for a translated RHS, the
+        hook traced, or, without one, the Jacobian derived from the traced
+        ``f`` by forward mode (`repro_torch.translate.derive`).
     data: dataset tables (a dict pytree of `core.interp.UniformTable1D` /
         `UniformTable2D`) the callbacks take as a fourth argument,
         ``f(u, p, t, data)`` (and ``jac(u, p, t, data)``); None for a plain
@@ -64,7 +68,9 @@ class SDEProblem:
     data: as on ODEProblem: f and g take it as a fourth argument.
 
     The CUDA kernel runs the pair (f, g) through the device functor both are
-    registered with (`repro_torch.kernels.em.kernel.device_sde`).
+    registered with (`repro_torch.kernels.em.kernel.device_sde`), or through
+    the functor the automated translation makes of them
+    (`repro_torch.translate`; Milstein's (∂g/∂u)·g derived).
     """
 
     f: Callable[[Tensor, Tensor, Tensor], Tensor]

@@ -91,8 +91,9 @@ def _device_functor(f, g, method: str, noise: str, m_noise: int,
         raise NotImplementedError(
             f"drift/diffusion pair ({getattr(f, '__name__', f)!r}, "
             f"{getattr(g, '__name__', g)!r}) has no device form: register "
-            f"both with the same @device_sde functor (automatic translation "
-            "of a Python RHS is ROADMAP queue 1 item 17)")
+            f"both with the same @device_sde functor (the adaptive SDE "
+            "kernel's translation, with the milstein pair's ddb and the "
+            "Brownian tree, is ROADMAP queue 1 item 17's next slice)")
     name = names.pop()
     fun = SDE_FUNCTORS[name]
     if method not in STEPPER_IDS:

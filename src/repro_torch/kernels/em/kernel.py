@@ -8,15 +8,23 @@ raises); for CPU tensors, and only for them, it runs the plain PyTorch
 version of the same function, the lanes loop `repro_torch.kernels.em.ref`.
 `sde_normals` does the same for the kernel's counter normals alone.
 
-The kernel cannot call Python drift and diffusion functions.  A pair
-(f, g) reaches it through the hand-written device functor both are
-registered with by `device_sde`; Milstein's derivative term needs the
-functor's hand-written ``gdg`` member, (∂g/∂u)·g, since a kernel cannot
-take a JVP.  An event reaches it through its `device_event` functor
-(`repro_torch.kernels.events`).  A data-driven pair ``f(u, p, t, data)``,
-``g(u, p, t, data)`` reaches it through a data functor (`DATA_LAYOUTS`),
-which reads the dataset's tables on the card through a third C entry
-(`kernels/interp.py`).
+The kernel cannot call Python drift and diffusion functions.  A
+registered pair (f, g) reaches it through the hand-written device functor
+both are registered with by `device_sde`; Milstein's derivative term then
+needs the functor's hand-written ``gdg`` member, (∂g/∂u)·g.  Any other pair
+``f(u, p, t)``, ``g(u, p, t)`` reaches it through the automated translation
+(`repro_torch.translate`): f and g are traced into one graph (a term both
+compute, CRN's Hill term, is computed once a point), diagonal or general
+noise, ``gdg`` is derived (the plain version's `torch.func.jvp`) where the
+noise is diagonal, and the kernel is compiled for them, the stepper and
+the dtype in a generated translation unit, with the counter stream and the
+noise table.  An event reaches the kernel through its `device_event`
+functor (`repro_torch.kernels.events`), for registered pairs.  A
+data-driven pair ``f(u, p, t, data)``, ``g(u, p, t, data)`` reaches it
+through a data functor (`DATA_LAYOUTS`), which reads the dataset's tables
+on the card through a third C entry (`kernels/interp.py`).  A translated
+pair with an event or a dataset refuses (ROADMAP queue 1 item 17, its next
+slice).
 """
 from __future__ import annotations
 
@@ -92,14 +100,32 @@ def _bind():
     vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                          ctypes.c_uint)
     run = lib.sde_ensemble_launch
-    run.argtypes = [i32, i32, i32, i32, vp, vp, vp, i32, i32, i32, f64, f64,
-                    f64, u32, u32, vp, vp, vp, vp, vp]
+    run.argtypes = argtypes()
     run.restype = i32
     normals = lib.sde_normals_launch
     normals.argtypes = [u32, ctypes.c_longlong, i32, i32, i32, u32, vp, vp,
                         vp]
     normals.restype = i32
     return run, normals
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_unit(unit):
+    """The entry of a generated unit: the no-event entry's arguments."""
+    from repro_torch.kernels.build import load_generated
+    fn = load_generated(unit).sde_ensemble_launch
+    fn.argtypes = list(argtypes())
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def argtypes():
+    """The ctypes argument types of the no-event entry, the hand-written
+    one's and a generated unit's."""
+    vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                         ctypes.c_uint)
+    return [i32, i32, i32, i32, vp, vp, vp, i32, i32, i32, f64, f64, f64,
+            u32, u32, vp, vp, vp, vp, vp]
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,31 +220,43 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
         raise ValueError(f"sde_ensemble runs on CPU or CUDA tensors, not "
                          f"{u0.device.type}")
     names = {getattr(f, "device_sde", None), getattr(g, "device_sde", None)}
-    if len(names) != 1 or None in names:
-        raise NotImplementedError(
-            f"drift/diffusion pair ({getattr(f, '__name__', f)!r}, "
-            f"{getattr(g, '__name__', g)!r}) has no device form: register "
-            f"both with the same @device_sde functor of {SOURCE} (automatic "
-            "translation of a Python RHS is ROADMAP queue 1 item 17)")
-    name = names.pop()
-    fun = SDE_FUNCTORS[name]
     if method not in STEPPER_IDS:
         raise NotImplementedError(
             f"stepper {method!r} is not compiled into the CUDA kernel; it "
             f"has {sorted(STEPPER_IDS)}")
-    if noise != fun.noise or m_noise != fun.m:
-        raise ValueError(f"functor {name!r} has {fun.noise} noise with "
-                         f"{fun.m} Wiener processes, not {noise} with "
-                         f"{m_noise}")
-    if method == "milstein" and not fun.gdg:
-        raise NotImplementedError(
-            f"milstein on the CUDA kernel needs the functor's hand-written "
-            f"gdg member, (dg/du)·g; {name!r} has none in {SOURCE}")
-    if method in DIAGONAL_ONLY and fun.noise != "diagonal":
-        raise ValueError(f"{method} supports diagonal noise only")
-    tables = device_data_args(name, data, event, u0, SOURCE)
-    ev = (() if event is None
-          else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
+    unit, tables, ev = None, None, ()
+    if len(names) != 1 or None in names:
+        if event is not None or data is not None:
+            raise NotImplementedError(
+                f"drift/diffusion pair ({getattr(f, '__name__', f)!r}, "
+                f"{getattr(g, '__name__', g)!r}) reaches the CUDA kernel "
+                "through the automated translation, which takes no "
+                f"{'event' if event is not None else 'dataset'} yet: event "
+                "condition and affect functors and data functors are "
+                "ROADMAP queue 1 item 17's next slice")
+        if method in DIAGONAL_ONLY and noise != "diagonal":
+            raise ValueError(f"{method} supports diagonal noise only")
+        name = f"{getattr(f, '__name__', 'f')}/{getattr(g, '__name__', 'g')}"
+        fun = SDEFunctor(-1, u0.shape[0], p.shape[0], noise, int(m_noise),
+                         noise == "diagonal", False)
+        unit = generated_unit(f, g, method, fun, u0.dtype)
+    else:
+        name = names.pop()
+        fun = SDE_FUNCTORS[name]
+        if noise != fun.noise or m_noise != fun.m:
+            raise ValueError(f"functor {name!r} has {fun.noise} noise with "
+                             f"{fun.m} Wiener processes, not {noise} with "
+                             f"{m_noise}")
+        if method == "milstein" and not fun.gdg:
+            raise NotImplementedError(
+                f"milstein on the CUDA kernel needs the functor's "
+                f"hand-written gdg member, (dg/du)·g; {name!r} has none in "
+                f"{SOURCE}")
+        if method in DIAGONAL_ONLY and fun.noise != "diagonal":
+            raise ValueError(f"{method} supports diagonal noise only")
+        tables = device_data_args(name, data, event, u0, SOURCE)
+        ev = (() if event is None
+              else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not "
@@ -244,7 +282,8 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
         entry = (_bind_data() if tables is not None
-                 else _bind_event() if event is not None else _bind()[0])
+                 else _bind_event() if event is not None
+                 else _bind_unit(unit) if unit is not None else _bind()[0])
         rc = entry(
             DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
             int(table is not None), *ev, *(tables or ()), u0.data_ptr(),
@@ -305,3 +344,23 @@ def sde_normals(seed: int, step0: int, steps: int, rows: int, lanes: int, *,
     global normals_launches
     normals_launches += 1
     return words.to(torch.int64) & M32, z
+
+
+_UNITS: dict = {}
+
+
+def generated_unit(f, g, method: str, fun: SDEFunctor, dtype):
+    """The generated unit of K4 for the pair (f, g) traced into one graph,
+    with the derived gdg = (∂g/∂u)·g where the noise is diagonal, for
+    `method` in `dtype` (`fun`: the pair's sizes and noise)."""
+    from repro_torch.translate import derive
+    from repro_torch.translate.trace import trace_pair
+    from repro_torch.translate.units import sde_unit
+    g_out = (fun.n,) if fun.noise == "diagonal" else (fun.n, fun.m)
+    tf, tg = trace_pair(f, g, fun.n, fun.k, f_outputs=(fun.n,),
+                        g_outputs=g_out)
+    key = (tf, tg, method, dtype)
+    if key not in _UNITS:
+        gdg = derive.jvp(tg, tg) if fun.noise == "diagonal" else None
+        _UNITS[key] = sde_unit(tf, tg, fun.noise, gdg, method, dtype)
+    return _UNITS[key]

@@ -55,7 +55,8 @@ def event_launch_args(ev, problem: str, pairs, source: str):
         raise NotImplementedError(
             f"event condition {getattr(ev.condition, '__name__', ev.condition)!r}"
             " has no device form: register a functor of csrc/events.cuh with "
-            "@device_event (repro_torch.kernels.events)")
+            "@device_event (repro_torch.kernels.events; translating an event's"
+            " condition and affect is ROADMAP queue 1 item 17's next slice)")
     fun = EVENT_FUNCTORS[name]
     affect = getattr(ev.affect, "device_event", None)
     if (ev.affect is None) == fun.affect or (fun.affect and affect != name):

@@ -42,7 +42,8 @@ def _no_functor(what: str, name: str):
     return NotImplementedError(
         f"{what} {name!r} has no data form: a data-driven problem runs on "
         "the card only through a registered data functor; automatic "
-        "translation of a Python RHS into one is ROADMAP queue 1 item 17")
+        "translation of a Python RHS into one is ROADMAP queue 1 item 17's "
+        "next slice")
 
 
 def data_launch_args(data, layout, name: str, u0):

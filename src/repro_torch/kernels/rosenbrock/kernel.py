@@ -10,15 +10,24 @@ stream (or raises); for CPU tensors, and only for them, it runs the plain
 version of the same function, the lanes engine
 `repro_torch.core.rosenbrock.solve_rosenbrock(linsolve="lanes")`.
 
-The kernel cannot call a Python RHS or differentiate one.  An RHS reaches
-it through the hand-written device functor it is registered with by
-`device_stiff`, which gives f, its Jacobian ∂f/∂u and ∂f/∂t; a problem's
-analytic Jacobian hook must carry the same registration.  An event reaches
-it through its `device_event` functor (`repro_torch.kernels.events`); the
-event forms are compiled in float64, the stiff family's precision.  A
-data-driven RHS ``f(u, p, t, data)`` reaches it through a data functor
-(`DATA_LAYOUTS`), whose Jacobian and ∂f/∂t read the tables too, through a
-third C entry in float64 (`kernels/interp.py`).
+The kernel cannot call a Python RHS.  A registered RHS reaches it through
+the hand-written device functor it is registered with by `device_stiff`,
+which gives f, its Jacobian ∂f/∂u and ∂f/∂t; a problem's analytic Jacobian
+hook then carries the same registration.  Any other ``f(u, p, t)`` (or a
+registered f with a Jacobian hook that is not its functor's) reaches it
+through the automated translation (`repro_torch.translate`): f is traced,
+a given Jacobian hook is traced too (the (n, n) Jacobian of the same
+problem), ``jac=None`` takes the derived Jacobian (forward mode on the
+traced f, as the plain version's `torch.func.jacfwd`), ∂f/∂t is derived,
+and the kernel is compiled for them, the tableau and the dtype in a
+generated translation unit.  An event reaches the kernel through its
+`device_event` functor (`repro_torch.kernels.events`); the event forms are
+compiled in float64, the stiff family's precision, for registered RHS
+only.  A data-driven RHS ``f(u, p, t, data)`` reaches it through a data
+functor (`DATA_LAYOUTS`), whose Jacobian and ∂f/∂t read the tables too,
+through a third C entry in float64 (`kernels/interp.py`).  A translated RHS
+with an event or a dataset refuses (ROADMAP queue 1 item 17, its next
+slice).
 """
 from __future__ import annotations
 
@@ -83,10 +92,11 @@ def argtypes(event: bool = False, data: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(event: bool = False):
-    """The no-event entry, or the event entry."""
-    from repro_torch.kernels.build import load
-    lib = load(SOURCE)
+def _bind(event: bool = False, unit=None):
+    """The no-event entry (of SOURCE or of a generated unit), or the event
+    entry."""
+    from repro_torch.kernels.build import load, load_generated
+    lib = load(SOURCE) if unit is None else load_generated(unit)
     fn = (lib.rosenbrock_ensemble_event_launch if event
           else lib.rosenbrock_ensemble_launch)
     fn.argtypes = argtypes(event)
@@ -149,40 +159,44 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
         raise ValueError(f"rosenbrock_ensemble runs on CPU or CUDA tensors, "
                          f"not {u0.device.type}")
     name = getattr(f, "device_stiff", None)
-    if name is None:
-        raise NotImplementedError(
-            f"RHS {getattr(f, '__name__', f)!r} has no device form: register "
-            f"a functor with its Jacobian in {SOURCE} with @device_stiff "
-            "(automatic translation of a Python RHS is ROADMAP queue 1 item 17)")
-    if jac is not None and getattr(jac, "device_stiff", None) != name:
-        raise NotImplementedError(
-            f"Jacobian {getattr(jac, '__name__', jac)!r} is not the device "
-            f"functor {name!r}'s: the kernel runs only the registered one")
     if rtab.name not in TABLEAU_IDS or not _compiled_in(rtab):
         raise NotImplementedError(
             f"tableau {rtab.name!r} is not compiled into the CUDA kernel; it "
             f"has {sorted(TABLEAU_IDS)}")
-    rhs_id, n, m = STIFF_FUNCTORS[name]
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
-    ev = ()
-    if data is not None:
-        tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
-        if dtype != torch.float64 or event is not None:
+    ev, unit = (), None
+    if name is None or (jac is not None
+                        and getattr(jac, "device_stiff", None) != name):
+        if event is not None or data is not None:
             raise NotImplementedError(
-                "the stiff kernel's data forms are compiled in float64 "
-                f"without events, not {dtype}"
-                + (" with an event" if event is not None else ""))
-    elif name in DATA_LAYOUTS:
-        raise ValueError(f"the device functor {name!r} reads a dataset; "
-                         "the problem has none (prob.data)")
-    elif event is not None:
-        ev = event_launch_args(event, name, EVENT_PAIRS, SOURCE)
-        if dtype != torch.float64:
-            raise NotImplementedError(
-                f"the stiff kernel's event forms are compiled in float64 "
-                f"only, not {dtype}")
+                f"RHS {getattr(f, '__name__', f)!r} reaches the CUDA kernel "
+                "through the automated translation, which takes no "
+                f"{'event' if event is not None else 'dataset'} yet: event "
+                "condition and affect functors and data functors are "
+                "ROADMAP queue 1 item 17's next slice")
+        n, m = u0.shape[0], p.shape[0]
+        unit, rhs_id = generated_unit(f, jac, rtab, n, m, dtype), -1
+        name = getattr(f, "__name__", "the RHS")
+    else:
+        rhs_id, n, m = STIFF_FUNCTORS[name]
+        if data is not None:
+            tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
+            if dtype != torch.float64 or event is not None:
+                raise NotImplementedError(
+                    "the stiff kernel's data forms are compiled in float64 "
+                    f"without events, not {dtype}"
+                    + (" with an event" if event is not None else ""))
+        elif name in DATA_LAYOUTS:
+            raise ValueError(f"the device functor {name!r} reads a dataset; "
+                             "the problem has none (prob.data)")
+        elif event is not None:
+            ev = event_launch_args(event, name, EVENT_PAIRS, SOURCE)
+            if dtype != torch.float64:
+                raise NotImplementedError(
+                    f"the stiff kernel's event forms are compiled in float64 "
+                    f"only, not {dtype}")
     N = u0.shape[-1]
     for what, x, shape in (("u0", u0, (n, N)), ("p", p, (m, N)),
                            ("saveat", saveat, (saveat.shape[0],))):
@@ -206,7 +220,7 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
         entry = (_bind_data() if data is not None
-                 else _bind(event is not None))
+                 else _bind(event is not None, unit))
         rc = entry(
             DTYPE_IDS[dtype], TABLEAU_IDS[rtab.name], rhs_id,
             int(_policy(w_reuse) is not None), *ev,
@@ -229,3 +243,26 @@ def _compiled_in(rtab: RosenbrockTableau) -> bool:
     (a test checks them); a user tableau that only shares the name is not."""
     from repro_torch.core.tableaus import ROSENBROCK_TABLEAUS
     return ROSENBROCK_TABLEAUS.get(rtab.name) is rtab
+
+
+_UNITS: dict = {}
+
+
+def generated_unit(f, jac, rtab: RosenbrockTableau, n: int, m: int, dtype):
+    """The generated unit of K3 for f traced, its Jacobian (the hook
+    `jac` traced, the (n, n) Jacobian of the same problem, or derived where
+    `jac` is None) and its derived ∂f/∂t, on `rtab` in `dtype`."""
+    from repro_torch.translate import derive
+    from repro_torch.translate.trace import trace, trace_pair
+    from repro_torch.translate.units import rosenbrock_unit
+    if jac is None:
+        tf = trace(f, n, m, outputs=(n,))
+        tj = None
+    else:
+        tf, tj = trace_pair(f, jac, n, m, f_outputs=(n,), g_outputs=(n, n))
+    key = (tf, tj, rtab.name, dtype)
+    if key not in _UNITS:
+        J = derive.jacobian(tf) if tj is None else tj
+        _UNITS[key] = rosenbrock_unit(tf, J, derive.time_derivative(tf),
+                                      rtab, dtype)
+    return _UNITS[key]

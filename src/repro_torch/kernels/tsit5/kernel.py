@@ -10,14 +10,19 @@ raises); for CPU tensors, and only for them, it runs the plain PyTorch
 version of the same function, the lanes-mode solver
 `repro_torch.core.solvers.solve_adaptive(lanes=True)`.
 
-The kernel cannot call a Python RHS.  An RHS reaches it through the
-hand-written device functor it is registered with by `device_rhs`, and an
-event through its `device_event` functor (`repro_torch.kernels.events`).
-A data-driven RHS ``f(u, p, t, data)`` reaches it through a data functor
+The kernel cannot call a Python RHS.  A registered RHS reaches it through
+the hand-written device functor it is registered with by `device_rhs`, an
+event through its `device_event` functor (`repro_torch.kernels.events`),
+and a data-driven RHS ``f(u, p, t, data)`` through a data functor
 (`DATA_LAYOUTS`), which reads the dataset's tables on the card through a
-second C entry (`kernels/interp.py`);
-turning an arbitrary ``f(u, p, t)`` into device code automatically (the
-paper's "automated translation") is a later ROADMAP item.
+second C entry (`kernels/interp.py`).  Any other ``f(u, p, t)``, and any
+tableau that is not one of the compiled eight (a user tableau, e.g. from
+`convert.tableau_from_arrays`), reaches it through the automated
+translation (`repro_torch.translate`): f is traced once into a device
+functor and the kernel is compiled for it, its tableau and dtype in a
+generated translation unit whose C entries take the hand-written entries'
+arguments.  A translated RHS with an event or a dataset still refuses
+(ROADMAP queue 1 item 17, its next slice).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from repro_torch.core.tableaus import TABLEAUS, Tableau
 from repro_torch.kernels.events import event_launch_args
 from repro_torch.kernels.interp import (DataLayout, data_argtypes,
                                         data_launch_args)
+from repro_torch.translate.trace import trace
 
 SOURCE = "erk_ensemble.cu"
 # rkck54, bs3, rkf45, rk4, vern7 and gbs10: their no-event, no-data form
@@ -42,6 +48,10 @@ TABLEAUS_SOURCE = "erk_tableaus.cu"
 RHS_FUNCTORS = {"lorenz": (0, 3, 3), "sho": (1, 2, 1), "ball": (2, 2, 2),
                 "decay": (3, 1, 1), "forced_osc": (4, 2, 2),
                 "forced_osc_onehot": (5, 2, 2), "forced_osc_cubic": (6, 2, 2)}
+# the structs (in erk_body.cuh) of the no-data functors, which a generated
+# unit instantiates with a user tableau
+RHS_STRUCTS = {"lorenz": "Lorenz", "sho": "Sho", "ball": "Ball",
+               "decay": "Decay"}
 # the data functors and the dataset each reads (`by_data`)
 _FORCE = DataLayout((("force", 1),))
 DATA_LAYOUTS = {"forced_osc": _FORCE, "forced_osc_onehot": _FORCE,
@@ -108,11 +118,17 @@ def _bind_data():
     return fn
 
 
+def _library(source):
+    """The built library of a source of csrc/ or of a generated unit."""
+    from repro_torch.kernels.build import load, load_generated
+    return load(source) if isinstance(source, str) else load_generated(source)
+
+
 @functools.lru_cache(maxsize=None)
-def _bind(event: bool = False, source: str = SOURCE):
-    """The no-event entry of `source`, or the event entry of SOURCE."""
-    from repro_torch.kernels.build import load
-    lib = load(source)
+def _bind(event: bool = False, source=SOURCE):
+    """The no-event entry of `source` (a generated unit's included), or the
+    event entry of SOURCE."""
+    lib = _library(source)
     if event:
         fn = lib.erk_ensemble_event_launch
     elif source == TABLEAUS_SOURCE:
@@ -169,53 +185,97 @@ def erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0: float, tf: float,
                          max_iters=max_iters, event=event, data=data)
 
 
+def _tableau_key(tab: Tableau):
+    return (tab.name, tab.fsal, tab.order, tab.embedded_order,
+            tab.interp_bpoly,
+            *(np.asarray(getattr(tab, k), np.float64).tobytes()
+              for k in ("a", "b", "btilde", "c")))
+
+
+_UNITS: dict = {}
+
+
+def generated_unit(f, tab: Tableau, n: int, m: int, dtype):
+    """The generated unit of K1 and K2 for `f` (traced, or the hand-written
+    functor it is registered with where only the tableau needs the
+    translation) on `tab` in `dtype`."""
+    from repro_torch.translate.units import erk_unit
+    name = getattr(f, "device_rhs", None)
+    traced = None if name is not None else trace(f, n, m, outputs=(n,))
+    key = (name if name is not None else traced, _tableau_key(tab), dtype)
+    if key not in _UNITS:
+        hand = None if name is None else f"repro_erk::{RHS_STRUCTS[name]}"
+        _UNITS[key] = erk_unit(traced, tab, dtype, hand_functor=hand)
+    return _UNITS[key]
+
+
+def _translated(f, tab, u0, p, event, data):
+    """The generated unit, RHS id -1 and n of an RHS without a registered
+    functor, or of a tableau that is not compiled in; refuses what the
+    translation does not take yet."""
+    name = getattr(f, "device_rhs", None)
+    what = (f"RHS {getattr(f, '__name__', f)!r}" if name is None
+            else f"tableau {tab.name!r}")
+    if event is not None or data is not None:
+        raise NotImplementedError(
+            f"{what} reaches the CUDA kernel through the automated "
+            f"translation, which takes no {'event' if event is not None else 'dataset'}"
+            " yet: event condition and affect functors and data functors "
+            "are ROADMAP queue 1 item 17's next slice (register a "
+            "hand-written functor and a compiled tableau for now)")
+    if name is not None and name not in RHS_STRUCTS:
+        raise ValueError(f"the device functor {name!r} reads a dataset; "
+                         "the problem has none (prob.data)")
+    n, m = ((RHS_FUNCTORS[name][1:]) if name is not None
+            else (u0.shape[0], p.shape[0]))
+    return generated_unit(f, tab, n, m, u0.dtype), -1, n
+
+
 def _form(f, tab: Tableau, u0, p, saveat, event, data):
     """The checks of a launch on the card, and what its C entry takes:
-    (source, RHS id, n, the event's arguments, the tables' arguments)."""
+    (source or generated unit, RHS id, n, the event's arguments, the
+    tables' arguments)."""
     if u0.device.type != "cuda":
         raise ValueError(f"erk_ensemble runs on CPU or CUDA tensors, not "
                          f"{u0.device.type}")
-    name = getattr(f, "device_rhs", None)
-    if name is None:
-        raise NotImplementedError(
-            f"RHS {getattr(f, '__name__', f)!r} has no device form: register "
-            f"a functor in {SOURCE} with @device_rhs (automatic translation "
-            "of a Python RHS is ROADMAP queue 1 item 17)")
-    if not _compiled(tab):
-        raise NotImplementedError(
-            f"tableau {tab.name!r} is not compiled into the CUDA kernel; it "
-            f"has {sorted(TABLEAU_IDS)} (a user tableau reaches the kernel "
-            "with the automatic translation, ROADMAP queue 1 item 17)")
-    source = source_of(tab.name)
-    if source != SOURCE and (event is not None or data is not None):
-        raise NotImplementedError(
-            f"the {'event' if event is not None else 'data'} form of "
-            f"tableau {tab.name!r} is not compiled into the CUDA kernel (it "
-            "has tsit5's and dopri5's; ROADMAP queue 2 item 14)")
-    rhs_id, n, m = RHS_FUNCTORS[name]
-    tables = ()
-    if data is not None:
-        tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
-        ev = ((0, 0, 0, 0) if event is None
-              else event_launch_args(event, name, DATA_EVENT_PAIRS, SOURCE))
-    elif name in DATA_LAYOUTS:
-        raise ValueError(f"the device functor {name!r} reads a dataset; "
-                         "the problem has none (prob.data)")
-    else:
-        ev = (() if event is None
-              else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
+    name = getattr(f, "device_rhs", None)
+    tables, ev = (), ()
+    if name is None or not _compiled(tab):
+        source, rhs_id, n = _translated(f, tab, u0, p, event, data)
+        m = p.shape[0] if name is None else RHS_FUNCTORS[name][2]
+        what = getattr(f, "__name__", "the RHS")
+    else:
+        source = source_of(tab.name)
+        if source != SOURCE and (event is not None or data is not None):
+            raise NotImplementedError(
+                f"the {'event' if event is not None else 'data'} form of "
+                f"tableau {tab.name!r} is not compiled into the CUDA kernel "
+                "(it has tsit5's and dopri5's; ROADMAP queue 2 item 14)")
+        rhs_id, n, m = RHS_FUNCTORS[name]
+        what = name
+        if data is not None:
+            tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
+            ev = ((0, 0, 0, 0) if event is None
+                  else event_launch_args(event, name, DATA_EVENT_PAIRS,
+                                         SOURCE))
+        elif name in DATA_LAYOUTS:
+            raise ValueError(f"the device functor {name!r} reads a dataset; "
+                             "the problem has none (prob.data)")
+        elif event is not None:
+            ev = event_launch_args(event, name, EVENT_PAIRS, SOURCE)
     N = u0.shape[-1]
     S = saveat.shape[0]
-    for what, x, shape in (("u0", u0, (n, N)), ("p", p, (m, N)),
-                           ("saveat", saveat, (S,))):
+    for x_name, x, shape in (("u0", u0, (n, N)), ("p", p, (m, N)),
+                             ("saveat", saveat, (S,))):
         if x.device != u0.device or x.dtype != dtype:
-            raise ValueError(f"{what} must be a {dtype} tensor on {u0.device}")
+            raise ValueError(f"{x_name} must be a {dtype} tensor on "
+                             f"{u0.device}")
         if tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"{what} must be contiguous with shape {shape} "
-                             f"for {name}, got {tuple(x.shape)}")
+            raise ValueError(f"{x_name} must be contiguous with shape {shape} "
+                             f"for {what}, got {tuple(x.shape)}")
     if S < 1 or N < 1 or N >= 2 ** 31:
         raise ValueError(f"need 1 <= N < 2^31 lanes and S >= 1 saves, got "
                          f"N={N}, S={S}")
@@ -246,7 +306,8 @@ def _erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0, tf, dt0, rtol,
         entry = (_bind_data() if data is not None
                  else _bind(event is not None, source))
         rc = entry(
-            DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id, *ev, *tables,
+            DTYPE_IDS[dtype], TABLEAU_IDS.get(tab.name, -1), rhs_id, *ev,
+            *tables,
             u0.data_ptr(), p.data_ptr(), saveat.data_ptr(), S, N, float(t0),
             float(tf), float(dt0), float(rtol), float(atol),
             int(bool(adaptive)), int(max_iters), us.data_ptr(),
@@ -259,10 +320,10 @@ def _erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0, tf, dt0, rtol,
 
 
 @functools.lru_cache(maxsize=None)
-def _bind_staged(source: str, data: bool):
-    """The staged entry of `source` (K2's k launches in one call)."""
-    from repro_torch.kernels.build import load
-    lib = load(source)
+def _bind_staged(source, data: bool):
+    """The staged entry of `source` or of a generated unit (K2's k
+    launches in one call)."""
+    lib = _library(source)
     if source == TABLEAUS_SOURCE:
         fn = lib.erk_tableaus_staged_launch
     else:
@@ -307,7 +368,7 @@ def erk_ensemble_staged(f, tab: Tableau, u0, p, saveat, segments, *, dt0,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _bind_staged(source, data is not None)(
-            DTYPE_IDS[dtype], TABLEAU_IDS[tab.name], rhs_id, n, k,
+            DTYPE_IDS[dtype], TABLEAU_IDS.get(tab.name, -1), rhs_id, n, k,
             (ctypes.c_double * k)(*t0s), (ctypes.c_double * k)(*tfs),
             (ctypes.c_int * (k + 1))(*starts), *tables, u0.data_ptr(),
             p.data_ptr(), saveat.data_ptr(), N, float(dt0), float(rtol),

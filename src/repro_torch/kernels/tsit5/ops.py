@@ -7,7 +7,9 @@ the save grid is large, routes through the saveat-segmented driver
 `erk_staged_body`) exactly where the reference does.  The
 grid's order and the segments' boundaries are read on the host, before
 the grid goes to the card, so a solve given its grid on the host reads
-nothing back from the card.
+nothing back from the card.  An RHS without a registration (or a user
+tableau) stages the same way: its generated translation unit exports the
+staged entry too, so its k launches also go in one C call.
 """
 from __future__ import annotations
 

@@ -54,6 +54,11 @@ def test_cuda_kernel_matches_twin(cuda, alg):
     torch.testing.assert_close(rk.us, rt.us, rtol=1e-10, atol=1e-10)
 
 
+def _branchy(u, p, t):
+    """Python control flow on the data: the translator refuses it."""
+    return -u if u[0] > 0 else u
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     tab = get_tableau("tsit5")
@@ -69,10 +74,13 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
                                vern7.c, order=vern7.order,
                                embedded_order=vern7.embedded_order,
                                fsal=vern7.fsal)
-    with pytest.raises(NotImplementedError, match="device form"):
-        erk_kernel.erk_ensemble(lambda u, p, t: -u, tab, u0, p, sv, **kw)
-    with pytest.raises(NotImplementedError, match="not compiled.*item 17"):
-        erk_kernel.erk_ensemble(f, user, u0, p, sv, **kw)
+    # an RHS or a user tableau reaches the kernel through the automated
+    # translation: what it cannot take raises, naming item 17
+    with pytest.raises(NotImplementedError, match="torch.where.*item 17"):
+        erk_kernel.erk_ensemble(_branchy, tab, u0, p, sv, **kw)
+    with pytest.raises(NotImplementedError, match="event.*item 17"):
+        erk_kernel.erk_ensemble(f, user, u0, p, sv,
+                                event=tdp.bouncing_ball_event(), **kw)
     with pytest.raises(NotImplementedError, match="not compiled.*item 14"):
         erk_kernel.erk_ensemble(f, vern7, u0, p, sv,
                                 event=tdp.bouncing_ball_event(), **kw)
@@ -221,11 +229,11 @@ def test_cuda_sde_normals_match_plain_version(cuda):
 def test_cuda_sde_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     """Raises, and never runs the plain version, on CUDA tensors."""
     before = sde_kernel.launches
-    plain = SDEProblem(lambda u, p, t: p[0] * u, lambda u, p, t: p[1] * u,
+    plain = SDEProblem(lambda u, p, t: p[0] * u, _branchy,
                        torch.full((3,), 0.1, dtype=torch.float64),
                        torch.tensor([1.5, 0.2], dtype=torch.float64),
                        (0.0, 1.0))
-    with pytest.raises(NotImplementedError, match="device form"):
+    with pytest.raises(NotImplementedError, match="torch.where.*item 17"):
         tsolve(EnsembleProblem(plain, 8), alg="em", backend="cuda",
                t0=0.0, dt0=0.1, n_steps=4, device=cuda)
     u0 = torch.ones(4, 8, dtype=torch.float64, device=cuda)
@@ -323,13 +331,14 @@ def test_cuda_stiff_wrappers_reject_what_the_kernels_cannot_take(cuda):
     from repro_torch.kernels.rosenbrock import kernel as rb_kernel
     before = rb_kernel.launches, lu_kernel.launches
     prob = tdp.rober_problem()
-    plain = ODEProblem(lambda u, p, t: -u, prob.u0, prob.p, (0.0, 1.0))
+    plain = ODEProblem(_branchy, prob.u0, prob.p, (0.0, 1.0))
     kw = dict(alg="rodas4", backend="cuda", dt0=1e-6, device=cuda)
-    with pytest.raises(NotImplementedError, match="device form"):
+    with pytest.raises(NotImplementedError, match="torch.where.*item 17"):
         tsolve(EnsembleProblem(plain, 8), **kw)
+    # a Jacobian hook of another problem's shape is refused when traced
     other_jac = ODEProblem(prob.f, prob.u0, prob.p, (0.0, 1.0),
-                           jac=lambda u, p, t: tdp.rober_jac(u, p, t))
-    with pytest.raises(NotImplementedError, match="Jacobian"):
+                           jac=lambda u, p, t: tdp.rober_rhs(u, p, t))
+    with pytest.raises(NotImplementedError, match=r"shape \(3, 3\)"):
         tsolve(EnsembleProblem(other_jac, 8), **kw)
     renamed = RODAS4._replace(C=RODAS4.C * 1.0)
     with pytest.raises(NotImplementedError, match="not compiled"):
@@ -1266,3 +1275,243 @@ def test_cuda_sde_barrier_frozen_lanes_bitwise(cuda, dtype, n_steps,
         frozen = rk.naccept < n_steps
         assert 0 < int(frozen.sum()) < N
     assert_event_parity(rk, rt, 0)
+
+
+# ---------------------------------------------------------------------------
+# the automated translation (src/repro_torch/translate): an RHS without a
+# registration traced into a generated functor of K1, K2, K3 and K4,
+# held against the hand-written functor on the same inputs (bitwise: the
+# same expressions) and against its plain version, driven by the traced
+# function's `evaluate`; f64, N = 256
+# ---------------------------------------------------------------------------
+
+def _wrap(fn):
+    """fn without its registration."""
+    return lambda u, p, t: fn(u, p, t)
+
+
+def _same(a, b):
+    for k in ("us", "u_final", "t_final", "naccept", "nreject", "nf",
+              "status", "njac", "nfact"):
+        x = torch.as_tensor(getattr(a, k)).cpu()
+        y = torch.as_tensor(getattr(b, k)).cpu()
+        if x.is_floating_point():
+            x, y = torch.nan_to_num(x), torch.nan_to_num(y)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _plain_ep(ep, shapes):
+    """ep with its callbacks replaced by their traced plain versions."""
+    import dataclasses
+    from repro_torch.translate.ir import as_function
+    from repro_torch.translate.trace import trace
+    prob = ep.prob
+    repl = {k: as_function(trace(getattr(prob, k), prob.u0.shape[0],
+                                 prob.p.shape[0], outputs=shape))
+            for k, shape in shapes.items()}
+    u0s, ps = ep.materialize()
+    return EnsembleProblem(dataclasses.replace(prob, **repl),
+                           ep.n_trajectories, u0s=u0s, ps=ps)
+
+
+def _replaced(ep, **repl):
+    import dataclasses
+    u0s, ps = ep.materialize()
+    return EnsembleProblem(dataclasses.replace(ep.prob, **repl),
+                           ep.n_trajectories, u0s=u0s, ps=ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["tsit5", "dopri5", "rkck54", "bs3",
+                                 "rkf45", "rk4", "vern7", "gbs10"])
+def test_cuda_generated_k1_matches_hand_written_and_plain(cuda, alg):
+    u0s, ps = lorenz_arrays(256)
+    ep = ensemble_problem(lorenz_problem(torch.float64), u0s, ps,
+                          device=cuda)
+    gen = _replaced(ep, f=_wrap(tdp.lorenz_rhs))
+    fixed = alg == "rk4"
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, tf=0.5, dt0=2.0 ** -7,
+              rtol=1e-8, atol=1e-8, adaptive=not fixed,
+              saveat=torch.linspace(0, 0.5, 6), device=cuda)
+    rh = tsolve(ep, backend="cuda", **kw)
+    before = erk_kernel.launches
+    rg = tsolve(gen, backend="cuda", **kw)
+    assert erk_kernel.launches == before + 1
+    assert _same(rg, rh)
+    rp = tsolve(_plain_ep(gen, {"f": (3,)}), backend="torch", **kw)
+    assert torch.equal(rg.naccept, rp.naccept)
+    torch.testing.assert_close(rg.us, rp.us, rtol=1e-10, atol=1e-10)
+    if alg in ROUNDED:
+        assert _same(rg, rp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_cuda_generated_user_tableau_is_its_plain_version(cuda, adaptive):
+    from repro_torch.convert import tableau_from_arrays
+    heun = tableau_from_arrays("heun_euler", [[0.0, 0.0], [1.0, 0.0]],
+                               [0.5, 0.5], [-0.5, 0.5], [0.0, 1.0], order=2,
+                               embedded_order=1, fsal=False)
+    u0s, ps = lorenz_arrays(256)
+    ep = ensemble_problem(lorenz_problem(torch.float64), u0s, ps,
+                          device=cuda)
+    kw = dict(alg=heun, ensemble="kernel", t0=0.0, tf=0.5, dt0=2.0 ** -8,
+              rtol=1e-5, atol=1e-5, adaptive=adaptive,
+              saveat=torch.linspace(0, 0.5, 6), device=cuda)
+    for f in (tdp.lorenz_rhs, _wrap(tdp.lorenz_rhs)):
+        before = erk_kernel.launches
+        rg = tsolve(_replaced(ep, f=f), backend="cuda", **kw)
+        assert erk_kernel.launches == before + 1
+        rp = tsolve(_plain_ep(_replaced(ep, f=_wrap(tdp.lorenz_rhs)),
+                              {"f": (3,)}), backend="torch", **kw)
+        assert _same(rg, rp)
+
+
+def _rober_ep(cuda, N=256):
+    return ensemble_problem(
+        tdp.rober_problem(tspan=(0.0, 1e4)), np.tile([1.0, 0.0, 0.0], (N, 1)),
+        np.stack([np.geomspace(0.01, 0.1, N), np.full(N, 3e7),
+                  np.full(N, 1e4)], 1), device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_reuse", [False, True], ids=["eager", "lazyW"])
+@pytest.mark.parametrize("alg", ["rosenbrock23", "rodas4", "rodas5p"])
+def test_cuda_generated_k3_with_traced_jacobian_is_hand_written(cuda, alg,
+                                                                w_reuse):
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    ep = _rober_ep(cuda)
+    kw = dict(alg=alg, w_reuse=w_reuse, ensemble="kernel", t0=0.0, tf=1e4,
+              dt0=1e-6, rtol=1e-6, atol=1e-8, device=cuda,
+              saveat=torch.tensor([1e-2, 1.0, 1e2, 1e4], dtype=torch.float64))
+    rh = tsolve(ep, backend="cuda", **kw)
+    before = rb_kernel.launches
+    rg = tsolve(_replaced(ep, f=_wrap(tdp.rober_rhs)), backend="cuda", **kw)
+    assert rb_kernel.launches == before + 1
+    assert _same(rg, rh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rober", "orego", "vdp", "cos"])
+def test_cuda_generated_k3_derived_jacobian_is_its_plain_version(cuda, name):
+    """jac=None: the derived Jacobian against `torch.func.jacfwd` in the
+    plain version (bitwise on these four in f64)."""
+    from repro_torch.core.problem import ODEProblem
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    N = 256
+    f64 = torch.float64
+    sv = torch.linspace(0.0, 1.0, 5, dtype=f64)
+    if name == "rober":
+        ep, alg, tf, sv = _rober_ep(cuda), "rodas5p", 1e4, torch.tensor(
+            [1e-2, 1.0, 1e2, 1e4], dtype=f64)
+    elif name == "orego":
+        ep = ensemble_problem(tdp.orego_problem(tspan=(0.0, 5.0)),
+                              np.tile([1.0, 2.0, 3.0], (N, 1)),
+                              np.tile([77.27, 8.375e-6, 0.161], (N, 1)),
+                              device=cuda)
+        alg, tf, sv = "rodas5p", 5.0, torch.linspace(0.0, 5.0, 6, dtype=f64)
+    elif name == "vdp":
+        ep = ensemble_problem(tdp.vdp_problem(), np.tile([2.0, 0.0], (N, 1)),
+                              np.linspace(5.0, 20.0, N)[:, None],
+                              device=cuda)
+        alg, tf = "rodas4", 1.0
+    else:
+        cos_rhs = lambda u, p, t: torch.stack(  # noqa: E731
+            [-p[0] * (u[0] - torch.cos(t))])
+        ep = ensemble_problem(ODEProblem(cos_rhs, torch.zeros(1, dtype=f64),
+                                         torch.ones(1, dtype=f64),
+                                         (0.0, 1.0)),
+                              np.zeros((N, 1)),
+                              np.geomspace(1e3, 1e5, N)[:, None], device=cuda)
+        alg, tf = "rosenbrock23", 1.0
+    gen = _replaced(ep, f=_wrap(ep.prob.f), jac=None)
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, tf=tf, dt0=1e-6,
+              rtol=1e-6, atol=1e-8, saveat=sv, device=cuda)
+    before = rb_kernel.launches
+    rg = tsolve(gen, backend="cuda", **kw)
+    assert rb_kernel.launches == before + 1
+    n = ep.prob.u0.shape[0]
+    rp = tsolve(_plain_ep(gen, {"f": (n,)}), backend="torch",
+                linsolve="lanes", **kw)
+    assert _same(rg, rp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [False, True], ids=["rng", "table"])
+@pytest.mark.parametrize("name,alg", [
+    ("gbm", "em"), ("gbm", "heun_strat"), ("gbm", "platen_w2"),
+    ("gbm", "milstein"), ("crn", "em"), ("crn", "heun_strat")])
+def test_cuda_generated_k4_matches_hand_written_and_plain(cuda, name, alg,
+                                                          table):
+    N = 256
+    if name == "gbm":
+        prob = tdp.gbm_problem(r=1.5, v=0.2, dtype=torch.float64)
+        rng = np.random.default_rng(0)
+        u0s, ps = 0.1 + 0.01 * rng.random((N, 3)), np.array(
+            [1.5, 0.2]) + 0.01 * rng.random((N, 2))
+        kw = dict(dt0=0.01, n_steps=100, save_every=25)
+    else:
+        prob = tdp.crn_problem(dtype=torch.float64)
+        u0s, ps = tdp.crn_sweep_arrays(N, 0)
+        kw = dict(dt0=0.1, n_steps=100, save_every=25)
+    ep = ensemble_problem(prob, u0s, ps, device=cuda)
+    gen = _replaced(ep, f=_wrap(prob.f), g=_wrap(prob.g))
+    m = prob.noise_dim()
+    Z = (torch.randn((kw["n_steps"], m, N), dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(0)).to(cuda)
+         if table else None)
+    kw = dict(kw, alg=alg, ensemble="kernel", t0=0.0, seed=7,
+              noise_table=Z, device=cuda)
+    rh = tsolve(ep, backend="cuda", **kw)
+    before = sde_kernel.launches
+    rg = tsolve(gen, backend="cuda", **kw)
+    assert sde_kernel.launches == before + 1
+    if name == "gbm":
+        assert _same(rg, rh)
+    else:
+        # K4's no-event form contracts; the generated CRN functor shares
+        # sub-expressions the hand-written one recomputes, so nvcc may fuse
+        # other products (ROADMAP queue 3): the plain-version bar
+        assert torch.equal(rg.naccept, rh.naccept)
+        fin = torch.isfinite(rh.u_final)
+        assert torch.equal(fin, torch.isfinite(rg.u_final))
+        torch.testing.assert_close(rg.u_final[fin], rh.u_final[fin],
+                                   rtol=1e-12, atol=1e-12)
+    if table:
+        g_out = (3,) if name == "gbm" else (4, 8)
+        rp = tsolve(_plain_ep(gen, {"f": (prob.u0.shape[0],), "g": g_out}),
+                    backend="torch", **kw)
+        fin = torch.isfinite(rp.u_final)
+        assert torch.equal(fin, torch.isfinite(rg.u_final))
+        torch.testing.assert_close(rg.u_final[fin], rp.u_final[fin],
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_untraceable_rhs_raises_and_runs_nothing(cuda):
+    """An RHS the translator cannot take raises at trace time on CUDA
+    tensors: no kernel launch, no plain version."""
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.translate import ir
+    calls = []
+    real = ir.evaluate
+    ir.evaluate = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        u0s, ps = lorenz_arrays(16)
+        ep = ensemble_problem(lorenz_problem(torch.float64), u0s, ps,
+                              device=cuda)
+        before = (erk_kernel.launches, rb_kernel.launches)
+        bad = _replaced(ep, f=lambda u, p, t: torch.stack(
+            [torch.erf(u[0]), u[1], u[2]]))
+        with pytest.raises(NotImplementedError, match="torch.erf"):
+            tsolve(bad, alg="tsit5", backend="cuda", t0=0.0, tf=0.1,
+                   dt0=1e-3, device=cuda)
+        with pytest.raises(NotImplementedError, match="torch.where"):
+            tsolve(_replaced(ep, f=_branchy), alg="rodas4", backend="cuda",
+                   t0=0.0, tf=0.1, dt0=1e-3, device=cuda)
+        assert (erk_kernel.launches, rb_kernel.launches) == before
+        assert not calls
+    finally:
+        ir.evaluate = real

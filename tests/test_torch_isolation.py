@@ -28,7 +28,10 @@ PORT_MODULES = [
     "repro_torch.models.config", "repro_torch.models.layers",
     "repro_torch.models.lm", "repro_torch.models.model",
     "repro_torch.configs.archs", "repro_torch.configs.internlm2_1_8b",
-    "repro_torch.train.serve",
+    "repro_torch.train.serve", "repro_torch.translate",
+    "repro_torch.translate.ir", "repro_torch.translate.trace",
+    "repro_torch.translate.derive", "repro_torch.translate.emit",
+    "repro_torch.translate.units",
 ]
 
 

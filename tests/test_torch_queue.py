@@ -104,7 +104,8 @@ def test_k5_takes_trajectories_from_the_queue():
 def test_k3_runs_one_trajectory_a_thread():
     """No K3 row measured a SIMT efficiency below 0.95 (PERF.md §6, PR
     20), so K3 takes no queue: its entries take no counter word."""
-    text = (CSRC / k3.SOURCE).read_text()
+    text = "".join((CSRC / f).read_text()
+                   for f in (k3.SOURCE, "rosenbrock_body.cuh"))
     assert "#include \"trajectory_queue.cuh\"" not in text
     assert "void* queue" not in text
     assert "blockIdx.x * blockDim.x + threadIdx.x" in text

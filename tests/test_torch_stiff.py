@@ -32,8 +32,10 @@ from repro_torch.core import tableaus as ttab
 from repro_torch.core.ensemble import solve_ensemble_local as tsolve
 from repro_torch.core.methods import MethodSpec, get_method
 
-CU = (Path(__file__).resolve().parents[1]
-      / "src/repro_torch/csrc/rosenbrock_ensemble.cu").read_text()
+# the stiff kernel's source and the body it includes, where the tableaus sit
+CU = "".join((Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+              / f).read_text()
+             for f in ("rosenbrock_ensemble.cu", "rosenbrock_body.cuh"))
 NAMES = ["rosenbrock23", "rodas4", "rodas5p"]
 TOL = 1e-12
 
