@@ -10,8 +10,8 @@ kernel on the virtual Brownian tree, the batched LU kernel, the fused
 Rosenbrock stiff kernel, the dataset lookup entry and flash attention in
 its two forms, CUDA cores and tensor cores, all nvcc processes started
 together), holds each against its plain PyTorch twin on the card, runs the
-automated translation (`phase_translate`: every generated unit of the
-phase built in one parallel call, a new RHS's first-use and second-use
+automated translation (`phase_translate`: every generated unit built in
+the build's one parallel call, a new RHS's first-use and second-use
 compile seconds, and the generated functors of K1 on all eight tableaus
 and a user tableau, K2, K3 with ROBER's Jacobian traced and with derived
 Jacobians on ROBER, OREGO, Van der Pol and a time-dependent RHS, and K4 on
@@ -79,9 +79,7 @@ against the plain version, its time and its bound.
 """
 from __future__ import annotations
 
-import hashlib
 import json
-import os
 import re
 import statistics
 import subprocess
@@ -191,8 +189,10 @@ STRONG_N = 2 ** 16
 ADAPTIVE_SETTINGS = {
     "gbm": dict(t0=0.0, tf=1.0, dt0=0.05, rtol=1e-3, atol=1e-5,
                 saveat=(0.25, 0.5, 0.75, 1.0)),
-    "crn": dict(t0=0.0, tf=10.0, dt0=0.1, rtol=1e-3, atol=1e-5,
-                saveat=(2.5, 5.0, 7.5, 10.0))}
+    # CRN on [0, 5]: its doubling plain version, a host loop, was 45 s of
+    # the phase on [0, 10]
+    "crn": dict(t0=0.0, tf=5.0, dt0=0.1, rtol=1e-3, atol=1e-5,
+                saveat=(1.25, 2.5, 3.75, 5.0))}
 # benchmarks/bench_adaptive_sde.py's settings at the paper's 10^6 scale
 ADAPTIVE_FULL = dict(t0=0.0, tf=1.0, dt0=0.02, rtol=1e-3, atol=1e-5,
                      depth=14, seed=7, saveat=(0.25, 0.5, 0.75, 1.0))
@@ -524,23 +524,27 @@ def loop_mix(rows) -> dict:
     return mix
 
 
+def probe_unit(name: str, text: str):
+    """A probe source as a unit of `kernels/build.py` (keyed by its text,
+    every header and the flags)."""
+    from repro_torch.translate.units import Unit
+    return Unit(name, text)
+
+
+def probe_library(name: str, text: str) -> Path:
+    """The built library of a probe source (building it if needed)."""
+    from repro_torch.kernels.build import build, library_path
+    unit = probe_unit(name, text)
+    build([unit])
+    return library_path(unit)
+
+
 def fp64_fast_paths() -> dict:
     """{"div" | "sqrt" | "pow": {"fp64": FP64-pipe instructions, "mufu":
     MUFU seeds, "all": instructions}} on the fast path of one operation,
     from the SASS of a probe compiled with the port's flags: the kernel's
     instructions up to its EXIT with the routines it calls unpredicated."""
-    from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc
-    key = hashlib.sha256((FP64_PROBE_CU + " ".join(NVCC_FLAGS)).encode())
-    lib = BUILD_DIR / f"fp64_probe-{key.hexdigest()[:16]}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src = lib.with_suffix(".cu")
-        src.write_text(FP64_PROBE_CU)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                       check=True, capture_output=True, timeout=300)
-        os.replace(tmp, lib)
-    listings = sass_listings(lib)
+    listings = sass_listings(probe_library("fp64_probe", FP64_PROBE_CU))
     return {op: _path_mix(listings[f"probe_{op}"], 0, "EXIT")
             for op in ("div", "sqrt", "pow")}
 
@@ -581,20 +585,7 @@ def f32_fast_paths() -> dict:
     """{op: {pipe: instructions}} on the fast path of each f32 operation
     of `F32_PROBE_CU` (`fast_path_mix` to EXIT, less `probe_base`), from
     the SASS of a probe compiled with the port's flags."""
-    from repro_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc
-    key = hashlib.sha256((F32_PROBE_CU + " ".join(NVCC_FLAGS)).encode()
-                         + (CSRC / "threefry.cuh").read_bytes())
-    lib = BUILD_DIR / f"f32_probe-{key.hexdigest()[:16]}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src = lib.with_suffix(".cu")
-        src.write_text(F32_PROBE_CU)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-                        str(tmp), str(src)], check=True, capture_output=True,
-                       timeout=300)
-        os.replace(tmp, lib)
-    listings = sass_listings(lib)
+    listings = sass_listings(probe_library("f32_probe", F32_PROBE_CU))
     base = fast_path_mix(listings["probe_base"])
     out = {}
     for op in F32_PROBES:
@@ -1001,7 +992,11 @@ def row_registers(form: str) -> str:
     return out
 
 
-def phase_build() -> float:
+def phase_build(device):
+    """Every source of csrc/, the fast-path probes and the translation's
+    generated units (traced and emitted first, on `phase_translate`'s
+    inputs) in one parallel nvcc call.  Returns what `phase_translate`
+    takes: its inputs, its form cases and the units."""
     from repro_torch.kernels.build import build, library_path
     from repro_torch.kernels.em.adaptive import SOURCE as K5_SOURCE
     from repro_torch.kernels.em.kernel import SOURCE as SDE_SOURCE
@@ -1011,14 +1006,23 @@ def phase_build() -> float:
     from repro_torch.kernels.rosenbrock.kernel import SOURCE as RB_SOURCE
     from repro_torch.kernels.interp import SOURCE as LOOKUP_SOURCE
     from repro_torch.kernels.tsit5.kernel import SOURCE, TABLEAUS_SOURCE
+    sources = [SOURCE, TABLEAUS_SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE,
+               K5_SOURCE, LOOKUP_SOURCE, K7_SOURCE, SM90_SOURCE]
     t = time.perf_counter()
-    logs = build([SOURCE, TABLEAUS_SOURCE, SDE_SOURCE, LU_SOURCE, RB_SOURCE,
-                  K5_SOURCE, LOOKUP_SOURCE, K7_SOURCE, SM90_SOURCE])
+    prepared = translate_prepare(device)
+    trace_s = time.perf_counter() - t
+    t = time.perf_counter()
+    logs = build(sources + [probe_unit("fp64_probe", FP64_PROBE_CU),
+                            probe_unit("f32_probe", F32_PROBE_CU)]
+                 + prepared[2])
     secs = time.perf_counter() - t
-    BUILD_LOGS.update(logs)
-    for src, log in logs.items():
-        print(f"build {src}: " + "; ".join(ptxas_summary(log, src)))
-    print(f"build: {secs:.1f} s ({'compiled' if logs else 'cached'})")
+    BUILD_LOGS.update({s: logs[s] for s in sources if s in logs})
+    for src in sources:
+        if src in logs:
+            print(f"build {src}: " + "; ".join(ptxas_summary(logs[src], src)))
+    print(f"build: {secs:.1f} s ({len(logs)} compiled: {len(sources)} "
+          f"sources, 2 probes and the translation's {len(prepared[2])} "
+          f"generated units, traced and emitted in {trace_s:.2f} s)")
     t = time.perf_counter()
     FP64_FAST.update(fp64_fast_paths())
     F32_FAST.update(f32_fast_paths())
@@ -1053,7 +1057,7 @@ def phase_build() -> float:
     if len(report) != 1 or "0 bytes spill stores, 0 bytes spill loads" \
             not in report[0]:
         raise AssertionError(f"K7's sm90 form spills: {report}")
-    return secs
+    return prepared
 
 
 def ptxas_log(source: str) -> str:
@@ -1331,16 +1335,19 @@ TRANSLATE_SDE = {"gbm": ("em", "heun_strat", "platen_w2", "milstein"),
 TRANSLATE_K1_PLAIN = {("tsit5", True), ("vern7", True)}
 # lanes of the phase's gradient case
 TRANSLATE_GRAD_N = 1024
+# the generated event and data rows hold their plain versions on the first
+# TRANSLATE_ROW_PLAIN_N lanes (the lanes are independent)
+TRANSLATE_ROW_PLAIN_N = 2 ** 16
 _WRAPPED: dict = {}
 
 
 def unregistered(fn):
     """A plain wrapper of `fn`: it carries no device registration, so the
     CUDA wrappers translate it (one wrapper a function, so its trace and
-    unit are made once)."""
+    unit are made once); a data-driven fn takes its dataset through it."""
     if fn not in _WRAPPED:
-        def wrapper(u, p, t):
-            return fn(u, p, t)
+        def wrapper(*args):
+            return fn(*args)
         wrapper.__name__ = wrapper.__qualname__ = \
             f"{fn.__name__}_unregistered"
         _WRAPPED[fn] = wrapper
@@ -1435,25 +1442,46 @@ def translate_problem(ep, *, jac="keep"):
                            u0s=u0s, ps=ps)
 
 
+def unregistered_event(ev):
+    """`ev` with its condition and affect replaced by their `unregistered`
+    wrappers: the CUDA wrappers translate it."""
+    return ev._replace(condition=unregistered(ev.condition),
+                       affect=None if ev.affect is None
+                       else unregistered(ev.affect))
+
+
+def plain_event(ev, n: int, m: int):
+    """`ev` with its condition and affect replaced by their translation's
+    plain version."""
+    from repro_torch.translate.ir import as_function
+    from repro_torch.translate.trace import trace_event
+    cond, affect = trace_event(ev.condition, ev.affect, n, m)
+    return ev._replace(condition=as_function(cond),
+                       affect=None if affect is None else as_function(affect))
+
+
 def plain_problem(ep):
     """`ep` with its callbacks replaced by their translation's plain
-    version, `ir.evaluate` of the traced function."""
+    version, `ir.evaluate` of the traced function (traced with the
+    problem's dataset, where it has one)."""
     import dataclasses
     from repro_torch.core.problem import EnsembleProblem
     from repro_torch.translate.ir import as_function
     from repro_torch.translate.trace import trace, trace_pair
     prob = ep.prob
     n, m = prob.u0.shape[0], prob.p.shape[0]
+    data = getattr(prob, "data", None)
     if hasattr(prob, "g"):
         g_out = (n,) if prob.noise == "diagonal" else (n, prob.noise_dim())
         tf, tg = trace_pair(prob.f, prob.g, n, m, f_outputs=(n,),
-                            g_outputs=g_out)
+                            g_outputs=g_out, data=data)
         repl = dict(f=as_function(tf), g=as_function(tg))
     else:
-        repl = dict(f=as_function(trace(prob.f, n, m, outputs=(n,))))
+        repl = dict(f=as_function(trace(prob.f, n, m, outputs=(n,),
+                                        data=data)))
         if prob.jac is not None:
             repl["jac"] = as_function(trace(prob.jac, n, m,
-                                            outputs=(n, n)))
+                                            outputs=(n, n), data=data))
     u0s, ps = ep.materialize()
     return EnsembleProblem(dataclasses.replace(prob, **repl), ep.n_trajectories,
                            u0s=u0s, ps=ps)
@@ -1521,13 +1549,15 @@ def translate_units(inputs, device):
                                            f32))
     rober = unregistered(dp.rober_rhs)
     for alg in ("rosenbrock23", "rodas4", "rodas5p"):
-        units.append(rb_kernel.generated_unit(
-            rober, dp.rober_jac, get_rosenbrock_tableau(alg), 3, 3, f64))
+        units += [rb_kernel.generated_unit(
+            rober, dp.rober_jac, get_rosenbrock_tableau(alg), 3, 3, f64,
+            w_reuse=wr) for wr in (False, True)]
     for name, (ep, kw) in inputs["stiff"].items():
         n, m = ep.prob.u0.shape[0], ep.prob.p.shape[0]
         units.append(rb_kernel.generated_unit(
             unregistered(ep.prob.f), None,
-            get_rosenbrock_tableau(kw["alg"]), n, m, f64))
+            get_rosenbrock_tableau(kw["alg"]), n, m, f64,
+            w_reuse=bool(kw.get("w_reuse"))))
     for name, methods in TRANSLATE_SDE.items():
         prob = inputs[name].prob
         fun = sde_kernel.SDEFunctor(-1, prob.u0.shape[0], prob.p.shape[0],
@@ -1545,7 +1575,306 @@ def translate_units(inputs, device):
     return units
 
 
-def phase_translate(device, N: int = PARITY_N):
+# The event, data and data-and-event forms through the translation
+# (`translate_form_cases`, f64 but the f32 Van der Pol case, N lanes): each
+# generated form against the hand-written form where a source compiles
+# one (bitwise: the event and data forms round every operation alone), and
+# against its plain version (`plain_problem`, `plain_event`) where none
+# does, at the bar of its family: TRANSLATE_FORM_BAR (0.0: bitwise; K1's
+# adaptive event forms are held at the event parity phase's 1e-10 as the
+# hand-written ones are, onehot's lookups at ONEHOT_TOL).
+TRANSLATE_FORM_BAR = {"erk": 1e-10, "rosenbrock": 0.0, "sde": 0.0,
+                      "sde_adaptive": 0.0}
+# the up-and-out barrier of the rate-table GBM (gbm-rate-1M-em-barrier)
+RATE_BARRIER = 1.1
+
+
+def _level(level: float, direction: int, terminal: bool):
+    """An event on u[0] crossing `level` (no registration: translated)."""
+    from repro_torch.core.events import Event
+
+    def condition(u, p, t):
+        return u[0] - level
+    condition.__name__ = condition.__qualname__ = \
+        f"u0_crosses_{level:g}".replace(".", "_").replace("-", "m")
+    return Event(condition=condition, direction=direction, terminal=terminal)
+
+
+_LEVELS: dict = {}
+
+
+def level_event(level: float, direction: int, terminal: bool):
+    """`_level`, made once a setting (so its trace and unit are too)."""
+    key = (level, direction, terminal)
+    if key not in _LEVELS:
+        _LEVELS[key] = _level(*key)
+    return _LEVELS[key]
+
+
+def translate_form_cases(device, N: int):
+    """(name, family, generated ensemble, front-door arguments, the
+    hand-written (ensemble, arguments) or None, the plain-version bar or
+    None) of the event, data and data-and-event forms of
+    `phase_translate`."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    from repro_torch.core.problem import EnsembleProblem
+    f32, f64 = torch.float32, torch.float64
+    bar = TRANSLATE_FORM_BAR
+    cases = []
+    ev_cases = {name: (ep, kw) for name, _, ep, kw in
+                event_parity_cases(device, N)}
+    # ---- a translated event on each kernel ------------------------------
+    ball, bal = ev_cases["ball tsit5"]
+    gball = translate_problem(ball)
+    gbal = dict(bal, event=unregistered_event(bal["event"]))
+    for alg in ("tsit5", "dopri5", "vern7"):
+        cases.append((f"K1 ball {alg} event", "erk", gball,
+                      dict(gbal, alg=alg),
+                      None if alg == "vern7" else (ball, dict(bal, alg=alg)),
+                      bar["erk"] if alg == "vern7" else None))
+    rober, rkw = ev_cases["rober rodas5p eager"]
+    grober = translate_problem(rober)
+    for wr in (False, True):
+        kw = dict(rkw, alg="rodas5p", w_reuse=wr)
+        cases.append((f"K3 rober_half rodas5p {'lazyW' if wr else 'eager'}",
+                      "rosenbrock", grober,
+                      dict(kw, event=unregistered_event(kw["event"])),
+                      (rober, kw), None))
+    gbm, gkw = ev_cases["gbm barrier em fixed"]
+    cases.append(("K4 gbm barrier em fixed", "sde", translate_problem(gbm),
+                  dict(gkw, event=unregistered_event(gkw["event"])),
+                  (gbm, gkw), None))
+    for est in ("embedded", "doubling"):
+        ramp, skw = ev_cases[f"ramp sawtooth em {est}"]
+        cases.append((f"K5 ramp sawtooth em {est}", "sde_adaptive",
+                      translate_problem(ramp),
+                      dict(skw, event=unregistered_event(skw["event"])),
+                      (ramp, skw), None))
+    # ---- translated data in every lookup mode ---------------------------
+    fixed = {k: v for k, v in TEXTURE_FIXED.items()
+             if k not in ("n_steps", "save_every")}
+    big = dp.forced_oscillator_problem()
+    for mode, rhs in dp.FORCED_OSC_RHS.items():
+        osc = osc_inputs(N, device, f64, mode=mode)
+        kw = dict(fixed, alg="tsit5", saveat=[0.5, 1.0])
+        cases.append((f"K1 osc {mode} tsit5 fixed", "erk",
+                      translate_problem(osc), kw, (osc, kw), None))
+        osc = osc_inputs(N, device, f64, prob=dataclasses.replace(big, f=rhs),
+                         p=(2.0, 0.1))
+        kw = dict(OSC_ADAPTIVE, alg="tsit5")
+        cases.append((f"K1 osc {mode} tsit5 adaptive", "erk",
+                      translate_problem(osc), kw, (osc, kw), None))
+    # rosenbrock23 on the data parity phase's stiff oscillator, [0, 0.5],
+    # at rtol 1e-6 (its plain version's host loop is the phase's longest)
+    stiff_kw = dict(OSC_STIFF, tf=0.5, rtol=1e-6, atol=1e-6,
+                    saveat=[0.0, 0.25, 0.5], alg="rosenbrock23")
+    for mode, rhs in dp.FORCED_OSC_RHS.items():
+        stiff = osc_inputs(N, device, f64, prob=dataclasses.replace(
+            big, f=rhs, tspan=(0.0, 3.0)), p=(50.0, 2.0))
+        kw = dict(stiff_kw)
+        hand = (stiff, kw) if mode == "gather" else None
+        cases.append((f"K3 osc {mode} rosenbrock23", "rosenbrock",
+                      translate_problem(stiff), kw, hand,
+                      None if hand else (ONEHOT_TOL if mode == "onehot"
+                                         else bar["rosenbrock"])))
+    rate = ensemble_problem(dp.gbm_rate_problem(), np.ones((N, 1)),
+                            np.full((N, 1), 0.2), device=device)
+    grate = translate_problem(rate)
+    kw = dict(RATE_FIXED, alg="em")
+    cases.append(("K4 gbm-rate em fixed", "sde", grate, kw, (rate, kw),
+                  None))
+    kw = dict(RATE_ADAPTIVE, alg="em", error_est="embedded")
+    cases.append(("K5 gbm-rate em embedded", "sde_adaptive", grate, kw,
+                  (rate, kw), None))
+    # ---- data and an event together -------------------------------------
+    lvl = osc_inputs(N, device, f64, prob=big, p=(1.0, 0.0), u0=(0.0, 2.0),
+                     scale=(0.8, 1.2))
+    kw = dict(OSC_EVENT, alg="tsit5", event=dp.osc_level_event())
+    cases.append(("K1 osc gather tsit5 osc_level", "erk",
+                  translate_problem(lvl),
+                  dict(kw, event=unregistered_event(kw["event"])),
+                  (lvl, kw), None))
+    stiff = osc_inputs(N, device, f64, prob=dataclasses.replace(
+        big, tspan=(0.0, 3.0)), p=(50.0, 2.0))
+    cases.append(("K3 osc gather rosenbrock23 x=0 down", "rosenbrock", stiff,
+                  dict(stiff_kw, event=level_event(0.0, -1, False)),
+                  None, bar["rosenbrock"]))
+    # the rate GBM with its barrier on half the data phase's span (its
+    # plain versions' host loops): about a third of the lanes hit
+    barrier = level_event(RATE_BARRIER, 1, True)
+    cases.append(("K4 gbm-rate em fixed barrier", "sde", rate,
+                  dict(RATE_FIXED, alg="em", n_steps=250, save_every=125,
+                       event=barrier), None, bar["sde"]))
+    cases.append(("K5 gbm-rate em embedded barrier", "sde_adaptive", rate,
+                  dict(RATE_ADAPTIVE, alg="em", error_est="embedded",
+                       tf=0.5, saveat=[0.0, 0.25, 0.5], event=barrier),
+                  None, bar["sde_adaptive"]))
+    # ---- K3 in f32 with an event: Van der Pol, u[0] = 0 downward ---------
+    vdp = dp.vdp_ensemble(N)
+    vdp32 = EnsembleProblem(dp.vdp_problem(dtype=f32), N,
+                            u0s=vdp.materialize()[0].float().to(device),
+                            ps=vdp.ps.float().to(device))
+    cases.append(("K3 vdp rodas4 f32 x=0 down", "rosenbrock", vdp32,
+                  dict(alg="rodas4", t0=0.0, tf=10.0, dt0=1e-3, rtol=1e-4,
+                       atol=1e-6, saveat=torch.linspace(0.0, 10.0, 5),
+                       event=level_event(0.0, -1, True)),
+                  None, bar["rosenbrock"]))
+    # ---- K1's six tableaus with the ball's event and the gather table ---
+    osc = osc_inputs(N, device, f64, mode="gather")
+    for alg, adaptive, tol, settings in K1_PARITY:
+        if alg in ("tsit5", "dopri5") or not adaptive and alg != "rk4":
+            continue
+        extra = dict(dict(rtol=1e-8, atol=1e-8, dt0=1e-3), **settings,
+                     adaptive=adaptive)
+        cases.append((f"K1 ball {alg} event (registered)", "erk", ball,
+                      dict(bal, **extra, alg=alg), None,
+                      bar["erk"] if tol is not None else 0.0))
+        cases.append((f"K1 osc gather {alg} fixed (registered)", "erk", osc,
+                      dict(fixed, alg=alg, dt0=1.0 / 100, saveat=[0.5, 1.0]),
+                      None, 0.0))
+    # ---- K5: every stepper and pair on GBM, gdg and ddb derived ---------
+    gbm = sde_inputs("gbm", N, f64, device)
+    ggbm = translate_problem(gbm)
+    for alg, est in (("em", "doubling"), ("heun_strat", "doubling"),
+                     ("platen_w2", "doubling"), ("milstein", "doubling"),
+                     ("em", "embedded"), ("milstein", "embedded")):
+        kw = dict(ADAPTIVE_SETTINGS["gbm"], adaptive=True, seed=SDE_SEED,
+                  alg=alg, error_est=est)
+        kw["saveat"] = list(kw["saveat"])
+        cases.append((f"K5 gbm {alg} {est}", "sde_adaptive", ggbm, kw,
+                      (gbm, kw), None))
+    return cases
+
+
+def form_unit(family: str, ep, kw):
+    """The generated unit a front-door solve of `ep` with `kw` launches
+    (None where a hand-written source compiles the form), from the
+    wrappers' own routing."""
+    from repro_torch.core.tableaus import get_rosenbrock_tableau, get_tableau
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    prob = ep.prob
+    n, m = prob.u0.shape[0], prob.p.shape[0]
+    dtype, data, event = ep.u0s.dtype, getattr(prob, "data", None), \
+        kw.get("event")
+    if family == "erk":
+        alg = kw["alg"]
+        tab = get_tableau(alg) if isinstance(alg, str) else alg
+        target = erk_kernel.route(prob.f, tab, event, data, n=n, m=m,
+                                  dtype=dtype).target
+        return None if isinstance(target, str) else target
+    if family == "rosenbrock":
+        return rb_kernel.route(prob.f, prob.jac,
+                               get_rosenbrock_tableau(kw["alg"]), event,
+                               data, n=n, m=m, dtype=dtype,
+                               w_reuse=bool(kw.get("w_reuse")))[0]
+    if family == "sde":
+        return sde_kernel.sde_route(
+            prob.f, prob.g, kw["alg"], noise=prob.noise,
+            m_noise=prob.noise_dim(), n=n, k=m, dtype=dtype, event=event,
+            data=data).unit
+    return k5._device_functor(prob.f, prob.g, kw["alg"], prob.noise,
+                              prob.noise_dim(), kw["error_est"], n=n, k=m,
+                              dtype=dtype, event=event, data=data)[2]
+
+
+def translate_forms(device, cases, out, launched):
+    """Runs `translate_form_cases`: each generated form against the
+    hand-written one (bitwise) and, where no source compiles one, against
+    its plain version at its bar; raises on a miss."""
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    mods = {"erk": erk_kernel, "rosenbrock": rb_kernel, "sde": sde_kernel,
+            "sde_adaptive": k5}
+    out.setdefault("forms", {})
+    for name, family, ep, kw, hand, bar in cases:
+        t = time.perf_counter()
+        mod = mods[family]
+        kw = dict(kw, device=device)
+        before = mod.launches
+        rg = solve_ensemble_local(ep, ensemble="kernel", backend="cuda", **kw)
+        launched(mod, before, name)
+        unit = form_unit(family, ep, kw)
+        if device.type == "cuda" and unit is None:
+            raise AssertionError(f"translate {name}: no generated unit")
+        rec = {"unit": None if unit is None else unit.name}
+        line = f"translate {name}:"
+        if hand is not None:
+            rh = solve_ensemble_local(hand[0], ensemble="kernel",
+                                      backend="cuda", **dict(hand[1],
+                                                             device=device))
+            rec["bitwise_to_hand"] = same_run(rg, rh)
+            line += f" generated == hand-written {rec['bitwise_to_hand']}"
+            if not rec["bitwise_to_hand"]:
+                raise AssertionError(f"translate {name}: not bitwise the "
+                                     "hand-written form")
+        if bar is not None:
+            n, m = ep.prob.u0.shape[0], ep.prob.p.shape[0]
+            pkw = dict(kw)
+            if kw.get("event") is not None:
+                pkw["event"] = plain_event(kw["event"], n, m)
+            extra = dict(linsolve="lanes") if family == "rosenbrock" else {}
+            rp = solve_ensemble_local(plain_problem(ep), ensemble="kernel",
+                                      backend="torch", **pkw, **extra)
+            counts, worst, lanes = event_compare(rg, rp)
+            rec.update(plain_counts_identical=counts, plain_worst=worst,
+                       plain_bitwise=same_run(rg, rp), bar=bar)
+            line += (f" against the plain version: counts identical "
+                     f"{counts}, worst |gen - plain| {worst:.3e} (bar {bar}),"
+                     f" bitwise {rec['plain_bitwise']}")
+            if not counts or worst > bar:
+                raise AssertionError(f"translate {name}: misses its bar")
+        ended = float((rg.t_final < rg.ts[-1] - 1e-9).double().mean())
+        rec["ended_early_share"] = ended
+        rec["seconds"] = time.perf_counter() - t
+        out["forms"][name] = rec
+        print(line + f"; lanes ended early {ended:.4f}; "
+              f"{rec['seconds']:.1f} s")
+
+
+def translate_row_units(device):
+    """The units of `translate_event_data_rows` that the parity cases do not
+    build: the f32 forms (gbm-1M-em-adaptive's generated pair, the rate
+    table's barrier)."""
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    from repro_torch.core.problem import EnsembleProblem
+    f32 = torch.float32
+    gbm = EnsembleProblem(dp.gbm_problem(r=1.5, v=0.2, dtype=f32), 2,
+                          u0s=torch.full((2, 3), 0.1, dtype=f32),
+                          ps=torch.tensor([[1.5, 0.2]] * 2, dtype=f32))
+    rate = ensemble_problem(dp.gbm_rate_problem(dtype=f32), np.ones((2, 1)),
+                            np.full((2, 1), 0.2), dtype=f32)
+    return [form_unit("sde_adaptive", translate_problem(gbm),
+                      dict(alg="em", error_est="embedded")),
+            form_unit("sde", rate, dict(alg="em", event=level_event(
+                RATE_BARRIER, 1, True)))]
+
+
+def translate_prepare(device, N: int = PARITY_N):
+    """(inputs, form cases, units) of `phase_translate`: its ensembles
+    (`translate_inputs`), its event and data forms
+    (`translate_form_cases`) and every generated unit it and
+    `phase_translate_rows` launch, traced and emitted."""
+    inputs = translate_inputs(device, N)
+    form_cases = translate_form_cases(device, N)
+    units = translate_units(inputs, device)
+    units += [u for c in form_cases
+              if (u := form_unit(c[1], c[2], c[3])) is not None]
+    return inputs, form_cases, units + translate_row_units(device)
+
+
+def phase_translate(device, prepared=None, N: int = PARITY_N):
     """The generated functors against the hand-written ones and against
     their plain versions (f64, N lanes), after one parallel build of every
     generated unit; the first-use and second-use compile seconds of a new
@@ -1566,22 +1895,23 @@ def phase_translate(device, N: int = PARITY_N):
     f64 = torch.float64
     out = {"bitwise_to_hand": {}, "plain": {}}
 
-    # ---- trace every problem, then build every unit in one call ---------
-    inputs = translate_inputs(device, N)
+    # ---- every unit: built by phase_build; driven alone, the phase traces
+    # and builds them here, in one call -----------------------------------
     t = time.perf_counter()
-    units = translate_units(inputs, device)
+    inputs, form_cases, units = prepared or translate_prepare(device, N)
     trace_s = time.perf_counter() - t
     t = time.perf_counter()
     logs = build.build(units) if on_card else {}
     build_s = time.perf_counter() - t
     out.update(units=len(units), trace_s=trace_s, build_s=build_s)
-    print(f"translate: {len(units)} generated units traced and emitted in "
-          f"{trace_s:.2f} s, built in parallel in {build_s:.1f} s "
-          f"({len(logs)} compiled)")
-    for name, log in logs.items():
+    print(f"translate: {len(units)} generated units (traced and emitted in "
+          f"{trace_s:.2f} s here), built in parallel in {build_s:.1f} s "
+          f"({len(logs)} compiled here)")
+    for unit in {u.name: u for u in units}.values() if on_card else ():
+        log = build.build_log(unit) or ""
         regs = re.findall(r"Used (\d+) registers", log)
         spill = re.findall(r"(\d+) bytes spill stores", log)
-        print(f"translate build {name}: registers {regs}, spill stores "
+        print(f"translate build {unit.name}: registers {regs}, spill stores "
               f"{spill}")
 
     # ---- a new RHS: first use compiles its unit, a second use (and a
@@ -1615,6 +1945,36 @@ def phase_translate(device, N: int = PARITY_N):
               f"(trace, emit, nvcc, load), second use {second_s:.4f} s, a "
               f"second process compiled {got[0]} units in {float(got[1]):.3f}"
               " s")
+        # a new problem with a dataset and an event: the same, for its unit
+        from repro_torch.configs import de_problems as dp
+        from repro_torch.core.events import Event
+        from repro_torch.core.interp import interp1d
+        table = dp.texture_oscillator_problem(dtype=torch.float32).data
+        fresh_data = lambda u, p, t, d: torch.stack([  # noqa: E731
+            u[1], interp1d(d["force"], t, "cubic") - p[0] * u[0]])
+        fresh_ev = Event(condition=lambda u, p, t: u[0] * u[1] - 0.25,
+                         affect=lambda u, p, t: u * 0.5, direction=-1)
+        t = time.perf_counter()
+        unit = erk_kernel.generated_unit(fresh_data, tab32, 2, 2,
+                                         torch.float32, event=fresh_ev,
+                                         data=table)
+        build.load_generated(unit)
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        build.load_generated(erk_kernel.generated_unit(
+            fresh_data, tab32, 2, 2, torch.float32, event=fresh_ev,
+            data=table))
+        second_s = time.perf_counter() - t
+        got = sp.run([sys.executable, "-c", code, unit.name], input=unit.text,
+                     capture_output=True, text=True, cwd=str(ROOT),
+                     check=True).stdout.split()
+        out.update(first_use_event_data_s=first_s,
+                   second_use_event_data_s=second_s,
+                   second_process_compiled_event_data=int(got[0]))
+        print(f"translate: a new problem with a dataset and an event on "
+              f"tsit5 f32: first use {first_s:.2f} s, second use "
+              f"{second_s:.4f} s, a second process compiled {got[0]} units "
+              f"in {float(got[1]):.3f} s")
 
     # ---- the one-op probe: each op of the emitter against PyTorch's ----
     if on_card:
@@ -1838,6 +2198,9 @@ def phase_translate(device, N: int = PARITY_N):
                          else ""))
 
     lap("K4")
+    # ---- the event, data and data-and-event forms -----------------------
+    translate_forms(device, form_cases, out, launched)
+    lap("forms")
     # ---- one gradient: tsit5 on Lorenz, the generated forward (on
     # TRANSLATE_GRAD_N lanes: the backward replays the plain version) ----
     glor = lorenz_inputs(min(N, TRANSLATE_GRAD_N), f64, device)
@@ -2027,6 +2390,268 @@ def phase_translate_rows(device, hand_rows, N: int = FULL_N,
     if not within:
         raise AssertionError("rober-1M-rodas5p[derived-jac]: lanes beyond "
                              "the ROBER bar of the plain version")
+    rows += translate_event_data_rows(device, by_name, row, in_turns, N)
+    return rows
+
+
+def translate_event_data_rows(device, by_name, row, in_turns, N: int):
+    """The generated event and data rows of `phase_translate_rows`:
+    ball-1M-tsit5-events, osc-1M-f64-adaptive and gbm-1M-em-adaptive beside
+    their hand-written twins (hand and generated kernels in turns, each
+    held bitwise to the other and, on the first TRANSLATE_ROW_PLAIN_N
+    lanes, to the plain version), and gbm-rate-1M-em-barrier, which no
+    hand-written source compiles: K4 with the rate table and a terminal
+    up-and-out barrier, held bitwise to its plain version on the first
+    2^18 lanes, with its bound in f32 instructions."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.convert import ensemble_problem
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.core.tableaus import get_tableau
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.em import kernel as sde_kernel
+    from repro_torch.kernels.em.ref import solve_adaptive_lanes
+    from repro_torch.kernels.tsit5 import kernel as erk_kernel
+    f32, f64 = torch.float32, torch.float64
+    rows = []
+    n_plain = min(N, TRANSLATE_ROW_PLAIN_N)
+
+    def first(x, k):
+        return x[..., :k].contiguous()
+
+    def vs_plain(out_g, out_p, k):
+        """max |generated - plain| on the first k lanes, and whether they
+        are bitwise there."""
+        got = [first(x, k) for x in out_g]
+        same = all(torch.equal(a, b) for a, b in zip(got, out_p))
+        return max(float((got[i].double() - out_p[i].double()).abs().max())
+                   for i in (0, 1, 2)), same
+
+    def held(form, launches, bitwise, plain_bitwise, max_abs):
+        """Raises unless the generated row's front door launched its kernel
+        once and its output is bitwise the hand-written twin's and, on the
+        first n_plain lanes, the plain version's."""
+        if device.type == "cuda" and launches != 1:
+            raise AssertionError(f"{form}[generated]: {launches} kernel "
+                                 "launches, not 1")
+        if not bitwise:
+            raise AssertionError(f"{form}[generated]: not bitwise the "
+                                 "hand-written form")
+        if not plain_bitwise:
+            raise AssertionError(f"{form}[generated]: not bitwise its plain "
+                                 f"version on the first {n_plain} lanes "
+                                 f"(max abs {max_abs:.3e})")
+
+    # ---- ball-1M-tsit5-events[generated] --------------------------------
+    tab = get_tableau("tsit5")
+    e = torch.linspace(0.75, 0.95, N, dtype=f64, device=device)
+    u0_l = torch.stack([torch.full_like(e, 10.0), torch.zeros_like(e)])
+    p_l = torch.stack([torch.full_like(e, 9.8), e])
+    sv = torch.tensor(np.linspace(0.0, 8.0, 81), dtype=f64, device=device)
+    tol = BALL_TOL["f64"][0]
+    kargs = dict(t0=0.0, tf=8.0, dt0=1e-3, rtol=tol, atol=tol, adaptive=True,
+                 max_iters=100_000)
+    ev_h = dp.bouncing_ball_event()
+    ev_g = unregistered_event(ev_h)
+    fh, fg = dp.bouncing_ball_rhs, unregistered(dp.bouncing_ball_rhs)
+    ep = EnsembleProblem(dp.bouncing_ball_problem(dtype=f64), N,
+                         u0s=u0_l.T.contiguous(), ps=p_l.T.contiguous())
+    erk_kernel.launches = 0
+    solve_ensemble_local(translate_problem(ep), ensemble="kernel",
+                         backend="cuda", alg="tsit5",
+                         saveat=list(np.linspace(0.0, 8.0, 81)),
+                         event=ev_g, device=device, **BALL_SETTINGS,
+                         rtol=tol, atol=tol)
+    sync(device)
+    launches = erk_kernel.launches
+    out_h = erk_kernel.erk_ensemble(fh, tab, u0_l, p_l, sv, event=ev_h,
+                                    **kargs)
+    out_g = erk_kernel.erk_ensemble(fg, tab, u0_l, p_l, sv, event=ev_g,
+                                    **kargs)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_h, out_g))
+    fp, evp = plain_problem(translate_problem(ep)).prob.f, \
+        plain_event(ev_g, 2, 2)
+    t = time.perf_counter()
+    out_p = erk_kernel._plain(fp, tab, first(u0_l, n_plain),
+                              first(p_l, n_plain), sv, event=evp, **kargs)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    max_abs, plain_bitwise = vs_plain(out_g, out_p, n_plain)
+    hand_ms, ms = in_turns(
+        lambda: erk_kernel.erk_ensemble(fh, tab, u0_l, p_l, sv, event=ev_h,
+                                        **kargs),
+        lambda: erk_kernel.erk_ensemble(fg, tab, u0_l, p_l, sv, event=ev_g,
+                                        **kargs))
+    row("erk_ensemble[tsit5,ball,f64,bounce]",
+        "erk_ensemble[tsit5,ball,f64,bounce,generated]", launches, max_abs,
+        ms, hand_ms, plain_ms, bitwise, plain_lanes=n_plain,
+        plain_bitwise=plain_bitwise)
+    held("ball-1M-tsit5-events", launches, bitwise, plain_bitwise, max_abs)
+
+    # ---- osc-1M-f64-adaptive[generated] ---------------------------------
+    big = dp.forced_oscillator_problem()
+    osc = osc_inputs(N, device, f64, prob=big, p=(2.0, 0.1))
+    u0s, ps = osc.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    sv = torch.tensor(OSC_ADAPTIVE["saveat"], dtype=f64, device=device)
+    data = osc.prob.data
+    kargs = dict(t0=0.0, tf=5.0, dt0=1e-2, rtol=1e-8, atol=1e-8,
+                 adaptive=True, max_iters=100_000, data=data)
+    gen = translate_problem(osc)
+    fh, fg = osc.prob.f, gen.prob.f
+    erk_kernel.launches = 0
+    solve_ensemble_local(gen, ensemble="kernel", backend="cuda",
+                         alg="tsit5", device=device, **OSC_ADAPTIVE)
+    sync(device)
+    launches = erk_kernel.launches
+    out_h = erk_kernel.erk_ensemble(fh, tab, u0_l, p_l, sv, **kargs)
+    out_g = erk_kernel.erk_ensemble(fg, tab, u0_l, p_l, sv, **kargs)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_h, out_g))
+    fp = plain_problem(gen).prob.f
+    t = time.perf_counter()
+    out_p = erk_kernel._plain(
+        lambda u, p, t_, fp=fp: fp(u, p, t_, data), tab,
+        first(u0_l, n_plain), first(p_l, n_plain), sv,
+        **{k: v for k, v in kargs.items() if k != "data"})
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    max_abs, plain_bitwise = vs_plain(out_g, out_p, n_plain)
+    hand_ms, ms = in_turns(
+        lambda: erk_kernel.erk_ensemble(fh, tab, u0_l, p_l, sv, **kargs),
+        lambda: erk_kernel.erk_ensemble(fg, tab, u0_l, p_l, sv, **kargs))
+    row("erk_ensemble[tsit5,osc,f64,data-gather]",
+        "erk_ensemble[tsit5,osc,f64,data-gather,generated]", launches,
+        max_abs, ms, hand_ms, plain_ms, bitwise, plain_lanes=n_plain,
+        plain_bitwise=plain_bitwise)
+    held("osc-1M-f64-adaptive", launches, bitwise, plain_bitwise, max_abs)
+
+    # ---- gbm-1M-em-adaptive[generated] (f32) ----------------------------
+    prob = dp.gbm_problem(r=1.5, v=0.2, dtype=f32)
+    gbm = EnsembleProblem(
+        prob, N, u0s=torch.full((N, 3), 0.1, dtype=f32, device=device),
+        ps=torch.tensor([1.5, 0.2], dtype=f32,
+                        device=device).expand(N, 2).contiguous())
+    gen = translate_problem(gbm)
+    cfg = dict(ADAPTIVE_FULL)
+    depth, seed = cfg.pop("depth"), cfg.pop("seed")
+    saveat_t = cfg.pop("saveat")
+    u0s, ps = gbm.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    sv = torch.tensor(saveat_t, dtype=f32, device=device)
+    args = adaptive_args("em", "embedded", "diagonal", 3, seed=seed,
+                         depth=depth, **cfg)
+    k5.launches = 0
+    solve_ensemble_local(gen, ensemble="kernel", backend="cuda", alg="em",
+                         adaptive=True, error_est="embedded", seed=seed,
+                         brownian_depth=depth, saveat=list(saveat_t),
+                         device=device, **cfg)
+    sync(device)
+    launches = k5.launches
+    (fh, gh), (fg, gg) = (prob.f, prob.g), (gen.prob.f, gen.prob.g)
+    out_h = k5.sde_adaptive_ensemble(fh, gh, "em", u0_l, p_l, sv, **args)
+    out_g = k5.sde_adaptive_ensemble(fg, gg, "em", u0_l, p_l, sv, **args)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_h, out_g))
+    pp = plain_problem(gen).prob
+    t = time.perf_counter()
+    out_p = solve_adaptive_lanes(pp.f, pp.g, "em", first(u0_l, n_plain),
+                                 first(p_l, n_plain), sv, **args)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    max_abs, plain_bitwise = vs_plain(out_g, out_p, n_plain)
+    hand_ms, ms = in_turns(
+        lambda: k5.sde_adaptive_ensemble(fh, gh, "em", u0_l, p_l, sv,
+                                         **args),
+        lambda: k5.sde_adaptive_ensemble(fg, gg, "em", u0_l, p_l, sv,
+                                         **args))
+    row("sde_adaptive_ensemble[em,gbm,f32,embedded]",
+        "sde_adaptive_ensemble[em,gbm,f32,embedded,generated]", launches,
+        max_abs, ms, hand_ms, plain_ms, bitwise, plain_lanes=n_plain,
+        plain_bitwise=plain_bitwise)
+    held("gbm-1M-em-adaptive", launches, bitwise, plain_bitwise, max_abs)
+
+    # ---- gbm-rate-1M-em-barrier: K4, the rate table and an event --------
+    form = "gbm-rate-1M-em-barrier"
+    rate = ensemble_problem(dp.gbm_rate_problem(dtype=f32), np.ones((N, 1)),
+                            np.full((N, 1), 0.2), device=device, dtype=f32)
+    ev = level_event(RATE_BARRIER, 1, True)
+    kw = dict(RATE_FIXED, alg="em", event=ev, device=device)
+    sde_kernel.launches = 0
+    res = solve_ensemble_local(rate, ensemble="kernel", backend="cuda", **kw)
+    sync(device)
+    launches = sde_kernel.launches
+    if device.type == "cuda" and launches != 1:
+        raise AssertionError(f"{form}: {launches} kernel launches, not 1")
+    if int(res.status) != 0 or not bool(torch.isfinite(res.us).all()):
+        raise AssertionError(f"{form}: status {int(res.status)} or "
+                             "non-finite values")
+    u0s, ps = rate.materialize()
+    u0_l, p_l = u0s.T.contiguous(), ps.T.contiguous()
+    n_steps, dt = RATE_FIXED["n_steps"], RATE_FIXED["dt0"]
+    data = rate.prob.data
+    sargs = dict(noise="diagonal", m_noise=1, t0=0.0, dt=dt,
+                 n_steps=n_steps, save_every=RATE_FIXED["save_every"],
+                 seed=RATE_FIXED["seed"], lane_offset=0, event=ev)
+    f, g = rate.prob.f, rate.prob.g
+
+    def kernel():
+        return sde_kernel.sde_ensemble(f, g, "em", u0_l, p_l, data=data,
+                                       **sargs)
+
+    out_k = kernel()
+    k = min(N, 2 ** 18)
+    pe = plain_event(ev, 1, 1)
+    t = time.perf_counter()
+    out_p = sde_kernel._plain(
+        lambda u, p, t_: f(u, p, t_, data), lambda u, p, t_: g(u, p, t_, data),
+        "em", "diagonal", 1, first(u0_l, k), first(p_l, k), table=None,
+        **dict({x: v for x, v in sargs.items()
+                if x not in ("noise", "m_noise", "event")}, event=pe))
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    max_abs, plain_bitwise = vs_plain(out_k, out_p, k)
+    if not plain_bitwise:
+        raise AssertionError(f"{form}: not bitwise its plain version on the "
+                             f"first {k} lanes (max abs {max_abs:.3e})")
+    ended = out_k[2] < n_steps * dt - 1e-6
+    hit = float(ended.double().mean())
+    d_bar = float((out_k[1][0, ended].double() - RATE_BARRIER).abs().max())
+    ms = cuda_ms(kernel, 5)
+    st = out_k[3].long()
+    steps = int(st[0].sum())
+    ev_flops = event_ops(steps=steps, reanchors=0, hits=int(ended.sum()),
+                         interp=3, cond=1, affect=0)
+    ops = (steps * (GBM_RATE_STEP_OPS + LOOKUP_OPS["gather"])
+           + steps * NORMAL_FLOPS + ev_flops)
+    K = int(data["rate"].values.numel())
+    S = n_steps // RATE_FIXED["save_every"]
+    nbytes = 4 * (2 * N + S + K + S * N + N + N) + 4 * 6 * N
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32": ops / PEAK_FP32_FLOPS * 1e3,
+             "int32_alu": steps * THREEFRY_ALU_OPS
+             / (ALU_LANES_PER_SM * SM_LANE_CLOCKS_PER_S) * 1e3,
+             "issue": (steps * (THREEFRY_ALU_OPS + THREEFRY_ADD_OPS)
+                       + ops / 2) / (ISSUE_LANES_PER_SM
+                                     * SM_LANE_CLOCKS_PER_S) * 1e3}
+    b_instr, b_pipe, _ = k4_bound_instr("gbm-rate-1M-em", steps, F32_FAST,
+                                        ev_flops)
+    r = _event_row("sde_ensemble[em,gbm-rate,f32,data-gather,barrier,"
+                   "generated-event]", "src/repro_torch/csrc/sde_body.cuh",
+                   "src/repro/kernels/ensemble_kernel.py:533", launches,
+                   max_abs, ms, plain_ms, times, functor="hand-written "
+                   "GbmRate, generated event", form=form, plain_lanes=k,
+                   plain_bitwise=plain_bitwise, hit_share=hit,
+                   barrier_err=d_bar, bound_instr_ms=b_instr,
+                   bound_instr_pipe=b_pipe)
+    print(f"{form}: N={N} f32 status 0, launches {launches}, {hit:.4f} of "
+          f"the lanes hit the barrier {RATE_BARRIER} (frozen u0 off it by "
+          f"{d_bar:.3e}), bitwise the plain version on the first {k} lanes "
+          f"{plain_bitwise} ({plain_ms:.1f} ms); kernel {ms:.3f} ms, bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_pipe']}, in f32 instructions "
+          f"{b_instr:.4f} ms ({b_pipe}), kernel / that bound "
+          f"{ms / b_instr:.2f}x")
+    rows.append(r)
     return rows
 
 
@@ -2428,7 +3053,13 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
             return sde_kernel._plain(f, g, alg, prob.noise, m, u0_l, p_l,
                                      table=None, **kargs)
 
-        out_k, out_p = kernel(), plain()
+        out_k = kernel()
+        # the plain version runs once, timed (host clock around a synchronised
+        # run: it is a host loop)
+        t = time.perf_counter()
+        out_p = plain()
+        sync(device)
+        plain_ms = (time.perf_counter() - t) * 1e3
         mism, max_abs, e = lane_errors(lanes_first(out_k), lanes_first(out_p))
         q, bar = SDE_F32_TOL[name]
         rel = float(e.max())
@@ -2441,7 +3072,6 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
                 f"{bar}, or {mism} lanes finite in one only and {outliers} "
                 f"beyond {SDE_OUTLIER} (allowed {1e-4 * N:.0f})")
         ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, 1, warmup=0)
         # the plain version through the front door ("kernel"/"torch") is
         # the twin timed above, so it is not run again
         strategies = {}
@@ -4172,6 +4802,11 @@ OSC_ADAPTIVE = dict(t0=0.0, tf=5.0, dt0=1e-2, rtol=1e-8, atol=1e-8,
                     saveat=list(np.linspace(0.0, 5.0, 11)))
 OSC_STIFF = dict(t0=0.0, tf=3.0, dt0=1e-3, rtol=1e-8, atol=1e-8,
                  saveat=list(np.linspace(0.0, 3.0, 7)))
+# the stiff data row on the first half of that span: its plain version, a
+# host loop of ~3,500 steps on [0, 3] (44 s on 2^16 lanes), was the smoke's
+# longest single run
+OSC_STIFF_ROW = dict(OSC_STIFF, tf=1.5,
+                     saveat=list(np.linspace(0.0, 1.5, 4)))
 RATE_FIXED = dict(t0=0.0, dt0=1e-3, n_steps=500, save_every=250, seed=7)
 RATE_ADAPTIVE = dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-4, atol=1e-6,
                      seed=7, adaptive=True,
@@ -4241,13 +4876,15 @@ def data_parity_cases(device, N: int):
     stiff = osc_inputs(N, device, f64, prob=dataclasses.replace(
         big, tspan=(0.0, 3.0)), p=(50.0, 2.0))
     # rosenbrock23 and lazy-W rodas4 take 3,500 and 11,000 steps a lane on
-    # [0, 3], minutes for the plain version: their parity runs on [0, 0.5],
-    # past the first step from the table's first knot (the row
-    # osc-1M-rosenbrock23-data runs the whole span)
+    # [0, 3], minutes for the plain version: their parity runs on [0, 0.5]
+    # (lazy-W rodas4, 38 s of plain version there, on [0, 0.25]), past the
+    # first step from the table's first knot (the row
+    # osc-1M-rosenbrock23-data runs [0, 1.5])
     short = dict(OSC_STIFF, tf=0.5, saveat=[0.0, 0.25, 0.5])
+    shorter = dict(OSC_STIFF, tf=0.25, saveat=[0.0, 0.125, 0.25])
     for alg, wr, st in (("rosenbrock23", False, short),
-                        ("rodas5p", False, OSC_STIFF),
-                        ("rodas4", True, short)):
+                        ("rodas5p", False, OSC_STIFF_ROW),
+                        ("rodas4", True, shorter)):
         cases.append((f"osc {alg} {'lazyW' if wr else 'eager'}", rb_kernel,
                       stiff, dict(st, alg=alg, w_reuse=wr),
                       dict(linsolve="lanes"), 0.0))
@@ -4564,7 +5201,8 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
         ("osc-1M-rosenbrock23-data", rb_kernel,
          osc_inputs(N, device, f64, prob=dataclasses.replace(
              big, tspan=(0.0, 3.0)), p=(50.0, 2.0)),
-         dict(OSC_STIFF, alg="rosenbrock23"), "gather", DATA_STIFF_PLAIN_N),
+         dict(OSC_STIFF_ROW, alg="rosenbrock23"), "gather",
+         DATA_STIFF_PLAIN_N),
         ("gbm-rate-1M-em", sde_kernel,
          ensemble_problem(dp.gbm_rate_problem(dtype=f32), np.ones((N, 1)),
                           np.full((N, 1), 0.2), device=device, dtype=f32),
@@ -5988,9 +6626,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     gpu = gpu_line()
-    timed(phase_build)
+    prepared = timed(phase_build, device)
     worst, k2_row = timed(phase_parity, device)
-    translate = timed(phase_translate, device)
+    translate = timed(phase_translate, device, prepared)
     rows = timed(phase_full_size, device)
     for r in rows:
         r["parity_f64_rel_err"] = worst
@@ -6022,10 +6660,6 @@ def main() -> int:
     for r in stiff_rows:
         r["parity_f64"] = stiff
     rows += stiff_rows + lu_rows
-    translate_rows = timed(phase_translate_rows, device, rows)
-    for r in translate_rows:
-        r["parity_f64"] = translate
-    rows += translate_rows
     event_parity = timed(phase_event_parity, device)
     event_rows = (timed(phase_event_ball, device)
                   + timed(phase_event_rober, device)
@@ -6039,6 +6673,10 @@ def main() -> int:
     for r in data_rows:
         r["parity_f64"] = data_parity
     rows += data_rows + [lookup_row]
+    translate_rows = timed(phase_translate_rows, device, rows)
+    for r in translate_rows:
+        r["parity_f64"] = translate
+    rows += translate_rows
     grad = timed(phase_grad_parity, device)
     grad_rows = timed(phase_grad_full_size, device)
     for r in grad_rows:

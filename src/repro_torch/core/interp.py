@@ -142,6 +142,10 @@ def _as_query(x, values):
 def interp1d(table: UniformTable1D, x, mode: str = "gather"):
     """Interpolation at x (any shape). Clamped boundaries, all modes."""
     vals = table.values
+    if not isinstance(vals, Tensor):
+        # a dataset leaf being traced (repro_torch.translate.trace): the
+        # lookup is one node of the traced function
+        return vals.lookup(mode, x)
     x = _as_query(x, vals)
     K = table.K
     i, w = _locate(x, table.x0, table.dx, K)
@@ -174,6 +178,8 @@ def interp1d(table: UniformTable1D, x, mode: str = "gather"):
 def interp2d(table: UniformTable2D, x, y, mode: str = "gather"):
     """Bilinear/bicubic interpolation at (x, y) (broadcast shapes). Clamped."""
     vals = table.values
+    if not isinstance(vals, Tensor):
+        return vals.lookup(mode, x, y)
     x = _as_query(x, vals)
     y = _as_query(y, vals)
     Kx, Ky = int(vals.shape[0]), int(vals.shape[1])
@@ -264,6 +270,31 @@ def _unflatten(tree, it):
         return {k: _unflatten(sub, it) for k, sub in zip(tree[1], tree[2])}
     subs = [_unflatten(sub, it) for sub in tree[1]]
     return subs if kind == "list" else tuple(subs)
+
+
+def data_tables(data) -> list:
+    """The tables of a `prob.data` pytree in `data_flatten`'s order (a leaf
+    that is not a table is returned as it is)."""
+    leaves, treedef = data_flatten(data)
+    out: list = []
+
+    def walk(tree):
+        kind = tree[0]
+        if kind == "table1d":
+            out.append(UniformTable1D(leaves[len(out)], *tree[1:]))
+        elif kind == "table2d":
+            out.append(UniformTable2D(leaves[len(out)], *tree[1:]))
+        elif kind == "leaf":
+            out.append(leaves[len(out)])
+        elif kind == "dict":
+            for sub in tree[2]:
+                walk(sub)
+        elif kind in ("list", "tuple"):
+            for sub in tree[1]:
+                walk(sub)
+
+    walk(treedef)
+    return out
 
 
 def data_unflatten(treedef, leaves):

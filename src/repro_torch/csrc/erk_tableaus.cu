@@ -16,7 +16,8 @@
 // rkck54's states 3.1e-10 from the plain version's, vern7's and gbs10's
 // counts on 32 and 141 lanes; their first steps' error estimates sit at the
 // rounding level, so the step sizes follow the rounding; PERF.md §6).
-// Their event and data forms are not compiled (ROADMAP queue 2 item 14).
+// Their event and data forms are not compiled here: they run in the
+// units `repro_torch.translate` generates from the same body.
 
 #include "erk_body.cuh"
 

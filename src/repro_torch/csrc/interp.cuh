@@ -26,7 +26,14 @@
 // (`interp1d_and_tangent`) and follows the order in which torch.func.jvp
 // evaluates it in the plain version, with JAX's tie rule at the clamp:
 // half the tangent where s sits exactly on 0 or K - 1 (`_Clip` in
-// core/interp.py).
+// core/interp.py).  `interp1d_tangent` and `interp2d_tangent` give the
+// tangent of a lookup in every mode along the queries' own tangents, for
+// the functors that `repro_torch.translate` generates (∂f/∂t, and a
+// Jacobian where a query depends on u): each follows PyTorch's forward-AD
+// formulas through core/interp.py term by term, so that it equals
+// torch.func.jvp of the plain version bit for bit on the card in gather
+// and cubic mode (onehot sums the contraction's two terms that are not
+// zero, as its value does).
 
 #pragma once
 
@@ -236,6 +243,129 @@ __device__ __forceinline__ T interp2d(const Table2D<T>& tb, T x, T y) {
         const int jj = clampi(j - 1 + b, 0, Ky - 1);
         const T term = A::mul(A::mul(cx[a], cy[b]), load(tb.v, ii * Ky + jj));
         out = (a == 0 && b == 0) ? term : A::add(out, term);
+      }
+    }
+    return out;
+  }
+}
+
+// The tangent of the clamped grid coordinate clip((x - x0) / dx, 0, hi)
+// along the query's tangent xt, as torch.func.jvp forms it through
+// core/interp.py `_locate`: the quotient's tangent xt / dx, then `_Clip`'s
+// factors (1 inside, 1/2 on a bound, 0 outside or NaN), left to right.
+template <class A, typename T>
+__device__ __forceinline__ T coord_tangent(T s, T hi, T dx, T xt) {
+  const T f_lo = s > T(0) ? T(1) : (s == T(0) ? T(0.5) : T(0));
+  const T m = s < T(0) ? T(0) : s;
+  const T f_hi = m < hi ? T(1) : (m == hi ? T(0.5) : T(0));
+  return A::mul(A::mul(A::div(xt, dx), f_lo), f_hi);
+}
+
+// The tangents of the Keys weights along the weight's tangent wt, in the
+// order PyTorch's forward AD takes `_catmull_rom_weights` (w2 = w w,
+// w3 = w2 w; a product's tangent other_t self + self_t other; a product by
+// a Python number the tangent times the number).
+template <class A, typename T>
+__device__ __forceinline__ void catmull_rom_tangent(T w, T wt, T (&ct)[4]) {
+  const T w2 = A::mul(w, w);
+  const T w2t = A::add(A::mul(wt, w), A::mul(wt, w));
+  const T w3t = A::add(A::mul(wt, w2), A::mul(w2t, w));
+  ct[0] = A::mul(A::sub(A::add(-w3t, A::mul(w2t, T(2.0))), wt), T(0.5));
+  ct[1] = A::mul(A::sub(A::mul(w3t, T(3.0)), A::mul(w2t, T(5.0))), T(0.5));
+  ct[2] = A::mul(A::add(A::add(A::mul(w3t, T(-3.0)), A::mul(w2t, T(4.0))),
+                        wt),
+                 T(0.5));
+  ct[3] = A::mul(A::sub(w3t, w2t), T(0.5));
+}
+
+// The tangent of interp1d(table, x, mode) along xt.
+template <int Mode, class A, typename T>
+__device__ __forceinline__ T interp1d_tangent(const Table1D<T>& tb, T x,
+                                              T xt) {
+  const T s = A::div(A::sub(x, tb.x0), tb.dx);
+  int i;
+  T w;
+  cell<A>(s, tb.K, i, w);
+  const T wt = coord_tangent<A>(s, T(tb.K - 1), tb.dx, xt);
+  if constexpr (Mode == kCubic) {
+    T ct[4];
+    catmull_rom_tangent<A>(w, wt, ct);
+    T out = A::mul(ct[0], load(tb.v, clampi(i - 1, 0, tb.K - 1)));
+#pragma unroll
+    for (int k = 1; k < 4; ++k)
+      out = A::add(out, A::mul(ct[k], load(tb.v, clampi(i - 1 + k, 0,
+                                                         tb.K - 1))));
+    return out;
+  } else {
+    const T v0 = load(tb.v, i), v1 = load(tb.v, i + 1);
+    return A::add(A::mul(-wt, v0), A::mul(wt, v1));
+  }
+}
+
+// The tangent of interp2d(table, x, y, mode) along xt (where HasX) and yt
+// (where HasY); a query without a tangent contributes no term, as PyTorch
+// drops an undefined tangent.
+template <int Mode, class A, bool HasX, bool HasY, typename T>
+__device__ __forceinline__ T interp2d_tangent(const Table2D<T>& tb, T x, T y,
+                                              T xt, T yt) {
+  static_assert(HasX || HasY, "a tangent along x, y or both");
+  const T sx = A::div(A::sub(x, tb.x0), tb.dx);
+  const T sy = A::div(A::sub(y, tb.y0), tb.dy);
+  int i, j;
+  T wx, wy;
+  cell<A>(sx, tb.Kx, i, wx);
+  cell<A>(sy, tb.Ky, j, wy);
+  const T a = HasX ? coord_tangent<A>(sx, T(tb.Kx - 1), tb.dx, xt) : T(0);
+  const T b = HasY ? coord_tangent<A>(sy, T(tb.Ky - 1), tb.dy, yt) : T(0);
+  const int Ky = tb.Ky;
+  // (P q)' = q' P + P' q, a term dropped where its tangent is
+  auto prod = [&](T p, T pt, bool has_p, T q, T qt, bool has_q) {
+    if (has_p && has_q) return A::add(A::mul(qt, p), A::mul(pt, q));
+    return has_q ? A::mul(qt, p) : A::mul(pt, q);
+  };
+  if constexpr (Mode == kGather) {
+    const int idx = i * Ky + j;
+    const T ox = A::sub(T(1), wx), oy = A::sub(T(1), wy);
+    const T v00 = load(tb.v, idx), v01 = load(tb.v, idx + 1);
+    const T v10 = load(tb.v, idx + Ky), v11 = load(tb.v, idx + Ky + 1);
+    // t = (v wx-factor) wy-factor; the first product's tangent is the
+    // factor's times v
+    const T t00 = prod(A::mul(v00, ox), A::mul(-a, v00), HasX, oy, -b, HasY);
+    const T t01 = prod(A::mul(v01, ox), A::mul(-a, v01), HasX, wy, b, HasY);
+    const T t10 = prod(A::mul(v10, wx), A::mul(a, v10), HasX, oy, -b, HasY);
+    const T t11 = prod(A::mul(v11, wx), A::mul(a, v11), HasX, wy, b, HasY);
+    return A::add(A::add(A::add(t00, t01), t10), t11);
+  } else if constexpr (Mode == kOneHot) {
+    // rows = wmx @ values at columns j and j + 1, then sum(rows wmy): a
+    // column's term (rows wmy)' = wmy' rows + rows' wmy
+    const T ox = A::sub(T(1), wx), oy = A::sub(T(1), wy);
+    const int idx = i * Ky + j;
+    const T r0 = A::add(A::mul(ox, load(tb.v, idx)),
+                        A::mul(wx, load(tb.v, idx + Ky)));
+    const T r1 = A::add(A::mul(ox, load(tb.v, idx + 1)),
+                        A::mul(wx, load(tb.v, idx + Ky + 1)));
+    const T r0t = A::add(A::mul(-a, load(tb.v, idx)),
+                         A::mul(a, load(tb.v, idx + Ky)));
+    const T r1t = A::add(A::mul(-a, load(tb.v, idx + 1)),
+                         A::mul(a, load(tb.v, idx + Ky + 1)));
+    return A::add(prod(r0, r0t, HasX, oy, -b, HasY),
+                  prod(r1, r1t, HasX, wy, b, HasY));
+  } else {
+    T cx[4], cy[4], cxt[4], cyt[4];
+    catmull_rom<A>(wx, cx);
+    catmull_rom<A>(wy, cy);
+    catmull_rom_tangent<A>(wx, a, cxt);
+    catmull_rom_tangent<A>(wy, b, cyt);
+    T out = T(0);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int ii = clampi(i - 1 + p, 0, tb.Kx - 1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int jj = clampi(j - 1 + q, 0, Ky - 1);
+        const T term = A::mul(prod(cx[p], cxt[p], HasX, cy[q], cyt[q], HasY),
+                              load(tb.v, ii * Ky + jj));
+        out = (p == 0 && q == 0) ? term : A::add(out, term);
       }
     }
     return out;

@@ -11,13 +11,21 @@ version of the same function, the lanes loop
 `repro_torch.kernels.em.ref.solve_adaptive_lanes`.
 
 The drift and diffusion reach the kernel through the device functor both
-are registered with (`repro_torch.kernels.em.kernel.device_sde`).  The
-kernel cannot take a JVP, so the em pair needs the functor's hand-written
-``gdg``, (∂g/∂u)·g, and the milstein pair its ``ddb`` as well,
-∂((∂g)·g)·g.  An event reaches it through its `device_event` functor
-(`repro_torch.kernels.events`), for the pairs of `em.kernel.EVENT_PAIRS`.
-A data-driven pair reaches it through a data functor
-(`em.kernel.DATA_LAYOUTS`) and a third C entry, as in the fixed-dt kernel.
+are registered with (`repro_torch.kernels.em.kernel.device_sde`), whose
+hand-written ``gdg``, (∂g/∂u)·g, the em pair needs and whose ``ddb``,
+∂((∂g)·g)·g, the milstein pair needs as well.  The source compiles those
+functors without an event, their event forms for `em.kernel.EVENT_PAIRS`
+and the data functor (`em.kernel.DATA_LAYOUTS`, a third C entry) without an
+event.  Every other form goes through the automated translation
+(`repro_torch.translate`, `units.sde_adaptive_unit`), in a generated unit
+that instantiates the same kernel, its Brownian tree and its work queue
+(`csrc/sde_adaptive_body.cuh`): any other pair is traced (with the
+dataset's lookups), ``gdg`` derived as the plain version's
+`torch.func.jvp` computes it and, for the milstein pair, ``ddb`` as the
+derivative of ``gdg`` along g (the reference's nested JVP); an event whose
+condition and affect are not registered together is traced; a registered
+functor in a form the source lacks runs its hand-written struct in a unit.
+`em.kernel.sde_route` decides between source and unit.
 """
 from __future__ import annotations
 
@@ -28,12 +36,12 @@ import torch
 
 from repro_torch.core.controller import PIController
 from repro_torch.core.problem import bind_data
-from repro_torch.kernels.em.kernel import (DIAGONAL_ONLY, DTYPE_IDS,
-                                           EVENT_PAIRS, SDE_FUNCTORS,
-                                           STEPPER_IDS, device_data_args)
+from repro_torch.kernels.em.kernel import (DTYPE_IDS, SDE_FUNCTORS,
+                                           STEPPER_IDS, SDEFunctor,
+                                           sde_route, traced_pair)
 from repro_torch.kernels.em.ref import solve_adaptive_lanes
-from repro_torch.kernels.events import event_launch_args
-from repro_torch.kernels.interp import data_argtypes
+from repro_torch.kernels.events import event_form, event_launch_args
+from repro_torch.kernels.interp import data_argtypes, data_launch_args
 from repro_torch.kernels.rng import check_u32
 
 SOURCE = "sde_adaptive_ensemble.cu"
@@ -49,24 +57,25 @@ launches = 0
 def argtypes(event: bool = False, data: bool = False):
     """The ctypes argument types of the no-event entry, the event entry
     (the event id, terminal, direction and bisect_iters after the
-    estimator id) or the data entry (the tables there)."""
+    estimator id), the data entry (the tables there) or a generated unit's
+    data-and-event entry (the event's four, then the tables)."""
     vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                          ctypes.c_uint)
     args = [i32, i32, i32, i32, vp, vp, vp, i32, i32, f64, f64, f64, f64,
             f64, ctypes.c_longlong, u32, u32, i32, i32, vp, vp, vp, vp, vp,
             vp, vp]
-    extra = data_argtypes() if data else [i32] * 4 if event else []
+    extra = ([i32] * 4 if event else []) + (data_argtypes() if data else [])
     return args[:4] + extra + args[4:]
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(event: bool = False, data: bool = False):
-    """The no-event, event or data entry of the built library."""
-    from repro_torch.kernels.build import load
-    lib = load(SOURCE)
-    fn = (lib.sde_adaptive_data_launch if data
-          else lib.sde_adaptive_event_launch if event
-          else lib.sde_adaptive_launch)
+def _bind(event: bool = False, data: bool = False, unit=None):
+    """The no-event, event, data or data-and-event entry of SOURCE's
+    library (unit None) or of a generated unit's."""
+    from repro_torch.kernels.build import load, load_generated
+    lib = load(SOURCE) if unit is None else load_generated(unit)
+    fn = getattr(lib, "sde_adaptive" + ("_data" if data else "")
+                 + ("_event" if event else "") + "_launch")
     fn.argtypes = argtypes(event, data)
     fn.restype = ctypes.c_int
     return fn
@@ -82,38 +91,55 @@ def controller_constants(est_order: int, order: float):
             ctrl.dtmin, ctrl.dtmax, 1.0 / (2.0 ** order - 1.0))
 
 
+_UNITS: dict = {}
+
+
+def generated_unit(f, g, method: str, error_est: str, fun: SDEFunctor, dtype,
+                   *, event=None, data=None, hand=None):
+    """The generated unit of K5 for `method` with its embedded pair or step
+    doubling in `dtype`, with the `Event` `event` and the dataset `data`:
+    the pair (f, g) traced into one graph with gdg derived and, for the
+    milstein pair, ddb; or, where `hand` names a registered functor, its
+    hand-written struct."""
+    from repro_torch.translate.units import SdeFunctor, sde_adaptive_unit
+    form = event_form(event, fun.n, fun.k)
+    if hand is not None:
+        prob = SdeFunctor(hand=SDE_FUNCTORS[hand].struct)
+    else:
+        ddb = method == "milstein" and error_est == "embedded"
+        tf, tg, gdg, tddb = traced_pair(f, g, fun, data, ddb)
+        prob = SdeFunctor(tf, tg, fun.noise, gdg, tddb)
+    key = (prob, method, error_est, dtype, form, data is not None)
+    if key not in _UNITS:
+        _UNITS[key] = sde_adaptive_unit(prob, method, error_est, dtype,
+                                        event=form, data=data is not None)
+    return _UNITS[key]
+
+
 def _device_functor(f, g, method: str, noise: str, m_noise: int,
-                    error_est: str):
-    """The functor (name, SDEFunctor) the kernel instantiates for this
-    pair and method, or an exception naming what is missing."""
-    names = {getattr(f, "device_sde", None), getattr(g, "device_sde", None)}
-    if len(names) != 1 or None in names:
-        raise NotImplementedError(
-            f"drift/diffusion pair ({getattr(f, '__name__', f)!r}, "
-            f"{getattr(g, '__name__', g)!r}) has no device form: register "
-            f"both with the same @device_sde functor (the adaptive SDE "
-            "kernel's translation, with the milstein pair's ddb and the "
-            "Brownian tree, is ROADMAP queue 1 item 17's next slice)")
-    name = names.pop()
-    fun = SDE_FUNCTORS[name]
+                    error_est: str, *, n: int = 0, k: int = 0,
+                    dtype=torch.float64, event=None, data=None):
+    """(the registered functor's name, or None where the pair runs in a
+    generated unit; its SDEFunctor; the unit or None) for this pair,
+    method and estimator, or an exception naming what the kernel cannot
+    take (n, k: the state's and the parameters' sizes)."""
     if method not in STEPPER_IDS:
         raise NotImplementedError(
             f"stepper {method!r} is not compiled into the CUDA kernel; it "
             f"has {sorted(STEPPER_IDS)}")
-    if noise != fun.noise or m_noise != fun.m:
-        raise ValueError(f"functor {name!r} has {fun.noise} noise with "
-                         f"{fun.m} Wiener processes, not {noise} with "
-                         f"{m_noise}")
-    if method in DIAGONAL_ONLY and fun.noise != "diagonal":
-        raise ValueError(f"{method} supports diagonal noise only")
     if error_est == "embedded":
         if method not in PAIRS:
             raise ValueError(f"{method} ships no embedded pair in {SOURCE}; "
                              f"pairs: {PAIRS}")
-        if fun.noise != "diagonal":
+        if noise != "diagonal":
             raise ValueError("embedded SDE pairs are diagonal-noise only; "
                              "pass error_est='doubling' for general noise")
-    if method == "milstein" or error_est == "embedded":
+    unit, name, fun = sde_route(
+        f, g, method, noise=noise, m_noise=m_noise, n=n, k=k, dtype=dtype,
+        event=event, data=data, make_unit=lambda f_, g_, fun_, hand: generated_unit(
+            f_, g_, method, error_est, fun_, dtype, event=event, data=data,
+            hand=hand))
+    if unit is None and (method == "milstein" or error_est == "embedded"):
         if not fun.gdg:
             raise NotImplementedError(
                 f"{method} on the CUDA kernel needs the functor's "
@@ -122,7 +148,7 @@ def _device_functor(f, g, method: str, noise: str, m_noise: int,
             raise NotImplementedError(
                 f"the milstein pair on the CUDA kernel needs the functor's "
                 f"hand-written ddb member; {name!r} has none")
-    return name, fun
+    return (None if unit is not None else name), fun, unit
 
 
 def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
@@ -163,10 +189,14 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
     if u0.device.type != "cuda":
         raise ValueError(f"sde_adaptive_ensemble runs on CPU or CUDA "
                          f"tensors, not {u0.device.type}")
-    name, fun = _device_functor(f, g, method, noise, m_noise, error_est)
-    tables = device_data_args(name, data, event, u0, SOURCE)
-    ev = (() if event is None
-          else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
+    name, fun, unit = _device_functor(
+        f, g, method, noise, m_noise, error_est, n=u0.shape[0],
+        k=p.shape[0], dtype=u0.dtype, event=event, data=data)
+    name = name or "/".join(getattr(fn, "__name__", "the pair")
+                            for fn in (f, g))
+    tables = (None if data is None
+              else data_launch_args(data, None, name, u0))
+    ev = () if event is None else event_launch_args(event)
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not "
@@ -197,7 +227,7 @@ def sde_adaptive_ensemble(f, g, method: str, u0, p, saveat, *, noise: str,
         # the work queue's counter (csrc/trajectory_queue.cuh), zeroed on
         # the launch's stream
         queue = torch.zeros(1, dtype=torch.int32, device=u0.device)
-        rc = _bind(event is not None, tables is not None)(
+        rc = _bind(event is not None, tables is not None, unit)(
             DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
             ESTIMATOR_IDS[error_est], *ev, *(tables or ()), u0.data_ptr(),
             p.data_ptr(),

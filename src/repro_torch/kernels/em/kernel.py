@@ -11,35 +11,37 @@ version of the same function, the lanes loop `repro_torch.kernels.em.ref`.
 The kernel cannot call Python drift and diffusion functions.  A
 registered pair (f, g) reaches it through the hand-written device functor
 both are registered with by `device_sde`; Milstein's derivative term then
-needs the functor's hand-written ``gdg`` member, (∂g/∂u)·g.  Any other pair
-``f(u, p, t)``, ``g(u, p, t)`` reaches it through the automated translation
-(`repro_torch.translate`): f and g are traced into one graph (a term both
-compute, CRN's Hill term, is computed once a point), diagonal or general
-noise, ``gdg`` is derived (the plain version's `torch.func.jvp`) where the
-noise is diagonal, and the kernel is compiled for them, the stepper and
-the dtype in a generated translation unit, with the counter stream and the
-noise table.  An event reaches the kernel through its `device_event`
-functor (`repro_torch.kernels.events`), for registered pairs.  A
-data-driven pair ``f(u, p, t, data)``, ``g(u, p, t, data)`` reaches it
-through a data functor (`DATA_LAYOUTS`), which reads the dataset's tables
-on the card through a third C entry (`kernels/interp.py`).  A translated
-pair with an event or a dataset refuses (ROADMAP queue 1 item 17, its next
-slice).
+needs the functor's hand-written ``gdg`` member, (∂g/∂u)·g.  The source
+compiles those functors without an event, their event forms for its
+`EVENT_PAIRS`, and its data functor (`DATA_LAYOUTS`, through a third C
+entry, `kernels/interp.py`) without an event.  Every other form goes
+through the automated translation (`repro_torch.translate`), in a
+generated translation unit with the counter stream and the noise table:
+any other pair ``f(u, p, t)``, ``g(u, p, t)`` (or ``f(u, p, t, data)``,
+``g(u, p, t, data)``, traced with the dataset's lookups) is traced into
+one graph (a term both compute, CRN's Hill term, is computed once a
+point), diagonal or general noise, with ``gdg`` derived (the plain
+version's `torch.func.jvp`) where the noise is diagonal; an event whose
+condition and affect are not registered together is traced; a registered
+functor in a form the source lacks (another event, data with an event)
+runs its hand-written struct in a unit.  `sde_route` decides between
+source and unit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.problem import bind_data
 from repro_torch.core.sde import sde_nf_per_step
 from repro_torch.kernels.em.ref import solve_lanes
-from repro_torch.kernels.events import event_launch_args
+from repro_torch.kernels.events import (compiled_in, event_form,
+                                        event_launch_args)
 from repro_torch.kernels.interp import (DataLayout, data_argtypes,
-                                        data_launch_args)
+                                        data_launch_args, matches)
 from repro_torch.kernels.rng import (M32, check_u32, counter_normals_threefry,
                                      counter_words)
 
@@ -48,8 +50,10 @@ SOURCE = "sde_ensemble.cu"
 
 class SDEFunctor(NamedTuple):
     """A device functor of `csrc/sde_problems.cuh`: id, states, parameters,
-    noise kind, Wiener processes, and whether it has the ``gdg`` member,
-    (∂g/∂u)·g, and the ``ddb`` member, ∂((∂g)·g)·g (the milstein pair's)."""
+    noise kind, Wiener processes, whether it has the ``gdg`` member,
+    (∂g/∂u)·g, and the ``ddb`` member, ∂((∂g)·g)·g (the milstein pair's),
+    and its struct, which a generated unit instantiates in a form the
+    sources do not compile (None for a traced pair)."""
     id: int
     n: int
     k: int
@@ -57,13 +61,16 @@ class SDEFunctor(NamedTuple):
     m: int
     gdg: bool
     ddb: bool
+    struct: Optional[str] = None
 
 
 # as in the .cu files (`by_problem`)
-SDE_FUNCTORS = {"gbm": SDEFunctor(0, 3, 2, "diagonal", 3, True, True),
-                "crn": SDEFunctor(1, 4, 6, "general", 8, False, False),
-                "ramp": SDEFunctor(2, 1, 2, "diagonal", 1, True, True),
-                "gbm_rate": SDEFunctor(3, 1, 1, "diagonal", 1, True, True)}
+SDE_FUNCTORS = {
+    "gbm": SDEFunctor(0, 3, 2, "diagonal", 3, True, True, "repro_sde::Gbm"),
+    "crn": SDEFunctor(1, 4, 6, "general", 8, False, False, "repro_sde::Crn"),
+    "ramp": SDEFunctor(2, 1, 2, "diagonal", 1, True, True, "repro_sde::Ramp"),
+    "gbm_rate": SDEFunctor(3, 1, 1, "diagonal", 1, True, True,
+                           "repro_sde::GbmRate")}
 # the data functors and the dataset each reads (`by_data` in both .cu)
 DATA_LAYOUTS = {"gbm_rate": DataLayout((("rate", 1),))}
 # the (problem, event) pairs whose event form both SDE kernels compile
@@ -110,61 +117,97 @@ def _bind():
 
 
 @functools.lru_cache(maxsize=None)
-def _bind_unit(unit):
-    """The entry of a generated unit: the no-event entry's arguments."""
+def _bind_unit(unit, event: bool = False, data: bool = False):
+    """The entry of a generated unit for the form (event, data)."""
     from repro_torch.kernels.build import load_generated
-    fn = load_generated(unit).sde_ensemble_launch
-    fn.argtypes = list(argtypes())
+    fn = getattr(load_generated(unit), "sde_ensemble" + (
+        "_data" if data else "") + ("_event" if event else "") + "_launch")
+    fn.argtypes = argtypes(event, data)
     fn.restype = ctypes.c_int
     return fn
 
 
-def argtypes():
-    """The ctypes argument types of the no-event entry, the hand-written
-    one's and a generated unit's."""
+def argtypes(event: bool = False, data: bool = False):
+    """The ctypes argument types of the no-event entry, the event entry
+    (the event id, terminal, direction and bisect_iters after the table
+    switch), the data entry (the tables there) or a generated unit's
+    data-and-event entry (the event's four, then the tables): the
+    hand-written entries' and a generated unit's."""
     vp, i32, f64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                          ctypes.c_uint)
-    return [i32, i32, i32, i32, vp, vp, vp, i32, i32, i32, f64, f64, f64,
+    args = [i32, i32, i32, i32, vp, vp, vp, i32, i32, i32, f64, f64, f64,
             u32, u32, vp, vp, vp, vp, vp]
+    extra = ([i32] * 4 if event else []) + (data_argtypes() if data else [])
+    return args[:4] + extra + args[4:]
 
 
 @functools.lru_cache(maxsize=None)
 def _bind_event():
-    """The event entry: the no-event arguments with the event id,
-    terminal, direction and bisect_iters after the table switch."""
+    """The event entry of SOURCE."""
     from repro_torch.kernels.build import load
     fn = load(SOURCE).sde_ensemble_event_launch
-    args = list(_bind()[0].argtypes)
-    fn.argtypes = args[:4] + [ctypes.c_int] * 4 + args[4:]
+    fn.argtypes = argtypes(event=True)
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _bind_data():
-    """The data entry: the no-event arguments with the tables after the
-    table switch."""
+    """The data entry of SOURCE."""
     from repro_torch.kernels.build import load
     fn = load(SOURCE).sde_ensemble_data_launch
-    args = list(_bind()[0].argtypes)
-    fn.argtypes = args[:4] + data_argtypes() + args[4:]
+    fn.argtypes = argtypes(data=True)
     fn.restype = ctypes.c_int
     return fn
 
 
-def device_data_args(name: str, data, event, u0, source: str):
-    """The data entry's table arguments for the SDE functor `name` (None
-    without data), or the reason the pair cannot run on the card."""
-    if data is None:
-        if name in DATA_LAYOUTS:
+class SdeRoute(NamedTuple):
+    """Where an SDE launch goes: `unit` None for the hand-written source
+    (the functor `name`, `fun`), else the generated unit; `fun` gives the
+    sizes and the noise the launch checks."""
+    unit: object
+    name: str
+    fun: SDEFunctor
+
+
+def sde_route(f, g, method: str, *, noise: str, m_noise: int, n: int, k: int,
+              dtype, event=None, data=None, make_unit=None):
+    """The route of a K4 (or, with K5's `make_unit`, K5) launch (both
+    sources compile the same `EVENT_PAIRS`): a registered pair in the forms the source compiles (no event,
+    the `EVENT_PAIRS`, the data functor of `DATA_LAYOUTS` without an event)
+    goes to the source; in any other form it runs its hand-written struct
+    in a unit; any other pair is traced into a unit (and so is a registered
+    one that reads no dataset, given one).  `make_unit(f, g, fun, hand)`
+    makes the unit; n, k are the state's and the parameters' sizes."""
+    make_unit = make_unit or (lambda f, g, fun, hand: generated_unit(
+        f, g, method, fun, dtype, event=event, data=data, hand=hand))
+    names = {getattr(f, "device_sde", None), getattr(g, "device_sde", None)}
+    name = names.pop() if len(names) == 1 else None
+    if name is not None:
+        fun = SDE_FUNCTORS[name]
+        if noise != fun.noise or m_noise != fun.m:
+            raise ValueError(f"functor {name!r} has {fun.noise} noise with "
+                             f"{fun.m} Wiener processes, not {noise} with "
+                             f"{m_noise}")
+        layout = DATA_LAYOUTS.get(name)
+        if data is not None and not (layout is not None
+                                     and matches(data, layout)):
+            name = None         # a dataset the functor does not read
+        elif data is None and layout is not None:
             raise ValueError(f"the device functor {name!r} reads a dataset; "
                              "the problem has none (prob.data)")
-        return None
-    tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
-    if event is not None:
-        raise NotImplementedError(
-            f"the data forms of {source} take no event")
-    return tables
+    if method in DIAGONAL_ONLY and noise != "diagonal":
+        raise ValueError(f"{method} supports diagonal noise only")
+    if name is None:
+        fname = (f"{getattr(f, '__name__', 'f')}/"
+                 f"{getattr(g, '__name__', 'g')}")
+        fun = SDEFunctor(-1, n, k, noise, int(m_noise), noise == "diagonal",
+                         noise == "diagonal")
+        return SdeRoute(make_unit(f, g, fun, None), fname, fun)
+    if event is None or (data is None
+                         and compiled_in(event, name, EVENT_PAIRS)):
+        return SdeRoute(None, name, fun)
+    return SdeRoute(make_unit(f, g, fun, name), name, fun)
 
 
 def _plain(f, g, method, noise, m_noise, u0, p, *, t0, dt, n_steps,
@@ -219,44 +262,22 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
     if u0.device.type != "cuda":
         raise ValueError(f"sde_ensemble runs on CPU or CUDA tensors, not "
                          f"{u0.device.type}")
-    names = {getattr(f, "device_sde", None), getattr(g, "device_sde", None)}
     if method not in STEPPER_IDS:
         raise NotImplementedError(
             f"stepper {method!r} is not compiled into the CUDA kernel; it "
             f"has {sorted(STEPPER_IDS)}")
-    unit, tables, ev = None, None, ()
-    if len(names) != 1 or None in names:
-        if event is not None or data is not None:
-            raise NotImplementedError(
-                f"drift/diffusion pair ({getattr(f, '__name__', f)!r}, "
-                f"{getattr(g, '__name__', g)!r}) reaches the CUDA kernel "
-                "through the automated translation, which takes no "
-                f"{'event' if event is not None else 'dataset'} yet: event "
-                "condition and affect functors and data functors are "
-                "ROADMAP queue 1 item 17's next slice")
-        if method in DIAGONAL_ONLY and noise != "diagonal":
-            raise ValueError(f"{method} supports diagonal noise only")
-        name = f"{getattr(f, '__name__', 'f')}/{getattr(g, '__name__', 'g')}"
-        fun = SDEFunctor(-1, u0.shape[0], p.shape[0], noise, int(m_noise),
-                         noise == "diagonal", False)
-        unit = generated_unit(f, g, method, fun, u0.dtype)
-    else:
-        name = names.pop()
-        fun = SDE_FUNCTORS[name]
-        if noise != fun.noise or m_noise != fun.m:
-            raise ValueError(f"functor {name!r} has {fun.noise} noise with "
-                             f"{fun.m} Wiener processes, not {noise} with "
-                             f"{m_noise}")
-        if method == "milstein" and not fun.gdg:
-            raise NotImplementedError(
-                f"milstein on the CUDA kernel needs the functor's "
-                f"hand-written gdg member, (dg/du)·g; {name!r} has none in "
-                f"{SOURCE}")
-        if method in DIAGONAL_ONLY and fun.noise != "diagonal":
-            raise ValueError(f"{method} supports diagonal noise only")
-        tables = device_data_args(name, data, event, u0, SOURCE)
-        ev = (() if event is None
-              else event_launch_args(event, name, EVENT_PAIRS, SOURCE))
+    names = {getattr(f, "device_sde", None), getattr(g, "device_sde", None)}
+    if method == "milstein" and len(names) == 1 and None not in names \
+            and not SDE_FUNCTORS[min(names)].gdg:
+        raise NotImplementedError(
+            f"milstein on the CUDA kernel needs the functor's hand-written "
+            f"gdg member, (dg/du)·g; {min(names)!r} has none in {SOURCE}")
+    unit, name, fun = sde_route(f, g, method, noise=noise, m_noise=m_noise,
+                                n=u0.shape[0], k=p.shape[0], dtype=u0.dtype,
+                                event=event, data=data)
+    tables = (None if data is None
+              else data_launch_args(data, None, name, u0))
+    ev = () if event is None else event_launch_args(event)
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not "
@@ -281,9 +302,10 @@ def sde_ensemble(f, g, method: str, u0, p, *, noise: str, m_noise: int,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        entry = (_bind_data() if tables is not None
-                 else _bind_event() if event is not None
-                 else _bind_unit(unit) if unit is not None else _bind()[0])
+        entry = (_bind_unit(unit, event is not None, tables is not None)
+                 if unit is not None
+                 else _bind_data() if tables is not None
+                 else _bind_event() if event is not None else _bind()[0])
         rc = entry(
             DTYPE_IDS[dtype], fun.id, STEPPER_IDS[method],
             int(table is not None), *ev, *(tables or ()), u0.data_ptr(),
@@ -349,18 +371,41 @@ def sde_normals(seed: int, step0: int, steps: int, rows: int, lanes: int, *,
 _UNITS: dict = {}
 
 
-def generated_unit(f, g, method: str, fun: SDEFunctor, dtype):
-    """The generated unit of K4 for the pair (f, g) traced into one graph,
-    with the derived gdg = (∂g/∂u)·g where the noise is diagonal, for
-    `method` in `dtype` (`fun`: the pair's sizes and noise)."""
+def generated_unit(f, g, method: str, fun: SDEFunctor, dtype, *, event=None,
+                   data=None, hand=None):
+    """The generated unit of K4 for `method` in `dtype` with the `Event`
+    `event` and the dataset `data` (`fun`: the pair's sizes and noise): the
+    pair (f, g) traced into one graph, with the derived gdg = (∂g/∂u)·g
+    where the noise is diagonal; or, where `hand` names a registered
+    functor, its hand-written struct."""
+    from repro_torch.translate.units import sde_unit
+    form = event_form(event, fun.n, fun.k)
+    if hand is not None:
+        key = (hand, method, dtype, form, data is not None)
+        if key not in _UNITS:
+            _UNITS[key] = sde_unit(None, None, fun.noise, None, method,
+                                   dtype, hand_functor=SDE_FUNCTORS[hand].struct,
+                                   event=form, data=data is not None)
+        return _UNITS[key]
+    tf, tg, gdg, _ = traced_pair(f, g, fun, data)
+    key = (tf, tg, method, dtype, form)
+    if key not in _UNITS:
+        _UNITS[key] = sde_unit(tf, tg, fun.noise, gdg, method, dtype,
+                               event=form, data=data is not None)
+    return _UNITS[key]
+
+
+def traced_pair(f, g, fun: SDEFunctor, data=None, ddb: bool = False):
+    """(f, g, gdg, ddb) traced into one graph: gdg = (∂g/∂u)·g where the
+    noise is diagonal and, where asked, the milstein pair's ddb =
+    ∂((∂g)·g)·g, the derivative of gdg along g (the reference's nested
+    JVP)."""
     from repro_torch.translate import derive
     from repro_torch.translate.trace import trace_pair
-    from repro_torch.translate.units import sde_unit
     g_out = (fun.n,) if fun.noise == "diagonal" else (fun.n, fun.m)
     tf, tg = trace_pair(f, g, fun.n, fun.k, f_outputs=(fun.n,),
-                        g_outputs=g_out)
-    key = (tf, tg, method, dtype)
-    if key not in _UNITS:
-        gdg = derive.jvp(tg, tg) if fun.noise == "diagonal" else None
-        _UNITS[key] = sde_unit(tf, tg, fun.noise, gdg, method, dtype)
-    return _UNITS[key]
+                        g_outputs=g_out, data=data)
+    if fun.noise != "diagonal":
+        return tf, tg, None, None
+    gdg = derive.jvp(tg, tg)
+    return tf, tg, gdg, derive.jvp(gdg, tg) if ddb else None

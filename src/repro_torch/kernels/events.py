@@ -2,13 +2,16 @@
 their registry.
 
 A kernel cannot call a Python condition or affect.  An `Event` reaches a
-kernel through the hand-written functor its condition (and its affect, if it
-has one) is registered with by `device_event`; its ``terminal``,
-``direction`` and ``bisect_iters`` travel to the launch as runtime ints.
-Each kernel compiles its event forms only for the (problem, event) pairs it
-lists (`EVENT_PAIRS` in each kernel module), so an event without a device
-form, or a pair that is not compiled in, raises `NotImplementedError` on
-the card: it never falls back to the plain version.
+kernel through a device functor: the hand-written one of `events.cuh` its
+condition (and its affect, if it has one) is registered with by
+`device_event`, or one the automated translation (`repro_torch.translate`)
+generates from the Python condition and affect (`event_form`).  Its
+``terminal``, ``direction`` and ``bisect_iters`` travel to the launch as
+runtime ints (`event_launch_args`).  Each hand-written source compiles its
+event forms for the (problem, event) pairs it lists (`EVENT_PAIRS` in each
+kernel module, `compiled_in`); every other pair, and every event whose
+condition and affect are not registered together, runs in a generated
+unit.  Nothing falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -16,19 +19,20 @@ from typing import NamedTuple
 
 
 class EventFunctor(NamedTuple):
-    """A functor of `csrc/events.cuh`: its id in the launches' dispatch and
-    whether it has an affect."""
+    """A functor of `csrc/events.cuh`: its id in the launches' dispatch,
+    whether it has an affect, and its struct."""
     id: int
     affect: bool
+    struct: str
 
 
 # as in csrc/events.cuh (`kEventId` of each functor)
-EVENT_FUNCTORS = {"ball_bounce": EventFunctor(1, True),
-                  "decay_half": EventFunctor(2, False),
-                  "rober_half": EventFunctor(3, False),
-                  "gbm_barrier": EventFunctor(4, False),
-                  "ramp_sawtooth": EventFunctor(5, True),
-                  "osc_level": EventFunctor(6, False)}
+EVENT_FUNCTORS = {"ball_bounce": EventFunctor(1, True, "BallBounce"),
+                  "decay_half": EventFunctor(2, False, "DecayHalf"),
+                  "rober_half": EventFunctor(3, False, "RoberHalf"),
+                  "gbm_barrier": EventFunctor(4, False, "GbmBarrier"),
+                  "ramp_sawtooth": EventFunctor(5, True, "RampSawtooth"),
+                  "osc_level": EventFunctor(6, False, "OscLevel")}
 
 
 def device_event(name: str):
@@ -45,31 +49,52 @@ def device_event(name: str):
     return mark
 
 
-def event_launch_args(ev, problem: str, pairs, source: str):
-    """(event id, terminal, direction, bisect_iters) of `ev` for a kernel
-    launch on the problem functor `problem`; `pairs` are the (problem,
-    event) pairs compiled into `source`.  Raises NotImplementedError where
-    the event has no device form or the pair is not compiled in."""
+def registered_event(ev):
+    """The hand-written functor `ev` is registered with (its condition's,
+    with the affect that functor has or none), or None: an event to
+    translate."""
     name = getattr(ev.condition, "device_event", None)
     if name is None:
-        raise NotImplementedError(
-            f"event condition {getattr(ev.condition, '__name__', ev.condition)!r}"
-            " has no device form: register a functor of csrc/events.cuh with "
-            "@device_event (repro_torch.kernels.events; translating an event's"
-            " condition and affect is ROADMAP queue 1 item 17's next slice)")
+        return None
     fun = EVENT_FUNCTORS[name]
     affect = getattr(ev.affect, "device_event", None)
     if (ev.affect is None) == fun.affect or (fun.affect and affect != name):
-        raise NotImplementedError(
-            f"event {name!r}: its affect is not the device functor's "
-            f"({'one registered' if fun.affect else 'none'} with "
-            "@device_event); the kernel runs only the registered one")
-    if (problem, name) not in pairs:
-        raise NotImplementedError(
-            f"the event form ({problem}, {name}) is not compiled into "
-            f"{source}; it has {sorted(pairs)} (repro_torch.kernels.events)")
+        return None
+    return name
+
+
+def compiled_in(ev, problem: str, pairs) -> bool:
+    """Whether a hand-written source compiles the event form of `ev` on
+    the problem functor `problem`: its registered functor paired with it in
+    `pairs`."""
+    name = registered_event(ev)
+    return name is not None and (problem, name) in pairs
+
+
+def event_launch_args(ev):
+    """(event id, terminal, direction, bisect_iters) of `ev` for a launch:
+    the id of its registered functor, -1 for a translated one (a generated
+    unit fixes its functor and ignores the id)."""
     if ev.direction not in (-1, 0, 1) or not 0 <= int(ev.bisect_iters) < 2 ** 31:
         raise ValueError(f"direction must be -1, 0 or 1 and bisect_iters "
                          f">= 0, got {ev.direction}, {ev.bisect_iters}")
-    return fun.id, int(bool(ev.terminal)), int(ev.direction), \
-        int(ev.bisect_iters)
+    name = registered_event(ev)
+    return (EVENT_FUNCTORS[name].id if name is not None else -1,
+            int(bool(ev.terminal)), int(ev.direction), int(ev.bisect_iters))
+
+
+def event_form(ev, n: int, m: int):
+    """The event form of a generated unit (`translate.units.EventForm`):
+    None without an event, the registered functor's struct, or the
+    condition and affect traced for n states and m parameters."""
+    if ev is None:
+        return None
+    from repro_torch.translate.trace import trace_event
+    # traced in any case: a registered functor is paired here with a
+    # problem its source does not pair it with, and the trace checks that
+    # its condition and affect read and write this problem's state
+    traced = trace_event(ev.condition, ev.affect, n, m)
+    name = registered_event(ev)
+    if name is not None:
+        return f"repro_ev::{EVENT_FUNCTORS[name].struct}"
+    return traced

@@ -1,12 +1,15 @@
 """Dataset tables on the card: what the wrappers of K1, K3, K4 and K5 pass
 to their data forms, and the lookup test entry (`csrc/interp_lookup.cu`).
 
-A data functor of a kernel (forced oscillator, rate-table GBM) reads the
-leaves of ``prob.data`` that its `DataLayout` names.  `data_launch_args`
-checks the dataset against that layout, its dtype and device against the
-state's, and packs each leaf's device pointer, shape and grid for the
-kernel's data entry (`csrc/interp.cuh` `Tables`); the kernels read the
-tables through the same lookups as `repro_torch.core.interp`.
+A data functor of a kernel reads the leaves of ``prob.data``: a
+hand-written one (forced oscillator, rate-table GBM) those its
+`DataLayout` names, a generated one (`repro_torch.translate`) every leaf
+of the dataset it was traced with, in `data_flatten`'s order.
+`data_launch_args` checks the dataset (against a layout where one is
+given), its dtype and device against the state's, and packs each leaf's
+device pointer, shape and grid for the kernel's data entry
+(`csrc/interp.cuh` `Tables`); the kernels read the tables through the same
+lookups as `repro_torch.core.interp`.
 
 `interp_lookup` runs those lookups alone, one thread per query, on CUDA
 tensors (or raises); on CPU tensors, and only for them, it runs the plain
@@ -21,7 +24,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core.interp import (MODES, UniformTable1D, UniformTable2D,
-                                     data_flatten, interp1d, interp2d)
+                                     data_tables, interp1d, interp2d)
 
 SOURCE = "interp_lookup.cu"
 MAX_LEAVES = 4          # repro_data::kMaxLeaves
@@ -38,47 +41,45 @@ class DataLayout(NamedTuple):
     tables: Tuple[Tuple[str, int], ...]
 
 
-def _no_functor(what: str, name: str):
-    return NotImplementedError(
-        f"{what} {name!r} has no data form: a data-driven problem runs on "
-        "the card only through a registered data functor; automatic "
-        "translation of a Python RHS into one is ROADMAP queue 1 item 17's "
-        "next slice")
+def matches(data, layout) -> bool:
+    """Whether `data` is the dict of tables a hand-written functor's
+    `DataLayout` names."""
+    want = dict(layout.tables)
+    return isinstance(data, dict) and set(data) == set(want) and all(
+        isinstance(data[k], UniformTable1D if nd == 1 else UniformTable2D)
+        for k, nd in want.items())
 
 
 def data_launch_args(data, layout, name: str, u0):
     """``(count, leaves, shapes, grids)`` for a data entry: ctypes arrays of
     the leaves' device pointers, (kx, ky) shapes and (x0, dx, y0, dy)
-    grids, in `data_flatten`'s order.  `layout` is the functor's
-    `DataLayout` (None: the functor takes no data, and raises).  Raises
-    where the dataset is not the layout's, or its tables are not contiguous
-    tensors of u0's dtype on u0's device."""
-    if layout is None:
-        raise _no_functor("device functor", name)
-    want = dict(layout.tables)
-    if not isinstance(data, dict) or set(data) != set(want):
+    grids, in `data_flatten`'s order.  `layout` is a hand-written functor's
+    `DataLayout`, or None for a generated functor, which reads every leaf.
+    Raises where the dataset is not the layout's, a leaf is not a 1-D or
+    2-D table, or a table is not a contiguous tensor of u0's dtype on u0's
+    device."""
+    if layout is not None and not matches(data, layout):
         raise ValueError(
             f"the data functor {name!r} reads a dict of tables "
-            f"{sorted(want)}, got "
+            f"{sorted(dict(layout.tables))}, got "
             f"{sorted(data) if isinstance(data, dict) else type(data)}")
-    for key, ndim in want.items():
-        kind = UniformTable1D if ndim == 1 else UniformTable2D
-        if not isinstance(data[key], kind):
-            raise ValueError(f"data[{key!r}] must be a {kind.__name__} for "
-                             f"{name!r}")
-    leaves = data_flatten(data)[0]
-    if len(leaves) > MAX_LEAVES:
-        raise ValueError(f"at most {MAX_LEAVES} tables, got {len(leaves)}")
+    tables = data_tables(data)
+    if not 1 <= len(tables) <= MAX_LEAVES:
+        raise ValueError(f"a data form takes 1 to {MAX_LEAVES} tables, got "
+                         f"{len(tables)}")
     ptrs, shapes, grids = [], [], []
-    for key in sorted(data):
-        tab = data[key]
+    for k, tab in enumerate(tables):
+        if not isinstance(tab, (UniformTable1D, UniformTable2D)):
+            raise ValueError(f"dataset leaf {k} is a {type(tab).__name__}, "
+                             "not a UniformTable1D or UniformTable2D")
         v = tab.values
+        ndim = 1 if isinstance(tab, UniformTable1D) else 2
         if v.device != u0.device or v.dtype != u0.dtype:
-            raise ValueError(f"data[{key!r}] must be a {u0.dtype} tensor on "
-                             f"{u0.device}, got {v.dtype} on {v.device}")
-        if not v.is_contiguous() or v.dim() != want[key] or v.shape[0] < 2 \
+            raise ValueError(f"dataset leaf {k} must be a {u0.dtype} tensor "
+                             f"on {u0.device}, got {v.dtype} on {v.device}")
+        if not v.is_contiguous() or v.dim() != ndim or v.shape[0] < 2 \
                 or (v.dim() == 2 and v.shape[1] < 2) or v.numel() >= 2 ** 31:
-            raise ValueError(f"data[{key!r}] must be contiguous with at "
+            raise ValueError(f"dataset leaf {k} must be contiguous with at "
                              "least 2 knots an axis")
         ptrs.append(v.data_ptr())
         shapes += [int(v.shape[0]), int(v.shape[1]) if v.dim() == 2 else 0]

@@ -13,26 +13,28 @@ version of the same function, the lanes engine
 The kernel cannot call a Python RHS.  A registered RHS reaches it through
 the hand-written device functor it is registered with by `device_stiff`,
 which gives f, its Jacobian ∂f/∂u and ∂f/∂t; a problem's analytic Jacobian
-hook then carries the same registration.  Any other ``f(u, p, t)`` (or a
-registered f with a Jacobian hook that is not its functor's) reaches it
-through the automated translation (`repro_torch.translate`): f is traced,
-a given Jacobian hook is traced too (the (n, n) Jacobian of the same
-problem), ``jac=None`` takes the derived Jacobian (forward mode on the
-traced f, as the plain version's `torch.func.jacfwd`), ∂f/∂t is derived,
-and the kernel is compiled for them, the tableau and the dtype in a
-generated translation unit.  An event reaches the kernel through its
-`device_event` functor (`repro_torch.kernels.events`); the event forms are
-compiled in float64, the stiff family's precision, for registered RHS
-only.  A data-driven RHS ``f(u, p, t, data)`` reaches it through a data
-functor (`DATA_LAYOUTS`), whose Jacobian and ∂f/∂t read the tables too,
-through a third C entry in float64 (`kernels/interp.py`).  A translated RHS
-with an event or a dataset refuses (ROADMAP queue 1 item 17, its next
-slice).
+hook then carries the same registration.  `rosenbrock_ensemble.cu`
+compiles those functors without an event in f32 and f64, their event forms
+for its `EVENT_PAIRS` in f64, and its data functor (`DATA_LAYOUTS`, whose
+Jacobian and ∂f/∂t read the tables too, through a third C entry,
+`kernels/interp.py`) in f64 without an event.  Every other form goes
+through the automated translation (`repro_torch.translate`), in a
+generated translation unit: any other ``f(u, p, t)`` or ``f(u, p, t,
+data)`` (or a registered f with a Jacobian hook that is not its
+functor's) is traced, a given Jacobian hook is traced too (the (n, n)
+Jacobian of the same problem), ``jac=None`` takes the derived Jacobian
+(forward mode on the traced f, as the plain version's `torch.func.jacfwd`;
+a lookup's tangent in its mode), ∂f/∂t is derived; an event whose
+condition and affect are not registered together is traced; a registered
+functor in a form the source lacks (an event in f32, an event the source
+does not pair with it, data with an event) runs its hand-written struct,
+copied into the unit.  `route` decides between source and unit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,15 +44,31 @@ from repro_torch.core.problem import bind_data
 from repro_torch.core.rosenbrock import (_policy, rosenbrock_nf_per_step,
                                          solve_rosenbrock)
 from repro_torch.core.tableaus import RosenbrockTableau
-from repro_torch.kernels.events import event_launch_args
+from repro_torch.kernels.events import (compiled_in, event_form,
+                                        event_launch_args)
 from repro_torch.kernels.interp import (DataLayout, data_argtypes,
-                                        data_launch_args)
+                                        data_launch_args, matches)
 
 SOURCE = "rosenbrock_ensemble.cu"
-# device functor id and (n, m) for each registered RHS — as in the .cu
-STIFF_FUNCTORS = {"rober": (0, 3, 3), "orego": (1, 3, 3), "vdp": (2, 2, 1),
-                  "ball": (3, 2, 2), "decay": (4, 1, 1),
-                  "forced_osc": (5, 2, 2)}
+
+
+class StiffFunctor(NamedTuple):
+    """A registered RHS's device functor: its id in SOURCE, its state's and
+    parameters' sizes, and its struct there, which a generated unit copies
+    for a form the source does not compile."""
+    id: int
+    n: int
+    m: int
+    struct: str
+
+
+# as in the .cu
+STIFF_FUNCTORS = {
+    "rober": StiffFunctor(0, 3, 3, "Rober"),
+    "orego": StiffFunctor(1, 3, 3, "Orego"),
+    "vdp": StiffFunctor(2, 2, 1, "Vdp"), "ball": StiffFunctor(3, 2, 2, "Ball"),
+    "decay": StiffFunctor(4, 1, 1, "Decay"),
+    "forced_osc": StiffFunctor(5, 2, 2, "ForcedOsc")}
 # the data functors and the dataset each reads (`by_data`, float64)
 DATA_LAYOUTS = {"forced_osc": DataLayout((("force", 1),))}
 # the (RHS, event) pairs whose event form the .cu compiles, in float64
@@ -86,32 +104,25 @@ _ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
 def argtypes(event: bool = False, data: bool = False):
     """The ctypes argument types of the no-event entry, the event entry
     (the event id, terminal, direction and bisect_iters after the lazy-W
-    switch) or the data entry (float64; the tables there)."""
-    extra = data_argtypes() if data else [ctypes.c_int] * 4 if event else []
+    switch), the data entry (the tables there) or a generated unit's
+    data-and-event entry (the event's four, then the tables)."""
+    extra = (([ctypes.c_int] * 4 if event else [])
+             + (data_argtypes() if data else []))
     return _ARGTYPES[:4] + extra + _ARGTYPES[4:]
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(event: bool = False, unit=None):
-    """The no-event entry (of SOURCE or of a generated unit), or the event
-    entry."""
+def _bind(event: bool = False, unit=None, data: bool = False):
+    """The entry of SOURCE (unit None) or of a generated unit for the form
+    (event, data)."""
     from repro_torch.kernels.build import load, load_generated
     lib = load(SOURCE) if unit is None else load_generated(unit)
-    fn = (lib.rosenbrock_ensemble_event_launch if event
-          else lib.rosenbrock_ensemble_launch)
-    fn.argtypes = argtypes(event)
+    fn = getattr(lib, "rosenbrock_ensemble" + ("_data" if data else "")
+                 + ("_event" if event else "") + "_launch")
+    fn.argtypes = argtypes(event, data)
     fn.restype = ctypes.c_int
     return fn
 
-
-@functools.lru_cache(maxsize=None)
-def _bind_data():
-    """The data entry (float64)."""
-    from repro_torch.kernels.build import load
-    fn = load(SOURCE).rosenbrock_ensemble_data_launch
-    fn.argtypes = argtypes(data=True)
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _plain(f, rtab, u0, p, saveat, *, jac, t0, tf, dt0, rtol, atol,
@@ -158,7 +169,6 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
     if u0.device.type != "cuda":
         raise ValueError(f"rosenbrock_ensemble runs on CPU or CUDA tensors, "
                          f"not {u0.device.type}")
-    name = getattr(f, "device_stiff", None)
     if rtab.name not in TABLEAU_IDS or not _compiled_in(rtab):
         raise NotImplementedError(
             f"tableau {rtab.name!r} is not compiled into the CUDA kernel; it "
@@ -166,37 +176,14 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
-    ev, unit = (), None
-    if name is None or (jac is not None
-                        and getattr(jac, "device_stiff", None) != name):
-        if event is not None or data is not None:
-            raise NotImplementedError(
-                f"RHS {getattr(f, '__name__', f)!r} reaches the CUDA kernel "
-                "through the automated translation, which takes no "
-                f"{'event' if event is not None else 'dataset'} yet: event "
-                "condition and affect functors and data functors are "
-                "ROADMAP queue 1 item 17's next slice")
-        n, m = u0.shape[0], p.shape[0]
-        unit, rhs_id = generated_unit(f, jac, rtab, n, m, dtype), -1
-        name = getattr(f, "__name__", "the RHS")
-    else:
-        rhs_id, n, m = STIFF_FUNCTORS[name]
-        if data is not None:
-            tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
-            if dtype != torch.float64 or event is not None:
-                raise NotImplementedError(
-                    "the stiff kernel's data forms are compiled in float64 "
-                    f"without events, not {dtype}"
-                    + (" with an event" if event is not None else ""))
-        elif name in DATA_LAYOUTS:
-            raise ValueError(f"the device functor {name!r} reads a dataset; "
-                             "the problem has none (prob.data)")
-        elif event is not None:
-            ev = event_launch_args(event, name, EVENT_PAIRS, SOURCE)
-            if dtype != torch.float64:
-                raise NotImplementedError(
-                    f"the stiff kernel's event forms are compiled in float64 "
-                    f"only, not {dtype}")
+    unit, rhs_id, n, m = route(f, jac, rtab, event, data, n=u0.shape[0],
+                               m=p.shape[0], dtype=dtype,
+                               w_reuse=_policy(w_reuse) is not None)
+    name = (getattr(f, "device_stiff", None) if unit is None
+            else getattr(f, "__name__", "the RHS"))
+    ev = () if event is None else event_launch_args(event)
+    tables = (() if data is None
+              else data_launch_args(data, None, name, u0))
     N = u0.shape[-1]
     for what, x, shape in (("u0", u0, (n, N)), ("p", p, (m, N)),
                            ("saveat", saveat, (saveat.shape[0],))):
@@ -219,12 +206,10 @@ def rosenbrock_ensemble(f, rtab: RosenbrockTableau, u0, p, saveat, *, jac,
     stats = torch.empty((6, N), dtype=torch.int32, device=u0.device)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     with torch.cuda.device(u0.device):
-        entry = (_bind_data() if data is not None
-                 else _bind(event is not None, unit))
+        entry = _bind(event is not None, unit, data is not None)
         rc = entry(
             DTYPE_IDS[dtype], TABLEAU_IDS[rtab.name], rhs_id,
-            int(_policy(w_reuse) is not None), *ev,
-            *(tables if data is not None else ()), u0.data_ptr(),
+            int(_policy(w_reuse) is not None), *ev, *tables, u0.data_ptr(),
             p.data_ptr(), saveat.data_ptr(), S, N, float(t0), float(tf),
             float(dt0), float(rtol), float(atol), int(max_iters),
             rosenbrock_nf_per_step(rtab), ctypes.addressof(consts),
@@ -248,21 +233,76 @@ def _compiled_in(rtab: RosenbrockTableau) -> bool:
 _UNITS: dict = {}
 
 
-def generated_unit(f, jac, rtab: RosenbrockTableau, n: int, m: int, dtype):
-    """The generated unit of K3 for f traced, its Jacobian (the hook
+def generated_unit(f, jac, rtab: RosenbrockTableau, n: int, m: int, dtype,
+                   *, event=None, data=None, hand=None, w_reuse=False):
+    """The generated unit of K3 on `rtab` in `dtype`, eager or lazy W
+    (`w_reuse`), with the `Event` `event` and the dataset `data`: for f
+    traced, its Jacobian (the hook
     `jac` traced, the (n, n) Jacobian of the same problem, or derived where
-    `jac` is None) and its derived ∂f/∂t, on `rtab` in `dtype`."""
+    `jac` is None) and its derived ∂f/∂t; or, where `hand` names a
+    registered functor, its hand-written struct, copied."""
     from repro_torch.translate import derive
     from repro_torch.translate.trace import trace, trace_pair
     from repro_torch.translate.units import rosenbrock_unit
+    form = event_form(event, n, m)
+    if hand is not None:
+        key = (hand, rtab.name, dtype, form, data is not None, w_reuse)
+        if key not in _UNITS:
+            _UNITS[key] = rosenbrock_unit(
+                None, None, None, rtab, dtype,
+                hand_functor=STIFF_FUNCTORS[hand].struct, event=form,
+                data=data is not None, w_reuse=w_reuse)
+        return _UNITS[key]
     if jac is None:
-        tf = trace(f, n, m, outputs=(n,))
+        tf = trace(f, n, m, outputs=(n,), data=data)
         tj = None
     else:
-        tf, tj = trace_pair(f, jac, n, m, f_outputs=(n,), g_outputs=(n, n))
-    key = (tf, tj, rtab.name, dtype)
+        tf, tj = trace_pair(f, jac, n, m, f_outputs=(n,), g_outputs=(n, n),
+                            data=data)
+    key = (tf, tj, rtab.name, dtype, form, w_reuse)
     if key not in _UNITS:
         J = derive.jacobian(tf) if tj is None else tj
         _UNITS[key] = rosenbrock_unit(tf, J, derive.time_derivative(tf),
-                                      rtab, dtype)
+                                      rtab, dtype, event=form,
+                                      data=data is not None,
+                                      w_reuse=w_reuse)
     return _UNITS[key]
+
+
+def route(f, jac, rtab: RosenbrockTableau, event=None, data=None, *, n: int,
+          m: int, dtype=torch.float64, w_reuse: bool = False):
+    """(generated unit or None for SOURCE, RHS id, n, m) of a launch, eager
+    or lazy W (`w_reuse`, which a unit fixes): a
+    registered functor (with its own Jacobian hook or none) in the forms
+    SOURCE compiles (no event in f32 and f64; the `EVENT_PAIRS` in f64; the
+    data functor of `DATA_LAYOUTS` in f64 without an event) goes to SOURCE;
+    in any other form it runs its hand-written struct in a unit, but for
+    the f64-only data functor in f32, which is traced; any other RHS is
+    traced into a unit (and so is a registered one that reads no dataset,
+    given one)."""
+    name = getattr(f, "device_stiff", None)
+    hand = name is not None and (
+        jac is None or getattr(jac, "device_stiff", None) == name)
+    if hand:
+        rhs_id, n, m, _ = STIFF_FUNCTORS[name]
+    layout = DATA_LAYOUTS.get(name) if hand else None
+    f64 = dtype == torch.float64
+    if data is not None:
+        if layout is not None and matches(data, layout) and f64:
+            if event is None:
+                return None, rhs_id, n, m
+            return generated_unit(f, jac, rtab, n, m, dtype, event=event,
+                                  data=data, hand=name,
+                                  w_reuse=w_reuse), -1, n, m
+        return generated_unit(f, jac, rtab, n, m, dtype, event=event,
+                              data=data, w_reuse=w_reuse), -1, n, m
+    if layout is not None:
+        raise ValueError(f"the device functor {name!r} reads a dataset; "
+                         "the problem has none (prob.data)")
+    if not hand:
+        return generated_unit(f, jac, rtab, n, m, dtype, event=event,
+                              w_reuse=w_reuse), -1, n, m
+    if event is None or (f64 and compiled_in(event, name, EVENT_PAIRS)):
+        return None, rhs_id, n, m
+    return generated_unit(f, jac, rtab, n, m, dtype, event=event,
+                          hand=name, w_reuse=w_reuse), -1, n, m

@@ -15,19 +15,23 @@ the hand-written device functor it is registered with by `device_rhs`, an
 event through its `device_event` functor (`repro_torch.kernels.events`),
 and a data-driven RHS ``f(u, p, t, data)`` through a data functor
 (`DATA_LAYOUTS`), which reads the dataset's tables on the card through a
-second C entry (`kernels/interp.py`).  Any other ``f(u, p, t)``, and any
+second C entry (`kernels/interp.py`), in the forms the two sources compile.
+Every other form goes through the automated translation
+(`repro_torch.translate`), in a generated translation unit whose C entries
+take the hand-written entries' arguments: any other ``f(u, p, t)`` or
+``f(u, p, t, data)`` (traced once, with its dataset's lookups), any event
+whose condition and affect are not registered together (traced), any
 tableau that is not one of the compiled eight (a user tableau, e.g. from
-`convert.tableau_from_arrays`), reaches it through the automated
-translation (`repro_torch.translate`): f is traced once into a device
-functor and the kernel is compiled for it, its tableau and dtype in a
-generated translation unit whose C entries take the hand-written entries'
-arguments.  A translated RHS with an event or a dataset still refuses
-(ROADMAP queue 1 item 17, its next slice).
+`convert.tableau_from_arrays`), and any pairing of these that the sources
+do not compile (a registered RHS with an event on one of the six tableaus
+of `erk_tableaus.cu`, a data functor with another event).  `route` decides
+between source and unit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,22 +40,35 @@ from repro_torch.core.events import without_log
 from repro_torch.core.problem import bind_data
 from repro_torch.core.solvers import AdaptiveOptions, solve_adaptive
 from repro_torch.core.tableaus import TABLEAUS, Tableau
-from repro_torch.kernels.events import event_launch_args
+from repro_torch.kernels.events import (compiled_in, event_form,
+                                        event_launch_args)
 from repro_torch.kernels.interp import (DataLayout, data_argtypes,
-                                        data_launch_args)
+                                        data_launch_args, matches)
 from repro_torch.translate.trace import trace
 
 SOURCE = "erk_ensemble.cu"
 # rkck54, bs3, rkf45, rk4, vern7 and gbs10: their no-event, no-data form
 TABLEAUS_SOURCE = "erk_tableaus.cu"
-# device functor id and (n, m) for each registered RHS — as in the .cu
-RHS_FUNCTORS = {"lorenz": (0, 3, 3), "sho": (1, 2, 1), "ball": (2, 2, 2),
-                "decay": (3, 1, 1), "forced_osc": (4, 2, 2),
-                "forced_osc_onehot": (5, 2, 2), "forced_osc_cubic": (6, 2, 2)}
-# the structs (in erk_body.cuh) of the no-data functors, which a generated
-# unit instantiates with a user tableau
-RHS_STRUCTS = {"lorenz": "Lorenz", "sho": "Sho", "ball": "Ball",
-               "decay": "Decay"}
+
+
+class RhsFunctor(NamedTuple):
+    """A registered RHS's device functor: its id in the sources, its
+    state's and parameters' sizes, and its struct in erk_body.cuh, which a
+    generated unit instantiates in a form the sources do not compile."""
+    id: int
+    n: int
+    m: int
+    struct: str
+
+
+# as in the .cu files
+RHS_FUNCTORS = {
+    "lorenz": RhsFunctor(0, 3, 3, "Lorenz"), "sho": RhsFunctor(1, 2, 1, "Sho"),
+    "ball": RhsFunctor(2, 2, 2, "Ball"), "decay": RhsFunctor(3, 1, 1, "Decay"),
+    "forced_osc": RhsFunctor(4, 2, 2, "ForcedOsc<repro_data::kGather>"),
+    "forced_osc_onehot": RhsFunctor(5, 2, 2,
+                                    "ForcedOsc<repro_data::kOneHot>"),
+    "forced_osc_cubic": RhsFunctor(6, 2, 2, "ForcedOsc<repro_data::kCubic>")}
 # the data functors and the dataset each reads (`by_data`)
 _FORCE = DataLayout((("force", 1),))
 DATA_LAYOUTS = {"forced_osc": _FORCE, "forced_osc_onehot": _FORCE,
@@ -109,10 +126,9 @@ def argtypes(event: bool = False, data: bool = False,
 
 
 @functools.lru_cache(maxsize=None)
-def _bind_data():
-    """The data entry of SOURCE."""
-    from repro_torch.kernels.build import load
-    fn = load(SOURCE).erk_ensemble_data_launch
+def _bind_data(source=SOURCE):
+    """The data entry of SOURCE or of a generated unit."""
+    fn = _library(source).erk_ensemble_data_launch
     fn.argtypes = argtypes(data=True)
     fn.restype = ctypes.c_int
     return fn
@@ -126,8 +142,8 @@ def _library(source):
 
 @functools.lru_cache(maxsize=None)
 def _bind(event: bool = False, source=SOURCE):
-    """The no-event entry of `source` (a generated unit's included), or the
-    event entry of SOURCE."""
+    """The no-event or the event entry of `source` (a generated unit's
+    included)."""
     lib = _library(source)
     if event:
         fn = lib.erk_ensemble_event_launch
@@ -195,40 +211,73 @@ def _tableau_key(tab: Tableau):
 _UNITS: dict = {}
 
 
-def generated_unit(f, tab: Tableau, n: int, m: int, dtype):
-    """The generated unit of K1 and K2 for `f` (traced, or the hand-written
-    functor it is registered with where only the tableau needs the
-    translation) on `tab` in `dtype`."""
+def generated_unit(f, tab: Tableau, n: int, m: int, dtype, *, event=None,
+                   data=None, hand=None):
+    """The generated unit of K1 and K2 for `f` on `tab` in `dtype`, with
+    the `Event` `event` and the dataset `data`: f traced (with the
+    dataset's lookups), or, where `hand` names a registered functor, its
+    hand-written struct."""
     from repro_torch.translate.units import erk_unit
-    name = getattr(f, "device_rhs", None)
-    traced = None if name is not None else trace(f, n, m, outputs=(n,))
-    key = (name if name is not None else traced, _tableau_key(tab), dtype)
+    traced = None if hand is not None else trace(f, n, m, outputs=(n,),
+                                                 data=data)
+    form = event_form(event, n, m)
+    key = (hand if hand is not None else traced, _tableau_key(tab), dtype,
+           form, data is not None)
     if key not in _UNITS:
-        hand = None if name is None else f"repro_erk::{RHS_STRUCTS[name]}"
-        _UNITS[key] = erk_unit(traced, tab, dtype, hand_functor=hand)
+        _UNITS[key] = erk_unit(
+            traced, tab, dtype, event=form, data=data is not None,
+            hand_functor=None if hand is None
+            else f"repro_erk::{RHS_FUNCTORS[hand].struct}")
     return _UNITS[key]
 
 
-def _translated(f, tab, u0, p, event, data):
-    """The generated unit, RHS id -1 and n of an RHS without a registered
-    functor, or of a tableau that is not compiled in; refuses what the
-    translation does not take yet."""
+class Route(NamedTuple):
+    """Where a launch goes: a source of csrc/ or a generated unit
+    (`target`), with the RHS id, n and m its entry takes."""
+    target: object
+    rhs_id: int
+    n: int
+    m: int
+
+
+def route(f, tab: Tableau, event=None, data=None, *, n: int, m: int,
+          dtype=torch.float64) -> Route:
+    """The hand-written source that compiles this form, else the generated
+    unit: a registered RHS in the forms `erk_ensemble.cu` (tsit5, dopri5:
+    no event, the `EVENT_PAIRS`, the data functors of `DATA_LAYOUTS` alone
+    or with the `DATA_EVENT_PAIRS`) and `erk_tableaus.cu` (the other six
+    tableaus, no event, no data) compile goes there; a registered functor
+    in any other form, with a translated event or on a user tableau, runs
+    its hand-written struct in a unit; any other RHS (and a registered one
+    that reads no dataset, given one) is traced.  `n` and `m` are the
+    state's and the parameters' sizes (a registered functor's are its
+    own)."""
     name = getattr(f, "device_rhs", None)
-    what = (f"RHS {getattr(f, '__name__', f)!r}" if name is None
-            else f"tableau {tab.name!r}")
-    if event is not None or data is not None:
-        raise NotImplementedError(
-            f"{what} reaches the CUDA kernel through the automated "
-            f"translation, which takes no {'event' if event is not None else 'dataset'}"
-            " yet: event condition and affect functors and data functors "
-            "are ROADMAP queue 1 item 17's next slice (register a "
-            "hand-written functor and a compiled tableau for now)")
-    if name is not None and name not in RHS_STRUCTS:
+    compiled = _compiled(tab)
+    source = source_of(tab.name) if compiled else None
+    if name is not None:
+        rhs_id, n, m, _ = RHS_FUNCTORS[name]
+    layout = DATA_LAYOUTS.get(name)
+    if data is not None:
+        if layout is not None and matches(data, layout):
+            if source == SOURCE and (event is None or compiled_in(
+                    event, name, DATA_EVENT_PAIRS)):
+                return Route(SOURCE, rhs_id, n, m)
+            return Route(generated_unit(f, tab, n, m, dtype, event=event,
+                                        data=data, hand=name), -1, n, m)
+        return Route(generated_unit(f, tab, n, m, dtype, event=event,
+                                    data=data), -1, n, m)
+    if layout is not None:
         raise ValueError(f"the device functor {name!r} reads a dataset; "
                          "the problem has none (prob.data)")
-    n, m = ((RHS_FUNCTORS[name][1:]) if name is not None
-            else (u0.shape[0], p.shape[0]))
-    return generated_unit(f, tab, n, m, u0.dtype), -1, n
+    if name is None:
+        return Route(generated_unit(f, tab, n, m, dtype, event=event), -1, n,
+                     m)
+    if source is not None and (event is None or (
+            source == SOURCE and compiled_in(event, name, EVENT_PAIRS))):
+        return Route(source, rhs_id, n, m)
+    return Route(generated_unit(f, tab, n, m, dtype, event=event,
+                                hand=name), -1, n, m)
 
 
 def _form(f, tab: Tableau, u0, p, saveat, event, data):
@@ -241,31 +290,15 @@ def _form(f, tab: Tableau, u0, p, saveat, event, data):
     dtype = u0.dtype
     if dtype not in DTYPE_IDS:
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
-    name = getattr(f, "device_rhs", None)
+    source, rhs_id, n, m = route(f, tab, event, data, n=u0.shape[0],
+                                 m=p.shape[0], dtype=dtype)
+    what = getattr(f, "device_rhs", None) or getattr(f, "__name__", "the RHS")
     tables, ev = (), ()
-    if name is None or not _compiled(tab):
-        source, rhs_id, n = _translated(f, tab, u0, p, event, data)
-        m = p.shape[0] if name is None else RHS_FUNCTORS[name][2]
-        what = getattr(f, "__name__", "the RHS")
-    else:
-        source = source_of(tab.name)
-        if source != SOURCE and (event is not None or data is not None):
-            raise NotImplementedError(
-                f"the {'event' if event is not None else 'data'} form of "
-                f"tableau {tab.name!r} is not compiled into the CUDA kernel "
-                "(it has tsit5's and dopri5's; ROADMAP queue 2 item 14)")
-        rhs_id, n, m = RHS_FUNCTORS[name]
-        what = name
-        if data is not None:
-            tables = data_launch_args(data, DATA_LAYOUTS.get(name), name, u0)
-            ev = ((0, 0, 0, 0) if event is None
-                  else event_launch_args(event, name, DATA_EVENT_PAIRS,
-                                         SOURCE))
-        elif name in DATA_LAYOUTS:
-            raise ValueError(f"the device functor {name!r} reads a dataset; "
-                             "the problem has none (prob.data)")
-        elif event is not None:
-            ev = event_launch_args(event, name, EVENT_PAIRS, SOURCE)
+    if event is not None:
+        ev = event_launch_args(event)
+    if data is not None:
+        tables = data_launch_args(data, None, what, u0)
+        ev = ev or (0, 0, 0, 0)
     N = u0.shape[-1]
     S = saveat.shape[0]
     for x_name, x, shape in (("u0", u0, (n, N)), ("p", p, (m, N)),
@@ -303,7 +336,7 @@ def _erk_ensemble(f, tab: Tableau, u0, p, saveat, *, t0, tf, dt0, rtol,
     stats = torch.empty((6, N), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        entry = (_bind_data() if data is not None
+        entry = (_bind_data(source) if data is not None
                  else _bind(event is not None, source))
         rc = entry(
             DTYPE_IDS[dtype], TABLEAU_IDS.get(tab.name, -1), rhs_id, *ev,

@@ -4,7 +4,11 @@
 ships none: the reference's `jacfwd` in `rosenbrock_body`, the plain
 version's `torch.func.jacfwd`), `time_derivative` gives ∂f/∂t (the stiff
 kernel's `eval_dfdt`, the reference's `jvp` along t) and `jvp` gives the
-derivative of a function along another (Milstein's (∂g/∂u)·g).
+derivative of a function along another (Milstein's (∂g/∂u)·g, and, of
+that, the milstein pair's ∂((∂g)·g)·g).  A dataset lookup's tangent is one
+``lookup_jvp`` node (`ir`), the lookup's derivative along its queries in
+its mode, with `core.interp`'s half slope on a table's bounds; a lookup's
+second derivative refuses.
 
 Each node's tangent follows the operand order of PyTorch's own forward-AD
 formula for the op (derivatives.yaml), so that `ir.evaluate` of a
@@ -151,6 +155,13 @@ def forward(traced: Traced, seeds: Dict[int, int]) -> Dict[int, Optional[int]]:
             sa = ts[1] if ts[1] is not None else zero
             sb = ts[2] if ts[2] is not None else zero
             out = g.add("where", (a, sa, sb))
+        elif op == "lookup":
+            # the lookup's tangent along the queries that carry one
+            # (interp.cuh `interp1d_tangent`, `interp2d_tangent`)
+            has = tuple(x is not None for x in ts)
+            out = g.add("lookup_jvp", args + tuple(x for x in ts
+                                                   if x is not None),
+                        (attr[0], attr[1], has))
         else:
             raise _refuse(op, traced.name)
         tan[i] = out

@@ -15,6 +15,19 @@ kernel's existing functor interface.
   ``drift_and_noise`` with ``kSharedDriftNoise``, so the steppers compute
   the shared part once.
 
+- K5 (`sde_adaptive_body.cuh`): K4's functor with ``gdg`` and, for the
+  milstein pair, ``ddb``, ∂((∂g)·g)·g.
+- The events of every kernel (`events.cuh`): ``enabled``, ``kAffect``,
+  ``condition`` (0-d) and ``affect`` ((n,)), under the policy the kernel
+  passes (`Rounded` in every event form).
+
+A function traced with a dataset becomes a data functor: it holds the
+kernel's table leaves (`interp.cuh` ``Leaf``, copied from ``Tables`` by its
+constructor, as the hand-written `ForcedOsc` holds its one) and its
+members are ``const``; a ``lookup`` node is interp.cuh's lookup of leaf k
+in its mode, a ``lookup_jvp`` node that lookup's tangent
+(`interp1d_tangent`, `interp2d_tangent`).
+
 A node becomes one ``const T`` (or ``const bool``) temporary, in node
 order; the inputs are read in place.  Constants are hexadecimal float
 literals cast to T, exact in double and rounded once in float, as
@@ -34,6 +47,8 @@ _FUNCS = {"sqrt": "sqrt", "exp": "exp", "log": "log", "sin": "sin",
           "cos": "cos", "tanh": "tanh", "abs": "fabs"}
 _CMP = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
         "ne": "!="}
+_MODES = {"gather": "repro_data::kGather", "onehot": "repro_data::kOneHot",
+          "cubic": "repro_data::kCubic"}
 
 
 def literal(x: float) -> str:
@@ -133,6 +148,21 @@ class Body:
             e = f"{x[0]} {_CMP[op[:-2]]} {constant(attr)}"
         elif op == "where":
             e = f"{x[0]} ? {x[1]} : {x[2]}"
+        elif op == "lookup":
+            leaf, mode = attr
+            k = len(x)
+            e = (f"repro_data::interp{k}d<{_MODES[mode]}, {A}>("
+                 f"repro_data::Table{k}D<T>(leaf[{leaf}]), {', '.join(x)})")
+        elif op == "lookup_jvp":
+            leaf, mode, has = attr
+            k = len(has)
+            rest = iter(x[k:])
+            tans = [next(rest) if h else "T(0)" for h in has]
+            flags = "".join(f", {'true' if h else 'false'}" for h in has) \
+                if k == 2 else ""
+            e = (f"repro_data::interp{k}d_tangent<{_MODES[mode]}, {A}{flags}>"
+                 f"(repro_data::Table{k}D<T>(leaf[{leaf}]), "
+                 f"{', '.join(list(x[:k]) + tans)})")
         else:                                   # pragma: no cover
             raise ValueError(f"no C++ form for IR op {op!r}")
         name = f"v{self.temps}"
@@ -174,6 +204,20 @@ def _member(head: str, body: Body, policy_using: bool = False) -> str:
     return (f"  {head} {{\n{using}{body.text()}\n  }}\n")
 
 
+def _data_parts(name: str, graph: Graph):
+    """(the members' storage class, their qualifier, the data functor's
+    leaves and constructor): static members without a dataset; const
+    members of a functor that holds the kernel's table leaves with one."""
+    if graph.data is None:
+        return "static ", "", ""
+    L = len(graph.data)
+    init = ", ".join(f"d.leaf[{k}]" for k in range(L))
+    return "", " const", (
+        f"  repro_data::Leaf leaf[{L}];\n"
+        f"  __device__ __forceinline__ explicit {name}("
+        f"const repro_data::Tables& d)\n      : leaf{{{init}}} {{}}\n")
+
+
 def _assign_all(body: Body, out: str, nodes: Sequence[int]):
     for c, i in enumerate(nodes):
         body.assign(f"{out}[{c}]", i)
@@ -184,12 +228,14 @@ def erk_functor(name: str, f: Traced) -> str:
     g = f.graph
     body = Body(g)
     _assign_all(body, "du", f.outputs)
+    static, const, members = _data_parts(name, g)
     return (f"// {f.name}, traced\n"
             f"struct {name} {{\n"
             f"  static constexpr int n = {g.n}, m = {g.m};\n"
+            + members
             + _member("template <class A, typename T>\n"
-                      "  __device__ __forceinline__ static void eval("
-                      "const T* u, const T* p, T t, T* du)", body)
+                      f"  __device__ __forceinline__ {static}void eval("
+                      f"const T* u, const T* p, T t, T* du){const}", body)
             + "};\n")
 
 
@@ -207,16 +253,18 @@ def rosenbrock_functor(name: str, f: Traced, jac: Traced,
     both = Body(g)
     _assign_all(both, "du", f.outputs)
     _assign_all(both, "d", dfdt.outputs)
-    head = "template <typename T>\n  __device__ __forceinline__ static void"
+    static, const, members = _data_parts(name, g)
+    head = f"template <typename T>\n  __device__ __forceinline__ {static}void"
     return (f"// {f.name}, traced; Jacobian {jac.name}; ∂f/∂t {dfdt.name}\n"
             f"struct {name} {{\n"
             f"  static constexpr int n = {n}, m = {g.m};\n"
-            + _member(f"{head} eval(const T* u, const T* p, T t, T* du)",
-                      ev, True)
-            + _member(f"{head} jac(const T* u, const T* p, T t, T J[n][n])",
-                      jb, True)
+            + members
+            + _member(f"{head} eval(const T* u, const T* p, T t, T* du)"
+                      f"{const}", ev, True)
+            + _member(f"{head} jac(const T* u, const T* p, T t, T J[n][n])"
+                      f"{const}", jb, True)
             + _member(f"{head} eval_dfdt(const T* u, const T* p, T t, T* du,"
-                      " T* d)", both, True)
+                      f" T* d){const}", both, True)
             + "};\n")
 
 
@@ -243,34 +291,37 @@ def shared_nodes(f: Traced, g: Traced) -> List[int]:
 
 
 def sde_functor(name: str, f: Traced, g: Traced, noise: str,
-                gdg: Optional[Traced]) -> str:
-    """K4's functor: drift f (n,), diffusion g ((n,) diagonal, (n, m)
-    general) and, for diagonal noise, gdg = (∂g/∂u)·g."""
+                gdg: Optional[Traced], ddb: Optional[Traced] = None) -> str:
+    """K4's and K5's functor: drift f (n,), diffusion g ((n,) diagonal,
+    (n, m) general) and, for diagonal noise, gdg = (∂g/∂u)·g and (the
+    milstein pair's) ddb = ∂((∂g)·g)·g."""
     G = f.graph
     n, k = G.n, G.m
     diagonal = noise == "diagonal"
     m = n if diagonal else g.shape[1]
+    static, const, members = _data_parts(name, G)
     head = ("template <class A, typename T>\n  __device__ __forceinline__ "
-            "static void")
+            f"{static}void")
     drift = Body(G)
     _assign_all(drift, "du", f.outputs)
-    parts = [_member(f"{head} drift(const T* u, const T* p, T t, T* du)",
-                     drift)]
+    parts = [_member(f"{head} drift(const T* u, const T* p, T t, T* du)"
+                     f"{const}", drift)]
     if diagonal:
         diff = Body(G)
         _assign_all(diff, "g", g.outputs)
         parts.append(_member(f"{head} diffusion(const T* u, const T* p, T t,"
-                             " T* g)", diff))
+                             f" T* g){const}", diff))
     else:
         nz = Body(G)
         _noise_rows(nz, g)
         parts.append(_member(f"{head} noise(const T* u, const T* p, T t, "
-                             "const T* dW, T* out)", nz))
-    if gdg is not None:
-        gb = Body(G)
-        _assign_all(gb, "out", gdg.outputs)
-        parts.append(_member(f"{head} gdg(const T* u, const T* p, T t, "
-                             "T* out)", gb))
+                             f"const T* dW, T* out){const}", nz))
+    for member, tr in (("gdg", gdg), ("ddb", ddb)):
+        if tr is not None:
+            gb = Body(G)
+            _assign_all(gb, "out", tr.outputs)
+            parts.append(_member(f"{head} {member}(const T* u, const T* p, "
+                                 f"T t, T* out){const}", gb))
     shared = bool(shared_nodes(f, g))
     if shared:
         both = Body(G)
@@ -283,15 +334,44 @@ def sde_functor(name: str, f: Traced, g: Traced, noise: str,
             _noise_rows(both, g)
         parts.append("  static constexpr bool kSharedDriftNoise = true;\n"
                      + _member(f"{head} drift_and_noise(const T* u, const T*"
-                               " p, T t, const T* dW, T* du, T* out)", both))
+                               " p, T t, const T* dW, T* du, T* out)"
+                               f"{const}", both))
+    flag = lambda x: "true" if x is not None else "false"  # noqa: E731
     return (f"// drift {f.name}, {noise} noise {g.name}, traced"
-            + (f"; gdg {gdg.name}" if gdg is not None else "") + "\n"
+            + (f"; gdg {gdg.name}" if gdg is not None else "")
+            + (f"; ddb {ddb.name}" if ddb is not None else "") + "\n"
             f"struct {name} {{\n"
             f"  static constexpr int n = {n}, k = {k}, m = {m};\n"
             f"  static constexpr bool diagonal = "
             f"{'true' if diagonal else 'false'};\n"
-            f"  static constexpr bool has_gdg = "
-            f"{'true' if gdg is not None else 'false'}, has_ddb = false;\n"
+            f"  static constexpr bool has_gdg = {flag(gdg)}, has_ddb = "
+            f"{flag(ddb)};\n"
+            + members + "".join(parts) + "};\n")
+
+
+def event_functor(name: str, condition: Traced,
+                  affect: Optional[Traced] = None) -> str:
+    """An event functor of `events.cuh`: the traced condition (0-d) and,
+    where given, the traced affect ((n,)), each under the kernel's policy
+    ``A``, as `BallBounce` is written."""
+    G = condition.graph
+    head = ("template <class A, typename T>\n  __device__ __forceinline__ "
+            "static")
+    cb = Body(G)
+    cb.lines.append(f"return {cb.ref(condition.outputs[0])};")
+    parts = [_member(f"{head} T condition(const T* u, const T* p, T t)", cb)]
+    if affect is not None:
+        ab = Body(G)
+        _assign_all(ab, "out", affect.outputs)
+        parts.append(_member(f"{head} void affect(const T* u, const T* p, "
+                             "T t, T* out)", ab))
+    return (f"// condition {condition.name}"
+            + (f", affect {affect.name}" if affect is not None else "")
+            + ", traced\n"
+            f"struct {name} {{\n"
+            "  static constexpr bool enabled = true;\n"
+            f"  static constexpr bool kAffect = "
+            f"{'true' if affect is not None else 'false'};\n"
             + "".join(parts) + "};\n")
 
 

@@ -16,12 +16,25 @@ tensor constant (``zeros_like``, ``ones_like``, ``full_like``) is a
 
 `evaluate` replays each node as the torch call that made it, on lane
 tensors, in node order: it is the plain version of every generated functor.
+
+A function traced with a dataset (``f(u, p, t, data)``) reads its tables
+through ``lookup`` nodes: one node a call of `core.interp.interp1d` or
+`interp2d`, with the leaf's index in `data_flatten`'s order and the mode as
+its attribute and the queries as its inputs; the graph's ``data`` holds
+the number of dimensions of each leaf.  A ``lookup_jvp`` node is the
+tangent of a lookup along its queries' tangents (`derive`), its attribute
+(leaf, mode, which queries carry a tangent), its inputs the queries, then
+the tangents that exist.  `evaluate` computes a lookup through
+`core.interp` on the dataset it is given and its tangent by
+`torch.func.jvp` of the same call.
 """
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.core.interp import data_tables, interp1d, interp2d
 
 # op -> the torch call that replays it (`evaluate`); arity in ARITY
 UNARY = ("neg", "sqrt", "exp", "log", "sin", "cos", "tanh", "abs",
@@ -33,7 +46,10 @@ SCALAR = ("add_s", "sub_s", "rsub_s", "mul_s", "div_s", "pow_s",
 COMPARE = ("lt", "le", "gt", "ge", "eq", "ne")
 COMPARE_S = tuple(c + "_s" for c in COMPARE)
 LEAVES = ("u", "p", "t", "const")
-OPS = UNARY + BINARY + SCALAR + COMPARE + COMPARE_S + ("where",) + LEAVES
+# a dataset lookup and its tangent (attributes in the module docstring)
+LOOKUPS = ("lookup", "lookup_jvp")
+OPS = (UNARY + BINARY + SCALAR + COMPARE + COMPARE_S + ("where",) + LEAVES
+       + LOOKUPS)
 
 
 class Node(NamedTuple):
@@ -55,8 +71,10 @@ class Graph:
     """A hash-consed DAG of scalar nodes of a problem with n states and m
     parameters.  Every node's inputs precede it."""
 
-    def __init__(self, n: int, m: int):
+    def __init__(self, n: int, m: int, data: Optional[Tuple[int, ...]] = None):
         self.n, self.m = int(n), int(m)
+        # the number of dimensions of each dataset leaf, None without data
+        self.data = None if data is None else tuple(int(d) for d in data)
         self.nodes: List[Node] = []
         self._index: Dict[tuple, int] = {}
 
@@ -134,11 +152,41 @@ _TORCH_SCALAR = {"add_s": torch.add, "sub_s": torch.sub,
                  **{c + "_s": _TORCH_BINARY[c] for c in COMPARE}}
 
 
-def evaluate_nodes(graph: Graph, roots, u, p, t) -> Dict[int, torch.Tensor]:
+def _lookup(table, queries, mode):
+    if len(queries) == 1:
+        return interp1d(table, queries[0], mode)
+    return interp2d(table, queries[0], queries[1], mode)
+
+
+def _lookup_jvp(table, attr, x):
+    """torch.func.jvp of the lookup along the tangents that exist; each
+    moving query broadcast with its tangent."""
+    _, mode, has = attr
+    qs, ts = list(x[:len(has)]), list(x[len(has):])
+    moving = [i for i, h in enumerate(has) if h]
+    prim, tans = [], []
+    for i, tan in zip(moving, ts):
+        a, b = torch.broadcast_tensors(qs[i], tan)
+        prim.append(a)
+        tans.append(b)
+
+    def fn(*m):
+        full = list(qs)
+        for i, v in zip(moving, m):
+            full[i] = v
+        return _lookup(table, full, mode)
+
+    return torch.func.jvp(fn, tuple(prim), tuple(tans))[1]
+
+
+def evaluate_nodes(graph: Graph, roots, u, p, t,
+                   data=None) -> Dict[int, torch.Tensor]:
     """The value of every node `roots` depend on, each replayed as the
-    torch call that made it, in node order: ``{id: tensor}``."""
+    torch call that made it, in node order: ``{id: tensor}``; a lookup
+    reads `data` (the traced function's dataset)."""
     ref = u[0]
     vals: Dict[int, torch.Tensor] = {}
+    tables = None
     for i in graph.reachable(roots):
         op, args, attr = graph.nodes[i]
         x = [vals[a] for a in args]
@@ -158,20 +206,30 @@ def evaluate_nodes(graph: Graph, roots, u, p, t) -> Dict[int, torch.Tensor]:
             v = _TORCH_SCALAR[op](x[0], attr)
         elif op == "where":
             v = torch.where(x[0], x[1], x[2])
+        elif op in LOOKUPS:
+            if tables is None:
+                if data is None:
+                    raise ValueError("the traced function reads a dataset: "
+                                     "pass data=")
+                tables = data_tables(data)
+            tab = tables[attr[0]]
+            v = (_lookup(tab, x, attr[1]) if op == "lookup"
+                 else _lookup_jvp(tab, attr, x))
         else:                                   # pragma: no cover
             raise ValueError(f"unknown IR op {op!r}")
         vals[i] = v
     return vals
 
 
-def evaluate(traced: Traced, u, p, t) -> torch.Tensor:
+def evaluate(traced: Traced, u, p, t, data=None) -> torch.Tensor:
     """The traced function's value at lane tensors u (n, B) or (n,), p
-    (m, B) or (m,) and t (B,) or 0-d: each node replayed as the torch call
-    that made it, then the outputs stacked into ``traced.shape`` + the lane
-    shape (constants and lane-free outputs broadcast)."""
+    (m, B) or (m,) and t (B,) or 0-d (and the dataset `data` of a function
+    traced with one): each node replayed as the torch call that made it,
+    then the outputs stacked into ``traced.shape`` + the lane shape
+    (constants and lane-free outputs broadcast)."""
     if not torch.is_tensor(t):
         t = torch.as_tensor(t, dtype=u.dtype, device=u.device)
-    vals = evaluate_nodes(traced.graph, traced.outputs, u, p, t)
+    vals = evaluate_nodes(traced.graph, traced.outputs, u, p, t, data)
     lane = torch.broadcast_shapes(u[0].shape, p[0].shape if len(p) else (),
                                   t.shape)
     outs = [vals[i].expand(lane) for i in traced.outputs]
@@ -180,11 +238,12 @@ def evaluate(traced: Traced, u, p, t) -> torch.Tensor:
 
 
 def as_function(traced: Traced):
-    """``f(u, p, t)`` computing `evaluate(traced, u, p, t)`: the traced
-    function's plain version, which the lanes engines can call."""
+    """``f(u, p, t)`` (``f(u, p, t, data)`` for a function traced with a
+    dataset) computing `evaluate`: the traced function's plain version,
+    which the lanes engines can call."""
 
-    def f(u, p, t):
-        return evaluate(traced, u, p, t)
+    def f(u, p, t, data=None):
+        return evaluate(traced, u, p, t, data)
 
     f.__name__ = f"plain_{traced.name}"
     return f

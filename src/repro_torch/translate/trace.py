@@ -16,8 +16,19 @@ ROADMAP item 17; so does ``bool()`` of a proxy, i.e. Python control flow
 on the data, which ``torch.where`` replaces.  Nothing falls back to the
 plain version.
 
-A traced function is cached per function object (weakly): a second solve
-with the same function traces nothing.
+A function of a data-driven problem, ``fn(u, p, t, data)``, is traced
+with its dataset (``data=``): it receives the dataset with each table's
+values replaced by a `TableLeaf`, so that ``interp1d(leaf, x, mode)`` and
+``interp2d(leaf, x, y, mode)`` (`core.interp`) record one ``lookup`` node
+each, whose attribute is the leaf's index in `data_flatten`'s order.  The
+grid (x0, dx, ...) is not traced: the device functor reads it from the
+kernel's tables at run time.  Reading a leaf any other way refuses.
+
+An event's condition (a 0-d output) and affect (an (n,) output) are
+traced by `trace_event`.
+
+A traced function is cached per function object (weakly), and per
+dataset structure: a second solve with the same function traces nothing.
 """
 from __future__ import annotations
 
@@ -27,6 +38,9 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core.interp import (MODES, UniformTable1D, UniformTable2D,
+                                     data_flatten, data_tables,
+                                     data_unflatten)
 from repro_torch.translate.ir import Graph, Traced
 
 ITEM = "ROADMAP queue 1 item 17 (automated translation)"
@@ -441,6 +455,103 @@ def _torch_call(ctx, func, args, kwargs):
     raise ctx.refuse(f"torch.{name}")
 
 
+class TableLeaf:
+    """The values of one table of a traced dataset: the leaf `index` in
+    `data_flatten`'s order, of `shape`.  `core.interp`'s lookups call
+    `lookup`; nothing else may read it."""
+
+    def __init__(self, ctx: _Context, index: int, shape):
+        self._ctx, self._index = ctx, int(index)
+        self._shape = tuple(int(k) for k in shape)
+
+    @property
+    def shape(self):
+        return self._shape
+
+    def dim(self):
+        return len(self._shape)
+
+    def lookup(self, mode, *queries):
+        """interp1d (one query) or interp2d (two) of this table at the
+        traced queries: one ``lookup`` node per lane value."""
+        ctx = self._ctx
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r} (one of {MODES})")
+        if len(queries) != len(self._shape):
+            raise ctx.refuse(f"a {len(queries)}-query lookup of a "
+                             f"{len(self._shape)}-D table")
+        g = ctx.graph
+        qs = []
+        for q in queries:
+            q = _check_operand(ctx, q, "a lookup")
+            qs.append(Scalar(ctx, g.const(float(q))) if not isinstance(
+                q, _Proxy) else q)
+
+        def one(*a):
+            ids = tuple(_value(ctx, x, "a lookup").id for x in a)
+            return Scalar(ctx, g.add("lookup", ids, (self._index, mode)))
+
+        return _map(ctx, one, *qs)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        leaf = next(a for a in args if isinstance(a, TableLeaf))
+        raise leaf._ctx.refuse(
+            f"torch.{getattr(func, '__name__', func)} on a dataset table",
+            "read a table through core.interp's interp1d / interp2d")
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        raise self._ctx.refuse(f"the attribute .{name} of a dataset table",
+                               "read a table through core.interp's "
+                               "interp1d / interp2d")
+
+    def __getitem__(self, i):
+        raise self._ctx.refuse("indexing a dataset table",
+                               "read a table through core.interp's "
+                               "interp1d / interp2d")
+
+    def __len__(self):
+        return self._shape[0]
+
+
+def data_layout(data):
+    """The number of dimensions of each leaf of a dataset, in
+    `data_flatten`'s order; raises where a leaf is not a 1-D or 2-D
+    uniform table."""
+    dims = []
+    for i, tab in enumerate(data_tables(data)):
+        if not isinstance(tab, (UniformTable1D, UniformTable2D)):
+            raise NotImplementedError(
+                f"dataset leaf {i} is a {type(tab).__name__}, not a "
+                "UniformTable1D or UniformTable2D: a device functor reads "
+                f"tables only ({ITEM})")
+        want = 1 if isinstance(tab, UniformTable1D) else 2
+        if tab.values.dim() != want:
+            raise ValueError(f"dataset leaf {i}: a {type(tab).__name__} "
+                             f"holds a {want}-D tensor, not "
+                             f"{tab.values.dim()}-D")
+        dims.append(want)
+    return tuple(dims)
+
+
+def _data_key(data):
+    """The structure of a dataset a trace depends on: its tree (grids
+    included, as the function may read them) and its leaves' shapes."""
+    if data is None:
+        return None
+    leaves, treedef = data_flatten(data)
+    return treedef, tuple(tuple(leaf.shape) for leaf in leaves)
+
+
+def _data_proxy(ctx: _Context, data):
+    """The dataset with each table's values a TableLeaf."""
+    leaves, treedef = data_flatten(data)
+    return data_unflatten(treedef, [TableLeaf(ctx, i, leaf.shape)
+                                    for i, leaf in enumerate(leaves)])
+
+
 def _shape_of(x):
     if isinstance(x, Scalar):
         return ()
@@ -453,15 +564,17 @@ def _flat(x):
     return [i for item in x.items for i in _flat(item)]
 
 
-def _record(fn, graph: Graph, outputs, name: str) -> Traced:
+def _record(fn, graph: Graph, outputs, name: str, data=None) -> Traced:
     ctx = _Context(graph, name)
     u = Vector(ctx, [Scalar(ctx, graph.u(i)) for i in range(graph.n)])
     p = Vector(ctx, [Scalar(ctx, graph.p(j)) for j in range(graph.m)])
     t = Scalar(ctx, graph.t())
-    out = fn(u, p, t)
+    out = (fn(u, p, t) if data is None
+           else fn(u, p, t, _data_proxy(ctx, data)))
     outputs = tuple(int(k) for k in outputs)
-    if not isinstance(out, Vector) or _shape_of(out) != outputs or any(
-            isinstance(s, Scalar) and s.is_bool for s in _leaves(out)):
+    if not isinstance(out, (Vector if outputs else Scalar)) \
+            or _shape_of(out) != outputs or any(
+                isinstance(s, Scalar) and s.is_bool for s in _leaves(out)):
         got = _shape_of(out) if isinstance(out, _Proxy) else type(out).__name__
         raise NotImplementedError(
             f"{name!r} returned {got}, not a stacked value of shape "
@@ -484,40 +597,63 @@ def fn_name(fn) -> str:
                                                         repr(fn))
 
 
+def _new_graph(n, m, data) -> Graph:
+    return Graph(n, m, None if data is None else data_layout(data))
+
+
 def trace(fn, n: int, m: int, *, outputs, graph: Optional[Graph] = None,
-          ) -> Traced:
-    """Trace ``fn(u, p, t)`` for n states and m parameters; `outputs` is
-    the shape of its value, ``(n,)``, ``(n, m)`` or ``(n, n)``.  Into a new
-    graph (cached per function object) or into `graph`, which then shares
-    its nodes with the functions traced there before.  Raises
-    `NotImplementedError` where fn does something the translator cannot
-    take."""
+          data=None) -> Traced:
+    """Trace ``fn(u, p, t)`` (``fn(u, p, t, data)`` where a dataset `data`
+    is given) for n states and m parameters; `outputs` is the shape of its
+    value, ``(n,)``, ``(n, m)``, ``(n, n)`` or ``()`` (an event's
+    condition).  Into a new graph (cached per function object and dataset
+    structure) or into `graph`, which then shares its nodes with the
+    functions traced there before.  Raises `NotImplementedError` where fn
+    does something the translator cannot take."""
     outputs = tuple(int(k) for k in outputs)
     if graph is not None:
-        return _record(fn, graph, outputs, fn_name(fn))
-    key = (int(n), int(m), outputs)
+        return _record(fn, graph, outputs, fn_name(fn), data)
+    key = (int(n), int(m), outputs, _data_key(data))
     per_fn = _cached(fn)
     if per_fn is not None and key in per_fn:
         return per_fn[key]
-    got = _record(fn, Graph(n, m), outputs, fn_name(fn))
+    got = _record(fn, _new_graph(n, m, data), outputs, fn_name(fn), data)
     _store(fn, key, got)
     return got
 
 
 def trace_pair(f, g, n: int, m: int, *, f_outputs, g_outputs,
-               ) -> "tuple[Traced, Traced]":
+               data=None) -> "tuple[Traced, Traced]":
     """f and g traced into one graph, so that the nodes they share (CRN's
-    Hill term) are one node each; cached on f per g."""
+    Hill term) are one node each; cached on f per g (and per dataset
+    structure, where both take the dataset `data`)."""
     f_outputs = tuple(int(k) for k in f_outputs)
     g_outputs = tuple(int(k) for k in g_outputs)
-    key = ("pair", g, int(n), int(m), f_outputs, g_outputs)
+    key = ("pair", g, int(n), int(m), f_outputs, g_outputs, _data_key(data))
     per_fn = _cached(f)
     if per_fn is not None and key in per_fn:
         return per_fn[key]
-    graph = Graph(n, m)
-    got = (_record(f, graph, f_outputs, fn_name(f)),
-           _record(g, graph, g_outputs, fn_name(g)))
+    graph = _new_graph(n, m, data)
+    got = (_record(f, graph, f_outputs, fn_name(f), data),
+           _record(g, graph, g_outputs, fn_name(g), data))
     _store(f, key, got)
+    return got
+
+
+def trace_event(condition, affect, n: int, m: int,
+                ) -> "tuple[Traced, Optional[Traced]]":
+    """An event's condition ``g(u, p, t)`` (0-d) and affect ``h(u, p,
+    t)`` ((n,), or None) traced into one graph; cached on the condition per
+    affect."""
+    key = ("event", affect, int(n), int(m))
+    per_fn = _cached(condition)
+    if per_fn is not None and key in per_fn:
+        return per_fn[key]
+    graph = Graph(n, m)
+    got = (_record(condition, graph, (), fn_name(condition)),
+           None if affect is None
+           else _record(affect, graph, (int(n),), fn_name(affect)))
+    _store(condition, key, got)
     return got
 
 

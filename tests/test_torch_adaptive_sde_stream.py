@@ -296,7 +296,8 @@ def test_adaptive_general_noise_embedded_and_later_slices_raise():
 
 
 def test_kernel_binding_refuses_combinations_it_has_no_instantiation_of():
-    """What the kernel does not compile in raises before any launch."""
+    """What the kernel does not compile in raises before any launch; an
+    unregistered pair goes to a generated unit."""
     gbm = (tdp.gbm_drift, tdp.gbm_diffusion)
     crn = (tdp.crn_drift, tdp.crn_diffusion)
     with pytest.raises(ValueError, match="diagonal-noise only"):
@@ -305,9 +306,11 @@ def test_kernel_binding_refuses_combinations_it_has_no_instantiation_of():
         k5._device_functor(*gbm, "heun_strat", "diagonal", 3, "embedded")
     with pytest.raises(ValueError, match="diagonal noise only"):
         k5._device_functor(*crn, "platen_w2", "general", 8, "doubling")
-    with pytest.raises(NotImplementedError, match="device form"):
-        k5._device_functor(lambda u, p, t: u, tdp.gbm_diffusion, "em",
-                           "diagonal", 3, "doubling")
+    name, fun, unit = k5._device_functor(
+        lambda u, p, t: u, tdp.gbm_diffusion, "em", "diagonal", 3,
+        "doubling", n=3, k=2)
+    assert name is None and unit is not None and (fun.n, fun.k) == (3, 2)
+    assert "repro_sde_adaptive::launch<Real, Prob, St, false" in unit.text
     assert k5._device_functor(*gbm, "milstein", "diagonal", 3,
                               "embedded")[0] == "gbm"
     assert k5._device_functor(*crn, "heun_strat", "general", 8,

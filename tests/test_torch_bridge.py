@@ -133,7 +133,8 @@ def test_cuda_source_holds_the_bridge_key_and_stride():
     assert const("kStepStride") == trng.STEP_STRIDE
     assert const("kStreamKey") == trng.STREAM_KEY
     assert "node * kStepStride + row" in text
-    kernel = (CSRC / "sde_adaptive_ensemble.cu").read_text()
+    kernel = "".join((CSRC / f).read_text() for f in (
+        "sde_adaptive_ensemble.cu", "sde_adaptive_body.cuh"))
     assert '#include "threefry.cuh"' in kernel
     assert "bridge_normal(seed, 0u," in kernel      # the endpoint, node 0
 

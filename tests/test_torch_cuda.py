@@ -74,16 +74,20 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
                                vern7.c, order=vern7.order,
                                embedded_order=vern7.embedded_order,
                                fsal=vern7.fsal)
-    # an RHS or a user tableau reaches the kernel through the automated
-    # translation: what it cannot take raises, naming item 17
+    # an RHS, an event or a user tableau reaches the kernel through the
+    # automated translation: what it cannot take raises, naming item 17
+    before = erk_kernel.launches
     with pytest.raises(NotImplementedError, match="torch.where.*item 17"):
         erk_kernel.erk_ensemble(_branchy, tab, u0, p, sv, **kw)
-    with pytest.raises(NotImplementedError, match="event.*item 17"):
-        erk_kernel.erk_ensemble(f, user, u0, p, sv,
-                                event=tdp.bouncing_ball_event(), **kw)
-    with pytest.raises(NotImplementedError, match="not compiled.*item 14"):
-        erk_kernel.erk_ensemble(f, vern7, u0, p, sv,
-                                event=tdp.bouncing_ball_event(), **kw)
+    # the ball's affect gives two states, not Lorenz's three
+    for t in (user, vern7):
+        with pytest.raises(NotImplementedError, match="returned.*item 17"):
+            erk_kernel.erk_ensemble(f, t, u0, p, sv,
+                                    event=tdp.bouncing_ball_event(), **kw)
+    with pytest.raises(NotImplementedError, match="interp_bpoly.*item 17"):
+        erk_kernel.erk_ensemble(f, user._replace(
+            interp_bpoly=lambda th: th), u0, p, sv, **kw)
+    assert erk_kernel.launches == before
     with pytest.raises(ValueError, match="ascending"):
         erk_kernel.erk_ensemble(f, tab, u0, p, sv.flip(0).contiguous(), **kw)
     with pytest.raises(ValueError, match="contiguous"):
@@ -430,8 +434,16 @@ def test_cuda_sde_adaptive_wrapper_rejects_what_the_kernel_cannot_take(cuda):
                        torch.full((3,), 0.1, dtype=torch.float64),
                        torch.tensor([1.5, 0.2], dtype=torch.float64),
                        (0.0, 1.0))
-    with pytest.raises(NotImplementedError, match="device form"):
-        tsolve(EnsembleProblem(plain, 8), alg="em", backend="cuda",
+    # an unregistered pair runs through a generated unit; a pair the
+    # translator cannot take raises, naming item 17
+    tsolve(EnsembleProblem(plain, 8), alg="em", backend="cuda",
+           adaptive=True, t0=0.0, tf=1.0, dt0=0.1, device=cuda)
+    assert k5.launches == before + 1
+    before = k5.launches
+    bad = SDEProblem(lambda u, p, t: p[0] * u, _branchy, plain.u0, plain.p,
+                     (0.0, 1.0))
+    with pytest.raises(NotImplementedError, match="torch.where.*item 17"):
+        tsolve(EnsembleProblem(bad, 8), alg="em", backend="cuda",
                adaptive=True, t0=0.0, tf=1.0, dt0=0.1, device=cuda)
     u0 = torch.full((3, 8), 0.1, dtype=torch.float64, device=cuda)
     p = torch.ones(2, 8, dtype=torch.float64, device=cuda)
@@ -564,20 +576,27 @@ def test_cuda_sde_event_forms_match_plain_version(cuda, case, mode):
 
 @pytest.mark.cuda
 def test_cuda_event_without_device_form_raises(cuda):
-    """An event the kernels cannot run raises on the card, naming the
-    registry; it never falls back to the plain version."""
+    """An event without a hand-written form (an unregistered condition, an
+    unpaired registered one, an affect that is not the functor's) runs on
+    the card through a generated unit, one launch, bitwise its plain
+    version; only what the translator cannot take raises (ROADMAP item
+    17), before any launch: it never falls back to the plain version."""
     from repro_torch.core.events import Event
     ep = decay_ensemble(8, cuda)
+    kw = dict(alg="tsit5", ensemble="kernel", t0=0.0, tf=1.0, dt0=1e-3,
+              device=cuda)
+    for ev in (Event(condition=lambda u, p, t: u[0] - 0.5),
+               tdp.gbm_barrier_event(),
+               tdp.half_event()._replace(affect=tdp.ramp_sawtooth_affect)):
+        before = erk_kernel.launches
+        rk = tsolve(ep, backend="cuda", event=ev, **kw)
+        assert erk_kernel.launches == before + 1
+        rt = tsolve(ep, backend="torch", event=ev, **kw)
+        assert_event_parity(rk, rt, 1e-10)
     before = erk_kernel.launches
-    kw = dict(alg="tsit5", ensemble="kernel", backend="cuda", t0=0.0,
-              tf=1.0, dt0=1e-3, device=cuda)
-    with pytest.raises(NotImplementedError, match="device_event"):
-        tsolve(ep, event=Event(condition=lambda u, p, t: u[0] - 0.5), **kw)
-    with pytest.raises(NotImplementedError, match="not compiled"):
-        tsolve(ep, event=tdp.bouncing_ball_event(), **kw)
-    with pytest.raises(NotImplementedError, match="affect"):
-        tsolve(ep, event=tdp.half_event()._replace(
-            affect=tdp.ramp_sawtooth_affect), **kw)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tsolve(ep, backend="cuda", event=Event(
+            condition=lambda u, p, t: torch.erf(u[0])), **kw)
     assert erk_kernel.launches == before
 
 
@@ -736,23 +755,34 @@ def test_cuda_interp_lookup_matches_plain_version(cuda, mode, dtype):
 
 @pytest.mark.cuda
 def test_cuda_data_without_device_form_raises(cuda):
-    """A data-driven RHS without a data functor raises on the card, naming
-    the automated-translation item; it never falls back."""
+    """A data-driven RHS without a hand-written data functor (an
+    unregistered one, a registered functor that reads no dataset) runs on
+    the card through a generated unit, one launch, bitwise its plain
+    version; reading a table other than through the lookups raises (ROADMAP
+    item 17) before any launch: it never falls back."""
     import dataclasses
     ep = osc_ensemble(8, cuda)
     plain = dataclasses.replace(
         ep.prob, f=lambda u, p, t, d: tdp.forced_oscillator_rhs(u, p, t, d))
-    before = erk_kernel.launches
-    kw = dict(alg="tsit5", ensemble="kernel", backend="cuda", t0=0.0,
-              tf=1.0, dt0=1e-2, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tsolve(EnsembleProblem(plain, 8, u0s=ep.u0s, ps=ep.ps), **kw)
+    kw = dict(alg="tsit5", ensemble="kernel", t0=0.0, tf=1.0, dt0=1e-2,
+              device=cuda)
     lor = tdp.lorenz_problem(torch.float64)
     bad = dataclasses.replace(lor, data=ep.prob.data,
                               f=lambda u, p, t, d: tdp.lorenz_rhs(u, p, t))
     bad.f.device_rhs = "lorenz"
+    for e in (EnsembleProblem(plain, 8, u0s=ep.u0s, ps=ep.ps),
+              EnsembleProblem(bad, 8)):
+        before = erk_kernel.launches
+        rk = tsolve(e, backend="cuda", **kw)
+        assert erk_kernel.launches == before + 1
+        assert_same(rk, tsolve(e, backend="torch", **kw), 0)
+    reads = dataclasses.replace(
+        ep.prob, f=lambda u, p, t, d: torch.stack(
+            [u[1], -u[0] + d["force"].values[0]]))
+    before = erk_kernel.launches
     with pytest.raises(NotImplementedError, match="item 17"):
-        tsolve(EnsembleProblem(bad, 8), **kw)
+        tsolve(EnsembleProblem(reads, 8, u0s=ep.u0s, ps=ep.ps),
+               backend="cuda", **kw)
     assert erk_kernel.launches == before
 
 
@@ -1515,3 +1545,142 @@ def test_cuda_untraceable_rhs_raises_and_runs_nothing(cuda):
         assert not calls
     finally:
         ir.evaluate = real
+
+
+# ---------------------------------------------------------------------------
+# the translation's event, data and K5 forms: generated against the
+# hand-written form and the plain version; the forms no source compiles
+# against the plain version (f64, N = 256 unless stated)
+# ---------------------------------------------------------------------------
+
+def _unreg(fn):
+    def wrapper(*args):
+        return fn(*args)
+    return wrapper
+
+
+def _plain_event(ev, n, m):
+    from repro_torch.translate.ir import as_function
+    from repro_torch.translate.trace import trace_event
+    cond, affect = trace_event(ev.condition, ev.affect, n, m)
+    return ev._replace(condition=as_function(cond),
+                       affect=None if affect is None else as_function(affect))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["tsit5", "vern7"])
+def test_cuda_generated_event_form_is_hand_written_and_plain(cuda, alg):
+    """The bouncing ball's condition and affect translated: bitwise the
+    hand-written event form (tsit5) and its plain version."""
+    N = 256
+    es = np.linspace(0.3, 0.9, N)
+    ep = ensemble_problem(tdp.bouncing_ball_problem(),
+                          np.stack([np.full(N, 10.0), np.zeros(N)], 1),
+                          np.stack([np.full(N, 9.8), es], 1), device=cuda)
+    ev = tdp.bouncing_ball_event()
+    gev = ev._replace(condition=_unreg(ev.condition),
+                      affect=_unreg(ev.affect))
+    kw = dict(alg=alg, ensemble="kernel", t0=0.0, tf=2.0, dt0=1e-3,
+              rtol=1e-9, atol=1e-9, saveat=[0.5, 1.0, 1.5, 2.0],
+              device=cuda)
+    before = erk_kernel.launches
+    rg = tsolve(ep, backend="cuda", event=gev, **kw)
+    assert erk_kernel.launches == before + 1
+    if alg == "tsit5":
+        assert _same(rg, tsolve(ep, backend="cuda", event=ev, **kw))
+    rp = tsolve(ep, backend="torch", event=_plain_event(gev, 2, 2), **kw)
+    assert _same(rg, rp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["gather", "cubic"])
+def test_cuda_generated_data_form_is_hand_written_and_plain(cuda, mode):
+    """The forced oscillator's RHS translated with its table: bitwise the
+    hand-written data form and its plain version (tsit5, fixed dt)."""
+    from repro_torch.translate.ir import as_function
+    from repro_torch.translate.trace import trace
+    ep = osc_ensemble(256, cuda, mode=mode)
+    gen = _replaced(ep, f=_unreg(ep.prob.f))
+    kw = dict(alg="tsit5", ensemble="kernel", t0=0.0, tf=1.0, dt0=1.0 / 200,
+              adaptive=False, saveat=[0.5, 1.0], device=cuda)
+    before = erk_kernel.launches
+    rg = tsolve(gen, backend="cuda", **kw)
+    assert erk_kernel.launches == before + 1
+    assert _same(rg, tsolve(ep, backend="cuda", **kw))
+    f = as_function(trace(gen.prob.f, 2, 2, outputs=(2,),
+                          data=ep.prob.data))
+    assert _same(rg, tsolve(_replaced(gen, f=f), backend="torch", **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,est", [
+    ("em", "doubling"), ("heun_strat", "doubling"), ("platen_w2", "doubling"),
+    ("milstein", "doubling"), ("em", "embedded"), ("milstein", "embedded")])
+def test_cuda_generated_k5_matches_hand_written(cuda, alg, est):
+    """K5 on GBM, drift and diffusion translated (gdg derived; ddb the
+    derivative of gdg along g): bitwise the hand-written functor's run."""
+    from repro_torch.kernels.em import adaptive as k5
+    N = 256
+    rng = np.random.default_rng(0)
+    prob = tdp.gbm_problem(r=1.5, v=0.2, dtype=torch.float64)
+    ep = ensemble_problem(prob, 0.1 + 0.01 * rng.random((N, 3)),
+                          np.array([1.5, 0.2]) + 0.01 * rng.random((N, 2)),
+                          device=cuda)
+    gen = _replaced(ep, f=_unreg(prob.f), g=_unreg(prob.g))
+    kw = dict(alg=alg, ensemble="kernel", adaptive=True, error_est=est,
+              t0=0.0, tf=1.0, dt0=0.05, rtol=1e-3, atol=1e-5, seed=7,
+              saveat=[0.25, 0.5, 0.75, 1.0], device=cuda)
+    before = k5.launches
+    rg = tsolve(gen, backend="cuda", **kw)
+    assert k5.launches == before + 1
+    assert _same(rg, tsolve(ep, backend="cuda", **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_k3_f32_event_form_matches_plain_version(cuda):
+    """Van der Pol in f32 on rodas4 with a terminal event on u[0] = 0
+    downward (no hand-written f32 event form): bitwise its f32 plain
+    version."""
+    from repro_torch.core.events import Event
+    from repro_torch.kernels.rosenbrock import kernel as rb_kernel
+    N = 256
+    mus = np.linspace(2.0, 3.0, N)[:, None]
+    ep = ensemble_problem(tdp.vdp_problem(tspan=(0.0, 4.0),
+                                          dtype=torch.float32),
+                          np.tile([2.0, 0.0], (N, 1)), mus, device=cuda,
+                          dtype=torch.float32)
+    ev = Event(condition=lambda u, p, t: u[0], terminal=True, direction=-1)
+    kw = dict(alg="rodas4", ensemble="kernel", t0=0.0, tf=4.0, dt0=1e-3,
+              rtol=1e-4, atol=1e-6, saveat=[1.0, 2.0, 3.0, 4.0],
+              device=cuda)
+    before = rb_kernel.launches
+    rk = tsolve(ep, backend="cuda", event=ev, **kw)
+    assert rb_kernel.launches == before + 1
+    assert bool((rk.t_final < 4.0).all())
+    assert _same(rk, tsolve(ep, backend="torch", linsolve="lanes",
+                            event=_plain_event(ev, 2, 1), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_cuda_k4_data_and_event_form_matches_plain_version(cuda, dtype):
+    """The rate-table GBM with a terminal up-and-out barrier at 1.1 (no
+    hand-written data-and-event form): bitwise its plain version, on the
+    counter stream."""
+    from repro_torch.core.events import Event
+    N = 4096
+    ep = ensemble_problem(tdp.gbm_rate_problem(dtype=dtype),
+                          np.ones((N, 1)), np.full((N, 1), 0.2), device=cuda,
+                          dtype=dtype)
+    ev = Event(condition=lambda u, p, t: u[0] - 1.1, terminal=True,
+               direction=1)
+    kw = dict(alg="em", ensemble="kernel", t0=0.0, dt0=1e-3, n_steps=500,
+              save_every=250, seed=7, device=cuda)
+    before = sde_kernel.launches
+    rk = tsolve(ep, backend="cuda", event=ev, **kw)
+    assert sde_kernel.launches == before + 1
+    hit = float((rk.t_final < 0.5 - 1e-6).double().mean())
+    assert 0.2 < hit < 0.8
+    assert _same(rk, tsolve(ep, backend="torch",
+                            event=_plain_event(ev, 1, 1), **kw))

@@ -93,8 +93,14 @@ def test_k3_c_entries_take_what_the_wrapper_passes(event, data, name):
     assert args == k3.argtypes(event, data)
 
 
+def _k5_text():
+    """K5's source and its body (`sde_adaptive_body.cuh`)."""
+    return "".join((CSRC / f).read_text()
+                   for f in (k5.SOURCE, "sde_adaptive_body.cuh"))
+
+
 def test_k5_takes_trajectories_from_the_queue():
-    text = (CSRC / k5.SOURCE).read_text()
+    text = _k5_text()
     assert '#include "trajectory_queue.cuh"' in text
     assert "repro_queue::next(queue)" in text
     assert "repro_queue::persistent_grid(" in text
@@ -159,7 +165,7 @@ def test_k5_instantiations_are_the_wrappers():
 def test_k5_draws_w_at_t_once_a_trajectory():
     """Node 0 of the tree, W(T), is drawn where a trajectory starts, not in
     every descent."""
-    text = (CSRC / k5.SOURCE).read_text()
+    text = _k5_text()
     assert len(re.findall(r"bridge_normal\(\s*seed, 0u,", text)) == 1
     descent = _function(text, "__device__ __forceinline__ void bridge_points(")
     assert "bridge_normal(seed, 0u" not in descent

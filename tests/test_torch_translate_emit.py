@@ -482,6 +482,26 @@ def test_generated_unit_builds_once_keyed_by_its_text(tmp_path, monkeypatch):
     assert list(build.build([other])) == ["probe"]
 
 
+def test_generated_build_compiles_each_unit_once(tmp_path, monkeypatch):
+    """One `build` call compiles every unit whose library is missing, a
+    unit given twice once, and a second call compiles nothing."""
+    from repro_torch.kernels import build
+    calls = tmp_path / "calls"
+    nvcc = _fake_nvcc(tmp_path, f'echo "$@" >> {calls}; '
+                      'while [ "$1" != "-o" ]; do shift; done; '
+                      'echo lib > "$2"; echo "ptxas info : Used 8 registers"')
+    monkeypatch.setattr(build, "nvcc", lambda: nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "GEN_DIR", tmp_path / "lib" / "gen")
+    made = [units.Unit(f"u{i}", f"// unit {i}\n") for i in range(5)]
+    logs = build.build(made + made[:2])
+    assert sorted(logs) == [f"u{i}" for i in range(5)]
+    assert all(build.library_path(u).exists() for u in made)
+    assert all("Used 8 registers" in build.build_log(u) for u in made)
+    assert len(calls.read_text().splitlines()) == 5
+    assert build.build(made) == {}
+
+
 def test_failed_generated_build_raises_with_nvccs_message(tmp_path,
                                                           monkeypatch):
     from repro_torch.kernels import build

@@ -44,6 +44,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = ("rosenbrock_ensemble.cu", "sde_adaptive_ensemble.cu")
+BODIES = {"rosenbrock_ensemble.cu": "rosenbrock_body.cuh",
+          "sde_adaptive_ensemble.cu": "sde_adaptive_body.cuh"}
 
 
 def cuobjdump() -> str:
@@ -98,7 +100,8 @@ def variant_dir(block: int, minb: int) -> Path:
         shutil.rmtree(d)
     shutil.copytree(ROOT / "src" / "repro_torch" / "csrc", d)
     for src in SOURCES:
-        p = d / src
+        # the kernels' bodies (block size and launch bounds) are in headers
+        p = d / BODIES[src]
         text, k = re.subn(r"constexpr int kBlock = \d+;",
                           f"constexpr int kBlock = {block};", p.read_text())
         if k != 1:
@@ -167,7 +170,7 @@ def rows(cs, dev, N):
         big, tspan=(0.0, 3.0)), p=(50.0, 2.0))
     out["osc-1M-rosenbrock23-data"] = cs._data_kernel_fns(
         "osc-1M-rosenbrock23-data", osc,
-        dict(cs.OSC_STIFF, alg="rosenbrock23"), 1)[0]
+        dict(cs.OSC_STIFF_ROW, alg="rosenbrock23"), 1)[0]
 
     f32 = torch.float32
     prob = dp.gbm_problem(r=1.5, v=0.2, dtype=f32)
@@ -243,7 +246,7 @@ def main() -> int:
             lib, log = libs[(v, src)]
             build.CSRC = dirs[v]
             build.load.cache_clear()
-            for b in (k3._bind, k3._bind_data, k5._bind):
+            for b in (k3._bind, k5._bind):
                 b.cache_clear()
             names = [f for f in funcs[(v, src)] if all(k in f for k in keys)]
             if len(names) != 1:

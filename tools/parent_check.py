@@ -332,9 +332,9 @@ def main() -> int:
     for label, csrc in (("parent", args.parent.resolve()), ("this", here)):
         build.CSRC = csrc
         build.load.cache_clear()
-        for binder in (K1._bind, K3._bind, K3._bind_data, K4._bind,
-                       K4._bind_event, K4._bind_data, k5_bind, K6._bind,
-                       K6._bind_split):
+        for binder in (K1._bind, K1._bind_data, K1._bind_staged, K3._bind,
+                       K4._bind, K4._bind_event, K4._bind_data, k5_bind,
+                       K6._bind, K6._bind_split):
             binder.cache_clear()
         # a parent from before the work queue takes no queue word
         K5._bind = (k5_bind if "void* queue" in (csrc / K5.SOURCE).read_text()
