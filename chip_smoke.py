@@ -16,8 +16,14 @@ compile seconds, and the generated functors of K1 on all eight tableaus
 and a user tableau, K2, K3 with ROBER's Jacobian traced and with derived
 Jacobians on ROBER, OREGO, Van der Pol and a time-dependent RHS, and K4 on
 GBM and CRN, each against the hand-written functor and against its plain
-version, plus one gradient; `phase_translate_rows`: three generated rows
-at 2^20 beside their hand-written rows, timed in turns),
+version, plus one gradient; a user tableau's free interpolant, a copy of
+tsit5's bitwise the hand-written tsit5 and dopri5 with Hairer's dense
+output bitwise its plain version; `phase_translate_rows`: the generated
+rows at 2^20 beside their hand-written rows, timed in turns), tunes
+``ensemble="auto"`` on two million-trajectory rows (`phase_autotune`: the
+candidates' medians, the winner, a cache hit, auto bitwise the winner),
+runs the sharded solve over two gloo ranks on the one card
+(`phase_distributed`: K1, K4, K5 and a dataset bitwise the local solve),
 drives the port's paths through the front door
 (`solve_ensemble_local(ensemble="kernel", backend="cuda")`): the paper's
 million-trajectory Lorenz ensemble (tsit5, and vern7 beside it; every
@@ -189,10 +195,11 @@ STRONG_N = 2 ** 16
 ADAPTIVE_SETTINGS = {
     "gbm": dict(t0=0.0, tf=1.0, dt0=0.05, rtol=1e-3, atol=1e-5,
                 saveat=(0.25, 0.5, 0.75, 1.0)),
-    # CRN on [0, 5]: its doubling plain version, a host loop, was 45 s of
-    # the phase on [0, 10]
-    "crn": dict(t0=0.0, tf=5.0, dt0=0.1, rtol=1e-3, atol=1e-5,
-                saveat=(1.25, 2.5, 3.75, 5.0))}
+    # CRN on [0, 2.5]: its doubling plain version, a host loop until the
+    # last lane ends, was 45 s of the phase on [0, 10] and 22-29 s on
+    # [0, 5] on an H100's host
+    "crn": dict(t0=0.0, tf=2.5, dt0=0.1, rtol=1e-3, atol=1e-5,
+                saveat=(0.625, 1.25, 1.875, 2.5))}
 # benchmarks/bench_adaptive_sde.py's settings at the paper's 10^6 scale
 ADAPTIVE_FULL = dict(t0=0.0, tf=1.0, dt0=0.02, rtol=1e-3, atol=1e-5,
                      depth=14, seed=7, saveat=(0.25, 0.5, 0.75, 1.0))
@@ -1328,6 +1335,13 @@ def phase_parity(device, N: int = PARITY_N):
 HEUN_EULER = dict(a=[[0.0, 0.0], [1.0, 0.0]], b=[0.5, 0.5],
                   btilde=[-0.5, 0.5], c=[0.0, 1.0], order=2,
                   embedded_order=1, fsal=False)
+# Hairer's dopri5 dense output (CONTD5) as stage weights, b_i(θ) = b_i θ
+# + (δ_i1 − b_i) θ(1−θ) + (2 b_i − δ_i1 − δ_i7) θ²(1−θ) + d_i θ²(1−θ)²:
+# the second user tableau with a free interpolant (`interp_tableaus`)
+DOPRI5_DENSE_D = (-12715105075 / 11282082432, 0.0, 87487479700 / 32700410799,
+                  -10690763975 / 1880347072, 701980252875 / 199316789632,
+                  -1453857185 / 822651844, 69997945 / 29380423)
+_INTERP_TABLEAUS: dict = {}
 TRANSLATE_SDE = {"gbm": ("em", "heun_strat", "platen_w2", "milstein"),
                  "crn": ("em", "heun_strat")}
 # the K1 cases held to the plain version even where bitwise the hand-written
@@ -1339,6 +1353,43 @@ TRANSLATE_GRAD_N = 1024
 # TRANSLATE_ROW_PLAIN_N lanes (the lanes are independent)
 TRANSLATE_ROW_PLAIN_N = 2 ** 16
 _WRAPPED: dict = {}
+
+
+def interp_tableaus():
+    """The two user tableaus with a free interpolant (made once, so their
+    traces and units are made once): ``tsit5_copy``, tsit5's coefficients
+    with a copy of `_tsit5_bpoly` as its interpolant, which compiles as the
+    hand-written tsit5 does (`units.twin_flags`); ``dopri5_dense``,
+    dopri5's coefficients with Hairer's dense output (`DOPRI5_DENSE_D`),
+    every operation rounded alone."""
+    if _INTERP_TABLEAUS:
+        return _INTERP_TABLEAUS
+    import inspect
+    import torch
+    from repro_torch.convert import tableau_from_arrays
+    from repro_torch.core import tableaus as tabs
+    ns = {"torch": torch}
+    exec(inspect.getsource(tabs._tsit5_bpoly).replace(
+        "_tsit5_bpoly", "tsit5_copy_bpoly"), ns)
+    b = [float(x) for x in tabs.DOPRI5.b]
+    c2 = [(1.0 if i == 0 else 0.0) - b[i] for i in range(7)]
+    c3 = [2.0 * b[i] - (1.0 if i == 0 else 0.0) - (1.0 if i == 6 else 0.0)
+          for i in range(7)]
+
+    def dopri5_bpoly(t):
+        s = 1.0 - t
+        return torch.stack([b[i] * t + c2[i] * (t * s) + c3[i] * (t * t * s)
+                            + DOPRI5_DENSE_D[i] * (t * t * (s * s))
+                            for i in range(7)])
+
+    for name, ref, bpoly in (("tsit5_copy", tabs.TSIT5,
+                              ns["tsit5_copy_bpoly"]),
+                             ("dopri5_dense", tabs.DOPRI5, dopri5_bpoly)):
+        _INTERP_TABLEAUS[name] = tableau_from_arrays(
+            name, ref.a, ref.b, ref.btilde, ref.c, order=ref.order,
+            embedded_order=ref.embedded_order, fsal=ref.fsal,
+            interp_bpoly=bpoly)
+    return _INTERP_TABLEAUS
 
 
 def unregistered(fn):
@@ -1547,6 +1598,13 @@ def translate_units(inputs, device):
         lor, tableau_from_arrays("heun_euler", **HEUN_EULER), 3, 3, f64))
     units.append(erk_kernel.generated_unit(lor, get_tableau("tsit5"), 3, 3,
                                            f32))
+    # the free interpolants: tsit5_copy with the registered Lorenz (f64
+    # parity, the f32 row), dopri5_dense with the traced one
+    user = interp_tableaus()
+    units += [erk_kernel.route(dp.lorenz_rhs, user["tsit5_copy"], n=3, m=3,
+                               dtype=dtype).target for dtype in (f64, f32)]
+    units.append(erk_kernel.generated_unit(lor, user["dopri5_dense"], 3, 3,
+                                           f64))
     rober = unregistered(dp.rober_rhs)
     for alg in ("rosenbrock23", "rodas4", "rodas5p"):
         units += [rb_kernel.generated_unit(
@@ -2094,6 +2152,57 @@ def phase_translate(device, prepared=None, N: int = PARITY_N):
             raise AssertionError(f"translate {key}: not bitwise")
 
     lap("user tableau")
+    # ---- a user tableau's free interpolant: tsit5_copy bitwise the
+    # hand-written tsit5 (one launch and K2's staged run), dopri5_dense
+    # bitwise its plain version -----------------------------------------
+    user = interp_tableaus()
+    for adaptive in (True, False):
+        kw = dict(rtol=1e-8, atol=1e-8, dt0=1e-3, t0=0.0, tf=1.0,
+                  saveat=saveat, device=device, ensemble="kernel",
+                  adaptive=adaptive)
+        what = "adaptive" if adaptive else "fixed"
+        key = f"K1 tsit5_copy {what}"
+        rh = solve_ensemble_local(lor, backend="cuda", alg="tsit5", **kw)
+        before = erk_kernel.launches
+        rg = solve_ensemble_local(lor, backend="cuda", alg=user["tsit5_copy"],
+                                  **kw)
+        launched(erk_kernel, before, key)
+        bitwise = same_run(rg, rh)
+        record(key, bitwise)
+        print(f"translate {key} (a user tableau with tsit5's interpolant, "
+              f"copied): bitwise the hand-written tsit5 {bitwise}, attempts "
+              f"{int((rg.naccept + rg.nreject).sum())}")
+        if not bitwise:
+            raise AssertionError(f"translate {key}: not bitwise")
+        key = f"K1 dopri5_dense {what}"
+        before = erk_kernel.launches
+        rg = solve_ensemble_local(lor_w, backend="cuda",
+                                  alg=user["dopri5_dense"], **kw)
+        launched(erk_kernel, before, key)
+        rp = solve_ensemble_local(lor_p, backend="torch",
+                                  alg=user["dopri5_dense"], **kw)
+        bitwise = same_run(rg, rp)
+        record(key, None, 0.0 if bitwise else max(
+            rel_err(rg.us, rp.us), rel_err(rg.u_final, rp.u_final)))
+        print(f"translate {key} (Hairer's dense output): bitwise the plain "
+              f"version {bitwise}")
+        if not bitwise:
+            raise AssertionError(f"translate {key}: not bitwise")
+    before = erk_kernel.launches
+    three = solve_ensemble_cuda(lor.prob, u0s, ps, user["tsit5_copy"],
+                                save_chunks=3, **skw)
+    sync(device)
+    launched(erk_kernel, before, "K2 tsit5_copy", 3)
+    hand = solve_ensemble_cuda(lor.prob, u0s, ps, get_tableau("tsit5"),
+                               save_chunks=3, **skw)
+    bitwise = same_run(three, hand)
+    record("K2 tsit5_copy staged", bitwise)
+    print(f"translate K2 tsit5_copy save_chunks=3: bitwise the hand-written "
+          f"staged run {bitwise}")
+    if not bitwise:
+        raise AssertionError("translate K2 tsit5_copy: not bitwise")
+
+    lap("free interpolant")
     # ---- K3: ROBER with its analytic Jacobian traced, and derived -------
     rober, rober_kw = inputs["stiff"]["rober"]
     rober_w = translate_problem(rober)
@@ -2204,8 +2313,8 @@ def phase_translate(device, prepared=None, N: int = PARITY_N):
     # ---- one gradient: tsit5 on Lorenz, the generated forward (on
     # TRANSLATE_GRAD_N lanes: the backward replays the plain version) ----
     glor = lorenz_inputs(min(N, TRANSLATE_GRAD_N), f64, device)
-    gkw = dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-8, atol=1e-8,
-               saveat=[0.25, 0.5, 0.75, 1.0])
+    gkw = dict(t0=0.0, tf=0.5, dt0=1e-3, rtol=1e-8, atol=1e-8,
+               saveat=[0.125, 0.25, 0.375, 0.5])
     gkw["adjoint_steps"] = suggest_adjoint_steps(
         glor, ensemble="kernel", backend="cuda", device=device, **gkw)
     before = erk_kernel.launches
@@ -2230,8 +2339,9 @@ def phase_translate_rows(device, hand_rows, N: int = FULL_N,
                          reps: int = 5):
     """The generated functors at 2^20 beside the hand-written rows on the
     same inputs, hand and generated kernels timed in turns (CUDA events,
-    median of `reps`): lorenz-1M-f32-adaptive, crn-1M-em and
-    rober-1M-rodas5p with the derived Jacobian."""
+    median of `reps`): lorenz-1M-f32-adaptive (and on tsit5_copy, a user
+    tableau with tsit5's free interpolant), crn-1M-em and rober-1M-rodas5p
+    with the derived Jacobian."""
     import torch
     from repro_torch.configs import de_problems as dp
     from repro_torch.configs.de_problems import lorenz_ensemble
@@ -2303,6 +2413,31 @@ def phase_translate_rows(device, hand_rows, N: int = FULL_N,
     row("erk_ensemble[tsit5,lorenz,f32,adaptive]",
         "erk_ensemble[tsit5,lorenz,f32,adaptive,generated]", launches,
         max_abs, ms, hand_ms, plain_ms, bitwise)
+
+    # ---- the same row on tsit5_copy, a user tableau with tsit5's
+    # interpolant: the hand-written RHS, the generated tableau struct ----
+    copy = interp_tableaus()["tsit5_copy"]
+    erk_kernel.launches = 0
+    solve_ensemble_local(ep, ensemble="kernel", backend="cuda",
+                         **dict(kw, alg=copy))
+    sync(device)
+    launches = erk_kernel.launches
+    out_c = erk_kernel.erk_ensemble(fh, copy, u0_l, p_l, sv, **kargs)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_h, out_c))
+    t = time.perf_counter()
+    out_p = erk_kernel._plain(fh, copy, u0_l, p_l, sv, **kargs)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    max_abs = max(float((out_c[i] - out_p[i]).abs().max()) for i in (0, 1))
+    hand_ms, ms = in_turns(
+        lambda: erk_kernel.erk_ensemble(fh, tab, u0_l, p_l, sv, **kargs),
+        lambda: erk_kernel.erk_ensemble(fh, copy, u0_l, p_l, sv, **kargs))
+    row("erk_ensemble[tsit5,lorenz,f32,adaptive]",
+        "erk_ensemble[tsit5_copy,lorenz,f32,adaptive,user-tableau]",
+        launches, max_abs, ms, hand_ms, plain_ms, bitwise)
+    if not bitwise:
+        raise AssertionError("lorenz-1M-f32-adaptive on tsit5_copy: not "
+                             "bitwise the hand-written tsit5")
 
     # ---- crn-1M-em[generated] -------------------------------------------
     crn = sde_inputs("crn", N, torch.float32, device)
@@ -3072,12 +3207,12 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
                 f"{bar}, or {mism} lanes finite in one only and {outliers} "
                 f"beyond {SDE_OUTLIER} (allowed {1e-4 * N:.0f})")
         ms = cuda_ms(kernel, reps)
-        # the plain version through the front door ("kernel"/"torch") is
-        # the twin timed above, so it is not run again
+        # the plain version through the front door ("kernel"/"torch", and
+        # "array": the same lanes loop over the whole ensemble) is the twin
+        # timed above, so it is not run again
         strategies = {}
         for sname, (ens, be) in {"kernel_cuda": ("kernel", "cuda"),
-                                 "vmap": ("vmap", "torch"),
-                                 "array": ("array", "torch")}.items():
+                                 "vmap": ("vmap", "torch")}.items():
             strategies[sname] = cuda_ms(lambda: solve_ensemble_local(
                 ep, ensemble=ens, backend=be, **kw),
                 reps if be == "cuda" else 1, warmup=1 if be == "cuda" else 0)
@@ -3337,9 +3472,10 @@ def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
         strategies = {"kernel_cuda": cuda_ms(lambda: solve_ensemble_local(
             gbm, ensemble="kernel", backend="cuda", **kw), reps)}
         if est == "embedded":
-            for sname in ("vmap", "array"):
-                strategies[sname] = cuda_ms(lambda: solve_ensemble_local(
-                    gbm, ensemble=sname, backend="torch", **kw), 1, warmup=0)
+            # "array" runs the same lanes engine over the whole batch as
+            # "vmap": timed once, as vmap
+            strategies["vmap"] = cuda_ms(lambda: solve_ensemble_local(
+                gbm, ensemble="vmap", backend="torch", **kw), 1, warmup=0)
 
         # ---- bound: the run's own attempts, K4's formula ------------------
         stats = out_k[3]
@@ -4034,9 +4170,10 @@ def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
             ep, ensemble="kernel", backend="cuda", **kw), reps)}
         if form == "rober-1M-rodas5p":
             # the paper's comparison with the plain strategies, run once
-            # each, on this form only: they take seconds a run
-            for sname, ens in (("kernel_torch", "kernel"), ("vmap", "vmap"),
-                               ("array", "array")):
+            # each, on this form only: they take seconds a run ("array" is
+            # the one tile of all N that "kernel_torch" runs, so it is not
+            # run again)
+            for sname, ens in (("kernel_torch", "kernel"), ("vmap", "vmap")):
                 strategies[sname] = cuda_ms(lambda: solve_ensemble_local(
                     ep, ensemble=ens, backend="torch", **kw), 1, warmup=0)
 
@@ -5433,17 +5570,20 @@ GRAD_TORCH_REL = 1e-10
 # rounding, an H100); both held within GRAD_TABLE_REL, 11x that, where a
 # gradient missing one of the replay's 15 segments would sit ~1/15 off.
 GRAD_TABLE_REL = 1e-2
-# full-size rows: the backward's peak is measured at GRAD_MEM_N lanes under
-# the default checkpoint_every and under one segment; a row whose peak,
-# scaled to 2^20 lanes, would pass GRAD_MEM_LIMIT bytes runs at 2^18
+# full-size rows run at 2^20 lanes, a quarter of them at a time while the
+# backward runs out of the card's memory (down to GRAD_MEM_N)
 GRAD_MEM_N = 2 ** 16
-GRAD_MEM_LIMIT = 40e9
 # the torch route's whole gradient (the plain version of kernel_adjoint:
 # the bounded loop forward and backward) is timed and compared on the first
 # GRAD_PLAIN_N lanes, to keep the smoke's time down (its backward is the
 # cuda route's); a table's gradient sums every lane, so that row's torch
 # route runs on all of them
 GRAD_PLAIN_N = 2 ** 18
+# The backward's peak at GRAD_MEM_N lanes under the default checkpoint_every
+# and with checkpointing off (one segment): a measurement with no gate
+# (PERF.md keeps it for every row), taken on the ERK row only (ROBER's two
+# probes took 54-66 s of the smoke's time on an H100's host)
+GRAD_PROBE_ROWS = ("grad-lorenz-1M-f64-tsit5",)
 # Under `torch.use_deterministic_algorithms` the table's sums take a fixed
 # order and the two routes agree bit for bit; on 2^20 lanes that took
 # minutes, so the smoke holds it on the first GRAD_DET_N lanes.
@@ -5654,6 +5794,9 @@ def grad_parity_cases(device, N: int):
     # the stiff kernel inlines the lanes LU: the replay takes the same
     rkw = dict(t0=0.0, tf=10.0, dt0=1e-6, rtol=1e-6, atol=1e-8,
                saveat=[1.0, 10.0], linsolve="lanes")
+    # Van der Pol on [0, 0.5]: each route replays the plain version
+    # backward, a host loop of its bounded steps (24 s on [0, 1] on an
+    # H100's host)
     vdp = ensemble_problem(dp.vdp_problem(), np.tile([2.0, 0.0], (N, 1)),
                            np.linspace(5.0, 20.0, N)[:, None], device=device)
     gbm = sde_inputs("gbm", N, f64, device)
@@ -5676,8 +5819,8 @@ def grad_parity_cases(device, N: int):
         ("rodas5p rober lazyW", rb_kernel, rober,
          dict(rkw, alg="rodas5p", w_reuse=True), both),
         ("rosenbrock23 vdp", rb_kernel, vdp,
-         dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-6, atol=1e-8,
-              saveat=[0.5, 1.0], linsolve="lanes", alg="rosenbrock23"),
+         dict(t0=0.0, tf=0.5, dt0=1e-3, rtol=1e-6, atol=1e-8,
+              saveat=[0.25, 0.5], linsolve="lanes", alg="rosenbrock23"),
          both),
         ("em gbm fixed", sde_kernel, gbm, dict(fixed, alg="em"), both),
         ("platen_w2 gbm fixed", sde_kernel, gbm,
@@ -5906,52 +6049,65 @@ def phase_grad_full_size(device, N: int = FULL_N):
     of the f64 gradient); at the torch route's own cotangents bitwise where
     the primals are, else within the row's rtol; the row's own check; the kernel forward ms,
     the backward ms, the replay's bounded iterations, the backward's peak
-    memory, at GRAD_MEM_N lanes that peak under the default
-    checkpoint_every and under one segment, and the bound."""
+    memory (on GRAD_PROBE_ROWS also at GRAD_MEM_N lanes under the default
+    checkpoint_every and under one segment), and the bound."""
     import torch
     from repro_torch.core.sensitivity import suggest_adjoint_steps
     rows = []
-    n_names = len(grad_full_forms(device, GRAD_MEM_N))
-    for k in range(n_names):
+    names = [form[0] for form in grad_full_forms(device, GRAD_MEM_N)]
+    for k in range(len(names)):
         t_row = time.perf_counter()
         steps = _Steps()
-        # ---- the memory probe at GRAD_MEM_N lanes ------------------------
-        name, mod, ep_m, kw, wrt, loss, _, _ = grad_full_forms(
-            device, GRAD_MEM_N)[k]
-        kw = dict(kw)
-        fixed_dt = "n_steps" in kw or kw.get("adaptive") is False
-        if not fixed_dt:
-            kw["adjoint_steps"] = suggest_adjoint_steps(
-                ep_m, ensemble="kernel", backend="cuda", device=device, **kw)
-        bound_probe = kw.get("adjoint_steps", kw.get("n_steps", 0) + 1)
-        peak_default = grad_run(ep_m, kw, wrt, loss=loss).peak
-        steps.lap("probe default")
-        try:
-            peak_one = grad_run(ep_m, dict(kw, checkpoint_every=bound_probe
-                                           + 1), wrt, loss=loss).peak
-        except torch.cuda.OutOfMemoryError:
-            peak_one = None       # one segment does not fit on the card
-        torch.cuda.empty_cache()
-        steps.lap("probe one segment")
-        n_row = N
-        while n_row > GRAD_MEM_N and \
-                peak_default * n_row / GRAD_MEM_N > GRAD_MEM_LIMIT:
-            n_row //= 4
-        del ep_m
+        # ---- the memory probes at GRAD_MEM_N lanes -----------------------
+        peak_default = peak_one = None
+        probe_txt = "not probed"
+        if names[k] in GRAD_PROBE_ROWS:
+            _, _, ep_m, kw, wrt, loss, _, _ = grad_full_forms(
+                device, GRAD_MEM_N)[k]
+            kw = dict(kw)
+            if not ("n_steps" in kw or kw.get("adaptive") is False):
+                kw["adjoint_steps"] = suggest_adjoint_steps(
+                    ep_m, ensemble="kernel", backend="cuda", device=device,
+                    **kw)
+            bound_probe = kw.get("adjoint_steps", kw.get("n_steps", 0) + 1)
+            peak_default = grad_run(ep_m, kw, wrt, loss=loss).peak
+            try:
+                peak_one = grad_run(ep_m, dict(
+                    kw, checkpoint_every=bound_probe + 1), wrt,
+                    loss=loss).peak
+                one_txt = f"{peak_one / 1e9:.3f} GB"
+            except torch.cuda.OutOfMemoryError:
+                one_txt = "out of memory"  # one segment does not fit
+            probe_txt = (f"at {GRAD_MEM_N} lanes default "
+                         f"{peak_default / 1e9:.3f} GB vs one segment "
+                         f"{one_txt}")
+            del ep_m
+            torch.cuda.empty_cache()
+            steps.lap("probes")
         # ---- the main path at n_row lanes --------------------------------
-        name, mod, ep, kw, wrt, loss, attempt_ops, peak_rate = \
-            grad_full_forms(device, n_row)[k]
-        kw = dict(kw)
-        if not fixed_dt:
-            kw["adjoint_steps"] = suggest_adjoint_steps(
-                ep, ensemble="kernel", backend="cuda", device=device, **kw)
-        meter, install, remove = _replay_meter()
-        mod.launches = 0
-        install()
-        try:
-            run = grad_run(ep, kw, wrt, loss=loss)
-        finally:
-            remove()
+        n_row = N
+        while True:
+            name, mod, ep, kw, wrt, loss, attempt_ops, peak_rate = \
+                grad_full_forms(device, n_row)[k]
+            kw = dict(kw)
+            if not ("n_steps" in kw or kw.get("adaptive") is False):
+                kw["adjoint_steps"] = suggest_adjoint_steps(
+                    ep, ensemble="kernel", backend="cuda", device=device,
+                    **kw)
+            meter, install, remove = _replay_meter()
+            mod.launches = 0
+            install()
+            try:
+                run = grad_run(ep, kw, wrt, loss=loss)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if n_row <= GRAD_MEM_N:
+                    raise
+                n_row //= 4
+            finally:
+                remove()
+            del ep
+            torch.cuda.empty_cache()
         res, g = run.res, run.grads
         launches = mod.launches
         if (device.type == "cuda" and launches < 1) or int(res.status) != 0:
@@ -6092,10 +6248,7 @@ def phase_grad_full_size(device, N: int = FULL_N):
               f"ms on {n_plain} lanes), bound {iters} iterations in "
               f"{meter['segments']} "
               f"segments, backward peak {peak / 1e9:.3f} GB (torch route "
-              f"{peak_t / 1e9:.3f} GB); at {GRAD_MEM_N} lanes default "
-              f"{peak_default / 1e9:.3f} GB vs one segment "
-              + (f"{peak_one / 1e9:.3f} GB" if peak_one is not None
-                 else "out of memory")
+              f"{peak_t / 1e9:.3f} GB); {probe_txt}"
               + f"; bound {max(t_ops, t_bytes):.3f} ms ({ops:.3e} ops, "
               f"{nbytes:.3e} bytes); cuda vs torch route on {n_plain} lanes: "
               f"at the kernel's cotangents "
@@ -6597,6 +6750,255 @@ def phase_lm_serve(device):
     return k7_rows
 
 
+def phase_autotune(device, N: int = FULL_N):
+    """``ensemble="auto"`` (`repro_torch.core.autotune`) on
+    lorenz-1M-f32-adaptive and rober-1M-rodas5p: `resolve_auto` tunes each
+    into a fresh cache file (each candidate's median printed, the winner,
+    the key), a second call is a pure cache hit (no `measure` call), and
+    the front door's ``"auto"`` solve, which finds the entry in the same
+    file, is bitwise the explicit winner's."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.configs.de_problems import lorenz_ensemble
+    from repro_torch.core import autotune as at
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.methods import get_method
+    from repro_torch.core.problem import EnsembleProblem
+    host = lorenz_ensemble(N, dtype=torch.float32)
+    lor = EnsembleProblem(host.prob, N, **dict(zip(
+        ("u0s", "ps"), (x.to(device).contiguous()
+                        for x in host.materialize()))))
+    cases = {
+        "lorenz-1M-f32-adaptive": (lor, dict(
+            alg="tsit5", t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-6, atol=1e-6,
+            saveat=torch.linspace(0.0, 1.0, 5))),
+        "rober-1M-rodas5p": (rober_inputs(N, device), dict(
+            ROBER_SETTINGS, alg="rodas5p",
+            saveat=torch.tensor(ROBER_SAVEAT, dtype=torch.float64))),
+    }
+    calls = {"n": 0}
+    real = at.measure
+
+    def counting(fn, *a, **k):
+        calls["n"] += 1
+        return real(fn, *a, **k)
+
+    out = {}
+    old_env = os.environ.get(at.CACHE_ENV)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "autotune.json")
+        os.environ[at.CACHE_ENV] = path
+        at.measure = counting
+        try:
+            for name, (ep, kw) in cases.items():
+                spec = get_method(kw["alg"])
+                rkw = {k: v for k, v in kw.items() if k != "alg"}
+                at.clear_memory_cache()
+                t = time.perf_counter()
+                dec = at.resolve_auto(ep, spec, device=device, **rkw)
+                tune_s = time.perf_counter() - t
+                n_timed = calls["n"]
+                t = time.perf_counter()
+                hit = at.resolve_auto(ep, spec, device=device, **rkw)
+                hit_s = time.perf_counter() - t
+                r_auto = solve_ensemble_local(ep, ensemble="auto",
+                                              device=device, **kw)
+                if dec.source != "tuned" or hit.source != "cache" or \
+                        calls["n"] != n_timed:
+                    raise AssertionError(
+                        f"autotune {name}: sources {dec.source}, "
+                        f"{hit.source}; {calls['n'] - n_timed} timings on "
+                        "the cached calls")
+                r_exp = solve_ensemble_local(
+                    ep, ensemble=dec.strategy, backend=dec.backend,
+                    lane_tile=dec.lane_tile, device=device, **kw)
+                bitwise = same_run(r_auto, r_exp)
+                medians = {label: round(sec * 1e3, 3)
+                           for label, sec in dec.timings}
+                out[name] = dict(winner=dec.strategy + "/" + dec.backend
+                                 + ("" if dec.lane_tile is None
+                                    else f"/t{dec.lane_tile}"),
+                                 key=dec.key, medians_ms=medians,
+                                 tune_s=tune_s, cache_hit_s=hit_s,
+                                 timed=n_timed, bitwise=bitwise)
+                print(f"autotune {name}: candidates' medians (ms, "
+                      f"{at.TUNE_REPEATS} timed runs each on "
+                      f"{min(N, at.TUNE_MAX_N)} lanes) "
+                      + json.dumps(medians) + f"; winner {out[name]['winner']}"
+                      f" (tuned in {tune_s:.1f} s, {n_timed} candidates); "
+                      f"second call a cache hit in {hit_s * 1e3:.3f} ms; "
+                      f"auto bitwise the explicit winner {bitwise}; key "
+                      f"{dec.key}")
+                calls["n"] = 0
+                if not bitwise:
+                    raise AssertionError(f"autotune {name}: auto not bitwise "
+                                         "the explicit winner")
+        finally:
+            at.measure = real
+            at.clear_memory_cache()
+            if old_env is None:
+                os.environ.pop(at.CACHE_ENV, None)
+            else:
+                os.environ[at.CACHE_ENV] = old_env
+    return out
+
+
+# the sharded solve on one card: two ranks over gloo (NCCL refuses two ranks
+# on one device), each case held bitwise to the local solve on DIST_N lanes
+DIST_N = 2 ** 16
+DIST_TIMEOUT_S = 600
+DIST_WORKER = r"""
+import json, sys, time, traceback
+import torch
+import torch.distributed as dist
+sys.path.insert(0, "src")
+from repro_torch.configs import de_problems as dp
+from repro_torch.core.api import solve_ensemble
+from repro_torch.core.ensemble import solve_ensemble_local
+from repro_torch.core.problem import EnsembleProblem
+from repro_torch.kernels.em import adaptive as k5
+from repro_torch.kernels.em import kernel as k4
+from repro_torch.kernels.tsit5 import kernel as k1
+from repro_torch.launch.mesh import make_local_group
+
+N, out = int(sys.argv[1]), sys.argv[2]
+g = make_local_group("gloo")
+rank = dist.get_rank()
+dev = torch.device("cuda", 0)
+F64 = torch.float64
+
+
+def lorenz():
+    host = dp.lorenz_ensemble(N, dtype=F64)
+    u0s, ps = host.materialize()
+    return EnsembleProblem(host.prob, N, u0s=u0s.to(dev), ps=ps.to(dev))
+
+
+def gbm():
+    return EnsembleProblem(dp.gbm_problem(r=1.5, v=0.2, dtype=F64), N,
+                           u0s=torch.full((N, 3), 0.1, dtype=F64, device=dev),
+                           ps=torch.tensor([1.5, 0.2], dtype=F64,
+                                           device=dev).expand(N, 2))
+
+
+def osc():
+    prob = dp.forced_oscillator_problem(dtype=F64)
+    u0s = torch.stack([prob.u0] * N) * torch.linspace(
+        0.5, 1.5, N, dtype=F64)[:, None]
+    return EnsembleProblem(prob, N, u0s=u0s.to(dev),
+                           ps=torch.stack([prob.p] * N).to(dev))
+
+
+SDE = dict(alg="em", t0=0.0, tf=1.0, seed=3)
+CASES = {
+    "K1 lorenz tsit5 adaptive": (k1, lorenz, dict(
+        alg="tsit5", t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-8, atol=1e-8,
+        saveat=[0.25, 0.5, 1.0])),
+    "K1 lorenz tsit5 fixed": (k1, lorenz, dict(
+        alg="tsit5", t0=0.0, tf=1.0, dt0=1e-3, adaptive=False,
+        save_every=250)),
+    "K4 gbm em fixed": (k4, gbm, dict(SDE, dt0=0.025, save_every=40)),
+    "K5 gbm em embedded": (k5, gbm, dict(SDE, dt0=0.05, adaptive=True,
+                                         rtol=1e-3, atol=1e-5,
+                                         error_est="embedded")),
+    "K1 osc data adaptive": (k1, osc, dict(
+        alg="tsit5", saveat=torch.linspace(0.0, 5.0, 6, dtype=F64),
+        dt0=1e-2, rtol=1e-7, atol=1e-7)),
+}
+FIELDS = ("us", "u_final", "t_final", "naccept", "nreject", "nf", "status",
+          "njac", "nfact")
+res = {}
+for name, (mod, make, kw) in CASES.items():
+    t = time.perf_counter()
+    try:
+        ep = make()
+        kw = dict(kw, ensemble="kernel", backend="cuda", device=dev)
+        mod.launches = 0
+        sharded = solve_ensemble(ep, g, **kw)
+        torch.cuda.synchronize()
+        launches = mod.launches
+        local = solve_ensemble_local(ep, **kw)
+        for k in FIELDS:
+            a, b = getattr(sharded, k), getattr(local, k)
+            if not torch.equal(torch.as_tensor(a).cpu(),
+                               torch.as_tensor(b).cpu()):
+                raise AssertionError(f"{k} differs from the local solve")
+        if sharded.us.device.type != "cuda" or launches < 1:
+            raise AssertionError(f"launches {launches} on this rank")
+        if mod is not k1:
+            half = N // 2
+            if torch.equal(sharded.u_final[:half], sharded.u_final[half:]):
+                raise AssertionError("the two ranks' paths are the same")
+        res[name] = dict(ok=True, launches=launches,
+                         s=time.perf_counter() - t)
+    except Exception:
+        res[name] = dict(ok=False, error=traceback.format_exc(),
+                         s=time.perf_counter() - t)
+with open(out, "w") as fh:
+    json.dump(res, fh)
+dist.destroy_process_group()
+"""
+
+
+def phase_distributed(device, N: int = DIST_N):
+    """The sharded solve (`repro_torch.core.api.solve_ensemble`) over two
+    processes on the one card, a gloo group (NCCL refuses two ranks on one
+    device): K1 (Lorenz f64, adaptive and fixed dt), K4 (GBM em, the
+    counter stream), K5 (GBM, the em pair) and K1's data form (the forced
+    oscillator's table), each on N lanes bitwise the local solve, the two
+    ranks' SDE paths distinct, each rank's kernels launched on the card.
+    Prints each rank's launches and seconds a case and the phase's wall
+    time."""
+    import os
+    import socket
+    import tempfile
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE="2")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DIST_WORKER, str(N),
+             os.path.join(d, f"rank{r}.json")], cwd=str(ROOT),
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in (0, 1)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        got = []
+        for r, p in enumerate(procs):
+            path = os.path.join(d, f"rank{r}.json")
+            if p.returncode != 0 or not os.path.exists(path):
+                raise AssertionError(f"distributed rank {r} exited "
+                                     f"{p.returncode}: {logs[r][-3000:]}")
+            with open(path) as fh:
+                got.append(json.load(fh))
+    for name in got[0]:
+        per = [g[name] for g in got]
+        bad = [f"rank {r}: {x['error']}" for r, x in enumerate(per)
+               if not x["ok"]]
+        if bad:
+            raise AssertionError(f"distributed {name}: " + "\n".join(bad))
+        print(f"distributed {name}: {N} lanes over 2 ranks, bitwise the "
+              f"local solve; launches a rank {[x['launches'] for x in per]}, "
+              f"seconds a rank {[round(x['s'], 2) for x in per]}")
+    print(f"distributed: two gloo ranks on one card, {wall:.1f} s wall")
+    return {"n": N, "wall_s": wall,
+            "cases": {name: [g[name]["launches"] for g in got]
+                      for name in got[0]}}
+
+
 def timed(phase, *args):
     """phase(*args), its seconds kept in PHASE_S under its name."""
     t = time.perf_counter()
@@ -6677,6 +7079,8 @@ def main() -> int:
     for r in translate_rows:
         r["parity_f64"] = translate
     rows += translate_rows
+    timed(phase_autotune, device)
+    timed(phase_distributed, device)
     grad = timed(phase_grad_parity, device)
     grad_rows = timed(phase_grad_full_size, device)
     for r in grad_rows:

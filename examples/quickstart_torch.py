@@ -15,9 +15,10 @@ first use (seconds; the library is kept under ``build/repro_torch/gen/``):
     PYTHONPATH=src python examples/quickstart_torch.py [--device cpu] [--n 1024]
 
 On a CUDA device (the default) ``backend="cuda"`` launches the kernels; with
-``--device cpu`` it runs their plain versions.  The reference's
-``ensemble="auto"`` and serving sections are not here: they wait for the
-port's autotune and serving layers (ROADMAP queue 1 items 11 and 13).
+``--device cpu`` it runs their plain versions.  ``ensemble="auto"`` tunes
+once and caches the winner (`repro_torch.core.autotune`).  The reference's
+serving section is not here: it waits for the port's serving layer
+(ROADMAP queue 1 item 13).
 """
 import argparse
 import math
@@ -75,6 +76,21 @@ def main(argv=None):
     print("\nSame physics, same answers — the kernel strategy steps every "
           "trajectory\nwith its own dt (paper §5.2), the array strategy "
           "lock-steps the ensemble (§5.1).")
+
+    # --- or let the autotuner pick: ensemble="auto" ---------------------------
+    # First sight of a configuration times the pruned candidates (vmap, array,
+    # kernel/torch over a lane_tile ladder, kernel/cuda) on a reduced copy of
+    # this problem and keeps the winner in ~/.cache/repro/autotune.json
+    # (REPRO_AUTOTUNE_CACHE overrides; REPRO_AUTOTUNE=0 disables): later
+    # solves are a dictionary lookup, bitwise the explicit winner's
+    t0 = time.perf_counter()
+    res = solve_ensemble_local(ens, alg="tsit5", ensemble="auto", t0=0.0,
+                               tf=1.0, dt0=1e-3, saveat=saveat, rtol=1e-6,
+                               atol=1e-6, device=dev)
+    _sync(dev)
+    print(f"   auto: {time.perf_counter() - t0:7.2f}s  (first-sight tuning "
+          f"included; cached for next time)   u_final[-1] = "
+          f"{res.u_final[-1].tolist()}")
 
     # --- stiff family, same front door: W = I - γh·J by per-lane LU ----------
     # the Jacobian the kernel factors is derived from the traced RHS

@@ -844,8 +844,10 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
       alg: a registry name (``"tsit5"``, ``"dopri5"``, ``"rodas5p"``,
         ``"rodas4"``, ``"rosenbrock23"``, ``"em"``, ``"platen_w2"``, ...),
         a `MethodSpec`, or a bare `Tableau` or `RosenbrockTableau`.
-      ensemble: ``"vmap"``, ``"array"``, ``"array_eager"`` (erk only) or
-        ``"kernel"``.
+      ensemble: ``"vmap"``, ``"array"``, ``"array_eager"`` (erk only),
+        ``"kernel"`` or ``"auto"``: measured dispatch, strategy, backend
+        and lane_tile from the profile cache, or timed on this problem at
+        first sight (`repro_torch.core.autotune`).
       backend: ``"torch"`` (the lanes twin) or ``"cuda"`` (the hand-written
         kernels: tsit5 and dopri5 on an RHS registered with `device_rhs`;
         em, heun_strat, platen_w2 and milstein, fixed-dt or adaptive, on a
@@ -914,11 +916,23 @@ def solve_ensemble_local(eprob: EnsembleProblem, alg="tsit5",
     Returns:
       `EnsembleResult` with trajectory-major ``us (N, S, n)``.
     """
-    if ensemble == "auto":
-        raise NotImplementedError(
-            "ensemble='auto' is not ported yet: ROADMAP queue 1 item 11 "
-            "(core/autotune.py)")
     spec = get_method(alg)
+    if ensemble == "auto":
+        # measured dispatch (`core.autotune`): a profile-cache hit, or a
+        # one-off measurement of the capability-pruned candidates on this
+        # problem
+        from .autotune import resolve_auto
+        dec = resolve_auto(eprob, spec, t0=t0, tf=tf, dt0=dt0, saveat=saveat,
+                           rtol=rtol, atol=atol, adaptive=adaptive,
+                           n_steps=n_steps, save_every=save_every,
+                           max_iters=max_iters, event=event, key=key,
+                           seed=seed, noise_table=noise_table,
+                           error_est=error_est, w_reuse=w_reuse,
+                           linsolve=linsolve, sensitivity=sensitivity,
+                           device=device)
+        ensemble, backend = dec.strategy, dec.backend
+        if lane_tile is None:
+            lane_tile = dec.lane_tile   # an explicit tile always wins
     if event is not None and not spec.events:
         raise ValueError(
             f"method {spec.name!r} declares events=False; pick a method whose "

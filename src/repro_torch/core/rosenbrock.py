@@ -1,5 +1,5 @@
 """Rosenbrock stiff ensemble engine — tableau-generic W-methods (paper
-§5.1.3), the PyTorch counterpart of `repro.core.rosenbrock` in lanes mode.
+§5.1.3), the PyTorch counterpart of `repro.core.rosenbrock`.
 
 One engine, driven by a `RosenbrockTableau` (γ, a, C, b, b̂, c, d), runs
 Rosenbrock23 (3 stages), Rodas4 (6) and Rodas5P (8).  Per step it factors
@@ -24,12 +24,14 @@ stage solve (`repro_torch.kernels.lu.ops.factor` / `resolve`).  The fused
 CUDA kernel `csrc/rosenbrock_ensemble.cu` runs this loop with the lanes
 LU, one thread per trajectory; this module is its plain twin.
 
-Only lanes mode is ported: u (n, B) with per-lane t, dt and masks, with
-events (`repro_torch.core.events`) located on the method's dense output,
-and the bounded reverse-differentiable loop (``bounded_steps``/
-``checkpoint_every``, `repro_torch.core.loops.solver_loop`).  The scalar
-mode is still to port (ROADMAP queue 1 item 19): the lanes engine serves
-every strategy, gradients included.
+Lanes mode, u (n, B) with per-lane t, dt and masks, serves every
+strategy, with events (`repro_torch.core.events`) located on the method's
+dense output and the bounded reverse-differentiable loop
+(``bounded_steps``/``checkpoint_every``, `repro_torch.core.loops
+.solver_loop`).  The scalar mode (``lanes=False``: u (n,), p (m,), t and
+dt 0-d, the callbacks called at those shapes, as the reference's scalar
+mode calls them) runs the same body on one lane (`_one_lane`), so both
+modes compute with the same expressions.
 """
 from __future__ import annotations
 
@@ -48,10 +50,32 @@ from .tableaus import RosenbrockTableau
 LINSOLVES = ("torch", "lanes", "cuda")
 
 
-def _scalar_mode():
-    return NotImplementedError(
-        "the scalar (per-trajectory) Rosenbrock mode is not ported yet: "
-        "ROADMAP queue 1 item 19; use lanes=True")
+def _one_lane(f, jac, event):
+    """The scalar mode's callbacks as the lanes body calls them, on one
+    lane: u (n, 1), p (m, 1) and t (1,) in, each callback called on u (n,),
+    p (m,) and t 0-d.  Without an analytic Jacobian the lane's is
+    `torch.func.jacfwd` of the scalar f, the reference's scalar form."""
+    def f1(u, p, t):
+        return f(u[:, 0], p[:, 0], t.reshape(()))[:, None]
+
+    if jac is None:
+        def jac1(u, p, t):
+            pp, tt = p[:, 0], t.reshape(())
+            return torch.func.jacfwd(lambda uu: f(uu, pp, tt))(
+                u[:, 0])[..., None]
+    else:
+        def jac1(u, p, t):
+            return jac(u[:, 0], p[:, 0], t.reshape(()))[..., None]
+    ev1 = None
+    if event is not None:
+        def cond1(u, p, t):
+            return event.condition(u[:, 0], p[:, 0], t.reshape(()))[None]
+        aff1 = None
+        if event.affect is not None:
+            def aff1(u, p, t):
+                return event.affect(u[:, 0], p[:, 0], t.reshape(()))[:, None]
+        ev1 = event._replace(condition=cond1, affect=aff1)
+    return f1, jac1, ev1
 
 
 def _jac_lanes(f, u, p, t, jac=None):
@@ -163,9 +187,17 @@ def rosenbrock_step(f, rtab: RosenbrockTableau, u, p, t, dt, *, lanes=True,
     Returns (u_new, err, F0, F_new, kds): F_new is f(u_new, t + dt) (the
     last stage's value when the tableau's last stage argument is u1, None
     when the tableau interpolates from its own stages); kds are the dense
-    output vectors kd_l = Σ_j interp_h[l, j] U_j (empty when none)."""
+    output vectors kd_l = Σ_j interp_h[l, j] U_j (empty when none).  With
+    ``lanes=False`` u is (n,), p (m,), t and dt 0-d, and so are the
+    results."""
     if not lanes:
-        raise _scalar_mode()
+        f1, jac1, _ = _one_lane(f, jac, None)
+        as_t = lambda v: torch.as_tensor(  # noqa: E731
+            v, dtype=u.dtype, device=u.device).reshape(1)
+        out = rosenbrock_step(f1, rtab, u[:, None], p[:, None], as_t(t),
+                              as_t(dt), linsolve=linsolve, jac=jac1)
+        col = lambda x: None if x is None else x[:, 0]  # noqa: E731
+        return (*(col(x) for x in out[:4]), tuple(col(k) for k in out[4]))
     J = _jac_lanes(f, u, p, t, jac)
     fac = _w_factor(_w_build(J, dt, float(rtab.gamma)), linsolve)
     return _stage_loop(f, rtab, u, p, t, dt,
@@ -267,9 +299,29 @@ def solve_rosenbrock(f, rtab: RosenbrockTableau, u0, p, t0, tf, dt0, *,
     ``checkpoint_every`` (`repro_torch.core.loops.solver_loop`), with the
     error norm detached and the stage solves run a second time at
     where(accept, dt, 0) for the differentiated graph: the discrete adjoint
-    of the realized step sequence.  A bound too small reports status 1."""
+    of the realized step sequence.  A bound too small reports status 1.
+
+    ``lanes=False`` is the scalar (per-trajectory) mode: u0 (n,), p (m,),
+    `f`, `jac` and the event's callbacks called at those shapes with t 0-d;
+    it runs this body on one lane and returns the lane's column (us (S, n),
+    u_final (n,), t_final and the counts 0-d)."""
     if not lanes:
-        raise _scalar_mode()
+        f1, jac1, ev1 = _one_lane(f, jac, event)
+        out = solve_rosenbrock(
+            f1, rtab, u0[:, None], p[:, None], t0, tf, dt0, rtol=rtol,
+            atol=atol, saveat=saveat, max_iters=max_iters,
+            linsolve=linsolve, jac=jac1, controller=controller, event=ev1,
+            w_reuse=w_reuse, bounded_steps=bounded_steps,
+            checkpoint_every=checkpoint_every)
+        res, log = out if event is not None else (out, None)
+        res = res._replace(
+            us=res.us[..., 0], u_final=res.u_final[:, 0],
+            **{k: getattr(res, k)[0] for k in (
+                "t_final", "naccept", "nreject", "status", "nf", "njac",
+                "nfact")})
+        if log is None:
+            return res
+        return res, {k: v[0] for k, v in log.items()}
     bounded = bounded_steps is not None
     policy = _policy(w_reuse)
     dtype, dev = u0.dtype, u0.device

@@ -60,12 +60,12 @@
 //
 // Events (the event template parameter, events.cuh): on an accepted step
 // the condition is checked over the step and, on a hit, the event time is
-// bisected on the same dense output the saves use (Tsitouras' interpolant,
-// or Hermite), the affect applied and the step truncated at the event:
-// saves stop at the truncated time, FSAL is off (k1 is re-evaluated at the
-// new point, and nf counts every stage, as the plain version does), and a
-// terminal hit ends the trajectory.  The event and data forms are compiled
-// for tsit5 and dopri5 only.
+// bisected on the same dense output the saves use (the tableau's free
+// interpolant, or Hermite), the affect applied and the step truncated at
+// the event: saves stop at the truncated time, FSAL is off (k1 is
+// re-evaluated at the new point, and nf counts every stage, as the plain
+// version does), and a terminal hit ends the trajectory.  The event and
+// data forms are compiled for tsit5 and dopri5 only.
 //
 // Data (the data template parameter, interp.cuh): a data form's RHS is a
 // functor built from the dataset's tables (`repro_data::Tables`, the
@@ -126,7 +126,7 @@ __device__ __forceinline__ T clip(T x, T lo, T hi) {
 
 // Tsitouras' free interpolant weights b_i(theta), in the reference's
 // operation order (src/repro_torch/core/tableaus.py `_tsit5_bpoly`), under
-// the policy A.
+// the policy A: `Tsit5::bpoly`.
 template <class A, typename T>
 __device__ __forceinline__ void tsit5_bpoly(T t, T w[7]) {
   // c t t (t t - a t + b), left to right
@@ -191,17 +191,19 @@ __device__ __forceinline__ void add_weights(T (&bsum)[n], T (&esum)[n],
 }
 
 // The dense output at theta of the step from u (stages k) to ucand: the
-// tableau's free interpolant, or cubic Hermite on (u, k1, ucand, fend =
-// f(ucand): the last stage by FSAL, else evaluated once for the step).
+// tableau's free interpolant, u + dt_step * sum_q w_q(theta) k_q with the
+// weights from the tableau's `bpoly` (tsit5's is `tsit5_bpoly`; a user
+// tableau's is emitted from its Python interpolant), or cubic Hermite on
+// (u, k1, ucand, fend = f(ucand): the last stage by FSAL, else evaluated
+// once for the step).
 template <class A, class Tab, int n, int s, typename T>
 __device__ __forceinline__ void dense_output(T th, const T* u, const T* ucand,
                                              const T (&k)[s][n],
                                              const T* fend, T dt_step,
                                              T* v) {
   if constexpr (Tab::free_interp) {
-    static_assert(s == 7, "Tsitouras' free interpolant has 7 weights");
-    T w[7];
-    tsit5_bpoly<A>(th, w);
+    T w[s];
+    Tab::template bpoly<A>(th, w);
 #pragma unroll
     for (int c = 0; c < n; ++c) {
       T incr = T(0);

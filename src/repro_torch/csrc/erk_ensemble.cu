@@ -24,6 +24,11 @@ struct Tsit5 {
   static constexpr bool rounded = false;
   static constexpr bool free_interp = true;
   static constexpr int embedded_order = 4;
+  // the free interpolant's weights (dense_output)
+  template <class A, typename T>
+  __device__ __forceinline__ static void bpoly(T t, T (&w)[7]) {
+    repro_erk::tsit5_bpoly<A>(t, w);
+  }
   __host__ __device__ static constexpr double a(int i, int j) {
     constexpr double A[7][7] = {
         {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0},

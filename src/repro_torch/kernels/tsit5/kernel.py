@@ -161,17 +161,24 @@ def source_of(name: str) -> str:
     return SOURCE if name in ("tsit5", "dopri5") else TABLEAUS_SOURCE
 
 
+def same_coefficients(tab: Tableau, ref: Tableau) -> bool:
+    """Whether the kernel runs `tab` as `ref`: the same a, b, btilde, c,
+    FSAL and embedded order (the step controller's)."""
+    return (tab.fsal == ref.fsal and tab.embedded_order == ref.embedded_order
+            and all(np.array_equal(getattr(tab, k), getattr(ref, k))
+                    for k in ("a", "b", "btilde", "c")))
+
+
 def _compiled(tab: Tableau) -> bool:
     """Whether `tab` is one of the compiled tableaus: a name of
-    TABLEAU_IDS with that tableau's coefficients (a user tableau named
-    alike is not)."""
+    TABLEAU_IDS with that tableau's coefficients and free interpolant (a
+    user tableau named alike is not)."""
     ref = TABLEAUS.get(tab.name)
     if ref is tab:
         return tab.name in TABLEAU_IDS
     return (tab.name in TABLEAU_IDS and ref is not None
-            and tab.fsal == ref.fsal
-            and all(np.array_equal(getattr(tab, k), getattr(ref, k))
-                    for k in ("a", "b", "btilde", "c")))
+            and tab.interp_bpoly is ref.interp_bpoly
+            and same_coefficients(tab, ref))
 
 
 def _plain(f, tab, u0, p, saveat, t0, tf, dt0, rtol, atol, adaptive,

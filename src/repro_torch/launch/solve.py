@@ -1,0 +1,104 @@
+"""Ensemble-solve launcher: ``python -m repro_torch.launch.solve --problem
+lorenz --n 100000 --ensemble kernel``, the port's counterpart of
+`repro.launch.solve`.
+
+With ``--mesh local`` the trajectory axis is sharded over the ranks of the
+job (the MPI composition of §6.3), e.g. ``torchrun --nproc_per_node=2 -m
+repro_torch.launch.solve --mesh local``: NCCL where each rank has a card
+of its own, gloo otherwise (``--dist-backend``).  The straggler-tolerant
+work queue (``--work-queue``) waits for ROADMAP queue 1 item 14.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.de_problems import (crn_problem, gbm_problem,
+                                             lorenz_ensemble)
+from repro_torch.core import EnsembleProblem
+from repro_torch.core.api import ensemble_moments, solve_ensemble
+
+
+def _backend(name: str) -> str:
+    if name != "auto":
+        return name
+    import os
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    return ("nccl" if torch.cuda.is_available()
+            and torch.cuda.device_count() >= world else "gloo")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--problem", default="lorenz",
+                    choices=["lorenz", "gbm", "crn"])
+    ap.add_argument("--n", type=int, default=65536)
+    ap.add_argument("--ensemble", default="kernel",
+                    choices=["kernel", "vmap", "array", "auto"])
+    ap.add_argument("--backend", default="torch", choices=["torch", "cuda"])
+    ap.add_argument("--adaptive", action="store_true")
+    ap.add_argument("--dt", type=float, default=1e-3)
+    ap.add_argument("--lane-tile", type=int, default=1024)
+    ap.add_argument("--mesh", default="none", choices=["none", "local"])
+    ap.add_argument("--dist-backend", default="auto",
+                    choices=["auto", "nccl", "gloo"])
+    ap.add_argument("--work-queue", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="where the solve runs (default: the card)")
+    args = ap.parse_args(argv)
+    if args.work_queue:
+        raise NotImplementedError(
+            "--work-queue needs the straggler-tolerant WorkQueue "
+            "(dist/fault.py): ROADMAP queue 1 item 14")
+
+    group, rank = None, 0
+    if args.mesh == "local":
+        from repro_torch.launch.mesh import make_local_group
+        group = make_local_group(_backend(args.dist_backend))
+        rank = torch.distributed.get_rank(group)
+
+    t0 = time.perf_counter()
+    if args.problem == "lorenz":
+        ep = lorenz_ensemble(args.n, dtype=torch.float32)
+        kw = dict(ensemble=args.ensemble, backend=args.backend,
+                  adaptive=args.adaptive, dt0=args.dt, t0=0.0, tf=1.0,
+                  lane_tile=args.lane_tile, device=args.device)
+        if args.adaptive:
+            kw["saveat"] = [1.0]
+        else:
+            kw.update(n_steps=int(round(1.0 / args.dt)),
+                      save_every=int(round(1.0 / args.dt)))
+        res = solve_ensemble(ep, group, **kw)
+        u_final = res.u_final.detach().cpu().numpy()
+        dt = time.perf_counter() - t0
+        if rank == 0:
+            print(f"{args.n:,} trajectories in {dt:.2f}s "
+                  f"({args.n / dt:,.0f} traj/s)  "
+                  f"mean |u_f| = {np.abs(u_final).mean():.4f}")
+    else:
+        prob = gbm_problem() if args.problem == "gbm" else crn_problem(
+            tspan=(0.0, 10.0))
+        ep = EnsembleProblem(prob, args.n)
+        n_steps = int(round(prob.tspan[1] / args.dt))
+        res = solve_ensemble(ep, group, alg="em", ensemble="kernel",
+                             backend=args.backend, dt0=args.dt,
+                             n_steps=n_steps, save_every=n_steps, seed=0,
+                             device=args.device)
+        us = res.u_final
+        if group is not None:
+            n_local = args.n // torch.distributed.get_world_size(group)
+            us = us[rank * n_local:(rank + 1) * n_local]
+        mean, var = ensemble_moments(us, group)
+        dt = time.perf_counter() - t0
+        if rank == 0:
+            print(f"{args.n:,} SDE paths in {dt:.2f}s  E[X_T] = "
+                  f"{mean.cpu().numpy()}  Var = {var.cpu().numpy()}")
+    if group is not None:
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,8 @@
 `make_serve_plan` returns the two steps of a served model, each run under
 `torch.inference_mode()`.  The reference jit-compiles them; PyTorch runs
 eagerly.  Its decode donates the cache: the port's `decode_step` writes the
-cache in place.  A device mesh (the reference's sharded plan) waits for
-ROADMAP queue 1 item 12.
+cache in place.  A device mesh (the reference's sharded plan, the LM's
+model sharding) waits for ROADMAP queue 1 item 16.
 """
 from __future__ import annotations
 
@@ -27,8 +27,8 @@ def make_serve_plan(model, mesh, batch: int, cache_len: int) -> ServePlan:
     the unsharded plan leaves ``model.q_chunk`` as it is."""
     if mesh is not None:
         raise NotImplementedError("make_serve_plan runs unsharded (mesh=None)"
-                                  "; a device mesh waits for ROADMAP queue 1 "
-                                  "item 12")
+                                  "; a device mesh (model sharding) waits for "
+                                  "ROADMAP queue 1 item 16")
 
     def prefill_fn(b):
         with torch.inference_mode():

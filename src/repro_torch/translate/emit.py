@@ -20,6 +20,9 @@ kernel's existing functor interface.
 - The events of every kernel (`events.cuh`): ``enabled``, ``kAffect``,
   ``condition`` (0-d) and ``affect`` ((n,)), under the policy the kernel
   passes (`Rounded` in every event form).
+- A user ERK tableau (`erk_tableau`): K1's tableau struct, with a free
+  interpolant's weight function ``bpoly`` (`interp_weights`) where the
+  tableau carries one.
 
 A function traced with a dataset becomes a data functor: it holds the
 kernel's table leaves (`interp.cuh` ``Leaf``, copied from ``Tables`` by its
@@ -380,23 +383,43 @@ def _array(values) -> str:
     return ", ".join(vals)
 
 
-def erk_tableau(name: str, tab) -> str:
+def interp_weights(interp: Traced) -> str:
+    """The free interpolant's weight function of K1's tableau interface,
+    ``bpoly(t, w)`` with t standing for theta: the traced ``bpoly(theta)``
+    under the kernel's policy ``A``, every operation in the traced order,
+    as `tsit5_bpoly` is written."""
+    body = Body(interp.graph)
+    _assign_all(body, "w", interp.outputs)
+    return _member("template <class A, typename T>\n  __device__ "
+                   "__forceinline__ static void bpoly(T t, "
+                   f"T (&w)[{len(interp.outputs)}])", body)
+
+
+def erk_tableau(name: str, tab, interp: Optional[Traced] = None, *,
+                rounded: bool = True, stream_sums: bool = True) -> str:
     """A user ERK tableau as a struct of K1's tableau interface, like
-    `Rkck54` in csrc/erk_tableaus.cu: every operation rounded on its own
-    (`rounded`), the sums streamed, Hermite dense output."""
+    `Rkck54` in csrc/erk_tableaus.cu: by default every operation rounded
+    on its own (`rounded`) and the sums streamed; with `interp` (the traced
+    free interpolant) its weight function (`interp_weights`) as the dense
+    output, else Hermite."""
     s = int(tab.stages)
     a = np.asarray(tab.a, np.float64)
     rows = ",\n        ".join("{" + _array(a[i]) + "}" for i in range(s))
-    fsal = "true" if tab.fsal else "false"
+    flag = lambda x: "true" if x else "false"  # noqa: E731
     return (f"// the user tableau {tab.name!r} (order {tab.order}, embedded "
-            f"order {tab.embedded_order})\n"
+            f"order {tab.embedded_order}"
+            + (f", free interpolant {interp.name}" if interp is not None
+               else "") + ")\n"
             f"struct {name} {{\n"
             f"  static constexpr int stages = {s};\n"
-            f"  static constexpr bool fsal = {fsal}, stream_sums = true;\n"
-            f"  static constexpr bool rounded = true;\n"
-            f"  static constexpr bool free_interp = false;\n"
+            f"  static constexpr bool fsal = {flag(tab.fsal)}, stream_sums = "
+            f"{flag(stream_sums)};\n"
+            f"  static constexpr bool rounded = {flag(rounded)};\n"
+            f"  static constexpr bool free_interp = "
+            f"{flag(interp is not None)};\n"
             f"  static constexpr int embedded_order = "
             f"{int(tab.embedded_order)};\n"
+            + ("" if interp is None else interp_weights(interp)) +
             f"  __host__ __device__ static constexpr double a(int i, int j) {{\n"
             f"    constexpr double A[{s}][{s}] = {{\n        {rows}}};\n"
             f"    return A[i][j];\n  }}\n"
@@ -410,4 +433,3 @@ def erk_tableau(name: str, tab) -> str:
             f"    constexpr double C[{s}] = {{{_array(tab.c)}}};\n"
             f"    return C[i];\n  }}\n"
             "};\n")
-

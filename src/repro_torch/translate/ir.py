@@ -136,6 +136,17 @@ class Traced(NamedTuple):
                      for i in range(self.shape[0]))
 
 
+def same(a: Traced, b: Traced) -> bool:
+    """Whether two traced functions are the same computation: equal
+    outputs and shape over equal nodes (constants by their bits)."""
+    ga, gb = a.graph, b.graph
+    key = lambda g: [(nd.op, nd.args, _attr_key(nd.attr))  # noqa: E731
+                     for nd in g.nodes]
+    return (a.outputs == b.outputs and a.shape == b.shape
+            and (ga.n, ga.m, ga.data) == (gb.n, gb.m, gb.data)
+            and key(ga) == key(gb))
+
+
 _TORCH_UNARY = {"neg": torch.neg, "sqrt": torch.sqrt, "exp": torch.exp,
                 "log": torch.log, "sin": torch.sin, "cos": torch.cos,
                 "tanh": torch.tanh, "abs": torch.abs,
@@ -184,7 +195,7 @@ def evaluate_nodes(graph: Graph, roots, u, p, t,
     """The value of every node `roots` depend on, each replayed as the
     torch call that made it, in node order: ``{id: tensor}``; a lookup
     reads `data` (the traced function's dataset)."""
-    ref = u[0]
+    ref = u[0] if len(u) else t     # t alone: a traced interpolant
     vals: Dict[int, torch.Tensor] = {}
     tables = None
     for i in graph.reachable(roots):
@@ -224,14 +235,14 @@ def evaluate_nodes(graph: Graph, roots, u, p, t,
 def evaluate(traced: Traced, u, p, t, data=None) -> torch.Tensor:
     """The traced function's value at lane tensors u (n, B) or (n,), p
     (m, B) or (m,) and t (B,) or 0-d (and the dataset `data` of a function
-    traced with one): each node replayed as the torch call that made it,
+    traced with one; a traced interpolant has n = m = 0): each node replayed as the torch call that made it,
     then the outputs stacked into ``traced.shape`` + the lane shape
     (constants and lane-free outputs broadcast)."""
     if not torch.is_tensor(t):
         t = torch.as_tensor(t, dtype=u.dtype, device=u.device)
     vals = evaluate_nodes(traced.graph, traced.outputs, u, p, t, data)
-    lane = torch.broadcast_shapes(u[0].shape, p[0].shape if len(p) else (),
-                                  t.shape)
+    lane = torch.broadcast_shapes(u[0].shape if len(u) else (),
+                                  p[0].shape if len(p) else (), t.shape)
     outs = [vals[i].expand(lane) for i in traced.outputs]
     flat = torch.stack(outs)
     return flat.reshape(tuple(traced.shape) + tuple(lane))

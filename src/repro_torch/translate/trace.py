@@ -25,7 +25,8 @@ grid (x0, dx, ...) is not traced: the device functor reads it from the
 kernel's tables at run time.  Reading a leaf any other way refuses.
 
 An event's condition (a 0-d output) and affect (an (n,) output) are
-traced by `trace_event`.
+traced by `trace_event`, and a tableau's free interpolant (theta -> its
+stage weights) by `trace_interp`.
 
 A traced function is cached per function object (weakly), and per
 dataset structure: a second solve with the same function traces nothing.
@@ -654,6 +655,20 @@ def trace_event(condition, affect, n: int, m: int,
            None if affect is None
            else _record(affect, graph, (int(n),), fn_name(affect)))
     _store(condition, key, got)
+    return got
+
+
+def trace_interp(bpoly, stages: int) -> Traced:
+    """A tableau's free interpolant ``bpoly(theta)`` (theta -> its
+    `stages` weights, stacked) traced with theta a 0-d proxy: the graph's
+    ``t`` stands for theta, and it has no u and no p.  Cached on bpoly."""
+    key = ("interp", int(stages))
+    per_fn = _cached(bpoly)
+    if per_fn is not None and key in per_fn:
+        return per_fn[key]
+    got = _record(lambda u, p, t: bpoly(t), Graph(0, 0), (int(stages),),
+                  fn_name(bpoly))
+    _store(bpoly, key, got)
     return got
 
 

@@ -47,7 +47,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch.translate import emit
-from repro_torch.translate.ir import Traced
+from repro_torch.translate.ir import Traced, same
+from repro_torch.translate.trace import trace_interp
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -62,6 +63,17 @@ ERK_TABLEAU_STRUCTS = {"tsit5": ("erk_ensemble.cu", "Tsit5"),
                        "rk4": ("erk_tableaus.cu", "Rk4"),
                        "vern7": ("erk_tableaus.cu", "Vern7"),
                        "gbs10": ("erk_tableaus.cu", "Gbs10")}
+# the hand-written K1 structs' arithmetic flags: a user tableau with one's
+# coefficients and interpolant runs under them (`twin_flags`)
+ERK_TABLEAU_FLAGS = {
+    "tsit5": dict(rounded=False, stream_sums=False),
+    "dopri5": dict(rounded=False, stream_sums=False),
+    "rkck54": dict(rounded=True, stream_sums=True),
+    "bs3": dict(rounded=False, stream_sums=True),
+    "rkf45": dict(rounded=False, stream_sums=True),
+    "rk4": dict(rounded=False, stream_sums=True),
+    "vern7": dict(rounded=True, stream_sums=True),
+    "gbs10": dict(rounded=True, stream_sums=True)}
 ROSENBROCK_STRUCTS = {"rosenbrock23": "Ros23w", "rodas4": "Rodas4",
                       "rodas5p": "Rodas5p"}
 SDE_STEPPERS = {"em": "Em", "heun_strat": "HeunStrat",
@@ -165,7 +177,9 @@ def erk_unit(f: Optional[Traced], tab, dtype, *,
     `hand_functor`, e.g. ``repro_erk::Lorenz``) on tableau `tab` in
     `dtype`, with the event form `event` and, where `data`, the dataset's
     tables.  A tableau of `ERK_TABLEAU_STRUCTS` is the hand-written struct,
-    copied; any other is emitted (`emit.erk_tableau`)."""
+    copied; any other is emitted (`emit.erk_tableau`), with its free
+    interpolant traced (`trace_interp`) into the struct's weight function
+    and its arithmetic flags from `twin_flags`."""
     if f is None and hand_functor is None:
         raise ValueError("erk_unit needs a traced f or a hand functor")
     registered = tab.name in ERK_TABLEAU_STRUCTS and _is_registered(tab)
@@ -173,13 +187,11 @@ def erk_unit(f: Optional[Traced], tab, dtype, *,
         source, struct = ERK_TABLEAU_STRUCTS[tab.name]
         tab_text = hand_struct(source, struct)
     else:
-        if tab.interp_bpoly is not None:
-            raise NotImplementedError(
-                f"user tableau {tab.name!r} carries a free interpolant "
-                "(interp_bpoly), which the CUDA kernel cannot take yet: "
-                "ROADMAP queue 1 item 17")
+        interp = None if tab.interp_bpoly is None else trace_interp(
+            tab.interp_bpoly, tab.stages)
         struct = "UserTableau"
-        tab_text = emit.erk_tableau(struct, tab)
+        tab_text = emit.erk_tableau(struct, tab, interp,
+                                    **twin_flags(tab, interp))
     if f is not None:
         rhs_text, rhs = emit.erk_functor("Rhs", f), "Rhs"
     else:
@@ -204,6 +216,28 @@ def erk_unit(f: Optional[Traced], tab, dtype, *,
 def _is_registered(tab) -> bool:
     from repro_torch.kernels.tsit5.kernel import _compiled
     return _compiled(tab)
+
+
+def twin_flags(tab, interp: Optional[Traced]) -> dict:
+    """The arithmetic flags (``rounded``, ``stream_sums``) of a user
+    tableau's struct: those of the hand-written struct
+    (`ERK_TABLEAU_FLAGS`) of the compiled tableau with its coefficients and
+    its free interpolant (the same IR, or
+    none on both), which runs the same method under another name; else
+    every operation rounded on its own, the sums streamed, so that the
+    kernel computes what the plain version does."""
+    from repro_torch.core.tableaus import TABLEAUS
+    from repro_torch.kernels.tsit5.kernel import same_coefficients
+    for name, flags in ERK_TABLEAU_FLAGS.items():
+        ref = TABLEAUS[name]
+        if not same_coefficients(tab, ref) or (
+                (ref.interp_bpoly is None) != (interp is None)):
+            continue
+        if interp is not None and not same(
+                interp, trace_interp(ref.interp_bpoly, ref.stages)):
+            continue
+        return dict(flags)
+    return dict(rounded=True, stream_sums=True)
 
 
 _ERK_ENTRIES = """\

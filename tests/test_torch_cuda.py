@@ -84,7 +84,9 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         with pytest.raises(NotImplementedError, match="returned.*item 17"):
             erk_kernel.erk_ensemble(f, t, u0, p, sv,
                                     event=tdp.bouncing_ball_event(), **kw)
-    with pytest.raises(NotImplementedError, match="interp_bpoly.*item 17"):
+    # a free interpolant is traced: one that gives no stacked weights
+    # refuses
+    with pytest.raises(NotImplementedError, match="returned.*item 17"):
         erk_kernel.erk_ensemble(f, user._replace(
             interp_bpoly=lambda th: th), u0, p, sv, **kw)
     assert erk_kernel.launches == before

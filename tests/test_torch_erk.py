@@ -256,8 +256,9 @@ def _half_event():
     return half_event()
 
 
-# events and sensitivities run on every family now; ensemble="auto" is a
-# later slice, which raises.  The sensitivity cases are held to the
+# events, sensitivities and ensemble="auto" run on every family now; "auto"
+# dispatches its tuned winner bitwise (tests/test_torch_autotune.py holds
+# the rest of core/autotune.py).  The sensitivity cases are held to the
 # reference: the same refusal where it refuses (an adaptive adjoint without
 # adjoint_steps), and with a bound, the same gradients (f64, rel 1e-10).
 @pytest.mark.parametrize("kw", [dict(event=_half_event(),
@@ -268,7 +269,7 @@ def _half_event():
                                      sensitivity="adjoint"),
                                 dict(alg="rosenbrock23",
                                      sensitivity="adjoint")])
-def test_front_door_later_slices_raise(kw):
+def test_front_door_later_slices_raise(kw, monkeypatch, tmp_path):
     import jax
     from repro.configs.de_problems import lorenz_problem as jlorenz
     from repro.core.ensemble import solve_ensemble_local as jsolve
@@ -278,8 +279,17 @@ def test_front_door_later_slices_raise(kw):
     from repro_torch.core.ensemble import solve_ensemble_local as tsolve
     from repro_torch.core.problem import EnsembleProblem as TEP
     if kw.get("ensemble") == "auto":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsolve(lorenz_ensemble(4), tf=0.1, device="cpu", **kw)
+        from repro_torch.core import autotune
+        from repro_torch.core.methods import get_method
+        monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+        ep = lorenz_ensemble(4)
+        got = tsolve(ep, tf=0.1, device="cpu", **kw)
+        dec = autotune.resolve_auto(ep, get_method("tsit5"), tf=0.1,
+                                    device="cpu")
+        assert dec.source == "cache"
+        want = tsolve(ep, tf=0.1, device="cpu", ensemble=dec.strategy,
+                      backend=dec.backend, lane_tile=dec.lane_tile)
+        assert torch.equal(got.u_final, want.u_final)
         return
     ep = lorenz_ensemble(4, dtype=torch.float64)
     u0s, ps = (x.numpy().copy() for x in ep.materialize())

@@ -31,10 +31,12 @@ def load(name):
     return mod
 
 
-def test_quickstart_torch_runs_on_the_cpu(capsys):
+def test_quickstart_torch_runs_on_the_cpu(capsys, monkeypatch, tmp_path):
+    # its ensemble="auto" section tunes into the test's own cache file
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
     res = load("quickstart_torch").main(["--device", "cpu", "--n", "32"])
     out = capsys.readouterr().out
-    for section in ("kernel/cuda", "rosenbrock23 kernel", "em kernel",
+    for section in ("kernel/cuda", "auto:", "rosenbrock23 kernel", "em kernel",
                     "barrier event", "decay half point",
                     "forced oscillator", "adjoint through the kernel"):
         assert section in out, section

@@ -31,7 +31,10 @@ PORT_MODULES = [
     "repro_torch.train.serve", "repro_torch.translate",
     "repro_torch.translate.ir", "repro_torch.translate.trace",
     "repro_torch.translate.derive", "repro_torch.translate.emit",
-    "repro_torch.translate.units",
+    "repro_torch.translate.units", "repro_torch.core.order_conditions",
+    "repro_torch.core.autotune", "repro_torch.core.api",
+    "repro_torch.launch", "repro_torch.launch.mesh",
+    "repro_torch.launch.solve",
 ]
 
 

@@ -225,7 +225,7 @@ def test_other_families_refused_naming_the_queue_item(family_arch):
 def test_mesh_and_missing_cuda_refused(monkeypatch):
     cfg = get_arch("internlm2-1.8b-smoke")
     model = build_model(cfg, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
         make_serve_plan(model, object(), B, CACHE)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

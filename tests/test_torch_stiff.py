@@ -347,9 +347,15 @@ def test_stiff_dispatch_rules_and_errors():
     with pytest.raises(ValueError, match="backend"):
         tsolve(ens, alg="rodas4", backend="pallas", **kw)
     u0s, ps = ens.materialize()
-    with pytest.raises(NotImplementedError, match="item 19"):
-        trb.solve_rosenbrock(tdp.rober_rhs, ttab.RODAS4, u0s[0], ps[0], 0.0,
-                             1.0, 1e-6, lanes=False)
+    # the scalar mode runs the lanes body on one lane: its trajectory is
+    # the lanes engine's column (tests/test_torch_rosenbrock_scalar.py holds
+    # it to the reference's scalar mode)
+    one = trb.solve_rosenbrock(tdp.rober_rhs, ttab.RODAS4, u0s[0], ps[0], 0.0,
+                               1.0, 1e-6, lanes=False)
+    cols = trb.solve_rosenbrock(tdp.rober_rhs, ttab.RODAS4, u0s.T, ps.T, 0.0,
+                                1.0, 1e-6)
+    assert torch.equal(one.u_final, cols.u_final[:, 0])
+    assert int(one.naccept) == int(cols.naccept[0])
     # the bounded reverse-mode loop runs: bitwise the while loop's result
     # once the bound covers the attempts
     plain = trb.solve_rosenbrock(tdp.rober_rhs, ttab.RODAS4, u0s.T, ps.T,

@@ -16,8 +16,11 @@ the SDE on a shared noise table within 1e-12, and adaptive on the
 reference's normals with identical counts; event times within 1e-6 (the
 kink-limited grid again; the port's two kernel backends bitwise).  The
 reference's gradient case is held in tests/test_torch_grad_parity.py
-(`test_grad_wrt_table_values_matches_reference`); its sharding and autotune
-cases wait for ROADMAP queue 1 items 12 and 11.
+(`test_grad_wrt_table_values_matches_reference`); its sharding case
+(sharded == local bitwise, here over a one-rank gloo group, as the
+reference's runs over a one-device mesh; tests/test_torch_api_distributed.py
+runs it over two ranks) and its autotune cases (the key's data component)
+close the file.
 """
 import dataclasses
 import functools
@@ -371,3 +374,61 @@ def test_staged_driver_passes_the_tables_to_every_segment():
                               save_chunks=1, **kw)
     torch.testing.assert_close(staged.us, one.us, rtol=0, atol=1e-12)
     assert int(staged.naccept.sum()) == int(one.naccept.sum())
+
+
+# ---------------------------------------------------------------------------
+# sharded == local, and the autotune key's data component
+# ---------------------------------------------------------------------------
+
+def test_sharded_equals_local_with_data():
+    import torch.distributed as dist
+    from repro_torch.core.api import solve_ensemble
+    _, u0s, ps = osc_inputs()
+    ep = t_ens(tdp.forced_oscillator_problem(), u0s, ps)
+    kw = dict(alg="tsit5", saveat=np.linspace(0.0, 5.0, 6), dt0=1e-2,
+              rtol=1e-7, atol=1e-7, ensemble="kernel", backend="cuda",
+              device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        rm = solve_ensemble(ep, dist.group.WORLD, **kw)
+    finally:
+        dist.destroy_process_group()
+    rl = tsolve(ep, **kw)
+    assert torch.equal(rl.u_final, rm.u_final)
+    assert torch.equal(rl.us, rm.us)
+    assert torch.equal(rl.naccept, rm.naccept)
+
+
+def test_autotune_key_has_data_component():
+    from repro_torch.core.autotune import config_key
+    from repro_torch.core.interp import data_signature
+    prob = tdp.forced_oscillator_problem()
+    spec = get_method("tsit5")
+    kw = dict(n=2, N=8, dtype=torch.float64, adaptive=True, events=False,
+              w_reuse=False, error_est="none")
+    k_free = config_key(spec, **kw)
+    k_data = config_key(spec, data_sig=data_signature(prob.data), **kw)
+    assert "data=none" in k_free
+    assert "data=" in k_data and k_free != k_data
+    # the signature tracks shape and dtype, so either re-tunes
+    assert data_signature(prob.data) != "none"
+    assert data_signature(prob.data) == R.data_signature(r_osc().data)
+
+
+def test_resolve_auto_key_distinguishes_data(tmp_path):
+    from repro_torch.core.autotune import clear_memory_cache, resolve_auto
+    _, u0s, ps = osc_inputs(4)
+    ep = t_ens(tdp.forced_oscillator_problem(), u0s, ps)
+    clear_memory_cache()
+    cache = str(tmp_path / "tune.json")
+    spec = get_method("tsit5")
+    kw = dict(dt0=1e-2, saveat=np.linspace(0.0, 5.0, 6), cache_path=cache,
+              repeats=1, device="cpu")
+    dec_data = resolve_auto(ep, spec, **kw)
+    bound = bind_problem_data(ep.prob)
+    free = t_ens(dataclasses.replace(bound, name="free"), u0s, ps)
+    dec_free = resolve_auto(free, spec, **kw)
+    assert dec_data.key != dec_free.key
+    assert "data=" in dec_data.key
+    clear_memory_cache()

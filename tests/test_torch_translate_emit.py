@@ -386,8 +386,14 @@ def test_a_registered_tableau_is_the_hand_written_struct():
         assert f"launch<Real, {struct}, Rhs, repro_ev::NoEvent>" in text
     hand = units.erk_unit(None, HEUN, F32, hand_functor="repro_erk::Lorenz")
     assert "UserTableau, repro_erk::Lorenz" in hand.text
-    with pytest.raises(NotImplementedError, match="interp_bpoly"):
+    # a free interpolant is traced into the struct's weight function
+    # (tests/test_torch_translate_interp.py); one that gives no stacked
+    # weights refuses, naming item 17
+    with pytest.raises(NotImplementedError, match="returned.*item 17"):
         units.erk_unit(lor, HEUN._replace(interp_bpoly=lambda th: th), F64)
+    lin = units.erk_unit(lor, HEUN._replace(
+        interp_bpoly=lambda th: torch.stack([0.5 * th, 0.5 * th])), F64)
+    assert "static void bpoly(T t, T (&w)[2])" in lin.text
 
 
 C_TYPES = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint,
