@@ -24,6 +24,10 @@ rows at 2^20 beside their hand-written rows, timed in turns), tunes
 candidates' medians, the winner, a cache hit, auto bitwise the winner),
 runs the sharded solve over two gloo ranks on the one card
 (`phase_distributed`: K1, K4, K5 and a dataset bitwise the local solve),
+serves 92 mixed requests through one `EnsembleService` and runs the
+elastic supervisor under injected faults (`phase_serve_elastic`: slot
+pools on the lanes engine, K3 and K5 from one-shot batches and tiles,
+every served request and elastic run bitwise its fresh or local solve),
 drives the port's paths through the front door
 (`solve_ensemble_local(ensemble="kernel", backend="cuda")`): the paper's
 million-trajectory Lorenz ensemble (tsit5, and vern7 beside it; every
@@ -6342,7 +6346,9 @@ LM_ROWS = {
 }
 LM_K7_LAYERS = (0, 23)     # the layers whose q, k, v K7 is held on
 LM_LAST_ROWS = 512         # at 32k the dense forms hold the last rows only
-LM_REPS = 3
+# timed runs of each LM figure after a warm-up, their median (two, to pay
+# with the autotune phase's repetitions for `phase_serve_elastic`)
+LM_REPS = 2
 # Relative Frobenius norm of the bf16 model's logits over the true vocab
 # against (a) an f32 run of the same weights (the reference's dense
 # attention math) and (b) `forward` on T + 1 tokens against decode's logits
@@ -6750,6 +6756,12 @@ def phase_lm_serve(device):
     return k7_rows
 
 
+# timed runs a candidate in the autotune phase (after one untimed run):
+# kernel/cuda wins by 100-1000x on both rows on an H100, so one run
+# decides it (the seconds saved pay for `phase_serve_elastic`)
+AUTOTUNE_REPEATS = 1
+
+
 def phase_autotune(device, N: int = FULL_N):
     """``ensemble="auto"`` (`repro_torch.core.autotune`) on
     lorenz-1M-f32-adaptive and rober-1M-rodas5p: `resolve_auto` tunes each
@@ -6796,7 +6808,8 @@ def phase_autotune(device, N: int = FULL_N):
                 rkw = {k: v for k, v in kw.items() if k != "alg"}
                 at.clear_memory_cache()
                 t = time.perf_counter()
-                dec = at.resolve_auto(ep, spec, device=device, **rkw)
+                dec = at.resolve_auto(ep, spec, device=device,
+                                      repeats=AUTOTUNE_REPEATS, **rkw)
                 tune_s = time.perf_counter() - t
                 n_timed = calls["n"]
                 t = time.perf_counter()
@@ -6823,7 +6836,7 @@ def phase_autotune(device, N: int = FULL_N):
                                  tune_s=tune_s, cache_hit_s=hit_s,
                                  timed=n_timed, bitwise=bitwise)
                 print(f"autotune {name}: candidates' medians (ms, "
-                      f"{at.TUNE_REPEATS} timed runs each on "
+                      f"{AUTOTUNE_REPEATS} timed runs each on "
                       f"{min(N, at.TUNE_MAX_N)} lanes) "
                       + json.dumps(medians) + f"; winner {out[name]['winner']}"
                       f" (tuned in {tune_s:.1f} s, {n_timed} candidates); "
@@ -6999,6 +7012,315 @@ def phase_distributed(device, N: int = DIST_N):
                       for name in got[0]}}
 
 
+# The serving and elastic layers on the card (`repro_torch.serve`,
+# `repro_torch.dist.elastic`): cells serve-mixed-1M and
+# elastic-lorenz-rober-256k (PERF.md §4).  Slot pools run the lanes engine;
+# the non-resumable requests and one-shot tiles run K3 and K5.
+SERVE_WIDTH = 2 ** 16
+SERVE_SEGMENT = 64
+# (requests, lanes a request) of each traffic class
+SERVE_LORENZ = (64, 2 ** 14)      # tsit5 f64, rtol 1e-8, tf over [0.5, 1]
+SERVE_GBM = (16, 2 ** 14)         # em f32 fixed dt, n_steps over 100..200
+SERVE_ROBER = (8, 2 ** 15)        # rodas5p f64, backend="cuda" (K3)
+SERVE_GBM_ADAPTIVE = (4, 2 ** 16)  # em pair f32, backend="cuda" (K5)
+# requests of each slot pool held bitwise to their fresh torch-route solve
+SERVE_CHECK = 8
+ELASTIC_N, ELASTIC_TILE, ELASTIC_SHARDS = 2 ** 18, 2 ** 15, 4
+ELASTIC_SEGMENT = 32
+ELASTIC_ROBER_TILE = 2 ** 16
+ELASTIC_LORENZ = dict(t0=0.0, tf=1.0, dt0=1e-3, rtol=1e-6, atol=1e-6)
+SERVE_ROBER_KW = dict(ROBER_SETTINGS, tf=1e2)
+
+
+def _same_lanes(served, fresh, fields=("u_final", "t_final", "naccept",
+                                       "nreject")) -> bool:
+    """A served (or elastic) result's `fields` bit for bit a fresh
+    solve's."""
+    for k in fields:
+        a, b = getattr(served, k), getattr(fresh, k)
+        b = b.detach().cpu().numpy()
+        if not np.array_equal(np.asarray(a), np.broadcast_to(b, np.shape(a))
+                              .astype(np.asarray(a).dtype)):
+            return False
+    return True
+
+
+def _timed_pumps(classes):
+    """Wrap each class's `pump` to sum its seconds by (kind, method);
+    returns (seconds dict, restore())."""
+    secs = {}
+    saved = {cls: cls.pump for cls in classes}
+
+    def wrap(cls, orig):
+        def pump(self):
+            t = time.perf_counter()
+            try:
+                return orig(self)
+            finally:
+                what = (self.spec.name if hasattr(self, "spec")
+                        else self.family)
+                key = f"{cls.__name__}:{what}"
+                secs[key] = secs.get(key, 0.0) + time.perf_counter() - t
+        return pump
+
+    for cls, orig in saved.items():
+        cls.pump = wrap(cls, orig)
+
+    def restore():
+        for cls, orig in saved.items():
+            cls.pump = orig
+    return secs, restore
+
+
+def serve_mixed(device):
+    """serve-mixed-1M: 92 requests of four classes through one
+    `EnsembleService` of slot width 2^16, drained; the gates and the
+    figures of `phase_serve_elastic`'s first half."""
+    import torch
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.core.problem import EnsembleProblem
+    from repro_torch.kernels.em import adaptive as k5
+    from repro_torch.kernels.rosenbrock import kernel as k3
+    from repro_torch.serve import EnsembleService
+    from repro_torch.serve.slots import BatchPool, SlotPool
+    f32, f64 = torch.float32, torch.float64
+
+    def split(ep, n_req, n):
+        u0s, ps = (x.cpu() for x in ep.materialize())
+        return [EnsembleProblem(ep.prob, n, u0s=u0s[i * n:(i + 1) * n],
+                                ps=ps[i * n:(i + 1) * n])
+                for i in range(n_req)]
+
+    nl, ll = SERVE_LORENZ
+    ng, lg = SERVE_GBM
+    nr, lr = SERVE_ROBER
+    na, la = SERVE_GBM_ADAPTIVE
+    lor = split(lorenz_inputs(nl * ll, f64, "cpu"), nl, ll)
+    gbm = split(sde_inputs("gbm", ng * lg, f32, "cpu"), ng, lg)
+    rob = split(rober_inputs(nr * lr, "cpu"), nr, lr)
+    gba = split(sde_inputs("gbm", na * la, f32, "cpu", seed=SEED + 1), na,
+                la)
+    lor_tf = [0.5 + 0.5 * i / (nl - 1) for i in range(nl)]
+    gbm_steps = [100 + round(100 * i / (ng - 1)) for i in range(ng)]
+    lkw = dict(alg="tsit5", t0=0.0, dt0=1e-3, rtol=1e-8, atol=1e-8)
+    gkw = dict(alg="em", t0=0.0, dt0=1.0 / 200)
+    rkw = dict(SERVE_ROBER_KW, alg="rodas5p")
+    akw = dict(alg="em", adaptive=True, t0=0.0, tf=ADAPTIVE_FULL["tf"],
+               dt0=ADAPTIVE_FULL["dt0"], rtol=ADAPTIVE_FULL["rtol"],
+               atol=ADAPTIVE_FULL["atol"])
+    svc = EnsembleService(seed=SDE_SEED, max_pending=128,
+                          slot_width=SERVE_WIDTH,
+                          segment_steps=SERVE_SEGMENT, device=device)
+    tickets = {"lorenz": [], "gbm": [], "rober": [], "gbm-adaptive": []}
+    secs, restore = _timed_pumps((SlotPool, BatchPool))
+    k3.launches = k5.launches = 0
+    sync(device)
+    t = time.perf_counter()
+    try:
+        # interleaved arrival: the classes share the service from the
+        # start, each spread evenly over the Lorenz requests
+        for i in range(nl):
+            tickets["lorenz"].append(svc.submit(
+                lor[i], tenant="lorenz", tf=lor_tf[i], **lkw))
+            if i % (nl // ng) == 0:
+                j = i // (nl // ng)
+                tickets["gbm"].append(svc.submit(
+                    gbm[j], tenant="gbm", tf=gbm_steps[j] / 200,
+                    n_steps=gbm_steps[j], **gkw))
+            if i % (nl // nr) == 0:
+                tickets["rober"].append(svc.submit(
+                    rob[i // (nl // nr)], tenant="rober", backend="cuda",
+                    **rkw))
+            if i % (nl // na) == 0:
+                tickets["gbm-adaptive"].append(svc.submit(
+                    gba[i // (nl // na)], tenant="gbm-adaptive",
+                    backend="cuda", **akw))
+        svc.drain()
+        sync(device)
+    finally:
+        restore()
+    wall = time.perf_counter() - t
+    launches = {"rosenbrock_ensemble": k3.launches,
+                "sde_adaptive_ensemble": k5.launches}
+    segments = sum(p.segments for p in svc._pools.values()
+                   if isinstance(p, SlotPool))
+    # ---- gates -------------------------------------------------------------
+    bad = [(c, i, tk.error) for c, tks in tickets.items()
+           for i, tk in enumerate(tks) if not tk.done or tk.error is not None
+           or tk.result is None]
+    if bad:
+        raise AssertionError(f"serve: tickets failed {bad[:4]}")
+    failures = {k: v["failures"] for k, v in svc.accounting.items()}
+    if any(failures.values()):
+        last = [v["last_error"] for v in svc.accounting.values()]
+        raise AssertionError(f"serve: failures {failures}; last errors "
+                             f"{last}")
+    if device.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"serve: kernel launches {launches}")
+    t_check = time.perf_counter()
+    step = max(1, nl // SERVE_CHECK)
+    checked = {}
+    for i in range(0, nl, step)[:SERVE_CHECK]:
+        fresh = solve_ensemble_local(lor[i], ensemble="kernel",
+                                     backend="torch", tf=lor_tf[i],
+                                     device=device, **lkw)
+        if not _same_lanes(tickets["lorenz"][i].result, fresh):
+            raise AssertionError(f"serve lorenz request {i}: not bitwise its "
+                                 "fresh torch-route solve")
+    checked["lorenz"] = len(range(0, nl, step)[:SERVE_CHECK])
+    step = max(1, ng // SERVE_CHECK)
+    for i in range(0, ng, step)[:SERVE_CHECK]:
+        n = gbm_steps[i]
+        tk = tickets["gbm"][i]
+        fresh = solve_ensemble_local(
+            gbm[i], ensemble="kernel", backend="torch", tf=n / 200,
+            n_steps=n, save_every=n, seed=SDE_SEED,
+            lane_offset=tk._req.lane_offset, device=device, **gkw)
+        # t_final aside: a fixed-dt fresh solve reports t0 + n_steps dt
+        # rounded once, the resumable carry the step times it accumulated,
+        # in both packages
+        if not _same_lanes(tk.result, fresh, ("u_final", "naccept",
+                                              "nreject")):
+            raise AssertionError(f"serve gbm request {i}: not bitwise its "
+                                 "fresh torch-route solve")
+    checked["gbm"] = len(range(0, ng, step)[:SERVE_CHECK])
+    for cls, subs, kw in (("rober", rob, rkw), ("gbm-adaptive", gba, akw)):
+        for i, tk in enumerate(tickets[cls]):
+            extra = (dict(seed=SDE_SEED, lane_offset=tk._req.lane_offset)
+                     if cls == "gbm-adaptive" else {})
+            fresh = solve_ensemble_local(subs[i], ensemble="kernel",
+                                         backend="cuda", device=device,
+                                         **kw, **extra)
+            if not _same_lanes(tk.result, fresh):
+                raise AssertionError(f"serve {cls} request {i}: not bitwise "
+                                     "its own fresh backend='cuda' solve")
+        checked[cls] = len(tickets[cls])
+    check_s = time.perf_counter() - t_check
+    n_req = sum(len(v) for v in tickets.values())
+    lanes = nl * ll + ng * lg + nr * lr + na * la
+    print(f"serve-mixed-1M: {n_req} requests, {lanes} lanes through slot "
+          f"width {SERVE_WIDTH}, drained in {wall:.2f} s: "
+          f"{n_req / wall:.2f} requests/s, {lanes / wall:.4g} lanes/s, "
+          f"{segments} segments; pool seconds "
+          + json.dumps({k: round(v, 3) for k, v in secs.items()})
+          + f"; launches on the serving path {json.dumps(launches)}")
+    print(f"serve-mixed-1M: every ticket done, no error, failures "
+          f"{json.dumps(failures)}; bitwise their fresh solves "
+          f"{json.dumps(checked)} requests ({check_s:.1f} s)")
+    return dict(wall_s=wall, requests=n_req, lanes=lanes,
+                requests_per_s=n_req / wall, lanes_per_s=lanes / wall,
+                segments=segments, pool_s=secs, launches=launches,
+                checked=checked, check_s=check_s)
+
+
+def elastic_runs(device):
+    """elastic-lorenz-rober-256k: Lorenz tsit5 f64 in segment mode (one
+    kill, one checkpoint-write crash) and ROBER rodas5p in one-shot mode on
+    K3 (one kill), each bitwise its clean run and one local solve."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import ckpt as ckpt_lib
+    from repro_torch.core.ensemble import solve_ensemble_local
+    from repro_torch.dist.chaos import ChaosMonkey
+    from repro_torch.dist.elastic import ElasticSupervisor
+    from repro_torch.kernels.rosenbrock import kernel as k3
+    f64 = torch.float64
+    snap = {"s": 0.0, "n": 0, "bytes": 0}
+    real_save = ckpt_lib.save
+
+    def timed_save(ckpt_dir, step, tree, **kw):
+        t = time.perf_counter()
+        out = real_save(ckpt_dir, step, tree, **kw)
+        snap["s"] += time.perf_counter() - t
+        snap["n"] += 1
+        d = os.path.join(ckpt_dir, f"step_{step}")
+        snap["bytes"] += sum(os.path.getsize(os.path.join(d, f))
+                             for f in os.listdir(d))
+        return out
+
+    cases = {
+        "lorenz tsit5 segment": (
+            lorenz_inputs(ELASTIC_N, f64, "cpu", seed=SEED + 2), "tsit5",
+            dict(ELASTIC_LORENZ, tile_width=ELASTIC_TILE,
+                 segment_steps=ELASTIC_SEGMENT),
+            [(2, 1, "kill"), (2, -1, "ckpt_crash")],
+            dict(lane_tile=ELASTIC_TILE, backend="torch")),
+        "rober rodas5p one-shot": (
+            rober_inputs(ELASTIC_N, "cpu"), "rodas5p",
+            dict(SERVE_ROBER_KW, tile_width=ELASTIC_ROBER_TILE,
+                 backend="cuda"),
+            [(1, 1, "kill")], dict(backend="cuda")),
+    }
+    out = {}
+    ckpt_lib.save = timed_save
+    try:
+        for name, (ep, alg, kw, schedule, local_kw) in cases.items():
+            runs = {}
+            k3.launches = 0
+            for tag, chaos in (("clean", None),
+                               ("chaos", ChaosMonkey(schedule=schedule))):
+                with tempfile.TemporaryDirectory() as d:
+                    t = time.perf_counter()
+                    runs[tag] = ElasticSupervisor(
+                        ep, alg, ckpt_dir=d, n_shards=ELASTIC_SHARDS,
+                        chaos=chaos, backoff_base=0.0, device=device,
+                        **kw).run()
+                    runs[tag + "_s"] = time.perf_counter() - t
+            launches = k3.launches
+            lkw = {k: v for k, v in kw.items()
+                   if k not in ("tile_width", "segment_steps", "backend")}
+            t = time.perf_counter()
+            local = solve_ensemble_local(ep, alg=alg, ensemble="kernel",
+                                         device=device, **lkw, **local_kw)
+            local_s = time.perf_counter() - t
+            rep = runs["chaos"].report
+            kinds = sorted(f["kind"] for f in rep["failures"])
+            if kinds != sorted(k for _, _, k in schedule):
+                raise AssertionError(f"elastic {name}: failures "
+                                     f"{rep['failures']}, injected "
+                                     f"{schedule}")
+            for tag in ("clean", "chaos"):
+                r = runs[tag]
+                if (r.status != 0).any():
+                    raise AssertionError(f"elastic {name} {tag}: status "
+                                         f"{np.unique(r.status)}")
+                if not _same_lanes(r, local):
+                    raise AssertionError(f"elastic {name} {tag}: not bitwise "
+                                         "one solve_ensemble_local call")
+            if device.type == "cuda" and alg == "rodas5p" and launches < 1:
+                raise AssertionError(f"elastic {name}: K3 never launched")
+            out[name] = dict(mode=rep["mode"], clean_s=runs["clean_s"],
+                             chaos_s=runs["chaos_s"], local_s=local_s,
+                             epochs=rep["epochs"], snapshots=rep["snapshots"],
+                             reshards=rep["reshards"],
+                             failures=rep["failures"], k3_launches=launches)
+            print(f"elastic {name}: {ELASTIC_N} lanes, tile "
+                  f"{kw['tile_width']}, {ELASTIC_SHARDS} shards, mode "
+                  f"{rep['mode']}; clean {runs['clean_s']:.2f} s, with "
+                  f"{kinds} {runs['chaos_s']:.2f} s ({rep['epochs']} epochs, "
+                  f"{rep['snapshots']} snapshots, {rep['reshards']} "
+                  f"re-shards, {rep['restored_tiles']} tiles restored), "
+                  f"local solve {local_s:.2f} s; both bitwise the local "
+                  f"solve; K3 launches {launches}")
+    finally:
+        ckpt_lib.save = real_save
+    print(f"elastic snapshots: {snap['n']} in {snap['s']:.2f} s, "
+          f"{snap['bytes']} bytes ({snap['bytes'] / max(snap['n'], 1):.4g} "
+          "bytes a snapshot)")
+    out["snapshots"] = snap
+    return out
+
+
+def phase_serve_elastic(device):
+    """The serving layer (`EnsembleService`: slot pools on the lanes
+    engine, `BatchPool` on K3 and K5) and the elastic supervisor (segment
+    mode, and one-shot tiles on K3) on the card; every gate raises."""
+    serve = serve_mixed(device)
+    elastic = elastic_runs(device)
+    return {"serve": serve, "elastic": elastic}
+
+
 def timed(phase, *args):
     """phase(*args), its seconds kept in PHASE_S under its name."""
     t = time.perf_counter()
@@ -7081,6 +7403,7 @@ def main() -> int:
     rows += translate_rows
     timed(phase_autotune, device)
     timed(phase_distributed, device)
+    timed(phase_serve_elastic, device)
     grad = timed(phase_grad_parity, device)
     grad_rows = timed(phase_grad_full_size, device)
     for r in grad_rows:

@@ -16,9 +16,9 @@ first use (seconds; the library is kept under ``build/repro_torch/gen/``):
 
 On a CUDA device (the default) ``backend="cuda"`` launches the kernels; with
 ``--device cpu`` it runs their plain versions.  ``ensemble="auto"`` tunes
-once and caches the winner (`repro_torch.core.autotune`).  The reference's
-serving section is not here: it waits for the port's serving layer
-(ROADMAP queue 1 item 13).
+once and caches the winner (`repro_torch.core.autotune`).  The serving
+section drives `repro_torch.serve.EnsembleService` (continuous batching
+over resumable slots) on a background thread.
 """
 import argparse
 import math
@@ -195,6 +195,37 @@ def main(argv=None):
     print(f"\nadjoint through the kernel ({bound} bounded attempts): "
           f"L = {float(loss):.6e}, dL/drho[-1] = {float(g_p[-1, 1]):.6e}, "
           f"dL/du0[-1] = {[round(float(v), 6) for v in g_u0[-1]]}")
+
+    # --- serving: async submit/poll with continuous batching ----------------
+    # Production traffic is many small heterogeneous requests, not one blob.
+    # EnsembleService keeps one slot pool running: finished lanes retire
+    # early and are refilled from the queue, and every served result is
+    # bitwise a fresh solve_ensemble_local of that request (kernel/torch)
+    from repro_torch.serve import EnsembleService
+    svc = EnsembleService(slot_width=8, segment_steps=64, device=dev)
+    svc.start()                              # pump loop on a background thread
+    sigma, beta = 10.0, 8.0 / 3.0
+    sprob = ODEProblem(lorenz, torch.tensor([1.0, 0.0, 0.0], dtype=f64),
+                       torch.tensor([sigma, 21.0, beta], dtype=f64),
+                       (0.0, 2.0))
+    tickets = []
+    for tf in (0.5, 1.0, 2.0):               # three tenants, three horizons
+        rhos = torch.linspace(19.0, 24.0, 4, dtype=f64)
+        sps = torch.stack([torch.full((4,), sigma, dtype=f64), rhos,
+                           torch.full((4,), beta, dtype=f64)], 1)
+        tickets.append(svc.submit(EnsembleProblem(sprob, 4, ps=sps),
+                                  alg="tsit5", tf=tf, dt0=1e-2,
+                                  tenant=f"tenant-{tf}"))
+    for tk in tickets:
+        tk.wait(timeout=120.0)               # or poll tk.done, non-blocking
+    svc.stop()
+    print("\nserved 3 async requests through one continuously-batched "
+          "slot pool:")
+    for tk, tf in zip(tickets, (0.5, 1.0, 2.0)):
+        print(f"  tf={tf}: status={tk.result.status} nf={tk.result.nf} "
+              f"latency={tk.latency:.3f}s")
+    print(f"  per-tenant accounting: "
+          f"{ {t: a['nf'] for t, a in svc.accounting.items()} }")
     return fres
 
 

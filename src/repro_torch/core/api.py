@@ -208,12 +208,32 @@ def ensemble_moments(us, group=None):
     return mean, torch.clamp_min(s2c / n, 0)
 
 
-def solve_ensemble_elastic(*args, **kw):
-    """The fault-tolerant segmented solve (the reference's
-    `repro.core.api.solve_ensemble_elastic`) waits for ROADMAP queue 1
-    item 14 (`dist/`, `checkpoint/`)."""
-    raise NotImplementedError(
-        "solve_ensemble_elastic needs the elastic supervisor and the "
-        "checkpoint layer: ROADMAP queue 1 item 14")
+def solve_ensemble_elastic(eprob: EnsembleProblem, alg="tsit5", *,
+                           ckpt_dir: str, n_shards: int = 2,
+                           resume: bool = False, chaos=None, **kw):
+    """Fault-tolerant segmented ensemble solve — the elastic face of the
+    front door (`repro.core.api.solve_ensemble_elastic`).
 
+    Wraps `repro_torch.dist.elastic.ElasticSupervisor`: the run advances in
+    bounded segments with periodic host-gathered carry snapshots through
+    the atomic checkpoint layer, survives shard loss by re-sharding the
+    unfinished tiles over the survivors (degradation ladder down to a
+    single host, then a partial result with per-lane
+    ``status == STATUS_SHARD_LOST``), and ``resume=True`` restores the
+    newest snapshot — onto ANY `n_shards`, in the same process or a
+    relaunched one.  A killed-and-resumed run is bitwise identical to an
+    uninterrupted one (tests/test_torch_elastic.py SIGKILLs a run).
 
+    Returns `repro_torch.dist.elastic.ElasticResult` (host numpy per-lane
+    finals + a fault-history report), not an `EnsembleResult`: elasticity
+    is a host-side supervision loop by construction.
+
+    Keyword args beyond the supervisor's (tile_width, segment_steps,
+    snapshot_every, max_failures, backoff_*, backend, device, ...) mirror
+    `solve_ensemble_local` (t0, tf, dt0, n_steps, adaptive, rtol, atol,
+    event, seed, lane_offset, max_iters, ...).
+    """
+    from repro_torch.dist.elastic import ElasticSupervisor
+    sup = ElasticSupervisor(eprob, alg, ckpt_dir=ckpt_dir,
+                            n_shards=n_shards, chaos=chaos, **kw)
+    return sup.run(resume=resume)

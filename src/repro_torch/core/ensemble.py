@@ -817,6 +817,151 @@ def _assemble_sde_result(ts, us, uf, N, n_steps, nf_per_step, t0, dt,
 
 
 # ----------------------------------------------------------------------------
+# resumable segment engine (the continuous-batching substrate: serve/, dist/)
+# ----------------------------------------------------------------------------
+
+class ResumableEngine:
+    """A fixed-width slot stepper over one per-lane resume body.
+
+    Wraps a per-lane resume body (`core.solvers.erk_resume_body`,
+    `core.sde.sde_resume_body`) in a bounded loop over a B-wide carry whose
+    per-lane constants (p, tf or n_steps, lane, ...) live in the carry, on
+    one device.  `step_segment(carry, refill_mask, refill)` first merges the
+    refill columns into the carry (`torch.where` over the lane axis, so the
+    code path does not depend on which slots refill), then advances every
+    active lane by at most `segment_steps` attempts while any lane is
+    active.  The body is an exact no-op on a done lane, so mixed-progress
+    slots cost only their width; the serving layer harvests done lanes
+    between segments and refills their slots from the request queue.
+
+    The reference's engine is a jitted ``while_loop``, with no Pallas
+    kernel in it; this one is the lanes engine in PyTorch ops on the
+    carry's device (one host check of the ``done`` mask an attempt)."""
+
+    def __init__(self, init_fn, body_fn, segment_steps: int = 64,
+                 device=None):
+        self.segment_steps = int(segment_steps)
+        self.device = resolve_device(device)
+        self._init = init_fn
+        self._body = body_fn
+
+    def _tensor(self, x):
+        return (torch.as_tensor(x, device=self.device)
+                if isinstance(x, (np.ndarray, torch.Tensor)) else x)
+
+    def fresh(self, *args):
+        """A full-width carry, every column a fresh lane: the pool's first
+        state, and (merged through `step_segment`) the refill columns;
+        columns that do not refill are computed on filler values and
+        dropped by the merge.  Array arguments move to the engine's device
+        with their dtypes."""
+        return self._init(*(self._tensor(a) for a in args))
+
+    def step_segment(self, carry, refill_mask, refill):
+        """Merge `refill`'s columns where `refill_mask` (B,) is set, then
+        run one bounded segment.  An all-False mask with ``refill=carry``
+        is a pure advance."""
+        mask = torch.as_tensor(refill_mask, dtype=torch.bool,
+                               device=self.device)
+        merge = bool(mask.any())
+        c = {}
+        for k, old in carry.items():
+            if k == "iters":
+                # segment-local bound; per-request budgets are enforced
+                # by the caller from naccept + nreject
+                c[k] = torch.zeros((), dtype=torch.int32, device=self.device)
+            elif merge:
+                c[k] = torch.where(mask[None] if old.dim() == 2 else mask,
+                                   refill[k], old)
+            else:
+                c[k] = old
+        it = 0
+        while it < self.segment_steps and not bool(c["done"].all()):
+            c = self._body(c)
+            it += 1
+        return c
+
+    def export_carry(self, carry):
+        """The carry gathered to the host (see `export_resume_carry`)."""
+        return export_resume_carry(carry)
+
+    def import_carry(self, host_carry):
+        """An exported carry back on this engine's device."""
+        return import_resume_carry(host_carry, device=self.device)
+
+
+def export_resume_carry(carry) -> dict:
+    """A resumable carry gathered to the host as numpy, dtypes kept.
+
+    The carry is the whole per-lane solver state (u, t, dt, counters, the
+    per-lane constants p, tf or n_steps and the lane index, the done and
+    status flags), so an exported carry is a restart point: back on a
+    device and continued by the same engine, it replays exactly the
+    remaining body applications.  `repro_torch.dist.elastic` snapshots it
+    through `repro_torch.checkpoint.ckpt`, so a restore may go to any shard
+    count."""
+    return {k: v.detach().cpu().numpy() for k, v in carry.items()}
+
+
+def import_resume_carry(host_carry: dict, device=None) -> dict:
+    """Inverse of `export_resume_carry`: numpy carry -> tensors on
+    `resolve_device(device)` (the card unless the caller asks for the CPU).
+    Dtypes are kept exactly (a bitwise resume depends on it)."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+            for k, v in host_carry.items()}
+
+
+def make_resumable_engine(spec: MethodSpec, prob, *, adaptive=None,
+                          rtol=1e-6, atol=1e-6, event=None, seed=0,
+                          m_noise=None, segment_steps: int = 64,
+                          device=None) -> ResumableEngine:
+    """The (init, body) pair of a resumable method in a `ResumableEngine`
+    on `resolve_device(device)`.
+
+    erk: ``engine.fresh(u0, p, t0, tf, dt0)``, u0 (n, B), p (k, B), the rest
+         numbers or (B,).  The body is `solve_adaptive`'s own
+         (`_make_adaptive_body`) with p and tf in the carry.
+    sde (fixed dt): ``engine.fresh(u0, p, t0, dt, n_steps, lane)``,
+         per-lane step counts and GLOBAL lane indices; the noise replays the
+         (seed; step, lane, row) Threefry counters of the fresh paths.
+
+    Raises ValueError for a method declaring ``resumable=False``
+    (rosenbrock's lazy-W refresh gates couple lanes: the service runs it as
+    coalesced one-shot batches, `repro_torch.serve.slots.BatchPool`) and
+    for adaptive SDE stepping.
+    """
+    if not spec.resumable:
+        raise ValueError(
+            f"method {spec.name!r} declares resumable=False; serve it via "
+            "coalesced one-shot batches (repro_torch.serve.slots.BatchPool)")
+    if spec.family == "sde":
+        from .sde import sde_resume_body, sde_resume_init
+        if adaptive:
+            raise ValueError(
+                "adaptive SDE stepping is not slot-resumable (Brownian-tree "
+                "left-endpoint state is dt-path dependent); fixed-dt only")
+        if m_noise is None:
+            m_noise = prob.noise_dim()
+        body = sde_resume_body(prob.f, prob.g, spec.name, prob.noise,
+                               m_noise, seed, event=event)
+        return ResumableEngine(sde_resume_init, body, segment_steps, device)
+    if spec.family == "erk":
+        from .solvers import erk_resume_body, erk_resume_init
+        tab = spec.tableau
+        if adaptive is None:
+            adaptive = spec.adaptive
+        opts = AdaptiveOptions(rtol=rtol, atol=atol, adaptive=adaptive)
+        body = erk_resume_body(prob.f, tab, opts, event=event)
+
+        def init(u0, p, t0, tf, dt0):
+            return erk_resume_init(prob.f, tab, u0, p, t0, tf, dt0)
+
+        return ResumableEngine(init, body, segment_steps, device)
+    raise ValueError(f"no resumable engine for family {spec.family!r}")
+
+
+# ----------------------------------------------------------------------------
 # front door
 # ----------------------------------------------------------------------------
 

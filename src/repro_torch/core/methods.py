@@ -32,6 +32,17 @@ class MethodSpec:
                opts in per solve with ``adaptive=True``: an embedded pair
                or step doubling, `core.sde.sde_solve_adaptive`).
     stiff:     the method is linearly implicit (rosenbrock).
+    resumable: the method's engine exposes the per-lane segment carry
+               (`core.ensemble.make_resumable_engine`) that the
+               continuous-batching service (`repro_torch.serve`) moves lanes
+               in and out of: every per-lane quantity (state, t, dt,
+               controller memory, RNG counters, p, tf or n_steps) lives in
+               the carry, and the loop body is an exact no-op on a retired
+               lane, so a slot is refilled mid-stream bitwise as a fresh
+               solve.  True for erk (fixed and adaptive) and for fixed-dt
+               sde stepping; False for rosenbrock, whose lazy-W refresh
+               gates are batch predicates that couple lanes (the service
+               runs it as coalesced one-shot batches).
     events:    the method's engines support zero-crossing event handling
                with per-lane termination (`core.events`); True for every
                built-in method.
@@ -66,6 +77,7 @@ class MethodSpec:
     stepper: Optional[Callable] = None
     adaptive: bool = True
     stiff: bool = False
+    resumable: bool = False
     events: bool = True
     w_reuse: bool = False
     noise: Tuple[str, ...] = ()
@@ -122,7 +134,7 @@ def register_method(spec: MethodSpec) -> MethodSpec:
 def _erk_spec(tab: Tableau, aliases=()) -> MethodSpec:
     return MethodSpec(name=tab.name, family="erk", order=tab.order,
                       tableau=tab, adaptive=bool((tab.btilde != 0).any()),
-                      aliases=aliases)
+                      resumable=True, aliases=aliases)
 
 
 def _rosenbrock_spec(rtab: RosenbrockTableau, aliases=()) -> MethodSpec:
@@ -229,7 +241,7 @@ def _register_builtins():
     # doubling everywhere (also the general-noise path)
     from .sde import (SDE_EMBEDDED, em_step, heun_strat_step, milstein_step,
                       platen_w2_step)
-    sde = dict(family="sde", adaptive=True)
+    sde = dict(family="sde", adaptive=True, resumable=True)
     register_method(MethodSpec(
         name="em", order=0.5, stepper=em_step, noise=("diagonal", "general"),
         embedded=SDE_EMBEDDED["em"], aliases=("gpuem", "euler_maruyama"),

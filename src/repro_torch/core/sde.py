@@ -24,8 +24,10 @@ events (`repro_torch.core.events`), located on the piecewise-linear path
 output.  Under ``bounded_steps`` the adaptive loop is the bounded,
 checkpointed form of `repro_torch.core.loops.solver_loop` (reverse mode);
 the counter-RNG noise is a pure function of integers, so a recomputed
-segment replays its path bitwise.  The resumable bodies are still to port
-(ROADMAP queue 1).
+segment replays its path bitwise.  `sde_resume_init` and `sde_resume_body`
+are the fixed-dt loop with per-lane (k, t0, dt, n_steps, lane) in the carry,
+the substrate of the resumable segment engine
+(`core.ensemble.make_resumable_engine`).
 """
 from __future__ import annotations
 
@@ -274,6 +276,86 @@ def sde_step_save_event(stepper, f, g, noise: str, ev, u, us, estate, p, t0,
                   naccept=estate["naccept"] + active.to(torch.int32),
                   event_t=ev_t, event_count=ev_n)
     return u, us, estate
+
+
+def sde_resume_init(u0, p, t0, dt, n_steps, lane):
+    """Fresh per-lane resume carry of the fixed-dt SDE loop (lanes mode).
+
+    u0 (n, B); p (k, B); t0, dt numbers or (B,); n_steps a number or (B,)
+    per-lane step counts; lane a number or (B,) GLOBAL lane indices (uint32
+    values, held as int64): the counter-RNG stream key.  The key travels
+    with the carry, so a recycled slot keeps its request's noise stream:
+    `sde_resume_body` draws step k of lane g from
+    counter_normals_threefry(seed, k, g, row) as
+    `repro_torch.kernels.em.ref.solve_lanes` does."""
+    dtype, device = u0.dtype, u0.device
+    cshape = (u0.shape[-1],)
+
+    def lane_of(v, dt_):
+        return torch.as_tensor(v, dtype=dt_, device=device).expand(
+            cshape).clone()
+
+    tv = lane_of(t0, dtype)
+    i32 = lambda v: torch.full(cshape, v, dtype=torch.int32, device=device)
+    return dict(
+        u=u0, p=p, k=i32(0), n_steps=lane_of(n_steps, torch.int32),
+        t0=tv, dt=lane_of(dt, dtype), lane=lane_of(lane, torch.int64),
+        done=torch.zeros(cshape, dtype=torch.bool, device=device),
+        t_out=tv.clone(), naccept=i32(0), nf=i32(0), status=i32(0),
+        event_t=torch.full(cshape, float("inf"), dtype=dtype, device=device),
+        event_count=i32(0),
+        iters=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def sde_resume_body(f, g, method: str, noise: str, m_noise: int, seed,
+                    event=None):
+    """The per-lane resumable fixed-dt SDE step over the carry of
+    `sde_resume_init`: the operations of `sde_step_and_save` (or
+    `sde_step_save_event`) with per-lane (k, t0, dt, n_steps, lane) for the
+    shared numbers, and no snapshot buffer (serving returns final states).
+    Done lanes are write-masked, so a mixed-progress tile is an exact no-op
+    on its finished lanes; active lanes compute the fresh loop's
+    expressions on the same (seed; step, lane, row) counters, so recycling
+    is bitwise invisible."""
+    from repro_torch.kernels.rng import counter_normals_threefry
+    stepper = SDE_STEPPERS[method]
+    nfps = sde_nf_per_step(method)
+
+    def body(c):
+        u, p = c["u"], c["p"]
+        B = u.shape[-1]
+        active = ~c["done"]
+        k, dtv = c["k"], c["dt"]
+        t = c["t0"] + k * dtv
+        lane = c["lane"][None, :].expand(m_noise, B)
+        rows = torch.arange(m_noise, dtype=torch.int64,
+                            device=u.device)[:, None].expand(m_noise, B)
+        z = counter_normals_threefry(seed, k, lane, rows, u.dtype)
+        u_new = stepper(f, g, u, p, t, dtv, z * torch.sqrt(dtv), noise)
+        if event is not None:
+            def interp_fn(theta):
+                return linear_interp(u, u_new, theta, lanes=True)
+
+            u_next, t_next, ev_t, ev_n, term = handle_event(
+                event, interp_fn, u, u_new, p, t, dtv, t + dtv, active,
+                c["event_t"], c["event_count"], lanes=True)
+        else:
+            u_next, t_next = u_new, t + dtv
+            ev_t, ev_n = c["event_t"], c["event_count"]
+            term = torch.zeros_like(active)
+        t_out = torch.where(term, t_next,
+                            torch.where(active, t + dtv, c["t_out"]))
+        k_new = k + active.to(torch.int32)
+        return dict(
+            u=torch.where(active[None], u_next, u), p=p, k=k_new,
+            n_steps=c["n_steps"], t0=c["t0"], dt=dtv, lane=c["lane"],
+            done=c["done"] | term | (k_new >= c["n_steps"]), t_out=t_out,
+            naccept=c["naccept"] + active.to(torch.int32),
+            nf=c["nf"] + active.to(torch.int32) * nfps,
+            status=c["status"], event_t=ev_t, event_count=ev_n,
+            iters=c["iters"] + 1)
+
+    return body
 
 
 def sde_solve_fixed(prob: SDEProblem, u0, p, t0, dt, n_steps: int, key,

@@ -221,24 +221,31 @@ def _grid_save(f, tab, us, saveat, u_old, u_new, ks, p, t_old, dt_step,
 
 
 def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
-                        event, lanes: bool, saveat, p, tf):
+                        event, lanes: bool, saveat, p=None, tf=None):
     """The adaptive loop body over a dict carry — the reference's
-    `_make_adaptive_body`.  Finished lanes step at dt = 0 and every write is
-    accept- or active-masked, so they are exact no-ops.  With an event,
-    FSAL is off: k1 is recomputed at the (possibly affected, possibly
-    truncated) new point, and nf counts every stage.  Under
-    ``opts.bounded_steps`` the error norm is detached and the stage cascade
-    is run a second time at where(accept, dt, 0) for the differentiated
-    graph."""
+    `_make_adaptive_body`, shared by `solve_adaptive` (p and tf closed over)
+    and the resumable segment engine (`erk_resume_body`: ``p=None`` reads p
+    and tf from the carry, so every per-lane constant travels with its lane
+    and a slot takes another request's lane without a new body).
+    ``saveat=None`` keeps no dense save buffer.  Finished lanes step at
+    dt = 0 and every write is accept- or active-masked, so they are exact
+    no-ops.  With an event, FSAL is off: k1 is recomputed at the (possibly
+    affected, possibly truncated) new point, and nf counts every stage.
+    Under ``opts.bounded_steps`` the error norm is detached and the stage
+    cascade is run a second time at where(accept, dt, 0) for the
+    differentiated graph."""
     bounded = opts.bounded_steps is not None
+    per_lane_consts = p is None
 
     def body(c):
+        p_ = c["p"] if per_lane_consts else p
+        tf_ = c["tf"] if per_lane_consts else tf
         t, u, dt, k1 = c["t"], c["u"], c["dt"], c["k1"]
         active = ~c["done"]
-        dt_step = torch.minimum(dt, tf - t)
+        dt_step = torch.minimum(dt, tf_ - t)
         dt_step = torch.where(active, dt_step, torch.zeros_like(dt_step))
 
-        u_cand, err, ks = rk_step(f, tab, u, p, t, dt_step, k1)
+        u_cand, err, ks = rk_step(f, tab, u, p_, t, dt_step, k1)
 
         if opts.adaptive:
             enorm = hairer_norm(err, u, u_cand, opts.atol, opts.rtol,
@@ -266,18 +273,18 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
             # attempts and the backward pass never differentiates f at a
             # rejected (possibly overflowed) candidate
             dt_step = torch.where(accept, dt_step, torch.zeros_like(dt_step))
-            u_cand, err, ks = rk_step(f, tab, u, p, t, dt_step, k1)
+            u_cand, err, ks = rk_step(f, tab, u, p_, t, dt_step, k1)
         t_new = torch.where(accept, t + dt_step, t)
 
         # events: detect, locate and apply with the shared machinery; a hit
         # truncates the step at the event time
         if event is not None:
             def interp_fn(theta):
-                return interp_step(f, tab, u, u_cand, ks, p, t, dt_step,
+                return interp_step(f, tab, u, u_cand, ks, p_, t, dt_step,
                                    theta, lanes=lanes)
 
             u_next, t_new, ev_t, ev_n, term = handle_event(
-                event, interp_fn, u, u_cand, p, t, dt_step, t_new, accept,
+                event, interp_fn, u, u_cand, p_, t, dt_step, t_new, accept,
                 c["event_t"], c["event_count"], lanes=lanes)
         else:
             u_next = u_cand
@@ -292,14 +299,15 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
             k1_new = torch.where(acc_e, ks[-1], k1)
             nf_inc = active.to(torch.int32) * (tab.stages - 1)
         else:
-            k1_new = torch.where(acc_e, f(u_new, p, t_new), k1)
+            k1_new = torch.where(acc_e, f(u_new, p_, t_new), k1)
             nf_inc = active.to(torch.int32) * tab.stages
 
-        us = c["us"]
+        us = c.get("us")
         # the reference's lax.cond gate: skip the O(S) interpolation on
         # steps that cross no save point
-        if bool((accept & (saveat.max() > t.min())).any()):
-            us = _grid_save(f, tab, us, saveat, u, u_cand, ks, p, t,
+        if saveat is not None and bool(
+                (accept & (saveat.max() > t.min())).any()):
+            us = _grid_save(f, tab, us, saveat, u, u_cand, ks, p_, t,
                             dt_step, t_new, accept)
 
         # dt pinned at the controller floor and still rejecting: terminate
@@ -309,16 +317,21 @@ def _make_adaptive_body(f, tab: Tableau, opts: AdaptiveOptions, ctrl,
         else:
             hopeless = torch.zeros_like(active)
         statusv = torch.where(hopeless, STATUS_DTMIN_EXHAUSTED, c["status"])
-        eps_end = 1e-7 * torch.clamp(tf.abs(), min=1.0)
-        done = c["done"] | (t_new >= tf - eps_end) | term | hopeless
+        eps_end = 1e-7 * torch.clamp(tf_.abs(), min=1.0)
+        done = c["done"] | (t_new >= tf_ - eps_end) | term | hopeless
 
-        return dict(
+        out = dict(
             t=t_new, u=u_new, dt=dt_next, k1=k1_new,
-            enorm_prev=enorm_prev, done=done, us=us,
+            enorm_prev=enorm_prev, done=done,
             naccept=c["naccept"] + accept.to(torch.int32),
             nreject=c["nreject"] + (active & ~accept).to(torch.int32),
             nf=c["nf"] + nf_inc, status=statusv.to(torch.int32),
             iters=c["iters"] + 1, event_t=ev_t, event_count=ev_n)
+        if us is not None:
+            out["us"] = us
+        if per_lane_consts:
+            out["p"], out["tf"] = c["p"], c["tf"]
+        return out
 
     return body
 
@@ -385,6 +398,52 @@ def solve_adaptive(f, tab: Tableau, u0, p, t0, tf, dt0,
     if event is not None:
         return res, dict(event_t=c["event_t"], event_count=c["event_count"])
     return res
+
+
+# ----------------------------------------------------------------------------
+# resumable per-lane carry (the serving engine's substrate)
+# ----------------------------------------------------------------------------
+
+def erk_resume_init(f, tab: Tableau, u0, p, t0, tf, dt0):
+    """Fresh per-lane resume carry, lanes mode only: u0 (n, B), p (k, B),
+    t0, tf and dt0 numbers or (B,) tensors.
+
+    Field for field `solve_adaptive`'s initial carry without the dense save
+    buffer, plus the carry-resident p and tf (and ``iters`` a 0-d int32
+    tensor): a lane stepped to completion by `erk_resume_body` realizes the
+    accept and step sequence of a fresh `solve_adaptive(..., lanes=True)`
+    on the same column, bit for bit (the same `_make_adaptive_body`; per-lane
+    control couples no lanes)."""
+    dtype, device = u0.dtype, u0.device
+    cshape = (u0.shape[-1],)
+
+    def lane(v):
+        return torch.as_tensor(v, dtype=dtype, device=device).expand(
+            cshape).clone()
+
+    tv = lane(t0)
+    i32 = lambda v: torch.full(cshape, v, dtype=torch.int32, device=device)
+    return dict(
+        t=tv, u=u0, dt=lane(dt0), k1=f(u0, p, tv),
+        enorm_prev=torch.ones(cshape, dtype=dtype, device=device),
+        done=torch.zeros(cshape, dtype=torch.bool, device=device),
+        naccept=i32(0), nreject=i32(0), nf=i32(1), status=i32(0),
+        iters=torch.zeros((), dtype=torch.int32, device=device),
+        event_t=torch.full(cshape, float("inf"), dtype=dtype, device=device),
+        event_count=i32(0), p=p, tf=lane(tf))
+
+
+def erk_resume_body(f, tab: Tableau,
+                    opts: AdaptiveOptions = AdaptiveOptions(),
+                    event: Optional[Event] = None):
+    """The per-lane resumable step body (lanes mode) over the carry of
+    `erk_resume_init`: `solve_adaptive`'s loop body with p and tf read from
+    the carry, so one body serves every request of a (method, n, dtype)
+    signature and a refilled slot needs nothing new.  A done lane is an
+    exact no-op (dt_step = 0, every write accept- or active-masked).  No
+    dense save buffer: serving returns final states and counts."""
+    ctrl = PIController.for_order(tab.embedded_order)
+    return _make_adaptive_body(f, tab, opts, ctrl, event, True, None)
 
 
 def solve_one(f, tab: Tableau, u0, p, t0, tf, dt0, saveat=None,

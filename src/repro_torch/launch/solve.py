@@ -5,8 +5,10 @@ lorenz --n 100000 --ensemble kernel``, the port's counterpart of
 With ``--mesh local`` the trajectory axis is sharded over the ranks of the
 job (the MPI composition of §6.3), e.g. ``torchrun --nproc_per_node=2 -m
 repro_torch.launch.solve --mesh local``: NCCL where each rank has a card
-of its own, gloo otherwise (``--dist-backend``).  The straggler-tolerant
-work queue (``--work-queue``) waits for ROADMAP queue 1 item 14.
+of its own, gloo otherwise (``--dist-backend``).  With ``--work-queue``
+the Lorenz sweep is over-decomposed into tiles of ``8 * --lane-tile``
+trajectories leased from the straggler-tolerant
+`repro_torch.dist.fault.WorkQueue` (stateless tiles, safe re-execution).
 """
 from __future__ import annotations
 
@@ -31,6 +33,28 @@ def _backend(name: str) -> str:
             and torch.cuda.device_count() >= world else "gloo")
 
 
+def _work_queue_lorenz(ep, n: int, tile: int, kw) -> np.ndarray:
+    """Solve the ensemble tile by tile, each tile leased from a `WorkQueue`
+    (straggler-tolerant: an expired lease is re-claimed and re-solved,
+    which a stateless tile makes safe).  Returns u_final (n, 3) on the
+    host."""
+    from repro_torch.dist.fault import WorkQueue
+    q = WorkQueue(n, tile=tile)
+    u0s, ps = ep.materialize()
+    outs = np.zeros((n, 3), np.float32)
+    while not q.finished:
+        claim = q.claim()
+        if claim is None:
+            break
+        idx, (start, stop), tok = claim
+        sub = EnsembleProblem(ep.prob, stop - start, u0s=u0s[start:stop],
+                              ps=ps[start:stop])
+        res = solve_ensemble(sub, None, **kw)
+        outs[start:stop] = res.u_final.detach().cpu().numpy()
+        q.complete(idx, tok)
+    return outs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", default="lorenz",
@@ -49,10 +73,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where the solve runs (default: the card)")
     args = ap.parse_args(argv)
-    if args.work_queue:
-        raise NotImplementedError(
-            "--work-queue needs the straggler-tolerant WorkQueue "
-            "(dist/fault.py): ROADMAP queue 1 item 14")
 
     group, rank = None, 0
     if args.mesh == "local":
@@ -71,8 +91,11 @@ def main(argv=None):
         else:
             kw.update(n_steps=int(round(1.0 / args.dt)),
                       save_every=int(round(1.0 / args.dt)))
-        res = solve_ensemble(ep, group, **kw)
-        u_final = res.u_final.detach().cpu().numpy()
+        if args.work_queue:
+            u_final = _work_queue_lorenz(ep, args.n, args.lane_tile * 8, kw)
+        else:
+            res = solve_ensemble(ep, group, **kw)
+            u_final = res.u_final.detach().cpu().numpy()
         dt = time.perf_counter() - t0
         if rank == 0:
             print(f"{args.n:,} trajectories in {dt:.2f}s "

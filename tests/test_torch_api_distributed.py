@@ -19,6 +19,11 @@ tests/test_autotune.py:177):
   within 1e-12 of the local solve's;
 - divisibility: N not divisible by the world size refuses.
 
+Without a group: ``launch/solve.py --work-queue`` (tiles leased from the
+`WorkQueue`) gives the plain run's trajectories, and
+`solve_ensemble_elastic` (formerly a refusal) equals the local solve
+(tests/test_torch_elastic.py holds it in full).
+
 Both ranks run the cases in order in one group (`WORKER`) and write each
 case's outcome to a file as it ends; each test waits for its case with a
 timeout of its own."""
@@ -30,7 +35,9 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -299,3 +306,33 @@ def test_sharded_equals_local(group, case):
     group["since"] = time.monotonic()
     for r in (0, 1):
         assert got[r]["result"] == "ok", f"rank {r}:\n{got[r]['result']}"
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_work_queue_launcher_equals_the_plain_run(capsys, adaptive):
+    """``--work-queue`` over-decomposes into tiles of 8 x --lane-tile
+    leased from the WorkQueue: every tile's trajectories are the plain
+    run's, so the printed mean |u_f| is the same."""
+    from repro_torch.launch import solve as launcher
+    argv = ["--n", "64", "--lane-tile", "4", "--dt", "1e-2",
+            "--device", "cpu"] + (["--adaptive"] if adaptive else [])
+    means = []
+    for extra in ([], ["--work-queue"]):
+        launcher.main(argv + extra)
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        means.append(line.split("mean |u_f| = ")[1])
+    assert means[0] == means[1]
+
+
+def test_solve_ensemble_elastic_runs(tmp_path):
+    from repro_torch.configs import de_problems as dp
+    from repro_torch.core.api import solve_ensemble_elastic
+    from repro_torch.core.ensemble import solve_ensemble_local
+    ep = dp.lorenz_ensemble(8, dtype=torch.float64)
+    kw = dict(t0=0.0, tf=0.5, dt0=1e-2, rtol=1e-6, atol=1e-6)
+    res = solve_ensemble_elastic(ep, "tsit5", ckpt_dir=str(tmp_path),
+                                 tile_width=4, device="cpu", **kw)
+    ref = solve_ensemble_local(ep, alg="tsit5", lane_tile=4, device="cpu",
+                               **kw)
+    assert res.report["mode"] == "segment"
+    assert np.array_equal(res.u_final, ref.u_final.numpy())

@@ -38,7 +38,8 @@ def test_quickstart_torch_runs_on_the_cpu(capsys, monkeypatch, tmp_path):
     out = capsys.readouterr().out
     for section in ("kernel/cuda", "auto:", "rosenbrock23 kernel", "em kernel",
                     "barrier event", "decay half point",
-                    "forced oscillator", "adjoint through the kernel"):
+                    "forced oscillator", "adjoint through the kernel",
+                    "served 3 async requests"):
         assert section in out, section
     assert res.u_final.shape == (32, 2)
     assert bool(torch.isfinite(res.u_final).all())

@@ -34,7 +34,11 @@ PORT_MODULES = [
     "repro_torch.translate.units", "repro_torch.core.order_conditions",
     "repro_torch.core.autotune", "repro_torch.core.api",
     "repro_torch.launch", "repro_torch.launch.mesh",
-    "repro_torch.launch.solve",
+    "repro_torch.launch.solve", "repro_torch.serve",
+    "repro_torch.serve.slots", "repro_torch.serve.service",
+    "repro_torch.dist", "repro_torch.dist.fault", "repro_torch.dist.chaos",
+    "repro_torch.dist.elastic", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.ckpt",
 ]
 
 
