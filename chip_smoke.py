@@ -89,6 +89,7 @@ against the plain version, its time and its bound.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -5583,11 +5584,6 @@ GRAD_MEM_N = 2 ** 16
 # cuda route's); a table's gradient sums every lane, so that row's torch
 # route runs on all of them
 GRAD_PLAIN_N = 2 ** 18
-# The backward's peak at GRAD_MEM_N lanes under the default checkpoint_every
-# and with checkpointing off (one segment): a measurement with no gate
-# (PERF.md keeps it for every row), taken on the ERK row only (ROBER's two
-# probes took 54-66 s of the smoke's time on an H100's host)
-GRAD_PROBE_ROWS = ("grad-lorenz-1M-f64-tsit5",)
 # Under `torch.use_deterministic_algorithms` the table's sums take a fixed
 # order and the two routes agree bit for bit; on 2^20 lanes that took
 # minutes, so the smoke holds it on the first GRAD_DET_N lanes.
@@ -6053,8 +6049,7 @@ def phase_grad_full_size(device, N: int = FULL_N):
     of the f64 gradient); at the torch route's own cotangents bitwise where
     the primals are, else within the row's rtol; the row's own check; the kernel forward ms,
     the backward ms, the replay's bounded iterations, the backward's peak
-    memory (on GRAD_PROBE_ROWS also at GRAD_MEM_N lanes under the default
-    checkpoint_every and under one segment), and the bound."""
+    memory, and the bound."""
     import torch
     from repro_torch.core.sensitivity import suggest_adjoint_steps
     rows = []
@@ -6062,32 +6057,6 @@ def phase_grad_full_size(device, N: int = FULL_N):
     for k in range(len(names)):
         t_row = time.perf_counter()
         steps = _Steps()
-        # ---- the memory probes at GRAD_MEM_N lanes -----------------------
-        peak_default = peak_one = None
-        probe_txt = "not probed"
-        if names[k] in GRAD_PROBE_ROWS:
-            _, _, ep_m, kw, wrt, loss, _, _ = grad_full_forms(
-                device, GRAD_MEM_N)[k]
-            kw = dict(kw)
-            if not ("n_steps" in kw or kw.get("adaptive") is False):
-                kw["adjoint_steps"] = suggest_adjoint_steps(
-                    ep_m, ensemble="kernel", backend="cuda", device=device,
-                    **kw)
-            bound_probe = kw.get("adjoint_steps", kw.get("n_steps", 0) + 1)
-            peak_default = grad_run(ep_m, kw, wrt, loss=loss).peak
-            try:
-                peak_one = grad_run(ep_m, dict(
-                    kw, checkpoint_every=bound_probe + 1), wrt,
-                    loss=loss).peak
-                one_txt = f"{peak_one / 1e9:.3f} GB"
-            except torch.cuda.OutOfMemoryError:
-                one_txt = "out of memory"  # one segment does not fit
-            probe_txt = (f"at {GRAD_MEM_N} lanes default "
-                         f"{peak_default / 1e9:.3f} GB vs one segment "
-                         f"{one_txt}")
-            del ep_m
-            torch.cuda.empty_cache()
-            steps.lap("probes")
         # ---- the main path at n_row lanes --------------------------------
         n_row = N
         while True:
@@ -6244,16 +6213,14 @@ def phase_grad_full_size(device, N: int = FULL_N):
                "bound_steps": iters,
                "segments": meter["segments"],
                "peak_bytes": peak, "plain_peak_bytes": peak_t,
-               "peak_2p16_default": peak_default,
-               "peak_2p16_one_segment": peak_one,
                "step_s": dict(steps), **extra}
         print(f"{name}: N={n_row} launches {launches}, forward {fwd_ms:.3f} "
               f"ms, backward {bwd_ms:.3f} ms (torch route {plain_ms:.3f} "
               f"ms on {n_plain} lanes), bound {iters} iterations in "
               f"{meter['segments']} "
               f"segments, backward peak {peak / 1e9:.3f} GB (torch route "
-              f"{peak_t / 1e9:.3f} GB); {probe_txt}"
-              + f"; bound {max(t_ops, t_bytes):.3f} ms ({ops:.3e} ops, "
+              f"{peak_t / 1e9:.3f} GB); bound {max(t_ops, t_bytes):.3f} "
+              f"ms ({ops:.3e} ops, "
               f"{nbytes:.3e} bytes); cuda vs torch route on {n_plain} lanes: "
               f"at the kernel's cotangents "
               + ("bitwise" if rel_at == 0.0 else f"max rel {rel_at:.3e}")
@@ -6508,24 +6475,30 @@ def dense_last_rows(q, k, v, n):
     return o.reshape(B, n, H, hd).to(q.dtype)
 
 
-def lm_k7_row(device, name, kept, T, main_launches):
-    """K7 on the served model's roped q, k and v of LM_K7_LAYERS: held
-    against its plain version (every row), `ref_attention` and the model's
-    own dense core (every row at 4k, the last LM_LAST_ROWS at 32k), and
-    SDPA; timed beside the plain version, SDPA and its CUDA-core form on
-    the same tensors."""
+def lm_k7_row(device, name, kept, T, main_launches, layers=LM_K7_LAYERS):
+    """K7 on the served model's roped q, k and v of `layers`: held
+    against its plain version (every row; both on the blocks' padding, as
+    `ops.flash_attention` pads), `ref_attention` and the model's own dense
+    core (every row up to 4k, the last LM_LAST_ROWS at 32k), and SDPA;
+    timed beside the plain version and SDPA on the same tensors."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn import kernel as fk
-    from repro_torch.kernels.flashattn.ops import flash_attention
+    from repro_torch.kernels.flashattn.ops import (flash_attention,
+                                                   pad_to_blocks)
     from repro_torch.kernels.flashattn.ref import bf16_ulps, ref_attention
     from repro_torch.models.layers import attention_core
-    ms, plain_ms, sdpa_ms, core_ms, max_abs, checks = [], [], [], [], 0.0, {}
-    for layer in LM_K7_LAYERS:
+    ms, plain_ms, sdpa_ms, max_abs, checks = [], [], [], 0.0, {}
+    for layer in layers:
         q, k, v = kept[layer]
         B, _, H, hd = q.shape
         KV = k.shape[2]
         form = fk.form_of(q.dtype, hd)
+        qp, kp, vp, bq, bk = pad_to_blocks(q, k, v)
+
+        def plain_fn():
+            return fk.flash_attention_plain(qp, kp, vp, block_q=bq,
+                                            block_k=bk)[:, :T]
 
         def sdpa():
             return F.scaled_dot_product_attention(
@@ -6533,7 +6506,7 @@ def lm_k7_row(device, name, kept, T, main_launches):
                 is_causal=True, enable_gqa=True).transpose(1, 2)
 
         got = flash_attention(q, k, v)
-        plain = fk.flash_attention_plain(q, k, v)
+        plain = plain_fn()
         lib = sdpa()
         if T <= 4096:
             n = T
@@ -6568,10 +6541,7 @@ def lm_k7_row(device, name, kept, T, main_launches):
         checks[f"layer{layer}"] = c
         ms.append(cuda_ms(lambda: flash_attention(q, k, v), LM_REPS))
         sdpa_ms.append(cuda_ms(sdpa, LM_REPS))
-        core_ms.append(cuda_ms(lambda: fk._launch("cuda_core", q, k, v, True),
-                               LM_REPS))
-        plain_ms.append(cuda_ms(lambda: fk.flash_attention_plain(q, k, v),
-                                1))
+        plain_ms.append(cuda_ms(plain_fn, 1))
         torch.cuda.empty_cache()
     flops, nbytes = flash_work(B, T, H, KV, hd)
     t_ops = flops / PEAK_BF16_TENSOR_FLOPS * 1e3
@@ -6587,17 +6557,16 @@ def lm_k7_row(device, name, kept, T, main_launches):
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": statistics.median(sdpa_ms),
            "library": "torch.nn.functional.scaled_dot_product_attention",
-           "form": form, "cuda_core_ms": statistics.median(core_ms),
+           "form": form,
            "fp32_ceiling_ms": fp32_ms, "shape": [B, T, H, KV, hd],
-           "layers": list(LM_K7_LAYERS), "checks": checks}
+           "layers": list(layers), "checks": checks}
     row["tflops"] = flops / row["ms"] / 1e9
     row["ms_over_bound"] = row["ms"] / row["bound_ms"]
     row["ms_over_library"] = row["ms"] / row["library_ms"]
     print(f"{name} K7 ({form} form): ({B}, {T}, {H}, {KV}, {hd}) bf16, layers "
-          f"{list(LM_K7_LAYERS)}: {row['ms']:.3f} ms (per layer "
+          f"{list(layers)}: {row['ms']:.3f} ms (per layer "
           f"{[round(t, 3) for t in ms]}), {row['tflops']:.1f} TFLOP/s; SDPA "
-          f"{row['library_ms']:.3f} ms, the CUDA-core form "
-          f"{row['cuda_core_ms']:.3f} ms, plain {row['plain_ms']:.1f} ms; "
+          f"{row['library_ms']:.3f} ms, plain {row['plain_ms']:.1f} ms; "
           f"bound {row['bound_ms']:.4f} ms ({flops:.4e} useful flops at 989 "
           f"TFLOP/s bf16, {nbytes:.4e} bytes {t_bytes:.4f} ms), FP32 "
           f"CUDA-core ceiling {fp32_ms:.3f} ms; K7 / bound "
@@ -6618,9 +6587,10 @@ def phase_lm_serve(device):
     (decode at position T against `forward` on T + 1 tokens; the prefill's
     logits against an f32 run of the same weights on the reference's dense
     attention; finite logits and masked pad columns), its times (prefill
-    with K7 and with the reference's dense bf16 core, decode per step,
-    tokens/s; CUDA events, median of LM_REPS after a warm-up) and peak
-    memory, then K7's row on the model's own q, k, v (`lm_k7_row`)."""
+    with K7 and, at 4k, with the reference's dense bf16 core, decode per
+    step, tokens/s; CUDA events, median of LM_REPS, the main path's run
+    the warm-up) and peak memory, then K7's row on the model's own q, k,
+    v (`lm_k7_row`)."""
     import torch
     from repro_torch.configs.archs import get_arch
     from repro_torch.models.lm import _logits
@@ -6705,8 +6675,9 @@ def phase_lm_serve(device):
                                      f"{err:.3e} > {LM_BF16_REL}")
         torch.cuda.empty_cache()
         steps_s["holds"] = time.perf_counter() - t_row - sum(steps_s.values())
-        # ---- times -----------------------------------------------------------
-        prefill_ms = cuda_ms(lambda: plan.prefill_fn(batch), LM_REPS)
+        # ---- times (the main path's prefill and decode were the warm-up) ----
+        prefill_ms = cuda_ms(lambda: plan.prefill_fn(batch), LM_REPS,
+                             warmup=0)
         torch.cuda.empty_cache()
 
         def decode_run():
@@ -6717,25 +6688,27 @@ def phase_lm_serve(device):
                 out, _ = plan.decode_fn(cache, tok)
                 tok = out[..., :V].argmax(-1)
 
-        decode_ms = cuda_ms(decode_run, LM_REPS) / steps
-        # the reference's dense bf16 core, for comparison (once at 32k)
-        model.attn_core = None
-        dense_ms = cuda_ms(lambda: plan.prefill_fn(batch),
-                           LM_REPS if T <= 4096 else 1,
-                           warmup=1 if T <= 4096 else 0)
-        torch.cuda.empty_cache()
+        decode_ms = cuda_ms(decode_run, LM_REPS, warmup=0) / steps
+        # the reference's dense bf16 core, for comparison, at 4k (at 32k
+        # it took 5.97-8.80 s a run, PERF.md §5)
+        dense_ms = None
+        if T <= 4096:
+            model.attn_core = None
+            dense_ms = cuda_ms(lambda: plan.prefill_fn(batch), LM_REPS)
+            torch.cuda.empty_cache()
         steps_s["times"] = time.perf_counter() - t_row - sum(steps_s.values())
         lm = {"name": name, "arch": LM_ARCH, "batch": B, "prompt": T,
               "cache_len": cache_len, "decode_steps": steps,
               "q_chunk": q_chunk, "prefill_ms": prefill_ms,
               "prefill_dense_core_ms": dense_ms,
-              "prefill_dense_core_reps": LM_REPS if T <= 4096 else 1,
               "decode_ms_per_step": decode_ms,
               "tokens_per_s": B / (decode_ms / 1e3), "peak_gb": peak_gb,
               "decode_vs_forward_rel": decode_rel,
               "prefill_vs_f32_rel": f32_rel, "bar": LM_BF16_REL}
+        dense_txt = ("" if dense_ms is None else
+                     f" ({dense_ms:.1f} ms with the dense bf16 core)")
         print(f"{name}: prefill {B} x {T} tokens {prefill_ms:.1f} ms with "
-              f"K7 ({dense_ms:.1f} ms with the dense bf16 core), decode "
+              f"K7{dense_txt}, decode "
               f"{decode_ms:.3f} ms a step ({lm['tokens_per_s']:.1f} generated "
               f"tokens/s over {steps} steps), peak {peak_gb:.3f} GB; decode "
               f"at T against forward on T + 1 {decode_rel:.3e}, prefill "
@@ -6753,6 +6726,344 @@ def phase_lm_serve(device):
         k7_rows.append(k7)
         lm_rows.append(lm)
     model.attn_core = None
+    return k7_rows
+
+
+# The other five families on the serving path at full width, bf16.  row:
+# (arch, requests, prompt tokens, cache_len, greedy decode steps, K7
+# launches a prefill, all of its sm90 form; 0: no causal attention without
+# window or softcap on the path).  deepseek: B T = 4096 is one MoE group;
+# mamba2: 8 chunks of 256, so the inter-chunk recurrence runs;
+# recurrentgemma: past the 2048 window and 3072 % 2048 != 0, so the
+# prefill's ring cache rolls; whisper: 192 tokens over (4, 1500, 384)
+# frames, K7 on the decoder's self-attention only (the encoder is
+# non-causal); internvl2: 768 text tokens after 256 patches of width
+# 3200 (T = 1024 on the LM).
+LM_FAMILY_ROWS = {
+    "lm-deepseek-moe-16b-serve": ("deepseek-moe-16b", 2, 2048, 2064, 16, 28),
+    "lm-mamba2-2.7b-serve": ("mamba2-2.7b", 2, 2048, 2064, 16, 0),
+    "lm-recurrentgemma-9b-serve": ("recurrentgemma-9b", 2, 3072, 3088, 16,
+                                   0),
+    "lm-whisper-tiny-serve": ("whisper-tiny", 4, 192, 224, 32, 4),
+    "lm-internvl2-26b-serve": ("internvl2-26b", 2, 768, 1040, 16, 48),
+}
+# The holds at LM_BF16_REL: decode at position T against `forward` on
+# T + 1, and the prefill against an f32 run of the same weights on the
+# dense core.  Each runs on the whole model or on a copy of its first
+# blocks (arch -> (decode hold's blocks, f32 hold's blocks), None: all):
+#   - an f32 copy of deepseek (67.5 GB) or internvl2 (79.5 GB) does not fit
+#     beside the bf16 model;
+#   - Mamba-2's bf16 arithmetic moves its residual stream ~0.5% a layer
+#     from f32, 29% over its 64 layers, and its bf16 decode and forward
+#     part by 19% (the reference's bf16 drifts as much: 1.0e-2, 1.5e-2,
+#     3.0e-2 at 1, 2, 4 layers of full width on the CPU);
+#   - recurrentgemma's bf16 prefill sits 6.3e-2 from f32 over 38 layers
+#     (held on its first period, R, R, A);
+# `tools/lm_bf16_probe.py` measures each (PERF.md §6).
+# On an MoE row the compared runs take the same experts (`RoutingReplay`):
+# a top-6 near-tie that bf16 noise flips is a discrete change, not a fault
+# (5-9% of deepseek's tokens a layer between bf16 and f32); the flips are
+# counted and printed.
+LM_HOLD_BLOCKS = {"deepseek-moe-16b": (None, 2), "mamba2-2.7b": (2, 2),
+                  "recurrentgemma-9b": (None, 3), "whisper-tiny": (None, None),
+                  "internvl2-26b": (None, 2)}
+
+
+class RoutingReplay:
+    """Smoke instrumentation of `models.moe.moe_route`: while recording it
+    keeps each call's chosen experts; while replaying it gives each call,
+    in order, the recorded experts on the rows `rows` selects (all when
+    None), the top-k weights taken from that run's own probabilities, and
+    counts the tokens whose choice differed."""
+
+    def __init__(self):
+        self.calls, self.mode, self.rows, self.i, self.flips = [], None, \
+            None, 0, 0
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe
+        self.real, moe.moe_route = moe.moe_route, self
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.moe as moe
+        moe.moe_route = self.real
+
+    def __call__(self, x, router, **kw):
+        import torch
+        r = self.real(x, router, **kw)
+        if self.mode == "record":
+            self.calls.append(r.topi.clone())
+        elif self.mode == "replay":
+            want = self.calls[self.i]
+            self.i += 1
+            rows = (torch.arange(r.topi.shape[0], device=x.device)
+                    if self.rows is None else self.rows)
+            self.flips += int((r.topi[rows].sort(-1).values
+                               != want.sort(-1).values).any(-1).sum())
+            topi = r.topi.clone()
+            topi[rows] = want
+            topv = r.probs.gather(1, topi)
+            topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-9)
+            r = r._replace(topi=topi, topv=topv)
+        return r
+
+
+def family_batch(cfg, B, T, device, seed):
+    """Tokens (B, T) and the stub frontends' inputs (frames, patches) from
+    a numpy seed, on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, T))).to(device)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model), dtype=np.float32)).to(device)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.vis_seq, cfg.vis_dim), dtype=np.float32)).to(device)
+    return batch
+
+
+def family_forward_last(model, cfg, batch):
+    """`forward`'s logits at the last position: over the multimodal
+    embeddings (VLM), with the frames (whisper), with no MoE drops."""
+    import torch
+    from repro_torch.models.lm import _logits
+    with torch.inference_mode():
+        if cfg.family == "vlm":
+            h0 = model._embed_multimodal(batch["tokens"], batch["patches"])
+            x, _ = model.lm.forward(None, h0=h0)
+            return _logits(x[:, -1:], model.lm, cfg)
+        if cfg.family == "encdec":
+            x = model.forward(batch["tokens"], batch["frames"])
+        elif cfg.family == "moe":
+            # with no drops the routing is a token's own, whatever the
+            # groups: one group of all B (T + 1) tokens
+            kept = model.moe_cf, model.moe_group
+            model.moe_cf, model.moe_group = None, batch["tokens"].numel()
+            x, _ = model.forward(batch["tokens"])
+            model.moe_cf, model.moe_group = kept
+        elif cfg.family == "ssm":
+            # T + 1 tokens in the largest chunk <= 1024 that divides them
+            n = batch["tokens"].shape[1]
+            chunk, model.ssd_chunk = model.ssd_chunk, max(
+                d for d in range(1, 1025) if n % d == 0)
+            x = model.forward(batch["tokens"])
+            model.ssd_chunk = chunk
+        else:
+            x = model.forward(batch["tokens"])
+        return _logits(x[:, -1:], model, cfg)
+
+
+def family_copy(model, cfg, blocks, dtype, core):
+    """`model` itself (blocks None, the same dtype), or a copy of its first
+    `blocks` blocks (embeddings, norms and projector with them) in
+    `dtype`, with attention core `core`."""
+    import torch
+    from repro_torch.models.model import build_model
+    if blocks is None and dtype == model.dtype:
+        return model, cfg
+    small = cfg if blocks is None else dataclasses.replace(cfg,
+                                                           n_layers=blocks)
+    m = build_model(small, dtype)
+    sd = model.state_dict()
+    with torch.no_grad():
+        m.load_state_dict({k: sd[k] for k in m.state_dict()})
+    if hasattr(m, "attn_core"):
+        m.attn_core = core
+    return m, small
+
+
+def family_holds(model, cfg, arch, batch, cache_len, logits, first_tok,
+                 first_logits, replay, core):
+    """(decode at T against forward on T + 1, the bf16 prefill against the
+    f32 one on the dense core), by relative norm over the true vocab, each
+    on the blocks LM_HOLD_BLOCKS gives, and each hold's count of tokens
+    routed to other experts (replayed); `replay` holds the main path's
+    first decode step's routing (MoE rows)."""
+    import torch
+    V = cfg.vocab_size
+    dec_blocks, f32_blocks = LM_HOLD_BLOCKS[arch]
+    full = dict(batch, tokens=torch.cat([batch["tokens"], first_tok], dim=1))
+    B, T1 = full["tokens"].shape
+    with torch.inference_mode(), RoutingReplay() as rr:
+        # ---- decode at T against forward on T + 1 ----------------------
+        m, small = family_copy(model, cfg, dec_blocks, model.dtype, core)
+        if m is model:
+            rr.calls = replay
+        else:
+            rr.mode = "record"
+            _, cache = m.prefill(batch, cache_len)
+            first_logits, _ = m.decode_step(cache, first_tok)
+            del cache
+        if rr.calls:
+            # the last token of each request takes the decode's experts
+            rr.mode, rr.i = "replay", 0
+            rr.rows = torch.arange(B, device=first_tok.device) * T1 + T1 - 1
+        fwd = family_forward_last(m, small, full)
+        decode_rel = rel_norm(first_logits[..., :V], fwd[..., :V])
+        flips = [rr.flips]
+        del m, fwd
+        # ---- the prefill against f32 ----------------------------------
+        rr.calls, rr.mode, rr.rows, rr.i, rr.flips = [], "record", None, 0, 0
+        mb, small = family_copy(model, cfg, f32_blocks, model.dtype, core)
+        if mb is not model:
+            logits = mb.prefill(batch, cache_len)[0]
+        del mb
+        m32, _ = family_copy(model, cfg, f32_blocks, torch.float32, None)
+        rr.mode = "replay" if rr.calls else None
+        want = m32.prefill(batch, cache_len)[0]
+        f32_rel = rel_norm(logits[..., :V], want[..., :V])
+        flips.append(rr.flips)
+        del m32, want
+    torch.cuda.empty_cache()
+    return decode_rel, f32_rel, flips
+
+
+def phase_lm_families(device):
+    """The MoE, Mamba-2, RecurrentGemma, Whisper and InternVL2 serving
+    paths at full width in bf16 (LM_FAMILY_ROWS), each model from
+    `build_model(cfg, torch.bfloat16)` on the default device, its weights
+    from a seeded generator, K7 as the attention core where the path has
+    causal attention without window or softcap.  Per row: the main path
+    once (prefill, then greedy decode steps through
+    `make_serve_plan(mesh=None)`; every launch counter set to 0 before
+    it: K7's sm90 form launched once an attention layer, nothing else);
+    the holds (decode at position T against `forward` on T + 1; the
+    prefill against an f32 run on the dense core; finite logits, masked
+    pad columns, pos and tokens), all at LM_BF16_REL; the weights' draw
+    seconds, prefill ms (median of LM_REPS after the main path's),
+    decode ms a step, tokens/s, peak GB; then K7's row on the first
+    layer's q, k, v (`lm_k7_row`).  Each model is deleted after its
+    row."""
+    import torch
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.kernels.flashattn.ops import flash_attention
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve import make_serve_plan
+    mods = kernel_modules()
+    k7_rows = []
+    for i, (name, (arch, B, T, cache_len, steps, n_k7)) in enumerate(
+            LM_FAMILY_ROWS.items()):
+        t_row = time.perf_counter()
+        steps_s = {}
+        cfg = get_arch(arch)
+        V = cfg.vocab_size
+        sync(device)
+        model = build_model(cfg, torch.bfloat16).init_params(
+            torch.Generator(device).manual_seed(LM_SEED + i))
+        sync(device)
+        draw_s = time.perf_counter() - t_row
+        T_lm = T + (cfg.vis_seq if cfg.family == "vlm" else 0)
+        batch = family_batch(cfg, B, T, device, LM_SEED + i)
+        probe = None
+        if n_k7:
+            probe = FlashProbe((0,), cfg.n_layers)
+            model.attn_core = probe
+        plan = make_serve_plan(model, None, B, cache_len)
+        steps_s["draw"] = time.perf_counter() - t_row
+        # ---- the main path, once -----------------------------------------
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        for mod in mods.values():
+            mod.launches = 0
+        mods["flash_attention"].launches_sm90 = 0
+        if probe:
+            probe.keep = True
+        logits, cache = plan.prefill_fn(batch)
+        if probe:
+            probe.keep = False
+        cur = logits[..., :V].argmax(-1)
+        first_tok, gen_toks = cur, []
+        for s in range(steps):
+            if s == 0:
+                # an MoE row keeps the first step's experts for its hold
+                with RoutingReplay() as replay:
+                    replay.mode = "record"
+                    step_logits, cache = plan.decode_fn(cache, cur)
+                first_logits = step_logits
+            else:
+                step_logits, cache = plan.decode_fn(cache, cur)
+            cur = step_logits[..., :V].argmax(-1)
+            gen_toks.append(cur)
+        sync(device)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        launches = {k: m.launches for k, m in mods.items()}
+        k7_counts = (launches.pop("flash_attention"),
+                     mods["flash_attention"].launches_sm90)
+        if k7_counts != (n_k7, n_k7) or any(launches.values()):
+            raise AssertionError(f"{name}: launches on the main path "
+                                 f"{launches}, K7 (all, sm90) {k7_counts} "
+                                 f"(want {n_k7} of the sm90 form)")
+        gen_toks = torch.cat(gen_toks, dim=1)
+        pad = logits[..., V:]
+        if not (bool(torch.isfinite(logits[..., :V]).all())
+                and bool(torch.isfinite(first_logits[..., :V]).all())
+                and bool((pad == torch.finfo(torch.bfloat16).min / 8).all())
+                and logits.shape == (B, 1, cfg.vocab_padded)
+                and int(cache["pos"]) == T_lm + steps
+                and bool(((gen_toks >= 0) & (gen_toks < V)).all())):
+            raise AssertionError(f"{name}: logits, cache or tokens malformed")
+        steps_s["main path"] = time.perf_counter() - t_row - sum(
+            steps_s.values())
+        # ---- holds ---------------------------------------------------------
+        decode_rel, f32_rel, flips = family_holds(
+            model, cfg, arch, batch, cache_len, logits, first_tok,
+            first_logits, replay.calls, flash_attention if n_k7 else None)
+        del replay
+        for what, err in (("decode at T against forward on T + 1",
+                           decode_rel),
+                          ("prefill against the f32 run", f32_rel)):
+            if not err <= LM_BF16_REL:
+                raise AssertionError(f"{name}: {what}: relative norm "
+                                     f"{err:.3e} > {LM_BF16_REL}")
+        steps_s["holds"] = time.perf_counter() - t_row - sum(steps_s.values())
+        # ---- times (the main path's prefill and decode were the warm-up) --
+        prefill_ms = cuda_ms(lambda: plan.prefill_fn(batch), LM_REPS,
+                             warmup=0)
+
+        def decode_run():
+            with torch.inference_mode():
+                cache["pos"].fill_(T_lm)
+            tok = first_tok
+            for _ in range(steps):
+                out, _ = plan.decode_fn(cache, tok)
+                tok = out[..., :V].argmax(-1)
+
+        decode_ms = cuda_ms(decode_run, 1, warmup=0) / steps
+        steps_s["times"] = time.perf_counter() - t_row - sum(steps_s.values())
+        lm = {"name": name, "arch": arch, "family": cfg.family, "batch": B,
+              "prompt": T, "lm_tokens": T_lm, "cache_len": cache_len,
+              "decode_steps": steps, "draw_s": draw_s,
+              "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+              "tokens_per_s": B / (decode_ms / 1e3), "peak_gb": peak_gb,
+              "k7_launches": k7_counts[0], "k7_sm90_launches": k7_counts[1],
+              "decode_vs_forward_rel": decode_rel,
+              "prefill_vs_f32_rel": f32_rel,
+              "hold_blocks": [b or cfg.n_layers for b in LM_HOLD_BLOCKS[arch]],
+              "routing_flips": flips, "bar": LM_BF16_REL}
+        print(f"{name}: weights drawn in {draw_s:.1f} s; prefill {B} x {T} "
+              f"tokens {prefill_ms:.1f} ms, decode {decode_ms:.3f} ms a step "
+              f"({lm['tokens_per_s']:.1f} generated tokens/s over {steps} "
+              f"steps), peak {peak_gb:.3f} GB; decode at T against forward "
+              f"on T + 1 {decode_rel:.3e}, prefill against the f32 run "
+              f"{f32_rel:.3e} (on {lm['hold_blocks']} blocks; {flips} "
+              f"tokens took other experts, replayed; bar {LM_BF16_REL}); K7 "
+              f"launches "
+              f"on the main path {n_k7}, all of the sm90 form, other "
+              f"kernels 0")
+        if n_k7:
+            k7 = lm_k7_row(device, name, probe.kept,
+                           probe.kept[0][0].shape[1], n_k7, layers=(0,))
+            k7["serve"] = lm
+            k7_rows.append(k7)
+        del probe, plan, cache, logits, first_logits, batch, model
+        torch.cuda.empty_cache()
+        steps_s["K7 row"] = (time.perf_counter() - t_row
+                             - sum(steps_s.values()))
+        lm["step_s"] = {k: round(v, 1) for k, v in steps_s.items()}
+        print("lm " + json.dumps(lm))
     return k7_rows
 
 
@@ -7412,6 +7723,7 @@ def main() -> int:
     timed(phase_population_fit, device)
     flash_parity = timed(phase_flash_parity, device)
     k7_rows = timed(phase_lm_serve, device)
+    k7_rows += timed(phase_lm_families, device)
     for r in k7_rows:
         r["parity"] = flash_parity
     rows += k7_rows

@@ -87,29 +87,55 @@ def tableau_from_arrays(name: str, a, b, btilde, c, *, order: int,
                    int(embedded_order), bool(fsal), interp_bpoly)
 
 
-def lm_params(params, cfg, *, device="cpu", dtype=torch.float64):
-    """A dense `DecoderLM` of `cfg` on `device` in `dtype` holding the
-    reference's ``init_params`` pytree ``params`` (its leaves as numpy
-    arrays; the block leaves stacked (L, …) as the reference's scan keeps
-    them, unstacked here).  Copies exactly: float64 to float64 bit for bit,
-    a narrower dtype rounding once."""
+def lm_params(params, cfg, *, device="cpu", dtype=torch.float64, **kw):
+    """The model of `cfg` (any family, `models.model.build_model` with
+    `kw`) on `device` in `dtype` holding the reference's ``init_params``
+    pytree ``params`` (its leaves as numpy arrays; the block leaves stacked
+    (L, …) as the reference's scan keeps them: ``blocks``,
+    ``enc_blocks``/``dec_blocks``, the hybrid's ``periods`` (a stack a
+    pattern slot) and ``rem``; unstacked here).  Each weight keeps its own
+    dtype (the float32 islands: the MoE router, Mamba-2's dt_bias, A_log,
+    D_skip, the RG-LRU's b_r, b_i, lam).  Copies exactly: float64 to
+    float64 bit for bit, a narrower dtype rounding once."""
     from repro_torch.models.model import build_model
-    model = build_model(cfg, dtype=dtype, device=device)
-    names = ["embed", "final_norm"] + ([] if cfg.tie_embeddings
-                                       else ["unembed"])
+    model = build_model(cfg, dtype=dtype, device=device, **kw)
+    lm = getattr(model, "lm", model)
     with torch.no_grad():
-        for name in names:
-            getattr(model, name).copy_(to_tensor(np.array(params[name]),
-                                                 device=device, dtype=dtype))
-        blocks = params["blocks"]
-        for i, blk in enumerate(model.blocks):
-            for group in ("attn", "mlp"):
-                for name, p in getattr(blk, group).items():
-                    p.copy_(to_tensor(np.array(blocks[group][name][i]),
-                                      device=device,
-                                      dtype=dtype))
-            for name in ("ln1", "ln2"):
-                getattr(blk, name).copy_(to_tensor(np.array(blocks[name][i]),
-                                                   device=device,
-                                                   dtype=dtype))
+        for mod, tree, index in [(model, params, None), (lm, params, None),
+                                 *_layer_sources(lm, params)]:
+            _copy_weights(mod, tree, index, device)
     return model
+
+
+def _layer_sources(model, params):
+    """(block module, reference subtree, index into its stack or None) for
+    each block of `model`."""
+    from repro_torch.models.lm import HybridLM
+    if isinstance(model, HybridLM):
+        n = model.n_periods * model.period
+        for j, blk in enumerate(model.blocks):
+            if j < n:
+                yield blk, params["periods"][j % model.period], \
+                    j // model.period
+            else:
+                yield blk, params["rem"][j - n], None
+        return
+    for name in ("blocks", "enc_blocks", "dec_blocks"):
+        for i, blk in enumerate(getattr(model, name, ())):
+            yield blk, params[name], i
+
+
+def _copy_weights(mod, tree, index, device):
+    """Copy the weights of `mod`'s spec (a `models.layers.Weights`) from
+    the reference subtree `tree`, each leaf at `index` of its stack."""
+    def leaf(a, p):
+        a = np.asarray(a)
+        p.copy_(to_tensor(a if index is None else a[index], device=device,
+                          dtype=p.dtype))
+
+    for name, s in mod.spec.items():
+        if isinstance(s, dict):
+            for k, p in getattr(mod, name).items():
+                leaf(tree[name][k], p)
+        else:
+            leaf(tree[name], getattr(mod, name))

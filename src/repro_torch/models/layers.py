@@ -9,8 +9,8 @@ Conventions (the reference's, kept at every function here):
   as ``x @ w`` (the reference's layout; no transpose anywhere).
   KV cache: dict(k=(B, S, KV, hd), v=(B, S, KV, hd), pos=()) — pos is the
   current fill level (static-shape cache, masked reads).
-A weight dict ``w`` is anything indexed by name: a dict of tensors, or the
-`torch.nn.ParameterDict` of a `repro_torch.models.lm.DenseBlock`.
+A weight dict ``w`` is anything indexed by name: a dict of tensors, or an
+`torch.nn.ParameterDict` of a `Weights` module (a block's ``attn``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 # An attention core: (q (B,T,H,hd), k, v (B,S,KV,hd), *, causal) ->
 # (B,T,H,hd); `repro_torch.kernels.flashattn.ops.flash_attention` is one.
@@ -217,6 +218,17 @@ def attention_decode(x, w, cache: Dict[str, torch.Tensor], *, n_heads, n_kv,
     return out @ w["wo"], {"k": ck, "v": cv, "pos": pos + 1}
 
 
+def cross_attention(x, w, kv_k, kv_v, *, n_heads, n_kv, hd):
+    """Decoder→encoder cross-attention (whisper). kv_k/kv_v: (B, Senc, KV, hd)
+    precomputed from encoder output; no mask, no rope (absolute content).
+    The reference's rounding: logits and e in x's dtype, the sum in f32,
+    probs = e / s in x's dtype."""
+    B, T, D = x.shape
+    q = (x @ w["wq"]).reshape(B, T, n_heads, hd)
+    out = attention_core(q, kv_k, kv_v, causal=False)
+    return out @ w["wo"]
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -227,8 +239,24 @@ def swiglu(x, w):
 
 
 # ---------------------------------------------------------------------------
-# init helpers (weights drawn from a torch.Generator, on its device)
+# weights: specs, allocation and draws from a torch.Generator
 # ---------------------------------------------------------------------------
+#
+# A spec maps a weight's name to (shape, dtype, init), or to a nested spec
+# (a group such as a block's ``attn``).  init NORMAL draws the reference's
+# `dense_init`, N(0, 1/shape[0]); ("normal", scale) draws N(0, scale^2);
+# a number fills the weight with that value.  `Weights` lays a spec out as
+# module parameters and `draw` draws its values: in the spec's order,
+# float32 on the generator's device, then cast.
+
+NORMAL = ("normal", None)
+
+
+def gelu(x):
+    """The tanh approximation, as the reference's `jax.nn.gelu`."""
+    c = math.sqrt(2.0 / math.pi)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
 
 def dense_init(generator, shape, dtype, scale=None, device=None):
     fan_in = shape[0]
@@ -238,25 +266,77 @@ def dense_init(generator, shape, dtype, scale=None, device=None):
     return x.to(device=device or generator.device, dtype=dtype)
 
 
+def draw(generator, spec, device=None):
+    """The weights of `spec` as a (nested) dict of tensors on `device`
+    (default: the generator's)."""
+    out = {}
+    for name, s in spec.items():
+        if isinstance(s, dict):
+            out[name] = draw(generator, s, device)
+            continue
+        shape, dtype, init = s
+        if isinstance(init, tuple):
+            out[name] = dense_init(generator, shape, dtype, init[1], device)
+        else:
+            out[name] = torch.full(shape, float(init), dtype=dtype,
+                                   device=device or generator.device)
+    return out
+
+
+class Weights(nn.Module):
+    """A spec laid out as parameters: a group becomes an
+    `nn.ParameterDict` attribute, a single weight a parameter attribute
+    (so ``blk.attn["wq"]``, ``blk.ln1``).  Allocated, not drawn."""
+
+    def __init__(self, spec, device):
+        super().__init__()
+        self.spec = spec
+        for name, s in spec.items():
+            if isinstance(s, dict):
+                setattr(self, name, nn.ParameterDict(
+                    {k: _empty(v, device) for k, v in s.items()}))
+            else:
+                setattr(self, name, _empty(s, device))
+
+    @torch.no_grad()
+    def draw_(self, generator):
+        """Fill every weight from `generator`, in the spec's order."""
+        for name, value in draw(generator, self.spec).items():
+            if isinstance(value, dict):
+                for k, v in value.items():
+                    getattr(self, name)[k].copy_(v)
+            else:
+                getattr(self, name).copy_(value)
+        return self
+
+
+def _empty(s, device):
+    shape, dtype, _ = s
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def attn_spec(D, n_heads, n_kv, hd, dtype, qkv_bias=False):
+    spec = {"wq": ((D, n_heads * hd), dtype, NORMAL),
+            "wk": ((D, n_kv * hd), dtype, NORMAL),
+            "wv": ((D, n_kv * hd), dtype, NORMAL),
+            "wo": ((n_heads * hd, D), dtype, NORMAL)}
+    if qkv_bias:
+        spec.update(bq=((n_heads * hd,), dtype, 0.0),
+                    bk=((n_kv * hd,), dtype, 0.0),
+                    bv=((n_kv * hd,), dtype, 0.0))
+    return spec
+
+
+def mlp_spec(D, F_, dtype):
+    return {"wi": ((D, F_), dtype, NORMAL), "wg": ((D, F_), dtype, NORMAL),
+            "wo": ((F_, D), dtype, NORMAL)}
+
+
 def attn_params(generator, D, n_heads, n_kv, hd, dtype, qkv_bias=False,
                 device=None):
-    kw = dict(dtype=dtype, device=device)
-    p = {
-        "wq": dense_init(generator, (D, n_heads * hd), **kw),
-        "wk": dense_init(generator, (D, n_kv * hd), **kw),
-        "wv": dense_init(generator, (D, n_kv * hd), **kw),
-        "wo": dense_init(generator, (n_heads * hd, D), **kw),
-    }
-    if qkv_bias:
-        dev = device or generator.device
-        p["bq"] = torch.zeros((n_heads * hd,), dtype=dtype, device=dev)
-        p["bk"] = torch.zeros((n_kv * hd,), dtype=dtype, device=dev)
-        p["bv"] = torch.zeros((n_kv * hd,), dtype=dtype, device=dev)
-    return p
+    return draw(generator, attn_spec(D, n_heads, n_kv, hd, dtype, qkv_bias),
+                device)
 
 
 def mlp_params(generator, D, F_, dtype, device=None):
-    kw = dict(dtype=dtype, device=device)
-    return {"wi": dense_init(generator, (D, F_), **kw),
-            "wg": dense_init(generator, (D, F_), **kw),
-            "wo": dense_init(generator, (F_, D), **kw)}
+    return draw(generator, mlp_spec(D, F_, dtype), device)

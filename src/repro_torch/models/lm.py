@@ -1,44 +1,54 @@
-"""The dense decoder LM — the counterpart of `repro.models.lm`'s `DecoderLM`
-for ``family="dense"`` (global attention, gemma3-style local:global
-patterns, QKV bias, tied embeddings).
+"""Model classes for the architecture zoo — the counterpart of
+`repro.models.lm`:
 
-PyTorch's idiom in place of the reference's pytree: the model is an
-`nn.Module` that holds its weights, laid out as the reference's params
-(``embed`` (Vp, D), ``final_norm``, ``unembed`` (D, Vp) unless tied, and
-``blocks[i]`` with ``attn`` {wq, wk, wv, wo [, bq, bk, bv]}, ``ln1``,
-``ln2`` and ``mlp`` {wi, wg, wo}; the reference stacks the blocks as (L, …)
-leaves, `repro_torch.convert.lm_params` unstacks them).  So the methods take
-no ``params`` argument: ``init_params(generator)`` draws the weights into
-the module (and returns it), and ``forward(tokens)``,
-``prefill(batch, cache_len)`` and ``decode_step(cache, tokens)`` read them.
-A Python loop over ``blocks`` (an `nn.ModuleList`) takes the place of the
-reference's ``lax.scan``.
+  DecoderLM  — dense / MoE / gemma3-style local:global patterns.
+  Mamba2LM   — attention-free SSD stack.
+  HybridLM   — recurrentgemma (R, R, A periods: RG-LRU + local attention).
 
-Families other than dense wait for ROADMAP queue 1 item 16.
+(`encdec.EncDecLM` and `vlm.VLM` sit in their own modules, as in the
+reference.)  PyTorch's idiom in place of the reference's pytree: a model
+is an `nn.Module` that holds its weights, laid out as the reference's
+params (``embed`` (Vp, D), ``final_norm``, ``unembed`` (D, Vp) unless
+tied, and per layer the reference's block leaves: ``attn`` {wq, wk, wv, wo
+[, bq, bk, bv]}, ``ln1``, ``ln2``, ``mlp`` {wi, wg, wo} or ``moe`` {router,
+wi, wg, wo [, s_wi, s_wg, s_wo]}, ``ssd``, ``rglru``; the reference stacks
+them as (L, …) leaves, `repro_torch.convert.lm_params` unstacks them).
+So the methods take no ``params`` argument: ``init_params(generator)``
+draws the weights into the module (and returns it), and ``forward``,
+``prefill(batch, cache_len)`` and ``decode_step(cache, tokens)`` read
+them.  A Python loop over ``blocks`` (an `nn.ModuleList`, in execution
+order) takes the place of the reference's ``lax.scan``, and decode writes
+its cache in place (the reference donates it).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.ensemble import resolve_device
 
 from .config import ModelConfig
-from .layers import (AttentionCore, attention_decode, attention_train,
-                     attn_params, dense_init, mlp_params, rmsnorm, swiglu)
+from .layers import (NORMAL, AttentionCore, Weights, attention_decode,
+                     attention_train, attn_spec, mlp_spec, rmsnorm, swiglu)
+from .moe import moe_ffn, moe_spec
+from .rglru import rglru_decode, rglru_spec, rglru_train
+from .ssm import ssd_layer_decode, ssd_layer_train, ssd_spec
 
 
-def _embed_params(generator, cfg: ModelConfig, dtype, device=None):
-    p = {"embed": dense_init(generator, (cfg.vocab_padded, cfg.d_model),
-                             dtype, scale=0.02, device=device),
-         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
-                                   device=device or generator.device)}
+def _embed_spec(cfg: ModelConfig, dtype):
+    spec = {"embed": ((cfg.vocab_padded, cfg.d_model), dtype,
+                      ("normal", 0.02)),
+            "final_norm": ((cfg.d_model,), dtype, 0.0)}
     if not cfg.tie_embeddings:
-        p["unembed"] = dense_init(generator, (cfg.d_model, cfg.vocab_padded),
-                                  dtype, device=device)
-    return p
+        spec["unembed"] = ((cfg.d_model, cfg.vocab_padded), dtype, NORMAL)
+    return spec
+
+
+def _norm_spec(cfg: ModelConfig, dtype, *names):
+    return {n: ((cfg.d_model,), dtype, 0.0) for n in names}
 
 
 def _logits(x, params, cfg):
@@ -67,58 +77,81 @@ def xent_loss(logits, labels):
     return (lse - tgt).mean()
 
 
-def _empty(shape, dtype, device):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+def _bias(attn):
+    if "bq" not in attn:
+        return None
+    return {k: attn[k] for k in ("bq", "bk", "bv")}
 
 
-class DenseBlock(nn.Module):
-    """One decoder block's weights: attn, ln1, ln2, mlp (the reference's
-    ``params["blocks"]`` at one layer)."""
+class _LM(Weights):
+    """The embedding, final norm and unembedding of a model on `device`
+    (None: CUDA, raising without it); `blocks` in execution order."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
-        super().__init__()
-        D, H, KV, hd, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                            cfg.d_ff)
-        shapes = {"wq": (D, H * hd), "wk": (D, KV * hd), "wv": (D, KV * hd),
-                  "wo": (H * hd, D)}
-        if cfg.qkv_bias:
-            shapes.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
-        self.attn = nn.ParameterDict({k: _empty(s, dtype, device)
-                                      for k, s in shapes.items()})
-        self.mlp = nn.ParameterDict({
-            "wi": _empty((D, Fd), dtype, device),
-            "wg": _empty((D, Fd), dtype, device),
-            "wo": _empty((Fd, D), dtype, device)})
-        self.ln1 = _empty((D,), dtype, device)
-        self.ln2 = _empty((D,), dtype, device)
-
-    def bias(self):
-        if "bq" not in self.attn:
-            return None
-        return {k: self.attn[k] for k in ("bq", "bk", "bv")}
-
-
-class DecoderLM(nn.Module):
-    """Dense decoder LM; weights allocated on `device` in `dtype` (filled by
-    `init_params` or `repro_torch.convert.lm_params`); ``device=None``
-    means CUDA and raises without it."""
-
-    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
-        super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port's DecoderLM runs the dense "
-                "family only; the others wait for ROADMAP queue 1 item 16")
+    def __init__(self, cfg: ModelConfig, dtype, device, extra=None):
+        device = resolve_device(device)
+        super().__init__({**_embed_spec(cfg, dtype), **(extra or {})},
+                         device)
         self.cfg = cfg
         self.dtype = dtype
-        self.device = device = resolve_device(device)
-        D, Vp = cfg.d_model, cfg.vocab_padded
-        self.embed = _empty((Vp, D), dtype, device)
-        self.final_norm = _empty((D,), dtype, device)
-        if not cfg.tie_embeddings:
-            self.unembed = _empty((D, Vp), dtype, device)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        self.device = device
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator):
+        """Draw every weight from `generator` (on its device), in the
+        reference's distributions: embed N(0, 0.02²), projections
+        N(0, 1/fan_in), norms and biases zero, the families' own constants
+        (`*_spec`).  Returns the module."""
+        self.draw_(generator)
+        for blk in self.modules():
+            if isinstance(blk, Weights) and blk is not self:
+                blk.draw_(generator)
+        return self
+
+    def _embed(self, tokens):
+        return self.embed[tokens].to(self.dtype)
+
+    def _head(self, x):
+        """The final norm and the logits of x."""
+        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        return _logits(x, self, self.cfg)
+
+    def _pos(self, value):
+        return torch.full((), value, dtype=torch.int32, device=self.device)
+
+
+# ===========================================================================
+# DecoderLM: dense / moe / gemma3 local-global
+# ===========================================================================
+
+def _decoder_block_spec(cfg: ModelConfig, dtype):
+    spec = {"attn": attn_spec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.hd, dtype, cfg.qkv_bias),
+            **_norm_spec(cfg, dtype, "ln1", "ln2")}
+    if cfg.family == "moe":
+        spec["moe"] = moe_spec(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                               cfg.n_shared_experts, dtype)
+    else:
+        spec["mlp"] = mlp_spec(cfg.d_model, cfg.d_ff, dtype)
+    return spec
+
+
+class DecoderLM(_LM):
+    """Decoder LM (dense, MoE, and the VLM's language model); weights
+    allocated on `device` in `dtype` (filled by `init_params` or
+    `repro_torch.convert.lm_params`); ``device=None`` means CUDA and
+    raises without it.  MoE capacity: `moe_cf` in `forward`,
+    `moe_inference_cf` (None: no drops) in prefill and decode; groups of
+    `moe_group` tokens (decode: the batch)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
+                 moe_group=4096, moe_cf=1.25):
+        super().__init__(cfg, dtype, device)
+        self.blocks = nn.ModuleList(
+            Weights(_decoder_block_spec(cfg, dtype), self.device)
+            for _ in range(cfg.n_layers))
+        self.moe_group = moe_group
+        self.moe_cf = moe_cf  # None => no-drop
+        self.moe_inference_cf = None
         # q_chunk>0: memory-efficient attention over query blocks (the
         # reference's serve factory sets 512 for cache_len >= 8192 on a mesh)
         self.q_chunk = 0
@@ -132,63 +165,50 @@ class DecoderLM(nn.Module):
         else:
             self.layer_global = [True] * cfg.n_layers
 
-    # ---- params ----
-    @torch.no_grad()
-    def init_params(self, generator: torch.Generator):
-        """Draw every weight from `generator` (on its device), in the
-        reference's distributions: embed N(0, 0.02²), projections
-        N(0, 1/fan_in), norms and biases zero.  Returns the module."""
-        cfg = self.cfg
-        emb = _embed_params(generator, cfg, self.dtype, self.device)
-        for name, value in emb.items():
-            getattr(self, name).copy_(value)
-        for blk in self.blocks:
-            attn = attn_params(generator, cfg.d_model, cfg.n_heads,
-                               cfg.n_kv_heads, cfg.hd, self.dtype,
-                               cfg.qkv_bias, device=self.device)
-            mlp = mlp_params(generator, cfg.d_model, cfg.d_ff, self.dtype,
-                             device=self.device)
-            for name, value in attn.items():
-                blk.attn[name].copy_(value)
-            for name, value in mlp.items():
-                blk.mlp[name].copy_(value)
-            blk.ln1.zero_()
-            blk.ln2.zero_()
-        return self
-
-    # ---- blocks ----
     def _attn_kwargs(self):
         cfg = self.cfg
         return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
                     rope_theta=cfg.rope_theta, window=cfg.window,
                     softcap=cfg.attn_softcap, q_chunk=self.q_chunk)
 
-    def _run_blocks(self, x, cache=None):
-        """The blocks over a full sequence; with `cache`, each layer's roped
-        k and v are written into it at positions 0..T-1."""
+    def _ffn(self, blk, h, capacity_factor, group_size):
+        """(FFN output, the MoE aux loss or None)."""
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return swiglu(h, blk.mlp), None
+        return moe_ffn(h, blk.moe, topk=cfg.topk, n_experts=cfg.n_experts,
+                       capacity_factor=capacity_factor, group_size=group_size)
+
+    def _run_blocks(self, x, cache=None, moe_cf=None):
+        """The blocks over a full sequence, then the final norm: (x, the
+        summed aux, f32).  With `cache`, each layer's roped k and v are
+        written into it at positions 0..T-1."""
         cfg = self.cfg
         T = x.shape[1]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (blk, is_global) in enumerate(zip(self.blocks,
                                                  self.layer_global)):
             h = rmsnorm(x, blk.ln1, cfg.norm_eps)
             a, (k, v) = attention_train(
-                h, blk.attn, is_global=is_global, bias=blk.bias(),
+                h, blk.attn, is_global=is_global, bias=_bias(blk.attn),
                 core=self.attn_core, return_kv=True, **self._attn_kwargs())
             if cache is not None:
                 cache["k"][i, :, :T] = k
                 cache["v"][i, :, :T] = v
             x = x + a
             h = rmsnorm(x, blk.ln2, cfg.norm_eps)
-            x = x + swiglu(h, blk.mlp)
-        return rmsnorm(x, self.final_norm, cfg.norm_eps)
+            y, a = self._ffn(blk, h, moe_cf, self.moe_group)
+            if a is not None:
+                aux = aux + a
+            x = x + y
+        return rmsnorm(x, self.final_norm, cfg.norm_eps), aux
 
     def forward(self, tokens, h0=None):
         """Full-sequence compute (train / prefill). Returns (x, aux): the
-        final-normed hidden states (B, T, D) and the auxiliary loss (0 for
-        the dense family, f32)."""
-        x = self.embed[tokens].to(self.dtype) if h0 is None else h0
-        x = self._run_blocks(x)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        final-normed hidden states (B, T, D) and the summed MoE aux loss
+        (0 for the dense family), f32."""
+        x = self._embed(tokens) if h0 is None else h0
+        return self._run_blocks(x, moe_cf=self.moe_cf)
 
     # ---- serving ----
     def init_cache(self, batch, cache_len, dtype=None):
@@ -197,19 +217,21 @@ class DecoderLM(nn.Module):
         shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device),
-                "pos": torch.zeros((), dtype=torch.int32,
-                                   device=self.device)}
+                "pos": self._pos(0)}
+
+    def _prefill(self, x, cache_len, moe_cf):
+        """Prompt pass over embeddings x (B, T, D)."""
+        B, T = x.shape[:2]
+        cache = self.init_cache(B, max(cache_len or T, T))
+        x, _ = self._run_blocks(x, cache, moe_cf)
+        cache["pos"].fill_(T)
+        return _logits(x[:, -1:], self, self.cfg), cache
 
     def prefill(self, batch, cache_len=None):
         """Prompt pass: returns (last-position logits (B, 1, Vp), filled
         cache {k, v: (L, B, max(cache_len, T), KV, hd), pos: T})."""
-        tokens = batch["tokens"]
-        B, T = tokens.shape
-        cache = self.init_cache(B, max(cache_len or T, T))
-        x = self.embed[tokens].to(self.dtype)
-        x = self._run_blocks(x, cache)
-        cache["pos"].fill_(T)
-        return _logits(x[:, -1:], self, self.cfg), cache
+        return self._prefill(self._embed(batch["tokens"]), cache_len,
+                             self.moe_inference_cf)
 
     def decode_step(self, cache, tokens):
         """tokens (B, 1) -> (logits (B,1,Vp), cache).  The new k/v are
@@ -217,17 +239,224 @@ class DecoderLM(nn.Module):
         ``cache["pos"]`` advances by one in place: the returned cache is the
         same dict (the reference donates its cache to the step)."""
         cfg = self.cfg
-        x = self.embed[tokens].to(self.dtype)
+        x = self._embed(tokens)
         pos = cache["pos"]
         for i, (blk, is_global) in enumerate(zip(self.blocks,
                                                  self.layer_global)):
             h = rmsnorm(x, blk.ln1, cfg.norm_eps)
             lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
             a, _ = attention_decode(h, blk.attn, lc, is_global=is_global,
-                                    bias=blk.bias(), **self._attn_kwargs())
+                                    bias=_bias(blk.attn),
+                                    **self._attn_kwargs())
             x = x + a
             h = rmsnorm(x, blk.ln2, cfg.norm_eps)
-            x = x + swiglu(h, blk.mlp)
-        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+            x = x + self._ffn(blk, h, self.moe_inference_cf, x.shape[0])[0]
         pos.add_(1)
-        return _logits(x, self, cfg), cache
+        return self._head(x), cache
+
+
+# ===========================================================================
+# Mamba2LM
+# ===========================================================================
+
+class Mamba2LM(_LM):
+    """The attention-free SSD stack; its cache holds each layer's state h
+    (float32, or the prefill's wider dtype), conv tail and pos."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
+                 ssd_chunk=256):
+        super().__init__(cfg, dtype, device)
+        self.blocks = nn.ModuleList(
+            Weights({"ssd": ssd_spec(cfg, dtype),
+                     **_norm_spec(cfg, dtype, "ln")}, self.device)
+            for _ in range(cfg.n_layers))
+        self.ssd_chunk = ssd_chunk
+
+    def _layers(self, x, states=None):
+        for blk in self.blocks:
+            h = rmsnorm(x, blk.ln, self.cfg.norm_eps)
+            y, st = ssd_layer_train(h, blk.ssd, self.cfg, chunk=self.ssd_chunk)
+            x = x + y
+            if states is not None:
+                states.append(st)
+        return x
+
+    def forward(self, tokens):
+        x = self._layers(self._embed(tokens))
+        return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+
+    def init_cache(self, batch, cache_len, dtype=None):
+        cfg = self.cfg
+        dtype = dtype or self.dtype
+        L, din, N = cfg.n_layers, cfg.d_inner, cfg.ssm_state
+        H, P, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
+        return {"h": torch.zeros((L, batch, H, P, N), dtype=torch.float32,
+                                 device=self.device),
+                "conv": torch.zeros((L, batch, K - 1, din + 2 * N),
+                                    dtype=dtype, device=self.device),
+                "pos": self._pos(0)}
+
+    def prefill(self, batch, cache_len=None):
+        """(last-position logits, cache); `cache_len` is unused: the state
+        is O(1) in the sequence."""
+        tokens = batch["tokens"]
+        states = []
+        x = self._layers(self._embed(tokens), states)
+        cache = {"h": torch.stack([s["h"] for s in states]),
+                 "conv": torch.stack([s["conv"] for s in states]),
+                 "pos": self._pos(tokens.shape[1])}
+        return self._head(x[:, -1:]), cache
+
+    def decode_step(self, cache, tokens):
+        x = self._embed(tokens)
+        for i, blk in enumerate(self.blocks):
+            h = rmsnorm(x, blk.ln, self.cfg.norm_eps)
+            y, st = ssd_layer_decode(h, blk.ssd, self.cfg,
+                                     {"h": cache["h"][i],
+                                      "conv": cache["conv"][i]})
+            x = x + y
+            cache["h"][i].copy_(st["h"])
+            cache["conv"][i].copy_(st["conv"])
+        cache["pos"].add_(1)
+        return self._head(x), cache
+
+
+# ===========================================================================
+# HybridLM (recurrentgemma): period pattern (R, R, A)
+# ===========================================================================
+
+class HybridLM(_LM):
+    """Layers in periods of ``block_pattern`` plus a remainder, in
+    execution order in `blocks` (the reference keeps ``periods``, one
+    (n_periods, …) stack a slot, and ``rem``).  The cache keeps the
+    reference's layout: ``slots`` (a stack a slot: a window-sized ring
+    buffer k/v for attention, h (f32) and conv for RG-LRU), ``rem``,
+    ``pos``."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+        super().__init__(cfg, dtype, device)
+        self.pattern = tuple(cfg.block_pattern or ("R", "R", "A"))
+        self.period = len(self.pattern)
+        self.n_periods = cfg.n_layers // self.period
+        self.rem = self.pattern[:cfg.n_layers % self.period]
+        self.kinds = self.pattern * self.n_periods + self.rem
+        self.W = cfg.rnn_width or cfg.d_model
+        self.q_chunk = 0
+        self.blocks = nn.ModuleList(Weights(self._slot_spec(kind), self.device)
+                                    for kind in self.kinds)
+
+    def _slot_spec(self, kind):
+        cfg = self.cfg
+        if kind == "A":
+            mixer = {"attn": attn_spec(cfg.d_model, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.hd, self.dtype)}
+        else:
+            mixer = {"rglru": rglru_spec(cfg.d_model, self.W, cfg.ssm_conv,
+                                         self.dtype)}
+        return {**mixer, **_norm_spec(cfg, self.dtype, "ln1", "ln2"),
+                "mlp": mlp_spec(cfg.d_model, cfg.d_ff, self.dtype)}
+
+    def _apply_slot(self, blk, x, kind, mode, state=None):
+        """mode: train|prefill|decode. Returns (x, new_state)."""
+        cfg = self.cfg
+        h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+        kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                  rope_theta=cfg.rope_theta)
+        if kind == "A":
+            if mode == "decode":
+                # ring-buffer window cache: eviction IS the sliding window
+                a, state = attention_decode(h, blk.attn, state, window=0,
+                                            is_global=True, **kw)
+            else:
+                a, (k, v) = attention_train(h, blk.attn, window=cfg.window,
+                                            is_global=False,
+                                            q_chunk=self.q_chunk,
+                                            return_kv=True, **kw)
+                state = {"k": k, "v": v} if mode == "prefill" else None
+        elif mode == "decode":
+            a, state = rglru_decode(h, blk.rglru, state)
+        else:
+            a, state = rglru_train(h, blk.rglru)
+        x = x + a
+        h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
+        return x + swiglu(h2, blk.mlp), state
+
+    def forward(self, tokens):
+        x = self._embed(tokens)
+        for blk, kind in zip(self.blocks, self.kinds):
+            x, _ = self._apply_slot(blk, x, kind, "train")
+        return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+
+    def _state_zeros(self, kind, lead, batch, wlen, dtype):
+        cfg = self.cfg
+        z = lambda *s, dt=dtype: torch.zeros(lead + (batch,) + s, dtype=dt,
+                                             device=self.device)
+        if kind == "A":
+            return {"k": z(wlen, cfg.n_kv_heads, cfg.hd),
+                    "v": z(wlen, cfg.n_kv_heads, cfg.hd)}
+        return {"h": z(self.W, dt=torch.float32),
+                "conv": z(cfg.ssm_conv - 1, self.W)}
+
+    # serving: attention slots keep a WINDOW-sized cache (ring buffer:
+    # slot = position % wlen); the RG-LRU state is O(1)
+    def init_cache(self, batch, cache_len, dtype=None):
+        dtype = dtype or self.dtype
+        wlen = min(cache_len, self.cfg.window) if self.cfg.window \
+            else cache_len
+        return {"slots": tuple(self._state_zeros(k, (self.n_periods,), batch,
+                                                 wlen, dtype)
+                               for k in self.pattern),
+                "rem": tuple(self._state_zeros(k, (), batch, wlen, dtype)
+                             for k in self.rem),
+                "pos": self._pos(0)}
+
+    def _layer_cache(self, cache, j):
+        """Layer j's part of the cache, as views."""
+        c, s = divmod(j, self.period)
+        if c < self.n_periods:
+            return {k: v[c] for k, v in cache["slots"][s].items()}
+        return cache["rem"][j - self.n_periods * self.period]
+
+    def decode_step(self, cache, tokens):
+        x = self._embed(tokens)
+        pos = cache["pos"]
+        wlen = (cache["slots"][self.pattern.index("A")]["k"].shape[2]
+                if "A" in self.pattern else 0)
+        for j, (blk, kind) in enumerate(zip(self.blocks, self.kinds)):
+            st = self._layer_cache(cache, j)
+            if kind == "A":                       # k, v written in place
+                x, _ = self._apply_slot(blk, x, kind, "decode",
+                                        dict(st, pos=pos,
+                                             write_idx=pos % wlen))
+            else:
+                x, new = self._apply_slot(blk, x, kind, "decode", st)
+                st["h"].copy_(new["h"])
+                st["conv"].copy_(new["conv"])
+        pos.add_(1)
+        return self._head(x), cache
+
+    def prefill(self, batch, cache_len=None):
+        # prefill = forward + state capture; window caches keep the LAST
+        # `wlen` keys placed at their ring slots (slot = position % wlen)
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        cache_len = cache_len or T
+        wlen = min(cache_len, cfg.window) if cfg.window else cache_len
+
+        def to_ring(k):
+            """(B, T, KV, hd) -> (B, wlen, KV, hd) at ring slots."""
+            if T >= wlen:
+                return torch.roll(k[:, -wlen:], T % wlen, dims=1)
+            return F.pad(k, (0, 0, 0, 0, 0, wlen - T))
+
+        cache = self.init_cache(B, cache_len)
+        x = self._embed(tokens)
+        for j, (blk, kind) in enumerate(zip(self.blocks, self.kinds)):
+            x, st = self._apply_slot(blk, x, kind, "prefill")
+            if kind == "A":
+                st = {"k": to_ring(st["k"]), "v": to_ring(st["v"])}
+            for key, dst in self._layer_cache(cache, j).items():
+                dst.copy_(st[key])
+        cache["pos"].fill_(T)
+        return self._head(x[:, -1:]), cache

@@ -5,19 +5,25 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
-from .lm import DecoderLM
+from .encdec import EncDecLM
+from .lm import DecoderLM, HybridLM, Mamba2LM
+from .vlm import VLM
 
-QUEUE_ITEM = "ROADMAP queue 1 item 16"
 
-
-def build_model(cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+def build_model(cfg: ModelConfig, dtype=torch.bfloat16, device=None, **kw):
     """The model of `cfg` with its weights allocated (not drawn: call
     `init_params`) in `dtype` on `device`; ``device=None`` means CUDA and
-    raises without it, the CPU only when asked for."""
-    if cfg.family == "dense":
-        return DecoderLM(cfg, dtype=dtype, device=device)
-    if cfg.family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet ({QUEUE_ITEM}); the "
-            "port builds the dense family")
+    raises without it, the CPU only when asked for.  `kw` goes to
+    `DecoderLM` (``moe_group``, ``moe_cf``) and `Mamba2LM`
+    (``ssd_chunk``), as in the reference."""
+    if cfg.family in ("dense", "moe"):
+        return DecoderLM(cfg, dtype=dtype, device=device, **kw)
+    if cfg.family == "ssm":
+        return Mamba2LM(cfg, dtype=dtype, device=device, **kw)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg, dtype=dtype, device=device)
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, dtype=dtype, device=device)
+    if cfg.family == "vlm":
+        return VLM(cfg, dtype=dtype, device=device)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -4,8 +4,9 @@
 `make_serve_plan` returns the two steps of a served model, each run under
 `torch.inference_mode()`.  The reference jit-compiles them; PyTorch runs
 eagerly.  Its decode donates the cache: the port's `decode_step` writes the
-cache in place.  A device mesh (the reference's sharded plan, the LM's
-model sharding) waits for ROADMAP queue 1 item 16.
+cache in place.  Every family serves (`models.model.build_model`).  A
+device mesh (the reference's sharded plan, the LM's model sharding on
+`models/sharding.py`) waits for ROADMAP queue 1 item 16, after training.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ def make_serve_plan(model, mesh, batch: int, cache_len: int) -> ServePlan:
     if mesh is not None:
         raise NotImplementedError("make_serve_plan runs unsharded (mesh=None)"
                                   "; a device mesh (model sharding) waits for "
-                                  "ROADMAP queue 1 item 16")
+                                  "ROADMAP queue 1 item 16, after training "
+                                  "with models/sharding.py")
 
     def prefill_fn(b):
         with torch.inference_mode():

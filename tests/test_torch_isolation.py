@@ -27,7 +27,15 @@ PORT_MODULES = [
     "repro_torch.kernels.flashattn.ops", "repro_torch.kernels.flashattn.ref",
     "repro_torch.models.config", "repro_torch.models.layers",
     "repro_torch.models.lm", "repro_torch.models.model",
+    "repro_torch.models.moe", "repro_torch.models.ssm",
+    "repro_torch.models.rglru", "repro_torch.models.encdec",
+    "repro_torch.models.vlm",
     "repro_torch.configs.archs", "repro_torch.configs.internlm2_1_8b",
+    "repro_torch.configs.command_r_35b", "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.configs.gemma3_1b", "repro_torch.configs.grok_1_314b",
+    "repro_torch.configs.internvl2_26b", "repro_torch.configs.mamba2_2_7b",
+    "repro_torch.configs.qwen2_5_32b", "repro_torch.configs.recurrentgemma_9b",
+    "repro_torch.configs.whisper_tiny",
     "repro_torch.train.serve", "repro_torch.translate",
     "repro_torch.translate.ir", "repro_torch.translate.trace",
     "repro_torch.translate.derive", "repro_torch.translate.emit",

@@ -30,7 +30,7 @@ from repro.models.model import build_model as r_build_model
 from repro_torch.configs.archs import ARCHS, get_arch
 from repro_torch.convert import lm_params
 from repro_torch.kernels.flashattn.ops import flash_attention
-from repro_torch.models.lm import DecoderLM, _logits, xent_loss
+from repro_torch.models.lm import _logits, xent_loss
 from repro_torch.models.model import build_model
 from repro_torch.train.serve import make_serve_plan
 
@@ -208,18 +208,6 @@ def test_init_params_draws_from_a_generator():
     assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
     assert (logits[..., cfg.vocab_size:]
             == torch.finfo(torch.float32).min / 8).all()
-
-
-@pytest.mark.parametrize("family_arch", ["grok-1-314b", "mamba2-2.7b",
-                                         "recurrentgemma-9b", "whisper-tiny",
-                                         "internvl2-26b"])
-def test_other_families_refused_naming_the_queue_item(family_arch):
-    cfg = get_arch(family_arch + "-smoke")
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        build_model(cfg, torch.float32, device="cpu")
-    if cfg.family == "moe":
-        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-            DecoderLM(cfg, torch.float32, device="cpu")
 
 
 def test_mesh_and_missing_cuda_refused(monkeypatch):
