@@ -60,10 +60,14 @@ with K7's tensor-core form as its attention core: four 4096-token
 requests and one 32,768-token prompt, prefill then greedy decode through
 `make_serve_plan`, held against `forward` and an f32 run, and K7 on the
 model's own q, k, v against its plain version, the dense oracle, the
-model's dense core and SDPA), and
-times each kernel beside its twin, and the
-`vmap` and `array` strategies on the ODE and fixed-dt SDE forms, on
-rober-1M-rodas5p and on gbm-1M-em-adaptive.  Every phase raises on
+model's dense core and SDPA), the other five LM families served the same
+way, LM training on the card (`phase_lm_train`: internlm2-1.8b at full
+width and depth in bfloat16 for six steps through `make_train_step`,
+no hand kernel on the path, the gradients through the int8 collectives,
+accumulation, the card against the CPU, every family's step, a bitwise
+resume), and times each kernel beside its twin, the `vmap` and `array`
+strategies on lorenz-1M-f32-adaptive and `vmap` on gbm-1M-em,
+rober-1M-rodas5p and osc-1M-f32-fixed-gather.  Every phase raises on
 failure, so the script exits non-zero; it also exits non-zero, printing no
 result, where CUDA is absent or the port's sources are not beside it.  The
 explicit-RK rows print the kernel's bound in the card's instructions
@@ -91,6 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -126,6 +131,11 @@ ISSUE_LANES_PER_SM = 128
 FP64_INSTR_PER_S = 64 * SM_LANE_CLOCKS_PER_S
 
 FULL_N = 2 ** 20
+# timed runs of a kernel and its front door in the *_full_size phases,
+# their median after a warm-up (5 before `phase_lm_train` came; cut to pay
+# for it: the rows' times spread less between runs of one call than
+# between calls)
+FULL_REPS = 3
 PARITY_N = 4096
 SAMPLE_N = 4096
 SEED = 0
@@ -2815,7 +2825,7 @@ def save_flops(tab, n: int) -> int:
     return 7 * 7 + 4 + (2 * tab.stages + 1) * n
 
 
-def phase_full_size(device, N: int = FULL_N, reps: int = 5):
+def phase_full_size(device, N: int = FULL_N, reps: int = FULL_REPS):
     """The main path at full size: Lorenz, float32, N trajectories, tsit5
     adaptive and fixed dt, and vern7 adaptive (the paper's GPUVern7 beside
     GPUTsit5)."""
@@ -2919,12 +2929,13 @@ def phase_full_size(device, N: int = FULL_N, reps: int = 5):
             f, tab, u0_l, p_l, sv, **kargs), 1, warmup=0)
         # the plain strategies (Figs. 5/6) on the adaptive tsit5 form;
         # the fixed form, whose plain runs take seconds, times the lanes
-        # twin alone
+        # twin alone (above: its front door on kernel/torch is the same
+        # lanes loop, 5.0 s, so it is not run)
         strategies = {}
         others = {"kernel_torch": ("kernel", "torch"),
                   "vmap": ("vmap", "torch"), "array": ("array", "torch")}
         if form == "fixed":
-            others = {"kernel_torch": others["kernel_torch"]}
+            others = {}
         for name, (ens, be) in {"kernel_cuda": ("kernel", "cuda"),
                                 **(others if alg == "tsit5" else {})
                                 }.items():
@@ -3110,7 +3121,7 @@ def phase_sde_parity(device, max_dz: float, N: int = PARITY_N):
     return worst
 
 
-def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
+def phase_sde_full_size(device, N: int = FULL_N, reps: int = FULL_REPS):
     """The SDE path at full size, float32, through the front door."""
     import torch
     from repro_torch.configs import de_problems as dp
@@ -3214,10 +3225,13 @@ def phase_sde_full_size(device, N: int = FULL_N, reps: int = 5):
         ms = cuda_ms(kernel, reps)
         # the plain version through the front door ("kernel"/"torch", and
         # "array": the same lanes loop over the whole ensemble) is the twin
-        # timed above, so it is not run again
+        # timed above, so it is not run again; "vmap" on gbm-1M-em only
+        # (the CRN sweep's takes 13.2 s a run, platen_w2's 1.1 s)
         strategies = {}
-        for sname, (ens, be) in {"kernel_cuda": ("kernel", "cuda"),
-                                 "vmap": ("vmap", "torch")}.items():
+        fronts = {"kernel_cuda": ("kernel", "cuda")}
+        if form == "gbm-1M-em":
+            fronts["vmap"] = ("vmap", "torch")
+        for sname, (ens, be) in fronts.items():
             strategies[sname] = cuda_ms(lambda: solve_ensemble_local(
                 ep, ensemble=ens, backend=be, **kw),
                 reps if be == "cuda" else 1, warmup=1 if be == "cuda" else 0)
@@ -3365,7 +3379,7 @@ def phase_sde_adaptive_parity(device, N: int = PARITY_N):
     return out
 
 
-def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
+def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = FULL_REPS):
     """The adaptive SDE path at full size, float32, through the front door:
     GBM with the embedded pair and with step doubling."""
     import torch
@@ -3476,11 +3490,8 @@ def phase_sde_adaptive_full_size(device, N: int = FULL_N, reps: int = 5):
         ms = cuda_ms(kernel, reps)
         strategies = {"kernel_cuda": cuda_ms(lambda: solve_ensemble_local(
             gbm, ensemble="kernel", backend="cuda", **kw), reps)}
-        if est == "embedded":
-            # "array" runs the same lanes engine over the whole batch as
-            # "vmap": timed once, as vmap
-            strategies["vmap"] = cuda_ms(lambda: solve_ensemble_local(
-                gbm, ensemble="vmap", backend="torch", **kw), 1, warmup=0)
+        # no plain strategy ("vmap" takes 5.4 s a run on the embedded
+        # form): the plain version's time is the row's plain_ms
 
         # ---- bound: the run's own attempts, K4's formula ------------------
         stats = out_k[3]
@@ -4104,7 +4115,7 @@ def special_total(parts) -> dict:
     return out
 
 
-def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
+def phase_stiff_full_size(device, N: int = FULL_N, reps: int = FULL_REPS):
     """The stiff path at full size, f64, through the front door: ROBER with
     rodas5p, and with rodas4 on lazy W beside eager rodas4."""
     import torch
@@ -4174,13 +4185,12 @@ def phase_stiff_full_size(device, N: int = FULL_N, reps: int = 5):
         strategies = {"kernel_cuda": cuda_ms(lambda: solve_ensemble_local(
             ep, ensemble="kernel", backend="cuda", **kw), reps)}
         if form == "rober-1M-rodas5p":
-            # the paper's comparison with the plain strategies, run once
-            # each, on this form only: they take seconds a run ("array" is
-            # the one tile of all N that "kernel_torch" runs, so it is not
-            # run again)
-            for sname, ens in (("kernel_torch", "kernel"), ("vmap", "vmap")):
-                strategies[sname] = cuda_ms(lambda: solve_ensemble_local(
-                    ep, ensemble=ens, backend="torch", **kw), 1, warmup=0)
+            # the paper's comparison with the plain strategies, run once,
+            # on this form only: they take seconds a run ("array" is the
+            # one tile of all N that "kernel_torch" runs, and that is the
+            # lanes twin timed above: neither is run again)
+            strategies["vmap"] = cuda_ms(lambda: solve_ensemble_local(
+                ep, ensemble="vmap", backend="torch", **kw), 1, warmup=0)
 
         # ---- bound: f64 operations / FP64 peak, bytes / HBM ---------------
         per_attempt, per_jac, per_fact, per_save = rosenbrock_attempt_ops(
@@ -5426,7 +5436,9 @@ def phase_data_full_size(device, N: int = FULL_N, reps: int = 3):
         front_ms = cuda_ms(lambda: solve_ensemble_local(
             ep, ensemble="kernel", backend="cuda", **kwd), reps)
         extra = {}
-        if form.startswith("osc-1M-f32-fixed"):
+        if form == "osc-1M-f32-fixed-gather":
+            # the texture benchmark's comparison, in its gather mode (the
+            # onehot and cubic modes' vmap runs take 2.5 and 2.1 s)
             extra["vmap_ms"] = cuda_ms(lambda: solve_ensemble_local(
                 ep, ensemble="vmap", backend="torch", **kwd), 1, warmup=0)
         # ---- bound: the run's own work, as the kernel writes it ----------
@@ -7067,6 +7079,444 @@ def phase_lm_families(device):
     return k7_rows
 
 
+# ---- LM training on one card (phase_lm_train) -------------------------------
+# lm-internlm2-1.8b-train: internlm2-1.8b at full width and depth, bf16
+# parameters, f32 AdamW state, remat=True; 4 x 4096 tokens a step from
+# `DataPipeline(seed=0)` (the reference's train_4k sequence, its global
+# batch of 256 cut to 4 for one card; `pick_accum` gives 2), its first two
+# batches in turns (step % 2), AdamW as the reference's launcher sets it
+# (`launch/train.py`: cosine_schedule(3e-4, 20, 200) at its default --lr
+# and --steps, weight decay 0.1, clip 1.0; a constant 1e-3, the reduced
+# model's rate in tests/test_trainer.py, diverged at this width in f32 as
+# in bf16: PERF.md §6).  Holds: the first step's ce within
+# LM_TRAIN_CE of ln V (tests/test_models_smoke.py:29), the last loss below
+# the first (tests/test_trainer.py::test_loss_decreases_over_steps), every
+# gradient finite.  Step seconds: the median of steps 3-6.
+LM_TRAIN_ARCH = "internlm2-1.8b"
+LM_TRAIN_BATCH = (4, 4096)
+LM_TRAIN_STEPS = 6
+LM_TRAIN_LR = (3e-4, 20, 200)
+LM_TRAIN_CE = 2.0
+# the bf16 gradient against an f32 one on the same weights and batch, by
+# relative norm over the model's first blocks (printed, not gated)
+LM_TRAIN_GRAD_BLOCKS = 2
+# accumulation at full width on 2 layers in f32: accum=2 against accum=1
+# on one batch of 8 x 512, parameters within 1e-4 after the step (the
+# reference's test_grad_accum_equivalence bar)
+LM_TRAIN_ACCUM = (2, 8, 512, 1e-4)
+# the card against the CPU: internlm2-1.8b-smoke in f32, three steps of
+# 4 x 64 tokens, losses and grad_norm within 1e-5 relative
+LM_TRAIN_CPU = (3, 4, 64, 1e-5)
+# every other family's -smoke config, one step of 2 x 32 tokens on the card
+LM_TRAIN_FAMILIES = ("deepseek-moe-16b", "mamba2-2.7b", "recurrentgemma-9b",
+                     "whisper-tiny", "internvl2-26b")
+
+
+def train_flops(cfg, B, T, remat=True):
+    """Model flops of one training step of a dense decoder on B x T
+    tokens: 6 N T B for the matmuls (N the parameters that enter one: all
+    but the embedding table, which is a gather, and the norms), plus the
+    dense core's attention, 4 B H hd T^2 a layer forward (it computes every
+    score, then masks), three times (forward and backward), plus remat's
+    recompute of every block's forward."""
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    block = D * (H + 2 * KV) * hd + H * hd * D + 3 * D * F
+    head = D * cfg.vocab_padded
+    attn = 4 * B * H * hd * T * T * L
+    tokens = B * T
+    flops = 6 * (L * block + head) * tokens + 3 * attn
+    if remat:
+        flops += 2 * L * block * tokens + attn
+    return flops
+
+
+def train_rel_grads(model, cfg, batch, blocks):
+    """The bf16 gradient against an f32 one of the same weights (the
+    model's first `blocks` blocks with its embeddings and norms) on the
+    same batch (one microbatch of the main path's), by relative norm over
+    every leaf; and the three leaves that carry most of the difference,
+    with their own."""
+    import torch
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import make_train_step
+    grads = {}
+    for dtype in (model.dtype, torch.float32):
+        m, _ = family_copy(model, cfg, blocks, dtype, None)
+        _, _, g = make_train_step(m, AdamW(lr=0.0)).grad_fn(batch)
+        grads[dtype] = {n: t.float() for n, t in g.items()}
+        del m, g
+    want = grads.pop(torch.float32)
+    got = grads.pop(model.dtype)
+    nums = {n: float((got[n] - want[n]).double().square().sum())
+            for n in want}
+    den = sum(float(want[n].double().square().sum()) for n in want)
+    # the leaves that carry most of the difference, each with its own
+    # relative norm
+    top = {n: round((nums[n] / float(want[n].double().square().sum()))
+                    ** 0.5, 4)
+           for n in sorted(nums, key=nums.get, reverse=True)[:3]}
+    return (sum(nums.values()) / den) ** 0.5, top
+
+
+def train_collectives(grads):
+    """`dist.collectives` on the step's gradients (in float32): each leaf's
+    int8 error within scale/2 (plus the product's own rounding, an ulp of
+    the leaf's largest value), and the buckets' round trip bitwise.  Returns (the
+    worst error over scale, buckets)."""
+    import torch
+    from repro_torch.dist.collectives import bucketize, ef_compress, ef_init
+    worst = 0.0
+    for name, g in grads.items():
+        g = g.float()
+        deq, _ = ef_compress({name: g}, ef_init({name: g}))
+        amax = float(g.abs().max())
+        scale = amax / 127.0 if amax > 0 else 1.0
+        err = float((deq[name] - g).abs().max())
+        if not err <= scale / 2 + torch.finfo(g.dtype).eps * amax:
+            raise AssertionError(f"lm-train: ef_compress on {name}: error "
+                                 f"{err:.3e} > scale/2 {scale / 2:.3e}")
+        worst = max(worst, err / scale)
+        del deq
+    buckets, unpack = bucketize(grads, bucket_bytes=64 << 20)
+    out = unpack(buckets)
+    if not all(torch.equal(out[n], g) for n, g in grads.items()):
+        raise AssertionError("lm-train: bucketize did not round-trip")
+    n = len(buckets)
+    del buckets, out
+    return worst, n
+
+
+def train_accum_check(device, cfg):
+    """accum=2 against accum=1 at full width on 2 layers in f32."""
+    import torch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import make_train_step
+    accum, B, T, bar = LM_TRAIN_ACCUM
+    small = dataclasses.replace(cfg, n_layers=2)
+    batch = synth_batch(small, 1, 0, B, T)
+    models = []
+    for a in (1, accum):
+        m = build_model(small, torch.float32).init_params(
+            torch.Generator(device).manual_seed(LM_SEED))
+        opt = AdamW(lr=1e-3, weight_decay=0.0)
+        make_train_step(m, opt, accum=a).step_fn(opt.init(m), batch)
+        models.append(m)
+    d = max(float((p - q).abs().max()) for p, q in
+            zip(models[0].parameters(), models[1].parameters()))
+    if not d < bar:
+        raise AssertionError(f"lm-train: accum={accum} moved the update by "
+                             f"{d:.3e} (bar {bar})")
+    return d
+
+
+def train_cpu_check(device):
+    """internlm2-1.8b-smoke in f32: the card's three steps against the
+    CPU's, from the same weights and batches."""
+    import torch
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import make_train_step
+    steps, B, T, bar = LM_TRAIN_CPU
+    cfg = get_arch(LM_TRAIN_ARCH + "-smoke")
+    cpu = build_model(cfg, torch.float32, device="cpu").init_params(
+        torch.Generator().manual_seed(LM_SEED))
+    card = build_model(cfg, torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    runs = []
+    for m in (card, cpu):
+        opt = AdamW(lr=cosine_schedule(1e-3, 1, 10))
+        plan = make_train_step(m, opt, accum=2)
+        st, run = opt.init(m), []
+        for s in range(steps):
+            st, met = plan.step_fn(st, synth_batch(cfg, 0, s, B, T))
+            run.append((float(met["loss"]), float(met["grad_norm"])))
+        runs.append(run)
+    worst = max(abs(a - b) / abs(b) for ra, rb in zip(*runs)
+                for a, b in zip(ra, rb))
+    if not worst <= bar:
+        raise AssertionError(f"lm-train: the card's steps against the "
+                             f"CPU's: {runs} ({worst:.3e} > {bar})")
+    return worst
+
+
+def train_families(device):
+    """Every other family's -smoke config, one step on the card: the loss
+    and every gradient finite, ce within LM_TRAIN_CE of ln V."""
+    import torch
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import make_train_step
+    out = {}
+    for i, arch in enumerate(LM_TRAIN_FAMILIES):
+        cfg = get_arch(arch + "-smoke")
+        model = build_model(cfg, torch.float32, remat=True).init_params(
+            torch.Generator(device).manual_seed(LM_SEED + i))
+        opt = AdamW(lr=1e-3)
+        plan = make_train_step(model, opt)
+        batch = synth_batch(cfg, 0, 0, 2, 32)
+        loss, met, grads = plan.grad_fn(batch)
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values())
+        _, m = plan.step_fn(opt.init(model), batch)
+        ce = float(met["ce"])
+        if not (finite and math.isfinite(float(m["loss"]))
+                and abs(ce - math.log(cfg.vocab_size)) < LM_TRAIN_CE):
+            raise AssertionError(f"lm-train {arch}-smoke: loss {float(loss)}"
+                                 f", ce {ce} (ln V "
+                                 f"{math.log(cfg.vocab_size):.3f}), "
+                                 f"gradients finite {finite}")
+        out[arch] = {"loss": float(loss), "ce": ce,
+                     "ln_V": math.log(cfg.vocab_size),
+                     "aux": float(met["aux"])}
+        del model, plan, grads
+    return out
+
+
+def train_resume_check(device):
+    """Two steps, a save through `TrainSupervisor`, a restore into a fresh
+    model, step 3: bitwise an uninterrupted step 3 (parameters, moments,
+    loss, the data cursor), under `torch.use_deterministic_algorithms`.
+    Then which ops of the step give other bits run to run without it."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.data.pipeline import DataPipeline, synth_batch
+    from repro_torch.dist.fault import TrainSupervisor
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import (load_params, make_train_step,
+                                           train_state)
+    cfg = get_arch(LM_TRAIN_ARCH + "-smoke")
+
+    def fresh():
+        m = build_model(cfg, torch.float32).init_params(
+            torch.Generator(device).manual_seed(LM_SEED))
+        opt = AdamW(lr=cosine_schedule(1e-3, 1, 10))
+        return m, opt, make_train_step(m, opt, accum=2)
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            model, opt, plan = fresh()
+            st = opt.init(model)
+            pipe = DataPipeline(cfg, batch=4, seq_len=64, seed=0)
+            sup = TrainSupervisor(tmp, save_every=2, device=device)
+            for step in (1, 2):
+                st, _ = plan.step_fn(st, next(pipe))
+                sup.maybe_save(step, train_state(model, st),
+                               {"cursor": pipe.cursor()})
+            st, m3 = plan.step_fn(st, next(pipe))
+            pipe.close()
+            model2, opt2, plan2 = fresh()
+            like = train_state(model2, opt2.init(model2))
+            step, state, extra = sup.resume_or_init(lambda: like, like)
+            load_params(model2, state["params"])
+            pipe2 = DataPipeline(cfg, batch=4, seq_len=64, seed=0,
+                                 start_step=extra["cursor"])
+            st2, m3b = plan2.step_fn(state["opt"], next(pipe2))
+            pipe2.close()
+        same = (step == 2 and extra["cursor"] == 2
+                and torch.equal(m3["loss"], m3b["loss"])
+                and all(torch.equal(a, b) for a, b in
+                        zip(model.parameters(), model2.parameters()))
+                and all(torch.equal(st.mu[n], st2.mu[n])
+                        and torch.equal(st.nu[n], st2.nu[n]) for n in st.mu))
+        if not same:
+            raise AssertionError("lm-train: the resumed step 3 is not "
+                                 "bitwise the uninterrupted one")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    # without the mode: the backward of the embedding lookup (the models'
+    # `F.embedding`), of the loss's `take_along_dim`, and the whole step 3
+    # from the saved state, each run twice
+    g = torch.Generator(device).manual_seed(1)
+    toks = synth_batch(cfg, 0, 0, 4, 4096)["tokens"].to(device)
+    table = torch.randn(cfg.vocab_padded, 256, generator=g, device=device,
+                        requires_grad=True)
+    up = torch.randn(*toks.shape, 256, generator=g, device=device)
+    logits = torch.randn(*toks.shape, 512, generator=g, device=device,
+                         requires_grad=True)
+
+    def twice(fn):
+        a, b = fn(), fn()
+        return bool(torch.equal(a, b))
+
+    probes = {
+        "embedding backward": twice(lambda: torch.autograd.grad(
+            (torch.nn.functional.embedding(toks, table) * up).sum(),
+            table)[0]),
+        "take_along_dim backward (scatter_add)": twice(
+            lambda: torch.autograd.grad(torch.take_along_dim(
+                logits, (toks % 512)[..., None], dim=-1).sum(), logits)[0]),
+    }
+    runs = []
+    for _ in range(2):
+        m, o, p = fresh()
+        load_params(m, state["params"])
+        s3 = type(state["opt"])(state["opt"].step.clone(),
+                                {n: t.clone() for n, t in
+                                 state["opt"].mu.items()},
+                                {n: t.clone() for n, t in
+                                 state["opt"].nu.items()})
+        pipe3 = DataPipeline(cfg, batch=4, seq_len=64, seed=0, start_step=2)
+        p.step_fn(s3, next(pipe3))
+        pipe3.close()
+        runs.append([t.detach().clone() for t in m.parameters()])
+    probes["the whole step 3"] = all(torch.equal(a, b)
+                                     for a, b in zip(*runs))
+    return probes
+
+
+def phase_lm_train(device):
+    """LM training on one card through `make_train_step(mesh=None)`:
+    lm-internlm2-1.8b-train (full width and depth, bf16, remat, 4 x 4096
+    tokens, accum from `pick_accum`) for LM_TRAIN_STEPS steps, every launch
+    counter 0 over them (the training path reaches no hand kernel: the
+    reference trains on its dense attention core); then the step's
+    gradients through `dist.collectives`, the bf16 gradient against f32 on
+    the first blocks, accumulation at full width, the card against the
+    CPU, one step of every other family, a bitwise resume, and K7's
+    refusal to train."""
+    import torch
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels.flashattn.ops import flash_attention
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import make_train_step, pick_accum
+    t0 = time.perf_counter()
+    steps_s = {}
+    mods = kernel_modules()
+    cfg = get_arch(LM_TRAIN_ARCH)
+    B, T = LM_TRAIN_BATCH
+    accum = pick_accum(cfg, B, T)
+    model = build_model(cfg, torch.bfloat16, remat=True).init_params(
+        torch.Generator(device).manual_seed(LM_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(lr=cosine_schedule(*LM_TRAIN_LR))
+    plan = make_train_step(model, opt, accum=accum)
+    st = opt.init(model)
+    pipe = DataPipeline(cfg, batch=B, seq_len=T, seed=0)
+    batches = [next(pipe), next(pipe)]
+    pipe.close()
+    sync(device)
+    steps_s["draw"] = time.perf_counter() - t0
+    # ---- the main path --------------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    for mod in mods.values():
+        mod.launches = 0
+    mods["flash_attention"].launches_sm90 = 0
+    losses, ces, gnorms, secs = [], [], [], []
+    for s in range(LM_TRAIN_STEPS):
+        t = time.perf_counter()
+        st, m = plan.step_fn(st, batches[s % 2])
+        sync(device)
+        secs.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if "ce" in m:
+            ces.append(float(m["ce"]))
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    launches = {k: mod.launches for k, mod in mods.items()}
+    if any(launches.values()):
+        raise AssertionError(f"lm-train: hand kernels launched on the "
+                             f"training path: {launches}")
+    steps_s["main path"] = time.perf_counter() - t0 - sum(steps_s.values())
+    # ---- holds ----------------------------------------------------------
+    V = cfg.vocab_size
+    _, _, grads = plan.grad_fn(batches[0])
+    # the first step's ce: with accumulation the step's metrics carry the
+    # loss only, which is the ce for the dense family (aux 0)
+    first_ce = ces[0] if ces else losses[0]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    if not (abs(first_ce - math.log(V)) < LM_TRAIN_CE
+            and losses[-1] < losses[0] and finite
+            and all(map(math.isfinite, losses + gnorms))):
+        raise AssertionError(f"lm-train: losses {losses} (ln V "
+                             f"{math.log(V):.3f}), grad norms {gnorms}, "
+                             f"gradients finite {finite}, step s {secs}, "
+                             f"peak {peak_gb:.2f} GB")
+    ef_worst, n_buckets = train_collectives(grads)
+    del grads
+    torch.cuda.empty_cache()
+    grad_rel, grad_top = train_rel_grads(
+        model, cfg, {k: v[:B // accum] for k, v in batches[0].items()},
+        LM_TRAIN_GRAD_BLOCKS)
+    # K7 refuses to train: the step refuses the model, the kernel the grad
+    model.attn_core = flash_attention
+    try:
+        plan.step_fn(st, batches[0])
+        raise AssertionError("lm-train: a model with attn_core = K7 trained")
+    except ValueError:
+        pass
+    model.attn_core = None
+    q = torch.randn(1, 128, 2, 64, device=device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    try:
+        flash_attention(q, q.detach(), q.detach())
+        raise AssertionError("lm-train: K7 took an input needing a gradient")
+    except RuntimeError as e:
+        if "dense attention core" not in str(e):
+            raise
+    del plan, st, model, batches
+    torch.cuda.empty_cache()
+    steps_s["holds"] = time.perf_counter() - t0 - sum(steps_s.values())
+    # ---- the smaller checks ---------------------------------------------
+    accum_d = train_accum_check(device, cfg)
+    cpu_rel = train_cpu_check(device)
+    families = train_families(device)
+    probes = train_resume_check(device)
+    torch.cuda.empty_cache()
+    steps_s["checks"] = time.perf_counter() - t0 - sum(steps_s.values())
+    step_s = statistics.median(secs[2:])
+    flops = train_flops(cfg, B, T)
+    row = {"name": "lm-internlm2-1.8b-train", "arch": LM_TRAIN_ARCH,
+           "params": n_params, "batch": B, "seq": T, "accum": accum,
+           "dtype": "bfloat16", "remat": True, "steps": LM_TRAIN_STEPS,
+           "losses": losses, "grad_norms": gnorms, "step_s": secs,
+           "median_step_s": step_s, "tokens_per_s": B * T / step_s,
+           "peak_gb": peak_gb, "model_flops": flops,
+           "peak_share": flops / step_s / PEAK_BF16_TENSOR_FLOPS,
+           "launches": launches, "bf16_vs_f32_grad_rel": grad_rel,
+           "bf16_vs_f32_grad_top_leaves": grad_top,
+           "grad_blocks": LM_TRAIN_GRAD_BLOCKS,
+           "ef_worst_err_over_scale": ef_worst, "buckets": n_buckets,
+           "accum_max_abs": accum_d, "card_vs_cpu_rel": cpu_rel,
+           "families": families, "nondeterministic_bitwise": probes,
+           "phase_s": {k: round(v, 1) for k, v in steps_s.items()}}
+    print(f"lm-internlm2-1.8b-train: {n_params / 1e9:.3f} B parameters, "
+          f"bf16, remat, {B} x {T} tokens a step in {accum} microbatches; "
+          f"losses {[round(x, 4) for x in losses]} (ln V "
+          f"{math.log(V):.4f}); step {step_s:.3f} s (median of steps 3-"
+          f"{LM_TRAIN_STEPS}), {B * T / step_s:.0f} tokens/s, peak "
+          f"{peak_gb:.2f} GB, {flops:.4e} model flops a step, "
+          f"{row['peak_share']:.3f} of the 989 TFLOP/s bf16 peak; launch "
+          f"counters {launches}; bf16 gradient against f32 on the first "
+          f"{LM_TRAIN_GRAD_BLOCKS} blocks {grad_rel:.3e} by norm (most in "
+          f"{grad_top}); int8 error "
+          f"feedback worst {ef_worst:.4f} of a scale, {n_buckets} buckets "
+          f"bitwise; accum 2 against 1 on 2 layers {accum_d:.3e}; the card "
+          f"against the CPU {cpu_rel:.3e}; families {families}; bitwise "
+          f"run to run without deterministic algorithms: {probes}")
+    print("lm_train " + json.dumps(row))
+    return row
+
+
 # timed runs a candidate in the autotune phase (after one untimed run):
 # kernel/cuda wins by 100-1000x on both rows on an H100, so one run
 # decides it (the seconds saved pay for `phase_serve_elastic`)
@@ -7724,6 +8174,7 @@ def main() -> int:
     flash_parity = timed(phase_flash_parity, device)
     k7_rows = timed(phase_lm_serve, device)
     k7_rows += timed(phase_lm_families, device)
+    timed(phase_lm_train, device)
     for r in k7_rows:
         r["parity"] = flash_parity
     rows += k7_rows

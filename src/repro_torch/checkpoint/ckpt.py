@@ -86,6 +86,18 @@ def _unflatten(spec, leaves):
     return build(spec)
 
 
+def _retype(like, tree):
+    """`tree` with the named tuples of `like` (its structure) rebuilt as
+    such: the spec keeps a sequence's kind, not its type."""
+    if isinstance(like, dict):
+        return {k: _retype(like[k], v) for k, v in tree.items()}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_retype(l, t) for l, t in zip(like, tree)))
+    if isinstance(like, (list, tuple)):
+        return type(tree)(_retype(l, t) for l, t in zip(like, tree))
+    return tree
+
+
 def _host(x) -> np.ndarray:
     if torch.is_tensor(x):
         return x.detach().cpu().numpy()
@@ -175,8 +187,9 @@ def prune(ckpt_dir: str, keep: int = 2) -> None:
 
 def restore(ckpt_dir: str, step: int, like_tree, device=None):
     """Restore step `step` into the structure of `like_tree` (only its
-    structure is read), as tensors on `device` (None: the card, as every
-    entry point of the port).  Returns (tree, extra)."""
+    structure is read; its named tuples, such as an optimizer state, come
+    back as such), as tensors on `device` (None: the card, as every entry
+    point of the port).  Returns (tree, extra)."""
     from repro_torch.core.ensemble import resolve_device
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "meta.json")) as f:
@@ -189,7 +202,7 @@ def restore(ckpt_dir: str, step: int, like_tree, device=None):
     with np.load(os.path.join(path, "arrays.npz")) as data:
         out = [torch.from_numpy(data[f"leaf_{i}"]).to(dev)
                for i in range(len(flat_like))]
-    return _unflatten(spec, out), meta["extra"]
+    return _retype(like_tree, _unflatten(spec, out)), meta["extra"]
 
 
 def restore_latest(ckpt_dir: str, like_tree, device=None):

@@ -99,12 +99,49 @@ def lm_params(params, cfg, *, device="cpu", dtype=torch.float64, **kw):
     float64 bit for bit, a narrower dtype rounding once."""
     from repro_torch.models.model import build_model
     model = build_model(cfg, dtype=dtype, device=device, **kw)
-    lm = getattr(model, "lm", model)
+    weights = dict(model.named_parameters())
     with torch.no_grad():
-        for mod, tree, index in [(model, params, None), (lm, params, None),
-                                 *_layer_sources(lm, params)]:
-            _copy_weights(mod, tree, index, device)
+        for name, a in named_leaves(params, model):
+            p = weights[name]
+            p.copy_(to_tensor(a, device=device, dtype=p.dtype))
     return model
+
+
+def named_leaves(tree, model):
+    """(parameter name, numpy array) for every parameter of `model`, in
+    `named_parameters` order, read from `tree`, a pytree in the layout of
+    the reference's ``init_params`` (parameters, or anything shaped as
+    them: gradients, AdamW's ``mu`` and ``nu``)."""
+    lm = getattr(model, "lm", model)
+    sources = {}
+    for mod, sub, index in [(model, tree, None), (lm, tree, None),
+                            *_layer_sources(lm, tree)]:
+        for name, s in mod.spec.items():
+            group = getattr(mod, name)
+            if isinstance(s, dict):
+                for k, p in group.items():
+                    sources[id(p)] = (sub[name][k], index)
+            else:
+                sources[id(group)] = (sub[name], index)
+    for name, p in model.named_parameters():
+        a, index = sources[id(p)]
+        yield name, np.asarray(a if index is None else a[index])
+
+
+def adamw_state(state, model, *, device="cpu"):
+    """The reference's `AdamWState` (``step``, and ``mu``, ``nu`` shaped as
+    its ``init_params`` pytree; leaves numpy or anything numpy takes) as
+    the port's `optim.adamw.AdamWState` for `model`: int32 step, float32
+    moments keyed by parameter name, on `device`, each a copy (the update
+    writes them in place)."""
+    from repro_torch.optim.adamw import AdamWState
+
+    def moments(tree):
+        return {n: torch.tensor(a, dtype=torch.float32, device=device)
+                for n, a in named_leaves(tree, model)}
+    return AdamWState(torch.tensor(int(np.asarray(state.step)),
+                                   dtype=torch.int32, device=device),
+                      moments(state.mu), moments(state.nu))
 
 
 def _layer_sources(model, params):
@@ -123,19 +160,3 @@ def _layer_sources(model, params):
     for name in ("blocks", "enc_blocks", "dec_blocks"):
         for i, blk in enumerate(getattr(model, name, ())):
             yield blk, params[name], i
-
-
-def _copy_weights(mod, tree, index, device):
-    """Copy the weights of `mod`'s spec (a `models.layers.Weights`) from
-    the reference subtree `tree`, each leaf at `index` of its stack."""
-    def leaf(a, p):
-        a = np.asarray(a)
-        p.copy_(to_tensor(a if index is None else a[index], device=device,
-                          dtype=p.dtype))
-
-    for name, s in mod.spec.items():
-        if isinstance(s, dict):
-            for k, p in getattr(mod, name).items():
-                leaf(tree[name][k], p)
-        else:
-            leaf(tree[name], getattr(mod, name))

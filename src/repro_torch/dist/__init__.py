@@ -1,5 +1,6 @@
 # Fault tolerance: checkpoint supervision and straggler work queues, the
-# elastic ensemble-run supervisor and its chaos fault-injection harness.
-from . import chaos, elastic, fault
+# elastic ensemble-run supervisor and its chaos fault-injection harness;
+# gradient compression and bucketing (collectives).
+from . import chaos, collectives, elastic, fault
 
-__all__ = ["chaos", "elastic", "fault"]
+__all__ = ["chaos", "collectives", "elastic", "fault"]

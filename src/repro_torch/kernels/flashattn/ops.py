@@ -2,9 +2,12 @@
 restores the shapes — the counterpart of `repro.kernels.flashattn.ops`.
 
 CUDA tensors go to the kernel (`csrc/flash_attention.cu`), CPU tensors to
-its plain version, by `kernel.flash_attention_kernel`."""
+its plain version, by `kernel.flash_attention_kernel`.  K7 is forward
+only, as the reference's Pallas kernel: it refuses inputs that need a
+gradient, on both devices, rather than drop it on the card."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from .kernel import flash_attention_kernel
@@ -30,7 +33,16 @@ def pad_to_blocks(q, k, v, *, causal=True, block_q=128, block_k=128):
 
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):
     """q (B,T,H,hd); k/v (B,S,KV,hd). Pads T and S up to block multiples
-    (padded keys are masked out by causality / a length mask)."""
+    (padded keys are masked out by causality / a length mask).  Raises
+    where grad mode is on and q, k or v requires grad: training runs on
+    the dense core (`models.layers.attention_core`), as the reference's
+    `layers.attention_train`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention (K7) is forward only and gives no gradient; "
+            "train on the dense attention core (attn_core = None, "
+            "models.layers.attention_core), as the reference trains on "
+            "layers.attention_train")
     T = q.shape[1]
     q, k, v, bq, bk = pad_to_blocks(q, k, v, causal=causal, block_q=block_q,
                                     block_k=block_k)

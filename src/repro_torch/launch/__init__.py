@@ -1,2 +1,2 @@
-"""Launchers: the process group (`mesh`) and the ensemble-solve entry
-(`solve`)."""
+"""Launchers: the process group (`mesh`), the ensemble-solve entry
+(`solve`) and the LM training entry (`train`)."""

@@ -20,13 +20,18 @@ from .config import ModelConfig
 from .layers import (AttentionCore, Weights, attention_decode,
                      attention_train, attn_spec, cross_attention, mlp_spec,
                      rmsnorm, swiglu)
-from .lm import _LM, _norm_spec
+from .lm import _LM, _norm_spec, lm_loss, remat_call
 
 
 class EncDecLM(_LM):
-    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+    """``remat`` checkpoints each encoder block, as the reference's (its
+    decoder blocks run as they are)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
+                 remat=False):
         super().__init__(cfg, dtype, device,
-                         extra=_norm_spec(cfg, dtype, "enc_norm"))
+                         extra=_norm_spec(cfg, dtype, "enc_norm"),
+                         remat=remat)
         self.enc_blocks = nn.ModuleList(
             Weights(self._block_spec(), self.device)
             for _ in range(cfg.enc_layers))
@@ -55,17 +60,20 @@ class EncDecLM(_LM):
         return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
                     rope_theta=cfg.rope_theta, q_chunk=self.q_chunk)
 
+    def _enc_block(self, blk, x):
+        cfg = self.cfg
+        h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+        x = x + attention_train(h, blk.attn, causal=False,
+                                **self._attn_kwargs())
+        h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
+        return x + swiglu(h2, blk.mlp)
+
     def encode(self, frames):
         """frames: (B, enc_seq, D) stub embeddings -> encoder states."""
-        cfg = self.cfg
         x = frames.to(self.dtype)
         for blk in self.enc_blocks:
-            h = rmsnorm(x, blk.ln1, cfg.norm_eps)
-            x = x + attention_train(h, blk.attn, causal=False,
-                                    **self._attn_kwargs())
-            h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
-            x = x + swiglu(h2, blk.mlp)
-        return rmsnorm(x, self.enc_norm, cfg.norm_eps)
+            x = remat_call(self.remat, self._enc_block, blk, x)
+        return rmsnorm(x, self.enc_norm, self.cfg.norm_eps)
 
     def _xkv(self, blk, enc):
         cfg = self.cfg
@@ -100,6 +108,11 @@ class EncDecLM(_LM):
         for blk in self.dec_blocks:
             x, _ = self._dec_block(blk, x, enc)
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+
+    def loss(self, batch):
+        """(ce, {"ce", "aux": 0}) over ``batch``'s tokens and frames."""
+        return lm_loss(self.forward(batch["tokens"], batch["frames"]), self,
+                       self.cfg, batch["labels"])
 
     def init_cache(self, batch, cache_len, dtype=None):
         cfg = self.cfg

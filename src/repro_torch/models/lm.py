@@ -15,18 +15,27 @@ wi, wg, wo [, s_wi, s_wg, s_wo]}, ``ssd``, ``rglru``; the reference stacks
 them as (L, …) leaves, `repro_torch.convert.lm_params` unstacks them).
 So the methods take no ``params`` argument: ``init_params(generator)``
 draws the weights into the module (and returns it), and ``forward``,
-``prefill(batch, cache_len)`` and ``decode_step(cache, tokens)`` read
-them.  A Python loop over ``blocks`` (an `nn.ModuleList`, in execution
-order) takes the place of the reference's ``lax.scan``, and decode writes
-its cache in place (the reference donates it).
+``loss(batch)``, ``prefill(batch, cache_len)`` and ``decode_step(cache,
+tokens)`` read them.  A Python loop over ``blocks`` (an `nn.ModuleList`,
+in execution order) takes the place of the reference's ``lax.scan``, and
+decode writes its cache in place (the reference donates it).
+
+``remat`` (the reference's ``jax.checkpoint`` around each block, or each
+period of the hybrid): True recomputes the block in the backward pass
+(`torch.utils.checkpoint`, non-reentrant); "dots" keeps the outputs of
+the matmuls with no batch dimension (``aten.mm``: the projections) and
+recomputes the rest, the counterpart of
+``dots_with_no_batch_dims_saveable``.  It acts only where grad is on.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.ensemble import resolve_device
 
@@ -77,6 +86,42 @@ def xent_loss(logits, labels):
     return (lse - tgt).mean()
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the matmuls with no batch dimension."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(remat, fn, *args):
+    """fn(*args) under the remat policy `remat` (False, True or "dots")
+    where grad is on."""
+    if not remat or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif remat is True:
+        context_fn = ckpt.noop_context_fn
+    else:
+        raise ValueError(f"remat must be False, True or 'dots', not "
+                         f"{remat!r}")
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           context_fn=context_fn)
+
+
+def lm_loss(x, params, cfg, labels, aux=None):
+    """The reference's next-token loss on final-normed hidden states x
+    (B, T, D): the logits at positions 0..T-2 against the labels at
+    1..T-1; total = ce + 0.01 aux where the family has an aux loss.
+    Returns (total, {"ce", "aux"}), aux float32 0 where it has none."""
+    logits = _logits(x, params, cfg)
+    ce = xent_loss(logits[:, :-1], labels[:, 1:])
+    if aux is None:
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=ce.device)}
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
 def _bias(attn):
     if "bq" not in attn:
         return None
@@ -87,13 +132,15 @@ class _LM(Weights):
     """The embedding, final norm and unembedding of a model on `device`
     (None: CUDA, raising without it); `blocks` in execution order."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, extra=None):
+    def __init__(self, cfg: ModelConfig, dtype, device, extra=None,
+                 remat=False):
         device = resolve_device(device)
         super().__init__({**_embed_spec(cfg, dtype), **(extra or {})},
                          device)
         self.cfg = cfg
         self.dtype = dtype
         self.device = device
+        self.remat = remat
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator):
@@ -108,7 +155,10 @@ class _LM(Weights):
         return self
 
     def _embed(self, tokens):
-        return self.embed[tokens].to(self.dtype)
+        # the reference's `embed[tokens]`; `F.embedding`'s backward on the
+        # card sums a row's repeats in float32 (indexing's, in the table's
+        # dtype: 3% off a bf16 table's gradient on Zipf tokens, PERF.md §6)
+        return F.embedding(tokens, self.embed).to(self.dtype)
 
     def _head(self, x):
         """The final norm and the logits of x."""
@@ -144,8 +194,8 @@ class DecoderLM(_LM):
     `moe_group` tokens (decode: the batch)."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
-                 moe_group=4096, moe_cf=1.25):
-        super().__init__(cfg, dtype, device)
+                 remat=False, moe_group=4096, moe_cf=1.25):
+        super().__init__(cfg, dtype, device, remat=remat)
         self.blocks = nn.ModuleList(
             Weights(_decoder_block_spec(cfg, dtype), self.device)
             for _ in range(cfg.n_layers))
@@ -179,29 +229,38 @@ class DecoderLM(_LM):
         return moe_ffn(h, blk.moe, topk=cfg.topk, n_experts=cfg.n_experts,
                        capacity_factor=capacity_factor, group_size=group_size)
 
+    def _block(self, blk, is_global, moe_cf, x):
+        """One block over a full sequence: (x, the MoE aux or None, the
+        roped k and the v)."""
+        cfg = self.cfg
+        h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+        a, kv = attention_train(
+            h, blk.attn, is_global=is_global, bias=_bias(blk.attn),
+            core=self.attn_core, return_kv=True, **self._attn_kwargs())
+        x = x + a
+        h = rmsnorm(x, blk.ln2, cfg.norm_eps)
+        y, aux = self._ffn(blk, h, moe_cf, self.moe_group)
+        return x + y, aux, kv
+
     def _run_blocks(self, x, cache=None, moe_cf=None):
         """The blocks over a full sequence, then the final norm: (x, the
         summed aux, f32).  With `cache`, each layer's roped k and v are
-        written into it at positions 0..T-1."""
-        cfg = self.cfg
+        written into it at positions 0..T-1; without, each block runs
+        under `remat`."""
         T = x.shape[1]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (blk, is_global) in enumerate(zip(self.blocks,
                                                  self.layer_global)):
-            h = rmsnorm(x, blk.ln1, cfg.norm_eps)
-            a, (k, v) = attention_train(
-                h, blk.attn, is_global=is_global, bias=_bias(blk.attn),
-                core=self.attn_core, return_kv=True, **self._attn_kwargs())
             if cache is not None:
+                x, a, (k, v) = self._block(blk, is_global, moe_cf, x)
                 cache["k"][i, :, :T] = k
                 cache["v"][i, :, :T] = v
-            x = x + a
-            h = rmsnorm(x, blk.ln2, cfg.norm_eps)
-            y, a = self._ffn(blk, h, moe_cf, self.moe_group)
+            else:
+                x, a, _ = remat_call(self.remat, self._block, blk, is_global,
+                                     moe_cf, x)
             if a is not None:
                 aux = aux + a
-            x = x + y
-        return rmsnorm(x, self.final_norm, cfg.norm_eps), aux
+        return rmsnorm(x, self.final_norm, self.cfg.norm_eps), aux
 
     def forward(self, tokens, h0=None):
         """Full-sequence compute (train / prefill). Returns (x, aux): the
@@ -209,6 +268,12 @@ class DecoderLM(_LM):
         (0 for the dense family), f32."""
         x = self._embed(tokens) if h0 is None else h0
         return self._run_blocks(x, moe_cf=self.moe_cf)
+
+    def loss(self, batch):
+        """(total, {"ce", "aux"}): the next-token loss of ``batch``'s
+        tokens against its labels, + 0.01 aux."""
+        x, aux = self.forward(batch["tokens"])
+        return lm_loss(x, self, self.cfg, batch["labels"], aux)
 
     # ---- serving ----
     def init_cache(self, batch, cache_len, dtype=None):
@@ -264,26 +329,35 @@ class Mamba2LM(_LM):
     (float32, or the prefill's wider dtype), conv tail and pos."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
-                 ssd_chunk=256):
-        super().__init__(cfg, dtype, device)
+                 remat=False, ssd_chunk=256):
+        super().__init__(cfg, dtype, device, remat=remat)
         self.blocks = nn.ModuleList(
             Weights({"ssd": ssd_spec(cfg, dtype),
                      **_norm_spec(cfg, dtype, "ln")}, self.device)
             for _ in range(cfg.n_layers))
         self.ssd_chunk = ssd_chunk
 
-    def _layers(self, x, states=None):
+    def _block(self, blk, x):
+        """One block: (x, its state)."""
+        h = rmsnorm(x, blk.ln, self.cfg.norm_eps)
+        y, st = ssd_layer_train(h, blk.ssd, self.cfg, chunk=self.ssd_chunk)
+        return x + y, st
+
+    def _layers(self, x, states):
         for blk in self.blocks:
-            h = rmsnorm(x, blk.ln, self.cfg.norm_eps)
-            y, st = ssd_layer_train(h, blk.ssd, self.cfg, chunk=self.ssd_chunk)
-            x = x + y
-            if states is not None:
-                states.append(st)
+            x, st = self._block(blk, x)
+            states.append(st)
         return x
 
     def forward(self, tokens):
-        x = self._layers(self._embed(tokens))
+        x = self._embed(tokens)
+        for blk in self.blocks:
+            x, _ = remat_call(self.remat, self._block, blk, x)
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+
+    def loss(self, batch):
+        return lm_loss(self.forward(batch["tokens"]), self, self.cfg,
+                       batch["labels"])
 
     def init_cache(self, batch, cache_len, dtype=None):
         cfg = self.cfg
@@ -333,8 +407,9 @@ class HybridLM(_LM):
     buffer k/v for attention, h (f32) and conv for RG-LRU), ``rem``,
     ``pos``."""
 
-    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
-        super().__init__(cfg, dtype, device)
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
+                 remat=False):
+        super().__init__(cfg, dtype, device, remat=remat)
         self.pattern = tuple(cfg.block_pattern or ("R", "R", "A"))
         self.period = len(self.pattern)
         self.n_periods = cfg.n_layers // self.period
@@ -381,11 +456,25 @@ class HybridLM(_LM):
         h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
         return x + swiglu(h2, blk.mlp), state
 
-    def forward(self, tokens):
-        x = self._embed(tokens)
-        for blk, kind in zip(self.blocks, self.kinds):
+    def _run(self, x, j0, j1):
+        """Layers j0..j1-1 in training mode."""
+        for blk, kind in zip(self.blocks[j0:j1], self.kinds[j0:j1]):
             x, _ = self._apply_slot(blk, x, kind, "train")
+        return x
+
+    def forward(self, tokens):
+        """The periods, each under `remat` (as the reference's scan over
+        periods), then the remainder's layers."""
+        x = self._embed(tokens)
+        P = self.period
+        for c in range(self.n_periods):
+            x = remat_call(self.remat, self._run, x, c * P, (c + 1) * P)
+        x = self._run(x, self.n_periods * P, len(self.blocks))
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+
+    def loss(self, batch):
+        return lm_loss(self.forward(batch["tokens"]), self, self.cfg,
+                       batch["labels"])
 
     def _state_zeros(self, kind, lead, batch, wlen, dtype):
         cfg = self.cfg

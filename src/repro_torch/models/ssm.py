@@ -86,11 +86,15 @@ def ssd_chunked(xh, dt, B_in, C_in, A, chunk: int, h0=None):
     dA = dtc * A                                        # (B,c,L,H) log-decay
     lcum = torch.cumsum(dA, dim=2)                      # inclusive
     # ---- intra-chunk (attention-like) ----
-    # decay[l,s] = exp(lcum[l] - lcum[s]) for s<=l else 0
+    # decay[l,s] = exp(lcum[l] - lcum[s]) for s<=l else 0.  The masked
+    # exponents go to -inf before the exp (the reference takes exp first,
+    # then selects 0): the same values, but exp of a masked entry
+    # overflows at long chunks (lcum[l] - lcum[s] > 0 for s > l), and
+    # the select's backward then multiplies that inf by 0
     dec = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]   # (B,c,L,S,H)
     ar = torch.arange(L, device=xh.device)
     mask = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
-    dec = torch.where(mask, torch.exp(dec), 0.0)
+    dec = torch.exp(torch.where(mask, dec, -torch.inf))
     cb = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
     scores = cb[..., None] * dec * dtc[:, :, None, :, :]    # (B,c,L,S,H)
     del dec

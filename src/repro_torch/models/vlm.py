@@ -13,12 +13,13 @@ import torch
 
 from .config import ModelConfig
 from .layers import NORMAL, Weights, gelu
-from .lm import DecoderLM
+from .lm import DecoderLM, lm_loss
 
 
 class VLM(Weights):
-    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
-        lm = DecoderLM(cfg, dtype=dtype, device=device)
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
+                 remat=False):
+        lm = DecoderLM(cfg, dtype=dtype, device=device, remat=remat)
         super().__init__({"projector": {
             "w1": ((cfg.vis_dim, cfg.d_model), dtype, NORMAL),
             "w2": ((cfg.d_model, cfg.d_model), dtype, NORMAL)}}, lm.device)
@@ -40,8 +41,16 @@ class VLM(Weights):
     def _embed_multimodal(self, tokens, patches):
         vis = gelu(patches.to(self.dtype) @ self.projector["w1"])
         vis = vis @ self.projector["w2"]                    # (B, Tv, D)
-        txt = self.lm.embed[tokens].to(self.dtype)          # (B, Tt, D)
+        txt = self.lm._embed(tokens)                        # (B, Tt, D)
         return torch.cat([vis, txt], dim=1)
+
+    def loss(self, batch):
+        """batch: tokens (B, Tt), labels (B, Tt), patches (B, Tv, vis_dim).
+        The loss on the text positions only, + 0.01 aux."""
+        h0 = self._embed_multimodal(batch["tokens"], batch["patches"])
+        x, aux = self.lm.forward(None, h0=h0)
+        Tv = batch["patches"].shape[1]
+        return lm_loss(x[:, Tv:], self.lm, self.cfg, batch["labels"], aux)
 
     def init_cache(self, batch, cache_len, dtype=None):
         return self.lm.init_cache(batch, cache_len, dtype)

@@ -1,1 +1,2 @@
-"""Serving step factories of the LM scaffolding (`serve`)."""
+"""Step factories of the LM scaffolding: training (`trainer`) and serving
+(`serve`)."""

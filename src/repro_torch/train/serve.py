@@ -6,7 +6,7 @@
 eagerly.  Its decode donates the cache: the port's `decode_step` writes the
 cache in place.  Every family serves (`models.model.build_model`).  A
 device mesh (the reference's sharded plan, the LM's model sharding on
-`models/sharding.py`) waits for ROADMAP queue 1 item 16, after training.
+`models/sharding.py`) waits for ROADMAP queue 1 item 16.
 """
 from __future__ import annotations
 
@@ -28,9 +28,9 @@ def make_serve_plan(model, mesh, batch: int, cache_len: int) -> ServePlan:
     the unsharded plan leaves ``model.q_chunk`` as it is."""
     if mesh is not None:
         raise NotImplementedError("make_serve_plan runs unsharded (mesh=None)"
-                                  "; a device mesh (model sharding) waits for "
-                                  "ROADMAP queue 1 item 16, after training "
-                                  "with models/sharding.py")
+                                  "; a device mesh (model sharding on "
+                                  "models/sharding.py) waits for ROADMAP "
+                                  "queue 1 item 16")
 
     def prefill_fn(b):
         with torch.inference_mode():

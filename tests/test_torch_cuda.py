@@ -1686,3 +1686,28 @@ def test_cuda_k4_data_and_event_form_matches_plain_version(cuda, dtype):
     assert 0.2 < hit < 0.8
     assert _same(rk, tsolve(ep, backend="torch",
                             event=_plain_event(ev, 1, 1), **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_embedding_gradient_sums_in_float32(cuda):
+    """The models' embedding lookup: on the card its backward sums a
+    token's repeats in float32, so a bf16 table's gradient is within a
+    bf16 rounding (2^-8 by norm) of the float64 one on Zipf tokens, where
+    indexing's backward (sums in bf16) is ~3% off."""
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.model import build_model
+    cfg = get_arch("internlm2-1.8b-smoke")
+    toks = synth_batch(cfg, 0, 0, 2, 4096)["tokens"].to(cuda)
+    up = torch.randn(*toks.shape, cfg.d_model, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0))
+    grads = {}
+    for dtype in (torch.float64, torch.bfloat16):
+        model = build_model(cfg, dtype, device=cuda)
+        with torch.no_grad():
+            model.embed.zero_()
+        (model._embed(toks) * up.to(dtype)).sum().backward()
+        grads[dtype] = model.embed.grad.double()
+    want = grads[torch.float64]
+    assert float((grads[torch.bfloat16] - want).norm() / want.norm()) \
+        <= 2.0 ** -8

@@ -1,9 +1,10 @@
 """The port's examples (examples/quickstart_torch.py,
-examples/bouncing_ball_torch.py, examples/parameter_estimation_torch.py and
-examples/sde_finance_torch.py, the twins of the reference's) run end to end
-on the CPU at a small N, where ``backend="cuda"`` runs the kernels' plain
-versions."""
+examples/bouncing_ball_torch.py, examples/parameter_estimation_torch.py,
+examples/sde_finance_torch.py and examples/train_lm_torch.py, the twins of
+the reference's) run end to end on the CPU at a small N, where
+``backend="cuda"`` runs the kernels' plain versions."""
 import importlib.util
+import math
 from pathlib import Path
 
 import pytest
@@ -75,3 +76,16 @@ def test_sde_finance_torch_runs_on_the_cpu(capsys):
                     "delta(K=1.1) adjoint"):
         assert section in out, section
     assert 0.4 < delta < 0.9
+
+
+def test_train_lm_torch_trains_and_resumes(capsys, tmp_path):
+    """A few steps of the widened internlm2 smoke model, a checkpoint every
+    2, then a rerun with --resume that starts from the last one."""
+    args = ["--device", "cpu", "--batch", "2", "--seq", "16",
+            "--save-every", "2", "--ckpt-dir", str(tmp_path)]
+    losses = load("train_lm_torch").main(args + ["--steps", "4"])
+    assert len(losses) == 4 and all(map(math.isfinite, losses))
+    more = load("train_lm_torch").main(args + ["--steps", "5", "--resume"])
+    out = capsys.readouterr().out
+    assert "start_step=0" in out and "start_step=4" in out
+    assert len(more) == 1 and math.isfinite(more[0])

@@ -302,3 +302,21 @@ def test_cuda_core_instantiations_equal_the_wrappers_head_dims():
     by_hd = by_hd[:by_hd.index("\n}\n")]
     assert tuple(int(x) for x in re.findall(r"case (\d+):", by_hd)) \
         == fk.HEAD_DIMS
+
+
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_gradient_refused_on_both_devices(needs_grad):
+    """K7 is forward only, as the reference's Pallas kernel: an input that
+    requires grad with grad mode on raises (the CUDA form would give an
+    output with no gradient, the plain version one K7 lacks); under
+    no_grad, or with no input requiring grad, it runs."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 32, 2, 16, generator=g) for _ in range(3))
+    args = dict(q=q, k=k, v=v)
+    args[needs_grad] = args[needs_grad].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="dense attention core"):
+        flash_attention(**args)
+    with torch.no_grad():
+        out = flash_attention(**args)
+    assert not out.requires_grad
+    assert torch.equal(out, flash_attention(q, k, v))

@@ -46,7 +46,10 @@ PORT_MODULES = [
     "repro_torch.serve.slots", "repro_torch.serve.service",
     "repro_torch.dist", "repro_torch.dist.fault", "repro_torch.dist.chaos",
     "repro_torch.dist.elastic", "repro_torch.checkpoint",
-    "repro_torch.checkpoint.ckpt",
+    "repro_torch.checkpoint.ckpt", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.train", "repro_torch.train.trainer",
+    "repro_torch.dist.collectives", "repro_torch.launch.train",
 ]
 
 
